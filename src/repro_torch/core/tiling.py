@@ -1,0 +1,124 @@
+"""Eq. 6 band algebra and the Hopper tile chooser of the fused DCL kernel.
+
+``band_extent`` and ``out_hw`` are the JAX package's geometry, unchanged.
+``choose_kernel_tiles`` replaces the TPU chooser, whose budget was a TPU's
+vector memory: here a thread block gets at most 227 KB of shared memory
+and the card has 132 SMs to fill.  The chooser is a plain function of the
+layer's shape (no cache, no tuning table).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+# H100 SXM (NVIDIA's data sheet / Hopper tuning guide).
+SM_COUNT = 132
+SMEM_PER_BLOCK = 232_448          # 227 KB, dynamic shared memory opt-in
+
+# Register tile of the kernel (src/repro_torch/kernels/csrc/
+# deform_conv_fused.cu): a block computes up to PIX_LANES output pixels
+# by TILE_M_MAX output channels, 4 x 4 per thread.
+TILE_M_MAX = 64
+PIX_LANES = (16, 32, 64)
+
+
+def band_extent(tile: int, *, kernel_size: int, stride: int,
+                dilation: int = 1, offset_bound: float) -> int:
+    """Eq. 6 band extent along one axis for an output tile of ``tile``
+    positions (the +2 covers the bilinear x0+1 corner on each side)."""
+    hb = int(math.ceil(float(offset_bound)))
+    return (tile - 1) * stride + (kernel_size - 1) * dilation + 2 * hb + 2
+
+
+def out_hw(h: int, w: int, *, kernel_size: int, stride: int,
+           dilation: int = 1) -> tuple[int, int]:
+    """'Same'-padded output spatial dims of one DCL invocation."""
+    pad = dilation * (kernel_size // 2)
+    ho = (h + 2 * pad - dilation * (kernel_size - 1) - 1) // stride + 1
+    wo = (w + 2 * pad - dilation * (kernel_size - 1) - 1) // stride + 1
+    return ho, wo
+
+
+def pix_lanes(tile_h: int, tile_w: int) -> int:
+    """Pixel lanes of the kernel instantiation that serves a tile."""
+    for p in PIX_LANES:
+        if tile_h * tile_w <= p:
+            return p
+    raise ValueError(f"tile {tile_h}x{tile_w} exceeds the kernel's "
+                     f"{PIX_LANES[-1]} pixels per block")
+
+
+def smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
+               stride: int, dilation: int, offset_bound: float) -> int:
+    """Dynamic shared memory of one block; mirrors ``dcf_smem_bytes`` in
+    the CUDA source: the band (channel-major, odd plane stride, rounded
+    to 4 floats), the patch tile, the weight tile and the corner
+    geometry (index, ty, tx per tap and pixel)."""
+    pix = pix_lanes(tile_h, tile_w)
+    k2 = kernel_size * kernel_size
+    bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    band = tile_c * ((bh * bw) | 1)
+    band = -(-band // 4) * 4
+    kk = k2 * tile_c
+    return 4 * (band + kk * pix + kk * TILE_M_MAX + 3 * k2 * pix)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelTiles:
+    tile_h: int
+    tile_w: int
+    tile_c: int
+    tile_m: int
+
+
+def _divisor_at_most(n: int, cap: int) -> int:
+    for d in range(min(n, cap), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def grid_blocks(n: int, ho: int, wo: int, m: int, t: KernelTiles) -> int:
+    return (n * -(-ho // t.tile_h) * -(-wo // t.tile_w)
+            * -(-m // t.tile_m))
+
+
+def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
+                        kernel_size: int, stride: int, dilation: int = 1,
+                        offset_bound: float) -> KernelTiles:
+    """Tiles of the fused kernel for one layer shape.
+
+    * ``tile_m``: the largest divisor of M up to the kernel's 64 lanes.
+    * spatial: 8x8 clamped to the output; while the grid has fewer
+      blocks than the card has SMs, halve the longer side, down to 16
+      pixels per block.
+    * ``tile_c``: the largest divisor of C up to 32 whose block fits
+      twice in an SM's shared memory (so two blocks can be resident),
+      else the largest that fits once; none fitting raises.
+    """
+    ho, wo = out_hw(h, w, kernel_size=kernel_size, stride=stride,
+                    dilation=dilation)
+    tm = _divisor_at_most(m, TILE_M_MAX)
+    th, tw = min(8, ho), min(8, wo)
+    while (grid_blocks(n, ho, wo, m, KernelTiles(th, tw, 1, tm)) < SM_COUNT
+           and th * tw > 16):
+        if th >= tw:
+            th = -(-th // 2)
+        else:
+            tw = -(-tw // 2)
+    geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
+                offset_bound=offset_bound)
+    cands = sorted({_divisor_at_most(c, cap) for cap in (32, 16, 8, 4, 2, 1)},
+                   reverse=True)
+    for budget in (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK):
+        for tc in cands:
+            if smem_bytes(th, tw, tc, **geom) <= budget:
+                return KernelTiles(th, tw, tc, tm)
+    raise ValueError(
+        f"no channel tile fits {SMEM_PER_BLOCK} bytes of shared memory for "
+        f"a {th}x{tw} tile at B={offset_bound}, stride {stride}, dilation "
+        f"{dilation}: the Eq. 6 band is too large — train with a smaller "
+        f"offset bound")

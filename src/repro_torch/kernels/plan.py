@@ -1,0 +1,136 @@
+"""Plan and input preparation of the bounded DCL kernel (counterpart of
+``repro.kernels.plan``, zero-copy fp32 dataflow only).
+
+* ``DCSpec`` — the static configuration of one bounded call;
+* tile resolution (``resolve_tiles``: explicit tiles win, the Hopper
+  chooser of ``core.tiling`` fills the rest) and the weight blocking;
+* ``pad_zerocopy`` / ``zerocopy_inputs`` — zero-pad the input once so
+  every Eq. 6 band is a plain window of it;
+* ``bounded_forward`` — prepare the inputs and call the kernel wrapper.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.tiling import choose_kernel_tiles
+from repro_torch.kernels.band_pipeline import band_geometry
+from repro_torch.kernels.deform_conv_fused import deform_conv_fused_zerocopy
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class DCSpec:
+    """Static configuration of one bounded deform_conv call."""
+    kernel_size: int
+    stride: int
+    dilation: int
+    offset_bound: float
+    tile_h: int | None = None
+    tile_w: int | None = None
+    tile_c: int | None = None
+    tile_m: int | None = None
+
+
+def tile_weights(w: Tensor, tile_c: int) -> Tensor:
+    """(K*K, C, M) -> (C//tile_c, K*K*tile_c, M): one contiguous block per
+    channel chunk."""
+    k2, c, m = w.shape
+    if c % tile_c:
+        raise ValueError(f"tile_c={tile_c} does not divide C={c}")
+    n_c = c // tile_c
+    wt = w.reshape(k2, n_c, tile_c, m).permute(1, 0, 2, 3)
+    return wt.reshape(n_c, k2 * tile_c, m).contiguous()
+
+
+def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
+                  kernel_size: int, stride: int, dilation: int,
+                  offset_bound: float, tile_h: int | None = None,
+                  tile_w: int | None = None, tile_c: int | None = None,
+                  tile_m: int | None = None) -> tuple[int, int, int, int]:
+    """Explicit tiles win; the chooser fills the rest.  Raises on channel
+    tiles that do not divide the layer."""
+    from repro_torch.kernels.ops import check_channel_tiles
+    if None in (tile_h, tile_w, tile_c, tile_m):
+        kt = choose_kernel_tiles(n, h, w, c, m, kernel_size=kernel_size,
+                                 stride=stride, dilation=dilation,
+                                 offset_bound=offset_bound)
+        tile_h = tile_h or kt.tile_h
+        tile_w = tile_w or kt.tile_w
+        tile_c = tile_c or kt.tile_c
+        tile_m = tile_m or kt.tile_m
+    check_channel_tiles(c, m, tile_c, tile_m)
+    return tile_h, tile_w, tile_c, tile_m
+
+
+def spec_tiles(spec: DCSpec, x: Tensor, offsets: Tensor,
+               w: Tensor) -> tuple[int, int, int, int]:
+    """Tiles of one call, spatial tiles clamped to the output extent."""
+    ho, wo = offsets.shape[1], offsets.shape[2]
+    th, tw, tc, tm = resolve_tiles(
+        x.shape[0], x.shape[1], x.shape[2], x.shape[-1], w.shape[-1],
+        kernel_size=spec.kernel_size, stride=spec.stride,
+        dilation=spec.dilation, offset_bound=spec.offset_bound,
+        tile_h=spec.tile_h, tile_w=spec.tile_w, tile_c=spec.tile_c,
+        tile_m=spec.tile_m)
+    return min(th, ho), min(tw, wo), tc, tm
+
+
+def warm_tile_cache(layers, *, batch: int, offset_bound: float,
+                    kernel_size: int = 3, dilation: int = 1
+                    ) -> dict[str, tuple[int, int, int, int]]:
+    """Resolve the tiles of every named layer ``{name: {"h", "w", "c",
+    "m", "stride"?}}`` at ``batch`` — the serving engine's per-bucket
+    plans, resolved at engine start."""
+    return {name: resolve_tiles(
+                batch, d["h"], d["w"], d["c"], d["m"],
+                kernel_size=kernel_size, stride=d.get("stride", 1),
+                dilation=dilation, offset_bound=offset_bound)
+            for name, d in layers.items()}
+
+
+def pad_zerocopy(x: Tensor, *, kernel_size: int, stride: int, dilation: int,
+                 offset_bound: float, tile_h: int, tile_w: int,
+                 ho: int, wo: int) -> Tensor:
+    """Zero-pad x once: pad + ceil(B) on the top/left, and on the
+    bottom/right as far as the last of ceil(Ho/tile_h) x ceil(Wo/tile_w)
+    tiles' bands reaches."""
+    _, h, w, _ = x.shape
+    pad = dilation * (kernel_size // 2)
+    hb, band_h = band_geometry(kernel_size=kernel_size, stride=stride,
+                               dilation=dilation, offset_bound=offset_bound,
+                               tile_h=tile_h)
+    _, band_w = band_geometry(kernel_size=kernel_size, stride=stride,
+                              dilation=dilation, offset_bound=offset_bound,
+                              tile_h=tile_w)
+    h_tiles, w_tiles = -(-ho // tile_h), -(-wo // tile_w)
+    p0 = pad + hb
+    pb = max(0, (h_tiles - 1) * tile_h * stride + band_h - p0 - h)
+    pr = max(0, (w_tiles - 1) * tile_w * stride + band_w - p0 - w)
+    return F.pad(x, (0, 0, p0, pr, p0, pb)).contiguous()
+
+
+def zerocopy_inputs(spec: DCSpec, x: Tensor, offsets: Tensor, w: Tensor,
+                    th: int, tw: int, tc: int):
+    """(x_pad, offsets, w_tiled) for the kernel.  The offsets stay as they
+    are: the kernel masks the ragged edge itself."""
+    ho, wo = offsets.shape[1], offsets.shape[2]
+    xp = pad_zerocopy(x, kernel_size=spec.kernel_size, stride=spec.stride,
+                      dilation=spec.dilation,
+                      offset_bound=spec.offset_bound, tile_h=th, tile_w=tw,
+                      ho=ho, wo=wo)
+    return xp, offsets.contiguous(), tile_weights(w.to(x.dtype), tc)
+
+
+def bounded_forward(spec: DCSpec, x: Tensor, offsets: Tensor,
+                    w: Tensor) -> Tensor:
+    th, tw, tc, tm = spec_tiles(spec, x, offsets, w)
+    xp, offsets, w_tiled = zerocopy_inputs(spec, x, offsets, w, th, tw, tc)
+    return deform_conv_fused_zerocopy(
+        xp, offsets, w_tiled, kernel_size=spec.kernel_size,
+        stride=spec.stride, dilation=spec.dilation,
+        offset_bound=spec.offset_bound, tile_h=th, tile_w=tw, tile_c=tc,
+        tile_m=tm)

@@ -1,0 +1,38 @@
+"""Plain-PyTorch oracles of the DCL kernels (counterpart of
+``repro.kernels.ref``): sample with the reference ``sample_patches``,
+then contract."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.deform_conv import DCLConfig, sample_patches
+
+Tensor = torch.Tensor
+
+
+def deform_sample_ref(x: Tensor, offsets: Tensor, *, kernel_size: int = 3,
+                      stride: int = 1, dilation: int = 1,
+                      offset_bound: float | None = None) -> Tensor:
+    """x: (N, H, W, C); offsets: (N, Ho, Wo, 2*K*K) raw, clamped to
+    ``offset_bound`` here.  Returns (N, Ho, Wo, K*K, C)."""
+    n, _, _, c = x.shape
+    k2 = kernel_size * kernel_size
+    ho, wo = offsets.shape[1], offsets.shape[2]
+    off = offsets.reshape(n, ho, wo, k2, 2)
+    if offset_bound is not None:
+        off = off.clamp(-offset_bound, offset_bound)
+    cfg = DCLConfig(in_channels=c, out_channels=1, kernel_size=kernel_size,
+                    stride=stride, dilation=dilation)
+    return sample_patches(x, off, cfg)
+
+
+def deform_conv_fused_ref(x: Tensor, offsets: Tensor, w: Tensor, *,
+                          kernel_size: int = 3, stride: int = 1,
+                          dilation: int = 1,
+                          offset_bound: float | None = None) -> Tensor:
+    """w: (K*K, C, M).  Returns (N, Ho, Wo, M)."""
+    patches = deform_sample_ref(x, offsets, kernel_size=kernel_size,
+                                stride=stride, dilation=dilation,
+                                offset_bound=offset_bound)
+    y = torch.einsum("nhwkc,kcm->nhwm", patches.float(), w.float())
+    return y.to(x.dtype)

@@ -1,0 +1,168 @@
+"""ResNet-50 backbone with deformable convolutional layers + dense
+detection head (counterpart of ``repro.models.resnet_dcn``).
+
+The last ``num_dcn`` 3x3 convolutions of the bottlenecks are DCLs (12 by
+default: c3's last 3, all 6 of c4, all 3 of c5); norms are GroupNorm(32);
+layout NHWC.  ``use_kernel=True`` routes every DCL through the fused
+kernel (``kernels.ops.deform_conv``); the plain path (``dcl_forward``) is
+the parity reference.  Inference only in this slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.deform_conv import conv2d
+from repro_torch.device import check_on, resolve_device
+from repro_torch.models.layers import ParamDef, dcl_apply, dcl_def, init_tree
+
+Tensor = torch.Tensor
+
+GN_GROUPS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetDCNConfig:
+    name: str = "resnet50_dcn"
+    stage_sizes: tuple[int, ...] = (3, 4, 6, 3)
+    widths: tuple[int, ...] = (256, 512, 1024, 2048)
+    stem_width: int = 64
+    num_dcn: int = 12              # last N 3x3 convs become DCLs
+    offset_bound: float | None = None
+    num_classes: int = 16
+    img_size: int = 256
+    dtype: Any = torch.float32
+    use_kernel: bool = False       # route DCLs through the fused kernel
+
+    @property
+    def total_blocks(self) -> int:
+        return sum(self.stage_sizes)
+
+    def is_dcn(self, block_index: int) -> bool:
+        """block_index counts bottleneck blocks from 0 (first c2 block)."""
+        return block_index >= self.total_blocks - self.num_dcn
+
+
+def _conv_def(kh, kw, cin, cout):
+    return ParamDef((kh, kw, cin, cout))
+
+
+def _gn_def(c):
+    return {"scale": ParamDef((c,), init="ones"),
+            "bias": ParamDef((c,), init="zeros")}
+
+
+def group_norm(x: Tensor, params, *, groups: int = GN_GROUPS,
+               eps: float = 1e-5) -> Tensor:
+    """GroupNorm over NHWC with population variance; the group count
+    steps down from ``groups`` until it divides C."""
+    n, h, w, c = x.shape
+    g = min(groups, c)
+    while c % g:
+        g -= 1
+    xf = x.float().reshape(n, h, w, g, c // g)
+    mu = xf.mean(dim=(1, 2, 4), keepdim=True)
+    var = xf.var(dim=(1, 2, 4), keepdim=True, correction=0)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(n, h, w, c)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+def _block_def(cfg: ResNetDCNConfig, cin, width, block_index, *,
+               downsample: bool):
+    mid = width // 4
+    d = {
+        "conv1": _conv_def(1, 1, cin, mid), "gn1": _gn_def(mid),
+        "gn2": _gn_def(mid),
+        "conv3": _conv_def(1, 1, mid, width), "gn3": _gn_def(width),
+    }
+    if cfg.is_dcn(block_index):
+        d["dcl"] = dcl_def(mid, mid)
+    else:
+        d["conv2"] = _conv_def(3, 3, mid, mid)
+    if downsample or cin != width:
+        d["proj"] = _conv_def(1, 1, cin, width)
+        d["gn_proj"] = _gn_def(width)
+    return d
+
+
+def model_def(cfg: ResNetDCNConfig) -> dict:
+    defs: dict[str, Any] = {
+        "stem": {"conv": _conv_def(7, 7, 3, cfg.stem_width),
+                 "gn": _gn_def(cfg.stem_width)},
+    }
+    cin = cfg.stem_width
+    bi = 0
+    for s, (n_blocks, width) in enumerate(zip(cfg.stage_sizes, cfg.widths)):
+        for b in range(n_blocks):
+            defs[f"s{s}b{b}"] = _block_def(cfg, cin, width, bi,
+                                           downsample=(b == 0))
+            cin = width
+            bi += 1
+    c = cfg.widths[-1]
+    defs["head"] = {
+        "conv": _conv_def(3, 3, c, 256), "gn": _gn_def(256),
+        "cls": _conv_def(1, 1, 256, cfg.num_classes + 1),   # +1 objectness
+        "box": _conv_def(1, 1, 256, 4),
+    }
+    return defs
+
+
+def init_params(cfg: ResNetDCNConfig, *, seed: int = 0,
+                device: str | torch.device | None = None):
+    """Seeded params on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    return init_tree(model_def(cfg), gen, dev)
+
+
+def _apply_block(params, x: Tensor, cfg: ResNetDCNConfig, *, stride: int,
+                 is_dcn: bool, device):
+    h = conv2d(x, params["conv1"].to(x.dtype))
+    h = F.relu(group_norm(h, params["gn1"]))
+    o_max = None
+    if is_dcn:
+        h, o_max = dcl_apply(params["dcl"], h, stride=stride,
+                             offset_bound=cfg.offset_bound,
+                             use_kernel=cfg.use_kernel, device=device)
+    else:
+        h = conv2d(h, params["conv2"].to(x.dtype), stride=stride)
+    h = F.relu(group_norm(h, params["gn2"]))
+    h = conv2d(h, params["conv3"].to(x.dtype))
+    h = group_norm(h, params["gn3"])
+    if "proj" in params:
+        x = conv2d(x, params["proj"].to(x.dtype), stride=stride)
+        x = group_norm(x, params["gn_proj"])
+    return F.relu(x + h), o_max
+
+
+def forward(params, cfg: ResNetDCNConfig, images: Tensor, *,
+            device: str | torch.device | None = None):
+    """images: (N, H, W, 3) on ``device`` -> (outputs, o_max per DCL)."""
+    dev = resolve_device(device)
+    check_on(dev, images=images)
+    x = images.to(cfg.dtype)
+    x = conv2d(x, params["stem"]["conv"].to(x.dtype), stride=2, padding=3)
+    x = F.relu(group_norm(x, params["stem"]["gn"]))
+    x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, padding=1) \
+        .permute(0, 2, 3, 1)
+
+    o_maxes: dict[str, Tensor] = {}
+    bi = 0
+    for s, (n_blocks, _) in enumerate(zip(cfg.stage_sizes, cfg.widths)):
+        for b in range(n_blocks):
+            stride = 2 if (b == 0 and s > 0) else 1
+            name = f"s{s}b{b}"
+            x, o_max = _apply_block(params[name], x, cfg, stride=stride,
+                                    is_dcn=cfg.is_dcn(bi), device=dev)
+            if o_max is not None:
+                o_maxes[name] = o_max
+            bi += 1
+
+    h = conv2d(x, params["head"]["conv"].to(x.dtype))
+    h = F.relu(group_norm(h, params["head"]["gn"]))
+    cls = conv2d(h, params["head"]["cls"].to(x.dtype))
+    box = conv2d(h, params["head"]["box"].to(x.dtype))
+    return {"cls": cls, "box": box, "features": x}, o_maxes

@@ -1,0 +1,161 @@
+"""Hierarchical span tracer (a copy of what the serving engine uses of
+``repro.obs.trace``; the port imports nothing of the JAX package).
+
+A :class:`Tracer` hands out :class:`Span` context managers; spans nest
+via an explicit stack (the enclosing open span becomes the parent).  The
+clock is injectable, so tests drive spans on a fake clock.  Disabled
+tracers are zero-cost: ``span()`` returns one shared no-op singleton.
+The process-global default tracer is disabled; ``tracer_scope`` opts in.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import time
+
+__all__ = ["NOOP_SPAN", "Span", "Tracer", "get_tracer", "set_tracer",
+           "tracer_scope"]
+
+
+class Span:
+    """One timed region.  Use as a context manager (``with tracer.span``)
+    or drive manually: ``sp = tracer.span(...).start(); ...; sp.end()``.
+    """
+
+    __slots__ = ("_tracer", "name", "span_id", "parent_id", "t0", "t1",
+                 "attrs")
+
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+        self._tracer = tracer
+        self.name = name
+        self.attrs = attrs
+        self.span_id = next(tracer._ids)
+        self.parent_id: int | None = None
+        self.t0: float | None = None
+        self.t1: float | None = None
+
+    def start(self) -> "Span":
+        tr = self._tracer
+        self.parent_id = tr._stack[-1].span_id if tr._stack else None
+        tr._stack.append(self)
+        self.t0 = tr.clock()
+        return self
+
+    def end(self) -> None:
+        if self.t1 is not None or self.t0 is None:
+            return                       # never started / already ended
+        tr = self._tracer
+        self.t1 = tr.clock()
+        if tr._stack and tr._stack[-1] is self:
+            tr._stack.pop()
+        elif self in tr._stack:          # out-of-order end: drop anyway
+            tr._stack.remove(self)
+        tr.spans.append(self)
+
+    @property
+    def duration(self) -> float:
+        if self.t0 is None or self.t1 is None:
+            return float("nan")
+        return self.t1 - self.t0
+
+    def __enter__(self) -> "Span":
+        return self.start()
+
+    def __exit__(self, *exc) -> bool:
+        self.end()
+        return False
+
+    def record(self) -> dict:
+        return {"type": "span", "name": self.name, "span_id": self.span_id,
+                "parent_id": self.parent_id, "t0": self.t0, "t1": self.t1,
+                "dur_s": self.duration, "attrs": self.attrs}
+
+
+class _NoopSpan:
+    """Shared do-nothing span — the disabled-tracer fast path.  One
+    instance serves every call site; nothing is allocated or timed."""
+
+    __slots__ = ()
+    name = "noop"
+    duration = float("nan")
+
+    def start(self) -> "_NoopSpan":
+        return self
+
+    def end(self) -> None:
+        pass
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NOOP_SPAN = _NoopSpan()
+
+
+class Tracer:
+    """See module docstring.  ``spans`` holds finished spans in end
+    order; ``events`` holds instant events in emission order."""
+
+    def __init__(self, *, clock=time.monotonic, enabled: bool = True):
+        self.clock = clock
+        self.enabled = enabled
+        self.spans: list[Span] = []
+        self.events: list[dict] = []
+        self._stack: list[Span] = []
+        self._ids = itertools.count(1)
+
+    # -- recording -----------------------------------------------------
+    def span(self, name: str, **attrs):
+        """A new child span of the innermost open span (entered lazily:
+        the parent is resolved at ``start()``/``__enter__`` time)."""
+        if not self.enabled:
+            return NOOP_SPAN
+        return Span(self, name, attrs)
+
+    def event(self, name: str, **attrs) -> None:
+        """An instant event at the current clock, parented like a span."""
+        if not self.enabled:
+            return
+        self.events.append({
+            "type": "event", "name": name, "ts": self.clock(),
+            "parent_id": self._stack[-1].span_id if self._stack else None,
+            "attrs": attrs})
+
+    # -- export --------------------------------------------------------
+    def records(self) -> list[dict]:
+        """All finished spans + events as plain dicts."""
+        return [s.record() for s in self.spans] + list(self.events)
+
+
+# ---------------------------------------------------------------------------
+# Process-global default tracer — DISABLED until something opts in
+# (tests via tracer_scope).  Instrumented code
+# paths call get_tracer() at use time so a scoped tracer is honored
+# even by objects constructed earlier.
+# ---------------------------------------------------------------------------
+
+_tracer = Tracer(enabled=False)
+
+
+def get_tracer() -> Tracer:
+    return _tracer
+
+
+def set_tracer(tracer: Tracer) -> Tracer:
+    """Install the process-global tracer; returns the previous one."""
+    global _tracer
+    prev, _tracer = _tracer, tracer
+    return prev
+
+
+@contextlib.contextmanager
+def tracer_scope(tracer: Tracer):
+    """Scoped :func:`set_tracer` with guaranteed restore."""
+    prev = set_tracer(tracer)
+    try:
+        yield tracer
+    finally:
+        set_tracer(prev)

@@ -1,0 +1,403 @@
+"""Slot-based detection serving engine for the bounded DCL models
+(counterpart of ``repro.serve.dcl_engine``).
+
+Detection requests are single-shot: admit -> one batched forward ->
+retire.  A small fixed set of square shape buckets keeps the shapes
+closed; each bucket's DCL tile plans are resolved at engine start
+(``kernels.plan.warm_tile_cache``).  Every step serves one bucket — up to
+``slots`` queued requests padded into one batch.
+
+The rungs of this port are ``fp32_kernel`` (every DCL through the fused
+CUDA kernel; the entry rung) and ``fp32_ref`` (the plain reference).  The
+JAX engine's int8 rungs and spatial sharding are not ported yet and
+raise at configuration.  On CUDA the ladder is the entry rung alone
+(``ladder``): a batch whose kernel keeps failing retires ``failed`` with
+the kernel's error and is never served by the plain path.  ``fp32_ref``
+runs there only when the caller chooses it as the entry rung.
+
+Robustness, as in the JAX engine:
+
+* per-request deadlines — checked at admission, swept between steps and
+  re-checked after the step; expiry is the typed ``deadline_exceeded``;
+* bounded admission queue (``serve.admission``): overload is shed or
+  bounced, never an exception;
+* a failed batch is replayed with exponential backoff up to
+  ``max_retries``, then drops one rung where the device's ladder has one
+  (CPU tensors only), else retires ``failed``; the rung and the
+  ``degraded`` flag are recorded per request.  Kernel failures raise out
+  of ``ops`` (there is no silent fallback below the engine).
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import plan
+from repro_torch.kernels.deform_conv_fused import load_kernel
+from repro_torch.models import resnet_dcn as R
+from repro_torch.obs import trace as _trace
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import Tracer
+
+from .admission import (AdmissionConfig, AdmissionQueue, DetRequest,
+                        MalformedRequest, resolve_bucket)
+
+__all__ = ["LADDER", "DCLServeConfig", "DCLServingEngine",
+           "bucket_layer_dims", "ladder"]
+
+# Degradation ladder, top rung first.  The bottom rung never touches the
+# kernel path.
+LADDER = ("fp32_kernel", "fp32_ref")
+NOT_PORTED = ("int8_chain", "int8")
+
+
+def ladder(entry: str, device: torch.device) -> tuple[str, ...]:
+    """Rungs a batch may take, from ``entry`` down.  On CUDA only the
+    entry rung: the plain path never stands in for the kernel there."""
+    rungs = LADDER[LADDER.index(entry):]
+    return rungs if device.type == "cpu" else rungs[:1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DCLServeConfig:
+    buckets: tuple[int, ...] = (64, 128)
+    slots: int = 4                   # batch rows per step
+    quant: str = "fp32_kernel"       # entry rung of LADDER
+    strict_buckets: bool = True      # False: pad up to the next bucket
+    queue_capacity: int = 64
+    shed_policy: str = "reject_new"  # reject_new | shed_oldest
+    max_retries: int = 2             # same-rung replays before degrading
+    retry_backoff: float = 0.0       # seconds; doubles per retry
+    default_deadline: float | None = None
+    batch_window: float = 0.0        # hold partial batches this long
+    spatial_shards: tuple[tuple[int, int], ...] = ()
+
+    def __post_init__(self):
+        if self.quant in NOT_PORTED:
+            raise ValueError(
+                f"serve datapath {self.quant!r} is not ported yet: the "
+                f"PyTorch port serves {LADDER}; the int8 rungs arrive with "
+                f"the int8 slice")
+        if self.quant not in LADDER:
+            raise ValueError(
+                f"unknown serve datapath {self.quant!r}; expected one of "
+                f"{LADDER} (the ladder runs from the chosen rung down)")
+        if self.spatial_shards:
+            raise ValueError(
+                "spatial_shards is not ported yet: the PyTorch port serves "
+                "every bucket on one device")
+        if not self.buckets:
+            raise ValueError("at least one shape bucket is required")
+        if self.slots < 1:
+            raise ValueError(f"slots must be >= 1 (got {self.slots})")
+        if self.batch_window < 0:
+            raise ValueError(
+                f"batch_window must be >= 0 (got {self.batch_window})")
+
+
+def bucket_layer_dims(cfg: R.ResNetDCNConfig, res: int) -> dict[str, dict]:
+    """Dims of every DCL invocation at input resolution ``res``."""
+    dims: dict[str, dict] = {}
+    e = res // 4                       # stride-2 stem + stride-2 maxpool
+    bi = 0
+    for s, (n_blocks, width) in enumerate(zip(cfg.stage_sizes, cfg.widths)):
+        for b in range(n_blocks):
+            stride = 2 if (b == 0 and s > 0) else 1
+            if cfg.is_dcn(bi):
+                mid = width // 4
+                dims[f"s{s}b{b}"] = dict(h=e, w=e, c=mid, m=mid,
+                                         stride=stride)
+            e //= stride
+            bi += 1
+    return dims
+
+
+class DCLServingEngine:
+    """See module docstring.  ``clock``/``sleep`` are injectable for
+    deterministic deadline and backoff tests; ``step_hook(step, ctx)`` and
+    ``admit_hook(request)`` are fault-injection seams.  ``device``
+    defaults to ``cuda``; params must already lie there."""
+
+    def __init__(self, params, model_cfg: R.ResNetDCNConfig,
+                 serve_cfg: DCLServeConfig, *,
+                 device: str | torch.device | None = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 sleep: Callable[[float], None] = time.sleep,
+                 step_hook: Callable[[int, dict], None] | None = None,
+                 admit_hook: Callable[[DetRequest], DetRequest] | None = None,
+                 registry: MetricsRegistry | None = None,
+                 tracer: Tracer | None = None):
+        self.device = resolve_device(device)
+        self.params = params
+        self.scfg = serve_cfg
+        self.rungs = ladder(serve_cfg.quant, self.device)
+        self.clock = clock
+        self._sleep = sleep
+        self.step_hook = step_hook
+        self.admit_hook = admit_hook
+
+        self.metrics = registry if registry is not None else MetricsRegistry()
+        self._tracer = tracer
+        m = self.metrics
+        self._c_requests = m.counter(
+            "serve_requests_total", "retired requests by outcome and bucket")
+        self._c_retries = m.counter(
+            "serve_retries_total", "same-rung batch replays")
+        self._c_degraded = m.counter(
+            "serve_degraded_batches_total", "batches dropped one ladder rung")
+        self._c_ladder = m.counter(
+            "serve_ladder_total", "requests served per datapath rung")
+        self._c_steps = m.counter("serve_steps_total",
+                                  "engine serving steps per bucket")
+        self._g_queue = m.gauge(
+            "serve_queue_depth", "queued requests after the last step")
+        self._h_queue_wait = m.histogram(
+            "serve_queue_wait_seconds",
+            "submit-to-batch-start wait per bucket")
+        self._h_latency = m.histogram(
+            "serve_latency_seconds",
+            "submit-to-retire latency per bucket and outcome")
+
+        self._cfgs = {
+            "fp32_kernel": dataclasses.replace(model_cfg, use_kernel=True),
+            "fp32_ref": dataclasses.replace(model_cfg, use_kernel=False),
+        }
+
+        # Per-bucket tile plans and the kernel build, done now rather than
+        # on the first request.
+        self.plans: dict[int, dict[str, tuple]] = {}
+        if model_cfg.offset_bound is not None:
+            if self.device.type == "cuda":
+                load_kernel()
+            for b in serve_cfg.buckets:
+                dims = bucket_layer_dims(model_cfg, b)
+                self.plans[b] = plan.warm_tile_cache(
+                    dims, batch=serve_cfg.slots,
+                    offset_bound=model_cfg.offset_bound)
+
+        self.queue = AdmissionQueue(AdmissionConfig(
+            capacity=serve_cfg.queue_capacity,
+            policy=serve_cfg.shed_policy))
+        self.completed: list[DetRequest] = []
+        self.steps = 0
+        self._uid = itertools.count()
+
+    @property
+    def _tr(self) -> Tracer:
+        return self._tracer if self._tracer is not None \
+            else _trace.get_tracer()
+
+    @property
+    def counters(self) -> dict[str, int]:
+        """``{outcome: count}`` summed over buckets, plus ``retries`` /
+        ``degraded_batches`` when nonzero."""
+        out: dict[str, int] = {}
+        for key, v in self._c_requests.items():
+            outcome = dict(key)["outcome"]
+            out[outcome] = out.get(outcome, 0) + int(v)
+        retries = int(self._c_retries.value())
+        if retries:
+            out["retries"] = retries
+        degraded = int(self._c_degraded.value())
+        if degraded:
+            out["degraded_batches"] = degraded
+        return out
+
+    # -- admission -----------------------------------------------------
+    def submit(self, image, *, deadline: float | None = None,
+               uid: int | None = None) -> DetRequest:
+        """Admit a detection request (``deadline`` in seconds from now on
+        the engine clock).  The request comes back queued or already
+        retired with a typed outcome; admission never raises on bad
+        traffic."""
+        now = self.clock()
+        if deadline is None and self.scfg.default_deadline is not None:
+            deadline = self.scfg.default_deadline
+        req = DetRequest(
+            uid=next(self._uid) if uid is None else uid, image=image,
+            deadline=None if deadline is None else now + deadline,
+            submitted_at=now)
+        self._tr.event("serve/admit", uid=req.uid)
+        if self.admit_hook is not None:
+            req = self.admit_hook(req) or req
+        try:
+            arr = np.asarray(req.image)
+            if arr.ndim != 3 or arr.shape[-1] != 3 \
+                    or not np.issubdtype(arr.dtype, np.number):
+                raise MalformedRequest(
+                    f"detection request needs a numeric (H, W, 3) "
+                    f"image; got shape {arr.shape} dtype {arr.dtype}")
+        except (ValueError, TypeError) as e:
+            return self._retire(req, "malformed",
+                                f"{type(e).__name__}: {e}")
+        try:
+            req.bucket = resolve_bucket(arr.shape[0], arr.shape[1],
+                                        self.scfg.buckets,
+                                        strict=self.scfg.strict_buckets)
+        except ValueError as e:
+            return self._retire(req, "unbucketable", str(e))
+        if req.deadline is not None and now > req.deadline:
+            return self._retire(req, "deadline_exceeded",
+                                "expired at admission")
+        displaced = self.queue.offer(req)
+        if displaced is not None:
+            self._retire(displaced)
+        return req
+
+    def _retire(self, req: DetRequest, outcome: str | None = None,
+                error: str = "") -> DetRequest:
+        if outcome is not None:
+            req.outcome = outcome
+            if error:
+                req.error = error
+        req.done = True
+        req.completed_at = self.clock()
+        self.completed.append(req)
+        bucket = str(req.bucket)
+        self._c_requests.inc(outcome=req.outcome, bucket=bucket)
+        lat = req.latency_s()
+        if lat is not None:
+            self._h_latency.observe(lat, bucket=bucket, outcome=req.outcome)
+        self._tr.event("serve/retire", uid=req.uid, outcome=req.outcome)
+        return req
+
+    # -- serving -------------------------------------------------------
+    def step(self) -> int:
+        """Expire, pick the most urgent bucket, serve it.  Returns the
+        number of requests retired this step."""
+        before = len(self.completed)
+        for req in self.queue.expire(self.clock()):
+            self._retire(req)
+        bucket = self.queue.pick_bucket(
+            slots=self.scfg.slots, now=self.clock(),
+            batch_window=self.scfg.batch_window)
+        if bucket is None:
+            self._g_queue.set(len(self.queue))
+            return len(self.completed) - before
+        batch = self.queue.take(bucket, self.scfg.slots)
+        with self._tr.span("serve/step", step=self.steps, bucket=bucket,
+                           size=len(batch)):
+            now = self.clock()
+            for r in batch:
+                self._h_queue_wait.observe(now - r.submitted_at,
+                                           bucket=str(bucket))
+            if self.step_hook is not None:
+                self.step_hook(self.steps,
+                               {"bucket": bucket, "size": len(batch)})
+            self._run_batch(bucket, batch)
+        self.steps += 1
+        self._c_steps.inc(bucket=str(bucket))
+        self._g_queue.set(len(self.queue))
+        return len(self.completed) - before
+
+    def batch_array(self, bucket: int, reqs: list[DetRequest]) -> torch.Tensor:
+        """The step's input: ``slots`` rows, requests zero-padded into
+        the bucket, unused rows zero."""
+        images = np.zeros((self.scfg.slots, bucket, bucket, 3), np.float32)
+        for i, r in enumerate(reqs):
+            arr = np.asarray(r.image, np.float32)
+            images[i, :arr.shape[0], :arr.shape[1], :] = arr
+        return torch.from_numpy(images).to(self.device)
+
+    def _forward(self, rung: str, x: torch.Tensor):
+        with torch.no_grad():
+            out, _ = R.forward(self.params, self._cfgs[rung], x,
+                               device=self.device)
+        return out
+
+    def _run_batch(self, bucket: int, reqs: list[DetRequest]) -> None:
+        x = self.batch_array(bucket, reqs)
+        rung_idx = 0
+        attempt = 0
+        while True:
+            try:
+                out = self._forward(self.rungs[rung_idx], x)
+                cls = out["cls"].cpu().numpy()
+                box = out["box"].cpu().numpy()
+                break
+            except Exception as e:   # noqa: BLE001 — recorded per request
+                self._c_retries.inc()
+                self._tr.event("serve/retry", bucket=bucket,
+                               rung=self.rungs[rung_idx],
+                               attempt=attempt + 1,
+                               error=f"{type(e).__name__}: {e}")
+                for r in reqs:
+                    r.retries += 1
+                attempt += 1
+                if attempt <= self.scfg.max_retries:
+                    if self.scfg.retry_backoff:
+                        self._sleep(self.scfg.retry_backoff
+                                    * 2 ** (attempt - 1))
+                    continue
+                if rung_idx + 1 < len(self.rungs):
+                    rung_idx += 1
+                    attempt = 0
+                    for r in reqs:
+                        r.degraded = True
+                    self._c_degraded.inc()
+                    self._tr.event("serve/degrade", bucket=bucket,
+                                   rung=self.rungs[rung_idx])
+                    continue
+                for r in reqs:
+                    self._retire(r, "failed", f"{type(e).__name__}: {e}")
+                return
+        now = self.clock()
+        for i, r in enumerate(reqs):
+            r.ladder = self.rungs[rung_idx]
+            self._c_ladder.inc(rung=r.ladder)
+            if r.deadline is not None and now > r.deadline:
+                self._retire(r, "deadline_exceeded",
+                             f"completed {now - r.deadline:.3f}s past "
+                             f"deadline (result dropped)")
+                continue
+            r.result = {"cls": cls[i], "box": box[i]}
+            self._retire(r, "ok")
+
+    def run_until_drained(self, max_steps: int = 10_000
+                          ) -> list[DetRequest]:
+        steps = 0
+        while len(self.queue) and steps < max_steps:
+            self.step()
+            steps += 1
+        return self.completed
+
+    # -- telemetry -----------------------------------------------------
+    def telemetry(self) -> dict:
+        """Per-request records + engine counters."""
+        per_bucket: dict[str, int] = {}
+        for r in self.completed:
+            if r.outcome == "ok":
+                key = str(r.bucket)
+                per_bucket[key] = per_bucket.get(key, 0) + 1
+        return {
+            "engine": {
+                "device": str(self.device),
+                "buckets": list(self.scfg.buckets),
+                "slots": self.scfg.slots,
+                "quant": self.scfg.quant,
+                "strict_buckets": self.scfg.strict_buckets,
+                "queue_capacity": self.scfg.queue_capacity,
+                "shed_policy": self.scfg.shed_policy,
+                "batch_window": self.scfg.batch_window,
+            },
+            "steps": self.steps,
+            "steps_per_bucket": {dict(k)["bucket"]: int(v)
+                                 for k, v in self._c_steps.items()},
+            "counters": dict(self.counters),
+            "served_per_bucket": per_bucket,
+            "plans": {str(b): {k: list(v) for k, v in p.items()}
+                      for b, p in self.plans.items()},
+            "requests": [{
+                "uid": r.uid, "outcome": r.outcome, "bucket": r.bucket,
+                "ladder": r.ladder, "degraded": r.degraded,
+                "retries": r.retries, "latency_s": r.latency_s(),
+                "error": r.error,
+            } for r in self.completed],
+            "metrics": self.metrics.snapshot(),
+        }

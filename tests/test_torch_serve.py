@@ -1,0 +1,336 @@
+"""The port's DCL serving engine: buckets, slots, deadlines on a fake
+clock, admission policies, the ladder, and parity with both the port's
+own direct forward (bit-equal) and the JAX engine (outcomes equal,
+results within 1e-4 * max|ref|)."""
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _fakeclock import FakeClock
+from repro.models import resnet_dcn as JR
+from repro.serve import DCLServeConfig as JServeConfig
+from repro.serve import DCLServingEngine as JEngine
+from repro_torch.launch import serve as launch
+from repro_torch.models import resnet_dcn as R
+from repro_torch.serve import (LADDER, OUTCOMES, DCLServeConfig,
+                               DCLServingEngine, bucket_layer_dims, ladder)
+
+torch.set_num_threads(2)
+
+BUCKET = 32
+SMALL = dict(stage_sizes=(1, 1, 1, 1), widths=(16, 32, 64, 128),
+             stem_width=8, num_dcn=2, num_classes=4, img_size=BUCKET,
+             offset_bound=2.0)
+
+
+def _perturb(params, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    for block in params.values():
+        if "dcl" in block:
+            d = block["dcl"]
+            c = d["w_offset"].shape[2]
+            d["w_offset"] = torch.randn(d["w_offset"].shape,
+                                        generator=gen) / (4.5 * c) ** 0.5
+            d["b_offset"] = torch.randn(d["b_offset"].shape,
+                                        generator=gen) * 0.5
+    return params
+
+
+@pytest.fixture(scope="module")
+def model():
+    cfg = R.ResNetDCNConfig(**SMALL, use_kernel=True)
+    return cfg, _perturb(R.init_params(cfg, seed=0, device="cpu"))
+
+
+def _engine(model, **kw):
+    cfg, params = model
+    kw.setdefault("buckets", (BUCKET,))
+    kw.setdefault("slots", 2)
+    extra = {k: kw.pop(k) for k in ("clock", "sleep", "step_hook",
+                                    "admit_hook") if k in kw}
+    return DCLServingEngine(params, cfg, DCLServeConfig(**kw),
+                            device="cpu", **extra)
+
+
+def _img(seed, side=BUCKET):
+    return np.random.RandomState(seed).randn(side, side, 3) \
+        .astype(np.float32)
+
+
+def _direct(model, rung, images, slots=2, side=BUCKET):
+    cfg, params = model
+    batch = np.zeros((slots, side, side, 3), np.float32)
+    for i, im in enumerate(images):
+        batch[i, :im.shape[0], :im.shape[1]] = im
+    cfg = dataclasses.replace(cfg, use_kernel=(rung == "fp32_kernel"))
+    with torch.no_grad():
+        out, _ = R.forward(params, cfg, torch.from_numpy(batch),
+                           device="cpu")
+    return out["cls"].numpy(), out["box"].numpy()
+
+
+# -- datapath ------------------------------------------------------------------
+
+@pytest.mark.parametrize("rung", LADDER)
+def test_results_bit_equal_to_direct_forward(model, rung):
+    eng = _engine(model, quant=rung)
+    imgs = [_img(1), _img(2), _img(3)]
+    reqs = [eng.submit(im) for im in imgs]
+    eng.run_until_drained()
+    assert eng.steps == 2                      # slots=2: 2 + 1
+    assert all(r.outcome == "ok" and r.ladder == rung and not r.degraded
+               for r in reqs)
+    cls01, box01 = _direct(model, rung, imgs[:2])
+    cls2, _ = _direct(model, rung, imgs[2:])
+    assert np.array_equal(reqs[0].result["cls"], cls01[0])
+    assert np.array_equal(reqs[1].result["box"], box01[1])
+    assert np.array_equal(reqs[2].result["cls"], cls2[0])
+
+
+def test_kernel_and_reference_rungs_agree(model):
+    imgs = [_img(4), _img(5)]
+    k_cls, _ = _direct(model, "fp32_kernel", imgs)
+    r_cls, _ = _direct(model, "fp32_ref", imgs)
+    assert np.abs(k_cls - r_cls).max() <= 1e-4 * np.abs(r_cls).max()
+
+
+def test_matches_jax_engine_outcomes_and_results(model):
+    """Same params, same traffic (one request expires at admission, one
+    in the queue): the same outcomes, and results close to the JAX
+    engine's kernel rung."""
+    cfg, params = model
+    jparams = {k: {kk: jnp.asarray(vv.numpy()) if torch.is_tensor(vv) else
+                   {k3: jnp.asarray(v3.numpy()) for k3, v3 in vv.items()}
+                   for kk, vv in v.items()} for k, v in params.items()}
+    jcfg = JR.ResNetDCNConfig(**SMALL, use_kernel=True)
+    outs = {}
+    for name in ("jax", "torch"):
+        clock = FakeClock()
+        if name == "jax":
+            eng = JEngine(jparams, jcfg,
+                          JServeConfig(buckets=(BUCKET,), slots=2,
+                                       quant="fp32_kernel"), clock=clock)
+        else:
+            eng = _engine(model, clock=clock)
+        rs = [eng.submit(_img(10), deadline=-1.0),
+              eng.submit(_img(11), deadline=5.0),
+              eng.submit(_img(12)), eng.submit(_img(13))]
+        eng.step()                         # serves 11 and 12
+        rs.append(eng.submit(_img(14), deadline=1.0))
+        clock.advance(2.0)
+        eng.run_until_drained()            # 14 expires in the queue
+        outs[name] = rs
+    assert [r.outcome for r in outs["jax"]] == \
+        [r.outcome for r in outs["torch"]] == \
+        ["deadline_exceeded", "ok", "ok", "ok", "deadline_exceeded"]
+    for rj, rt in zip(outs["jax"], outs["torch"]):
+        assert rj.ladder == rt.ladder
+        if rj.outcome == "ok":
+            for key in ("cls", "box"):
+                ref = np.asarray(rj.result[key])
+                assert np.abs(rt.result[key] - ref).max() \
+                    <= 1e-4 * np.abs(ref).max()
+
+
+# -- buckets, slots, admission -------------------------------------------------
+
+def test_unbucketable_request_is_typed_not_raised(model):
+    eng = _engine(model)
+    r = eng.submit(_img(0, side=20))
+    assert r.outcome == "unbucketable" and "nearest" in r.error
+    eng.submit(_img(1))
+    assert [q.outcome for q in eng.run_until_drained()] == \
+        ["unbucketable", "ok"]
+
+
+def test_strict_buckets_false_pads_up(model):
+    eng = _engine(model, strict_buckets=False)
+    small = _img(2)[:24, :28]
+    r = eng.submit(small)
+    eng.run_until_drained()
+    padded = np.zeros((BUCKET, BUCKET, 3), np.float32)
+    padded[:24, :28] = small
+    eng2 = _engine(model)
+    r2 = eng2.submit(padded)
+    eng2.run_until_drained()
+    assert r.bucket == BUCKET
+    assert np.array_equal(r.result["cls"], r2.result["cls"])
+
+
+def test_two_buckets_and_plans(model):
+    eng = _engine(model, buckets=(BUCKET, 64))
+    reqs = [eng.submit(_img(20 + i, side=(BUCKET, 64)[i % 2]))
+            for i in range(4)]
+    eng.run_until_drained()
+    assert eng.steps == 2 and all(r.outcome == "ok" for r in reqs)
+    tel = eng.telemetry()
+    assert tel["served_per_bucket"] == {"32": 2, "64": 2}
+    assert tel["steps_per_bucket"] == {"32": 1, "64": 1}
+    assert set(tel["plans"]["64"]) == {"s2b0", "s3b0"}
+    assert set(bucket_layer_dims(model[0], 64)) == {"s2b0", "s3b0"}
+    assert all(r["outcome"] in OUTCOMES for r in tel["requests"])
+    json.dumps(tel)                         # plain JSON
+
+
+def test_reject_new_and_shed_oldest(model):
+    eng = _engine(model, queue_capacity=2)
+    r0, r1, r2 = (eng.submit(_img(30 + i)) for i in range(3))
+    assert r2.outcome == "rejected" and "capacity 2" in r2.error
+    eng = _engine(model, queue_capacity=2, shed_policy="shed_oldest")
+    r0, r1, r2 = (eng.submit(_img(40 + i)) for i in range(3))
+    assert r0.outcome == "shed"
+    eng.run_until_drained()
+    assert eng.counters == {"shed": 1, "ok": 2}
+
+
+def test_malformed_request_is_typed(model):
+    eng = _engine(model)
+    assert eng.submit(np.zeros(5, np.float32)).outcome == "malformed"
+    assert eng.submit("not an image").outcome == "malformed"
+
+
+# -- deadlines on a fake clock -------------------------------------------------
+
+def test_slow_step_drops_result_past_deadline(model):
+    clock = FakeClock()
+    eng = _engine(model, clock=clock,
+                  step_hook=lambda step, ctx: clock.advance(1.0))
+    r = eng.submit(_img(23), deadline=0.5)
+    eng.run_until_drained()
+    assert r.outcome == "deadline_exceeded" and "result dropped" in r.error
+    assert r.result is None
+
+
+def test_batch_window_holds_partial_batches(model):
+    clock = FakeClock()
+    eng = _engine(model, batch_window=2.0, clock=clock)
+    r = eng.submit(_img(95))
+    assert eng.step() == 0 and r.outcome == "pending"
+    clock.advance(2.0)
+    eng.step()
+    assert r.outcome == "ok"
+
+
+# -- the ladder ----------------------------------------------------------------
+
+def test_transient_kernel_fault_is_retried(model):
+    from repro_torch.kernels import ops
+    calls = {"n": 0}
+
+    def fail_once(ctx):
+        if calls["n"] == 0:
+            calls["n"] += 1
+            raise RuntimeError("transient")
+    eng = _engine(model, max_retries=2)
+    with ops.dispatch_hook_scope(fail_once):
+        r = eng.submit(_img(50))
+        eng.run_until_drained()
+    assert r.outcome == "ok" and r.retries == 1 and not r.degraded
+    assert r.ladder == "fp32_kernel"
+
+
+def test_persistent_kernel_fault_degrades_with_backoff(model):
+    from repro_torch.kernels import ops
+    sleeps = []
+
+    def always(ctx):
+        raise RuntimeError("persistent")
+    eng = _engine(model, max_retries=2, retry_backoff=0.05,
+                  sleep=sleeps.append)
+    with ops.dispatch_hook_scope(always):
+        r = eng.submit(_img(51))
+        eng.run_until_drained()
+    assert sleeps == [0.05, 0.1]
+    assert r.outcome == "ok" and r.degraded and r.ladder == "fp32_ref"
+    assert eng.counters["degraded_batches"] == 1
+    r2 = eng.submit(_img(52))
+    eng.run_until_drained()
+    assert r2.ladder == "fp32_kernel" and not r2.degraded
+
+
+@pytest.mark.parametrize("device,entry,rungs", [
+    ("cuda", "fp32_kernel", ("fp32_kernel",)),
+    ("cuda", "fp32_ref", ("fp32_ref",)),
+    ("cpu", "fp32_kernel", ("fp32_kernel", "fp32_ref")),
+    ("cpu", "fp32_ref", ("fp32_ref",)),
+])
+def test_ladder_never_drops_to_the_plain_path_on_cuda(device, entry, rungs):
+    assert ladder(entry, torch.device(device)) == rungs
+
+
+def test_persistent_kernel_fault_fails_on_the_cuda_ladder(model):
+    """With the CUDA ladder (the kernel rung alone) a kernel that keeps
+    failing retires the batch ``failed`` with its error; the plain path
+    never serves it."""
+    from repro_torch.kernels import ops
+
+    def always(ctx):
+        raise RuntimeError("kernel launch failed")
+    eng = _engine(model, max_retries=2)
+    eng.rungs = ladder("fp32_kernel", torch.device("cuda"))
+    with ops.dispatch_hook_scope(always):
+        r = eng.submit(_img(53))
+        eng.run_until_drained()
+    assert r.outcome == "failed" and "kernel launch failed" in r.error
+    assert r.retries == 3 and not r.degraded and r.result is None
+    assert "degraded_batches" not in eng.counters
+    assert eng.telemetry()["counters"] == {"failed": 1, "retries": 3}
+
+
+# -- configuration -------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(quant="int8_chain"), dict(quant="int8"),
+                                dict(spatial_shards=((32, 2),))])
+def test_unported_features_raise(kw):
+    with pytest.raises(ValueError, match="not ported yet"):
+        DCLServeConfig(buckets=(32,), **kw)
+
+
+def test_config_validation():
+    with pytest.raises(ValueError, match="batch_window"):
+        DCLServeConfig(buckets=(32,), batch_window=-1.0)
+    with pytest.raises(ValueError, match="slots"):
+        DCLServeConfig(buckets=(32,), slots=0)
+    with pytest.raises(ValueError, match="unknown serve datapath"):
+        DCLServeConfig(buckets=(32,), quant="bf16")
+
+
+def test_engine_without_cuda_and_without_device_raises(model, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, params = model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DCLServingEngine(params, cfg, DCLServeConfig(buckets=(BUCKET,)))
+
+
+def test_launcher_serves_on_cpu(tmp_path):
+    cfg = R.ResNetDCNConfig(**SMALL)
+    args = launch.build_parser().parse_args(
+        ["--arch", "resnet50_dcn_bounded", "--buckets", "32,64",
+         "--requests", "4", "--slots", "2", "--device", "cpu"])
+    eng, images, seconds = launch.serve_detection(cfg, args)
+    assert len(images) == 4 and eng.steps == 2
+    assert eng.counters == {"ok": 4}
+    text = launch.report(eng, seconds)
+    assert "served 4/4" in text and "on cpu" in text
+
+
+def test_tracer_records_steps_and_request_events(model):
+    from repro_torch.obs.trace import Tracer, get_tracer, tracer_scope
+    clock = FakeClock()
+    with tracer_scope(Tracer(clock=clock)) as tr:
+        eng = _engine(model, clock=clock)
+        eng.submit(_img(60))
+        eng.run_until_drained()
+    assert not get_tracer().enabled            # the default stays off
+    recs = tr.records()
+    steps = [r for r in recs if r["name"] == "serve/step"]
+    assert len(steps) == 1 and steps[0]["attrs"]["bucket"] == BUCKET
+    retire = [r for r in recs if r["name"] == "serve/retire"]
+    assert retire[0]["attrs"]["outcome"] == "ok"
+    assert retire[0]["parent_id"] == steps[0]["span_id"]
+    hist = eng.telemetry()["metrics"]["histograms"]["serve_latency_seconds"]
+    assert hist["values"][0]["count"] == 1
