@@ -4,7 +4,8 @@
 ``choose_kernel_tiles`` replaces the TPU chooser, whose budget was a TPU's
 vector memory: here a thread block gets at most 227 KB of shared memory
 and the card has 132 SMs to fill.  The chooser is a plain function of the
-layer's shape (no cache, no tuning table).
+layer's shape and datapath (no cache, no tuning table); ``smem_bytes``
+and ``q_smem_bytes`` mirror the kernels' own ``*_smem_bytes`` exports.
 """
 from __future__ import annotations
 
@@ -66,6 +67,37 @@ def smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
     return 4 * (band + kk * pix + kk * TILE_M_MAX + 3 * k2 * pix)
 
 
+def q_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
+                 stride: int, dilation: int, offset_bound: float,
+                 chain: bool = False) -> int:
+    """Dynamic shared memory of one block of the int8 kernels; mirrors
+    ``dcq_smem_bytes`` / ``dcc_smem_bytes`` in ``csrc/deform_conv_q.cu``.
+    Everything is counted in 32-bit words of four channels: the band
+    (channel-group-major, odd plane stride, rounded to 4 words), the
+    patch tile, the weight tile and the corner geometry (index and four
+    coefficients per tap and pixel); the chain kernel adds the offset-conv
+    weight tile and the offset accumulators."""
+    if tile_c % 4:
+        raise ValueError(f"tile_c={tile_c}: the int8 kernels contract packed "
+                         f"4-channel words, so tile_c must be a multiple "
+                         f"of 4")
+    pix = pix_lanes(tile_h, tile_w)
+    k2 = kernel_size * kernel_size
+    bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    kk4 = k2 * (tile_c // 4)
+    band = -(-(tile_c // 4) * ((bh * bw) | 1) // 4) * 4
+    words = band + kk4 * pix + kk4 * TILE_M_MAX + 5 * k2 * pix
+    if chain:
+        words += kk4 * 2 * k2 + pix * 2 * k2
+    return 4 * words
+
+
+DTYPES = ("fp32", "int8", "int8_chain")
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelTiles:
     tile_h: int
@@ -88,17 +120,29 @@ def grid_blocks(n: int, ho: int, wo: int, m: int, t: KernelTiles) -> int:
 
 def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
                         kernel_size: int, stride: int, dilation: int = 1,
-                        offset_bound: float) -> KernelTiles:
-    """Tiles of the fused kernel for one layer shape.
+                        offset_bound: float,
+                        dtype: str = "fp32") -> KernelTiles:
+    """Tiles of the fused kernels for one layer shape and datapath
+    (``dtype``: ``"fp32"`` for ``deform_conv_fused.cu``, ``"int8"`` and
+    ``"int8_chain"`` for the two kernels of ``deform_conv_q.cu``).
 
     * ``tile_m``: the largest divisor of M up to the kernel's 64 lanes.
     * spatial: 8x8 clamped to the output; while the grid has fewer
       blocks than the card has SMs, halve the longer side, down to 16
       pixels per block.
-    * ``tile_c``: the largest divisor of C up to 32 whose block fits
-      twice in an SM's shared memory (so two blocks can be resident),
-      else the largest that fits once; none fitting raises.
+    * ``tile_c``, fp32: the largest divisor of C up to 32 whose block
+      fits twice in an SM's shared memory (so two blocks can be
+      resident), else the largest that fits once.
+    * ``tile_c``, int8: the largest multiple-of-4 divisor of C up to 64
+      whose block fits four times in an SM (a quarter of the fp32 bytes
+      per channel), else twice, else once.  The chain kernel streams C in
+      these chunks too (two passes, see ``deform_conv_q.cu``), so its
+      ``tile_c`` is not pinned to C.
+    None fitting raises.
     """
+    if dtype not in DTYPES:
+        raise ValueError(f"unknown kernel dtype {dtype!r}; expected one of "
+                         f"{DTYPES}")
     ho, wo = out_hw(h, w, kernel_size=kernel_size, stride=stride,
                     dilation=dilation)
     tm = _divisor_at_most(m, TILE_M_MAX)
@@ -111,11 +155,28 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
             tw = -(-tw // 2)
     geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
                 offset_bound=offset_bound)
-    cands = sorted({_divisor_at_most(c, cap) for cap in (32, 16, 8, 4, 2, 1)},
-                   reverse=True)
-    for budget in (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK):
+    if dtype == "fp32":
+        cands = sorted({_divisor_at_most(c, cap)
+                        for cap in (32, 16, 8, 4, 2, 1)}, reverse=True)
+        budgets = (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
+
+        def block_bytes(tc):
+            return smem_bytes(th, tw, tc, **geom)
+    else:
+        if c % 4:
+            raise ValueError(
+                f"C={c}: the int8 kernels contract packed 4-channel words, "
+                f"so C must be a multiple of 4")
+        cands = sorted({4 * _divisor_at_most(c // 4, cap // 4)
+                        for cap in (64, 32, 16, 8, 4)}, reverse=True)
+        budgets = (SMEM_PER_BLOCK // 4, SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
+
+        def block_bytes(tc):
+            return q_smem_bytes(th, tw, tc, chain=dtype == "int8_chain",
+                                **geom)
+    for budget in budgets:
         for tc in cands:
-            if smem_bytes(th, tw, tc, **geom) <= budget:
+            if block_bytes(tc) <= budget:
                 return KernelTiles(th, tw, tc, tm)
     raise ValueError(
         f"no channel tile fits {SMEM_PER_BLOCK} bytes of shared memory for "

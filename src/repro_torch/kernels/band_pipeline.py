@@ -1,10 +1,13 @@
-"""Eq. 6 band geometry shared by the fused kernel and its plain version.
+"""Eq. 6 band geometry and the plain stages shared by the fused kernels and
+their plain versions.
 
 Counterpart of the geometry half of ``repro.kernels.band_pipeline``
-(``band_geometry``, ``_tap_grid``, ``corner_geometry``, ``BandSpec`` and
-the fp32 bilinear gather).  The TPU emitter and its staging pipeline have
-no counterpart here: the CUDA kernel stages its own bands
-(``csrc/deform_conv_fused.cu``).
+(``band_geometry``, ``_tap_grid``, ``corner_geometry``, ``BandSpec``, the
+fp32 and int8 bilinear gathers and the fused ``offset_conv_stage``).  The
+TPU emitter and its staging pipeline have no counterpart here: the CUDA
+kernels stage their own bands (``csrc/deform_conv_fused.cu``,
+``csrc/deform_conv_q.cu``).  ``sample_tiles``, ``tile_bands`` and
+``untile`` run a stage over every output tile of a padded plane at once.
 
 Positions are band-local, as in the TPU kernel: the band of output tile
 ``(j, w)`` starts at padded row ``j * tile_h * stride`` and column
@@ -19,6 +22,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.tiling import band_extent
 
@@ -108,6 +112,117 @@ def bilinear_from_band(band: Tensor, off: Tensor, *, kernel_size: int,
                           (y0 * w_pad + x0).reshape(1, p), w_pad,
                           ty.reshape(1, p), tx.reshape(1, p))
     return out.reshape(tile_h, wo, k2, tc).to(band.dtype)
+
+
+def bilinear_int8_from_band(band: Tensor, off: Tensor, *, kernel_size: int,
+                            stride: int, dilation: int, offset_bound: float,
+                            tile_h: int, wo: int) -> Tensor:
+    """Sample an int8 band with fp32 coefficients -> int8 patches, as
+    ``repro.kernels.band_pipeline._bilinear_int8_from_band``: the four
+    corners in the order (00, 01, 10, 11) with the fp32 gather's
+    coefficients, then ``torch.round`` (ties to even).
+
+    band: (band_h, w_pad, tc) int8; off: (tile_h, wo, K*K, 2) raw.
+    Returns (tile_h * wo * K*K, tc) int8."""
+    k2 = kernel_size * kernel_size
+    band_h, w_pad, tc = band.shape
+    y0, x0, ty, tx = corner_geometry(
+        off, kernel_size=kernel_size, stride=stride, dilation=dilation,
+        offset_bound=offset_bound, tile_h=tile_h, wo=wo)
+    p = tile_h * wo * k2
+    out = gather_bilinear(band.reshape(1, band_h * w_pad, tc),
+                          (y0 * w_pad + x0).reshape(1, p), w_pad,
+                          ty.reshape(1, p), tx.reshape(1, p))
+    return torch.round(out[0]).to(torch.int8)
+
+
+def contract_int8(lhs: Tensor, rhs: Tensor) -> Tensor:
+    """Exact integer product of int8 matrices (..., K) @ (K, M), returned as
+    float64.  PyTorch has no int32 matmul on CUDA, and fp32 is exact only
+    while |sum| < 2^24; float64 holds every sum of the model's layers
+    (|sum| <= 127^2 * K*K * C < 2^53)."""
+    return lhs.double() @ rhs.double()
+
+
+def offset_conv_stage(band: Tensor, woff: Tensor, off_scale: Tensor,
+                      off_bias: Tensor, *, kernel_size: int, stride: int,
+                      dilation: int, offset_bound: float, tile_h: int,
+                      tile_w: int) -> Tensor:
+    """Fused offset conv of one or more bands, as
+    ``repro.kernels.band_pipeline.offset_conv_stage``: gather the
+    undeformed taps (``_tap_grid``) of the whole channel extent, contract
+    exactly with the int8 offset-conv weights, then dequantize:
+    ``acc.float() * off_scale + off_bias``.
+
+    band: (..., band_h, band_w, C) int8; woff: (K*K*C, 2*K*K) int8 (rows
+    tap * C + c); off_scale, off_bias: (2*K*K,) fp32.
+    Returns raw fp32 offsets (..., tile_h, tile_w, K*K, 2)."""
+    k2 = kernel_size * kernel_size
+    *lead, band_h, band_w, c = band.shape
+    rows, cols = _tap_grid(kernel_size=kernel_size, stride=stride,
+                           dilation=dilation,
+                           halo=int(math.ceil(offset_bound)), tile_h=tile_h,
+                           tile_w=tile_w, device=band.device)
+    idx = (rows * band_w + cols).reshape(-1)
+    taps = band.reshape(*lead, band_h * band_w, c)[..., idx, :]
+    acc = contract_int8(taps.reshape(*lead, tile_h * tile_w, k2 * c), woff)
+    off = acc.float() * off_scale + off_bias
+    return off.reshape(*lead, tile_h, tile_w, k2, 2)
+
+
+def tile_offsets(offsets: Tensor, tile_h: int, tile_w: int) -> Tensor:
+    """(N, Ho, Wo, 2*K*K) raw offsets -> (N, ht, wt, tile_h, tile_w, K*K,
+    2), zero-padded to whole tiles."""
+    n, ho, wo, k22 = offsets.shape
+    ht, wt = -(-ho // tile_h), -(-wo // tile_w)
+    off = F.pad(offsets, (0, 0, 0, wt * tile_w - wo, 0, ht * tile_h - ho))
+    return off.reshape(n, ht, tile_h, wt, tile_w, k22 // 2, 2) \
+        .permute(0, 1, 3, 2, 4, 5, 6)
+
+
+def tile_bands(x_pad: Tensor, *, ht: int, wt: int, tile_h: int,
+               tile_w: int, stride: int, band_h: int, band_w: int) -> Tensor:
+    """Every tile's Eq. 6 band of a padded plane: (N, ht, wt, band_h,
+    band_w, C); band (j, w) starts at row j*tile_h*stride and column
+    w*tile_w*stride."""
+    dev = x_pad.device
+    rows = (torch.arange(ht, device=dev)[:, None] * tile_h * stride
+            + torch.arange(band_h, device=dev)[None, :])
+    cols = (torch.arange(wt, device=dev)[:, None] * tile_w * stride
+            + torch.arange(band_w, device=dev)[None, :])
+    return x_pad[:, rows[:, None, :, None], cols[None, :, None, :]]
+
+
+def sample_tiles(x_pad: Tensor, off_t: Tensor, *, kernel_size: int,
+                 stride: int, dilation: int, offset_bound: float) -> Tensor:
+    """Bilinear samples of every output tile from its band of the padded
+    plane, in fp32: the band-local corner geometry of the kernels, shifted
+    to the plane.  off_t: (N, ht, wt, tile_h, tile_w, K*K, 2) raw offsets
+    (``tile_offsets``).  Returns (N, ht, wt, tile_h, tile_w, K*K, C)."""
+    n, hp, wp, c = x_pad.shape
+    _, ht, wt, th, tw, k2, _ = off_t.shape
+    BandSpec(kernel_size, stride, dilation, offset_bound, th,
+             tw).check_padded(hp, wp, ht, wt)
+    y0, x0, ty, tx = corner_geometry(
+        off_t, kernel_size=kernel_size, stride=stride, dilation=dilation,
+        offset_bound=offset_bound, tile_h=th, wo=tw)
+    dev = x_pad.device
+    row0 = (torch.arange(ht, device=dev) * th * stride).view(ht, 1, 1, 1, 1)
+    col0 = (torch.arange(wt, device=dev) * tw * stride).view(1, wt, 1, 1, 1)
+    idx00 = (y0 + row0) * wp + (x0 + col0)          # (n, ht, wt, th, tw, k2)
+    p = ht * wt * th * tw * k2
+    patches = gather_bilinear(x_pad.reshape(n, hp * wp, c),
+                              idx00.reshape(n, p), wp,
+                              ty.reshape(n, p), tx.reshape(n, p))
+    return patches.reshape(n, ht, wt, th, tw, k2, c)
+
+
+def untile(y: Tensor, ho: int, wo: int) -> Tensor:
+    """(N, ht, wt, tile_h, tile_w, M) -> (N, Ho, Wo, M), the ragged edge
+    cut off."""
+    n, ht, wt, th, tw, m = y.shape
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(n, ht * th, wt * tw, m)
+    return y[:, :ho, :wo]
 
 
 @dataclasses.dataclass(frozen=True)

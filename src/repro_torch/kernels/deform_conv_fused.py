@@ -17,10 +17,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels.band_pipeline import (BandSpec, corner_geometry,
-                                               gather_bilinear)
+from repro_torch.kernels.band_pipeline import (BandSpec, sample_tiles,
+                                               tile_offsets, untile)
 
 Tensor = torch.Tensor
 
@@ -54,38 +53,24 @@ def deform_conv_fused_zerocopy_plain(
     does), shifted to the padded plane, gathered, and contracted one
     C-chunk at a time with fp32 accumulation (``tile_m`` only shapes the
     kernel's grid)."""
-    n, hp, wp, c = x_pad.shape
+    c = x_pad.shape[-1]
     _, ho, wo, _ = offsets.shape
     k2 = kernel_size * kernel_size
     tc = tile_c or c
     _check(x_pad, offsets, w_tiles, kernel_size=kernel_size, tile_c=tc)
-    th, tw = tile_h, tile_w
-    ht, wt = -(-ho // th), -(-wo // tw)
-    spec = BandSpec(kernel_size, stride, dilation, offset_bound, th, tw)
-    spec.check_padded(hp, wp, ht, wt)
-
-    off = F.pad(offsets, (0, 0, 0, wt * tw - wo, 0, ht * th - ho))
-    off = off.reshape(n, ht, th, wt, tw, k2, 2).permute(0, 1, 3, 2, 4, 5, 6)
-    y0, x0, ty, tx = corner_geometry(
-        off, kernel_size=kernel_size, stride=stride, dilation=dilation,
-        offset_bound=offset_bound, tile_h=th, wo=tw)
-    dev = x_pad.device
-    row0 = (torch.arange(ht, device=dev) * th * stride).view(ht, 1, 1, 1, 1)
-    col0 = (torch.arange(wt, device=dev) * tw * stride).view(1, wt, 1, 1, 1)
-    idx00 = (y0 + row0) * wp + (x0 + col0)          # (n, ht, wt, th, tw, k2)
-    p = ht * wt * th * tw * k2
-    patches = gather_bilinear(x_pad.reshape(n, hp * wp, c),
-                              idx00.reshape(n, p), wp,
-                              ty.reshape(n, p), tx.reshape(n, p))
-    rows = n * ht * wt * th * tw
-    patches = patches.reshape(rows, k2, c)
+    off_t = tile_offsets(offsets, tile_h, tile_w)
+    patches = sample_tiles(x_pad, off_t, kernel_size=kernel_size,
+                           stride=stride, dilation=dilation,
+                           offset_bound=offset_bound)
+    lead = patches.shape[:5]
+    patches = patches.reshape(-1, k2, c)
     m = w_tiles.shape[2]
-    acc = torch.zeros(rows, m, dtype=torch.float32, device=dev)
+    acc = torch.zeros(patches.shape[0], m, dtype=torch.float32,
+                      device=x_pad.device)
     for cs in range(c // tc):
-        lhs = patches[:, :, cs * tc:(cs + 1) * tc].reshape(rows, k2 * tc)
+        lhs = patches[:, :, cs * tc:(cs + 1) * tc].reshape(-1, k2 * tc)
         acc = acc + lhs @ w_tiles[cs].float()
-    y = acc.reshape(n, ht, wt, th, tw, m).permute(0, 1, 3, 2, 4, 5)
-    y = y.reshape(n, ht * th, wt * tw, m)[:, :ho, :wo]
+    y = untile(acc.reshape(*lead, m), ho, wo)
     return y.to(x_pad.dtype)
 
 

@@ -1,21 +1,27 @@
-"""Public entry point of the bounded DCL kernel (counterpart of
-``repro.kernels.ops``, fp32 zero-copy forward only).
+"""Public entry points of the bounded DCL kernels (counterpart of
+``repro.kernels.ops``, zero-copy forward only).
 
-* ``offset_bound`` given (the Eq. 5-trained model): the fused kernel of
-  ``deform_conv_fused`` through ``plan.bounded_forward``.
-* ``offset_bound`` None (the lambda=0 baseline): the plain gather of
-  ``core.deform_conv`` — there is no kernel for unbounded offsets.
+* ``deform_conv`` with ``offset_bound`` given (the Eq. 5-trained model):
+  the fused fp32 kernel (``precision="fp32"``, ``plan.bounded_forward``)
+  or the int8 kernel with its dequant epilogue (``precision="int8"``,
+  ``plan.int8_forward``);
+* ``deform_conv`` with ``offset_bound`` None (the lambda=0 baseline): the
+  plain gather of ``core.deform_conv`` — there is no kernel for unbounded
+  offsets;
+* ``deform_conv_chain``: one chained int8 layer, offset conv fused into
+  the kernel, int8 or fp32 emission (``plan.chain_forward``).
 
 The device of the call is explicit (``device=None`` means ``cuda``) and
 the tensors must lie on it; the tensors' device then picks the kernel
 (CUDA) or its plain version (CPU).  A kernel failure raises: unlike the
-JAX package there is no silent fallback to the reference path.  The
-backward kernel is not ported yet, so on CUDA an input that needs a
-gradient raises.
+JAX package there is no fallback to a reference path.  The backward
+kernel is not ported yet, so on CUDA an input that needs a gradient
+raises.
 
 ``dispatch_hook_scope`` installs a callable that sees a context dict
-before each bounded dispatch; raising from it aborts the call.  It is
-the fault-injection seam the serving engine's ladder is tested through.
+before each bounded dispatch of either op; raising from it aborts the
+call.  It is the fault-injection seam the serving engine's ladder is
+tested through.
 """
 from __future__ import annotations
 
@@ -58,17 +64,33 @@ def check_channel_tiles(c: int, m: int, tile_c: int | None,
             f"(or tile_m=None for the chooser)")
 
 
+def _refuse_grad(dev: torch.device, op: str, *tensors: Tensor) -> None:
+    if dev.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{op} on CUDA is forward-only: the fused backward kernel "
+            f"arrives with the training slice of the port; run under "
+            f"torch.no_grad() or on the CPU")
+
+
 def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
                 offset_bound: float | None = None,
                 tile_h: int | None = None, tile_w: int | None = None,
                 tile_c: int | None = None, tile_m: int | None = None,
+                precision: str = "fp32", x_scale=None, w_scale=None,
                 device: str | torch.device | None = None) -> Tensor:
     """Fused DCL stage 1+2: y = g(x, o) * w_deform (Eq. 2).
 
     x: (N, H, W, C); offsets: (N, Ho, Wo, 2*K*K); w: (K*K, C, M).
     Returns (N, Ho, Wo, M).  Unspecified tiles come from the Hopper
-    chooser (``core.tiling.choose_kernel_tiles``).
+    chooser (``core.tiling.choose_kernel_tiles``) of the datapath.
+
+    ``precision="int8"`` (bounded only) runs the quantized inference
+    datapath: int8 band, fp32 bilinear coefficients, patches rounded to
+    int8, exact integer contraction, per-output-channel dequant.
+    ``x_scale`` (per-tensor) and ``w_scale`` (per-output-channel, (M,))
+    override the absmax scales with calibrated ones.
     """
     dev = resolve_device(device)
     check_on(dev, x=x, offsets=offsets, w=w)
@@ -76,7 +98,15 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
     m = w.shape[-1]
     ho, wo = offsets.shape[1], offsets.shape[2]
     k2 = kernel_size * kernel_size
+    if precision not in ("fp32", "int8"):
+        raise ValueError(
+            f"unknown precision {precision!r}; expected 'fp32' or 'int8'")
     check_channel_tiles(c, m, tile_c, tile_m)
+    if precision == "int8" and offset_bound is None:
+        raise ValueError(
+            "precision='int8' requires a trained offset_bound — the "
+            "quantized datapath exists because Eq. 6 bounds the band; "
+            "the unbounded gather baseline has no int8 kernel")
 
     if offset_bound is None:
         cfg = DCLConfig(in_channels=c, out_channels=m,
@@ -86,20 +116,80 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
         return torch.einsum("nhwkc,kcm->nhwm", patches.float(),
                             w.float()).to(x.dtype)
 
-    if dev.type == "cuda" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, offsets, w)):
-        raise NotImplementedError(
-            "deform_conv on CUDA is forward-only: the fused backward kernel "
-            "arrives with the training slice of the port; run under "
-            "torch.no_grad() or on the CPU")
+    _refuse_grad(dev, "deform_conv", x, offsets, w)
     if _dispatch_hook is not None:
-        _dispatch_hook({"op": "deform_conv", "precision": "fp32",
+        _dispatch_hook({"op": "deform_conv", "precision": precision,
                         "shape": tuple(x.shape), "m": m,
                         "offset_bound": offset_bound,
                         "kernel_size": kernel_size, "stride": stride,
                         "dilation": dilation, "device": dev.type})
+    if precision == "int8":
+        return _plan.int8_forward(
+            x, offsets, w, kernel_size=kernel_size, stride=stride,
+            dilation=dilation, offset_bound=offset_bound, tile_h=tile_h,
+            tile_w=tile_w, tile_c=tile_c, tile_m=tile_m, x_scale=x_scale,
+            w_scale=w_scale)
     spec = _plan.DCSpec(kernel_size=kernel_size, stride=stride,
                         dilation=dilation, offset_bound=offset_bound,
                         tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
                         tile_m=tile_m)
     return _plan.bounded_forward(spec, x, offsets, w)
+
+
+def deform_conv_chain(x: Tensor, w: Tensor, w_offset: Tensor, b_offset,
+                      b_deform=None, *, kernel_size: int = 3,
+                      stride: int = 1, dilation: int = 1,
+                      offset_bound: float | None, x_scale, w_scale=None,
+                      w_offset_scale=None, y_scale=None,
+                      tile_h: int | None = None, tile_w: int | None = None,
+                      tile_c: int | None = None, tile_m: int | None = None,
+                      emit: str = "int8",
+                      device: str | torch.device | None = None) -> Tensor:
+    """One chained int8 DCL layer: fused offset conv + int8 emission.
+
+    x: (N, H, W, C) — int8 on the ``x_scale`` grid (the previous chained
+    layer's emission) or fp32 (the chain head, quantized here).  w:
+    (K*K, C, M) deform weights; w_offset: (K*K, C, 2*K*K) offset-conv
+    weights; b_offset/b_deform the biases (the deform bias is folded into
+    the requant: int8 emission quantizes ``y + b``).
+
+    Returns (N, Ho, Wo, M) int8 on the ``y_scale`` grid (``emit="int8"``;
+    ``y_scale`` is the NEXT layer's activation scale, required) or fp32
+    (``emit="fp32"``, the chain tail).  The offsets never reach device
+    memory.  The kernel streams C in ``tile_c`` chunks, so ``tile_c`` may
+    be any multiple of 4 that divides C (the TPU plan required C).
+    """
+    if offset_bound is None:
+        raise ValueError(
+            "deform_conv_chain requires a trained offset_bound — the "
+            "fused offset stage exists because Eq. 6 bounds the band")
+    if x_scale is None:
+        raise ValueError(
+            "deform_conv_chain requires x_scale: chained layers exchange "
+            "int8 values whose grid must be pinned by calibration "
+            "(repro_torch.quant.calibrate — the table's per-layer x_scale)")
+    if emit not in ("int8", "fp32"):
+        raise ValueError(
+            f"unknown emit {emit!r}; expected 'int8' (chained) or 'fp32' "
+            f"(chain tail)")
+    if emit == "int8" and y_scale is None:
+        raise ValueError(
+            "emit='int8' requires y_scale (the NEXT layer's activation "
+            "scale — the per-channel requant target grid); pass "
+            "emit='fp32' for the chain tail instead")
+    dev = resolve_device(device)
+    check_on(dev, x=x, w=w, w_offset=w_offset)
+    check_channel_tiles(x.shape[-1], w.shape[-1], tile_c, tile_m)
+    _refuse_grad(dev, "deform_conv_chain", x, w, w_offset)
+    if _dispatch_hook is not None:
+        _dispatch_hook({"op": "deform_conv_chain", "emit": emit,
+                        "shape": tuple(x.shape), "m": w.shape[-1],
+                        "offset_bound": offset_bound,
+                        "kernel_size": kernel_size, "stride": stride,
+                        "dilation": dilation, "device": dev.type})
+    return _plan.chain_forward(
+        x, w, w_offset, b_offset, b_deform, kernel_size=kernel_size,
+        stride=stride, dilation=dilation, offset_bound=offset_bound,
+        x_scale=x_scale, w_scale=w_scale, w_offset_scale=w_offset_scale,
+        y_scale=y_scale, tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
+        tile_m=tile_m, emit=emit)

@@ -1,12 +1,17 @@
-"""Plan and input preparation of the bounded DCL kernel (counterpart of
-``repro.kernels.plan``, zero-copy fp32 dataflow only).
+"""Plan and input preparation of the bounded DCL kernels (counterpart of
+``repro.kernels.plan``, zero-copy dataflow only).
 
 * ``DCSpec`` — the static configuration of one bounded call;
 * tile resolution (``resolve_tiles``: explicit tiles win, the Hopper
-  chooser of ``core.tiling`` fills the rest) and the weight blocking;
+  chooser of ``core.tiling`` fills the rest, per datapath) and the
+  weight blocking;
 * ``pad_zerocopy`` / ``zerocopy_inputs`` — zero-pad the input once so
   every Eq. 6 band is a plain window of it;
-* ``bounded_forward`` — prepare the inputs and call the kernel wrapper.
+* ``bounded_forward`` (fp32), ``int8_forward`` and ``chain_forward`` —
+  prepare the inputs and call the kernel wrappers.  The int8 paths
+  quantize outside the kernels, as the JAX package does: the input per
+  tensor, the weights per output channel, then pad the int8 plane (0 maps
+  to 0, so padding and quantization commute).
 """
 from __future__ import annotations
 
@@ -15,9 +20,12 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.tiling import choose_kernel_tiles
+from repro_torch.core.tiling import choose_kernel_tiles, out_hw
 from repro_torch.kernels.band_pipeline import band_geometry
 from repro_torch.kernels.deform_conv_fused import deform_conv_fused_zerocopy
+from repro_torch.kernels.deform_conv_q import (
+    deform_conv_fused_zerocopy_chain, deform_conv_fused_zerocopy_q)
+from repro_torch.quant.qtypes import compute_scale, quantize_values
 
 Tensor = torch.Tensor
 
@@ -50,14 +58,16 @@ def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
                   kernel_size: int, stride: int, dilation: int,
                   offset_bound: float, tile_h: int | None = None,
                   tile_w: int | None = None, tile_c: int | None = None,
-                  tile_m: int | None = None) -> tuple[int, int, int, int]:
-    """Explicit tiles win; the chooser fills the rest.  Raises on channel
+                  tile_m: int | None = None,
+                  dtype: str = "fp32") -> tuple[int, int, int, int]:
+    """Explicit tiles win; the chooser for ``dtype`` (``"fp32"``,
+    ``"int8"``, ``"int8_chain"``) fills the rest.  Raises on channel
     tiles that do not divide the layer."""
     from repro_torch.kernels.ops import check_channel_tiles
     if None in (tile_h, tile_w, tile_c, tile_m):
         kt = choose_kernel_tiles(n, h, w, c, m, kernel_size=kernel_size,
                                  stride=stride, dilation=dilation,
-                                 offset_bound=offset_bound)
+                                 offset_bound=offset_bound, dtype=dtype)
         tile_h = tile_h or kt.tile_h
         tile_w = tile_w or kt.tile_w
         tile_c = tile_c or kt.tile_c
@@ -80,15 +90,16 @@ def spec_tiles(spec: DCSpec, x: Tensor, offsets: Tensor,
 
 
 def warm_tile_cache(layers, *, batch: int, offset_bound: float,
-                    kernel_size: int = 3, dilation: int = 1
+                    kernel_size: int = 3, dilation: int = 1,
+                    dtype: str = "fp32"
                     ) -> dict[str, tuple[int, int, int, int]]:
     """Resolve the tiles of every named layer ``{name: {"h", "w", "c",
-    "m", "stride"?}}`` at ``batch`` — the serving engine's per-bucket
-    plans, resolved at engine start."""
+    "m", "stride"?}}`` at ``batch`` for the ``dtype`` datapath — the
+    serving engine's per-bucket plans, resolved at engine start."""
     return {name: resolve_tiles(
                 batch, d["h"], d["w"], d["c"], d["m"],
                 kernel_size=kernel_size, stride=d.get("stride", 1),
-                dilation=dilation, offset_bound=offset_bound)
+                dilation=dilation, offset_bound=offset_bound, dtype=dtype)
             for name, d in layers.items()}
 
 
@@ -134,3 +145,102 @@ def bounded_forward(spec: DCSpec, x: Tensor, offsets: Tensor,
         stride=spec.stride, dilation=spec.dilation,
         offset_bound=spec.offset_bound, tile_h=th, tile_w=tw, tile_c=tc,
         tile_m=tm)
+
+
+def _f32(v, device) -> Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def int8_forward(x: Tensor, offsets: Tensor, w: Tensor, *,
+                 kernel_size: int, stride: int, dilation: int,
+                 offset_bound: float, tile_h: int | None = None,
+                 tile_w: int | None = None, tile_c: int | None = None,
+                 tile_m: int | None = None, x_scale=None,
+                 w_scale=None) -> Tensor:
+    """int8 inference datapath: quantize (per-tensor x, per-out-channel w;
+    absmax unless calibrated scales are given), pad the int8 plane, block
+    the int8 weights and run the int8 kernel with its per-M dequant
+    epilogue ``s_x * s_w[m]``."""
+    ho, wo = offsets.shape[1], offsets.shape[2]
+    m = w.shape[-1]
+    th, tw, tc, tm = resolve_tiles(
+        x.shape[0], x.shape[1], x.shape[2], x.shape[-1], m,
+        kernel_size=kernel_size, stride=stride, dilation=dilation,
+        offset_bound=offset_bound, tile_h=tile_h, tile_w=tile_w,
+        tile_c=tile_c, tile_m=tile_m, dtype="int8")
+    th, tw = min(th, ho), min(tw, wo)
+    sx = compute_scale(x) if x_scale is None else _f32(x_scale, x.device)
+    sw = compute_scale(w, axis=-1) if w_scale is None \
+        else _f32(w_scale, x.device).reshape(1, 1, m)
+    xp = pad_zerocopy(quantize_values(x, sx), kernel_size=kernel_size,
+                      stride=stride, dilation=dilation,
+                      offset_bound=offset_bound, tile_h=th, tile_w=tw,
+                      ho=ho, wo=wo)
+    w_tiled = tile_weights(quantize_values(w, sw), tc)
+    scale = (sx * sw).reshape(m).contiguous()
+    y = deform_conv_fused_zerocopy_q(
+        xp, offsets.float().contiguous(), w_tiled, scale,
+        kernel_size=kernel_size, stride=stride, dilation=dilation,
+        offset_bound=offset_bound, tile_h=th, tile_w=tw, tile_c=tc,
+        tile_m=tm)
+    return y.to(x.dtype)
+
+
+def chain_forward(x: Tensor, w: Tensor, w_offset: Tensor, b_offset,
+                  b_deform, *, kernel_size: int, stride: int,
+                  dilation: int, offset_bound: float, x_scale,
+                  w_scale=None, w_offset_scale=None, y_scale=None,
+                  tile_h: int | None = None, tile_w: int | None = None,
+                  tile_c: int | None = None, tile_m: int | None = None,
+                  emit: str = "int8") -> Tensor:
+    """Chained int8 DCL layer (inference datapath).
+
+    x is int8 on the ``x_scale`` grid (a chained producer's emission,
+    taken verbatim) or fp32 (the chain head, quantized here).  The offset
+    conv runs inside the kernel (int8 ``w_offset``, dequantized by
+    ``s_x * s_woff`` plus ``b_offset``); the output is emitted int8 on the
+    ``y_scale`` grid with the per-channel requant ``s_x * s_w[m] / s_y``
+    and the deform bias folded as ``b[m] / s_y``, or in fp32
+    (``emit="fp32"``: ``s_x * s_w[m]`` and ``b[m]``).  The kernel streams
+    C in ``tile_c`` chunks, so ``tile_c`` need not be C (unlike the TPU
+    plan, which stages all of C per band).
+    """
+    n, h, w_in, c = x.shape
+    m = w.shape[-1]
+    k2 = kernel_size * kernel_size
+    dev = x.device
+    ho, wo = out_hw(h, w_in, kernel_size=kernel_size, stride=stride,
+                    dilation=dilation)
+    th, tw, tc, tm = resolve_tiles(
+        n, h, w_in, c, m, kernel_size=kernel_size, stride=stride,
+        dilation=dilation, offset_bound=offset_bound, tile_h=tile_h,
+        tile_w=tile_w, tile_c=tile_c, tile_m=tile_m, dtype="int8_chain")
+    th, tw = min(th, ho), min(tw, wo)
+    sx = _f32(x_scale, dev)
+    sw = compute_scale(w, axis=-1) if w_scale is None \
+        else _f32(w_scale, dev).reshape(1, 1, m)
+    swo = compute_scale(w_offset, axis=-1) if w_offset_scale is None \
+        else _f32(w_offset_scale, dev).reshape(1, 1, 2 * k2)
+    xq = x if x.dtype == torch.int8 else quantize_values(x, sx)
+    xp = pad_zerocopy(xq, kernel_size=kernel_size, stride=stride,
+                      dilation=dilation, offset_bound=offset_bound,
+                      tile_h=th, tile_w=tw, ho=ho, wo=wo)
+    w_tiled = tile_weights(quantize_values(w, sw), c)
+    wo_tiled = tile_weights(quantize_values(w_offset, swo), c)
+    off_scale = (sx * swo).reshape(2 * k2).contiguous()
+    off_bias = _f32(b_offset, dev).reshape(2 * k2).contiguous()
+    bias = torch.zeros(m, dtype=torch.float32, device=dev) \
+        if b_deform is None else _f32(b_deform, dev).reshape(m)
+    if emit == "int8":
+        sy = _f32(y_scale, dev)
+        out_scale = (sx * sw / sy).reshape(m)
+        out_bias = bias / sy
+    else:
+        out_scale = (sx * sw).reshape(m)
+        out_bias = bias
+    return deform_conv_fused_zerocopy_chain(
+        xp, w_tiled, wo_tiled, off_scale, off_bias,
+        out_scale.contiguous(), out_bias.contiguous(),
+        kernel_size=kernel_size, stride=stride, dilation=dilation,
+        offset_bound=offset_bound, tile_h=th, tile_w=tw, tile_c=tc,
+        tile_m=tm, emit=emit, ho=ho, wo=wo)

@@ -2,11 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch resnet50_dcn_bounded --buckets 256,512 --requests 8 \
-        [--slots 4] [--quant fp32_kernel] [--deadline 30] [--device cuda] \
+        [--slots 4] [--quant int8_chain] [--deadline 30] [--device cuda] \
         [--telemetry OUT.json]
 
-Params are random, from ``--seed``.  The device defaults to ``cuda``; with
-no GPU the launcher raises unless ``--device cpu`` is given.
+Params are random, from ``--seed``.  The int8 rungs (``int8_chain``, the
+default, and ``int8``) are calibrated first, as the JAX launcher does: two
+seeded images per bucket through the fp32 model give the scale table.
+The device defaults to ``cuda``; with no GPU the launcher raises unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ import torch
 
 from repro_torch.configs import resnet50_dcn as configs
 from repro_torch.models import resnet_dcn as R
+from repro_torch.quant.calibrate import calibrate_resnet_dcn
 from repro_torch.serve import LADDER, DCLServeConfig, DCLServingEngine
+from repro_torch.serve.dcl_engine import INT8_RUNGS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -29,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--buckets", default="256,512",
                     help="comma-separated square shape buckets")
-    ap.add_argument("--quant", default="fp32_kernel", choices=LADDER)
+    ap.add_argument("--quant", default="int8_chain", choices=LADDER)
     ap.add_argument("--deadline", type=float, default=None,
                     help="per-request deadline in seconds")
     ap.add_argument("--queue-capacity", type=int, default=64)
@@ -43,23 +48,45 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def serve_detection(cfg: R.ResNetDCNConfig, args, *, params=None):
-    """Build the engine, submit ``args.requests`` seeded images spread
-    over the buckets, drain it.  Returns ``(engine, images, seconds)``;
-    ``params`` replaces the seeded init when given."""
+def _served_cfg(cfg: R.ResNetDCNConfig) -> R.ResNetDCNConfig:
     if cfg.offset_bound is None:
         cfg = dataclasses.replace(cfg, offset_bound=2.0)
-    cfg = dataclasses.replace(cfg, use_kernel=True)
-    buckets = tuple(int(b) for b in args.buckets.split(","))
+    return dataclasses.replace(cfg, use_kernel=True)
+
+
+def _buckets(args) -> tuple[int, ...]:
+    return tuple(int(b) for b in args.buckets.split(","))
+
+
+def calibrate(cfg: R.ResNetDCNConfig, params, args) -> dict:
+    """Scale table of the int8 rungs: two images per bucket, seeded from
+    ``args.seed + 1``, through the fp32 model on ``args.device``."""
+    rng = np.random.RandomState(args.seed + 1)
+    return calibrate_resnet_dcn(
+        params, _served_cfg(cfg),
+        [rng.randn(2, b, b, 3).astype(np.float32) for b in _buckets(args)],
+        device=args.device)
+
+
+def serve_detection(cfg: R.ResNetDCNConfig, args, *, params=None,
+                    scale_table=None):
+    """Build the engine, submit ``args.requests`` seeded images spread
+    over the buckets, drain it.  Returns ``(engine, images, seconds)``;
+    ``params`` replaces the seeded init when given.  The int8 rungs
+    calibrate first (``calibrate``) unless ``scale_table`` is given."""
+    cfg = _served_cfg(cfg)
+    buckets = _buckets(args)
     if params is None:
         params = R.init_params(cfg, seed=args.seed, device=args.device)
+    if scale_table is None and args.quant in INT8_RUNGS:
+        scale_table = calibrate(cfg, params, args)
     engine = DCLServingEngine(
         params, cfg,
         DCLServeConfig(buckets=buckets, slots=args.slots, quant=args.quant,
                        queue_capacity=args.queue_capacity,
                        shed_policy=args.shed_policy,
                        default_deadline=args.deadline),
-        device=args.device)
+        scale_table=scale_table, device=args.device)
     rng = np.random.RandomState(args.seed)
     images = [rng.randn(b, b, 3).astype(np.float32)
               for b in (buckets[i % len(buckets)]
@@ -78,9 +105,10 @@ def report(engine: DCLServingEngine, seconds: float) -> str:
     lats = sorted(r.latency_s() for r in ok)
     dev = engine.device
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    lines = [f"served {len(ok)}/{len(engine.completed)} requests in "
-             f"{engine.steps} batched steps ({seconds:.3f}s, "
-             f"{len(ok) / max(seconds, 1e-9):.2f} images/s on {where})"]
+    lines = [f"served {len(ok)}/{len(engine.completed)} requests on "
+             f"{engine.scfg.quant} in {engine.steps} batched steps "
+             f"({seconds:.3f}s, {len(ok) / max(seconds, 1e-9):.2f} images/s "
+             f"on {where})"]
     if lats:
         lines.append(f"  p50 latency {lats[len(lats) // 2] * 1e3:.1f} ms, "
                      f"max {lats[-1] * 1e3:.1f} ms")

@@ -4,8 +4,11 @@ detection head (counterpart of ``repro.models.resnet_dcn``).
 The last ``num_dcn`` 3x3 convolutions of the bottlenecks are DCLs (12 by
 default: c3's last 3, all 6 of c4, all 3 of c5); norms are GroupNorm(32);
 layout NHWC.  ``use_kernel=True`` routes every DCL through the fused
-kernel (``kernels.ops.deform_conv``); the plain path (``dcl_forward``) is
-the parity reference.  Inference only in this slice of the port.
+kernels; the plain path (``dcl_forward``, or the fake-quant references
+under ``quant``) is the parity reference.  ``quant`` picks the DCL
+datapath: ``"none"`` (fp32), ``"int8"`` or ``"int8_chain"``, whose DCL
+output is emitted int8 and dequantized by the block before its GroupNorm.
+``forward(tap=)`` is the calibration hook.  Inference only so far.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.core.deform_conv import conv2d
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models.layers import ParamDef, dcl_apply, dcl_def, init_tree
+from repro_torch.quant.qtypes import QTensor
 
 Tensor = torch.Tensor
 
@@ -36,6 +40,7 @@ class ResNetDCNConfig:
     img_size: int = 256
     dtype: Any = torch.float32
     use_kernel: bool = False       # route DCLs through the fused kernel
+    quant: str = "none"            # DCL datapath: none | int8 | int8_chain
 
     @property
     def total_blocks(self) -> int:
@@ -119,14 +124,24 @@ def init_params(cfg: ResNetDCNConfig, *, seed: int = 0,
 
 
 def _apply_block(params, x: Tensor, cfg: ResNetDCNConfig, *, stride: int,
-                 is_dcn: bool, device):
+                 is_dcn: bool, device, name: str = "", tap=None,
+                 quant_scales=None):
     h = conv2d(x, params["conv1"].to(x.dtype))
     h = F.relu(group_norm(h, params["gn1"]))
     o_max = None
     if is_dcn:
+        if tap is not None:
+            tap(name, h)
         h, o_max = dcl_apply(params["dcl"], h, stride=stride,
                              offset_bound=cfg.offset_bound,
-                             use_kernel=cfg.use_kernel, device=device)
+                             use_kernel=cfg.use_kernel, quant=cfg.quant,
+                             quant_scales=quant_scales, device=device)
+        if isinstance(h, QTensor):
+            # int8_chain emission: the DCL output left the kernel as int8;
+            # the GroupNorm consumer decodes it here.
+            h = h.dequantize(cfg.dtype)
+        if tap is not None:
+            tap(f"{name}/out", h)
     else:
         h = conv2d(h, params["conv2"].to(x.dtype), stride=stride)
     h = F.relu(group_norm(h, params["gn2"]))
@@ -138,9 +153,15 @@ def _apply_block(params, x: Tensor, cfg: ResNetDCNConfig, *, stride: int,
     return F.relu(x + h), o_max
 
 
-def forward(params, cfg: ResNetDCNConfig, images: Tensor, *,
-            device: str | torch.device | None = None):
-    """images: (N, H, W, 3) on ``device`` -> (outputs, o_max per DCL)."""
+def forward(params, cfg: ResNetDCNConfig, images: Tensor, *, tap=None,
+            quant_scales=None, device: str | torch.device | None = None):
+    """images: (N, H, W, 3) on ``device`` -> (outputs, o_max per DCL).
+
+    ``tap(name, x)`` sees every DCL block's input and, as
+    ``"<name>/out"``, its output (the calibration hook).
+    ``quant_scales`` is a calibration scale table ``{block_name: {...}}``
+    for the int8 datapaths; None means absmax scales (``int8`` only).
+    """
     dev = resolve_device(device)
     check_on(dev, images=images)
     x = images.to(cfg.dtype)
@@ -155,8 +176,11 @@ def forward(params, cfg: ResNetDCNConfig, images: Tensor, *,
         for b in range(n_blocks):
             stride = 2 if (b == 0 and s > 0) else 1
             name = f"s{s}b{b}"
+            scales = quant_scales.get(name) if quant_scales else None
             x, o_max = _apply_block(params[name], x, cfg, stride=stride,
-                                    is_dcn=cfg.is_dcn(bi), device=dev)
+                                    is_dcn=cfg.is_dcn(bi), device=dev,
+                                    name=name, tap=tap,
+                                    quant_scales=scales)
             if o_max is not None:
                 o_maxes[name] = o_max
             bi += 1

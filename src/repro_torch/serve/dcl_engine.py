@@ -7,13 +7,17 @@ closed; each bucket's DCL tile plans are resolved at engine start
 (``kernels.plan.warm_tile_cache``).  Every step serves one bucket — up to
 ``slots`` queued requests padded into one batch.
 
-The rungs of this port are ``fp32_kernel`` (every DCL through the fused
-CUDA kernel; the entry rung) and ``fp32_ref`` (the plain reference).  The
-JAX engine's int8 rungs and spatial sharding are not ported yet and
-raise at configuration.  On CUDA the ladder is the entry rung alone
-(``ladder``): a batch whose kernel keeps failing retires ``failed`` with
-the kernel's error and is never served by the plain path.  ``fp32_ref``
-runs there only when the caller chooses it as the entry rung.
+The rungs, top first, are the JAX engine's: ``int8_chain`` (the default:
+every DCL through the chained int8 kernel, offset conv fused in, output
+emitted int8), ``int8`` (every DCL through the int8 dequant kernel),
+``fp32_kernel`` (the fused fp32 kernel) and ``fp32_ref`` (the plain
+reference).  The int8 rungs need a calibration scale table at engine
+start (``scale_table``: a dict or a JSON path, see
+``quant.calibrate``).  Spatial sharding is not ported yet and raises at
+configuration.  On CUDA the ladder is the entry rung alone (``ladder``):
+a batch whose kernel keeps failing retires ``failed`` with the kernel's
+error and is never served by another rung.  ``fp32_ref`` runs there only
+when the caller chooses it as the entry rung.
 
 Robustness, as in the JAX engine:
 
@@ -32,18 +36,18 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import Callable
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import plan
-from repro_torch.kernels.deform_conv_fused import load_kernel
+from repro_torch.kernels import deform_conv_fused, deform_conv_q, plan
 from repro_torch.models import resnet_dcn as R
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
+from repro_torch.quant.calibrate import load_scale_table, scale_table_on
 
 from .admission import (AdmissionConfig, AdmissionQueue, DetRequest,
                         MalformedRequest, resolve_bucket)
@@ -53,8 +57,11 @@ __all__ = ["LADDER", "DCLServeConfig", "DCLServingEngine",
 
 # Degradation ladder, top rung first.  The bottom rung never touches the
 # kernel path.
-LADDER = ("fp32_kernel", "fp32_ref")
-NOT_PORTED = ("int8_chain", "int8")
+LADDER = ("int8_chain", "int8", "fp32_kernel", "fp32_ref")
+INT8_RUNGS = ("int8_chain", "int8")
+# The tile chooser's datapath of each rung that runs a kernel.
+RUNG_DTYPE = {"int8_chain": "int8_chain", "int8": "int8",
+              "fp32_kernel": "fp32"}
 
 
 def ladder(entry: str, device: torch.device) -> tuple[str, ...]:
@@ -68,7 +75,7 @@ def ladder(entry: str, device: torch.device) -> tuple[str, ...]:
 class DCLServeConfig:
     buckets: tuple[int, ...] = (64, 128)
     slots: int = 4                   # batch rows per step
-    quant: str = "fp32_kernel"       # entry rung of LADDER
+    quant: str = "int8_chain"        # entry rung of LADDER
     strict_buckets: bool = True      # False: pad up to the next bucket
     queue_capacity: int = 64
     shed_policy: str = "reject_new"  # reject_new | shed_oldest
@@ -79,11 +86,6 @@ class DCLServeConfig:
     spatial_shards: tuple[tuple[int, int], ...] = ()
 
     def __post_init__(self):
-        if self.quant in NOT_PORTED:
-            raise ValueError(
-                f"serve datapath {self.quant!r} is not ported yet: the "
-                f"PyTorch port serves {LADDER}; the int8 rungs arrive with "
-                f"the int8 slice")
         if self.quant not in LADDER:
             raise ValueError(
                 f"unknown serve datapath {self.quant!r}; expected one of "
@@ -126,6 +128,7 @@ class DCLServingEngine:
 
     def __init__(self, params, model_cfg: R.ResNetDCNConfig,
                  serve_cfg: DCLServeConfig, *,
+                 scale_table: Mapping[str, Any] | str | None = None,
                  device: str | torch.device | None = None,
                  clock: Callable[[], float] = time.monotonic,
                  sleep: Callable[[float], None] = time.sleep,
@@ -164,22 +167,51 @@ class DCLServingEngine:
             "serve_latency_seconds",
             "submit-to-retire latency per bucket and outcome")
 
+        if isinstance(scale_table, str):
+            scale_table = load_scale_table(scale_table)
+        self.scale_table = scale_table
+        # The scales the forwards read, on the device once.
+        self._scales = None if scale_table is None \
+            else scale_table_on(scale_table, self.device)
+        if serve_cfg.quant in INT8_RUNGS:
+            if model_cfg.offset_bound is None:
+                raise ValueError(
+                    f"serve datapath {serve_cfg.quant!r} needs a trained "
+                    f"offset_bound on the model config — the int8 kernels "
+                    f"exist because Eq. 6 bounds the band")
+            if scale_table is None:
+                raise ValueError(
+                    f"serve datapath {serve_cfg.quant!r} needs a "
+                    f"calibration scale table at engine start "
+                    f"(repro_torch.quant.calibrate_resnet_dcn + "
+                    f"save_scale_table); chained layers exchange int8 on "
+                    f"pinned activation grids")
+
+        # One model config per rung.
         self._cfgs = {
-            "fp32_kernel": dataclasses.replace(model_cfg, use_kernel=True),
-            "fp32_ref": dataclasses.replace(model_cfg, use_kernel=False),
+            "int8_chain": dataclasses.replace(
+                model_cfg, quant="int8_chain", use_kernel=True),
+            "int8": dataclasses.replace(model_cfg, quant="int8",
+                                        use_kernel=True),
+            "fp32_kernel": dataclasses.replace(model_cfg, quant="none",
+                                               use_kernel=True),
+            "fp32_ref": dataclasses.replace(model_cfg, quant="none",
+                                            use_kernel=False),
         }
 
-        # Per-bucket tile plans and the kernel build, done now rather than
-        # on the first request.
+        # Per-bucket tile plans of the entry rung and its kernel build,
+        # done now rather than on the first request.
         self.plans: dict[int, dict[str, tuple]] = {}
-        if model_cfg.offset_bound is not None:
+        dtype = RUNG_DTYPE.get(serve_cfg.quant)
+        if model_cfg.offset_bound is not None and dtype is not None:
             if self.device.type == "cuda":
-                load_kernel()
+                (deform_conv_fused if dtype == "fp32"
+                 else deform_conv_q).load_kernel()
             for b in serve_cfg.buckets:
                 dims = bucket_layer_dims(model_cfg, b)
                 self.plans[b] = plan.warm_tile_cache(
                     dims, batch=serve_cfg.slots,
-                    offset_bound=model_cfg.offset_bound)
+                    offset_bound=model_cfg.offset_bound, dtype=dtype)
 
         self.queue = AdmissionQueue(AdmissionConfig(
             capacity=serve_cfg.queue_capacity,
@@ -306,9 +338,10 @@ class DCLServingEngine:
         return torch.from_numpy(images).to(self.device)
 
     def _forward(self, rung: str, x: torch.Tensor):
+        scales = self._scales if rung in INT8_RUNGS else None
         with torch.no_grad():
             out, _ = R.forward(self.params, self._cfgs[rung], x,
-                               device=self.device)
+                               quant_scales=scales, device=self.device)
         return out
 
     def _run_batch(self, bucket: int, reqs: list[DetRequest]) -> None:

@@ -1,13 +1,15 @@
-"""The port's CUDA kernel on the card, held against its plain version.
+"""The port's CUDA kernels on the card, held against their plain versions.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a
 GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Without a GPU every test skips (the kernel has no CPU mode).  Tolerance:
-``max|kernel - plain| <= 1e-5 * max|plain|`` (the same gather and
-corner arithmetic, contracted in another order); TF32 off.
+Without a GPU every test skips (the kernels have no CPU mode).
+Tolerances: fp32 kernel ``max|kernel - plain| <= 1e-5 * max|plain|`` (the
+same gather and corner arithmetic, contracted in another order), TF32
+off; int8 kernels exact (``torch.equal``: the same fp32 roundings and
+exact integer sums).
 """
 import dataclasses
 
@@ -17,9 +19,11 @@ import torch
 
 from repro_torch.core.tiling import out_hw
 from repro_torch.kernels import ops, plan
+from repro_torch.kernels import deform_conv_q as Q
 from repro_torch.kernels.deform_conv_fused import (
     deform_conv_fused_zerocopy, deform_conv_fused_zerocopy_plain)
 from repro_torch.models import resnet_dcn as R
+from repro_torch.quant.qtypes import compute_scale, quantize_values
 
 pytestmark = pytest.mark.cuda
 
@@ -131,7 +135,8 @@ def test_engine_fails_a_batch_whose_kernel_keeps_failing(cuda):
                             num_dcn=2, num_classes=4, img_size=32,
                             offset_bound=2.0, use_kernel=True)
     eng = DCLServingEngine(R.init_params(cfg, seed=0, device=cuda), cfg,
-                           DCLServeConfig(buckets=(32,), slots=2),
+                           DCLServeConfig(buckets=(32,), slots=2,
+                                          quant="fp32_kernel"),
                            device=cuda)
     assert eng.rungs == ("fp32_kernel",)
 
@@ -144,3 +149,108 @@ def test_engine_fails_a_batch_whose_kernel_keeps_failing(cuda):
     r2 = eng.submit(np.ones((32, 32, 3), np.float32))
     eng.run_until_drained()
     assert r2.outcome == "ok" and r2.ladder == "fp32_kernel"
+
+
+# -- int8 kernels --------------------------------------------------------------
+
+# (k, s, d, B, H, W, C, M, th, tw, tc): ragged, two C chunks, M < 64 lanes;
+# stride 2 with a 3x5 tile.
+Q_CASES = {
+    "s1_ragged_csteps": (3, 1, 1, 2.0, 9, 11, 8, 6, 4, 4, 4),
+    "s2_dilation1": (3, 2, 1, 1.5, 13, 11, 16, 72, 3, 5, 8),
+}
+
+
+def _q_args(case, kernel, cuda, emit="int8"):
+    k, s, d, b, h, w, c, m, th, tw, tc = Q_CASES[case]
+    x, off, wd = _inputs(k, h, w, c, m, s, d, b, 7, cuda)
+    gen = torch.Generator().manual_seed(8)
+    ho, wo = out_hw(h, w, kernel_size=k, stride=s, dilation=d)
+    sx, sw = compute_scale(x), compute_scale(wd, axis=-1)
+    xp = plan.pad_zerocopy(quantize_values(x, sx), kernel_size=k, stride=s,
+                           dilation=d, offset_bound=b, tile_h=th, tile_w=tw,
+                           ho=ho, wo=wo)
+    kw = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b,
+              tile_h=th, tile_w=tw, tile_c=tc, tile_m=min(m, 64))
+    wq = quantize_values(wd, sw)
+    if kernel == "dcq":
+        return (xp, off, plan.tile_weights(wq, tc),
+                (sx * sw).reshape(m).contiguous()), kw
+    woff = torch.randn(k * k, c, 2 * k * k, generator=gen).to(cuda)
+    woq = quantize_values(woff, compute_scale(woff, axis=-1))
+    acc_std = (k * k * c) ** 0.5 * 40 * 73          # offsets of ~1.5 px
+    off_scale = torch.full((2 * k * k,), 1.5 / acc_std, device=cuda)
+    off_bias = (torch.randn(2 * k * k, generator=gen) * 0.5).to(cuda)
+    # y of std ~60 on the emission grid, so the requant rounds and clips.
+    out_scale = torch.full((m,), 60.0 / ((k * k * c) ** 0.5 * 20 * 47),
+                           device=cuda)
+    out_bias = (torch.randn(m, generator=gen) * 2).to(cuda)
+    kw.update(emit=emit, ho=ho, wo=wo)
+    return (xp, plan.tile_weights(wq, c), plan.tile_weights(woq, c),
+            off_scale, off_bias, out_scale, out_bias), kw
+
+
+@pytest.mark.parametrize("kernel", ["dcq", "dcc_int8", "dcc_fp32"])
+@pytest.mark.parametrize("case", sorted(Q_CASES))
+def test_int8_kernels_equal_plain(case, kernel, cuda):
+    if kernel == "dcq":
+        fn, plain = (Q.deform_conv_fused_zerocopy_q,
+                     Q.deform_conv_fused_zerocopy_q_plain)
+        args, kw = _q_args(case, "dcq", cuda)
+    else:
+        fn, plain = (Q.deform_conv_fused_zerocopy_chain,
+                     Q.deform_conv_fused_zerocopy_chain_plain)
+        args, kw = _q_args(case, "dcc", cuda, emit=kernel[4:])
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    if kernel == "dcc_int8":       # the requant really rounds and clips
+        assert 0 < (got.abs() == 127).float().mean().item() < 0.5
+
+
+@pytest.mark.parametrize("kernel", ["dcq", "dcc"])
+@pytest.mark.parametrize("bad", ["float_input", "non_contiguous", "tile_c"])
+def test_int8_kernels_refuse_bad_inputs_before_launch(kernel, bad, cuda):
+    fn = Q.deform_conv_fused_zerocopy_q if kernel == "dcq" \
+        else Q.deform_conv_fused_zerocopy_chain
+    args, kw = _q_args("s1_ragged_csteps", kernel, cuda)
+    args = list(args)
+    if bad == "float_input":
+        args[0] = args[0].float()
+    elif bad == "non_contiguous":
+        args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        kw = dict(kw, tile_c=2)
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(*args, **kw)
+    assert fn.launches == before
+
+
+def test_int8_chain_engine_step_runs_the_chain_kernel_only(cuda):
+    """One engine step of a full-depth (narrow) model on int8_chain
+    launches the chain kernel once per DCL and no other DCL kernel."""
+    from repro_torch.quant.calibrate import calibrate_resnet_dcn
+    from repro_torch.serve import DCLServeConfig, DCLServingEngine
+    cfg = R.ResNetDCNConfig(widths=(64, 128, 256, 512), stem_width=16,
+                            num_classes=4, img_size=64, offset_bound=2.0,
+                            use_kernel=True)
+    params = R.init_params(cfg, seed=0, device=cuda)
+    images = np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32)
+    table = calibrate_resnet_dcn(params, cfg, [images], device=cuda)
+    eng = DCLServeConfig(buckets=(64,), slots=2)
+    assert eng.quant == "int8_chain"
+    eng = DCLServingEngine(params, cfg, eng, scale_table=table, device=cuda)
+    counted = (deform_conv_fused_zerocopy, Q.deform_conv_fused_zerocopy_q,
+               Q.deform_conv_fused_zerocopy_chain)
+    for fn in counted:
+        fn.launches = 0
+    r = eng.submit(images[0])
+    eng.step()
+    torch.cuda.synchronize()
+    assert r.outcome == "ok" and r.ladder == "int8_chain"
+    assert [fn.launches for fn in counted] == [0, 0, 12]

@@ -59,10 +59,17 @@ def test_no_source_imports_jax_or_the_reference_package(path):
 def test_library_is_named_by_its_source_and_built_outside_git():
     import hashlib
     from repro_torch.kernels import _build
-    src = _build.CSRC / "deform_conv_fused.cu"
-    lib = _build.library_path("deform_conv_fused")
-    assert hashlib.sha1(src.read_bytes()).hexdigest()[:12] in lib.name
-    assert lib.parent.relative_to(ROOT).parts[0] == "build"
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert names == sorted(_build.SIGNATURES) == ["deform_conv_fused",
+                                                  "deform_conv_q"]
+    for name in names:
+        src = _build.CSRC / f"{name}.cu"
+        lib = _build.library_path(name)
+        assert hashlib.sha1(src.read_bytes()).hexdigest()[:12] in lib.name
+        assert lib.parent.relative_to(ROOT).parts[0] == "build"
+        # Every exported C function has a ctypes signature.
+        for fn in _build.SIGNATURES[name]:
+            assert f" {fn}(" in src.read_text(), (name, fn)
     assert "build/" in (ROOT / ".gitignore").read_text().split()
 
 

@@ -1,7 +1,8 @@
 """The port's DCL serving engine: buckets, slots, deadlines on a fake
-clock, admission policies, the ladder, and parity with both the port's
-own direct forward (bit-equal) and the JAX engine (outcomes equal,
-results within 1e-4 * max|ref|)."""
+clock, admission policies, the ladder (all four rungs, the int8 ones on a
+calibrated scale table), and parity with both the port's own direct
+forward (bit-equal) and the JAX engine (outcomes equal, results within
+1e-4 * max|ref|)."""
 import dataclasses
 import json
 
@@ -16,6 +17,7 @@ from repro.serve import DCLServeConfig as JServeConfig
 from repro.serve import DCLServingEngine as JEngine
 from repro_torch.launch import serve as launch
 from repro_torch.models import resnet_dcn as R
+from repro_torch.quant.calibrate import calibrate_resnet_dcn
 from repro_torch.serve import (LADDER, OUTCOMES, DCLServeConfig,
                                DCLServingEngine, bucket_layer_dims, ladder)
 
@@ -46,14 +48,24 @@ def model():
     return cfg, _perturb(R.init_params(cfg, seed=0, device="cpu"))
 
 
-def _engine(model, **kw):
+@pytest.fixture(scope="module")
+def table(model):
+    cfg, params = model
+    rng = np.random.RandomState(99)
+    return calibrate_resnet_dcn(
+        params, cfg, [rng.randn(2, BUCKET, BUCKET, 3).astype(np.float32)],
+        device="cpu")
+
+
+def _engine(model, table=None, **kw):
     cfg, params = model
     kw.setdefault("buckets", (BUCKET,))
     kw.setdefault("slots", 2)
+    kw.setdefault("quant", "fp32_kernel")
     extra = {k: kw.pop(k) for k in ("clock", "sleep", "step_hook",
                                     "admit_hook") if k in kw}
     return DCLServingEngine(params, cfg, DCLServeConfig(**kw),
-                            device="cpu", **extra)
+                            scale_table=table, device="cpu", **extra)
 
 
 def _img(seed, side=BUCKET):
@@ -61,14 +73,17 @@ def _img(seed, side=BUCKET):
         .astype(np.float32)
 
 
-def _direct(model, rung, images, slots=2, side=BUCKET):
+def _direct(model, rung, images, slots=2, side=BUCKET, table=None):
     cfg, params = model
     batch = np.zeros((slots, side, side, 3), np.float32)
     for i, im in enumerate(images):
         batch[i, :im.shape[0], :im.shape[1]] = im
-    cfg = dataclasses.replace(cfg, use_kernel=(rung == "fp32_kernel"))
+    int8 = rung in ("int8_chain", "int8")
+    cfg = dataclasses.replace(cfg, use_kernel=(rung != "fp32_ref"),
+                              quant=rung if int8 else "none")
     with torch.no_grad():
         out, _ = R.forward(params, cfg, torch.from_numpy(batch),
+                           quant_scales=table if int8 else None,
                            device="cpu")
     return out["cls"].numpy(), out["box"].numpy()
 
@@ -76,16 +91,16 @@ def _direct(model, rung, images, slots=2, side=BUCKET):
 # -- datapath ------------------------------------------------------------------
 
 @pytest.mark.parametrize("rung", LADDER)
-def test_results_bit_equal_to_direct_forward(model, rung):
-    eng = _engine(model, quant=rung)
+def test_results_bit_equal_to_direct_forward(model, table, rung):
+    eng = _engine(model, table, quant=rung)
     imgs = [_img(1), _img(2), _img(3)]
     reqs = [eng.submit(im) for im in imgs]
     eng.run_until_drained()
     assert eng.steps == 2                      # slots=2: 2 + 1
     assert all(r.outcome == "ok" and r.ladder == rung and not r.degraded
                for r in reqs)
-    cls01, box01 = _direct(model, rung, imgs[:2])
-    cls2, _ = _direct(model, rung, imgs[2:])
+    cls01, box01 = _direct(model, rung, imgs[:2], table=table)
+    cls2, _ = _direct(model, rung, imgs[2:], table=table)
     assert np.array_equal(reqs[0].result["cls"], cls01[0])
     assert np.array_equal(reqs[1].result["box"], box01[1])
     assert np.array_equal(reqs[2].result["cls"], cls2[0])
@@ -257,9 +272,103 @@ def test_persistent_kernel_fault_degrades_with_backoff(model):
     ("cuda", "fp32_ref", ("fp32_ref",)),
     ("cpu", "fp32_kernel", ("fp32_kernel", "fp32_ref")),
     ("cpu", "fp32_ref", ("fp32_ref",)),
+    ("cuda", "int8_chain", ("int8_chain",)),
+    ("cuda", "int8", ("int8",)),
+    ("cpu", "int8_chain", ("int8_chain", "int8", "fp32_kernel", "fp32_ref")),
+    ("cpu", "int8", ("int8", "fp32_kernel", "fp32_ref")),
 ])
 def test_ladder_never_drops_to_the_plain_path_on_cuda(device, entry, rungs):
     assert ladder(entry, torch.device(device)) == rungs
+
+
+def test_int8_rungs_need_a_scale_table(model):
+    for rung in ("int8_chain", "int8"):
+        with pytest.raises(ValueError, match="scale table"):
+            _engine(model, quant=rung)
+    cfg, params = model
+    with pytest.raises(ValueError, match="offset_bound"):
+        DCLServingEngine(params, dataclasses.replace(cfg, offset_bound=None),
+                         DCLServeConfig(buckets=(BUCKET,)),
+                         scale_table={}, device="cpu")
+    assert DCLServeConfig(buckets=(BUCKET,)).quant == "int8_chain"
+
+
+def test_scale_table_loads_from_a_path(model, table, tmp_path):
+    from repro_torch.quant.calibrate import save_scale_table
+    save_scale_table(table, str(tmp_path / "scales.json"))
+    eng = _engine(model, str(tmp_path / "scales.json"), quant="int8")
+    assert eng.scale_table["s2b0"]["x_scale"] == table["s2b0"]["x_scale"]
+    r = eng.submit(_img(70))
+    eng.run_until_drained()
+    assert r.outcome == "ok" and r.ladder == "int8"
+
+
+@pytest.mark.parametrize("rung", ["int8_chain", "int8"])
+def test_persistent_int8_kernel_fault_fails_on_the_cuda_ladder(model, table,
+                                                               rung):
+    """On the CUDA ladder a failing int8 kernel retires its batch
+    ``failed``; no other rung serves it."""
+    from repro_torch.kernels import ops
+    seen = []
+
+    def always(ctx):
+        seen.append(ctx["op"])
+        raise RuntimeError("int8 kernel launch failed")
+    eng = _engine(model, table, quant=rung, max_retries=1)
+    eng.rungs = ladder(rung, torch.device("cuda"))
+    with ops.dispatch_hook_scope(always):
+        r = eng.submit(_img(54))
+        eng.run_until_drained()
+    assert set(seen) == {"deform_conv_chain" if rung == "int8_chain"
+                         else "deform_conv"}
+    assert r.outcome == "failed" and "int8 kernel launch failed" in r.error
+    assert not r.degraded and r.result is None and r.retries == 2
+
+
+def test_qtensor_on_the_wrong_scale_raises(model, table):
+    from repro_torch.models.layers import dcl_apply
+    from repro_torch.quant.qtypes import QTensor
+    cfg, params = model
+    entry = table["s2b0"]
+    c = params["s2b0"]["dcl"]["w_deform"].shape[2]
+    x = QTensor(values=torch.zeros(2, 8, 8, c, dtype=torch.int8),
+                scale=torch.tensor(3.0 * entry["x_scale"]))
+    with pytest.raises(ValueError, match="emitted on scale"):
+        dcl_apply(params["s2b0"]["dcl"], x, offset_bound=2.0,
+                  use_kernel=True, quant="int8_chain", quant_scales=entry,
+                  device="cpu")
+    ok = QTensor(values=x.values, scale=torch.tensor(entry["x_scale"]))
+    y, _ = dcl_apply(params["s2b0"]["dcl"], ok, offset_bound=2.0,
+                     use_kernel=True, quant="int8_chain", quant_scales=entry,
+                     device="cpu")
+    assert isinstance(y, QTensor) and y.values.shape == (2, 8, 8, c)
+
+
+@pytest.mark.parametrize("rung", ["int8_chain", "int8"])
+def test_int8_rungs_match_jax_engine(model, table, rung):
+    """The same params, scale table and traffic through the JAX engine's
+    int8 rung (Pallas, interpret mode) and the port's: the same outcomes,
+    results within 1e-3 * max|ref|."""
+    cfg, params = model
+    jparams = {k: {kk: jnp.asarray(vv.numpy()) if torch.is_tensor(vv) else
+                   {k3: jnp.asarray(v3.numpy()) for k3, v3 in vv.items()}
+                   for kk, vv in v.items()} for k, v in params.items()}
+    jeng = JEngine(jparams, JR.ResNetDCNConfig(**SMALL, use_kernel=True),
+                   JServeConfig(buckets=(BUCKET,), slots=2, quant=rung),
+                   scale_table=table)
+    teng = _engine(model, table, quant=rung)
+    outs = {}
+    for name, eng in (("jax", jeng), ("torch", teng)):
+        rs = [eng.submit(_img(80 + i)) for i in range(3)]
+        eng.run_until_drained()
+        outs[name] = rs
+    for rj, rt in zip(outs["jax"], outs["torch"]):
+        assert rj.outcome == rt.outcome == "ok"
+        assert rj.ladder == rt.ladder == rung and not rt.degraded
+        for key in ("cls", "box"):
+            ref = np.asarray(rj.result[key])
+            assert np.abs(rt.result[key] - ref).max() \
+                <= 1e-3 * np.abs(ref).max()
 
 
 def test_persistent_kernel_fault_fails_on_the_cuda_ladder(model):
@@ -283,8 +392,7 @@ def test_persistent_kernel_fault_fails_on_the_cuda_ladder(model):
 
 # -- configuration -------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(quant="int8_chain"), dict(quant="int8"),
-                                dict(spatial_shards=((32, 2),))])
+@pytest.mark.parametrize("kw", [dict(spatial_shards=((32, 2),))])
 def test_unported_features_raise(kw):
     with pytest.raises(ValueError, match="not ported yet"):
         DCLServeConfig(buckets=(32,), **kw)
@@ -314,6 +422,8 @@ def test_launcher_serves_on_cpu(tmp_path):
     eng, images, seconds = launch.serve_detection(cfg, args)
     assert len(images) == 4 and eng.steps == 2
     assert eng.counters == {"ok": 4}
+    assert eng.scfg.quant == "int8_chain"        # the JAX launcher's default
+    assert set(eng.scale_table) == {"s2b0", "s3b0", "_meta"}
     text = launch.report(eng, seconds)
     assert "served 4/4" in text and "on cpu" in text
 
