@@ -36,9 +36,33 @@ Phases, each of which exits non-zero on failure:
    bucket in turns (CUDA events), beside their device time from
    ``torch.profiler``.
 
-The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per served
-run: each shape's phase-3 (phase-5) time times the launches of that shape
-in the run of phase 4 (of the kernel's rung in phase 6), summed.
+7. backward kernel vs plain on the card: the fused backward (TPU kernel 2)
+   at the five distinct DCL shapes of a training step of
+   resnet50_dcn_bounded at batch 8 and 512, and at edge geometries
+   (ragged output, dilation 2 with B = 1.5, stride 2 on an odd extent;
+   every case has tile_c < C), offsets beyond ±B in a share of taps;
+   tolerance ``max|kernel - plain| <= 1e-4 * max|plain|`` for each of dx,
+   d_offsets and dw (fp32 atomics reorder the sums); the autograd function
+   on the card against autograd through the plain forward, same
+   tolerance; times from CUDA events.
+8. train: full-width resnet50_dcn_bounded through
+   ``launch.train.train_detection`` for 6 steps (batch 8, 512x512, Eq. 5
+   at lambda = 0.005, offset convs perturbed as in phase 4, cuDNN
+   deterministic); every loss finite, no step skipped, 12 launches of the
+   forward kernel and 12 of the backward kernel per step and none of the
+   int8 kernels; step 0's loss within 1e-4 relative of the same step with
+   the plain versions in place; its gradients within a relative norm of
+   1e-3 of the same step with the plain backward in place, and, with both
+   plain versions in place, within the plain path's own spread (see
+   ``train``); 4 steps plus a resumed run to 6 within a relative norm of
+   1e-4 of the uninterrupted run (params).  Step time (host clock
+   and CUDA events), its forward/backward split and the device-busy share
+   from ``torch.profiler``.
+
+The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
+run: each shape's phase-3 (phase-5, phase-7) time times the launches of
+that shape in the run of phase 4 (of the kernel's rung in phase 6, of
+phase 8's 6 training steps), summed.
 
 TF32 is off for every fp32 matmul and convolution.  Without a GPU, or
 without the rest of the repository beside it, the script prints no result
@@ -64,7 +88,13 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 KERNEL_RTOL = 1e-5
+BWD_RTOL = 1e-4             # per cotangent: fp32 atomics reorder the sums
 SERVE_RTOL = 1e-3
+TRAIN_LOSS_RTOL = 1e-4      # step-0 loss, kernels vs plain versions
+TRAIN_GRAD_RTOL = 1e-3      # step-0 gradients (relative norm), see train()
+RESUME_RTOL = 1e-4          # 4 + resumed 2 steps vs 6 (relative norm)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 6
 INT8_VS_FP32_MAX = 0.1      # relative norm error of cls, int8 vs fp32_kernel
 BATCH = 4
 BUCKETS = "256,512"
@@ -212,8 +242,8 @@ def serve(record: dict) -> tuple[int, dict]:
                                                      params=params)
     counts = read_counts()
     launches = counts["deform_conv_fused"]
-    if counts["deform_conv_fused_q"] or counts["deform_conv_chain"]:
-        fail(f"the fp32_kernel run launched an int8 kernel: {counts}")
+    if any(n for name, n in counts.items() if name != "deform_conv_fused"):
+        fail(f"the fp32_kernel run launched another kernel: {counts}")
     print(launch.report(engine, seconds))
     reqs = engine.completed
     n_dcl = sum(cfg.is_dcn(i) for i in range(cfg.total_blocks))
@@ -312,11 +342,13 @@ def serve_args(cfg, rung: str):
 
 def counted():
     from repro_torch.kernels import deform_conv_q as Q
+    from repro_torch.kernels.deform_conv_bwd import deform_conv_bwd_zerocopy
     from repro_torch.kernels.deform_conv_fused import \
         deform_conv_fused_zerocopy
     return {"deform_conv_fused": deform_conv_fused_zerocopy,
             "deform_conv_fused_q": Q.deform_conv_fused_zerocopy_q,
-            "deform_conv_chain": Q.deform_conv_fused_zerocopy_chain}
+            "deform_conv_chain": Q.deform_conv_fused_zerocopy_chain,
+            "deform_conv_bwd": deform_conv_bwd_zerocopy}
 
 
 def reset_counts() -> None:
@@ -637,6 +669,340 @@ def serve_int8(record: dict, params) -> dict[str, int]:
     return launches
 
 
+def check_bwd_kernel(case: dict, gen) -> dict:
+    """The backward kernel vs its plain version on one geometry, and the
+    autograd function vs autograd through the plain forward; returns the
+    record."""
+    import torch
+
+    from repro_torch.core.tiling import bwd_smem_bytes, out_hw
+    from repro_torch.kernels import ops, plan, ref
+    from repro_torch.kernels.deform_conv_bwd import (
+        deform_conv_bwd_zerocopy, deform_conv_bwd_zerocopy_plain, load_kernel)
+
+    n, h, w, c, m = case["n"], case["h"], case["w"], case["c"], case["m"]
+    s, d, b = case["stride"], case["dilation"], case.get("bound", B)
+    k2 = K * K
+    ho, wo = out_hw(h, w, kernel_size=K, stride=s, dilation=d)
+    th, tw, tc, _ = plan.resolve_tiles(n, h, w, c, m, kernel_size=K,
+                                       stride=s, dilation=d, offset_bound=b,
+                                       tile_c=case.get("tile_c"),
+                                       dtype="fp32_bwd")
+    th, tw = min(th, ho), min(tw, wo)
+    x = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    off = torch.randn(n, ho, wo, 2 * k2, device="cuda", generator=gen) * 1.5
+    wd = torch.randn(k2, c, m, device="cuda", generator=gen) / (k2 * c) ** 0.5
+    g = torch.randn(n, ho, wo, m, device="cuda", generator=gen)
+    spec = plan.DCSpec(K, s, d, b, th, tw, tc, None)
+    xp, offp, wt = plan.zerocopy_inputs(spec, x, off, wd, th, tw, tc)
+    kw = dict(kernel_size=K, stride=s, dilation=d, offset_bound=b,
+              tile_h=th, tile_w=tw, tile_c=tc)
+    got = deform_conv_bwd_zerocopy(xp, offp, g, wt, **kw)
+    torch.cuda.synchronize()
+    want = deform_conv_bwd_zerocopy_plain(xp, offp, g, wt, **kw)
+    names = ("dx", "d_off", "dw")
+    errs = {nm: (a - r).abs().max().item() for nm, a, r in
+            zip(names, got, want)}
+    scales = {nm: r.abs().max().item() for nm, r in zip(names, want)}
+    # The autograd function on the card (forward and backward kernels)
+    # against autograd through the plain forward, for y . g.
+    leaves = [t.clone().requires_grad_(True) for t in (x, off, wd)]
+    ag = torch.autograd.grad(
+        (ops.deform_conv(*leaves, offset_bound=b, stride=s, dilation=d)
+         * g).sum(), leaves)
+    ap = torch.autograd.grad(
+        (ref.deform_conv_fused_ref(*leaves, offset_bound=b, stride=s,
+                                   dilation=d) * g).sum(), leaves)
+    auto = {nm: (a - r).abs().max().item() / r.abs().max().item()
+            for nm, a, r in zip(("d_input", "d_offsets", "d_weights"), ag,
+                                ap)}
+    # Kernel 2 is three launches (d_input/d_offsets, d_weights, the
+    # reduction of d_weights partials): their device times.
+    _, parts = device_profile(
+        lambda: deform_conv_bwd_zerocopy(xp, offp, g, wt, **kw))
+    smem_c = load_kernel().dcb_smem_bytes(K, s, d, math.ceil(b), th, tw, tc)
+    smem_py = bwd_smem_bytes(th, tw, tc, kernel_size=K, stride=s,
+                             dilation=d, offset_bound=b)
+    ms = time_ms(lambda: deform_conv_bwd_zerocopy(xp, offp, g, wt, **kw),
+                 reps=5, iters=5)
+    plain_ms = time_ms(
+        lambda: deform_conv_bwd_zerocopy_plain(xp, offp, g, wt, **kw),
+        reps=3, iters=2)
+    p = n * ho * wo
+    flops = 2 * 2 * p * k2 * c * m        # dw = P^T g and dP = g W^T
+    nbytes = 4 * (2 * n * h * w * c + 2 * p * 2 * k2 + p * m + 2 * k2 * c * m)
+    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S) \
+        * 1e3
+    rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc], smem_bytes=smem_c,
+               max_abs_err=max(errs.values()), errs=errs, max_abs_plain=scales,
+               autograd_rel_err=auto, parts_ms=parts,
+               clamped_share=(off.abs() > b).float().mean().item(),
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="operations" if flops / PEAK_FP32_FLOPS
+               >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
+               flops=flops, bytes=nbytes)
+    ok = all(errs[nm] <= BWD_RTOL * scales[nm] for nm in names) \
+        and max(auto.values()) <= BWD_RTOL and smem_c == smem_py
+    print(f"  {case['label']:<28} tiles {th}x{tw} tc={tc} smem={smem_c} "
+          + " ".join(f"{nm}={errs[nm]:.2e}/{scales[nm]:.2f}" for nm in names)
+          + f" autograd={max(auto.values()):.1e} "
+          f"clamped={rec['clamped_share']:.3f} kernel={ms:.4f} ms "
+          f"plain={plain_ms:.3f} ms bound={bound_ms:.4f} ms "
+          f"per_step={case.get('per_step', {})} {'ok' if ok else 'FAIL'}")
+    print(f"    launches: "
+          f"{[(k.split('::')[-1].split('(')[0], v) for k, v in parts[:3]]}")
+    if smem_c != smem_py:
+        fail(f"backward {case['label']}: shared memory {smem_c} (kernel) != "
+             f"{smem_py} (chooser)")
+    for nm in names:
+        if errs[nm] > BWD_RTOL * scales[nm]:
+            fail(f"backward {case['label']} {nm}: max|kernel - plain| = "
+                 f"{errs[nm]} exceeds {BWD_RTOL} * {scales[nm]}")
+    if max(auto.values()) > BWD_RTOL:
+        fail(f"backward {case['label']}: autograd through the kernels is "
+             f"{auto} from autograd through the plain forward")
+    return rec
+
+
+class plain_training_kernels:
+    """Within the block the fp32 plan calls the plain versions of the
+    forward kernel (``fwd``) and/or the backward kernel (``bwd``), and
+    ``ops.deform_conv`` takes ``tile_c`` when one is given (another fp32
+    summation order of the same function)."""
+
+    def __init__(self, *, fwd: bool, bwd: bool, tile_c: int | None = None):
+        self.fwd, self.bwd, self.tile_c = fwd, bwd, tile_c
+
+    def __enter__(self):
+        from repro_torch.kernels import deform_conv_bwd, deform_conv_fused
+        from repro_torch.kernels import ops, plan
+        self.saved = (plan.deform_conv_fused_zerocopy,
+                      plan.deform_conv_bwd_zerocopy, ops.deform_conv)
+        if self.fwd:
+            plan.deform_conv_fused_zerocopy = \
+                deform_conv_fused.deform_conv_fused_zerocopy_plain
+        if self.bwd:
+            plan.deform_conv_bwd_zerocopy = \
+                deform_conv_bwd.deform_conv_bwd_zerocopy_plain
+        if self.tile_c is not None:
+            real, tc = ops.deform_conv, self.tile_c
+            ops.deform_conv = lambda *a, **kw: real(*a, **dict(kw, tile_c=tc))
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops, plan
+        (plan.deform_conv_fused_zerocopy, plan.deform_conv_bwd_zerocopy,
+         ops.deform_conv) = self.saved
+
+
+def train(record: dict) -> int:
+    """Phase 8: train full-width resnet50_dcn_bounded on the card.
+    Returns the backward kernel's launches in the 6-step run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
+    from repro_torch.data import DetectionDataConfig, detection_batch
+    from repro_torch.launch import train as launch
+    from repro_torch.models import resnet_dcn as R
+    from repro_torch.tree import leaves
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = CONFIG_BOUNDED
+    ckpt = ROOT / "build" / "smoke_train"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def args(steps: int, where: str):
+        return launch.build_parser().parse_args(
+            ["--arch", cfg.name, "--full", "--steps", str(steps),
+             "--global-batch", str(TRAIN_BATCH), "--ckpt", str(ckpt / where),
+             "--ckpt-every", "100", "--log-every", "1", "--seed", "0",
+             "--device", "cuda"])
+
+    def params():
+        return perturb_offsets(R.init_params(tcfg, seed=0, device="cuda"), 1)
+
+    tcfg = launch.train_config(cfg, args(1, "x"))
+    n_dcl = sum(tcfg.is_dcn(i) for i in range(tcfg.total_blocks))
+    print(f"  config {tcfg.name}: stages {tcfg.stage_sizes}, widths "
+          f"{tcfg.widths}, {n_dcl} DCLs, B={tcfg.offset_bound}, "
+          f"{tcfg.img_size}x{tcfg.img_size}, batch {TRAIN_BATCH}, "
+          f"use_kernel={tcfg.use_kernel}")
+    reset_counts()
+    t0 = time.monotonic()
+    trainer = launch.train_detection(cfg, args(TRAIN_STEPS, "full"),
+                                     params=params())
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    losses = [h["loss"] for h in trainer.history if "loss" in h]
+    print(f"  {TRAIN_STEPS} steps in {wall:.2f} s; losses "
+          f"{[round(v, 5) for v in losses]}; telemetry {trainer.telemetry}; "
+          f"launches {counts}")
+    want = {name: (n_dcl * TRAIN_STEPS if name in ("deform_conv_fused",
+                                                   "deform_conv_bwd") else 0)
+            for name in counts}
+    if counts != want:
+        fail(f"training launched {counts}; expected {want}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() \
+            or trainer.telemetry != {"skipped": 0, "recovered": 0,
+                                     "retries": 0, "preempted": False}:
+        fail(f"training: losses {losses}, telemetry {trainer.telemetry}")
+
+    # Resume: 4 steps, then a new run to 6 from the step-4 checkpoint.
+    launch.train_detection(cfg, args(4, "resumed"), params=params())
+    resumed = launch.train_detection(cfg, args(TRAIN_STEPS, "resumed"),
+                                     params=params())
+    flat = torch.cat([p.detach().reshape(-1) for p in leaves(trainer.params)])
+    flat_r = torch.cat([p.detach().reshape(-1)
+                        for p in leaves(resumed.params)])
+    resume_rel = ((flat_r - flat).norm() / flat.norm()).item()
+    p0 = torch.cat([p.reshape(-1) for p in leaves(params())])
+    moved = ((flat - p0).norm() / p0.norm()).item()
+    r_losses = [h["loss"] for h in resumed.history if "loss" in h]
+    print(f"  resumed at step 4: losses {[round(v, 5) for v in r_losses]}; "
+          f"params vs the uninterrupted run: relative norm {resume_rel:.2e} "
+          f"(the 6 steps moved them {moved:.2e})")
+    if resume_rel > RESUME_RTOL or len(r_losses) != 2:
+        fail(f"resumed run is {resume_rel} from the uninterrupted run")
+
+    # Step 0 against the same step with the plain versions in place.  The
+    # gradient of bilinear sampling jumps where a tap crosses an integer
+    # position, so at full depth fp32-order differences in the forward move
+    # a few taps across and the whole-path gradients differ by more than
+    # 1e-3 even between two plain runs.  Hence: the backward kernel is held
+    # to 1e-3 against the plain backward on the same forward; the whole
+    # path (both plain versions) to the plain path's own spread, measured
+    # here under another fp32 order (tile_c = 8) and under a 1e-7 relative
+    # perturbation of the images.
+    data = DetectionDataConfig(img_size=tcfg.img_size,
+                               global_batch=TRAIN_BATCH,
+                               num_classes=tcfg.num_classes, seed=0)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in detection_batch(data, 0).items()}
+    noise = torch.randn(
+        batch["images"].shape, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(7))
+    p_step0 = params()
+    for t in leaves(p_step0):
+        t.requires_grad_(True)
+
+    taps: dict[str, list] = {}
+
+    def loss_and_grads(*, fwd=False, bwd=False, tile_c=None, images=None,
+                       record=None):
+        from repro_torch.kernels import ops
+        b_ = batch if images is None else dict(batch, images=images)
+        with plain_training_kernels(fwd=fwd, bwd=bwd, tile_c=tile_c):
+            inner = ops.deform_conv
+            if record is not None:
+                def recording(x, offsets, w, **kw):
+                    taps.setdefault(record, []).append(offsets.detach())
+                    return inner(x, offsets, w, **kw)
+                ops.deform_conv = recording
+            loss, _ = R.train_loss(p_step0, tcfg, b_, lam=0.005,
+                                   device="cuda")
+            ops.deform_conv = inner
+            gs = torch.autograd.grad(loss, leaves(p_step0))
+        return loss.item(), torch.cat([g.reshape(-1) for g in gs])
+
+    def crossings() -> tuple[int, int]:
+        """Unclamped offset coordinates whose integer part differs between
+        the kernel path and the plain path, and all offset coordinates."""
+        n_cross = n_all = 0
+        for a, b_ in zip(taps["kernel"], taps["plain"]):
+            inside = (a.abs() < B) & (b_.abs() < B)
+            n_cross += ((torch.floor(a) != torch.floor(b_)) & inside) \
+                .sum().item()
+            n_all += a.numel()
+        return n_cross, n_all
+
+    def rel(a, b_):
+        return ((a - b_).norm() / b_.norm()).item()
+    loss_k, g_k = loss_and_grads(record="kernel")
+    _, g_kp = loss_and_grads(bwd=True)
+    loss_p, g_p = loss_and_grads(fwd=True, bwd=True, record="plain")
+    n_cross, n_taps = crossings()
+    _, g_order = loss_and_grads(fwd=True, bwd=True, tile_c=8)
+    _, g_noise = loss_and_grads(fwd=True, bwd=True,
+                                images=batch["images"] * (1 + 1e-7 * noise))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    bwd_rel = rel(g_k, g_kp)
+    path_rel = rel(g_k, g_p)
+    spread = max(rel(g_order, g_p), rel(g_noise, g_p))
+    print(f"  step 0 vs the plain versions: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel {loss_rel:.2e}); gradients: backward kernel "
+          f"vs plain backward (same forward) {bwd_rel:.2e}; whole path "
+          f"{path_rel:.2e}, plain path vs itself under another fp32 order "
+          f"{rel(g_order, g_p):.2e} and under 1e-7 input noise "
+          f"{rel(g_noise, g_p):.2e}; {n_cross} of {n_taps} offsets cross an "
+          f"integer between the two paths; first logged loss "
+          f"{losses[0]:.6f}")
+    if loss_rel > TRAIN_LOSS_RTOL or abs(losses[0] - loss_k) \
+            > TRAIN_LOSS_RTOL * abs(loss_p):
+        fail(f"step 0 loss off the plain path: rel {loss_rel}")
+    if bwd_rel > TRAIN_GRAD_RTOL:
+        fail(f"step 0 gradients through the backward kernel are {bwd_rel} "
+             f"from the plain backward's")
+    if path_rel > max(TRAIN_GRAD_RTOL, spread):
+        fail(f"step 0 gradients of the kernel path are {path_rel} from the "
+             f"plain path's, beyond its own spread {spread}")
+
+    # Where a step's time goes: forward / backward split (CUDA events),
+    # the whole step, and its device-busy share (torch.profiler).
+    def fwd_bwd():
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        loss, _ = R.train_loss(p_step0, tcfg, batch, lam=0.005,
+                               device="cuda")
+        e1.record()
+        torch.autograd.grad(loss, leaves(p_step0))
+        e2.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1), e1.elapsed_time(e2)
+    fwd_bwd()
+    split = [fwd_bwd() for _ in range(5)]
+    fwd_ms = statistics.median(f for f, _ in split)
+    bwd_ms = statistics.median(b_ for _, b_ in split)
+    step_batch = trainer._device_batch(0)
+    step_ms = time_ms(lambda: trainer._one_step(step_batch), reps=3, iters=2)
+    busy, top = device_profile(lambda: trainer._one_step(step_batch))
+    share = "not measured" if busy is None else f"{1 - busy / step_ms:.0%}"
+    host_ms = [t * 1e3 for t in trainer.step_seconds]
+    # The same step with cuDNN free to pick non-deterministic algorithms
+    # (the launcher's setting; the checks above need determinism).
+    torch.backends.cudnn.deterministic = False
+    free_ms = time_ms(lambda: trainer._one_step(step_batch), reps=3, iters=2)
+    free_busy, free_top = device_profile(
+        lambda: trainer._one_step(step_batch))
+    torch.backends.cudnn.deterministic = True
+    print(f"  step (forward + backward + SGD), batch {TRAIN_BATCH}: "
+          f"{step_ms:.3f} ms (CUDA events); forward {fwd_ms:.3f} ms, "
+          f"backward {bwd_ms:.3f} ms; device busy "
+          f"{busy if busy is None else round(busy, 3)} ms by torch.profiler, "
+          f"idle {share}; host-clock steps {[round(t, 2) for t in host_ms]} "
+          f"ms; top {top[:5]}")
+    free = free_busy if free_busy is None else round(free_busy, 3)
+    print(f"  the same step, cuDNN not deterministic: {free_ms:.3f} ms, "
+          f"device busy {free} ms; top {free_top[:5]}")
+    record["train"] = dict(
+        steps=TRAIN_STEPS, batch=TRAIN_BATCH, img_size=tcfg.img_size,
+        wall_s=wall, losses=losses, telemetry=trainer.telemetry,
+        launches=counts, host_step_ms=host_ms,
+        median_host_step_ms=trainer.median_step_sec() * 1e3,
+        resume_rel=resume_rel, moved_rel=moved, resumed_losses=r_losses,
+        step0_loss=[loss_k, loss_p], step0_loss_rel=loss_rel,
+        step0_grad_rel_backward=bwd_rel, step0_grad_rel_path=path_rel,
+        step0_grad_plain_spread=[rel(g_order, g_p), rel(g_noise, g_p)],
+        step0_offsets_crossing=[n_cross, n_taps],
+        step_ms=step_ms, forward_ms=fwd_ms,
+        backward_ms=bwd_ms, device_busy_ms=busy, device_top=top,
+        step_ms_cudnn_free=free_ms, device_busy_ms_cudnn_free=free_busy,
+        device_top_cudnn_free=free_top)
+    return counts["deform_conv_bwd"]
+
+
 def per_run(shapes: list[dict], steps_per_bucket: dict, launches: int,
             peak: float, what: str) -> tuple[dict, str]:
     """Sum of each main-path shape's time (and work) times its launches in
@@ -805,6 +1171,56 @@ def main() -> int:
         print(f"  {name} per served {rung} run: {q_launches[name]} launches, "
               f"kernel {run_q['ms']:.3f} ms, plain {run_q['plain_ms']:.3f} "
               f"ms, bound {run_q['bound_ms']:.4f} ms ({by})")
+
+    print("== 7. backward kernel vs plain on the card")
+    # {shape: {"512": DCLs of that shape in one training step}}
+    bwd_step: dict[tuple, dict[str, int]] = {}
+    for dims in bucket_layer_dims(CONFIG_BOUNDED, 512).values():
+        key = (dims["h"], dims["w"], dims["c"], dims["m"], dims["stride"])
+        cnt = bwd_step.setdefault(key, {})
+        cnt["512"] = cnt.get("512", 0) + 1
+    b_cases = [dict(label=f"{h}x{w}x{c}->{m} s{s}", n=TRAIN_BATCH, h=h,
+                    w=w, c=c, m=m, stride=s, dilation=1, per_step=cnt)
+               for (h, w, c, m, s), cnt in bwd_step.items()]
+    b_cases += [
+        dict(label="ragged 17x23x64->64 s1", n=2, h=17, w=23, c=64, m=64,
+             stride=1, dilation=1),
+        dict(label="dilation2 B1.5 20x20x64->64", n=2, h=20, w=20, c=64,
+             m=64, stride=1, dilation=2, bound=1.5),
+        dict(label="odd s2 15x15x32->48 tc16", n=1, h=15, w=15, c=32,
+             m=48, stride=2, dilation=1, tile_c=16),
+    ]
+    record["bwd_shapes"] = [check_bwd_kernel(c, gen) for c in b_cases]
+    if any(r["tiles"][2] >= r["c"] for r in record["bwd_shapes"]):
+        fail("a backward case has tile_c = C: the C loop is untested")
+    print("  no single PyTorch call computes the bounded deformable conv's "
+          "backward, so there is no library time to compare with")
+
+    print("== 8. train")
+    bwd_launches = train(record)
+    shapes = [r for r in record["bwd_shapes"] if r.get("per_step")]
+    run_b, by = per_run(shapes, {"512": TRAIN_STEPS}, bwd_launches,
+                        PEAK_FP32_FLOPS, "deform_conv_bwd")
+    record["run_deform_conv_bwd"] = run_b
+    kernels["kernels"].append({
+        "name": "deform_conv_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/deform_conv_bwd.cu",
+        "replaces": "src/repro/kernels/deform_conv_bwd.py:304",
+        "launches": bwd_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in record["bwd_shapes"]),
+        "ms": run_b["ms"],
+        "plain_ms": run_b["plain_ms"],
+        "bound_ms": run_b["bound_ms"],
+        "bound_by": by,
+        "library_ms": None,
+    })
+    per_step_ms = run_b["ms"] / TRAIN_STEPS
+    print(f"  deform_conv_bwd per {TRAIN_STEPS}-step run: {bwd_launches} "
+          f"launches, kernel {run_b['ms']:.3f} ms, plain "
+          f"{run_b['plain_ms']:.3f} ms, bound {run_b['bound_ms']:.4f} ms "
+          f"({by}); per step {per_step_ms:.3f} ms of the backward's "
+          f"{record['train']['backward_ms']:.3f} ms")
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

@@ -4,8 +4,10 @@
 ``choose_kernel_tiles`` replaces the TPU chooser, whose budget was a TPU's
 vector memory: here a thread block gets at most 227 KB of shared memory
 and the card has 132 SMs to fill.  The chooser is a plain function of the
-layer's shape and datapath (no cache, no tuning table); ``smem_bytes``
-and ``q_smem_bytes`` mirror the kernels' own ``*_smem_bytes`` exports.
+layer's shape and datapath (no cache, no tuning table); ``smem_bytes``,
+``q_smem_bytes`` and ``bwd_smem_bytes`` mirror the kernels' own
+``*_smem_bytes`` exports.  The TPU chooser's scheduling knobs (``cores``,
+``dw_flush_every_step``) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -95,7 +97,64 @@ def q_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
     return 4 * words
 
 
-DTYPES = ("fp32", "int8", "int8_chain")
+# The backward kernel (csrc/deform_conv_bwd.cu): rows of K*K*tile_c per
+# d_weights block, output channels of g and W per dP step, output channels
+# per d_weights block.
+BWD_ROWS = 64
+BWD_MC = 16
+BWD_TM = 64
+
+
+def bwd_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
+                   kernel_size: int, stride: int, dilation: int,
+                   offset_bound: float) -> int:
+    """Dynamic shared memory of one block of the backward's d_input /
+    d_offsets kernel, the larger of its two; mirrors ``dcb_smem_bytes``
+    in ``csrc/deform_conv_bwd.cu``: the staged band chunk and the fp32
+    d_input band accumulator (channel-major, odd plane stride, rounded to
+    4 floats each), the dP chunk (K*K*tile_c rows padded to 4, by the
+    pixel lanes), one step of W^T and of g^T (16 output channels, rows
+    padded by 4), and per tap and pixel the corner geometry (index, ty,
+    tx) and the two d_offsets sums."""
+    pix = pix_lanes(tile_h, tile_w)
+    k2 = kernel_size * kernel_size
+    bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    band = -(-tile_c * ((bh * bw) | 1) // 4) * 4
+    kkp = -(-k2 * tile_c // 4) * 4
+    return 4 * (2 * band + kkp * pix + BWD_MC * (kkp + 4)
+                + BWD_MC * (pix + 4) + 5 * k2 * pix)
+
+
+BWD_ROW_BLOCKS = 5   # 64-row blocks one d_weights block takes, at most
+BWD_MAX_QUADS = 3 * 256   # 4x4 dP tiles of a d_input block (3 a thread)
+
+
+def bwd_quads(tile_h: int, tile_w: int, tile_c: int, *,
+              kernel_size: int) -> int:
+    """4x4 register tiles of the d_input kernel's dP chunk: rows of
+    K*K*tile_c (padded to 4) by pixel lanes, four by four."""
+    k2 = kernel_size * kernel_size
+    return -(-k2 * tile_c // 4) * (pix_lanes(tile_h, tile_w) // 4)
+
+
+def bwd_dw_splits(n: int, ho: int, wo: int, c: int, m: int, *,
+                  kernel_size: int, tile_h: int, tile_w: int,
+                  tile_c: int) -> int:
+    """Pixel splits of the backward's d_weights kernel: its grid is
+    (C / tile_c) x (groups of up to five 64-row blocks of K*K*tile_c) x
+    (64-channel blocks of M) x splits; enough splits for two blocks per
+    SM, at most one per output tile."""
+    rows = -(-kernel_size * kernel_size * tile_c // BWD_ROWS)
+    groups = -(-rows // min(rows, BWD_ROW_BLOCKS))
+    base = (c // tile_c) * groups * -(-m // BWD_TM)
+    tiles = n * -(-ho // tile_h) * -(-wo // tile_w)
+    return max(1, min(tiles, -(-2 * SM_COUNT // base)))
+
+
+DTYPES = ("fp32", "int8", "int8_chain", "fp32_bwd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,12 +183,13 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
                         dtype: str = "fp32") -> KernelTiles:
     """Tiles of the fused kernels for one layer shape and datapath
     (``dtype``: ``"fp32"`` for ``deform_conv_fused.cu``, ``"int8"`` and
-    ``"int8_chain"`` for the two kernels of ``deform_conv_q.cu``).
+    ``"int8_chain"`` for the two kernels of ``deform_conv_q.cu``,
+    ``"fp32_bwd"`` for the backward of ``deform_conv_bwd.cu``).
 
     * ``tile_m``: the largest divisor of M up to the kernel's 64 lanes.
     * spatial: 8x8 clamped to the output; while the grid has fewer
       blocks than the card has SMs, halve the longer side, down to 16
-      pixels per block.
+      pixels per block (the backward's grid counts no M tiles).
     * ``tile_c``, fp32: the largest divisor of C up to 32 whose block
       fits twice in an SM's shared memory (so two blocks can be
       resident), else the largest that fits once.
@@ -138,6 +198,9 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
       per channel), else twice, else once.  The chain kernel streams C in
       these chunks too (two passes, see ``deform_conv_q.cu``), so its
       ``tile_c`` is not pinned to C.
+    * ``tile_c``, fp32_bwd: as fp32, against the backward's own model
+      (``bwd_smem_bytes``), and at most ``BWD_MAX_QUADS`` dP register
+      tiles (``bwd_quads``); ``tile_m`` only shapes the forward's grid.
     None fitting raises.
     """
     if dtype not in DTYPES:
@@ -147,21 +210,27 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
                     dilation=dilation)
     tm = _divisor_at_most(m, TILE_M_MAX)
     th, tw = min(8, ho), min(8, wo)
-    while (grid_blocks(n, ho, wo, m, KernelTiles(th, tw, 1, tm)) < SM_COUNT
-           and th * tw > 16):
+    # The backward's d_input kernel has no M axis in its grid.
+    grid_m = m if dtype == "fp32_bwd" else tm
+    while (grid_blocks(n, ho, wo, m, KernelTiles(th, tw, 1, grid_m))
+           < SM_COUNT and th * tw > 16):
         if th >= tw:
             th = -(-th // 2)
         else:
             tw = -(-tw // 2)
     geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
                 offset_bound=offset_bound)
-    if dtype == "fp32":
+    if dtype in ("fp32", "fp32_bwd"):
         cands = sorted({_divisor_at_most(c, cap)
                         for cap in (32, 16, 8, 4, 2, 1)}, reverse=True)
         budgets = (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
+        model = smem_bytes if dtype == "fp32" else bwd_smem_bytes
+        if dtype == "fp32_bwd":
+            cands = [tc for tc in cands if bwd_quads(
+                th, tw, tc, kernel_size=kernel_size) <= BWD_MAX_QUADS]
 
         def block_bytes(tc):
-            return smem_bytes(th, tw, tc, **geom)
+            return model(th, tw, tc, **geom)
     else:
         if c % 4:
             raise ValueError(

@@ -7,7 +7,10 @@ fp32 and int8 bilinear gathers and the fused ``offset_conv_stage``).  The
 TPU emitter and its staging pipeline have no counterpart here: the CUDA
 kernels stage their own bands (``csrc/deform_conv_fused.cu``,
 ``csrc/deform_conv_q.cu``).  ``sample_tiles``, ``tile_bands`` and
-``untile`` run a stage over every output tile of a padded plane at once.
+``untile`` run a stage over every output tile of a padded plane at once
+(``tile_pixels`` and ``tile_offsets`` cut per-pixel tensors into tiles);
+``tile_corners``, ``corner_weights`` and ``corner_derivatives`` are the
+pieces the plain backward (``deform_conv_bwd``) is built from.
 
 Positions are band-local, as in the TPU kernel: the band of output tile
 ``(j, w)`` starts at padded row ``j * tile_h * stride`` and column
@@ -58,12 +61,16 @@ def corner_geometry(off: Tensor, *, kernel_size: int, stride: int,
                     wo: int):
     """Bilinear corner geometry of output tiles in band-local coordinates.
 
-    off: (..., tile_h, wo, K*K, 2) raw offsets, clamped here to ±B.
+    off: (..., tile_h, wo, K*K, 2) raw offsets, clamped here to ±B as the
+    kernels clamp them (``fminf(fmaxf(o, -B), B)``, which takes a NaN to
+    -B, so a non-finite input cannot index outside the band).
     Returns (y0, x0, ty, tx), each (..., tile_h, wo, K*K): int64 top-left
     corners and fp32 fractional coefficients.
     """
     hb = int(math.ceil(offset_bound))
-    off = off.float().clamp(-offset_bound, offset_bound)
+    off = off.float()
+    off = torch.where(torch.isnan(off), -offset_bound, off) \
+        .clamp(-offset_bound, offset_bound)
     rows, cols = _tap_grid(kernel_size=kernel_size, stride=stride,
                            dilation=dilation, halo=hb, tile_h=tile_h,
                            tile_w=wo, device=off.device)
@@ -72,6 +79,21 @@ def corner_geometry(off: Tensor, *, kernel_size: int, stride: int,
     y0f = torch.floor(pos_y)
     x0f = torch.floor(pos_x)
     return y0f.long(), x0f.long(), pos_y - y0f, pos_x - x0f
+
+
+def corner_weights(ty: Tensor, tx: Tensor):
+    """Bilinear weights of the corners (00, 01, 10, 11)."""
+    return ((1 - ty) * (1 - tx), (1 - ty) * tx, ty * (1 - tx), ty * tx)
+
+
+def corner_derivatives(v00: Tensor, v01: Tensor, v10: Tensor, v11: Tensor,
+                       ty: Tensor, tx: Tensor) -> tuple[Tensor, Tensor]:
+    """Derivatives of the bilinear sample by its position, as
+    ``repro/kernels/deform_conv_bwd.py`` writes them:
+    dval/dpos_y = (1-tx)(v10-v00) + tx(v11-v01) and
+    dval/dpos_x = (1-ty)(v01-v00) + ty(v11-v10)."""
+    return ((1 - tx) * (v10 - v00) + tx * (v11 - v01),
+            (1 - ty) * (v01 - v00) + ty * (v11 - v10))
 
 
 def gather_bilinear(flat: Tensor, idx00: Tensor, row: int, ty: Tensor,
@@ -87,10 +109,11 @@ def gather_bilinear(flat: Tensor, idx00: Tensor, row: int, ty: Tensor,
     def corner(idx: Tensor, wgt: Tensor) -> Tensor:
         return flat[b, idx].float() * wgt[..., None]
 
-    out = corner(idx00, (1 - ty) * (1 - tx))
-    out = out + corner(idx00 + 1, (1 - ty) * tx)
-    out = out + corner(idx00 + row, ty * (1 - tx))
-    out = out + corner(idx00 + row + 1, ty * tx)
+    w00, w01, w10, w11 = corner_weights(ty, tx)
+    out = corner(idx00, w00)
+    out = out + corner(idx00 + 1, w01)
+    out = out + corner(idx00 + row, w10)
+    out = out + corner(idx00 + row + 1, w11)
     return out
 
 
@@ -170,14 +193,20 @@ def offset_conv_stage(band: Tensor, woff: Tensor, off_scale: Tensor,
     return off.reshape(*lead, tile_h, tile_w, k2, 2)
 
 
+def tile_pixels(t: Tensor, tile_h: int, tile_w: int) -> Tensor:
+    """(N, Ho, Wo, D) -> (N, ht, wt, tile_h, tile_w, D), zero-padded to
+    whole tiles."""
+    n, ho, wo, d = t.shape
+    ht, wt = -(-ho // tile_h), -(-wo // tile_w)
+    t = F.pad(t, (0, 0, 0, wt * tile_w - wo, 0, ht * tile_h - ho))
+    return t.reshape(n, ht, tile_h, wt, tile_w, d).permute(0, 1, 3, 2, 4, 5)
+
+
 def tile_offsets(offsets: Tensor, tile_h: int, tile_w: int) -> Tensor:
     """(N, Ho, Wo, 2*K*K) raw offsets -> (N, ht, wt, tile_h, tile_w, K*K,
     2), zero-padded to whole tiles."""
-    n, ho, wo, k22 = offsets.shape
-    ht, wt = -(-ho // tile_h), -(-wo // tile_w)
-    off = F.pad(offsets, (0, 0, 0, wt * tile_w - wo, 0, ht * tile_h - ho))
-    return off.reshape(n, ht, tile_h, wt, tile_w, k22 // 2, 2) \
-        .permute(0, 1, 3, 2, 4, 5, 6)
+    off = tile_pixels(offsets, tile_h, tile_w)
+    return off.reshape(*off.shape[:5], -1, 2)
 
 
 def tile_bands(x_pad: Tensor, *, ht: int, wt: int, tile_h: int,
@@ -193,14 +222,16 @@ def tile_bands(x_pad: Tensor, *, ht: int, wt: int, tile_h: int,
     return x_pad[:, rows[:, None, :, None], cols[None, :, None, :]]
 
 
-def sample_tiles(x_pad: Tensor, off_t: Tensor, *, kernel_size: int,
-                 stride: int, dilation: int, offset_bound: float) -> Tensor:
-    """Bilinear samples of every output tile from its band of the padded
-    plane, in fp32: the band-local corner geometry of the kernels, shifted
-    to the plane.  off_t: (N, ht, wt, tile_h, tile_w, K*K, 2) raw offsets
-    (``tile_offsets``).  Returns (N, ht, wt, tile_h, tile_w, K*K, C)."""
-    n, hp, wp, c = x_pad.shape
-    _, ht, wt, th, tw, k2, _ = off_t.shape
+def tile_corners(x_pad: Tensor, off_t: Tensor, *, kernel_size: int,
+                 stride: int, dilation: int, offset_bound: float):
+    """Top-left corner of every tap of every output tile in the flat
+    padded plane, with its fractions: the band-local ``corner_geometry``
+    shifted by the tile's band origin.  off_t: (N, ht, wt, tile_h, tile_w,
+    K*K, 2) raw offsets (``tile_offsets``).  Returns (idx00, ty, tx), each
+    (N, ht, wt, tile_h, tile_w, K*K); the other corners are ``idx00 + 1``,
+    ``idx00 + Wp`` and ``idx00 + Wp + 1``."""
+    _, hp, wp, _ = x_pad.shape
+    _, ht, wt, th, tw, _, _ = off_t.shape
     BandSpec(kernel_size, stride, dilation, offset_bound, th,
              tw).check_padded(hp, wp, ht, wt)
     y0, x0, ty, tx = corner_geometry(
@@ -209,12 +240,24 @@ def sample_tiles(x_pad: Tensor, off_t: Tensor, *, kernel_size: int,
     dev = x_pad.device
     row0 = (torch.arange(ht, device=dev) * th * stride).view(ht, 1, 1, 1, 1)
     col0 = (torch.arange(wt, device=dev) * tw * stride).view(1, wt, 1, 1, 1)
-    idx00 = (y0 + row0) * wp + (x0 + col0)          # (n, ht, wt, th, tw, k2)
-    p = ht * wt * th * tw * k2
+    return (y0 + row0) * wp + (x0 + col0), ty, tx
+
+
+def sample_tiles(x_pad: Tensor, off_t: Tensor, *, kernel_size: int,
+                 stride: int, dilation: int, offset_bound: float) -> Tensor:
+    """Bilinear samples of every output tile from its band of the padded
+    plane, in fp32: the band-local corner geometry of the kernels, shifted
+    to the plane.  off_t: (N, ht, wt, tile_h, tile_w, K*K, 2) raw offsets
+    (``tile_offsets``).  Returns (N, ht, wt, tile_h, tile_w, K*K, C)."""
+    n, hp, wp, c = x_pad.shape
+    idx00, ty, tx = tile_corners(
+        x_pad, off_t, kernel_size=kernel_size, stride=stride,
+        dilation=dilation, offset_bound=offset_bound)
+    p = idx00.numel() // n
     patches = gather_bilinear(x_pad.reshape(n, hp * wp, c),
                               idx00.reshape(n, p), wp,
                               ty.reshape(n, p), tx.reshape(n, p))
-    return patches.reshape(n, ht, wt, th, tw, k2, c)
+    return patches.reshape(*idx00.shape, c)
 
 
 def untile(y: Tensor, ho: int, wo: int) -> Tensor:

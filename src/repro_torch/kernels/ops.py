@@ -14,9 +14,14 @@
 The device of the call is explicit (``device=None`` means ``cuda``) and
 the tensors must lie on it; the tensors' device then picks the kernel
 (CUDA) or its plain version (CPU).  A kernel failure raises: unlike the
-JAX package there is no fallback to a reference path.  The backward
-kernel is not ported yet, so on CUDA an input that needs a gradient
-raises.
+JAX package there is no fallback to a reference path.
+
+The fp32 bounded path is differentiable through ``BoundedDeformConv``
+(the counterpart of the JAX custom VJP): its forward is
+``plan.bounded_forward`` and its backward the fused backward kernel
+(``plan.bounded_backward``), on both devices.  The int8 and chain paths
+are inference only: on CUDA an input that needs a gradient raises there
+(quantized models train with ``quant="qat"``).
 
 ``dispatch_hook_scope`` installs a callable that sees a context dict
 before each bounded dispatch of either op; raising from it aborts the
@@ -28,6 +33,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core.deform_conv import DCLConfig, sample_patches
 from repro_torch.device import check_on, resolve_device
@@ -68,9 +74,32 @@ def _refuse_grad(dev: torch.device, op: str, *tensors: Tensor) -> None:
     if dev.type == "cuda" and torch.is_grad_enabled() and any(
             t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{op} on CUDA is forward-only: the fused backward kernel "
-            f"arrives with the training slice of the port; run under "
-            f"torch.no_grad() or on the CPU")
+            f"{op} is the int8 inference datapath and has no gradient: "
+            f"quantized models train with quant='qat' (fake-quant over the "
+            f"fp32 kernels); run it under torch.no_grad()")
+
+
+class BoundedDeformConv(torch.autograd.Function):
+    """The bounded fp32 deform conv with the fused backward kernel.
+
+    Saves only ``(x, offsets, w)``, as the JAX custom VJP does: the
+    backward recomputes the patches from the Eq. 6 band."""
+
+    @staticmethod
+    def forward(ctx, spec, x, offsets, w):
+        ctx.spec = spec
+        ctx.save_for_backward(x, offsets, w)
+        return _plan.bounded_forward(spec, x, offsets, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, offsets, w = ctx.saved_tensors
+        dx, doff, dw = _plan.bounded_backward(ctx.spec, x, offsets, w,
+                                              gy.contiguous())
+        need = ctx.needs_input_grad
+        return (None, dx if need[1] else None, doff if need[2] else None,
+                dw if need[3] else None)
 
 
 def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
@@ -116,7 +145,8 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
         return torch.einsum("nhwkc,kcm->nhwm", patches.float(),
                             w.float()).to(x.dtype)
 
-    _refuse_grad(dev, "deform_conv", x, offsets, w)
+    if precision == "int8":
+        _refuse_grad(dev, "deform_conv(precision='int8')", x, offsets, w)
     if _dispatch_hook is not None:
         _dispatch_hook({"op": "deform_conv", "precision": precision,
                         "shape": tuple(x.shape), "m": m,
@@ -133,7 +163,7 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
                         dilation=dilation, offset_bound=offset_bound,
                         tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
                         tile_m=tile_m)
-    return _plan.bounded_forward(spec, x, offsets, w)
+    return BoundedDeformConv.apply(spec, x, offsets, w)
 
 
 def deform_conv_chain(x: Tensor, w: Tensor, w_offset: Tensor, b_offset,

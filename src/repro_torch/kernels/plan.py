@@ -8,7 +8,9 @@
 * ``pad_zerocopy`` / ``zerocopy_inputs`` — zero-pad the input once so
   every Eq. 6 band is a plain window of it;
 * ``bounded_forward`` (fp32), ``int8_forward`` and ``chain_forward`` —
-  prepare the inputs and call the kernel wrappers.  The int8 paths
+  prepare the inputs and call the kernel wrappers;
+* ``bounded_backward`` — the fp32 backward at its own tiles (the
+  ``"fp32_bwd"`` chooser), un-padded and un-blocked.  The int8 paths
   quantize outside the kernels, as the JAX package does: the input per
   tensor, the weights per output channel, then pad the int8 plane (0 maps
   to 0, so padding and quantization commute).
@@ -16,12 +18,14 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.tiling import choose_kernel_tiles, out_hw
 from repro_torch.kernels.band_pipeline import band_geometry
+from repro_torch.kernels.deform_conv_bwd import deform_conv_bwd_zerocopy
 from repro_torch.kernels.deform_conv_fused import deform_conv_fused_zerocopy
 from repro_torch.kernels.deform_conv_q import (
     deform_conv_fused_zerocopy_chain, deform_conv_fused_zerocopy_q)
@@ -54,6 +58,16 @@ def tile_weights(w: Tensor, tile_c: int) -> Tensor:
     return wt.reshape(n_c, k2 * tile_c, m).contiguous()
 
 
+def untile_weights(w_tiles: Tensor, kernel_size: int) -> Tensor:
+    """Inverse of ``tile_weights``: (C//tile_c, K*K*tile_c, M) ->
+    (K*K, C, M)."""
+    n_c, kkt, m = w_tiles.shape
+    k2 = kernel_size * kernel_size
+    tc = kkt // k2
+    w = w_tiles.reshape(n_c, k2, tc, m).permute(1, 0, 2, 3)
+    return w.reshape(k2, n_c * tc, m)
+
+
 def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
                   kernel_size: int, stride: int, dilation: int,
                   offset_bound: float, tile_h: int | None = None,
@@ -61,8 +75,8 @@ def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
                   tile_m: int | None = None,
                   dtype: str = "fp32") -> tuple[int, int, int, int]:
     """Explicit tiles win; the chooser for ``dtype`` (``"fp32"``,
-    ``"int8"``, ``"int8_chain"``) fills the rest.  Raises on channel
-    tiles that do not divide the layer."""
+    ``"int8"``, ``"int8_chain"``, ``"fp32_bwd"``) fills the rest.  Raises
+    on channel tiles that do not divide the layer."""
     from repro_torch.kernels.ops import check_channel_tiles
     if None in (tile_h, tile_w, tile_c, tile_m):
         kt = choose_kernel_tiles(n, h, w, c, m, kernel_size=kernel_size,
@@ -76,8 +90,8 @@ def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
     return tile_h, tile_w, tile_c, tile_m
 
 
-def spec_tiles(spec: DCSpec, x: Tensor, offsets: Tensor,
-               w: Tensor) -> tuple[int, int, int, int]:
+def spec_tiles(spec: DCSpec, x: Tensor, offsets: Tensor, w: Tensor, *,
+               dtype: str = "fp32") -> tuple[int, int, int, int]:
     """Tiles of one call, spatial tiles clamped to the output extent."""
     ho, wo = offsets.shape[1], offsets.shape[2]
     th, tw, tc, tm = resolve_tiles(
@@ -85,7 +99,7 @@ def spec_tiles(spec: DCSpec, x: Tensor, offsets: Tensor,
         kernel_size=spec.kernel_size, stride=spec.stride,
         dilation=spec.dilation, offset_bound=spec.offset_bound,
         tile_h=spec.tile_h, tile_w=spec.tile_w, tile_c=spec.tile_c,
-        tile_m=spec.tile_m)
+        tile_m=spec.tile_m, dtype=dtype)
     return min(th, ho), min(tw, wo), tc, tm
 
 
@@ -145,6 +159,28 @@ def bounded_forward(spec: DCSpec, x: Tensor, offsets: Tensor,
         stride=spec.stride, dilation=spec.dilation,
         offset_bound=spec.offset_bound, tile_h=th, tile_w=tw, tile_c=tc,
         tile_m=tm)
+
+
+def bounded_backward(spec: DCSpec, x: Tensor, offsets: Tensor, w: Tensor,
+                     gy: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """(d_input, d_offsets, d_weights) of one bounded fp32 call through
+    the fused backward kernel, at the backward's own tiles (explicit
+    tiles of ``spec`` win, as for the forward).  ``gy`` must be
+    contiguous; the kernel masks the ragged edge, so it is not padded."""
+    _, h, w_in, _ = x.shape
+    th, tw, tc, _ = spec_tiles(spec, x, offsets, w, dtype="fp32_bwd")
+    xp, offsets_c, w_tiled = zerocopy_inputs(spec, x, offsets, w, th, tw,
+                                             tc)
+    dxp, doff, dwt = deform_conv_bwd_zerocopy(
+        xp, offsets_c, gy, w_tiled, kernel_size=spec.kernel_size,
+        stride=spec.stride, dilation=spec.dilation,
+        offset_bound=spec.offset_bound, tile_h=th, tile_w=tw, tile_c=tc)
+    # Un-pad: pad_zerocopy put pad + ceil(B) zero rows/cols top-left.
+    p0 = spec.dilation * (spec.kernel_size // 2) \
+        + int(math.ceil(spec.offset_bound))
+    dx = dxp[:, p0:p0 + h, p0:p0 + w_in]
+    dw = untile_weights(dwt, spec.kernel_size)
+    return (dx.to(x.dtype), doff.to(offsets.dtype), dw.to(w.dtype))
 
 
 def _f32(v, device) -> Tensor:

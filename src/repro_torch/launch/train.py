@@ -1,0 +1,111 @@
+"""Train a DCL detection model through the port's Trainer.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch resnet50_dcn_bounded [--full] --steps 6 [--ckpt DIR] \
+        [--ckpt-every 20] [--microbatches 1] [--lam 0.005] \
+        [--global-batch 8] [--seed 0] [--device cuda]
+
+The default is the JAX launcher's REDUCED config of the same family
+(stages 1/1/1/1, widths 32...256, 2 DCLs, 64x64 images); ``--full`` trains
+the published widths (512x512 images, 12 DCLs).  A bounded arch trains
+with the Eq. 5 regularizer at lambda = 0.005 unless ``--lam`` says
+otherwise, and every DCL runs the fused kernels: the forward kernel and
+the fused backward kernel.  The unbounded arch (``resnet50_dcn``, the
+lambda = 0 baseline) trains through the plain gather.  Params and data
+come from ``--seed``; the run resumes from the latest checkpoint in
+``--ckpt``.  The device defaults to ``cuda``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from repro_torch.configs import resnet50_dcn as configs
+from repro_torch.data import DetectionDataConfig, detection_batch
+from repro_torch.models import resnet_dcn as R
+from repro_torch.optim import default_optimizer_for, warmup_cosine
+from repro_torch.train import Trainer, TrainerConfig
+from repro_torch.tree import leaves
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True, choices=sorted(configs.ARCHS))
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--ckpt", default="build/train_ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lam", type=float, default=0.0,
+                    help="Eq. 5 lambda (default: 0.005 for a bounded arch)")
+    ap.add_argument("--full", action="store_true",
+                    help="train the published widths (default: reduced)")
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    return ap
+
+
+def reduced_config(cfg: R.ResNetDCNConfig) -> R.ResNetDCNConfig:
+    """The JAX registry's reduced config of the same family."""
+    return dataclasses.replace(
+        cfg, stage_sizes=(1, 1, 1, 1), widths=(32, 64, 128, 256),
+        stem_width=16, num_dcn=2, num_classes=8, img_size=64)
+
+
+def train_config(cfg: R.ResNetDCNConfig, args) -> R.ResNetDCNConfig:
+    """The config a run trains: reduced unless ``--full``; a bounded arch
+    on the kernels (the plain gather is no training path on the card)."""
+    if not args.full:
+        cfg = reduced_config(cfg)
+    if cfg.offset_bound is not None:
+        cfg = dataclasses.replace(cfg, use_kernel=True)
+    return cfg
+
+
+def train_detection(cfg: R.ResNetDCNConfig, args, *,
+                    params=None) -> Trainer:
+    """Build the Trainer for ``cfg`` (see ``train_config``), resume from
+    ``args.ckpt`` if it holds a checkpoint, and run to ``args.steps``.
+    ``params`` replaces the seeded init when given.  Returns the Trainer
+    (its ``history``, ``telemetry`` and ``step_seconds``)."""
+    cfg = train_config(cfg, args)
+    lam = args.lam or (0.005 if cfg.offset_bound else 0.0)
+    if params is None:
+        params = R.init_params(cfg, seed=args.seed, device=args.device)
+    data = DetectionDataConfig(img_size=cfg.img_size,
+                               global_batch=args.global_batch,
+                               num_classes=cfg.num_classes, seed=args.seed)
+    n_params = sum(p.numel() for p in leaves(params))
+    opt = default_optimizer_for(args.arch, n_params,
+                                warmup_cosine(3e-3, 10, args.steps))
+    trainer = Trainer(
+        loss_fn=lambda p, b: R.train_loss(p, cfg, b, lam=lam,
+                                          device=args.device),
+        params=params, optimizer=opt,
+        batch_fn=lambda step: detection_batch(data, step),
+        config=TrainerConfig(total_steps=args.steps,
+                             ckpt_every=args.ckpt_every,
+                             ckpt_dir=args.ckpt, log_every=args.log_every,
+                             microbatches=args.microbatches),
+        device=args.device)
+    if trainer.try_resume():
+        print(f"resumed from step {trainer.step}")
+    trainer.run()
+    return trainer
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    cfg = configs.get(args.arch)
+    print(f"arch={args.arch} ({'full' if args.full else 'reduced'}), "
+          f"device={args.device or 'cuda'}")
+    trainer = train_detection(cfg, args)
+    for h in trainer.history:
+        print(h)
+    print(f"median step {trainer.median_step_sec() * 1e3:.1f} ms")
+
+
+if __name__ == "__main__":
+    main()

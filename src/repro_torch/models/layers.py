@@ -1,6 +1,7 @@
 """Parameter declarations and the DCL layer (counterpart of the conv-side
-of ``repro.models.layers``: ``dcl_apply`` with its fp32, ``int8`` and
-``int8_chain`` datapaths, and the int8 -> int8 chain helpers).
+of ``repro.models.layers``: ``dcl_apply`` with its fp32, ``qat``,
+``int8`` and ``int8_chain`` datapaths, and the int8 -> int8 chain
+helpers).
 
 Params are nested dicts of tensors, declared once as a ``ParamDef`` tree
 and materialised by ``init_tree`` from an explicit ``torch.Generator``.
@@ -19,8 +20,10 @@ import torch
 from repro_torch.core.deform_conv import (DCLConfig, conv2d, dcl_forward,
                                           offset_abs_max)
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import deform_conv_fused_ref
 from repro_torch.quant.qat import (fake_quant_dcl_chain_reference,
-                                   fake_quant_dcl_reference)
+                                   fake_quant_dcl_reference,
+                                   qat_quantize_inputs)
 from repro_torch.quant.qtypes import QTensor
 
 Tensor = torch.Tensor
@@ -85,8 +88,14 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
     plain reference ``dcl_forward``.  ``o_max`` (Eq. 3) is taken from the
     raw offsets either way.
 
-    ``quant`` selects the int8 inference datapaths:
+    ``quant`` selects the quantized datapaths:
 
+    * ``"qat"`` — training: fake-quantize the deform-conv operands
+      (activation per tensor, weights per output channel, STE backward)
+      and run the fp32 machinery on the quantized grid (the kernel path
+      through ``ops.deform_conv`` and its backward kernel, else the plain
+      ``deform_conv_fused_ref``); the offset conv and every gradient stay
+      fp32.  Scales are absmax unless ``quant_scales`` pins them.
     * ``"int8"`` — the offset conv stays fp32 (the address path is never
       quantized); the kernel path runs ``ops.deform_conv(precision=
       "int8")``, the plain path the fake-quant reference.  Scales come
@@ -95,15 +104,10 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
     * ``"int8_chain"`` — the offset conv is fused into the kernel and the
       output is emitted int8 (a ``QTensor`` on the table's ``y_scale``)
       when the table has a ``y_scale``; see ``_dcl_chain_layer``.
-    * ``"qat"`` is the training slice's and raises here.
     """
     if quant not in QUANT_MODES:
         raise ValueError(f"unknown quant mode {quant!r}; expected one of "
                          f"{QUANT_MODES}")
-    if quant == "qat":
-        raise NotImplementedError(
-            "quant='qat' is not ported yet (training slice): its STE "
-            "wrappers arrive with the port's training path")
     if quant == "int8_chain":
         return _dcl_chain_layer(params, x, kernel_size=kernel_size,
                                 stride=stride, dilation=dilation,
@@ -117,14 +121,26 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
                     dilation=dilation, offset_bound=offset_bound,
                     dtype=x.dtype)
     k = kernel_size
-    if quant == "int8" or (use_kernel and offset_bound is not None):
+    kernel_ok = use_kernel and offset_bound is not None
+    if quant in ("int8", "qat") or kernel_ok:
         offsets = conv2d(x, params["w_offset"].to(x.dtype), stride=stride,
                          dilation=dilation, padding=cfg.pad)
         offsets = offsets + params["b_offset"].to(x.dtype)
         o_max = offset_abs_max(offsets)
         w = params["w_deform"].to(x.dtype).reshape(k * k, cin, cout)
         scales = quant_scales or {}
-        if quant == "int8" and use_kernel and offset_bound is not None:
+        if quant == "qat":
+            xq, wq = qat_quantize_inputs(x, w, x_scale=scales.get("x_scale"),
+                                         w_scale=scales.get("w_scale"))
+            if kernel_ok:
+                y = ops.deform_conv(xq, offsets, wq, kernel_size=k,
+                                    stride=stride, dilation=dilation,
+                                    offset_bound=offset_bound, device=device)
+            else:
+                y = deform_conv_fused_ref(xq, offsets, wq, kernel_size=k,
+                                          stride=stride, dilation=dilation,
+                                          offset_bound=offset_bound)
+        elif quant == "int8" and kernel_ok:
             y = ops.deform_conv(x, offsets, w, kernel_size=k, stride=stride,
                                 dilation=dilation, offset_bound=offset_bound,
                                 precision="int8",

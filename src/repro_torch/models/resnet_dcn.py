@@ -4,11 +4,14 @@ detection head (counterpart of ``repro.models.resnet_dcn``).
 The last ``num_dcn`` 3x3 convolutions of the bottlenecks are DCLs (12 by
 default: c3's last 3, all 6 of c4, all 3 of c5); norms are GroupNorm(32);
 layout NHWC.  ``use_kernel=True`` routes every DCL through the fused
-kernels; the plain path (``dcl_forward``, or the fake-quant references
-under ``quant``) is the parity reference.  ``quant`` picks the DCL
-datapath: ``"none"`` (fp32), ``"int8"`` or ``"int8_chain"``, whose DCL
-output is emitted int8 and dequantized by the block before its GroupNorm.
-``forward(tap=)`` is the calibration hook.  Inference only so far.
+kernels (the fp32 forward and backward kernels when training); the plain
+path (``dcl_forward``, or the fake-quant references under ``quant``) is
+the parity reference.  ``quant`` picks the DCL datapath: ``"none"``
+(fp32), ``"qat"`` (fake-quant training over the fp32 kernels), ``"int8"``
+or ``"int8_chain"``, whose DCL output is emitted int8 and dequantized by
+the block before its GroupNorm.  ``forward(tap=)`` is the calibration
+hook; ``detection_loss`` and ``train_loss`` are the training objective
+(Eq. 5 over a dense detection loss).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ class ResNetDCNConfig:
     img_size: int = 256
     dtype: Any = torch.float32
     use_kernel: bool = False       # route DCLs through the fused kernel
-    quant: str = "none"            # DCL datapath: none | int8 | int8_chain
+    quant: str = "none"            # none | qat | int8 | int8_chain
 
     @property
     def total_blocks(self) -> int:
@@ -190,3 +193,51 @@ def forward(params, cfg: ResNetDCNConfig, images: Tensor, *, tap=None,
     cls = conv2d(h, params["head"]["cls"].to(x.dtype))
     box = conv2d(h, params["head"]["box"].to(x.dtype))
     return {"cls": cls, "box": box, "features": x}, o_maxes
+
+
+def detection_loss(outputs: dict, targets: dict) -> tuple[Tensor, dict]:
+    """Dense single-scale detection loss.
+
+    targets: obj (N, Hc, Wc) {0, 1}, cls (N, Hc, Wc) int64, box
+    (N, Hc, Wc, 4).  Sigmoid BCE on objectness, cross-entropy on the class
+    of positive cells, L1 on their boxes: ``bce + ce + 0.5 * l1``.
+    """
+    cls_logits = outputs["cls"].float()
+    box_pred = outputs["box"].float()
+    obj_logit = cls_logits[..., 0]
+    cls_logit = cls_logits[..., 1:]
+    obj = targets["obj"].float()
+
+    bce = torch.mean(obj_logit.clamp_min(0) - obj_logit * obj
+                     + torch.log1p(torch.exp(-obj_logit.abs())))
+    pos = obj
+    n_pos = torch.clamp_min(pos.sum(), 1.0)
+    logp = F.log_softmax(cls_logit, dim=-1)
+    gold = torch.gather(logp, -1, targets["cls"].long()[..., None])[..., 0]
+    ce = -(gold * pos).sum() / n_pos
+    l1 = ((box_pred - targets["box"].float()).abs()
+          * pos[..., None]).sum() / n_pos
+    loss = bce + ce + 0.5 * l1
+    return loss, {"bce": bce, "ce": ce, "l1": l1}
+
+
+def train_loss(params, cfg: ResNetDCNConfig, batch: dict, *,
+               lam: float = 0.0, smoothness: float = 0.0,
+               quant_scales=None, device: str | torch.device | None = None):
+    """The paper's objective: Eq. 5 over the detection loss.  With
+    ``cfg.quant="qat"`` it is the quantization-aware objective.  ``batch``
+    holds tensors on ``device``: images (N, H, W, 3) and the targets of
+    ``detection_loss``.  Returns ``(loss, metrics)``."""
+    from repro_torch.core.rf_regularizer import regularized_loss
+    outputs, o_maxes = forward(params, cfg, batch["images"],
+                               quant_scales=quant_scales, device=device)
+    task, metrics = detection_loss(outputs, batch)
+    if lam > 0.0 and o_maxes:
+        loss = regularized_loss(task, list(o_maxes.values()), lam,
+                                smoothness=smoothness)
+    else:
+        loss = task
+    metrics = dict(metrics)
+    if o_maxes:
+        metrics["o_max"] = torch.stack(list(o_maxes.values())).amax()
+    return loss, metrics

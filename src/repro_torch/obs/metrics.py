@@ -69,6 +69,9 @@ class Gauge(_Metric):
     def set(self, value: float, **labels) -> None:
         self._values[_label_key(labels)] = value
 
+    def value(self, **labels) -> float:
+        return self._values.get(_label_key(labels), 0)
+
     def items(self):
         return self._values.items()
 

@@ -52,6 +52,11 @@ class Span:
             tr._stack.remove(self)
         tr.spans.append(self)
 
+    def set_attr(self, **attrs) -> "Span":
+        """Attach attributes after the fact (e.g. a step's outcome)."""
+        self.attrs.update(attrs)
+        return self
+
     @property
     def duration(self) -> float:
         if self.t0 is None or self.t1 is None:
@@ -84,6 +89,9 @@ class _NoopSpan:
 
     def end(self) -> None:
         pass
+
+    def set_attr(self, **attrs) -> "_NoopSpan":
+        return self
 
     def __enter__(self) -> "_NoopSpan":
         return self

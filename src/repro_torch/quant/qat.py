@@ -1,5 +1,11 @@
-"""Fake-quant references of the int8 DCL kernels (counterpart of the
-forward half of ``repro.quant.qat``).
+"""Quantization-aware training of the DCL and the fake-quant references
+of the int8 kernels (counterpart of ``repro.quant.qat``).
+
+QAT fake-quantizes the deform-conv operands (activation per tensor,
+weights per output channel, ``qtypes.fake_quant`` with its STE backward)
+outside ``ops.deform_conv``, so the fp32 kernels run forward and
+backward unchanged on the quantized grid: ``qat_quantize_inputs`` and
+``qat_dcl_apply``, and ``dcl_apply(quant="qat")``.
 
 ``fake_quant_dcl_reference`` and ``fake_quant_dcl_chain_reference`` are
 the ``use_kernel=False`` branches of ``dcl_apply`` for the ``int8`` and
@@ -7,8 +13,7 @@ the ``use_kernel=False`` branches of ``dcl_apply`` for the ``int8`` and
 sample in the global frame (``kernels.ref.deform_sample_ref``) rather
 than band by band.  The integer contractions run in float64, which is
 exact for every layer of the model (|sum| <= 127^2 * K^2 * C < 2^53; fp32
-would be exact only for C < 116).  The STE wrappers ``qat_quantize_inputs``
-and ``qat_dcl_apply`` arrive with the training slice of the port.
+would be exact only for C < 116).
 """
 from __future__ import annotations
 
@@ -22,6 +27,41 @@ Tensor = torch.Tensor
 
 def _f32(v, device) -> Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def qat_quantize_inputs(x: Tensor, w: Tensor, *, x_scale=None,
+                        w_scale=None) -> tuple[Tensor, Tensor]:
+    """Fake-quantize one DCL's (input plane, deform weights) pair.
+
+    x: (N, H, W, C), per-tensor scale; w: (..., M), per-output-channel
+    scales.  Scales default to the absmax observers (outside the
+    gradient); calibrated values override."""
+    dev = x.device
+    xq = fake_quant_absmax(x) if x_scale is None \
+        else fake_quant(x, _f32(x_scale, dev))
+    if w_scale is None:
+        wq = fake_quant_absmax(w, axis=-1)
+    else:
+        s = _f32(w_scale, dev)
+        if s.ndim == 1:
+            s = s.reshape((1,) * (w.ndim - 1) + (-1,))
+        wq = fake_quant(w, s)
+    return xq, wq
+
+
+def qat_dcl_apply(params, x: Tensor, *, scales=None, **dcl_kwargs):
+    """Fake-quant wrapper around ``models.layers.dcl_apply``: quantizes
+    the deform-conv operands and delegates to the unmodified layer, so
+    the plain path and the kernel path (``use_kernel=True``) both see the
+    fake-quantized values.  ``scales`` is one calibration-table entry
+    (``{"x_scale", "w_scale"}``); None means absmax."""
+    from repro_torch.models.layers import dcl_apply
+
+    x_scale = scales.get("x_scale") if scales else None
+    w_scale = scales.get("w_scale") if scales else None
+    xq, wq = qat_quantize_inputs(x, params["w_deform"], x_scale=x_scale,
+                                 w_scale=w_scale)
+    return dcl_apply(dict(params, w_deform=wq), xq, **dcl_kwargs)
 
 
 def _contract(patches: Tensor, w: Tensor) -> Tensor:

@@ -12,8 +12,9 @@ fake-quant references:
 * rounding is ``torch.round``, which rounds ties to even like
   ``jnp.round`` (``floor(x + 0.5)`` would not).
 
-Forward only: the straight-through estimator of ``fake_quant`` arrives
-with the training slice of the port.
+``fake_quant`` carries the straight-through estimator of the JAX
+package's custom VJP: identity inside the representable range, zero
+outside, no gradient to the scale.
 """
 from __future__ import annotations
 
@@ -82,13 +83,28 @@ def quantize(x: Tensor, *, axis: int | None = None,
     return QTensor(values=quantize_values(x, s), scale=s, axis=axis)
 
 
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        q = torch.clamp(torch.round(x.float() / s), -QMAX, QMAX)
+        ctx.save_for_backward(x.float().abs() <= s * QMAX)
+        return (q * s).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        inside, = ctx.saved_tensors
+        return g * inside.to(g.dtype), None
+
+
 def fake_quant(x: Tensor, scale) -> Tensor:
-    """Quantize-dequantize onto the int8 grid (forward only)."""
+    """Quantize-dequantize onto the int8 grid.  Backward: the STE —
+    the cotangent passes where ``|x| <= scale * 127`` and is zero
+    outside; ``scale`` gets none (scales are observed, not learned)."""
     s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
-    q = torch.clamp(torch.round(x.float() / s), -QMAX, QMAX)
-    return (q * s).to(x.dtype)
+    return _FakeQuant.apply(x, s.detach())
 
 
 def fake_quant_absmax(x: Tensor, *, axis: int | None = None) -> Tensor:
-    """Fake-quantize on the absmax scale observed from ``x`` itself."""
-    return fake_quant(x, compute_scale(x, axis=axis))
+    """Fake-quantize on the absmax scale observed from ``x`` itself
+    (the observer is outside the gradient)."""
+    return fake_quant(x, compute_scale(x.detach(), axis=axis))

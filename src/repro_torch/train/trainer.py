@@ -1,0 +1,334 @@
+"""Fault-tolerant training loop on one device (counterpart of
+``repro.train.trainer``; the mesh, ``param_specs`` and gradient
+compression belong to the distributed slice of the port).
+
+* gradient accumulation over ``microbatches`` slices of the batch;
+* checkpoint every ``ckpt_every`` steps (async, atomic, keep-k, CRC),
+  resume from the latest complete one (``try_resume``);
+* numerics sentinel: the loss and the gradient norm are checked BEFORE
+  the optimizer update, and a non-finite step leaves every state leaf as
+  it was; ``max_skips`` consecutive non-finite steps raise
+  ``NonFiniteDivergence`` (a replay from a checkpoint would replay it);
+* a step that raises is retried from the last checkpoint with
+  exponential backoff (restore and replay: the data pipeline is
+  stateless, so the replay is exact);
+* SIGTERM flips a flag; the loop saves and exits at the next step.
+
+The optimizer updates params and state in place under
+``torch.no_grad()``; params are leaf tensors with ``requires_grad`` set.
+Nothing here switches a DCL to another datapath: a retried step runs the
+same kernels as the failed one.
+
+``fault_hook(step)`` may raise before a step; ``batch_hook(step, batch)``
+may transform the host batch.  Health telemetry (``skipped``,
+``recovered``, ``retries``, ``preempted``) lives in a metrics registry;
+spans ``train/step``, ``train/data``, ``train/compute`` and
+``train/checkpoint`` go to the tracer.
+"""
+from __future__ import annotations
+
+import dataclasses
+import signal
+import statistics
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch import tree as T
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.device import resolve_device
+from repro_torch.obs import trace as _trace
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import Tracer
+from repro_torch.optim import Optimizer, global_norm
+
+Tensor = torch.Tensor
+
+
+class NonFiniteDivergence(RuntimeError):
+    """Training diverged: ``max_skips`` consecutive non-finite steps.
+    Never retried: the replay would reproduce the same batch."""
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    ckpt_every: int = 20
+    ckpt_dir: str = "build/train_ckpt"
+    keep: int = 3
+    microbatches: int = 1          # gradient accumulation factor
+    grad_compression: str | None = None   # the distributed slice's
+    log_every: int = 10
+    max_retries: int = 3
+    max_skips: int = 3             # consecutive non-finite steps -> raise
+    retry_backoff: float = 0.0     # seconds; doubles per consecutive retry
+
+
+class Trainer:
+    def __init__(self, *, loss_fn: Callable[[Any, Any], tuple[Tensor, dict]],
+                 params: Any, optimizer: Optimizer,
+                 batch_fn: Callable[[int], Any], config: TrainerConfig,
+                 fault_hook: Callable[[int], None] | None = None,
+                 batch_hook: Callable[[int, Any], Any] | None = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 sleep: Callable[[float], None] | None = None,
+                 registry: MetricsRegistry | None = None,
+                 tracer: Tracer | None = None,
+                 device: str | torch.device | None = None):
+        if config.grad_compression is not None:
+            raise NotImplementedError(
+                f"grad_compression={config.grad_compression!r} compresses "
+                f"gradients between data-parallel replicas; it arrives with "
+                f"the distributed slice of the port (ROADMAP Queue A 5)")
+        if config.microbatches < 1:
+            raise ValueError(f"microbatches={config.microbatches} must be "
+                             f">= 1")
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.loss_fn = loss_fn
+        self.opt = optimizer
+        self.batch_fn = batch_fn
+        self.fault_hook = fault_hook
+        self.batch_hook = batch_hook
+        self.clock = clock
+        self._sleep = sleep
+        self.ckpt = CheckpointManager(config.ckpt_dir, keep=config.keep)
+        self.history: list[dict] = []
+        self.metrics = registry if registry is not None else MetricsRegistry()
+        self._tracer = tracer
+        m = self.metrics
+        self._c_skipped = m.counter(
+            "train_steps_skipped_total", "non-finite steps skipped")
+        self._c_recovered = m.counter(
+            "train_recovered_total", "restore-and-replay recoveries")
+        self._c_retries = m.counter(
+            "train_retries_total", "step failures retried")
+        self._g_preempted = m.gauge(
+            "train_preempted", "1 after a SIGTERM save-and-exit")
+        self._h_step = m.histogram(
+            "train_step_seconds", "wall time per completed training step")
+        self._preempted = False
+        # Wall time of every completed step.
+        self.step_seconds: list[float] = []
+        self.params = T.tree_map(
+            lambda p: p.detach().requires_grad_(True), params)
+        self.opt_state = optimizer.init(self.params)
+        self.step = 0
+
+    @property
+    def _tr(self) -> Tracer:
+        return self._tracer if self._tracer is not None \
+            else _trace.get_tracer()
+
+    @property
+    def telemetry(self) -> dict:
+        """Health telemetry, read from the metrics registry."""
+        return {"skipped": int(self._c_skipped.value()),
+                "recovered": int(self._c_recovered.value()),
+                "retries": int(self._c_retries.value()),
+                "preempted": bool(self._g_preempted.value())}
+
+    # -- one step -------------------------------------------------------
+    def _grads(self, batch) -> tuple[Tensor, Any]:
+        """Loss (mean over microbatches) and gradients (their mean)."""
+        leaves = T.leaves_with_paths(self.params)
+        tensors = [p for _, p in leaves]
+        mb = self.cfg.microbatches
+        gsum = None
+        losses = []
+        for i in range(mb):
+            part = batch if mb == 1 else T.tree_map(
+                lambda x: x.reshape(mb, x.shape[0] // mb,
+                                    *x.shape[1:])[i], batch)
+            loss, _ = self.loss_fn(self.params, part)
+            gs = torch.autograd.grad(loss, tensors, allow_unused=True)
+            gs = [torch.zeros_like(p) if g is None else g.float()
+                  for g, p in zip(gs, tensors)]
+            gsum = gs if gsum is None else [a + b for a, b in zip(gsum, gs)]
+            losses.append(loss.detach())
+        if mb > 1:
+            gsum = [g / mb for g in gsum]
+        grads = T.from_paths([(path, g) for (path, _), g
+                              in zip(leaves, gsum)])
+        return torch.stack(losses).mean(), grads
+
+    def _device_batch(self, step: int):
+        batch = self.batch_fn(step)
+        if self.batch_hook is not None:
+            batch = self.batch_hook(step, batch)
+        mb = self.cfg.microbatches
+        for k, x in batch.items():
+            if mb > 1 and np.shape(x)[0] % mb:
+                raise ValueError(f"batch {k!r} of {np.shape(x)[0]} does not "
+                                 f"split into {mb} microbatches")
+        return {k: torch.as_tensor(np.asarray(x)).to(self.device)
+                for k, x in batch.items()}
+
+    def _one_step(self, batch) -> tuple[float, float, bool]:
+        loss, grads = self._grads(batch)
+        grad_norm = global_norm(grads)
+        finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        if finite:
+            # The sentinel decided first: a non-finite step touches no
+            # state leaf.
+            with torch.no_grad():
+                self.opt.update(grads, self.opt_state, self.params,
+                                self.step)
+        return float(loss), float(grad_norm), finite
+
+    # -- checkpoint bundle ----------------------------------------------
+    def _bundle(self):
+        return {"params": self.params, "opt": self.opt_state, "ef": None,
+                "step": torch.tensor(self.step, dtype=torch.int32)}
+
+    def save(self):
+        with self._tr.span("train/checkpoint", step=self.step):
+            self.ckpt.save(self.step, self._bundle())
+
+    def try_resume(self) -> bool:
+        """Restore the latest complete checkpoint into params and
+        optimizer state (in place).  False when there is none.  A write
+        still in flight is joined first, so the step it saves counts."""
+        self.ckpt.wait()
+        if self.ckpt.latest_step() is None:
+            return False
+        restored, _ = self.ckpt.restore(self._bundle())
+        with torch.no_grad():
+            T.tree_map(lambda dst, src: dst.copy_(src),
+                       {"params": self.params, "opt": self.opt_state},
+                       {"params": restored["params"],
+                        "opt": restored["opt"]})
+        self.step = int(restored["step"])
+        return True
+
+    @property
+    def last_loss(self) -> float:
+        """Most recent logged loss (event records interleave with the
+        logged steps in ``history``)."""
+        for h in reversed(self.history):
+            if "loss" in h:
+                return h["loss"]
+        return float("nan")
+
+    def median_step_sec(self, *, skip_first: int = 1) -> float:
+        """Median wall time per completed step, excluding the first
+        ``skip_first`` steps (kernel builds, cuDNN planning).  nan if
+        nothing completed."""
+        ts = self.step_seconds[skip_first:]
+        return statistics.median(ts) if ts else float("nan")
+
+    # -- main loop ------------------------------------------------------
+    def _on_sigterm(self, signum, frame):
+        self._preempted = True
+
+    def _preempt_exit(self):
+        self.save()
+        self.ckpt.wait()
+        self._g_preempted.set(1)
+        self._tr.event("train/preempt", step=self.step)
+        self.history.append(
+            {"step": self.step,
+             "event": f"preempted: checkpoint saved at step {self.step}, "
+                      f"exiting"})
+        self.history.append({"step": self.step, "event": "health",
+                             **self.telemetry})
+        return self.history
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self) -> list[dict]:
+        cfg = self.cfg
+        retries = 0
+        skips = 0
+        prev_handler = None
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, self._on_sigterm)
+        except ValueError:
+            pass          # not the main thread
+        try:
+            while self.step < cfg.total_steps:
+                if self._preempted:
+                    return self._preempt_exit()
+                try:
+                    if self.fault_hook is not None:
+                        self.fault_hook(self.step)
+                    with self._tr.span("train/step",
+                                       step=self.step) as step_span:
+                        with self._tr.span("train/data", step=self.step):
+                            batch = self._device_batch(self.step)
+                        self._sync()
+                        t0 = self.clock()
+                        with self._tr.span("train/compute", step=self.step):
+                            # float() waits for the device, so dt covers
+                            # the computation, not its dispatch.
+                            loss, grad_norm, finite = self._one_step(batch)
+                            self._sync()
+                        dt = self.clock() - t0
+                        step_span.set_attr(finite=finite)
+                    if finite:
+                        skips = 0
+                        self.step_seconds.append(dt)
+                        self._h_step.observe(dt)
+                        if self.step % cfg.log_every == 0:
+                            self.history.append(
+                                {"step": self.step, "loss": loss,
+                                 "grad_norm": round(grad_norm, 6),
+                                 "sec": round(dt, 4)})
+                    else:
+                        skips += 1
+                        self._c_skipped.inc()
+                        self._tr.event("train/skip", step=self.step,
+                                       loss=loss, grad_norm=grad_norm)
+                        self.history.append(
+                            {"step": self.step,
+                             "event": f"skipped: non-finite step "
+                                      f"(loss={loss}, "
+                                      f"grad_norm={grad_norm})"})
+                        if skips >= cfg.max_skips:
+                            raise NonFiniteDivergence(
+                                f"{skips} consecutive non-finite steps "
+                                f"(max_skips={cfg.max_skips}) at step "
+                                f"{self.step}; last loss={loss}, "
+                                f"grad_norm={grad_norm} — the replay is "
+                                f"deterministic, so this is a divergence, "
+                                f"not a transient")
+                    # A skipped step still advances: re-running it would
+                    # re-poison deterministically.
+                    self.step += 1
+                    retries = 0
+                    if self.step % cfg.ckpt_every == 0:
+                        self.save()
+                except (KeyboardInterrupt, NonFiniteDivergence):
+                    raise
+                except Exception as e:  # noqa: BLE001 — any step failure
+                    retries += 1
+                    self._c_retries.inc()
+                    self._tr.event("train/retry", step=self.step,
+                                   attempt=retries,
+                                   error=f"{type(e).__name__}: {e}")
+                    if retries > cfg.max_retries:
+                        raise
+                    if cfg.retry_backoff > 0:
+                        (self._sleep or time.sleep)(
+                            cfg.retry_backoff * (2 ** (retries - 1)))
+                    if not self.try_resume():
+                        raise     # no checkpoint to restart from
+                    self._c_recovered.inc()
+                    self._tr.event("train/restore", step=self.step)
+                    self.history.append(
+                        {"step": self.step, "event": f"recovered: {e}"})
+            if self._preempted:
+                return self._preempt_exit()
+            self.save()
+            self.ckpt.wait()
+            self.history.append({"step": self.step, "event": "health",
+                                 **self.telemetry})
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+        return self.history
+

@@ -8,7 +8,8 @@ GPU and no JAX:
 Without a GPU every test skips (the kernels have no CPU mode).
 Tolerances: fp32 kernel ``max|kernel - plain| <= 1e-5 * max|plain|`` (the
 same gather and corner arithmetic, contracted in another order), TF32
-off; int8 kernels exact (``torch.equal``: the same fp32 roundings and
+off; the backward kernel ``1e-4 * max|plain|`` per cotangent (its fp32
+atomics and split partial sums reorder the sums); int8 kernels exact (``torch.equal``: the same fp32 roundings and
 exact integer sums).
 """
 import dataclasses
@@ -18,8 +19,10 @@ import pytest
 import torch
 
 from repro_torch.core.tiling import out_hw
-from repro_torch.kernels import ops, plan
+from repro_torch.kernels import ops, plan, ref
 from repro_torch.kernels import deform_conv_q as Q
+from repro_torch.kernels.deform_conv_bwd import (
+    deform_conv_bwd_zerocopy, deform_conv_bwd_zerocopy_plain)
 from repro_torch.kernels.deform_conv_fused import (
     deform_conv_fused_zerocopy, deform_conv_fused_zerocopy_plain)
 from repro_torch.models import resnet_dcn as R
@@ -28,6 +31,7 @@ from repro_torch.quant.qtypes import compute_scale, quantize_values
 pytestmark = pytest.mark.cuda
 
 RTOL = 1e-5
+BWD_RTOL = 1e-4     # fp32 atomics add in a run-dependent order
 
 # (k, s, d, B, H, W, C, M, th, tw, tc): stride 1/2, dilation 2, ragged
 # Ho/Wo, c_steps > 1, M below the kernel's 64 lanes, 16/32/64-pixel tiles.
@@ -94,12 +98,102 @@ def test_invalid_tiles_raise_before_launch(cuda):
 
 
 def test_deform_conv_refuses_gradients(cuda):
+    """Gradients of the fp32 bounded path flow through the backward kernel
+    (one launch per backward); the int8 datapath still refuses them."""
     x, off, wd = _inputs(3, 6, 6, 4, 4, 1, 1, 2.0, 1, cuda)
-    x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.deform_conv(x, off, wd, offset_bound=2.0)
+    for t in (x, off, wd):
+        t.requires_grad_(True)
+    before = deform_conv_bwd_zerocopy.launches
+    y = ops.deform_conv(x, off, wd, offset_bound=2.0)
+    got = torch.autograd.grad(torch.sin(y).sum(), (x, off, wd))
+    torch.cuda.synchronize()
+    assert deform_conv_bwd_zerocopy.launches == before + 1
+    want = torch.autograd.grad(
+        torch.sin(ref.deform_conv_fused_ref(x, off, wd, offset_bound=2.0))
+        .sum(), (x, off, wd))
+    for g, r in zip(got, want):
+        assert (g - r).abs().max().item() <= BWD_RTOL * r.abs().max().item()
+    with pytest.raises(NotImplementedError, match="quant='qat'"):
+        ops.deform_conv(x, off, wd, offset_bound=2.0, precision="int8")
     with torch.no_grad():
-        assert ops.deform_conv(x, off, wd, offset_bound=2.0).is_cuda
+        assert ops.deform_conv(x, off, wd, offset_bound=2.0,
+                               precision="int8").is_cuda
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_kernel_matches_plain(case, cuda):
+    k, s, d, b, h, w, c, m, th, tw, tc = CASES[case]
+    x, off, wd = _inputs(k, h, w, c, m, s, d, b, len(case), cuda)
+    ho, wo = off.shape[1], off.shape[2]
+    g = torch.randn(2, ho, wo, m, generator=torch.Generator().manual_seed(
+        len(case))).to(cuda)
+    spec = plan.DCSpec(k, s, d, b, th, tw, tc, None)
+    xp, op, wt = plan.zerocopy_inputs(spec, x, off, wd, th, tw, tc)
+    kw = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b,
+              tile_h=th, tile_w=tw, tile_c=tc)
+    before = deform_conv_bwd_zerocopy.launches
+    got = deform_conv_bwd_zerocopy(xp, op, g, wt, **kw)
+    torch.cuda.synchronize()
+    assert deform_conv_bwd_zerocopy.launches == before + 1
+    want = deform_conv_bwd_zerocopy_plain(xp, op, g, wt, **kw)
+    for name, a, r in zip(("dx", "d_off", "dw"), got, want):
+        assert a.shape == r.shape, name
+        assert (a - r).abs().max().item() <= BWD_RTOL * r.abs().max().item(), \
+            name
+    # Non-contiguous cotangent (autograd may hand one over) is refused.
+    with pytest.raises(ValueError, match="contiguous"):
+        deform_conv_bwd_zerocopy(
+            xp, op, g.transpose(1, 2).contiguous().transpose(1, 2), wt, **kw)
+    assert deform_conv_bwd_zerocopy.launches == before + 1
+
+
+def test_small_model_training_step_matches_plain_path(cuda):
+    """One Eq. 5 training step of the small model: gradients through the
+    kernels (2 forward and 2 backward launches) against the same step with
+    the plain versions in place."""
+    from repro_torch.data import DetectionDataConfig, detection_batch
+    from repro_torch.kernels import deform_conv_fused as F
+    from repro_torch.tree import leaves
+    cfg = R.ResNetDCNConfig(stage_sizes=(1, 1, 1, 1),
+                            widths=(16, 32, 64, 128), stem_width=8,
+                            num_dcn=2, num_classes=4, img_size=32,
+                            offset_bound=2.0, use_kernel=True)
+    params = R.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    for block in params.values():
+        if "dcl" in block:
+            d = block["dcl"]
+            d["w_offset"] = (torch.randn(d["w_offset"].shape, generator=gen)
+                             * 0.1).to(cuda)
+    for t in leaves(params):
+        t.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in detection_batch(
+        DetectionDataConfig(img_size=32, global_batch=2, num_classes=4),
+        0).items()}
+
+    def grads():
+        loss, _ = R.train_loss(params, cfg, batch, lam=0.005)
+        return loss, torch.autograd.grad(loss, leaves(params))
+    fwd, bwd = F.deform_conv_fused_zerocopy.launches, \
+        deform_conv_bwd_zerocopy.launches
+    saved = (plan.deform_conv_fused_zerocopy, plan.deform_conv_bwd_zerocopy,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.deterministic = True    # the same offsets twice
+    try:
+        loss, got = grads()
+        torch.cuda.synchronize()
+        assert F.deform_conv_fused_zerocopy.launches == fwd + 2
+        assert deform_conv_bwd_zerocopy.launches == bwd + 2
+        plan.deform_conv_fused_zerocopy = F.deform_conv_fused_zerocopy_plain
+        plan.deform_conv_bwd_zerocopy = deform_conv_bwd_zerocopy_plain
+        want_loss, want = grads()
+    finally:
+        (plan.deform_conv_fused_zerocopy, plan.deform_conv_bwd_zerocopy,
+         torch.backends.cudnn.deterministic) = saved
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    flat = torch.cat([g.reshape(-1) for g in got])
+    ref_flat = torch.cat([g.reshape(-1) for g in want])
+    assert (flat - ref_flat).norm() <= 1e-4 * ref_flat.norm()
 
 
 def test_small_model_kernel_path_matches_plain_path(cuda):
@@ -254,3 +348,37 @@ def test_int8_chain_engine_step_runs_the_chain_kernel_only(cuda):
     torch.cuda.synchronize()
     assert r.outcome == "ok" and r.ladder == "int8_chain"
     assert [fn.launches for fn in counted] == [0, 0, 12]
+
+
+def test_trainer_retry_replays_on_the_kernels(cuda, tmp_path):
+    """A step that raises is replayed from the checkpoint through the same
+    kernels: every computed step launches both DCL kernels twice."""
+    from repro_torch.data import DetectionDataConfig, detection_batch
+    from repro_torch.kernels import deform_conv_fused as F
+    from repro_torch.optim import constant, sgd
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = R.ResNetDCNConfig(stage_sizes=(1, 1, 1, 1),
+                            widths=(16, 32, 64, 128), stem_width=8,
+                            num_dcn=2, num_classes=4, img_size=32,
+                            offset_bound=2.0, use_kernel=True)
+    data = DetectionDataConfig(img_size=32, global_batch=2, num_classes=4)
+    fired = []
+
+    def fault(step):
+        if step == 1 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected")
+    tr = Trainer(loss_fn=lambda p, b: R.train_loss(p, cfg, b, lam=0.005),
+                 params=R.init_params(cfg, seed=0, device=cuda),
+                 optimizer=sgd(constant(0.005)),
+                 batch_fn=lambda s: detection_batch(data, s),
+                 config=TrainerConfig(total_steps=3, ckpt_every=1,
+                                      ckpt_dir=str(tmp_path)),
+                 fault_hook=fault, device=cuda)
+    fwd, bwd = F.deform_conv_fused_zerocopy.launches, \
+        deform_conv_bwd_zerocopy.launches
+    tr.run()
+    torch.cuda.synchronize()
+    assert tr.telemetry["recovered"] == 1 and tr.step == 3
+    assert F.deform_conv_fused_zerocopy.launches == fwd + 2 * 3
+    assert deform_conv_bwd_zerocopy.launches == bwd + 2 * 3
