@@ -59,10 +59,38 @@ Phases, each of which exits non-zero on failure:
    and CUDA events), its forward/backward split and the device-busy share
    from ``torch.profiler``.
 
+9. sampling, banded forward and matmul kernels vs plain on the card:
+   kernel 1b (zero-copy sampling) and kernel 3 (banded sampling) at the
+   five DCL shapes of the 512 bucket at batch 4 and at a ragged H and a
+   dilation-2 case, within 1e-6 absolute, beside the time of
+   ``F.grid_sample`` computing the same function (held to the plain
+   version within 1e-5 * max|plain|); kernel 4 (the banded fused forward)
+   at every distinct DCL shape of both buckets and the same two edge
+   cases, within 1e-5 * max|plain|; kernel 5 (matmul) at 256^3, 512^3,
+   4096^3 and 257x129x65 in fp32 (1e-5 * max|plain|) and 512^3 in bf16
+   (one bf16 step, 2^-7 * max|plain|), beside ``torch.matmul``.  Then the
+   entry points as a user calls them: ``ops.deform_sample`` on both
+   dataflows and ``ops.deform_conv(dataflow=...)`` on both at the five
+   shapes (sample + einsum within 1e-5 * max|fused| of the fused output)
+   and ``ops.matmul`` at the five matmul cases, counting launches.
+10. serve banded: phase 4's model and requests with ``dataflow="banded"``
+   on ``fp32_kernel``; every request ``ok``, 12 launches of kernel 4 per
+   step and none of 1a, ``cls``/``box`` within ``1e-3 * max|ref|`` of the
+   plain path and within ``1e-4 * max|zc|`` of phase 4's zero-copy
+   results for the same requests; forwards of both dataflows timed in
+   turns.
+11. train banded: phase 8's settings with ``dataflow="banded"`` for 2
+   steps; 12 launches of kernel 4 and 12 of kernel 2 per step, none of
+   1a; losses finite, no step skipped; step 0's loss within 1e-5 relative
+   of phase 8's zero-copy step 0 and its gradients within phase 8's gate
+   (the plain path's own spread) of the plain path's; step time and
+   device idle share.
+
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
-run: each shape's phase-3 (phase-5, phase-7) time times the launches of
-that shape in the run of phase 4 (of the kernel's rung in phase 6, of
-phase 8's 6 training steps), summed.
+run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
+launches of that shape in the run of phase 4 (of the kernel's rung in
+phase 6, of phase 8's 6 training steps, of phase 10 for kernel 4, of
+phase 9's entry-point run for 1b, 3 and 5), summed.
 
 TF32 is off for every fp32 matmul and convolution.  Without a GPU, or
 without the rest of the repository beside it, the script prints no result
@@ -96,6 +124,17 @@ RESUME_RTOL = 1e-4          # 4 + resumed 2 steps vs 6 (relative norm)
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
 INT8_VS_FP32_MAX = 0.1      # relative norm error of cls, int8 vs fp32_kernel
+SAMPLE_ATOL = 1e-6          # sampling kernels: the plain version's roundings
+LIBRARY_RTOL = 1e-5         # grid_sample vs the plain sampling (its grid
+                            # is normalised, so positions move ~1e-6 px)
+BF16_RTOL = 2.0 ** -7       # one bf16 step at the largest output
+BANDED_VS_ZC_RTOL = 1e-4    # served banded vs zero-copy (summation order)
+BANDED_LOSS_RTOL = 1e-5     # step-0 loss, banded vs zero-copy
+BANDED_TRAIN_STEPS = 2
+MM_SHAPES = [(256, 256, 256, "float32"), (512, 512, 512, "float32"),
+             (4096, 4096, 4096, "float32"), (257, 129, 65, "float32"),
+             (512, 512, 512, "bfloat16")]
+PEAK_BF16_FLOPS = 989e12
 BATCH = 4
 BUCKETS = "256,512"
 K, B = 3, 2.0
@@ -329,7 +368,7 @@ def serve(record: dict) -> tuple[int, dict]:
           f"{device_ms:.2f} ms (CUDA events), p50 latency "
           f"{record['serve']['p50_latency_ms']:.2f} ms, "
           f"{record['serve']['images_per_s']:.2f} images/s")
-    return launches, record, params
+    return launches, record, params, reqs
 
 
 def serve_args(cfg, rung: str):
@@ -341,14 +380,19 @@ def serve_args(cfg, rung: str):
 
 
 def counted():
+    from repro_torch.kernels import deform_conv_fused as F
     from repro_torch.kernels import deform_conv_q as Q
+    from repro_torch.kernels import deform_sample as S
     from repro_torch.kernels.deform_conv_bwd import deform_conv_bwd_zerocopy
-    from repro_torch.kernels.deform_conv_fused import \
-        deform_conv_fused_zerocopy
-    return {"deform_conv_fused": deform_conv_fused_zerocopy,
+    from repro_torch.kernels.matmul import matmul
+    return {"deform_conv_fused": F.deform_conv_fused_zerocopy,
             "deform_conv_fused_q": Q.deform_conv_fused_zerocopy_q,
             "deform_conv_chain": Q.deform_conv_fused_zerocopy_chain,
-            "deform_conv_bwd": deform_conv_bwd_zerocopy}
+            "deform_conv_bwd": deform_conv_bwd_zerocopy,
+            "deform_sample_zerocopy": S.deform_sample_zerocopy,
+            "deform_sample_banded": S.deform_sample_banded,
+            "deform_conv_banded": F.deform_conv_fused_banded,
+            "matmul": matmul}
 
 
 def reset_counts() -> None:
@@ -794,9 +838,11 @@ class plain_training_kernels:
          ops.deform_conv) = self.saved
 
 
-def train(record: dict) -> int:
+def train(record: dict) -> tuple[int, dict]:
     """Phase 8: train full-width resnet50_dcn_bounded on the card.
-    Returns the backward kernel's launches in the 6-step run."""
+    Returns the backward kernel's launches in the 6-step run, and step 0
+    (loss of the kernel path, gradients of both paths, the gate of the
+    kernel path against the plain path) for phase 11."""
     import shutil
 
     import numpy as np
@@ -1000,7 +1046,482 @@ def train(record: dict) -> int:
         backward_ms=bwd_ms, device_busy_ms=busy, device_top=top,
         step_ms_cudnn_free=free_ms, device_busy_ms_cudnn_free=free_busy,
         device_top_cudnn_free=free_top)
-    return counts["deform_conv_bwd"]
+    step0 = dict(loss=loss_k, loss_plain=loss_p, grads=g_k, grads_plain=g_p,
+                 gate=max(TRAIN_GRAD_RTOL, spread))
+    return counts["deform_conv_bwd"], step0
+
+
+def grid_sample_inputs(x, off, *, stride: int, dilation: int, bound: float):
+    """``F.grid_sample``'s input (NCHW) and grid (N, Ho, Wo*K*K, 2) for the
+    bounded sampling of x at the clamped offsets: the positions of the
+    unpadded image, normalised for ``align_corners=True`` (computed in
+    float64, then rounded once to fp32)."""
+    import torch
+    n, h, w, _ = x.shape
+    _, ho, wo, _ = off.shape
+    k2 = K * K
+    pad = dilation * (K // 2)
+    o = off.double().reshape(n, ho, wo, k2, 2).clamp(-bound, bound)
+    kk = torch.arange(k2, device=x.device)
+    oy = torch.arange(ho, device=x.device)[:, None, None] * stride \
+        - pad + (kk // K)[None, None, :] * dilation
+    ox = torch.arange(wo, device=x.device)[None, :, None] * stride \
+        - pad + (kk % K)[None, None, :] * dilation
+    py = oy.double() + o[..., 0]
+    px = ox.double() + o[..., 1]
+    grid = torch.stack((2 * px / (w - 1) - 1, 2 * py / (h - 1) - 1), -1)
+    return (x.permute(0, 3, 1, 2).contiguous(),
+            grid.reshape(n, ho, wo * k2, 2).float().contiguous())
+
+
+def grid_sample_patches(xc, grid, ho: int, wo: int):
+    """(N, C, Ho, Wo*K*K) from grid_sample -> (N, Ho, Wo, K*K, C)."""
+    import torch.nn.functional as F
+    y = F.grid_sample(xc, grid, mode="bilinear", padding_mode="zeros",
+                      align_corners=True)
+    n, c = y.shape[:2]
+    return y.reshape(n, c, ho, wo, K * K).permute(0, 2, 3, 4, 1)
+
+
+def check_sample_kernels(case: dict, gen) -> list[dict]:
+    """Kernels 1b and 3 vs their plain versions on one geometry, at the
+    tiles ``ops.deform_sample`` picks, and ``F.grid_sample`` computing the
+    same function; returns the two records."""
+    import torch
+
+    from repro_torch.core.tiling import out_hw, sample_smem_bytes
+    from repro_torch.kernels import deform_sample as S
+    from repro_torch.kernels import plan
+
+    n, h, w, c = case["n"], case["h"], case["w"], case["c"]
+    s, d, b = case["stride"], case["dilation"], case.get("bound", B)
+    k2 = K * K
+    ho, wo = out_hw(h, w, kernel_size=K, stride=s, dilation=d)
+    geom = dict(kernel_size=K, stride=s, dilation=d, offset_bound=b)
+    x = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    off = torch.randn(n, ho, wo, 2 * k2, device="cuda", generator=gen) * 1.5
+    lib = S.load_kernel()
+    xc, grid = grid_sample_inputs(x, off, stride=s, dilation=d, bound=b)
+    lib_out = grid_sample_patches(xc, grid, ho, wo)
+    library_ms = time_ms(lambda: grid_sample_patches(xc, grid, ho, wo),
+                         reps=7, iters=10)
+
+    th, tw, tc, _ = plan.resolve_tiles(n, h, w, c, c, tile_h=8,
+                                       dtype="sample", **geom)
+    th, tw = min(th, ho), min(tw, wo)
+    xp = plan.pad_zerocopy(x, tile_h=th, tile_w=tw, ho=ho, wo=wo, **geom)
+    spec = plan.DCSpec(K, s, d, b, 8, dataflow="banded")
+    thb, twb, tcb, _ = plan.banded_tiles(spec, x, off, c, dtype="sample")
+    bands, offb = plan.banded_inputs(spec, x, off, thb)
+    runs = {
+        "deform_sample_zerocopy": (
+            S.deform_sample_zerocopy, S.deform_sample_zerocopy_plain,
+            (xp, off.contiguous()), dict(tile_h=th, tile_w=tw, tile_c=tc),
+            [th, tw, tc]),
+        "deform_sample_banded": (
+            S.deform_sample_banded, S.deform_sample_banded_plain,
+            (bands, offb), dict(tile_h=thb, tile_w=twb, tile_c=tcb),
+            [thb, twb, tcb]),
+    }
+    recs = []
+    for name, (fn, plain, args, tiles, tl) in runs.items():
+        kw = dict(tiles, **geom)
+        y = fn(*args, **kw)
+        torch.cuda.synchronize()
+        yp = plain(*args, **kw)
+        err = (y - yp).abs().max().item()
+        scale = yp.abs().max().item()
+        lib_err = (lib_out - yp[:, :ho]).abs().max().item()
+        ms = time_ms(lambda: fn(*args, **kw), reps=7, iters=10)
+        plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, iters=2)
+        smem_c = lib.ds_smem_bytes(K, s, d, math.ceil(b), tl[0], tl[1],
+                                   tl[2])
+        smem_py = sample_smem_bytes(tl[0], tl[1], tl[2], kernel_size=K,
+                                    stride=s, dilation=d, offset_bound=b)
+        flops = 7 * y.numel()      # four products and three sums a sample
+        nbytes = 4 * (args[0].numel() + args[1].numel() + y.numel())
+        bound_ms = max(flops / PEAK_FP32_FLOPS,
+                       nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
+        rec = dict(case, kernel=name, ho=ho, wo=wo, tiles=tl,
+                   smem_bytes=smem_c, max_abs_err=err, max_abs_plain=scale,
+                   library_err=lib_err,
+                   clamped_share=(off.abs() > b).float().mean().item(),
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms,
+                   bound_by="operations" if flops / PEAK_FP32_FLOPS
+                   >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
+                   flops=flops, bytes=nbytes)
+        ok = err <= SAMPLE_ATOL and smem_c == smem_py \
+            and lib_err <= LIBRARY_RTOL * scale
+        print(f"  {name:<22} {case['label']:<26} tiles {tl[0]}x{tl[1]} "
+              f"tc={tl[2]} smem={smem_c} err={err:.1e} "
+              f"grid_sample err={lib_err:.1e} (max|plain|={scale:.2f}) "
+              f"kernel={ms:.4f} ms plain={plain_ms:.3f} ms "
+              f"grid_sample={library_ms:.4f} ms bound={bound_ms:.4f} ms "
+              f"{'ok' if ok else 'FAIL'}")
+        if smem_c != smem_py:
+            fail(f"{name} {case['label']}: shared memory {smem_c} (kernel) "
+                 f"!= {smem_py} (chooser)")
+        if err > SAMPLE_ATOL:
+            fail(f"{name} {case['label']}: max|kernel - plain| = {err} "
+                 f"exceeds {SAMPLE_ATOL}")
+        if lib_err > LIBRARY_RTOL * scale:
+            fail(f"{name} {case['label']}: grid_sample is {lib_err} from "
+                 f"the plain version: not the same function")
+        recs.append(rec)
+    return recs
+
+
+def check_banded_kernel(case: dict, gen) -> dict:
+    """Kernel 4 vs its plain version on one geometry, at the tiles of the
+    banded plan; returns the record."""
+    import torch
+
+    from repro_torch.core.tiling import out_hw, smem_bytes
+    from repro_torch.kernels import deform_conv_fused as F
+    from repro_torch.kernels import plan
+
+    n, h, w, c, m = case["n"], case["h"], case["w"], case["c"], case["m"]
+    s, d, b = case["stride"], case["dilation"], case.get("bound", B)
+    ho, wo = out_hw(h, w, kernel_size=K, stride=s, dilation=d)
+    x = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    off = torch.randn(n, ho, wo, 2 * K * K, device="cuda",
+                      generator=gen) * 1.5
+    wd = torch.randn(K * K, c, m, device="cuda", generator=gen) \
+        / (K * K * c) ** 0.5
+    spec = plan.DCSpec(K, s, d, b, dataflow="banded")
+    th, tw, tc, tm = plan.banded_tiles(spec, x, off, m, dtype="banded")
+    bands, offb = plan.banded_inputs(spec, x, off, th)
+    wt = plan.tile_weights(wd, tc)
+    kw = dict(kernel_size=K, stride=s, dilation=d, offset_bound=b,
+              tile_h=th, tile_w=tw, tile_c=tc, tile_m=tm)
+    y = F.deform_conv_fused_banded(bands, offb, wt, **kw)
+    torch.cuda.synchronize()
+    yp = F.deform_conv_fused_banded_plain(bands, offb, wt, **kw)
+    err = (y - yp).abs().max().item()
+    scale = yp.abs().max().item()
+    smem_c = F.load_kernel().dcf_smem_bytes(K, s, d, math.ceil(b), th, tw,
+                                            tc)
+    smem_py = smem_bytes(th, tw, tc, kernel_size=K, stride=s, dilation=d,
+                         offset_bound=b)
+    ms = time_ms(lambda: F.deform_conv_fused_banded(bands, offb, wt, **kw),
+                 reps=7, iters=10)
+    plain_ms = time_ms(
+        lambda: F.deform_conv_fused_banded_plain(bands, offb, wt, **kw),
+        reps=3, iters=2)
+    prep_ms = time_ms(lambda: (plan.banded_inputs(spec, x, off, th),
+                               plan.tile_weights(wd, tc)), reps=5, iters=10)
+    flops = 2 * n * offb.shape[1] * wo * K * K * c * m
+    nbytes = 4 * (bands.numel() + offb.numel() + wt.numel() + y.numel())
+    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S) \
+        * 1e3
+    rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc, tm], smem_bytes=smem_c,
+               bands_bytes=4 * bands.numel(), input_bytes=4 * x.numel(),
+               max_abs_err=err, max_abs_plain=scale,
+               clamped_share=(off.abs() > b).float().mean().item(),
+               ms=ms, plain_ms=plain_ms, prep_ms=prep_ms, bound_ms=bound_ms,
+               bound_by="operations" if flops / PEAK_FP32_FLOPS
+               >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
+               flops=flops, bytes=nbytes)
+    ok = err <= KERNEL_RTOL * scale and smem_c == smem_py
+    print(f"  {case['label']:<28} tiles {th}x{tw} tc={tc} tm={tm} "
+          f"smem={smem_c} bands/input "
+          f"{bands.numel() / x.numel():.2f}x err={err:.3e} "
+          f"(max|plain|={scale:.3f}) kernel={ms:.4f} ms "
+          f"plain={plain_ms:.3f} ms prep={prep_ms:.4f} ms "
+          f"bound={bound_ms:.4f} ms per_step={case.get('per_step', {})} "
+          f"{'ok' if ok else 'FAIL'}")
+    if smem_c != smem_py:
+        fail(f"banded {case['label']}: shared memory {smem_c} (kernel) != "
+             f"{smem_py} (chooser)")
+    if err > KERNEL_RTOL * scale:
+        fail(f"banded {case['label']}: max|kernel - plain| = {err} exceeds "
+             f"{KERNEL_RTOL} * {scale}")
+    return rec
+
+
+def check_matmul(m: int, k: int, n: int, dtype: str, gen) -> dict:
+    """Kernel 5 vs its plain version and ``torch.matmul``; the record."""
+    import torch
+
+    from repro_torch.kernels import matmul as MM
+    x = torch.randn(m, k, device="cuda", generator=gen).to(
+        getattr(torch, dtype))
+    w = torch.randn(k, n, device="cuda", generator=gen).to(
+        getattr(torch, dtype))
+    y = MM.matmul(x, w)
+    torch.cuda.synchronize()
+    yp = MM.matmul_plain(x, w)
+    err = (y.float() - yp.float()).abs().max().item()
+    scale = yp.float().abs().max().item()
+    tol = KERNEL_RTOL if dtype == "float32" else BF16_RTOL
+    big = m * n * k > 1e9
+    ms = time_ms(lambda: MM.matmul(x, w), reps=5, iters=3 if big else 20)
+    plain_ms = time_ms(lambda: MM.matmul_plain(x, w), reps=5,
+                       iters=3 if big else 20)
+    library_ms = time_ms(lambda: torch.matmul(x, w), reps=5,
+                         iters=3 if big else 20)
+    flops = 2 * m * n * k
+    peak = PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+    nbytes = x.element_size() * (m * k + k * n + m * n)
+    bound_ms = max(flops / peak, nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
+    label = f"{m}x{k}x{n} {dtype}"
+    rec = dict(label=label, m=m, k=k, n=n, dtype=dtype, max_abs_err=err,
+               max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms,
+               bound_by="operations" if flops / peak
+               >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
+               flops=flops, op_ms=flops / peak * 1e3, bytes=nbytes)
+    print(f"  matmul {label:<24} err={err:.2e} (max|plain|={scale:.2f}) "
+          f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"torch.matmul={library_ms:.4f} ms bound={bound_ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s) "
+          f"{'ok' if err <= tol * scale else 'FAIL'}")
+    if err > tol * scale:
+        fail(f"matmul {label}: max|kernel - plain| = {err} exceeds "
+             f"{tol} * {scale}")
+    return rec
+
+
+def entry_points(cases: list[dict], gen) -> dict[str, int]:
+    """Phase 9's main path: ``ops.deform_sample`` on both dataflows and
+    ``ops.deform_conv`` on both at each case, sample + einsum against the
+    fused output, and ``ops.matmul`` at every matmul case, as a user calls
+    them.  Returns the launches counted in that run."""
+    import torch
+
+    from repro_torch.core.tiling import out_hw
+    from repro_torch.kernels import ops
+
+    inputs = []
+    for case in cases:
+        n, h, w, c, s = (case["n"], case["h"], case["w"], case["c"],
+                         case["stride"])
+        ho, wo = out_hw(h, w, kernel_size=K, stride=s)
+        inputs.append((case, torch.randn(n, h, w, c, device="cuda",
+                                         generator=gen),
+                       torch.randn(n, ho, wo, 2 * K * K, device="cuda",
+                                   generator=gen) * 1.5,
+                       torch.randn(K * K, c, c, device="cuda", generator=gen)
+                       / (K * K * c) ** 0.5))
+    mm_inputs = [(torch.randn(m, k, device="cuda", generator=gen).to(
+        getattr(torch, dt)), torch.randn(k, n, device="cuda",
+                                          generator=gen).to(getattr(torch, dt)))
+        for m, k, n, dt in MM_SHAPES]
+    torch.cuda.synchronize()
+    reset_counts()
+    worst = {}
+    for case, x, off, wd in inputs:
+        kw = dict(offset_bound=B, stride=case["stride"], device="cuda")
+        for dataflow in ("zero_copy", "banded"):
+            patches = ops.deform_sample(x, off, dataflow=dataflow, **kw)
+            fused = ops.deform_conv(x, off, wd, dataflow=dataflow, **kw)
+            two = torch.einsum("nhwkc,kcm->nhwm", patches, wd)
+            rel = ((two - fused).abs().max() / fused.abs().max()).item()
+            worst[dataflow] = max(worst.get(dataflow, 0.0), rel)
+            if rel > KERNEL_RTOL or patches.shape[-2:] != (K * K, x.shape[-1]):
+                fail(f"{case['label']} {dataflow}: sample + einsum is {rel} "
+                     f"(relative) from the fused forward")
+    for x, w in mm_inputs:
+        y = ops.matmul(x, w)
+        if y.dtype != x.dtype or not torch.isfinite(y.float()).all():
+            fail(f"ops.matmul {tuple(x.shape)} x {tuple(w.shape)}: "
+                 f"{y.dtype}, finite {torch.isfinite(y.float()).all()}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {name: 0 for name in counts}
+    want.update(deform_sample_zerocopy=len(cases),
+                deform_sample_banded=len(cases),
+                deform_conv_fused=len(cases), deform_conv_banded=len(cases),
+                matmul=len(MM_SHAPES))
+    print(f"  entry points: launches {counts}; sample + einsum vs fused, "
+          f"worst relative {worst}")
+    if counts != want:
+        fail(f"the entry-point run launched {counts}; expected {want}")
+    return counts
+
+
+def serve_banded(record: dict, params, zc_reqs) -> int:
+    """Phase 10: phase 4's model and requests on the banded dataflow.
+    Returns kernel 4's launches in the served run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import resnet_dcn as R
+
+    cfg = dataclasses.replace(CONFIG_BOUNDED, use_kernel=True,
+                              dataflow="banded")
+    n_dcl = sum(cfg.is_dcn(i) for i in range(cfg.total_blocks))
+    args = serve_args(cfg, "fp32_kernel")
+    launch.serve_detection(cfg, args, params=params)        # warm-up
+    reset_counts()
+    engine, _, seconds = launch.serve_detection(cfg, args, params=params)
+    counts = read_counts()
+    print(launch.report(engine, seconds))
+    reqs = engine.completed
+    bad = [r for r in reqs if r.outcome != "ok" or r.ladder != "fp32_kernel"
+           or r.degraded]
+    if len(reqs) != 8 or bad:
+        fail(f"banded requests not all ok on fp32_kernel: "
+             f"{[(r.uid, r.outcome, r.ladder, r.error) for r in reqs]}")
+    want = {name: (n_dcl * engine.steps if name == "deform_conv_banded"
+                   else 0) for name in counts}
+    if counts != want:
+        fail(f"the banded run launched {counts} in {engine.steps} steps; "
+             f"expected {want}")
+    print(f"  launches in the banded run: {counts}")
+    zc = {r.uid: r.result for r in zc_reqs}
+    ref_cfg = dataclasses.replace(cfg, use_kernel=False)
+    zc_cfg = dataclasses.replace(cfg, dataflow="zero_copy")
+    errs = {}
+    fwd_ms = {}
+    for bucket in sorted({r.bucket for r in reqs}):
+        rows = [r for r in reqs if r.bucket == bucket]
+        x = engine.batch_array(bucket, rows)
+        with torch.no_grad():
+            ref, _ = R.forward(params, ref_cfg, x, device="cuda")
+        for key in ("cls", "box"):
+            got = np.stack([r.result[key] for r in rows])
+            r_np = ref[key].cpu().numpy()[:len(rows)]
+            z_np = np.stack([zc[r.uid][key] for r in rows])
+            err = float(np.abs(got - r_np).max())
+            scale = float(np.abs(r_np).max())
+            err_zc = float(np.abs(got - z_np).max())
+            scale_zc = float(np.abs(z_np).max())
+            errs[f"{bucket}/{key}"] = dict(vs_plain=err / scale,
+                                           vs_zero_copy=err_zc / scale_zc)
+            print(f"  bucket {bucket} {key}: vs plain path {err:.3e} "
+                  f"(max|ref|={scale:.3f}); vs phase 4's zero-copy "
+                  f"{err_zc:.3e} (rel {err_zc / scale_zc:.2e})")
+            if not np.isfinite(got).all() or err > SERVE_RTOL * scale:
+                fail(f"banded bucket {bucket} {key} off the plain path: "
+                     f"{err} > {SERVE_RTOL} * {scale}")
+            if err_zc > BANDED_VS_ZC_RTOL * scale_zc:
+                fail(f"banded bucket {bucket} {key} off the zero-copy "
+                     f"result: {err_zc} > {BANDED_VS_ZC_RTOL} * {scale_zc}")
+        # Both dataflows' forwards, timed in turns.
+        fns = {"banded": lambda: R.forward(params, cfg, x, device="cuda"),
+               "zero_copy": lambda: R.forward(params, zc_cfg, x,
+                                              device="cuda")}
+        turns: dict[str, list[float]] = {name: [] for name in fns}
+        with torch.no_grad():
+            busy, top = device_profile(fns["banded"])
+            for _ in range(5):
+                for name, fn in fns.items():
+                    turns[name].append(time_ms(fn, reps=1, iters=3))
+        row = {name: statistics.median(t) for name, t in turns.items()}
+        row.update(turns=turns, banded_device_busy=busy, banded_top=top)
+        fwd_ms[str(bucket)] = row
+        share = "not measured" if busy is None \
+            else f"{1 - busy / row['banded']:.0%}"
+        print(f"  {bucket}-bucket forward, batch {BATCH}: banded "
+              f"{row['banded']:.3f} ms, zero-copy {row['zero_copy']:.3f} ms "
+              f"(median of 5 turns); banded device busy "
+              f"{busy if busy is None else round(busy, 3)} ms, idle {share}; "
+              f"top {top[:4]}")
+    lats = sorted(r.latency_s() for r in reqs)
+    record["serve_banded"] = dict(
+        requests=len(reqs), steps=engine.steps, launches=counts,
+        steps_per_bucket=engine.telemetry()["steps_per_bucket"],
+        plans=engine.telemetry()["plans"], seconds=seconds,
+        p50_latency_ms=lats[len(lats) // 2] * 1e3, errors=errs,
+        forward_ms=fwd_ms)
+    return counts["deform_conv_banded"]
+
+
+def train_banded(record: dict, step0: dict) -> None:
+    """Phase 11: phase 8's training settings on the banded dataflow."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
+    from repro_torch.data import DetectionDataConfig, detection_batch
+    from repro_torch.launch import train as launch
+    from repro_torch.models import resnet_dcn as R
+    from repro_torch.tree import leaves
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = dataclasses.replace(CONFIG_BOUNDED, dataflow="banded")
+    ckpt = ROOT / "build" / "smoke_train_banded"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = launch.build_parser().parse_args(
+        ["--arch", cfg.name, "--full", "--steps", str(BANDED_TRAIN_STEPS),
+         "--global-batch", str(TRAIN_BATCH), "--ckpt", str(ckpt),
+         "--ckpt-every", "100", "--log-every", "1", "--seed", "0",
+         "--device", "cuda"])
+    tcfg = launch.train_config(cfg, args)
+    n_dcl = sum(tcfg.is_dcn(i) for i in range(tcfg.total_blocks))
+
+    def params():
+        return perturb_offsets(R.init_params(tcfg, seed=0, device="cuda"), 1)
+    reset_counts()
+    t0 = time.monotonic()
+    trainer = launch.train_detection(cfg, args, params=params())
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    losses = [h["loss"] for h in trainer.history if "loss" in h]
+    print(f"  config {tcfg.name} dataflow={tcfg.dataflow}: "
+          f"{BANDED_TRAIN_STEPS} steps in {wall:.2f} s; losses "
+          f"{[round(v, 5) for v in losses]}; telemetry {trainer.telemetry}; "
+          f"launches {counts}")
+    per = n_dcl * BANDED_TRAIN_STEPS
+    want = {name: (per if name in ("deform_conv_banded", "deform_conv_bwd")
+                   else 0) for name in counts}
+    if counts != want:
+        fail(f"banded training launched {counts}; expected {want}")
+    if len(losses) != BANDED_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or trainer.telemetry != {"skipped": 0, "recovered": 0,
+                                     "retries": 0, "preempted": False}:
+        fail(f"banded training: losses {losses}, telemetry "
+             f"{trainer.telemetry}")
+
+    # Step 0 against phase 8's zero-copy step 0 (the same params and batch).
+    data = DetectionDataConfig(img_size=tcfg.img_size,
+                               global_batch=TRAIN_BATCH,
+                               num_classes=tcfg.num_classes, seed=0)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in detection_batch(data, 0).items()}
+    p0 = params()
+    for t in leaves(p0):
+        t.requires_grad_(True)
+    loss, _ = R.train_loss(p0, tcfg, batch, lam=0.005, device="cuda")
+    g = torch.cat([t.reshape(-1) for t in
+                   torch.autograd.grad(loss, leaves(p0))])
+    loss_rel = abs(loss.item() - step0["loss"]) / abs(step0["loss"])
+    rel_plain = ((g - step0["grads_plain"]).norm()
+                 / step0["grads_plain"].norm()).item()
+    rel_zc = ((g - step0["grads"]).norm() / step0["grads"].norm()).item()
+    print(f"  step 0: loss {loss.item():.6f} vs zero-copy "
+          f"{step0['loss']:.6f} (rel {loss_rel:.2e}); gradients vs the "
+          f"plain path {rel_plain:.2e} (phase 8's gate "
+          f"{step0['gate']:.2e}), vs the zero-copy kernel path "
+          f"{rel_zc:.2e}; first logged loss {losses[0]:.6f}")
+    if loss_rel > BANDED_LOSS_RTOL or abs(losses[0] - step0["loss"]) \
+            > BANDED_LOSS_RTOL * abs(step0["loss"]):
+        fail(f"banded step 0 loss is {loss_rel} from the zero-copy step 0")
+    if rel_plain > step0["gate"]:
+        fail(f"banded step 0 gradients are {rel_plain} from the plain "
+             f"path's, beyond phase 8's gate {step0['gate']}")
+    step_batch = trainer._device_batch(0)
+    step_ms = time_ms(lambda: trainer._one_step(step_batch), reps=3, iters=2)
+    busy, top = device_profile(lambda: trainer._one_step(step_batch))
+    share = "not measured" if busy is None else f"{1 - busy / step_ms:.0%}"
+    print(f"  banded step (forward + backward + SGD), batch {TRAIN_BATCH}: "
+          f"{step_ms:.3f} ms (CUDA events, cuDNN deterministic); device "
+          f"busy {busy if busy is None else round(busy, 3)} ms, idle "
+          f"{share}; top {top[:5]}")
+    record["train_banded"] = dict(
+        steps=BANDED_TRAIN_STEPS, wall_s=wall, losses=losses,
+        telemetry=trainer.telemetry, launches=counts,
+        host_step_ms=[t * 1e3 for t in trainer.step_seconds],
+        step0_loss=loss.item(), step0_loss_rel=loss_rel,
+        step0_grad_rel_plain=rel_plain, step0_grad_rel_zero_copy=rel_zc,
+        step_ms=step_ms, device_busy_ms=busy, device_top=top)
 
 
 def per_run(shapes: list[dict], steps_per_bucket: dict, launches: int,
@@ -1092,7 +1613,7 @@ def main() -> int:
           "so there is no library time to compare with")
 
     print("== 4. serve")
-    launches, record, params = serve(record)
+    launches, record, params, zc_reqs = serve(record)
     run, bound_by = per_run(main_path, record["serve"]["steps_per_bucket"],
                             launches, PEAK_FP32_FLOPS, "deform_conv_fused")
     run["prep_ms"] = sum(r["prep_ms"] * r["launches_in_run"]
@@ -1197,7 +1718,7 @@ def main() -> int:
           "backward, so there is no library time to compare with")
 
     print("== 8. train")
-    bwd_launches = train(record)
+    bwd_launches, step0 = train(record)
     shapes = [r for r in record["bwd_shapes"] if r.get("per_step")]
     run_b, by = per_run(shapes, {"512": TRAIN_STEPS}, bwd_launches,
                         PEAK_FP32_FLOPS, "deform_conv_bwd")
@@ -1221,6 +1742,121 @@ def main() -> int:
           f"{run_b['plain_ms']:.3f} ms, bound {run_b['bound_ms']:.4f} ms "
           f"({by}); per step {per_step_ms:.3f} ms of the backward's "
           f"{record['train']['backward_ms']:.3f} ms")
+
+    print("== 9. sampling, banded forward and matmul kernels vs plain on "
+          "the card")
+    five: dict[tuple, dict] = {}
+    for dims in bucket_layer_dims(CONFIG_BOUNDED, 512).values():
+        h, w, c, m, s = (dims["h"], dims["w"], dims["c"], dims["m"],
+                         dims["stride"])
+        five.setdefault((h, w, c, m, s), dict(
+            label=f"{h}x{w}x{c}->{m} s{s}", n=BATCH, h=h, w=w, c=c, m=m,
+            stride=s, dilation=1))
+    five_cases = list(five.values())
+    edge = [
+        dict(label="ragged 17x23x64->64 s1", n=2, h=17, w=23, c=64, m=64,
+             stride=1, dilation=1),
+        dict(label="dilation2 B1.5 20x20x64->64", n=2, h=20, w=20, c=64,
+             m=64, stride=1, dilation=2, bound=1.5),
+    ]
+    record["sample_shapes"] = [r for case in five_cases + edge
+                               for r in check_sample_kernels(case, gen)]
+    banded_cases = [dict(label=f"{h}x{w}x{c}->{m} s{s}", n=BATCH, h=h, w=w,
+                         c=c, m=m, stride=s, dilation=1, per_step=cnt)
+                    for (h, w, c, m, s), cnt in per_step.items()] + edge
+    record["banded_shapes"] = [check_banded_kernel(case, gen)
+                               for case in banded_cases]
+    print("  no single PyTorch call computes the banded fused forward, so "
+          "there is no library time to compare with")
+    record["mm_shapes"] = [check_matmul(*shape, gen) for shape in MM_SHAPES]
+    entry = entry_points(five_cases, gen)
+    record["entry_point_launches"] = entry
+    five_labels = {case["label"] for case in five_cases}
+    for name, replaces in (
+            ("deform_sample_zerocopy",
+             "src/repro/kernels/band_pipeline.py:644 (via "
+             "src/repro/kernels/deform_sample.py:52)"),
+            ("deform_sample_banded", "src/repro/kernels/deform_sample.py:107")):
+        shapes = [dict(r, per_step={"run": 1}) for r in record["sample_shapes"]
+                  if r["kernel"] == name and r["label"] in five_labels]
+        run_s, by = per_run(shapes, {"run": 1}, entry[name],
+                            PEAK_FP32_FLOPS, name)
+        run_s["library_ms"] = sum(r["library_ms"] for r in shapes)
+        record[f"run_{name}"] = run_s
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/deform_sample.cu",
+            "replaces": replaces,
+            "launches": entry[name],
+            "max_abs_err": max(r["max_abs_err"] for r in
+                               record["sample_shapes"] if r["kernel"] == name),
+            "ms": run_s["ms"],
+            "plain_ms": run_s["plain_ms"],
+            "bound_ms": run_s["bound_ms"],
+            "bound_by": by,
+            "library_ms": run_s["library_ms"],
+        })
+        print(f"  {name} per entry-point run: {entry[name]} launches, kernel "
+              f"{run_s['ms']:.3f} ms, plain {run_s['plain_ms']:.3f} ms, "
+              f"grid_sample {run_s['library_ms']:.3f} ms, bound "
+              f"{run_s['bound_ms']:.4f} ms ({by})")
+
+    print("== 10. serve banded")
+    banded_launches = serve_banded(record, params, zc_reqs)
+    shapes = [r for r in record["banded_shapes"] if r.get("per_step")]
+    run_4, by = per_run(shapes, record["serve_banded"]["steps_per_bucket"],
+                        banded_launches, PEAK_FP32_FLOPS,
+                        "deform_conv_banded")
+    run_4["prep_ms"] = sum(r["prep_ms"] * r["launches_in_run"]
+                           for r in shapes)
+    record["run_deform_conv_banded"] = run_4
+    kernels["kernels"].append({
+        "name": "deform_conv_banded",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/deform_conv_fused.cu",
+        "replaces": "src/repro/kernels/deform_conv_fused.py:130",
+        "launches": banded_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in record["banded_shapes"]),
+        "ms": run_4["ms"],
+        "plain_ms": run_4["plain_ms"],
+        "bound_ms": run_4["bound_ms"],
+        "bound_by": by,
+        "library_ms": None,
+    })
+    print(f"  deform_conv_banded per served run: {banded_launches} launches, "
+          f"kernel {run_4['ms']:.3f} ms, plain {run_4['plain_ms']:.3f} ms, "
+          f"bound {run_4['bound_ms']:.4f} ms ({by}); bands and weights "
+          f"prepared in {run_4['prep_ms']:.3f} ms")
+
+    print("== 11. train banded")
+    train_banded(record, step0)
+    del step0
+
+    mm = record["mm_shapes"]
+    op_ms = sum(r["op_ms"] for r in mm)
+    byte_ms = sum(r["bytes"] for r in mm) / PEAK_HBM_BYTES_PER_S * 1e3
+    record["run_matmul"] = run_mm = dict(
+        ms=sum(r["ms"] for r in mm), plain_ms=sum(r["plain_ms"] for r in mm),
+        library_ms=sum(r["library_ms"] for r in mm),
+        bound_ms=max(op_ms, byte_ms))
+    kernels["kernels"].append({
+        "name": "matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul.py:63",
+        "launches": entry["matmul"],
+        "max_abs_err": max(r["max_abs_err"] for r in mm),
+        "ms": run_mm["ms"],
+        "plain_ms": run_mm["plain_ms"],
+        "bound_ms": run_mm["bound_ms"],
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "library_ms": run_mm["library_ms"],
+    })
+    print(f"  matmul per entry-point run: {entry['matmul']} launches, kernel "
+          f"{run_mm['ms']:.3f} ms, plain {run_mm['plain_ms']:.3f} ms, "
+          f"torch.matmul {run_mm['library_ms']:.3f} ms, bound "
+          f"{run_mm['bound_ms']:.4f} ms")
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

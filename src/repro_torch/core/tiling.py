@@ -6,7 +6,8 @@ vector memory: here a thread block gets at most 227 KB of shared memory
 and the card has 132 SMs to fill.  The chooser is a plain function of the
 layer's shape and datapath (no cache, no tuning table); ``smem_bytes``,
 ``q_smem_bytes`` and ``bwd_smem_bytes`` mirror the kernels' own
-``*_smem_bytes`` exports.  The TPU chooser's scheduling knobs (``cores``,
+``*_smem_bytes`` exports (``sample_smem_bytes`` that of the sampling
+kernels).  The TPU chooser's scheduling knobs (``cores``,
 ``dw_flush_every_step``) have no counterpart here.
 """
 from __future__ import annotations
@@ -128,6 +129,29 @@ def bwd_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
                 + BWD_MC * (pix + 4) + 5 * k2 * pix)
 
 
+# The sampling kernels (csrc/deform_sample.cu): a block writes tile_c <= 32
+# channels of each (pixel, tap), one 128-byte line of fp32 patches.
+SAMPLE_TC_MAX = 32
+# The banded dataflow's row tile when the caller gives none (the JAX
+# ``plan.bounded_forward`` and ``ops.deform_sample`` default).
+BANDED_TILE_H = 8
+
+
+def sample_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
+                      kernel_size: int, stride: int, dilation: int,
+                      offset_bound: float) -> int:
+    """Dynamic shared memory of one block of the sampling kernels; mirrors
+    ``ds_smem_bytes`` in ``csrc/deform_sample.cu``: the band chunk
+    (position-major, channels innermost) and the corner geometry (index,
+    ty, tx per tap and pixel)."""
+    k2 = kernel_size * kernel_size
+    bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    return 4 * (bh * bw * tile_c + 3 * k2 * tile_h * tile_w)
+
+
 BWD_ROW_BLOCKS = 5   # 64-row blocks one d_weights block takes, at most
 BWD_MAX_QUADS = 3 * 256   # 4x4 dP tiles of a d_input block (3 a thread)
 
@@ -154,7 +178,7 @@ def bwd_dw_splits(n: int, ho: int, wo: int, c: int, m: int, *,
     return max(1, min(tiles, -(-2 * SM_COUNT // base)))
 
 
-DTYPES = ("fp32", "int8", "int8_chain", "fp32_bwd")
+DTYPES = ("fp32", "int8", "int8_chain", "fp32_bwd", "sample", "banded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,20 +203,28 @@ def grid_blocks(n: int, ho: int, wo: int, m: int, t: KernelTiles) -> int:
 
 def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
                         kernel_size: int, stride: int, dilation: int = 1,
-                        offset_bound: float,
-                        dtype: str = "fp32") -> KernelTiles:
+                        offset_bound: float, dtype: str = "fp32",
+                        tile_h: int | None = None) -> KernelTiles:
     """Tiles of the fused kernels for one layer shape and datapath
     (``dtype``: ``"fp32"`` for ``deform_conv_fused.cu``, ``"int8"`` and
     ``"int8_chain"`` for the two kernels of ``deform_conv_q.cu``,
-    ``"fp32_bwd"`` for the backward of ``deform_conv_bwd.cu``).
+    ``"fp32_bwd"`` for the backward of ``deform_conv_bwd.cu``,
+    ``"sample"`` for the sampling kernels of ``deform_sample.cu`` and
+    ``"banded"`` for the banded forward of ``deform_conv_fused.cu``).
 
-    * ``tile_m``: the largest divisor of M up to the kernel's 64 lanes.
+    * ``tile_m``: the largest divisor of M up to the kernel's 64 lanes
+      (``"sample"``: ``tile_c``, the channels a block writes).
     * spatial: 8x8 clamped to the output; while the grid has fewer
       blocks than the card has SMs, halve the longer side, down to 16
-      pixels per block (the backward's grid counts no M tiles).
-    * ``tile_c``, fp32: the largest divisor of C up to 32 whose block
-      fits twice in an SM's shared memory (so two blocks can be
-      resident), else the largest that fits once.
+      pixels per block (the backward's grid counts no M tiles, the
+      sampling kernels' counts C / tile_c).  A given ``tile_h`` fixes the
+      rows (not clamped to the output: the caller clamps) and only
+      ``tile_w`` is halved; ``"banded"`` always fixes them at the bands'
+      row tile (default ``BANDED_TILE_H``), so a block covers a whole
+      band tile's rows and ``tile_w`` of its columns.
+    * ``tile_c``, fp32 and banded: the largest divisor of C up to 32
+      whose block fits twice in an SM's shared memory (so two blocks can
+      be resident), else the largest that fits once.
     * ``tile_c``, int8: the largest multiple-of-4 divisor of C up to 64
       whose block fits four times in an SM (a quarter of the fp32 bytes
       per channel), else twice, else once.  The chain kernel streams C in
@@ -201,6 +233,10 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
     * ``tile_c``, fp32_bwd: as fp32, against the backward's own model
       (``bwd_smem_bytes``), and at most ``BWD_MAX_QUADS`` dP register
       tiles (``bwd_quads``); ``tile_m`` only shapes the forward's grid.
+    * ``tile_c``, sample: no contraction, so the block is sized by what it
+      writes, ``tile_h * tile_w * K*K * tile_c`` patches: the largest
+      divisor of C up to ``SAMPLE_TC_MAX`` whose band chunk fits four
+      times in an SM, else twice, else once.
     None fitting raises.
     """
     if dtype not in DTYPES:
@@ -208,23 +244,46 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
                          f"{DTYPES}")
     ho, wo = out_hw(h, w, kernel_size=kernel_size, stride=stride,
                     dilation=dilation)
-    tm = _divisor_at_most(m, TILE_M_MAX)
-    th, tw = min(8, ho), min(8, wo)
-    # The backward's d_input kernel has no M axis in its grid.
-    grid_m = m if dtype == "fp32_bwd" else tm
-    while (grid_blocks(n, ho, wo, m, KernelTiles(th, tw, 1, grid_m))
-           < SM_COUNT and th * tw > 16):
-        if th >= tw:
-            th = -(-th // 2)
-        else:
-            tw = -(-tw // 2)
+    if tile_h is None:
+        th = BANDED_TILE_H if dtype == "banded" else min(8, ho)
+    else:
+        th = tile_h
+    tw = min(8, wo)
+    if dtype == "banded":
+        if th > PIX_LANES[-1]:
+            raise ValueError(f"tile_h={th}: a banded block covers a whole "
+                             f"band tile's rows, at most {PIX_LANES[-1]}")
+        tw = min(tw, PIX_LANES[-1] // th)
     geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
                 offset_bound=offset_bound)
-    if dtype in ("fp32", "fp32_bwd"):
+    if dtype == "sample":
+        cands = sorted({_divisor_at_most(c, cap)
+                        for cap in (SAMPLE_TC_MAX, 16, 8, 4, 2, 1)},
+                       reverse=True)
+        # The grid's third axis is C / tile_c (counted at the widest chunk).
+        grid_c, grid_t = c, cands[0]
+    else:
+        tm = _divisor_at_most(m, TILE_M_MAX)
+        # The backward's d_input kernel has no M axis in its grid.
+        grid_c, grid_t = m, (m if dtype == "fp32_bwd" else tm)
+    while (grid_blocks(n, ho, wo, grid_c, KernelTiles(th, tw, 1, grid_t))
+           < SM_COUNT and th * tw > 16):
+        if th >= tw and tile_h is None and dtype != "banded":
+            th = -(-th // 2)
+        elif tw > 1:
+            tw = -(-tw // 2)
+        else:
+            break
+    if dtype == "sample":
+        budgets = (SMEM_PER_BLOCK // 4, SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
+
+        def block_bytes(tc):
+            return sample_smem_bytes(th, tw, tc, **geom)
+    elif dtype in ("fp32", "fp32_bwd", "banded"):
         cands = sorted({_divisor_at_most(c, cap)
                         for cap in (32, 16, 8, 4, 2, 1)}, reverse=True)
         budgets = (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
-        model = smem_bytes if dtype == "fp32" else bwd_smem_bytes
+        model = bwd_smem_bytes if dtype == "fp32_bwd" else smem_bytes
         if dtype == "fp32_bwd":
             cands = [tc for tc in cands if bwd_quads(
                 th, tw, tc, kernel_size=kernel_size) <= BWD_MAX_QUADS]
@@ -246,7 +305,8 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
     for budget in budgets:
         for tc in cands:
             if block_bytes(tc) <= budget:
-                return KernelTiles(th, tw, tc, tm)
+                return KernelTiles(th, tw, tc,
+                                   tc if dtype == "sample" else tm)
     raise ValueError(
         f"no channel tile fits {SMEM_PER_BLOCK} bytes of shared memory for "
         f"a {th}x{tw} tile at B={offset_bound}, stride {stride}, dilation "

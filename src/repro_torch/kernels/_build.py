@@ -31,8 +31,23 @@ SIGNATURES = {
     "deform_conv_fused": {
         "dcf_forward": (_I, [_P, _P, _P, _P] + [_I] * 10
                         + [ctypes.c_float] + [_I] * 5 + [_P]),
+        "dcf_forward_banded": (_I, [_P, _P, _P, _P] + [_I] * 10
+                               + [ctypes.c_float] + [_I] * 5 + [_P]),
         "dcf_smem_bytes": (ctypes.c_longlong, [_I] * 7),
         "dcf_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "deform_sample": {
+        "ds_zerocopy": (_I, [_P] * 3 + [_I] * 9 + [ctypes.c_float]
+                        + [_I] * 4 + [_P]),
+        "ds_banded": (_I, [_P] * 3 + [_I] * 9 + [ctypes.c_float]
+                      + [_I] * 4 + [_P]),
+        "ds_smem_bytes": (ctypes.c_longlong, [_I] * 7),
+        "ds_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "matmul": {
+        "mm_f32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
+        "mm_bf16": (_I, [_P] * 3 + [_I] * 3 + [_P]),
+        "mm_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_conv_bwd": {
         "dcb_backward": (_I, [_P] * 8 + [_I] * 10 + [ctypes.c_float]

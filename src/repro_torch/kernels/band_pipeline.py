@@ -6,11 +6,14 @@ Counterpart of the geometry half of ``repro.kernels.band_pipeline``
 fp32 and int8 bilinear gathers and the fused ``offset_conv_stage``).  The
 TPU emitter and its staging pipeline have no counterpart here: the CUDA
 kernels stage their own bands (``csrc/deform_conv_fused.cu``,
-``csrc/deform_conv_q.cu``).  ``sample_tiles``, ``tile_bands`` and
-``untile`` run a stage over every output tile of a padded plane at once
+``csrc/deform_conv_q.cu``, ``csrc/deform_sample.cu``).  ``sample_tiles``,
+``tile_bands`` and ``untile`` run a stage over every output tile of a
+padded plane at once
 (``tile_pixels`` and ``tile_offsets`` cut per-pixel tensors into tiles);
 ``tile_corners``, ``corner_weights`` and ``corner_derivatives`` are the
 pieces the plain backward (``deform_conv_bwd``) is built from.
+``sample_bands`` is the stage over the materialised bands of the banded
+dataflow.
 
 Positions are band-local, as in the TPU kernel: the band of output tile
 ``(j, w)`` starts at padded row ``j * tile_h * stride`` and column
@@ -258,6 +261,48 @@ def sample_tiles(x_pad: Tensor, off_t: Tensor, *, kernel_size: int,
                               idx00.reshape(n, p), wp,
                               ty.reshape(n, p), tx.reshape(n, p))
     return patches.reshape(*idx00.shape, c)
+
+
+def sample_bands(bands: Tensor, offsets: Tensor, *, kernel_size: int,
+                 stride: int, dilation: int, offset_bound: float,
+                 tile_h: int) -> Tensor:
+    """Bilinear samples of every row tile from its materialised band
+    (the banded dataflow), in fp32.  bands: (N, n_tiles, band_h, w_pad,
+    C) from ``plan.pad_and_band``; offsets: (N, n_tiles * tile_h, Wo,
+    2*K*K) raw.  Each band tile is sampled over the full width, as the
+    TPU kernel does: column positions ``ox*S + hb + kx*d`` of the whole
+    band.  Returns (N, n_tiles * tile_h, Wo, K*K, C)."""
+    n, nt, band_h, w_pad, c = bands.shape
+    _, ho, wo, _ = offsets.shape
+    k2 = kernel_size * kernel_size
+    y0, x0, ty, tx = corner_geometry(
+        offsets.reshape(n, nt, tile_h, wo, k2, 2), kernel_size=kernel_size,
+        stride=stride, dilation=dilation, offset_bound=offset_bound,
+        tile_h=tile_h, wo=wo)
+    p = tile_h * wo * k2
+    patches = gather_bilinear(bands.reshape(n * nt, band_h * w_pad, c),
+                              (y0 * w_pad + x0).reshape(n * nt, p), w_pad,
+                              ty.reshape(n * nt, p), tx.reshape(n * nt, p))
+    return patches.reshape(n, ho, wo, k2, c)
+
+
+def check_banded(bands: Tensor, offsets: Tensor, *, kernel_size: int,
+                 stride: int, dilation: int, offset_bound: float,
+                 tile_h: int) -> None:
+    """Raise unless ``bands`` are the Eq. 6 bands of ``tile_h`` rows that
+    ``offsets`` (``n_tiles * tile_h`` rows) need."""
+    n, nt, band_h, _, _ = bands.shape
+    k2 = kernel_size * kernel_size
+    if tuple(offsets.shape[:2]) != (n, nt * tile_h) \
+            or offsets.shape[-1] != 2 * k2:
+        raise ValueError(f"offsets {tuple(offsets.shape)} do not match "
+                         f"bands {tuple(bands.shape)} at tile_h={tile_h}, "
+                         f"K={kernel_size}")
+    want = BandSpec(kernel_size, stride, dilation, offset_bound, tile_h,
+                    1).band_h
+    if band_h != want:
+        raise ValueError(f"bands have {band_h} rows; tile_h={tile_h} needs "
+                         f"{want}")
 
 
 def untile(y: Tensor, ho: int, wo: int) -> Tensor:

@@ -1,16 +1,20 @@
 """Fused bounded DCL forward: bilinear sampling + dynamic convolution.
 
-Counterpart of ``repro.kernels.deform_conv_fused.deform_conv_fused_zerocopy``
-(the fp32 plan of ``band_pipeline.forward_call``).  The wrapper takes the
-zero-padded input whole, the raw offsets and the channel-blocked weights;
-on a CUDA tensor it launches the hand-written kernel of
+Counterpart of ``repro.kernels.deform_conv_fused``: ``deform_conv_fused_
+zerocopy`` (TPU kernel 1a, the fp32 plan of ``band_pipeline.forward_call``)
+takes the zero-padded input whole, ``deform_conv_fused_banded`` (TPU
+kernel 4) the HBM-materialised bands of ``plan.pad_and_band``; both take
+the raw offsets and the channel-blocked weights.  On a CUDA tensor each
+wrapper launches its entry point of the hand-written kernel of
 ``csrc/deform_conv_fused.cu``, on a CPU tensor it runs the plain PyTorch
 version below, which does the same band-local arithmetic.  There is no
 fallback from one to the other: a failed launch raises.
 
-Unlike the TPU kernel, the ragged edge needs no padded offsets: Ho and Wo
-need not be tile multiples (the input must still be padded for
-``ceil(Ho / tile_h)`` row tiles, see ``plan.pad_zerocopy``).
+Unlike the TPU kernel, the ragged edge of the zero-copy kernel needs no
+padded offsets: Ho and Wo need not be tile multiples (the input must
+still be padded for ``ceil(Ho / tile_h)`` row tiles, see
+``plan.pad_zerocopy``).  The banded kernel keeps the JAX contract: the
+offsets have ``n_tiles * tile_h`` rows.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.band_pipeline import (BandSpec, sample_tiles,
+from repro_torch.kernels.band_pipeline import (BandSpec, check_banded,
+                                               sample_bands, sample_tiles,
                                                tile_offsets, untile)
 
 Tensor = torch.Tensor
@@ -26,11 +31,12 @@ Tensor = torch.Tensor
 
 def _check(x_pad: Tensor, offsets: Tensor, w_tiles: Tensor, *,
            kernel_size: int, tile_c: int) -> None:
-    n, _, _, c = x_pad.shape
+    """x_pad (N, Hp, Wp, C), or bands (N, n_tiles, band_h, w_pad, C)."""
+    n, c = x_pad.shape[0], x_pad.shape[-1]
     k2 = kernel_size * kernel_size
     if offsets.shape[0] != n or offsets.shape[-1] != 2 * k2:
         raise ValueError(f"offsets {tuple(offsets.shape)} do not match "
-                         f"x_pad {tuple(x_pad.shape)} at K={kernel_size}")
+                         f"input {tuple(x_pad.shape)} at K={kernel_size}")
     if c % tile_c or tuple(w_tiles.shape[:2]) != (c // tile_c, k2 * tile_c):
         raise ValueError(f"w_tiles {tuple(w_tiles.shape)} is not C={c} "
                          f"blocked by tile_c={tile_c} at K={kernel_size}")
@@ -55,23 +61,29 @@ def deform_conv_fused_zerocopy_plain(
     kernel's grid)."""
     c = x_pad.shape[-1]
     _, ho, wo, _ = offsets.shape
-    k2 = kernel_size * kernel_size
     tc = tile_c or c
     _check(x_pad, offsets, w_tiles, kernel_size=kernel_size, tile_c=tc)
     off_t = tile_offsets(offsets, tile_h, tile_w)
     patches = sample_tiles(x_pad, off_t, kernel_size=kernel_size,
                            stride=stride, dilation=dilation,
                            offset_bound=offset_bound)
-    lead = patches.shape[:5]
+    y = contract_chunks(patches, w_tiles, tc)
+    return untile(y, ho, wo).to(x_pad.dtype)
+
+
+def contract_chunks(patches: Tensor, w_tiles: Tensor, tile_c: int) -> Tensor:
+    """(..., K*K, C) fp32 patches times the blocked weights (C // tile_c,
+    K*K*tile_c, M), one C-chunk at a time with fp32 accumulation, as the
+    kernels step C.  Returns (..., M)."""
+    *lead, k2, c = patches.shape
     patches = patches.reshape(-1, k2, c)
-    m = w_tiles.shape[2]
-    acc = torch.zeros(patches.shape[0], m, dtype=torch.float32,
-                      device=x_pad.device)
-    for cs in range(c // tc):
-        lhs = patches[:, :, cs * tc:(cs + 1) * tc].reshape(-1, k2 * tc)
+    acc = torch.zeros(patches.shape[0], w_tiles.shape[2],
+                      dtype=torch.float32, device=patches.device)
+    for cs in range(c // tile_c):
+        lhs = patches[:, :, cs * tile_c:(cs + 1) * tile_c] \
+            .reshape(-1, k2 * tile_c)
         acc = acc + lhs @ w_tiles[cs].float()
-    y = untile(acc.reshape(*lead, m), ho, wo)
-    return y.to(x_pad.dtype)
+    return acc.reshape(*lead, -1)
 
 
 def deform_conv_fused_zerocopy(
@@ -135,3 +147,91 @@ def deform_conv_fused_zerocopy(
 
 
 deform_conv_fused_zerocopy.launches = 0
+
+
+def deform_conv_fused_banded_plain(
+        bands: Tensor, offsets: Tensor, w_tiles: Tensor, *,
+        kernel_size: int, stride: int, dilation: int, offset_bound: float,
+        tile_h: int, tile_w: int | None = None, tile_c: int | None = None,
+        tile_m: int | None = None) -> Tensor:
+    """Plain PyTorch version of kernel 4, on any device: each band tile
+    sampled over the full width (``band_pipeline.sample_bands``), then
+    contracted one C-chunk at a time with fp32 accumulation (``tile_w``
+    and ``tile_m`` only shape the kernel's grid)."""
+    c = bands.shape[-1]
+    tc = tile_c or c
+    _check(bands, offsets, w_tiles, kernel_size=kernel_size,
+           tile_c=tc)
+    patches = sample_bands(bands, offsets, kernel_size=kernel_size,
+                           stride=stride, dilation=dilation,
+                           offset_bound=offset_bound, tile_h=tile_h)
+    return contract_chunks(patches, w_tiles, tc).to(bands.dtype)
+
+
+def deform_conv_fused_banded(
+        bands: Tensor, offsets: Tensor, w_tiles: Tensor, *,
+        kernel_size: int, stride: int, dilation: int, offset_bound: float,
+        tile_h: int, tile_w: int | None = None, tile_c: int | None = None,
+        tile_m: int | None = None) -> Tensor:
+    """Fused DCL over pre-banded input (kernel 4).
+
+    bands:   (N, n_tiles, band_h, w_pad, C) from ``plan.pad_and_band``
+    offsets: (N, n_tiles * tile_h, Wo, 2*K*K) raw offsets
+    w_tiles: (C // tile_c, K*K*tile_c, M) from ``plan.tile_weights``
+    returns: (N, n_tiles * tile_h, Wo, M)
+
+    A block of the kernel takes a band tile's ``tile_h`` rows, ``tile_w``
+    output columns (default: as many as fit 64 pixels, at most 8) and
+    ``tile_m`` output channels (default: up to 64), stepping C in
+    ``tile_c`` chunks.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel (fp32, contiguous, ``tile_h * tile_w <= 64``,
+    ``tile_m <= 64``) and count the launch in
+    ``deform_conv_fused_banded.launches``.
+    """
+    if bands.device.type == "cpu":
+        return deform_conv_fused_banded_plain(
+            bands, offsets, w_tiles, kernel_size=kernel_size, stride=stride,
+            dilation=dilation, offset_bound=offset_bound, tile_h=tile_h,
+            tile_w=tile_w, tile_c=tile_c, tile_m=tile_m)
+    if bands.device.type != "cuda":
+        raise ValueError(f"no kernel for device {bands.device}")
+    from repro_torch.core.tiling import TILE_M_MAX, pix_lanes
+
+    n, nt, band_h, w_pad, c = bands.shape
+    _, ho, wo, _ = offsets.shape
+    m = w_tiles.shape[2]
+    tc = tile_c or c
+    tm = tile_m or min(m, TILE_M_MAX)
+    tw = tile_w or max(1, min(8, wo, 64 // tile_h))
+    _check(bands, offsets, w_tiles, kernel_size=kernel_size,
+           tile_c=tc)
+    for name, t in (("bands", bands), ("offsets", offsets),
+                    ("w_tiles", w_tiles)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != bands.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor on "
+                             f"{bands.device}")
+    check_banded(bands, offsets, kernel_size=kernel_size, stride=stride,
+                 dilation=dilation, offset_bound=offset_bound, tile_h=tile_h)
+    pix_lanes(tile_h, tw)                     # raises past 64 pixels
+    if not 1 <= tm <= TILE_M_MAX:
+        raise ValueError(f"tile_m={tm} outside the kernel's 1..{TILE_M_MAX}")
+
+    lib = load_kernel()
+    out = torch.empty((n, ho, wo, m), dtype=torch.float32,
+                      device=bands.device)
+    with torch.cuda.device(bands.device):
+        err = lib.dcf_forward_banded(
+            bands.data_ptr(), offsets.data_ptr(), w_tiles.data_ptr(),
+            out.data_ptr(), n, nt, band_h, w_pad, c, wo, m, kernel_size,
+            stride, dilation, float(offset_bound),
+            int(math.ceil(offset_bound)), tile_h, tw, tc, tm,
+            torch.cuda.current_stream(bands.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"deform_conv_fused_banded kernel launch failed: "
+                           f"{lib.dcf_error_string(err).decode()} ({err})")
+    deform_conv_fused_banded.launches += 1
+    return out
+
+
+deform_conv_fused_banded.launches = 0

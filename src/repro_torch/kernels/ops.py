@@ -1,15 +1,20 @@
-"""Public entry points of the bounded DCL kernels (counterpart of
-``repro.kernels.ops``, zero-copy forward only).
+"""Public entry points of the kernels (counterpart of
+``repro.kernels.ops``).
 
 * ``deform_conv`` with ``offset_bound`` given (the Eq. 5-trained model):
   the fused fp32 kernel (``precision="fp32"``, ``plan.bounded_forward``)
-  or the int8 kernel with its dequant epilogue (``precision="int8"``,
-  ``plan.int8_forward``);
+  over either dataflow (``dataflow="zero_copy"``, kernel 1a, or
+  ``"banded"``, kernel 4 over the bands of ``plan.pad_and_band``) or the
+  int8 kernel with its dequant epilogue (``precision="int8"``,
+  ``plan.int8_forward``, zero-copy only);
+* ``deform_sample``: stage 1 alone, the patches (kernel 1b zero-copy,
+  kernel 3 banded; the plain gather when unbounded);
 * ``deform_conv`` with ``offset_bound`` None (the lambda=0 baseline): the
   plain gather of ``core.deform_conv`` — there is no kernel for unbounded
   offsets;
 * ``deform_conv_chain``: one chained int8 layer, offset conv fused into
-  the kernel, int8 or fp32 emission (``plan.chain_forward``).
+  the kernel, int8 or fp32 emission (``plan.chain_forward``);
+* ``matmul``: the tiled fp32-accumulating product (kernel 5).
 
 The device of the call is explicit (``device=None`` means ``cuda``) and
 the tensors must lie on it; the tensors' device then picks the kernel
@@ -19,9 +24,10 @@ JAX package there is no fallback to a reference path.
 The fp32 bounded path is differentiable through ``BoundedDeformConv``
 (the counterpart of the JAX custom VJP): its forward is
 ``plan.bounded_forward`` and its backward the fused backward kernel
-(``plan.bounded_backward``), on both devices.  The int8 and chain paths
-are inference only: on CUDA an input that needs a gradient raises there
-(quantized models train with ``quant="qat"``).
+(``plan.bounded_backward``), on both devices and for both dataflows, as
+in JAX: the gradient is a property of the function, not of the dataflow.
+The int8 and chain paths are inference only: on CUDA an input that needs
+a gradient raises there (quantized models train with ``quant="qat"``).
 
 ``dispatch_hook_scope`` installs a callable that sees a context dict
 before each bounded dispatch of either op; raising from it aborts the
@@ -38,6 +44,9 @@ from torch.autograd.function import once_differentiable
 from repro_torch.core.deform_conv import DCLConfig, sample_patches
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import plan as _plan
+from repro_torch.kernels.deform_sample import (deform_sample_banded,
+                                               deform_sample_zerocopy)
+from repro_torch.kernels.matmul import matmul  # noqa: F401  (re-export)
 
 Tensor = torch.Tensor
 
@@ -102,18 +111,74 @@ class BoundedDeformConv(torch.autograd.Function):
                 dw if need[3] else None)
 
 
+def deform_sample(x: Tensor, offsets: Tensor, *, kernel_size: int = 3,
+                  stride: int = 1, dilation: int = 1,
+                  offset_bound: float | None = None,
+                  tile_h: int | None = 8, tile_w: int | None = None,
+                  tile_c: int | None = None, dataflow: str = "zero_copy",
+                  device: str | torch.device | None = None) -> Tensor:
+    """Stage 1: bilinear patch sampling.
+
+    x: (N, H, W, C); offsets: (N, Ho, Wo, 2*K*K) raw offset-conv output.
+    Returns (N, Ho, Wo, K*K, C).  Unbounded (``offset_bound`` None): the
+    plain gather of ``core.deform_conv.sample_patches``, offsets as they
+    are.  Bounded: the offsets are clamped to ±B and sampled by kernel 1b
+    from the zero-padded input (``dataflow="zero_copy"``; unspecified
+    tiles from the ``"sample"`` chooser) or by kernel 3 from the bands of
+    ``plan.pad_and_band`` (``"banded"``; ``tile_h`` rows per band, default
+    8).
+    """
+    dev = resolve_device(device)
+    check_on(dev, x=x, offsets=offsets)
+    n, h, w, c = x.shape
+    ho, wo = offsets.shape[1], offsets.shape[2]
+    k2 = kernel_size * kernel_size
+    if offset_bound is None:
+        cfg = DCLConfig(in_channels=c, out_channels=1,
+                        kernel_size=kernel_size, stride=stride,
+                        dilation=dilation)
+        return sample_patches(x, offsets.reshape(n, ho, wo, k2, 2), cfg)
+    check_channel_tiles(c, c, tile_c)
+    _plan.check_dataflow(dataflow)
+    geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
+                offset_bound=offset_bound)
+    if dataflow == "banded":
+        spec = _plan.DCSpec(tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
+                            dataflow=dataflow, **geom)
+        th, tw, tc, _ = _plan.banded_tiles(spec, x, offsets, c,
+                                           dtype="sample")
+        bands, offsets_p = _plan.banded_inputs(spec, x, offsets, th)
+        patches = deform_sample_banded(bands, offsets_p, tile_h=th,
+                                       tile_w=tw, tile_c=tc, **geom)
+        return patches[:, :ho]
+    th, tw, tc, _ = _plan.resolve_tiles(
+        n, h, w, c, c, tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
+        dtype="sample", **geom)
+    th, tw = min(th, ho), min(tw, wo)
+    xp = _plan.pad_zerocopy(x, tile_h=th, tile_w=tw, ho=ho, wo=wo, **geom)
+    return deform_sample_zerocopy(xp, offsets.contiguous(), tile_h=th,
+                                  tile_w=tw, tile_c=tc, **geom)
+
+
 def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
                 offset_bound: float | None = None,
                 tile_h: int | None = None, tile_w: int | None = None,
                 tile_c: int | None = None, tile_m: int | None = None,
-                precision: str = "fp32", x_scale=None, w_scale=None,
+                dataflow: str = "zero_copy", precision: str = "fp32",
+                x_scale=None, w_scale=None,
                 device: str | torch.device | None = None) -> Tensor:
     """Fused DCL stage 1+2: y = g(x, o) * w_deform (Eq. 2).
 
     x: (N, H, W, C); offsets: (N, Ho, Wo, 2*K*K); w: (K*K, C, M).
     Returns (N, Ho, Wo, M).  Unspecified tiles come from the Hopper
     chooser (``core.tiling.choose_kernel_tiles``) of the datapath.
+
+    ``dataflow`` picks the bounded fp32 forward: ``"zero_copy"`` (kernel
+    1a stages each band from the padded input) or ``"banded"`` (the
+    legacy dataflow: ``tile_h``-row bands, default 8, are materialised in
+    device memory and kernel 4 reads them).  Both have kernel 2 as their
+    backward.
 
     ``precision="int8"`` (bounded only) runs the quantized inference
     datapath: int8 band, fp32 bilinear coefficients, patches rounded to
@@ -130,12 +195,17 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
     if precision not in ("fp32", "int8"):
         raise ValueError(
             f"unknown precision {precision!r}; expected 'fp32' or 'int8'")
+    _plan.check_dataflow(dataflow)
     check_channel_tiles(c, m, tile_c, tile_m)
     if precision == "int8" and offset_bound is None:
         raise ValueError(
             "precision='int8' requires a trained offset_bound — the "
             "quantized datapath exists because Eq. 6 bounds the band; "
             "the unbounded gather baseline has no int8 kernel")
+    if precision == "int8" and dataflow != "zero_copy":
+        raise ValueError(
+            f"precision='int8' supports only the zero-copy dataflow "
+            f"(got {dataflow!r})")
 
     if offset_bound is None:
         cfg = DCLConfig(in_channels=c, out_channels=m,
@@ -149,7 +219,8 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
         _refuse_grad(dev, "deform_conv(precision='int8')", x, offsets, w)
     if _dispatch_hook is not None:
         _dispatch_hook({"op": "deform_conv", "precision": precision,
-                        "shape": tuple(x.shape), "m": m,
+                        "dataflow": dataflow, "shape": tuple(x.shape),
+                        "m": m,
                         "offset_bound": offset_bound,
                         "kernel_size": kernel_size, "stride": stride,
                         "dilation": dilation, "device": dev.type})
@@ -162,7 +233,7 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
     spec = _plan.DCSpec(kernel_size=kernel_size, stride=stride,
                         dilation=dilation, offset_bound=offset_bound,
                         tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
-                        tile_m=tile_m)
+                        tile_m=tile_m, dataflow=dataflow)
     return BoundedDeformConv.apply(spec, x, offsets, w)
 
 

@@ -1,19 +1,25 @@
 """Plan and input preparation of the bounded DCL kernels (counterpart of
-``repro.kernels.plan``, zero-copy dataflow only).
+``repro.kernels.plan``).
 
-* ``DCSpec`` — the static configuration of one bounded call;
+* ``DCSpec`` — the static configuration of one bounded call, with its
+  dataflow: ``"zero_copy"`` (the kernels stage their bands from the
+  padded input) or ``"banded"`` (the legacy dataflow: the bands are
+  materialised in device memory first, ``pad_and_band``);
 * tile resolution (``resolve_tiles``: explicit tiles win, the Hopper
   chooser of ``core.tiling`` fills the rest, per datapath) and the
   weight blocking;
 * ``pad_zerocopy`` / ``zerocopy_inputs`` — zero-pad the input once so
-  every Eq. 6 band is a plain window of it;
+  every Eq. 6 band is a plain window of it; ``pad_and_band`` — zero-pad
+  and cut the overlapping row bands (PyTorch glue, as XLA glue in JAX);
 * ``bounded_forward`` (fp32), ``int8_forward`` and ``chain_forward`` —
   prepare the inputs and call the kernel wrappers;
 * ``bounded_backward`` — the fp32 backward at its own tiles (the
-  ``"fp32_bwd"`` chooser), un-padded and un-blocked.  The int8 paths
-  quantize outside the kernels, as the JAX package does: the input per
-  tensor, the weights per output channel, then pad the int8 plane (0 maps
-  to 0, so padding and quantization commute).
+  ``"fp32_bwd"`` chooser), un-padded and un-blocked; it serves both
+  dataflows' forwards, as in JAX.
+
+The int8 paths quantize outside the kernels, as the JAX package does:
+the input per tensor, the weights per output channel, then pad the int8
+plane (0 maps to 0, so padding and quantization commute).
 """
 from __future__ import annotations
 
@@ -23,10 +29,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.tiling import choose_kernel_tiles, out_hw
+from repro_torch.core.tiling import (BANDED_TILE_H, choose_kernel_tiles,
+                                     out_hw)
 from repro_torch.kernels.band_pipeline import band_geometry
 from repro_torch.kernels.deform_conv_bwd import deform_conv_bwd_zerocopy
-from repro_torch.kernels.deform_conv_fused import deform_conv_fused_zerocopy
+from repro_torch.kernels.deform_conv_fused import (
+    deform_conv_fused_banded, deform_conv_fused_zerocopy)
 from repro_torch.kernels.deform_conv_q import (
     deform_conv_fused_zerocopy_chain, deform_conv_fused_zerocopy_q)
 from repro_torch.quant.qtypes import compute_scale, quantize_values
@@ -45,6 +53,17 @@ class DCSpec:
     tile_w: int | None = None
     tile_c: int | None = None
     tile_m: int | None = None
+    dataflow: str = "zero_copy"
+
+
+DATAFLOWS = ("zero_copy", "banded")
+
+
+def check_dataflow(dataflow: str) -> None:
+    if dataflow not in DATAFLOWS:
+        raise ValueError(
+            f"unknown dataflow {dataflow!r}; expected 'zero_copy' or "
+            f"'banded'")
 
 
 def tile_weights(w: Tensor, tile_c: int) -> Tensor:
@@ -75,13 +94,15 @@ def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
                   tile_m: int | None = None,
                   dtype: str = "fp32") -> tuple[int, int, int, int]:
     """Explicit tiles win; the chooser for ``dtype`` (``"fp32"``,
-    ``"int8"``, ``"int8_chain"``, ``"fp32_bwd"``) fills the rest.  Raises
+    ``"int8"``, ``"int8_chain"``, ``"fp32_bwd"``, ``"sample"``,
+    ``"banded"``) fills the rest, around an explicit ``tile_h``.  Raises
     on channel tiles that do not divide the layer."""
     from repro_torch.kernels.ops import check_channel_tiles
     if None in (tile_h, tile_w, tile_c, tile_m):
         kt = choose_kernel_tiles(n, h, w, c, m, kernel_size=kernel_size,
                                  stride=stride, dilation=dilation,
-                                 offset_bound=offset_bound, dtype=dtype)
+                                 offset_bound=offset_bound, dtype=dtype,
+                                 tile_h=tile_h)
         tile_h = tile_h or kt.tile_h
         tile_w = tile_w or kt.tile_w
         tile_c = tile_c or kt.tile_c
@@ -138,6 +159,35 @@ def pad_zerocopy(x: Tensor, *, kernel_size: int, stride: int, dilation: int,
     return F.pad(x, (0, 0, p0, pr, p0, pb)).contiguous()
 
 
+def pad_and_band(x: Tensor, *, kernel_size: int, stride: int, dilation: int,
+                 offset_bound: float, tile_h: int,
+                 ho: int) -> tuple[Tensor, int]:
+    """Zero-pad x and cut it into overlapping row bands (the legacy banded
+    dataflow), as ``repro.kernels.plan.pad_and_band``.
+
+    Returns (bands, n_tiles): bands (N, n_tiles, band_h, w_pad, C), row
+    tile j's Eq. 6 band starting at padded row ``j * tile_h * stride``.
+    The top/left zero padding of ``pad + halo`` (+1 column on the right for
+    the bilinear corner) puts every corner of every clamped tap inside its
+    band.  The bands repeat the overlap rows: ``band_h / (tile_h *
+    stride)`` times the input's bytes, written and read back through
+    device memory, which is the cost the zero-copy dataflow removes."""
+    _, h, _, _ = x.shape
+    pad = dilation * (kernel_size // 2)
+    hb, band_h = band_geometry(kernel_size=kernel_size, stride=stride,
+                               dilation=dilation, offset_bound=offset_bound,
+                               tile_h=tile_h)
+    n_tiles = -(-ho // tile_h)
+    p0 = pad + hb
+    p1 = max(0, (n_tiles - 1) * tile_h * stride + band_h - p0 - h)
+    xp = F.pad(x, (0, 0, p0, p0 + 1, p0, p1))
+    rows = (torch.arange(n_tiles, device=x.device)[:, None] * tile_h * stride
+            + torch.arange(band_h, device=x.device)[None, :])
+    bands = xp.index_select(1, rows.reshape(-1))
+    return bands.reshape(x.shape[0], n_tiles, band_h, xp.shape[2],
+                         x.shape[3]), n_tiles
+
+
 def zerocopy_inputs(spec: DCSpec, x: Tensor, offsets: Tensor, w: Tensor,
                     th: int, tw: int, tc: int):
     """(x_pad, offsets, w_tiled) for the kernel.  The offsets stay as they
@@ -150,8 +200,50 @@ def zerocopy_inputs(spec: DCSpec, x: Tensor, offsets: Tensor, w: Tensor,
     return xp, offsets.contiguous(), tile_weights(w.to(x.dtype), tc)
 
 
+def banded_tiles(spec: DCSpec, x: Tensor, offsets: Tensor, m: int, *,
+                 dtype: str) -> tuple[int, int, int, int]:
+    """Tiles of one banded call: the bands' row tile (``spec.tile_h``,
+    default ``BANDED_TILE_H``, not clamped to the output: the bands are
+    cut at it) and the chooser's columns and channel tiles around it."""
+    th = spec.tile_h or BANDED_TILE_H
+    _, tw, tc, tm = resolve_tiles(
+        x.shape[0], x.shape[1], x.shape[2], x.shape[3], m,
+        kernel_size=spec.kernel_size, stride=spec.stride,
+        dilation=spec.dilation, offset_bound=spec.offset_bound, tile_h=th,
+        tile_w=spec.tile_w, tile_c=spec.tile_c, tile_m=spec.tile_m,
+        dtype=dtype)
+    return th, min(tw, offsets.shape[2]), tc, tm
+
+
+def banded_inputs(spec: DCSpec, x: Tensor, offsets: Tensor,
+                  th: int) -> tuple[Tensor, Tensor]:
+    """(bands, offsets) of one banded call: the offsets zero-padded to
+    whole row tiles (the kernels take ``n_tiles * tile_h`` rows, as the
+    TPU kernels do), the bands of ``pad_and_band``."""
+    ho = offsets.shape[1]
+    pad_h = (-ho) % th
+    if pad_h:
+        offsets = F.pad(offsets, (0, 0, 0, 0, 0, pad_h))
+    bands, _ = pad_and_band(x, kernel_size=spec.kernel_size,
+                            stride=spec.stride, dilation=spec.dilation,
+                            offset_bound=spec.offset_bound, tile_h=th,
+                            ho=ho + pad_h)
+    return bands, offsets.contiguous()
+
+
 def bounded_forward(spec: DCSpec, x: Tensor, offsets: Tensor,
                     w: Tensor) -> Tensor:
+    check_dataflow(spec.dataflow)
+    if spec.dataflow == "banded":
+        th, tw, tc, tm = banded_tiles(spec, x, offsets, w.shape[-1],
+                                      dtype="banded")
+        bands, offsets_p = banded_inputs(spec, x, offsets, th)
+        y = deform_conv_fused_banded(
+            bands, offsets_p, tile_weights(w.to(x.dtype), tc),
+            kernel_size=spec.kernel_size, stride=spec.stride,
+            dilation=spec.dilation, offset_bound=spec.offset_bound,
+            tile_h=th, tile_w=tw, tile_c=tc, tile_m=tm)
+        return y[:, :offsets.shape[1]]
     th, tw, tc, tm = spec_tiles(spec, x, offsets, w)
     xp, offsets, w_tiled = zerocopy_inputs(spec, x, offsets, w, th, tw, tc)
     return deform_conv_fused_zerocopy(

@@ -1,6 +1,6 @@
-"""Plain-PyTorch oracles of the DCL kernels (counterpart of
-``repro.kernels.ref``): sample with the reference ``sample_patches``,
-then contract."""
+"""Plain-PyTorch oracles of the kernels (counterpart of
+``repro.kernels.ref``): the matmul, and the DCL's sampling with the
+reference ``sample_patches``, then its contraction."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +8,12 @@ import torch
 from repro_torch.core.deform_conv import DCLConfig, sample_patches
 
 Tensor = torch.Tensor
+
+
+def matmul_ref(x: Tensor, w: Tensor) -> Tensor:
+    """fp32-accumulated matmul oracle: ``x @ w`` in fp32, returned in
+    x's dtype."""
+    return (x.float() @ w.float()).to(x.dtype)
 
 
 def deform_sample_ref(x: Tensor, offsets: Tensor, *, kernel_size: int = 3,

@@ -78,15 +78,16 @@ QUANT_MODES = ("none", "qat", "int8", "int8_chain")
 def dcl_apply(params: Mapping[str, Tensor], x, *,
               kernel_size: int = 3, stride: int = 1, dilation: int = 1,
               offset_bound: float | None = None, use_kernel: bool = False,
-              quant: str = "none",
+              dataflow: str = "zero_copy", quant: str = "none",
               quant_scales: Mapping[str, Any] | None = None,
               device: str | torch.device | None = None):
     """One DCL forward pass -> (y, o_max).
 
     ``use_kernel=True`` with a trained ``offset_bound`` runs the offset
-    conv, then the fused kernel (``ops.deform_conv``); otherwise the
-    plain reference ``dcl_forward``.  ``o_max`` (Eq. 3) is taken from the
-    raw offsets either way.
+    conv, then the fused kernel (``ops.deform_conv``) under ``dataflow``
+    (``"zero_copy"`` or the legacy ``"banded"``); otherwise the plain
+    reference ``dcl_forward``.  ``o_max`` (Eq. 3) is taken from the raw
+    offsets either way.
 
     ``quant`` selects the quantized datapaths:
 
@@ -109,6 +110,11 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
         raise ValueError(f"unknown quant mode {quant!r}; expected one of "
                          f"{QUANT_MODES}")
     if quant == "int8_chain":
+        if dataflow != "zero_copy":
+            raise ValueError(
+                f"quant='int8_chain' supports only the zero-copy "
+                f"dataflow (got {dataflow!r}); the fused offset stage "
+                f"and int8 emission are band-pipeline plans")
         return _dcl_chain_layer(params, x, kernel_size=kernel_size,
                                 stride=stride, dilation=dilation,
                                 offset_bound=offset_bound,
@@ -135,15 +141,18 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
             if kernel_ok:
                 y = ops.deform_conv(xq, offsets, wq, kernel_size=k,
                                     stride=stride, dilation=dilation,
-                                    offset_bound=offset_bound, device=device)
+                                    offset_bound=offset_bound,
+                                    dataflow=dataflow, device=device)
             else:
                 y = deform_conv_fused_ref(xq, offsets, wq, kernel_size=k,
                                           stride=stride, dilation=dilation,
                                           offset_bound=offset_bound)
         elif quant == "int8" and kernel_ok:
+            # The dataflow passes through, so a banded config raises in
+            # ops instead of running zero-copy.
             y = ops.deform_conv(x, offsets, w, kernel_size=k, stride=stride,
                                 dilation=dilation, offset_bound=offset_bound,
-                                precision="int8",
+                                dataflow=dataflow, precision="int8",
                                 x_scale=scales.get("x_scale"),
                                 w_scale=scales.get("w_scale"), device=device)
         elif quant == "int8":
@@ -154,7 +163,7 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
         else:
             y = ops.deform_conv(x, offsets, w, kernel_size=k, stride=stride,
                                 dilation=dilation, offset_bound=offset_bound,
-                                device=device)
+                                dataflow=dataflow, device=device)
         return y + params["b_deform"].to(x.dtype), o_max
     y, stats = dcl_forward(params, x, cfg)
     return y, stats["o_max"]

@@ -4,7 +4,8 @@ detection head (counterpart of ``repro.models.resnet_dcn``).
 The last ``num_dcn`` 3x3 convolutions of the bottlenecks are DCLs (12 by
 default: c3's last 3, all 6 of c4, all 3 of c5); norms are GroupNorm(32);
 layout NHWC.  ``use_kernel=True`` routes every DCL through the fused
-kernels (the fp32 forward and backward kernels when training); the plain
+kernels (the fp32 forward and backward kernels when training; the forward
+over ``dataflow``, ``"zero_copy"`` or the legacy ``"banded"``); the plain
 path (``dcl_forward``, or the fake-quant references under ``quant``) is
 the parity reference.  ``quant`` picks the DCL datapath: ``"none"``
 (fp32), ``"qat"`` (fake-quant training over the fp32 kernels), ``"int8"``
@@ -43,6 +44,7 @@ class ResNetDCNConfig:
     img_size: int = 256
     dtype: Any = torch.float32
     use_kernel: bool = False       # route DCLs through the fused kernel
+    dataflow: str = "zero_copy"    # kernel dataflow: zero_copy | banded
     quant: str = "none"            # none | qat | int8 | int8_chain
 
     @property
@@ -137,7 +139,8 @@ def _apply_block(params, x: Tensor, cfg: ResNetDCNConfig, *, stride: int,
             tap(name, h)
         h, o_max = dcl_apply(params["dcl"], h, stride=stride,
                              offset_bound=cfg.offset_bound,
-                             use_kernel=cfg.use_kernel, quant=cfg.quant,
+                             use_kernel=cfg.use_kernel,
+                             dataflow=cfg.dataflow, quant=cfg.quant,
                              quant_scales=quant_scales, device=device)
         if isinstance(h, QTensor):
             # int8_chain emission: the DCL output left the kernel as int8;

@@ -10,11 +10,11 @@ closed; each bucket's DCL tile plans are resolved at engine start
 The rungs, top first, are the JAX engine's: ``int8_chain`` (the default:
 every DCL through the chained int8 kernel, offset conv fused in, output
 emitted int8), ``int8`` (every DCL through the int8 dequant kernel),
-``fp32_kernel`` (the fused fp32 kernel) and ``fp32_ref`` (the plain
-reference).  The int8 rungs need a calibration scale table at engine
-start (``scale_table``: a dict or a JSON path, see
-``quant.calibrate``).  Spatial sharding is not ported yet and raises at
-configuration.  On CUDA the ladder is the entry rung alone (``ladder``):
+``fp32_kernel`` (the fused fp32 kernel, over the model config's
+dataflow) and ``fp32_ref`` (the plain reference).  The int8 rungs need a
+calibration scale table at engine start (``scale_table``: a dict or a
+JSON path, see ``quant.calibrate``).  Spatial sharding is not ported yet
+and raises at configuration.  On CUDA the ladder is the entry rung alone (``ladder``):
 a batch whose kernel keeps failing retires ``failed`` with the kernel's
 error and is never served by another rung.  ``fp32_ref`` runs there only
 when the caller chooses it as the entry rung.
@@ -200,12 +200,16 @@ class DCLServingEngine:
         }
 
         # Per-bucket tile plans of the entry rung and its kernel build,
-        # done now rather than on the first request.
+        # done now rather than on the first request.  The fp32 rung of a
+        # banded config plans for the banded forward (kernel 4, in the
+        # same library as kernel 1a).
         self.plans: dict[int, dict[str, tuple]] = {}
         dtype = RUNG_DTYPE.get(serve_cfg.quant)
+        if dtype == "fp32" and model_cfg.dataflow == "banded":
+            dtype = "banded"
         if model_cfg.offset_bound is not None and dtype is not None:
             if self.device.type == "cuda":
-                (deform_conv_fused if dtype == "fp32"
+                (deform_conv_fused if dtype in ("fp32", "banded")
                  else deform_conv_q).load_kernel()
             for b in serve_cfg.buckets:
                 dims = bucket_layer_dims(model_cfg, b)

@@ -6,11 +6,14 @@ GPU and no JAX:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a GPU every test skips (the kernels have no CPU mode).
-Tolerances: fp32 kernel ``max|kernel - plain| <= 1e-5 * max|plain|`` (the
-same gather and corner arithmetic, contracted in another order), TF32
-off; the backward kernel ``1e-4 * max|plain|`` per cotangent (its fp32
-atomics and split partial sums reorder the sums); int8 kernels exact (``torch.equal``: the same fp32 roundings and
-exact integer sums).
+Tolerances: fp32 forward kernels (1a, 4) ``max|kernel - plain| <= 1e-5 *
+max|plain|`` (the same gather and corner arithmetic, contracted in
+another order), TF32 off; the backward kernel ``1e-4 * max|plain|`` per
+cotangent (its fp32 atomics and split partial sums reorder the sums);
+int8 kernels exact (``torch.equal``: the same fp32 roundings and exact
+integer sums); the sampling kernels (1b, 3) 1e-6 absolute (the plain
+version's roundings in its order); the matmul 1e-5 * max|plain| in fp32
+and one bf16 step (2^-7 * max|plain|) in bf16.
 """
 import dataclasses
 
@@ -382,3 +385,142 @@ def test_trainer_retry_replays_on_the_kernels(cuda, tmp_path):
     assert tr.telemetry["recovered"] == 1 and tr.step == 3
     assert F.deform_conv_fused_zerocopy.launches == fwd + 2 * 3
     assert deform_conv_bwd_zerocopy.launches == bwd + 2 * 3
+
+
+# -- sampling (1b, 3), banded forward (4), matmul (5) ---------------------------
+
+SAMPLE_ATOL = 1e-6      # the same roundings in the same order: expect 0
+MM_RTOL = 1e-5          # fp32 sums over k in another order than cuBLAS
+BF16_RTOL = 2.0 ** -7   # one bf16 step at the largest output
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sample_kernels_match_plain(case, cuda):
+    from repro_torch.kernels import deform_sample as S
+    k, s, d, b, h, w, c, m, th, tw, tc = CASES[case]
+    x, off, _ = _inputs(k, h, w, c, m, s, d, b, len(case), cuda)
+    ho, wo = off.shape[1], off.shape[2]
+    geom = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b)
+    xp = plan.pad_zerocopy(x, tile_h=th, tile_w=tw, ho=ho, wo=wo, **geom)
+    kw = dict(tile_h=th, tile_w=tw, tile_c=tc, **geom)
+    before = S.deform_sample_zerocopy.launches
+    got = S.deform_sample_zerocopy(xp, off, **kw)
+    torch.cuda.synchronize()
+    assert S.deform_sample_zerocopy.launches == before + 1
+    want = S.deform_sample_zerocopy_plain(xp, off, **kw)
+    assert got.shape == want.shape == (2, ho, wo, k * k, c)
+    assert (got - want).abs().max().item() <= SAMPLE_ATOL
+
+    spec = plan.DCSpec(k, s, d, b, th, dataflow="banded")
+    bands, off_b = plan.banded_inputs(spec, x, off, th)
+    kw = dict(tile_h=th, tile_w=tw, tile_c=tc, **geom)
+    before = S.deform_sample_banded.launches
+    got = S.deform_sample_banded(bands, off_b, **kw)
+    torch.cuda.synchronize()
+    assert S.deform_sample_banded.launches == before + 1
+    want = S.deform_sample_banded_plain(bands, off_b, **kw)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= SAMPLE_ATOL
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_banded_kernel_matches_plain(case, cuda):
+    from repro_torch.kernels import deform_conv_fused as F
+    k, s, d, b, h, w, c, m, th, tw, tc = CASES[case]
+    x, off, wd = _inputs(k, h, w, c, m, s, d, b, len(case), cuda)
+    spec = plan.DCSpec(k, s, d, b, th, dataflow="banded")
+    bands, off_b = plan.banded_inputs(spec, x, off, th)
+    kw = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b,
+              tile_h=th, tile_w=max(1, min(tw, 64 // th)), tile_c=tc,
+              tile_m=min(m, 64))
+    wt = plan.tile_weights(wd, tc)
+    before = F.deform_conv_fused_banded.launches
+    got = F.deform_conv_fused_banded(bands, off_b, wt, **kw)
+    torch.cuda.synchronize()
+    assert F.deform_conv_fused_banded.launches == before + 1
+    want = F.deform_conv_fused_banded_plain(bands, off_b, wt, **kw)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= RTOL * want.abs().max().item()
+    # Through ops, against the zero-copy path: the same function, each
+    # within RTOL of its plain version.
+    y = ops.deform_conv(x, off, wd, kernel_size=k, stride=s, dilation=d,
+                        offset_bound=b, dataflow="banded")
+    z = ops.deform_conv(x, off, wd, kernel_size=k, stride=s, dilation=d,
+                        offset_bound=b)
+    assert (y - z).abs().max().item() <= 2 * RTOL * z.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 8, 8), (300, 200, 100), (1, 7, 3),
+                                   (257, 129, 65), (512, 1024, 256)])
+def test_matmul_kernel_matches_plain(shape, dtype, cuda):
+    from repro_torch.kernels import matmul as MM
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(m * 31 + n)
+    x = torch.randn(m, k, generator=gen).to(cuda, getattr(torch, dtype))
+    w = torch.randn(k, n, generator=gen).to(cuda, getattr(torch, dtype))
+    before = MM.matmul.launches
+    got = ops.matmul(x, w, block_m=128, block_n=128, block_k=128)
+    torch.cuda.synchronize()
+    assert MM.matmul.launches == before + 1
+    want = MM.matmul_plain(x, w)
+    assert got.dtype == want.dtype == x.dtype and got.shape == (m, n)
+    tol = MM_RTOL if dtype == "float32" else BF16_RTOL
+    assert (got.float() - want.float()).abs().max().item() \
+        <= tol * want.float().abs().max().item()
+    with pytest.raises(ValueError, match="both float32 or both bfloat16"):
+        ops.matmul(x, w.double())
+    assert MM.matmul.launches == before + 1
+
+
+def test_banded_small_model_training_step_matches_plain_path(cuda):
+    """One Eq. 5 training step of the small model on the banded dataflow:
+    2 launches of kernel 4 and 2 of kernel 2, none of kernel 1a, and the
+    gradients of the same step with the plain versions in place."""
+    from repro_torch.data import DetectionDataConfig, detection_batch
+    from repro_torch.kernels import deform_conv_fused as F
+    from repro_torch.tree import leaves
+    cfg = R.ResNetDCNConfig(stage_sizes=(1, 1, 1, 1),
+                            widths=(16, 32, 64, 128), stem_width=8,
+                            num_dcn=2, num_classes=4, img_size=32,
+                            offset_bound=2.0, use_kernel=True,
+                            dataflow="banded")
+    params = R.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    for block in params.values():
+        if "dcl" in block:
+            d = block["dcl"]
+            d["w_offset"] = (torch.randn(d["w_offset"].shape, generator=gen)
+                             * 0.1).to(cuda)
+    for t in leaves(params):
+        t.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in detection_batch(
+        DetectionDataConfig(img_size=32, global_batch=2, num_classes=4),
+        0).items()}
+
+    def grads():
+        loss, _ = R.train_loss(params, cfg, batch, lam=0.005)
+        return loss, torch.autograd.grad(loss, leaves(params))
+    counts = (F.deform_conv_fused_banded.launches,
+              deform_conv_bwd_zerocopy.launches,
+              F.deform_conv_fused_zerocopy.launches)
+    saved = (plan.deform_conv_fused_banded, plan.deform_conv_bwd_zerocopy,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.deterministic = True    # the same offsets twice
+    try:
+        loss, got = grads()
+        torch.cuda.synchronize()
+        assert (F.deform_conv_fused_banded.launches,
+                deform_conv_bwd_zerocopy.launches,
+                F.deform_conv_fused_zerocopy.launches) == (
+                    counts[0] + 2, counts[1] + 2, counts[2])
+        plan.deform_conv_fused_banded = F.deform_conv_fused_banded_plain
+        plan.deform_conv_bwd_zerocopy = deform_conv_bwd_zerocopy_plain
+        want_loss, want = grads()
+    finally:
+        (plan.deform_conv_fused_banded, plan.deform_conv_bwd_zerocopy,
+         torch.backends.cudnn.deterministic) = saved
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    flat = torch.cat([g.reshape(-1) for g in got])
+    ref_flat = torch.cat([g.reshape(-1) for g in want])
+    assert (flat - ref_flat).norm() <= 1e-4 * ref_flat.norm()

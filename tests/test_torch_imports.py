@@ -1,5 +1,6 @@
 """Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` use
-neither JAX nor the JAX package, and importing builds nothing."""
+neither JAX nor the JAX package, importing builds nothing, and a kernel
+whose build fails raises on CUDA instead of running its plain version."""
 import ast
 import os
 import pathlib
@@ -7,6 +8,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -62,7 +64,8 @@ def test_library_is_named_by_its_source_and_built_outside_git():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert names == sorted(_build.SIGNATURES) == ["deform_conv_bwd",
                                                   "deform_conv_fused",
-                                                  "deform_conv_q"]
+                                                  "deform_conv_q",
+                                                  "deform_sample", "matmul"]
     for name in names:
         src = _build.CSRC / f"{name}.cu"
         lib = _build.library_path(name)
@@ -81,3 +84,82 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_every_kernel_module_is_checked():
+    """The modules of this slice's kernels are among those the two tests
+    above import and parse."""
+    mods = _modules()
+    for name in ("deform_sample", "matmul", "deform_conv_fused",
+                 "deform_conv_bwd", "deform_conv_q"):
+        assert f"repro_torch.kernels.{name}" in mods
+
+
+def _cuda_calls():
+    """One CUDA call of each kernel wrapper, on fake CUDA tensors (no
+    memory, no device): every check passes, so only the build stands
+    between the call and its launch."""
+    from repro_torch.kernels import deform_conv_bwd as B
+    from repro_torch.kernels import deform_conv_fused as F
+    from repro_torch.kernels import deform_conv_q as Q
+    from repro_torch.kernels import deform_sample as S
+    from repro_torch.kernels import matmul as M
+    geom = dict(kernel_size=3, stride=1, dilation=1, offset_bound=2.0)
+    band_h = 8 - 1 + 2 + 4 + 2            # Eq. 6 rows of an 8-row tile
+
+    def f32(*shape):
+        return torch.empty(*shape, device="cuda")
+    return {
+        "deform_sample_zerocopy": (S, lambda: S.deform_sample_zerocopy(
+            f32(1, 16, 16, 4), f32(1, 4, 4, 18), tile_h=4, tile_w=4,
+            **geom)),
+        "deform_sample_banded": (S, lambda: S.deform_sample_banded(
+            f32(1, 1, band_h, 16, 4), f32(1, 8, 8, 18), tile_h=8, **geom)),
+        "deform_conv_fused_banded": (F, lambda: F.deform_conv_fused_banded(
+            f32(1, 1, band_h, 16, 4), f32(1, 8, 8, 18), f32(1, 36, 8),
+            tile_h=8, **geom)),
+        "deform_conv_fused_zerocopy": (F, lambda: F.deform_conv_fused_zerocopy(
+            f32(1, 16, 16, 4), f32(1, 4, 4, 18), f32(1, 36, 8), tile_h=4,
+            tile_w=4, **geom)),
+        "deform_conv_bwd_zerocopy": (B, lambda: B.deform_conv_bwd_zerocopy(
+            f32(1, 16, 16, 4), f32(1, 4, 4, 18), f32(1, 4, 4, 8),
+            f32(1, 36, 8), tile_h=4, tile_w=4, tile_c=4, **geom)),
+        "deform_conv_fused_zerocopy_q": (
+            Q, lambda: Q.deform_conv_fused_zerocopy_q(
+                torch.empty(1, 16, 16, 4, dtype=torch.int8, device="cuda"),
+                f32(1, 4, 4, 18),
+                torch.empty(1, 36, 8, dtype=torch.int8, device="cuda"),
+                f32(8), tile_h=4, tile_w=4, tile_c=4, **geom)),
+        "matmul": (M, lambda: M.matmul(f32(8, 4), f32(4, 8))),
+    }
+
+
+WRAPPERS = ["deform_sample_zerocopy", "deform_sample_banded",
+            "deform_conv_fused_banded", "deform_conv_fused_zerocopy",
+            "deform_conv_bwd_zerocopy", "deform_conv_fused_zerocopy_q",
+            "matmul"]
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_cuda_call_raises_when_the_kernel_does_not_build(wrapper, tmp_path,
+                                                         monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    with FakeTensorMode():
+        module, call = _cuda_calls()[wrapper]
+        plain = [n for n in vars(module) if n.endswith("_plain")]
+        for name in plain:
+            monkeypatch.setattr(module, name, _no_plain)
+        before = getattr(module, wrapper).launches
+        with pytest.raises(RuntimeError, match="kernel build failed"):
+            call()
+    assert getattr(module, wrapper).launches == before
+    assert plain and not list(tmp_path.glob("*.so"))
+
+
+def _no_plain(*args, **kwargs):
+    raise AssertionError("a CUDA call ran the plain version")
