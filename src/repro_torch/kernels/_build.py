@@ -44,6 +44,11 @@ SIGNATURES = {
         "ds_smem_bytes": (ctypes.c_longlong, [_I] * 7),
         "ds_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_attention": {
+        "fa_forward": (_I, [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]),
+        "fa_smem_bytes": (ctypes.c_longlong, [_I]),
+        "fa_error_string": (ctypes.c_char_p, [_I]),
+    },
     "matmul": {
         "mm_f32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
         "mm_bf16": (_I, [_P] * 3 + [_I] * 3 + [_P]),

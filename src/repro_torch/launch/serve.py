@@ -1,4 +1,13 @@
-"""Serve a DCL detection model through the port's engine, at full width.
+"""Serve a model of the registry through the port's engines, at full
+width.
+
+LM archs run the token slot engine (continuous batching):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        [--requests 8] [--slots 4] [--cache-len 128] [--max-new-tokens 16]
+
+with seeded prompts of 4-12 tokens.  DCL detection archs run the
+shape-bucketed engine:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch resnet50_dcn_bounded --buckets 256,512 --requests 8 \
@@ -21,17 +30,23 @@ import numpy as np
 import torch
 
 from repro_torch.configs import resnet50_dcn as configs
+from repro_torch.models import registry as reg
 from repro_torch.models import resnet_dcn as R
+from repro_torch.models import transformer as TF
 from repro_torch.quant.calibrate import calibrate_resnet_dcn
-from repro_torch.serve import LADDER, DCLServeConfig, DCLServingEngine
+from repro_torch.serve import (LADDER, DCLServeConfig, DCLServingEngine,
+                               Request, ServeConfig, ServingEngine)
 from repro_torch.serve.dcl_engine import INT8_RUNGS
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True, choices=sorted(configs.ARCHS))
+    ap.add_argument("--arch", required=True,
+                    choices=sorted(configs.ARCHS) + reg.names())
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--buckets", default="256,512",
                     help="comma-separated square shape buckets")
     ap.add_argument("--quant", default="int8_chain", choices=LADDER)
@@ -116,8 +131,48 @@ def report(engine: DCLServingEngine, seconds: float) -> str:
     return "\n".join(lines)
 
 
+def serve_lm(cfg: TF.ModelConfig, args, *, params=None):
+    """Build the slot engine, submit ``args.requests`` prompts of 4-12
+    tokens drawn from ``np.random.RandomState(0)`` (as the JAX launcher
+    does), run until drained.  Returns ``(engine, steps, seconds)``;
+    ``params`` replaces the init from ``args.seed`` when given."""
+    if params is None:
+        params = TF.init_params(cfg, seed=args.seed, device=args.device)
+    engine = ServingEngine(params, cfg,
+                           ServeConfig(slots=args.slots,
+                                       cache_len=args.cache_len),
+                           device=args.device)
+    rng = np.random.RandomState(0)
+    for uid in range(args.requests):
+        prompt = rng.randint(0, cfg.vocab,
+                             rng.randint(4, 12)).astype(np.int32)
+        engine.submit(Request(uid=uid, prompt=prompt,
+                              max_new_tokens=args.max_new_tokens))
+    t0 = time.monotonic()
+    engine.run_until_drained()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    return engine, engine.steps, time.monotonic() - t0
+
+
+def report_lm(engine: ServingEngine, steps: int, seconds: float) -> str:
+    dev = engine.device
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    toks = sum(len(r.output) for r in engine.completed)
+    lines = [f"served {len(engine.completed)} requests / {toks} tokens in "
+             f"{steps} batched steps ({seconds:.3f}s, "
+             f"{toks / max(seconds, 1e-9):.1f} tok/s on {where})"]
+    lines += [f"  req {r.uid}: {r.output[:8]}..."
+              for r in engine.completed[:3]]
+    return "\n".join(lines)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.arch not in configs.ARCHS:
+        engine, steps, seconds = serve_lm(reg.get(args.arch).config, args)
+        print(report_lm(engine, steps, seconds))
+        return
     engine, _, seconds = serve_detection(configs.get(args.arch), args)
     print(report(engine, seconds))
     if args.telemetry:

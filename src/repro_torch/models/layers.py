@@ -1,21 +1,31 @@
-"""Parameter declarations and the DCL layer (counterpart of the conv-side
-of ``repro.models.layers``: ``dcl_apply`` with its fp32, ``qat``,
-``int8`` and ``int8_chain`` datapaths, and the int8 -> int8 chain
-helpers).
+"""Parameter declarations, the LM layers and the DCL layer (counterpart of
+``repro.models.layers``): norms, rotary embeddings, GQA attention with its
+dense, chunked and sliding-window paths and KV-cache decode, MLPs,
+embeddings and logits; ``dcl_apply`` with its fp32, ``qat``, ``int8`` and
+``int8_chain`` datapaths, and the int8 -> int8 chain helpers.
 
 Params are nested dicts of tensors, declared once as a ``ParamDef`` tree
 and materialised by ``init_tree`` from an explicit ``torch.Generator``.
 Leaves are drawn in sorted-key order (the order JAX flattens dicts in);
 the numbers differ from ``jax.random``, so parity tests convert JAX
-params with ``repro_torch.convert.params_from_jax`` instead.
+params with ``repro_torch.convert.params_from_jax`` instead.  One device
+has no mesh, so the JAX layers' sharding hints (``logical_constraint``)
+have no counterpart here.
+
+Activations keep the JAX layouts: x (B, S, D), heads (B, S, H, Dh), GQA
+queries (B, S, KV, G, Dh).  A JAX einsum with ``preferred_element_type=
+float32`` is an fp32 einsum of the operands widened to fp32 (the products
+of bf16 values are exact in fp32); any other einsum runs in the operands'
+dtype.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.deform_conv import (DCLConfig, conv2d, dcl_forward,
                                           offset_abs_max)
@@ -31,26 +41,38 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """Declarative parameter: shape and init scheme."""
+    """Declarative parameter: shape, init scheme and dtype."""
     shape: tuple[int, ...]
-    init: str = "normal"          # normal | zeros | ones
-    scale: float | None = None    # stddev override (default: 1/sqrt(fan-in))
+    init: str = "normal"          # normal | zeros | ones | embed | uniform
+    scale: float | None = None    # stddev / limit override (default: fan-in)
+    dtype: torch.dtype = torch.float32
 
 
 def _fan_in(shape: tuple[int, ...]) -> int:
     return int(shape[0]) if len(shape) <= 1 else int(math.prod(shape[:-1]))
 
 
+def default_scale(d: ParamDef) -> float:
+    """The stddev (``normal``, ``embed``) or limit (``uniform``) of a
+    random init: ``d.scale``, else 1 for ``embed`` and 1/sqrt(fan-in)."""
+    if d.scale is not None:
+        return d.scale
+    return 1.0 if d.init == "embed" else 1.0 / math.sqrt(_fan_in(d.shape))
+
+
 def init_param(gen: torch.Generator, d: ParamDef) -> Tensor:
     if d.init == "zeros":
-        return torch.zeros(d.shape)
+        return torch.zeros(d.shape, dtype=d.dtype)
     if d.init == "ones":
-        return torch.ones(d.shape)
-    if d.init != "normal":
-        raise ValueError(f"unknown init {d.init!r}")
-    scale = d.scale if d.scale is not None else 1.0 / math.sqrt(
-        _fan_in(d.shape))
-    return torch.randn(d.shape, generator=gen) * scale
+        return torch.ones(d.shape, dtype=d.dtype)
+    if d.init in ("normal", "embed"):
+        return (torch.randn(d.shape, generator=gen) * default_scale(d)) \
+            .to(d.dtype)
+    if d.init == "uniform":
+        lim = default_scale(d)
+        return (torch.rand(d.shape, generator=gen) * (2 * lim) - lim) \
+            .to(d.dtype)
+    raise ValueError(f"unknown init {d.init!r}")
 
 
 def init_tree(defs, gen: torch.Generator, device: torch.device) -> Any:
@@ -60,6 +82,437 @@ def init_tree(defs, gen: torch.Generator, device: torch.device) -> Any:
         return init_param(gen, defs).to(device)
     return {k: init_tree(defs[k], gen, device) for k in sorted(defs)}
 
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: Tensor, scale: Tensor, *, eps: float = 1e-6) -> Tensor:
+    """RMS norm with the JAX package's ``(1 + scale)`` gain (zero-init
+    scale), not ``torch.nn.RMSNorm``'s ``scale``."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor | None = None,
+               *, eps: float = 1e-5) -> Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def norm_def(d_model: int, kind: str) -> dict[str, ParamDef]:
+    if kind == "rms":
+        return {"scale": ParamDef((d_model,), init="zeros")}
+    return {"scale": ParamDef((d_model,), init="ones"),
+            "bias": ParamDef((d_model,), init="zeros")}
+
+
+def apply_norm(params: Mapping[str, Tensor], x: Tensor, kind: str) -> Tensor:
+    if kind == "rms":
+        return rms_norm(x, params["scale"])
+    return layer_norm(x, params["scale"], params.get("bias"))
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-split / llama convention)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, *, theta: float = 10000.0,
+               fraction: float = 1.0, device=None) -> Tensor:
+    rot = int(head_dim * fraction) // 2 * 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / torch.pow(theta, exps)        # theta taken as fp32
+
+
+def apply_rope(x: Tensor, positions: Tensor, *, theta: float = 10000.0,
+               fraction: float = 1.0) -> Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) integer.  The first
+    ``fraction`` of each head rotates (halves paired), the rest passes."""
+    dh = x.shape[-1]
+    inv = rope_freqs(dh, theta=theta, fraction=fraction, device=x.device)
+    rot = inv.shape[0] * 2
+    ang = positions.float()[..., None] * inv             # (B, S, rot/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1, x2 = x[..., :rot].float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return torch.cat([out.to(x.dtype), x[..., rot:]], -1) \
+        if rot < dh else out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, causal, optional sliding window, optional KV cache)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0
+    use_rope: bool = True
+    qkv_bias: bool = False
+    out_bias: bool = False
+    window: int | None = None          # sliding-window size (None = full)
+    softcap: float | None = None       # grok-style tanh soft-capping
+    qk_norm: bool = False              # per-head RMS on q/k (stability)
+
+    @property
+    def group(self) -> int:
+        return self.n_heads // self.kv_heads
+
+
+def effective_kv_heads(cfg: AttnConfig) -> int:
+    """KV heads carried through attention and the KV cache.  The JAX
+    package replicates KV per query group when a tensor-parallel mesh axis
+    cannot shard them; one device has no such axis, so: ``kv_heads``."""
+    return cfg.kv_heads
+
+
+def attn_def(cfg: AttnConfig) -> dict[str, ParamDef]:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    defs: dict[str, ParamDef] = {
+        "wq": ParamDef((d, h, dh)),
+        "wk": ParamDef((d, kv, dh)),
+        "wv": ParamDef((d, kv, dh)),
+        "wo": ParamDef((h, dh, d)),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((h, dh), init="zeros")
+        defs["bk"] = ParamDef((kv, dh), init="zeros")
+        defs["bv"] = ParamDef((kv, dh), init="zeros")
+    if cfg.out_bias:
+        defs["bo"] = ParamDef((d,), init="zeros")
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((dh,), init="zeros")
+        defs["k_norm"] = ParamDef((dh,), init="zeros")
+    return defs
+
+
+def _qkv(params, x: Tensor, cfg: AttnConfig, positions: Tensor):
+    """(q, k, v) of x: (B, S, H, Dh) and (B, S, KV, Dh)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    if cfg.use_rope:
+        q = apply_rope(q, positions, theta=cfg.rope_theta,
+                       fraction=cfg.rope_fraction)
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       fraction=cfg.rope_fraction)
+    return q, k, v
+
+
+def _scores_mask(q_pos: Tensor, k_pos: Tensor, window: int | None) -> Tensor:
+    """(.., Sq, Sk) boolean keep-mask: causal (+ sliding window)."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return m
+
+
+def _sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Tensor,
+          softcap: float | None) -> Tensor:
+    """q: (B,Sq,KV,G,Dh); k/v: (B,Sk,KV,Dh); mask: (B,Sq,Sk).  Scores and
+    softmax in fp32, the probabilities cast to v's dtype for the PV
+    product."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    scores = scores / math.sqrt(dh)
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = torch.where(mask[:, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+
+
+def _sdpa_chunked(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                  k_pos: Tensor, window: int | None, softcap: float | None,
+                  block: int = 1024) -> Tensor:
+    """Online-softmax (flash-style) attention over KV blocks: per step only
+    (B, KV, G, Sq, block) scores live.  Exact (same math as ``_sdpa``).
+    q: (B,Sq,KV,G,Dh); k,v: (B,Sk,KV,Dh); q_pos: (B,Sq); k_pos: (B,Sk)."""
+    b, sq, kv, g, dh = q.shape
+    sk = k.shape[1]
+    pad = (-sk) % block
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=torch.iinfo(torch.int32).max)
+    qf = q.float()
+    scale = 1.0 / math.sqrt(dh)
+    m = torch.full((b, kv, g, sq), -math.inf, device=q.device)
+    l = torch.zeros((b, kv, g, sq), device=q.device)
+    acc = torch.zeros((b, kv, g, sq, dh), device=q.device)
+    for k0 in range(0, sk + pad, block):
+        kc, vc = k[:, k0:k0 + block], v[:, k0:k0 + block]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.float()) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        keep = _scores_mask(q_pos, k_pos[:, k0:k0 + block], window)
+        s = torch.where(keep[:, None, None], s, -1e30)
+        m2 = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m2[..., None])
+        corr = torch.exp(m - m2)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p, vc.float())
+        m = m2
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.movedim(3, 1).to(q.dtype)                 # (B,Sq,KV,G,Dh)
+
+
+def _sdpa_window_blocks(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                        k_pos: Tensor, window: int,
+                        softcap: float | None) -> Tensor:
+    """Sliding-window attention in diagonal blocks of width ``window``:
+    query block i attends KV blocks (i-1, i) only.  Exact for causal
+    windows."""
+    b, sq, kv, g, dh = q.shape
+    if k.shape[1] != sq:
+        raise ValueError("the window-block path expects self-attention")
+    w = window
+    pad = (-sq) % w
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=-1)
+        k_pos = F.pad(k_pos, (0, pad), value=torch.iinfo(torch.int32).max)
+    outs = []
+    for i in range(q.shape[1] // w):
+        cur, prev = slice(i * w, (i + 1) * w), slice((i - 1) * w, i * w)
+        if i == 0:       # the block before the first: zeros, sentinel keys
+            kcat = torch.cat([torch.zeros_like(k[:, cur]), k[:, cur]], 1)
+            vcat = torch.cat([torch.zeros_like(v[:, cur]), v[:, cur]], 1)
+            kpcat = torch.cat([torch.full_like(
+                k_pos[:, cur], torch.iinfo(torch.int32).max), k_pos[:, cur]],
+                1)
+        else:
+            kcat = torch.cat([k[:, prev], k[:, cur]], 1)
+            vcat = torch.cat([v[:, prev], v[:, cur]], 1)
+            kpcat = torch.cat([k_pos[:, prev], k_pos[:, cur]], 1)
+        mask = _scores_mask(q_pos[:, cur], kpcat, window)
+        outs.append(_sdpa(q[:, cur], kcat, vcat, mask, softcap))
+    return torch.cat(outs, 1)[:, :sq]
+
+
+DENSE_ATTN_MAX_KV = 4096
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
+              *, window: int | None, softcap: float | None,
+              impl: str = "auto") -> Tensor:
+    """Dispatch between dense, chunked (flash-style) and window-block
+    attention.  All paths are exact; the choice trades memory and work."""
+    sk = k.shape[1]
+    if impl == "auto":
+        if window is not None and sk > 2 * window and q.shape[1] == sk:
+            impl = "window"
+        elif sk > DENSE_ATTN_MAX_KV:
+            impl = "chunked"
+        else:
+            impl = "dense"
+    if impl == "window":
+        return _sdpa_window_blocks(q, k, v, q_pos, k_pos, window, softcap)
+    if impl == "chunked":
+        return _sdpa_chunked(q, k, v, q_pos, k_pos, window, softcap)
+    if impl != "dense":
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return _sdpa(q, k, v, _scores_mask(q_pos, k_pos, window), softcap)
+
+
+def attn_apply(params, x: Tensor, cfg: AttnConfig, *, positions: Tensor,
+               mask: Tensor | None = None) -> Tensor:
+    """Full-sequence attention (training / prefill).  x: (B, S, D);
+    positions: (B, S); ``mask`` overrides the causal(+window) mask."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, x, cfg, positions)
+    ekv = k.shape[2]
+    q = q.reshape(b, s, ekv, cfg.n_heads // ekv, cfg.head_dim)
+    if mask is None:
+        mask = _scores_mask(positions, positions, cfg.window)
+    out = _sdpa(q, k, v, mask, cfg.softcap)
+    out = out.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    if cfg.out_bias:
+        y = y + params["bo"].to(x.dtype)
+    return y
+
+
+def attn_decode(params, x: Tensor, cfg: AttnConfig, *, cache: dict,
+                pos: Tensor) -> tuple[Tensor, dict]:
+    """Single-token decode with a KV cache.
+
+    x: (B, 1, D); cache: {'k','v': (B, S_cache, KV, Dh)}; pos: (B,)
+    absolute positions of the new token.  For windowed attention the cache
+    is a ring buffer of size >= window.  Returns (y, new cache); the cache
+    passed in is not changed.
+    """
+    b = x.shape[0]
+    s_cache = cache["k"].shape[1]
+    q, k, v = _qkv(params, x, cfg, pos[:, None])
+    ekv = k.shape[2]
+    if cache["k"].shape[2] != ekv:
+        raise ValueError(f"the cache holds {cache['k'].shape[2]} KV heads, "
+                         f"the layer {ekv}")
+    # A position past a full (non-ring) cache writes the last slot, as
+    # JAX's dynamic_update_slice clamps its start.
+    slot = pos % s_cache if cfg.window is not None \
+        else pos.clamp(max=s_cache - 1)
+    rows = torch.arange(b, device=x.device)
+    k_cache = cache["k"].clone()
+    v_cache = cache["v"].clone()
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+
+    q = q.reshape(b, 1, ekv, cfg.n_heads // ekv, cfg.head_dim)
+    # Absolute position of each cache slot (ring-aware).
+    idx = torch.arange(s_cache, device=x.device)[None, :]
+    if cfg.window is not None:
+        wraps = pos[:, None] // s_cache
+        k_pos = torch.where(idx <= (pos[:, None] % s_cache),
+                            wraps * s_cache + idx,
+                            (wraps - 1) * s_cache + idx)
+    else:
+        k_pos = idx
+    mask = _scores_mask(pos[:, None], k_pos, cfg.window)
+    out = _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask,
+                cfg.softcap)
+    out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    if cfg.out_bias:
+        y = y + params["bo"].to(x.dtype)
+    return y, {"k": k_cache, "v": v_cache}
+
+
+def attn_cache_def(cfg: AttnConfig, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16
+                   ) -> dict[str, ParamDef]:
+    s = min(max_len, cfg.window) if cfg.window is not None else max_len
+    ekv = effective_kv_heads(cfg)
+    return {
+        "k": ParamDef((batch, s, ekv, cfg.head_dim), init="zeros",
+                      dtype=dtype),
+        "v": ParamDef((batch, s, ekv, cfg.head_dim), init="zeros",
+                      dtype=dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def _gelu(x: Tensor) -> Tensor:
+    # jax.nn.gelu defaults to the tanh approximation; F.gelu does not.
+    return F.gelu(x, approximate="tanh")
+
+
+ACTS: dict[str, Callable[[Tensor], Tensor]] = {
+    "gelu": _gelu,
+    "silu": F.silu,
+    "relu": F.relu,
+    "relu2": lambda x: F.relu(x).square(),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPConfig:
+    d_model: int
+    d_ff: int
+    kind: str = "swiglu"          # swiglu | geglu | gelu | relu2
+    bias: bool = False
+
+
+def mlp_def(cfg: MLPConfig) -> dict[str, ParamDef]:
+    d, f = cfg.d_model, cfg.d_ff
+    defs = {"w_out": ParamDef((f, d))}
+    if cfg.kind in ("swiglu", "geglu"):
+        defs["w_gate"] = ParamDef((d, f))
+        defs["w_up"] = ParamDef((d, f))
+    else:
+        defs["w_in"] = ParamDef((d, f))
+    if cfg.bias:
+        defs["b_in"] = ParamDef((f,), init="zeros")
+        defs["b_out"] = ParamDef((d,), init="zeros")
+    return defs
+
+
+def mlp_apply(params, x: Tensor, cfg: MLPConfig) -> Tensor:
+    if cfg.kind in ("swiglu", "geglu"):
+        act = F.silu if cfg.kind == "swiglu" else _gelu
+        g = x @ params["w_gate"].to(x.dtype)
+        u = x @ params["w_up"].to(x.dtype)
+        if cfg.bias:
+            g = g + params["b_in"].to(x.dtype)
+        h = act(g) * u
+    else:
+        act = ACTS["gelu" if cfg.kind == "gelu" else "relu2"]
+        h = x @ params["w_in"].to(x.dtype)
+        if cfg.bias:
+            h = h + params["b_in"].to(x.dtype)
+        h = act(h)
+    y = h @ params["w_out"].to(x.dtype)
+    if cfg.bias:
+        y = y + params["b_out"].to(x.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+def embed_def(vocab: int, d_model: int) -> dict[str, ParamDef]:
+    return {"embedding": ParamDef((vocab, d_model), init="embed",
+                                  scale=0.02)}
+
+
+def embed_apply(params, tokens: Tensor,
+                dtype: torch.dtype = torch.bfloat16) -> Tensor:
+    # Gather, then cast: the rows the JAX package casts before its take.
+    return params["embedding"][tokens].to(dtype)
+
+
+def _softcap(x: Tensor, cap: float | None) -> Tensor:
+    return x if cap is None else torch.tanh(x / cap) * cap
+
+
+def logits_apply(params, x: Tensor, *, softcap: float | None = None
+                 ) -> Tensor:
+    """Project to vocab with the (possibly tied) embedding matrix; fp32
+    logits."""
+    emb = params["embedding"].to(x.dtype)
+    return _softcap(x.float() @ emb.float().T, softcap)
+
+
+def unembed_def(vocab: int, d_model: int) -> dict[str, ParamDef]:
+    return {"unembedding": ParamDef((d_model, vocab))}
+
+
+def unembed_apply(params, x: Tensor, *, softcap: float | None = None
+                  ) -> Tensor:
+    w = params["unembedding"].to(x.dtype)
+    return _softcap(x.float() @ w.float(), softcap)
+
+
+# ---------------------------------------------------------------------------
+# Deformable convolution layer (shared conv-backbone primitive)
+# ---------------------------------------------------------------------------
 
 def dcl_def(cin: int, cout: int, k: int = 3) -> dict[str, ParamDef]:
     """One DCL: offset conv (zero-init — offsets start on the regular

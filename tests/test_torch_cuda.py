@@ -524,3 +524,138 @@ def test_banded_small_model_training_step_matches_plain_path(cuda):
     flat = torch.cat([g.reshape(-1) for g in got])
     ref_flat = torch.cat([g.reshape(-1) for g in want])
     assert (flat - ref_flat).norm() <= 1e-4 * ref_flat.norm()
+
+
+# Kernel 6: the six cases of tests/test_flash_attention.py, with its
+# tolerances (elementwise: atol + rtol * |plain|).
+FA_CASES = [
+    # (b, sq, sk, kv, g, dh, causal, softcap)
+    (1, 128, 128, 1, 1, 32, True, None),
+    (2, 64, 64, 2, 2, 16, True, None),
+    (1, 100, 100, 1, 2, 16, True, None),
+    (1, 64, 64, 2, 1, 32, False, None),
+    (1, 96, 96, 1, 1, 16, True, 8.0),
+    (1, 32, 160, 1, 1, 16, False, None),
+]
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# tinyllama's prefill heads (KV 4, G 8, Dh 64, causal): (B, S, dtype).
+FA_TINYLLAMA = [(1, 512, "bfloat16"), (4, 512, "bfloat16"),
+                (1, 2048, "bfloat16"), (4, 2048, "bfloat16"),
+                (1, 4096, "bfloat16"), (1, 2048, "float32")]
+
+
+def _fa_inputs(b, sq, sk, kv, g, dh, dtype, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return (torch.randn(b, sq, kv, g, dh, generator=gen).to(device, dt),
+            torch.randn(b, sk, kv, dh, generator=gen).to(device, dt),
+            torch.randn(b, sk, kv, dh, generator=gen).to(device, dt))
+
+
+def _fa_check(got, want, dtype):
+    tol = FA_TOL[dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    assert (err <= tol + tol * want.float().abs()).all(), err.max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(FA_CASES)),
+                         ids=lambda i: f"case{i}")
+def test_flash_attention_kernel_matches_plain(case, dtype, cuda):
+    from repro_torch.kernels import flash_attention as FA
+    b, sq, sk, kv, g, dh, causal, cap = FA_CASES[case]
+    q, k, v = _fa_inputs(b, sq, sk, kv, g, dh, dtype, case, cuda)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal, softcap=cap,
+                             block_q=32, block_k=32)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    _fa_check(got, FA.flash_attention_plain(q, k, v, causal=causal,
+                                            softcap=cap), dtype)
+    # The head-major entry on the same heads (K/V broadcast over G).
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b * kv * g, sq, dh)
+    kh, vh = (t[:, :, :, None].expand(b, sk, kv, g, dh)
+              .permute(0, 2, 3, 1, 4).reshape(b * kv * g, sk, dh)
+              for t in (k, v))
+    before = FA.flash_attention_bh.launches
+    got_bh = FA.flash_attention_bh(qh, kh, vh, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_bh.launches == before + 1
+    _fa_check(got_bh, FA.flash_attention_bh_plain(qh, kh, vh, causal=causal,
+                                                  softcap=cap), dtype)
+
+
+@pytest.mark.parametrize("b,s,dtype", FA_TINYLLAMA,
+                         ids=lambda x: str(x))
+def test_flash_attention_kernel_at_tinyllama_prefill(b, s, dtype, cuda):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+    q, k, v = _fa_inputs(b, s, s, 4, 8, 64, dtype, s + b, cuda)
+    got = FA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _fa_check(got, FA.flash_attention_plain(q, k, v, causal=True), dtype)
+    if dtype == "float32":      # the LM's own attention, as the JAX test
+        pos = torch.arange(s, device=cuda).expand(b, s)
+        want = L.attention(q, k, v, pos, pos, window=None, softcap=None,
+                           impl="dense")
+        assert ((got - want).abs() <= 3e-5 + 3e-5 * want.abs()).all()
+
+
+# Head dims 128 and 256 at (1, 2048), causal: deepseek-7b's MHA, glm4-9b's
+# GQA, recurrentgemma-9b's MQA (the widest head, the kernel's 32-row K/V
+# tiles): (kv, g, dh, dtype).
+FA_WIDE_HEADS = [(32, 1, 128, "float32"), (2, 16, 128, "float32"),
+                 (1, 16, 256, "float32"), (1, 16, 256, "bfloat16")]
+
+
+@pytest.mark.parametrize("kv,g,dh,dtype", FA_WIDE_HEADS,
+                         ids=lambda x: str(x))
+def test_flash_attention_kernel_at_wide_heads(kv, g, dh, dtype, cuda):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+    s = 2048
+    q, k, v = _fa_inputs(1, s, s, kv, g, dh, dtype, dh + g, cuda)
+    got = FA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _fa_check(got, FA.flash_attention_plain(q, k, v, causal=True), dtype)
+    if dtype == "float32":
+        pos = torch.arange(s, device=cuda).expand(1, s)
+        want = L.attention(q, k, v, pos, pos, window=None, softcap=None,
+                           impl="dense")
+        assert ((got - want).abs() <= 3e-5 + 3e-5 * want.abs()).all()
+
+
+def test_flash_attention_empty_shapes_launch_nothing(cuda):
+    """No query row or no head: an empty output, and no launch counted."""
+    from repro_torch.kernels import flash_attention as FA
+    before = (FA.flash_attention.launches, FA.flash_attention_bh.launches)
+    for b, sq in ((1, 0), (0, 8)):
+        q, k, v = _fa_inputs(b, sq, 8, 2, 2, 16, "float32", 0, cuda)
+        assert FA.flash_attention(q, k, v).shape == (b, sq, 2, 2, 16)
+        qh, kh, vh = q[:, :, 0, 0], k[:, :, 0], v[:, :, 0]
+        assert FA.flash_attention_bh(qh, kh, vh).shape == (b, sq, 16)
+    assert (FA.flash_attention.launches,
+            FA.flash_attention_bh.launches) == before
+
+
+def test_flash_attention_refuses_before_or_at_launch(cuda):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _fa_inputs(1, 8, 8, 1, 2, 16, "float32", 0, cuda)
+    before = FA.flash_attention.launches
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        FA.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        FA.flash_attention(*_fa_inputs(1, 8, 8, 1, 1, 320, "float32", 0,
+                                       cuda))
+    # Sq above 65535 query tiles of 64 rows: the launch itself is refused
+    # (grid.y), and the wrapper raises instead of returning garbage.
+    sq = 65536 * 64 + 1
+    big_q = torch.zeros(1, sq, 1, 1, 16, device=cuda)
+    kk, vv = (torch.zeros(1, 1, 1, 16, device=cuda) for _ in range(2))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FA.flash_attention(big_q, kk, vv, causal=False)
+    assert FA.flash_attention.launches == before
+    torch.cuda.synchronize()                 # the context is still sound
+    got = FA.flash_attention(q, k, v)
+    _fa_check(got, FA.flash_attention_plain(q, k, v), "float32")

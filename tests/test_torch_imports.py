@@ -65,7 +65,9 @@ def test_library_is_named_by_its_source_and_built_outside_git():
     assert names == sorted(_build.SIGNATURES) == ["deform_conv_bwd",
                                                   "deform_conv_fused",
                                                   "deform_conv_q",
-                                                  "deform_sample", "matmul"]
+                                                  "deform_sample",
+                                                  "flash_attention",
+                                                  "matmul"]
     for name in names:
         src = _build.CSRC / f"{name}.cu"
         lib = _build.library_path(name)
@@ -91,8 +93,12 @@ def test_every_kernel_module_is_checked():
     above import and parse."""
     mods = _modules()
     for name in ("deform_sample", "matmul", "deform_conv_fused",
-                 "deform_conv_bwd", "deform_conv_q"):
+                 "deform_conv_bwd", "deform_conv_q", "flash_attention"):
         assert f"repro_torch.kernels.{name}" in mods
+    for name in ("models.transformer", "models.registry", "serve.engine",
+                 "configs.tinyllama_1_1b", "configs.deepseek_7b",
+                 "configs.glm4_9b"):
+        assert f"repro_torch.{name}" in mods
 
 
 def _cuda_calls():
@@ -103,6 +109,7 @@ def _cuda_calls():
     from repro_torch.kernels import deform_conv_fused as F
     from repro_torch.kernels import deform_conv_q as Q
     from repro_torch.kernels import deform_sample as S
+    from repro_torch.kernels import flash_attention as A
     from repro_torch.kernels import matmul as M
     geom = dict(kernel_size=3, stride=1, dilation=1, offset_bound=2.0)
     band_h = 8 - 1 + 2 + 4 + 2            # Eq. 6 rows of an 8-row tile
@@ -131,13 +138,17 @@ def _cuda_calls():
                 torch.empty(1, 36, 8, dtype=torch.int8, device="cuda"),
                 f32(8), tile_h=4, tile_w=4, tile_c=4, **geom)),
         "matmul": (M, lambda: M.matmul(f32(8, 4), f32(4, 8))),
+        "flash_attention": (A, lambda: A.flash_attention(
+            f32(1, 8, 2, 2, 16), f32(1, 8, 2, 16), f32(1, 8, 2, 16))),
+        "flash_attention_bh": (A, lambda: A.flash_attention_bh(
+            f32(4, 8, 16), f32(4, 8, 16), f32(4, 8, 16))),
     }
 
 
 WRAPPERS = ["deform_sample_zerocopy", "deform_sample_banded",
             "deform_conv_fused_banded", "deform_conv_fused_zerocopy",
             "deform_conv_bwd_zerocopy", "deform_conv_fused_zerocopy_q",
-            "matmul"]
+            "matmul", "flash_attention", "flash_attention_bh"]
 
 
 @pytest.mark.parametrize("wrapper", WRAPPERS)
