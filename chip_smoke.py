@@ -67,12 +67,14 @@ Phases, each of which exits non-zero on failure:
    version within 1e-5 * max|plain|); kernel 4 (the banded fused forward)
    at every distinct DCL shape of both buckets and the same two edge
    cases, within 1e-5 * max|plain|; kernel 5 (matmul) at 256^3, 512^3,
-   4096^3 and 257x129x65 in fp32 (1e-5 * max|plain|) and 512^3 in bf16
-   (one bf16 step, 2^-7 * max|plain|), beside ``torch.matmul``.  Then the
+   4096^3 and 257x129x65 in fp32 (1e-5 * max|plain|) and 512^3 and
+   4096^3 in bf16 (one bf16 step, 2^-7 * max|plain|), beside
+   ``torch.matmul``, each case naming the instance it ran (tile, aligned
+   16-byte or element-wise loads).  Then the
    entry points as a user calls them: ``ops.deform_sample`` on both
    dataflows and ``ops.deform_conv(dataflow=...)`` on both at the five
    shapes (sample + einsum within 1e-5 * max|fused| of the fused output)
-   and ``ops.matmul`` at the five matmul cases, counting launches.
+   and ``ops.matmul`` at the six matmul cases, counting launches.
 10. serve banded: phase 4's model and requests with ``dataflow="banded"``
    on ``fp32_kernel``; every request ``ok``, 12 launches of kernel 4 per
    step and none of 1a, ``cls``/``box`` within ``1e-3 * max|ref|`` of the
@@ -96,12 +98,23 @@ Phases, each of which exits non-zero on failure:
    recurrentgemma-9b's MQA heads (Dh 256) at (1, 2048) in both, the fp32
    ones also against ``attention(impl="dense")``; softcap 30 at (1, 1024);
    cross shapes Sq=1/Sk=2048 and Sq=100/Sk=1000; (1, 8192) fp32 causal,
-   also against ``attention(impl="chunked")`` (3e-5).  Each case prints
+   also against ``attention(impl="chunked")`` (3e-5); three decode-like
+   cross cases at tinyllama's heads that take the split over K (bf16
+   Sq=1/Sk=8192 and Sq=16/Sk=4096, fp32 Sq=1/Sk=2048), summed apart so
+   the bf16 totals stay on the 15 bf16 cases before them.  Each case prints
+   its split count, every split case is also held to
+   ``flash_attention_split_plain`` with the same count (and prints the
+   combine kernel's share of its device time), every bf16 case is also
+   held to a relative L2 error of 1e-2 against each plain version, and
+   each prints
    the kernel's, the plain version's and ``F.scaled_dot_product_attention``'s
    time (CUDA events, median; SDPA held to the plain version within the
-   same tolerance; none for softcap) beside its bound and error; then
+   same tolerance; none for softcap) beside its bound and error, and the
+   kernel's time with the calls queued behind a busy device (the small
+   cases' back-to-back time is the host's launch path); then
    every case once through ``flash_attention`` as a user calls it, with
-   one launch per case counted.
+   one launch per case counted (the split kernel and its combine are
+   one).
 13. LM serving at full width: tinyllama-1.1b (22 layers, d 2048, vocab
    32000, bf16 compute on fp32 params from seed 0) (a) through the
    launcher's ``serve_lm`` with its defaults (8 requests of 4-12 tokens,
@@ -170,7 +183,7 @@ BANDED_LOSS_RTOL = 1e-5     # step-0 loss, banded vs zero-copy
 BANDED_TRAIN_STEPS = 2
 MM_SHAPES = [(256, 256, 256, "float32"), (512, 512, 512, "float32"),
              (4096, 4096, 4096, "float32"), (257, 129, 65, "float32"),
-             (512, 512, 512, "bfloat16")]
+             (512, 512, 512, "bfloat16"), (4096, 4096, 4096, "bfloat16")]
 PEAK_BF16_FLOPS = 989e12
 BATCH = 4
 BUCKETS = "256,512"
@@ -1290,6 +1303,7 @@ def check_matmul(m: int, k: int, n: int, dtype: str, gen) -> dict:
         getattr(torch, dtype))
     w = torch.randn(k, n, device="cuda", generator=gen).to(
         getattr(torch, dtype))
+    instance = MM.instance(x, w)
     y = MM.matmul(x, w)
     torch.cuda.synchronize()
     yp = MM.matmul_plain(x, w)
@@ -1307,13 +1321,15 @@ def check_matmul(m: int, k: int, n: int, dtype: str, gen) -> dict:
     nbytes = x.element_size() * (m * k + k * n + m * n)
     bound_ms = max(flops / peak, nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
     label = f"{m}x{k}x{n} {dtype}"
-    rec = dict(label=label, m=m, k=k, n=n, dtype=dtype, max_abs_err=err,
+    rec = dict(label=label, m=m, k=k, n=n, dtype=dtype, instance=instance,
+               max_abs_err=err,
                max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms,
                bound_by="operations" if flops / peak
                >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
                flops=flops, op_ms=flops / peak * 1e3, bytes=nbytes)
-    print(f"  matmul {label:<24} err={err:.2e} (max|plain|={scale:.2f}) "
+    print(f"  matmul {label:<24} [{instance}] err={err:.2e} "
+          f"(max|plain|={scale:.2f}) "
           f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
           f"torch.matmul={library_ms:.4f} ms bound={bound_ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s) "
@@ -1570,6 +1586,11 @@ def train_banded(record: dict, step0: dict) -> None:
 # ---------------------------------------------------------------------------
 
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_flash_attention.py
+# bf16 cases are also held to a relative L2 error: at Sk in the thousands
+# a typical |o| (~sqrt(e / Sk)) is below FA_TOL's 2e-2 atol, so the
+# elementwise test alone could pass a split left out of the combine
+# (PERF.md section 2 has the readings).
+FA_BF16_REL_L2 = 1e-2
 LM_ATTN_TOL = 3e-5      # the LM's attention vs the kernel, fp32 (same test)
 FA_JAX_CASES = [
     # (b, sq, sk, kv, g, dh, causal, softcap): tests/test_flash_attention.py
@@ -1614,6 +1635,14 @@ def fa_cases() -> list[dict]:
                    False, None, "bfloat16"),
               case("tinyllama (1, 8192) float32", 1, 8192, 8192, 4, 8, 64,
                    True, None, "float32", vs="chunked")]
+    # Decode-like shapes that take the split over K, kept out of the bf16
+    # totals of the 15 bf16 cases above.
+    cases += [case("cross Sq=1 Sk=8192 bfloat16", 1, 1, 8192, 4, 8, 64,
+                   False, None, "bfloat16", decode=True),
+              case("cross Sq=16 Sk=4096 bfloat16", 1, 16, 4096, 4, 8, 64,
+                   False, None, "bfloat16", decode=True),
+              case("cross Sq=1 Sk=2048 float32", 1, 1, 2048, 4, 8, 64,
+                   False, None, "float32", decode=True)]
     return cases
 
 
@@ -1649,6 +1678,56 @@ def within(got, want, tol: float) -> bool:
                  <= tol + tol * want.float().abs()).all())
 
 
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor, in fp32."""
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+def queued_ms(fn, calls: int = 10) -> float:
+    """Device time of one call of ``fn`` (ms): CUDA events around ``calls``
+    calls enqueued behind a kernel that keeps the device busy ~10 ms, so
+    the host's launch path, which bounds small calls timed back to back,
+    hides behind device work."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def kernel_device_ms(fn, calls: int = 10) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn`` (after one warm-up):
+    device ms a call of each kernel of ``flash_attention.cu``, by name.
+    One short call alone leaves the profiler with no kernel record."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0)
+        name = re.search(r"fa_(tc_kernel|kernel|combine)[^(]*", e.key)
+        if t and name:
+            out[name.group(0)] = out.get(name.group(0), 0.0) + t / 1e3 / calls
+    return out
+
+
 def check_flash(c: dict, gen) -> tuple[dict, tuple]:
     """Kernel 6 vs its plain version (and SDPA, and the LM's attention
     where the case asks) on one case; the record and the inputs."""
@@ -1663,25 +1742,54 @@ def check_flash(c: dict, gen) -> tuple[dict, tuple]:
     v = torch.randn(b, sk, kv, dh, device="cuda", generator=gen).to(dt)
     kw = dict(causal=c["causal"], softcap=c["softcap"])
     tol = FA_TOL[c["dtype"]]
+    splits = FA.kernel_splits(q, k)
     y = FA.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     yp = FA.flash_attention_plain(q, k, v, **kw)
     err = (y.float() - yp.float()).abs().max().item()
     ok = within(y, yp, tol) and y.dtype == dt and bool(
         torch.isfinite(y.float()).all())
+    # bf16 also passes FA_BF16_REL_L2 against each plain version.
+    l2_limit = FA_BF16_REL_L2 if c["dtype"] == "bfloat16" else float("inf")
+    l2 = rel_l2(y, yp)
+    ok = ok and l2 <= l2_limit
+    split_err = split_l2 = None
+    if splits > 1:
+        ysp = FA.flash_attention_split_plain(q, k, v, splits=splits, **kw)
+        split_err = (y.float() - ysp.float()).abs().max().item()
+        split_l2 = rel_l2(y, ysp)
+        ok = ok and within(y, ysp, tol) and split_l2 <= l2_limit
     big = sq * sk * b * kv * g > 1e8
     reps, iters = 5, (3 if big else 20)
     ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), reps=reps,
                  iters=iters)
     plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
                        reps=3, iters=1 if big else 5)
-    rec = dict(c, max_abs_err=err, max_abs_plain=yp.float().abs().max()
-               .item(), ms=ms, plain_ms=plain_ms, library_ms=None)
+    queued = queued_ms(lambda: FA.flash_attention(q, k, v, **kw))
+    rec = dict(c, splits=splits, split_err=split_err, max_abs_err=err,
+               rel_l2=l2, split_rel_l2=split_l2,
+               max_abs_plain=yp.float().abs().max().item(), ms=ms,
+               queued_ms=queued, plain_ms=plain_ms, library_ms=None)
+    combine = ""
+    if splits > 1:
+        # The combine's share of the device time of a call (torch.profiler
+        # over 10 calls: its sums can read low, the ratio is what is kept).
+        per_kernel = kernel_device_ms(lambda: FA.flash_attention(q, k, v,
+                                                                 **kw))
+        busy = sum(per_kernel.values())
+        comb = sum(t for name, t in per_kernel.items() if "fa_combine" in name)
+        rec.update(profile_kernels=per_kernel, combine_ms=comb,
+                   combine_share=comb / busy if busy else None)
+        combine = (f" combine {comb * 1e3:.2f} of {busy * 1e3:.2f} us a call "
+                   f"(torch.profiler)" if busy else
+                   " combine: not measured (torch.profiler saw no kernel)")
     if c["softcap"] is None:
         ys = sdpa(q, k, v, c["causal"])
         rec["library_err"] = (ys.float() - yp.float()).abs().max().item()
         rec["library_ms"] = time_ms(lambda: sdpa(q, k, v, c["causal"]),
                                     reps=reps, iters=iters)
+        rec["library_queued_ms"] = queued_ms(
+            lambda: sdpa(q, k, v, c["causal"]))
         if not within(ys, yp, tol):
             fail(f"{c['label']}: SDPA is {rec['library_err']} from the "
                  f"plain version, beyond {tol} (not the same function?)")
@@ -1699,16 +1807,23 @@ def check_flash(c: dict, gen) -> tuple[dict, tuple]:
     rec["bound_ms"] = max(rec["op_ms"], rec["byte_ms"])
     rec["bound_by"] = "operations" if rec["op_ms"] >= rec["byte_ms"] \
         else "bytes"
-    lib = "-" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
-    print(f"  {c['label']:<38} err={err:.2e} kernel={ms:.4f} ms "
-          f"plain={plain_ms:.4f} ms sdpa={lib} ms "
+    lib = "-" if rec["library_ms"] is None else \
+        f"{rec['library_ms']:.4f} ms (queued {rec['library_queued_ms']:.4f})"
+    print(f"  {c['label']:<38} splits={splits} err={err:.2e} "
+          f"rel_l2={l2:.2e}"
+          + (f" vs split_plain {split_err:.2e} rel_l2={split_l2:.2e}"
+             if split_err is not None else "")
+          + f" kernel={ms:.4f} ms (queued {queued:.4f} ms) "
+          f"plain={plain_ms:.4f} ms sdpa={lib} "
           f"bound={rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
           f"{ops / ms / 1e9:.2f} TFLOP/s)"
           + (f" vs {c['vs']} {rec['lm_err']:.2e}" if c.get("vs") else "")
-          + f" {'ok' if ok else 'FAIL'}")
+          + combine + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{c['label']}: max|kernel - plain| = {err}, vs the LM's "
-             f"attention {rec.get('lm_err')} (tolerance {tol})")
+             f"attention {rec.get('lm_err')}, vs the split plain version "
+             f"{split_err} (tolerance {tol}); relative L2 {l2}, vs the "
+             f"split plain version {split_l2} (limit {l2_limit})")
     return rec, (q, k, v, y)
 
 
@@ -1719,12 +1834,26 @@ def flash_phase(record: dict, gen) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
     lib = FA.load_kernel()
+    spills, entry = {}, None
     for line in _build.build_log.get("flash_attention", "").splitlines():
         if "entry function" in line or "registers" in line \
                 or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    print(f"  shared memory per block: "
-          f"{ {dh: lib.fa_smem_bytes(dh) for dh in (16, 32, 64, 128, 256)} }")
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry:
+            spills[entry] = int(line.split("bytes spill stores")[0]
+                                .split(",")[-1])
+    # The bf16 instance at Dh 256 keeps a 16 x 256 fp32 accumulator a
+    # warp: 128 registers a thread.
+    tc256 = [n for n in spills if "fa_tc_kernelILi256E" in n]
+    record["flash_bf16_dh256_spill_bytes"] = [spills[n] for n in tc256]
+    print(f"  ptxas: the bf16 instance at Dh 256 spills "
+          f"{[spills[n] for n in tc256]} bytes (stores)")
+    for dtype, name in ((0, "float32"), (1, "bfloat16")):
+        smem = {dh: lib.fa_smem_bytes(dh, dtype)
+                for dh in (16, 20, 32, 64, 128, 256)}
+        print(f"  shared memory per block, {name}: {smem}")
     cases = fa_cases()
     results = [check_flash(c, gen) for c in cases]
     record["flash_shapes"] = [r for r, _ in results]
@@ -1752,7 +1881,9 @@ def flash_phase(record: dict, gen) -> dict:
     # bf16 totals are the LM's serving dtype, where SDPA runs its flash
     # path (fp32 with GQA takes its math path).
     with_lib = [r for r in shapes if r["library_ms"] is not None]
-    bf16_lib = [r for r in with_lib if r["dtype"] == "bfloat16"]
+    bf16_lib = [r for r in with_lib if r["dtype"] == "bfloat16"
+                and not r.get("decode")]
+    decode = [r for r in shapes if r.get("decode")]
     run = dict(ms=sum(r["ms"] for r in shapes),
                plain_ms=sum(r["plain_ms"] for r in shapes),
                library_ms=sum(r["library_ms"] for r in with_lib),
@@ -1760,16 +1891,40 @@ def flash_phase(record: dict, gen) -> dict:
                ms_where_library=sum(r["ms"] for r in with_lib),
                bf16_cases=len(bf16_lib),
                bf16_ms=sum(r["ms"] for r in bf16_lib),
+               bf16_queued_ms=sum(r["queued_ms"] for r in bf16_lib),
                bf16_library_ms=sum(r["library_ms"] for r in bf16_lib),
-               bound_ms=max(op_ms, byte_ms))
+               bf16_library_queued_ms=sum(r["library_queued_ms"]
+                                          for r in bf16_lib),
+               decode_cases=len(decode),
+               decode_ms=sum(r["ms"] for r in decode),
+               decode_queued_ms=sum(r["queued_ms"] for r in decode),
+               decode_plain_ms=sum(r["plain_ms"] for r in decode),
+               decode_library_ms=sum(r["library_ms"] for r in decode
+                                     if r["library_ms"] is not None),
+               bound_ms=max(op_ms, byte_ms),
+               bf16_max_rel_l2=max(r["rel_l2"] for r in shapes
+                                   if r["dtype"] == "bfloat16"),
+               bf16_max_split_rel_l2=max(
+                   (r["split_rel_l2"] for r in shapes
+                    if r["dtype"] == "bfloat16" and r["split_rel_l2"]
+                    is not None), default=None))
     record["run_flash_attention"] = run
     print(f"  flash_attention per entry-point run ({len(cases)} cases): "
           f"kernel {run['ms']:.3f} ms, plain {run['plain_ms']:.3f} ms, "
           f"bound {run['bound_ms']:.4f} ms; on the {len(with_lib)} cases "
           f"SDPA computes: kernel {run['ms_where_library']:.3f} ms, SDPA "
           f"{run['library_ms']:.3f} ms; on the {len(bf16_lib)} bf16 ones: "
-          f"kernel {run['bf16_ms']:.3f} ms, SDPA "
-          f"{run['bf16_library_ms']:.3f} ms")
+          f"kernel {run['bf16_ms']:.3f} ms (queued "
+          f"{run['bf16_queued_ms']:.3f} ms), SDPA "
+          f"{run['bf16_library_ms']:.3f} ms (queued "
+          f"{run['bf16_library_queued_ms']:.3f} ms); on the {len(decode)} "
+          f"decode-like split cases: kernel {run['decode_ms']:.4f} ms "
+          f"(queued {run['decode_queued_ms']:.4f} ms), "
+          f"plain {run['decode_plain_ms']:.4f} ms, SDPA "
+          f"{run['decode_library_ms']:.4f} ms; bf16 relative L2 at most "
+          f"{run['bf16_max_rel_l2']:.2e} vs plain, "
+          f"{run['bf16_max_split_rel_l2']:.2e} vs split_plain (limit "
+          f"{FA_BF16_REL_L2})")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -1784,7 +1939,8 @@ def flash_phase(record: dict, gen) -> dict:
         "library_ms": run["library_ms"],
         **{key: run[key] for key in ("library_cases", "ms_where_library",
                                      "bf16_cases", "bf16_ms",
-                                     "bf16_library_ms")},
+                                     "bf16_library_ms", "decode_cases",
+                                     "decode_ms")},
     }
 
 

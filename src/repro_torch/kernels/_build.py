@@ -3,11 +3,11 @@ a plain C interface, loaded with ctypes).
 
 Every ``*.cu`` under ``kernels/csrc/`` becomes ``build/repro_torch/
 lib<name>-<hash>.so`` at the root of the checkout (listed in
-``.gitignore``); the hash of the source names the library, so an edited
-source is never served by a stale build.  Nothing is built when a module
-is imported: the first call that launches a kernel builds it, and
-``build_all`` builds every source at once, one ``nvcc`` each, started
-together.
+``.gitignore``); the hash of the source and of every ``csrc/*.cuh`` it
+includes names the library, so an edited source or header is never served
+by a stale build.  Nothing is built when a module is imported: the first
+call that launches a kernel builds it, and ``build_all`` builds every
+source at once, one ``nvcc`` each, started together.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -45,13 +46,14 @@ SIGNATURES = {
         "ds_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
-        "fa_forward": (_I, [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]),
-        "fa_smem_bytes": (ctypes.c_longlong, [_I]),
+        "fa_forward": (_I, [_P] * 5 + [_I] * 8
+                       + [ctypes.c_float, _I, _P]),
+        "fa_smem_bytes": (ctypes.c_longlong, [_I, _I]),
         "fa_error_string": (ctypes.c_char_p, [_I]),
     },
     "matmul": {
-        "mm_f32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
-        "mm_bf16": (_I, [_P] * 3 + [_I] * 3 + [_P]),
+        "mm_f32": (_I, [_P] * 3 + [_I] * 5 + [_P]),
+        "mm_bf16": (_I, [_P] * 3 + [_I] * 4 + [_P]),
         "mm_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_conv_bwd": {
@@ -83,9 +85,28 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[pathlib.Path]:
+    """``csrc/{name}.cu`` and every ``csrc`` header it includes, directly
+    or through another header (``#include "x.cuh"``)."""
+    found = [CSRC / f"{name}.cu"]
+    for path in found:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists() and dep not in found:
+                found.append(dep)
+    return found
+
+
 def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library's path, named by the SHA-1 of the source followed by
+    its headers (of the source alone when it includes none)."""
+    digest = hashlib.sha1()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> dict[str, float]:

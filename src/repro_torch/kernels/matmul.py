@@ -3,12 +3,18 @@
 Counterpart of ``repro.kernels.matmul.matmul``: ``x @ w`` for x (M, K)
 and w (K, N), fp32 or bf16 inputs, fp32 accumulation, the result in x's
 dtype.  On CUDA tensors it launches the hand-written kernel of
-``csrc/matmul.cu``; on CPU tensors it runs the plain PyTorch version.
-There is no fallback from one to the other: a failed launch raises.
+``csrc/matmul.cu`` (fp32 on CUDA cores, 128 x 128 tiles or 64 x 64 for
+outputs of fewer than 132 wide tiles; bf16 on the tensor cores, 128 x 128
+tiles), with 16-byte loads where rows and pointers are 16-byte aligned
+and element-wise loads elsewhere (``_plan``); on CPU tensors it runs the
+plain PyTorch version.  There is no fallback from one to the other: a
+failed launch raises.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.tiling import SM_COUNT
 
 Tensor = torch.Tensor
 
@@ -31,6 +37,27 @@ def _check(x: Tensor, w: Tensor, block_m: int, block_n: int,
                          f"positive")
 
 
+def _plan(m: int, n: int, k: int, dtype: torch.dtype,
+          aligned: bool) -> tuple[int, bool]:
+    """(block tile, 16-byte loads) of the kernel instance for an (m, k) @
+    (k, n) product: fp32 takes 128 x 128 tiles when the output has at
+    least one per SM, else 64 x 64; bf16 always 128 x 128.  16-byte loads
+    need 16-byte rows (k and n multiples of 4 fp32 or 8 bf16) and
+    ``aligned`` base pointers."""
+    if dtype == torch.float32:
+        wide = -(-m // 128) * -(-n // 128) >= SM_COUNT
+        return (128 if wide else 64), aligned and k % 4 == 0 and n % 4 == 0
+    return 128, aligned and k % 8 == 0 and n % 8 == 0
+
+
+def instance(x: Tensor, w: Tensor) -> str:
+    """The kernel instance ``matmul(x, w)`` launches, e.g. "128x128
+    aligned" (16-byte loads) or "64x64 element-wise"."""
+    tile, vec = _plan(x.shape[0], w.shape[1], x.shape[1], x.dtype,
+                      x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    return f"{tile}x{tile} {'aligned' if vec else 'element-wise'}"
+
+
 def matmul_plain(x: Tensor, w: Tensor, *, block_m: int = 256,
                  block_n: int = 256, block_k: int = 256) -> Tensor:
     """Plain PyTorch version, on any device: the product in fp32, returned
@@ -44,9 +71,9 @@ def matmul(x: Tensor, w: Tensor, *, block_m: int = 256, block_n: int = 256,
     """``x @ w`` with fp32 accumulation: x (M, K), w (K, N) -> (M, N) in
     x.dtype, any sizes.
 
-    The JAX kernel's blocks shape its grid; the CUDA kernel runs fixed
-    64 x 64 x 16 tiles and sums every output over k in order, so the
-    blocks are checked and change no result.  CPU tensors run the plain
+    The JAX kernel's blocks shape its grid; the CUDA kernel picks its own
+    tiles (``_plan``), so the blocks are checked and change no result
+    (fp32 sums every output over k in order).  CPU tensors run the plain
     version; CUDA tensors launch the kernel (x and w both fp32 or both
     bf16) and count the launch in ``matmul.launches``.
     """
@@ -68,10 +95,16 @@ def matmul(x: Tensor, w: Tensor, *, block_m: int = 256, block_n: int = 256,
     lib = load_kernel()
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn = lib.mm_f32 if x.dtype == torch.float32 else lib.mm_bf16
+    tile, vec = _plan(m, n, k, x.dtype,
+                      x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if x.dtype == torch.float32:
+            err = lib.mm_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(), m,
+                             n, k, tile, int(vec), stream)
+        else:
+            err = lib.mm_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(), m,
+                              n, k, int(vec), stream)
     if err:
         raise RuntimeError(f"matmul kernel launch failed: "
                            f"{lib.mm_error_string(err).decode()} ({err})")

@@ -473,6 +473,36 @@ def test_matmul_kernel_matches_plain(shape, dtype, cuda):
     assert MM.matmul.launches == before + 1
 
 
+@pytest.mark.parametrize("case", ["bf16 4096^3", "bf16 257x129x65",
+                                  "fp32 misaligned", "bf16 misaligned"])
+def test_matmul_kernel_instances(case, cuda):
+    """The tensor-core bf16 instance at a size that is not launch-bound and
+    at a ragged one; a view offset by one element (not 16-byte aligned)
+    takes the element-wise loads in both dtypes."""
+    from repro_torch.kernels import matmul as MM
+    dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16
+    m, k, n = {"bf16 4096^3": (4096, 4096, 4096),
+               "bf16 257x129x65": (257, 129, 65)}.get(case, (300, 256, 192))
+    gen = torch.Generator().manual_seed(len(case))
+    x = torch.randn(m * k + 1, generator=gen).to(cuda, dtype)
+    x = x[1:].view(m, k) if "misaligned" in case else x[:-1].view(m, k)
+    w = torch.randn(k, n, generator=gen).to(cuda, dtype)
+    want_instance = {"bf16 4096^3": "128x128 aligned",
+                     "bf16 257x129x65": "128x128 element-wise",
+                     "fp32 misaligned": "64x64 element-wise",
+                     "bf16 misaligned": "128x128 element-wise"}[case]
+    assert MM.instance(x, w) == want_instance
+    before = MM.matmul.launches
+    got = MM.matmul(x, w)
+    torch.cuda.synchronize()
+    assert MM.matmul.launches == before + 1
+    want = MM.matmul_plain(x, w)
+    tol = MM_RTOL if dtype == torch.float32 else BF16_RTOL
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert (got.float() - want.float()).abs().max().item() \
+        <= tol * want.float().abs().max().item()
+
+
 def test_banded_small_model_training_step_matches_plain_path(cuda):
     """One Eq. 5 training step of the small model on the banded dataflow:
     2 launches of kernel 4 and 2 of kernel 2, none of kernel 1a, and the
@@ -538,6 +568,9 @@ FA_CASES = [
     (1, 32, 160, 1, 1, 16, False, None),
 ]
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 is also held to a relative L2 error (chip_smoke.py's
+# FA_BF16_REL_L2): at long Sk a typical |o| is below the 2e-2 atol.
+FA_BF16_REL_L2 = 1e-2
 # tinyllama's prefill heads (KV 4, G 8, Dh 64, causal): (B, S, dtype).
 FA_TINYLLAMA = [(1, 512, "bfloat16"), (4, 512, "bfloat16"),
                 (1, 2048, "bfloat16"), (4, 2048, "bfloat16"),
@@ -557,6 +590,9 @@ def _fa_check(got, want, dtype):
     assert got.dtype == want.dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs()
     assert (err <= tol + tol * want.float().abs()).all(), err.max().item()
+    if dtype == "bfloat16":
+        rel = (err.norm() / want.float().norm()).item()
+        assert rel <= FA_BF16_REL_L2, rel
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -659,3 +695,75 @@ def test_flash_attention_refuses_before_or_at_launch(cuda):
     torch.cuda.synchronize()                 # the context is still sound
     got = FA.flash_attention(q, k, v)
     _fa_check(got, FA.flash_attention_plain(q, k, v), "float32")
+
+
+# The bf16 tensor-core instance: head dims 16, 20 (rows of 40 bytes: no
+# cp.async), 64, 80 (cp.async, zero-padded to the 128 instance), 128 and
+# 256, ragged Sq and Sk, softcap, and inputs whose base pointer is not
+# 16-byte aligned; (b, sq, sk, kv, g, dh, causal, softcap, offset).
+# offset "row" views q and k one row into a larger buffer, "element" one
+# element.
+FA_BF16 = [
+    (1, 77, 77, 1, 2, 16, True, None, None),
+    (1, 130, 200, 1, 1, 20, False, None, "row"),
+    (2, 100, 150, 2, 3, 64, True, None, None),
+    (1, 300, 300, 2, 2, 64, True, None, "element"),
+    (1, 129, 191, 2, 4, 128, True, 30.0, None),
+    (1, 200, 330, 1, 4, 256, True, None, None),
+    (1, 96, 96, 1, 1, 256, False, 8.0, "element"),
+    (1, 70, 90, 2, 2, 80, True, None, None),
+]
+
+
+def _offset_view(t, how):
+    """t's values in a view one row (dim 1) or one element into a larger
+    contiguous buffer."""
+    b = t.shape[0]
+    if how == "row":
+        assert b == 1
+        buf = torch.cat([torch.zeros_like(t[:, :1]), t], dim=1)
+        return buf[:, 1:]
+    buf = torch.cat([t.new_zeros(1), t.reshape(-1)])
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("case", range(len(FA_BF16)),
+                         ids=lambda i: f"bf16_{i}")
+def test_flash_attention_bf16_tensor_core_kernel(case, cuda):
+    from repro_torch.kernels import flash_attention as FA
+    b, sq, sk, kv, g, dh, causal, cap, offset = FA_BF16[case]
+    q, k, v = _fa_inputs(b, sq, sk, kv, g, dh, "bfloat16", 40 + case, cuda)
+    if offset:
+        q, k = _offset_view(q, offset), _offset_view(k, offset)
+        assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    _fa_check(got, FA.flash_attention_plain(q, k, v, causal=causal,
+                                            softcap=cap), "bfloat16")
+
+
+# The split over K: Sq = 1 and Sq = 16 against long keys, tinyllama's
+# heads (KV 4, G 8, Dh 64) and a ragged Sk, in both dtypes; (b, sq, sk,
+# causal).
+FA_SPLIT = [(1, 1, 2048, False), (1, 16, 4096, False), (2, 16, 1000, True),
+            (1, 1, 8192, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,causal", FA_SPLIT, ids=lambda x: str(x))
+def test_flash_attention_split_path(b, sq, sk, causal, dtype, cuda):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _fa_inputs(b, sq, sk, 4, 8, 64, dtype, sk + sq, cuda)
+    splits = FA.kernel_splits(q, k)
+    assert splits == FA._plan_splits(b * 32, sk) > 1
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1     # split + combine
+    _fa_check(got, FA.flash_attention_split_plain(q, k, v, splits=splits,
+                                                  causal=causal), dtype)
+    _fa_check(got, FA.flash_attention_plain(q, k, v, causal=causal), dtype)
+    # Fixed-order combine, no atomics: the same bits on every call.
+    assert torch.equal(FA.flash_attention(q, k, v, causal=causal), got)

@@ -96,6 +96,102 @@ def test_plain_path_matches_jax_kernel_and_oracle(i, dtype):
            ref, dtype)
 
 
+# (case, splits): 1, 2, 3 and ceil(Sk / 64) key ranges where Sk has that
+# many 64-key units.  Case 0 at 2 splits has a range wholly past the
+# causal limit of rows 0..63; case 2 (Sk 100) and case 5 (Sk 160) end in a
+# ragged range.
+SPLIT_CASES = sorted({(i, s) for i, c in enumerate(CASES)
+                      for s in (1, 2, 3, -(-c[2] // 64))
+                      if s <= -(-c[2] // 64)})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("i,splits", SPLIT_CASES,
+                         ids=lambda x: str(x))
+def test_split_plain_matches_jax_kernel_and_oracle(i, splits, dtype):
+    """The plain version of the split-over-K path against the JAX kernel
+    (interpret mode) and the oracle, at the JAX test's tolerances."""
+    b, sq, sk, kv, g, dh, bq, bk, causal, cap = CASES[i]
+    (q, k, v), kern, ref = _jax_case(i, dtype)
+    tq, tk, tv = (_t(a, dtype) for a in (q, k, v))
+    got = TF.flash_attention_split_plain(tq, tk, tv, splits=splits,
+                                         causal=causal, softcap=cap)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
+    for want in (kern, ref):
+        np.testing.assert_allclose(_np(got), want, rtol=tol, atol=tol)
+
+
+def test_split_ranges_are_contiguous_64_key_units():
+    assert TF._split_ranges(100, 2) == [(0, 64), (64, 100)]
+    ranges = TF._split_ranges(2048, 9)
+    assert ranges[0][0] == 0 and ranges[-1][1] == 2048
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(r[0] % 64 == 0 and r[1] > r[0] for r in ranges)
+    for bad in (0, 33):
+        with pytest.raises(ValueError, match="splits must lie"):
+            TF._split_ranges(2048, bad)
+
+
+@pytest.mark.parametrize("blocks,sk,want", [
+    (132, 4096, 1), (1024, 8192, 1), (5000, 64, 1),   # the grid fills the SMs
+    (32, 2048, 9), (32, 8192, 9),                      # Sq <= 64, 32 heads
+    (131, 4096, 3), (4, 10 ** 6, 66),
+    (1, 100, 2), (2, 64, 1), (24, 150, 3),             # capped by Sk's units
+])
+def test_plan_splits(blocks, sk, want):
+    assert TF._plan_splits(blocks, sk) == want
+
+
+def test_plan_splits_never_exceeds_the_key_units():
+    for blocks in range(1, 300, 7):
+        for sk in (1, 63, 64, 65, 700, 2048, 8192):
+            n = TF._plan_splits(blocks, sk)
+            assert 1 <= n <= -(-sk // 64)
+            assert n == 1 or blocks < 132
+
+
+def test_kernel_splits_at_decode_and_prefill_shapes():
+    """tinyllama's heads (KV 4, G 8): Sq = 1 runs 32 blocks, so 9 ranges;
+    a 2048-token prefill fills the card and is not split."""
+    def splits(b, sq, sk):
+        return TF.kernel_splits(torch.zeros(b, sq, 4, 8, 64),
+                                torch.zeros(b, sk, 4, 64))
+    assert splits(1, 1, 2048) == 9
+    assert splits(1, 16, 4096) == 9
+    assert splits(1, 1, 100) == 2
+    assert splits(1, 2048, 2048) == 1
+
+
+# chip_smoke.py and tests/test_torch_cuda.py hold bf16 flash attention to
+# a relative L2 error of 1e-2 besides the elementwise 2e-2.
+BF16_REL_L2 = 1e-2
+
+
+def _rel_l2(got, want):
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 8192), (16, 4096)])
+def test_bf16_rel_l2_limit_rejects_a_split_left_out(sq, sk):
+    """At chip_smoke.py's decode shapes (tinyllama's heads, not causal) a
+    typical |o| is near the 2e-2 atol.  The relative L2 limit passes the
+    split plain version and rejects, by a wide margin, a combine that
+    leaves out any one of the splits."""
+    q, k, v = (_t(a, "bfloat16") for a in _qkv(1, sq, sk, 4, 8, 64, sk))
+    want = TF.flash_attention_plain(q, k, v, causal=False)
+    splits = TF.kernel_splits(q, k)
+    got = TF.flash_attention_split_plain(q, k, v, splits=splits,
+                                         causal=False)
+    assert _rel_l2(got, want) <= BF16_REL_L2
+    for a, b in TF._split_ranges(sk, splits):
+        keep = torch.cat([torch.arange(a), torch.arange(b, sk)])
+        left_out = TF.flash_attention_plain(q, k[:, keep], v[:, keep],
+                                            causal=False)
+        assert _rel_l2(left_out, want) > 10 * BF16_REL_L2
+
+
 def test_head_major_entry_matches_jax():
     q, k, v = _qkv(3, 70, 90, 1, 1, 32, seed=7)
     q, k, v = q[:, :, 0, 0], k[:, :, 0], v[:, :, 0]

@@ -4,6 +4,7 @@ whose build fails raises on CUDA instead of running its plain version."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -71,12 +72,39 @@ def test_library_is_named_by_its_source_and_built_outside_git():
     for name in names:
         src = _build.CSRC / f"{name}.cu"
         lib = _build.library_path(name)
-        assert hashlib.sha1(src.read_bytes()).hexdigest()[:12] in lib.name
+        # The source's bytes, then those of each csrc header it includes.
+        headers = re.findall(r'^#include "([^"]+)"', src.read_text(),
+                             re.MULTILINE)
+        data = src.read_bytes() + b"".join(
+            (_build.CSRC / h).read_bytes() for h in headers)
+        assert hashlib.sha1(data).hexdigest()[:12] in lib.name
         assert lib.parent.relative_to(ROOT).parts[0] == "build"
         # Every exported C function has a ctypes signature.
         for fn in _build.SIGNATURES[name]:
             assert f" {fn}(" in src.read_text(), (name, fn)
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_edited_header_renames_the_library(tmp_path, monkeypatch):
+    """A library is named by its source and every header it includes, so
+    an edited shared header is never served by a stale build."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build.sources("matmul")] == ["matmul.cu",
+                                                         "warp_mma.cuh"]
+    assert [p.name for p in _build.sources("deform_sample")] \
+        == ["deform_sample.cu"]
+    before = {n: _build.library_path(n) for n in ("flash_attention",
+                                                   "matmul", "deform_sample")}
+    with open(csrc / "warp_mma.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.library_path(n) for n in before}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["matmul"] != before["matmul"]
+    assert after["deform_sample"] == before["deform_sample"]
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

@@ -85,3 +85,33 @@ def test_matmul_rejects_what_it_cannot_multiply():
     with pytest.raises(ValueError, match="no kernel"):
         TM.matmul(torch.zeros(4, 5, device="meta"),
                   torch.zeros(5, 2, device="meta"))
+
+
+@pytest.mark.parametrize("m,n,k,dtype,aligned,want", [
+    (4096, 4096, 4096, torch.float32, True, (128, True)),
+    (1536, 1408, 64, torch.float32, True, (128, True)),   # 12 x 11 tiles
+    (1536, 1280, 64, torch.float32, True, (64, True)),    # 12 x 10 < 132
+    (512, 512, 512, torch.float32, True, (64, True)),
+    (257, 65, 129, torch.float32, True, (64, False)),     # k, n not x4
+    (256, 256, 256, torch.float32, False, (64, False)),   # misaligned view
+    (4096, 4096, 4096, torch.bfloat16, True, (128, True)),
+    (512, 512, 512, torch.bfloat16, True, (128, True)),
+    (64, 8, 12, torch.bfloat16, True, (128, False)),      # k not x8
+    (64, 12, 8, torch.bfloat16, True, (128, False)),      # n not x8
+])
+def test_kernel_plan(m, n, k, dtype, aligned, want):
+    """The instance the CUDA wrapper launches: fp32 128 x 128 tiles once
+    the output has one per SM (else 64 x 64), bf16 always 128 x 128;
+    16-byte loads only for 16-byte rows and base pointers."""
+    assert TM._plan(m, n, k, dtype, aligned) == want
+
+
+def test_instance_names_the_tile_and_the_loads():
+    x = torch.zeros(4 * 64 + 1)
+    assert TM.instance(x[:-1].view(4, 64), torch.zeros(64, 8)) \
+        == "64x64 aligned"
+    assert TM.instance(x[1:].view(4, 64), torch.zeros(64, 8)) \
+        == "64x64 element-wise"
+    assert TM.instance(torch.zeros(8, 16, dtype=torch.bfloat16),
+                       torch.zeros(16, 8, dtype=torch.bfloat16)) \
+        == "128x128 aligned"
