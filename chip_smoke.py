@@ -44,7 +44,16 @@ Phases, each of which exits non-zero on failure:
    tolerance ``max|kernel - plain| <= 1e-4 * max|plain|`` for each of dx,
    d_offsets and dw (fp32 atomics reorder the sums); the autograd function
    on the card against autograd through the plain forward, same
-   tolerance; times from CUDA events.
+   tolerance; both kernels' shared memory against the chooser's mirrors;
+   times from CUDA events, each sub-kernel's from ``torch.profiler``.
+   Each case prints its plan (C groups, the d_weights channel width, the
+   instance: pixel lanes, mma tiles a warp, k-split, 16-byte or
+   element-wise loads) and two bounds with the kernel's share of each:
+   fp32 on the CUDA cores and the kernel's own 3xTF32 products at the
+   TF32 rate (the lower is the row's bound).  Kernel 2's time a training
+   step (the five shapes times their DCLs a step) is printed beside the
+   36.876 ms of its CUDA-core design (``PERF.md`` section 6) and half of
+   it, 18.4 ms; no gate on time.
 8. train: full-width resnet50_dcn_bounded through
    ``launch.train.train_detection`` for 6 steps (batch 8, 512x512, Eq. 5
    at lambda = 0.005, offset convs perturbed as in phase 4, cuDNN
@@ -57,7 +66,7 @@ Phases, each of which exits non-zero on failure:
    ``train``); 4 steps plus a resumed run to 6 within a relative norm of
    1e-4 of the uninterrupted run (params).  Step time (host clock
    and CUDA events), its forward/backward split and the device-busy share
-   from ``torch.profiler``.
+   from ``torch.profiler``, and kernel 2's share of the device time.
 
 9. sampling, banded forward and matmul kernels vs plain on the card:
    kernel 1b (zero-copy sampling) and kernel 3 (banded sampling) at the
@@ -85,8 +94,8 @@ Phases, each of which exits non-zero on failure:
    steps; 12 launches of kernel 4 and 12 of kernel 2 per step, none of
    1a; losses finite, no step skipped; step 0's loss within 1e-5 relative
    of phase 8's zero-copy step 0 and its gradients within phase 8's gate
-   (the plain path's own spread) of the plain path's; step time and
-   device idle share.
+   (the plain path's own spread) of the plain path's; step time, device
+   idle share and kernel 2's share of the device time.
 
 12. flash attention (kernel 6) vs plain on the card: the six cases of
    ``tests/test_flash_attention.py`` in fp32 and bf16 (tolerance
@@ -185,6 +194,11 @@ MM_SHAPES = [(256, 256, 256, "float32"), (512, 512, 512, "float32"),
              (4096, 4096, 4096, "float32"), (257, 129, 65, "float32"),
              (512, 512, 512, "bfloat16"), (4096, 4096, 4096, "bfloat16")]
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores
+# Kernel 2 a training step as first written on CUDA cores (PERF.md §6),
+# and half of it.
+BWD_STEP_MS_BEFORE = 36.876
+BWD_STEP_MS_HALF = 18.4
 BATCH = 4
 BUCKETS = "256,512"
 K, B = 3, 2.0
@@ -478,10 +492,10 @@ class plain_kernels:
          plan.deform_conv_fused_zerocopy_chain) = self.saved
 
 
-def device_profile(fn, top: int = 6) -> tuple[float | None, list]:
-    """torch.profiler over one call of ``fn`` (after one warm-up): the
-    device time summed over its kernels and copies (ms), None when the
-    profiler saw none, and the ``top`` entries by device time."""
+def device_events(fn) -> list[tuple[str, float]]:
+    """torch.profiler over one call of ``fn`` (after one warm-up): each
+    device-side event (kernels, copies, sets) with its device time (ms),
+    longest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -494,14 +508,29 @@ def device_profile(fn, top: int = 6) -> tuple[float | None, list]:
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
-    # Device-side events only (kernels, copies, sets): the host ops that
-    # launched them carry the same time again.
+    # Device-side events only: the host ops that launched them carry the
+    # same time again.
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=dev_us, reverse=True)
-    total = sum(dev_us(e) for e in events) / 1e3
-    return (total or None), [(e.key[:60], round(dev_us(e) / 1e3, 4))
-                             for e in events[:top]]
+    return [(e.key, dev_us(e) / 1e3) for e in events]
+
+
+def device_profile(fn, top: int = 6) -> tuple[float | None, list]:
+    """``device_events`` summed (ms; None when the profiler saw none), and
+    the ``top`` entries by device time."""
+    events = device_events(fn)
+    total = sum(ms for _, ms in events)
+    return (total or None), [(k[:60], round(ms, 4)) for k, ms in events[:top]]
+
+
+def kernel2_share(events: list[tuple[str, float]]) -> tuple[float, float]:
+    """Kernel 2's device time among ``events`` (its four launches: the
+    d_input, d_weights and two reduction kernels, ``dcb_*``) and its share
+    of their total."""
+    k2 = sum(ms for k, ms in events if "dcb_" in k)
+    total = sum(ms for _, ms in events)
+    return k2, (k2 / total if total else float("nan"))
 
 
 def check_q_kernel(case: dict, gen) -> dict:
@@ -773,10 +802,12 @@ def check_bwd_kernel(case: dict, gen) -> dict:
     record."""
     import torch
 
-    from repro_torch.core.tiling import bwd_smem_bytes, out_hw
+    from repro_torch.core.tiling import (bwd_dw_smem_bytes, bwd_smem_bytes,
+                                         out_hw)
     from repro_torch.kernels import ops, plan, ref
     from repro_torch.kernels.deform_conv_bwd import (
-        deform_conv_bwd_zerocopy, deform_conv_bwd_zerocopy_plain, load_kernel)
+        bwd_plan, deform_conv_bwd_zerocopy, deform_conv_bwd_zerocopy_plain,
+        load_kernel, staging_vec)
 
     n, h, w, c, m = case["n"], case["h"], case["w"], case["c"], case["m"]
     s, d, b = case["stride"], case["dilation"], case.get("bound", B)
@@ -814,13 +845,22 @@ def check_bwd_kernel(case: dict, gen) -> dict:
     auto = {nm: (a - r).abs().max().item() / r.abs().max().item()
             for nm, a, r in zip(("d_input", "d_offsets", "d_weights"), ag,
                                 ap)}
-    # Kernel 2 is three launches (d_input/d_offsets, d_weights, the
-    # reduction of d_weights partials): their device times.
+    # Kernel 2 is up to four launches (d_input/d_offsets, d_weights, the
+    # reductions of the d_offsets and d_weights partials) beside a memset:
+    # their device times.
     _, parts = device_profile(
         lambda: deform_conv_bwd_zerocopy(xp, offp, g, wt, **kw))
-    smem_c = load_kernel().dcb_smem_bytes(K, s, d, math.ceil(b), th, tw, tc)
-    smem_py = bwd_smem_bytes(th, tw, tc, kernel_size=K, stride=s,
-                             dilation=d, offset_bound=b)
+    lib = load_kernel()
+    geom = dict(kernel_size=K, stride=s, dilation=d, offset_bound=b)
+    smem_c = (lib.dcb_smem_bytes(K, s, d, math.ceil(b), th, tw, tc),
+              lib.dcb_dw_smem_bytes(K, s, d, math.ceil(b), th, tw, tc))
+    smem_py = (bwd_smem_bytes(th, tw, tc, **geom),
+               bwd_dw_smem_bytes(th, tw, tc, **geom))
+    kplan = bwd_plan(n, ho, wo, c, m, kernel_size=K, tile_h=th, tile_w=tw,
+                     tile_c=tc)
+    vec = staging_vec(xp, g, wt, tc)
+    kplan["loads"] = ("W/g 16-byte" if vec & 1 else "W/g element-wise") \
+        + (", band 16-byte" if vec & 2 else ", band element-wise")
     ms = time_ms(lambda: deform_conv_bwd_zerocopy(xp, offp, g, wt, **kw),
                  reps=5, iters=5)
     plain_ms = time_ms(
@@ -829,15 +869,20 @@ def check_bwd_kernel(case: dict, gen) -> dict:
     p = n * ho * wo
     flops = 2 * 2 * p * k2 * c * m        # dw = P^T g and dP = g W^T
     nbytes = 4 * (2 * n * h * w * c + 2 * p * 2 * k2 + p * m + 2 * k2 * c * m)
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S) \
-        * 1e3
+    byte_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+    # Two bounds: the fp32 flops on the CUDA cores, and the three tf32
+    # products of each fp32 product (3xTF32) at the dense TF32 rate, the
+    # kernel's own arithmetic; the lower is the row's bound.
+    fp32_ms = max(flops / PEAK_FP32_FLOPS * 1e3, byte_ms)
+    tf32x3_ms = max(3 * flops / PEAK_TF32_FLOPS * 1e3, byte_ms)
+    bound_ms = min(fp32_ms, tf32x3_ms)
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc], smem_bytes=smem_c,
-               max_abs_err=max(errs.values()), errs=errs, max_abs_plain=scales,
-               autograd_rel_err=auto, parts_ms=parts,
+               plan=kplan, max_abs_err=max(errs.values()), errs=errs,
+               max_abs_plain=scales, autograd_rel_err=auto, parts_ms=parts,
                clamped_share=(off.abs() > b).float().mean().item(),
                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by="operations" if flops / PEAK_FP32_FLOPS
-               >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
+               bound_fp32_ms=fp32_ms, bound_3xtf32_ms=tf32x3_ms,
+               bound_by="operations" if bound_ms > byte_ms else "bytes",
                flops=flops, bytes=nbytes)
     ok = all(errs[nm] <= BWD_RTOL * scales[nm] for nm in names) \
         and max(auto.values()) <= BWD_RTOL and smem_c == smem_py
@@ -845,13 +890,20 @@ def check_bwd_kernel(case: dict, gen) -> dict:
           + " ".join(f"{nm}={errs[nm]:.2e}/{scales[nm]:.2f}" for nm in names)
           + f" autograd={max(auto.values()):.1e} "
           f"clamped={rec['clamped_share']:.3f} kernel={ms:.4f} ms "
-          f"plain={plain_ms:.3f} ms bound={bound_ms:.4f} ms "
-          f"per_step={case.get('per_step', {})} {'ok' if ok else 'FAIL'}")
+          f"plain={plain_ms:.3f} ms bound fp32={fp32_ms:.4f} ms "
+          f"({fp32_ms / ms:.1%}) 3xTF32={tf32x3_ms:.4f} ms "
+          f"({tf32x3_ms / ms:.1%}) per_step={case.get('per_step', {})} "
+          f"{'ok' if ok else 'FAIL'}")
+    print(f"    plan: C groups {kplan['c_groups']} x {kplan['tiles']} tiles, "
+          f"d_weights {kplan['dw_cols']} channels a block, grid "
+          f"{kplan['dw_grid']} x {kplan['dw_splits']} splits; instance "
+          f"{kplan['lanes']} pixel lanes, {kplan['warp_tiles']} mma tiles a "
+          f"warp, k-split {kplan['k_split']}, {kplan['loads']}")
     print(f"    launches: "
-          f"{[(k.split('::')[-1].split('(')[0], v) for k, v in parts[:3]]}")
+          f"{[(k.split('::')[-1].split('(')[0], v) for k, v in parts[:5]]}")
     if smem_c != smem_py:
-        fail(f"backward {case['label']}: shared memory {smem_c} (kernel) != "
-             f"{smem_py} (chooser)")
+        fail(f"backward {case['label']}: shared memory {smem_c} (kernel: "
+             f"d_input, d_weights) != {smem_py} (chooser)")
     for nm in names:
         if errs[nm] > BWD_RTOL * scales[nm]:
             fail(f"backward {case['label']} {nm}: max|kernel - plain| = "
@@ -1067,15 +1119,20 @@ def train(record: dict) -> tuple[int, dict]:
     bwd_ms = statistics.median(b_ for _, b_ in split)
     step_batch = trainer._device_batch(0)
     step_ms = time_ms(lambda: trainer._one_step(step_batch), reps=3, iters=2)
-    busy, top = device_profile(lambda: trainer._one_step(step_batch))
+    events = device_events(lambda: trainer._one_step(step_batch))
+    busy = sum(ms for _, ms in events) or None
+    top = [(k[:60], round(ms, 4)) for k, ms in events[:6]]
+    k2_ms, k2_share = kernel2_share(events)
     share = "not measured" if busy is None else f"{1 - busy / step_ms:.0%}"
     host_ms = [t * 1e3 for t in trainer.step_seconds]
     # The same step with cuDNN free to pick non-deterministic algorithms
     # (the launcher's setting; the checks above need determinism).
     torch.backends.cudnn.deterministic = False
     free_ms = time_ms(lambda: trainer._one_step(step_batch), reps=3, iters=2)
-    free_busy, free_top = device_profile(
-        lambda: trainer._one_step(step_batch))
+    free_events = device_events(lambda: trainer._one_step(step_batch))
+    free_busy = sum(ms for _, ms in free_events) or None
+    free_top = [(k[:60], round(ms, 4)) for k, ms in free_events[:6]]
+    free_k2_ms, free_k2_share = kernel2_share(free_events)
     torch.backends.cudnn.deterministic = True
     print(f"  step (forward + backward + SGD), batch {TRAIN_BATCH}: "
           f"{step_ms:.3f} ms (CUDA events); forward {fwd_ms:.3f} ms, "
@@ -1086,6 +1143,9 @@ def train(record: dict) -> tuple[int, dict]:
     free = free_busy if free_busy is None else round(free_busy, 3)
     print(f"  the same step, cuDNN not deterministic: {free_ms:.3f} ms, "
           f"device busy {free} ms; top {free_top[:5]}")
+    print(f"  kernel 2 (dcb_* launches) in the step's device time: "
+          f"{k2_ms:.3f} ms ({k2_share:.1%}) with cuDNN deterministic, "
+          f"{free_k2_ms:.3f} ms ({free_k2_share:.1%}) without")
     record["train"] = dict(
         steps=TRAIN_STEPS, batch=TRAIN_BATCH, img_size=tcfg.img_size,
         wall_s=wall, losses=losses, telemetry=trainer.telemetry,
@@ -1099,7 +1159,9 @@ def train(record: dict) -> tuple[int, dict]:
         step_ms=step_ms, forward_ms=fwd_ms,
         backward_ms=bwd_ms, device_busy_ms=busy, device_top=top,
         step_ms_cudnn_free=free_ms, device_busy_ms_cudnn_free=free_busy,
-        device_top_cudnn_free=free_top)
+        device_top_cudnn_free=free_top, kernel2_device_ms=k2_ms,
+        kernel2_device_share=k2_share, kernel2_device_ms_cudnn_free=free_k2_ms,
+        kernel2_device_share_cudnn_free=free_k2_share)
     step0 = dict(loss=loss_k, loss_plain=loss_p, grads=g_k, grads_plain=g_p,
                  gate=max(TRAIN_GRAD_RTOL, spread))
     return counts["deform_conv_bwd"], step0
@@ -1566,19 +1628,24 @@ def train_banded(record: dict, step0: dict) -> None:
              f"path's, beyond phase 8's gate {step0['gate']}")
     step_batch = trainer._device_batch(0)
     step_ms = time_ms(lambda: trainer._one_step(step_batch), reps=3, iters=2)
-    busy, top = device_profile(lambda: trainer._one_step(step_batch))
+    events = device_events(lambda: trainer._one_step(step_batch))
+    busy = sum(ms for _, ms in events) or None
+    top = [(k[:60], round(ms, 4)) for k, ms in events[:6]]
+    k2_ms, k2_share = kernel2_share(events)
     share = "not measured" if busy is None else f"{1 - busy / step_ms:.0%}"
     print(f"  banded step (forward + backward + SGD), batch {TRAIN_BATCH}: "
           f"{step_ms:.3f} ms (CUDA events, cuDNN deterministic); device "
           f"busy {busy if busy is None else round(busy, 3)} ms, idle "
-          f"{share}; top {top[:5]}")
+          f"{share}; kernel 2 {k2_ms:.3f} ms of it ({k2_share:.1%}); top "
+          f"{top[:5]}")
     record["train_banded"] = dict(
         steps=BANDED_TRAIN_STEPS, wall_s=wall, losses=losses,
         telemetry=trainer.telemetry, launches=counts,
         host_step_ms=[t * 1e3 for t in trainer.step_seconds],
         step0_loss=loss.item(), step0_loss_rel=loss_rel,
         step0_grad_rel_plain=rel_plain, step0_grad_rel_zero_copy=rel_zc,
-        step_ms=step_ms, device_busy_ms=busy, device_top=top)
+        step_ms=step_ms, device_busy_ms=busy, device_top=top,
+        kernel2_device_ms=k2_ms, kernel2_device_share=k2_share)
 
 
 # ---------------------------------------------------------------------------
@@ -2405,14 +2472,30 @@ def main() -> int:
     record["bwd_shapes"] = [check_bwd_kernel(c, gen) for c in b_cases]
     if any(r["tiles"][2] >= r["c"] for r in record["bwd_shapes"]):
         fail("a backward case has tile_c = C: the C loop is untested")
+    step = [r for r in record["bwd_shapes"] if r.get("per_step")]
+    k2_step = {k: sum(r[k] * r["per_step"]["512"] for r in step)
+               for k in ("ms", "bound_fp32_ms", "bound_3xtf32_ms")}
+    record["bwd_step_ms"] = k2_step
+    print(f"  kernel 2 a training step ({sum(r['per_step']['512'] for r in step)}"
+          f" DCLs): {k2_step['ms']:.3f} ms; CUDA-core design: "
+          f"{BWD_STEP_MS_BEFORE} ms, half of it {BWD_STEP_MS_HALF} ms; bounds fp32 "
+          f"{k2_step['bound_fp32_ms']:.4f} ms "
+          f"({k2_step['bound_fp32_ms'] / k2_step['ms']:.1%}), 3xTF32 "
+          f"{k2_step['bound_3xtf32_ms']:.4f} ms "
+          f"({k2_step['bound_3xtf32_ms'] / k2_step['ms']:.1%})")
     print("  no single PyTorch call computes the bounded deformable conv's "
           "backward, so there is no library time to compare with")
 
     print("== 8. train")
     bwd_launches, step0 = train(record)
     shapes = [r for r in record["bwd_shapes"] if r.get("per_step")]
+    # Bounds per run: the 3xTF32 products at the TF32 rate (the lower,
+    # the row's bound) and the fp32 flops on the CUDA cores.
     run_b, by = per_run(shapes, {"512": TRAIN_STEPS}, bwd_launches,
-                        PEAK_FP32_FLOPS, "deform_conv_bwd")
+                        PEAK_TF32_FLOPS / 3, "deform_conv_bwd")
+    run_fp32, _ = per_run(shapes, {"512": TRAIN_STEPS}, bwd_launches,
+                          PEAK_FP32_FLOPS, "deform_conv_bwd")
+    run_b["bound_fp32_ms"] = run_fp32["bound_ms"]
     record["run_deform_conv_bwd"] = run_b
     kernels["kernels"].append({
         "name": "deform_conv_bwd",
@@ -2425,13 +2508,17 @@ def main() -> int:
         "plain_ms": run_b["plain_ms"],
         "bound_ms": run_b["bound_ms"],
         "bound_by": by,
+        "bound_note": "3xTF32 (three tf32 products a product) at 494.7 "
+                      "TFLOP/s; bound_fp32_ms: fp32 on the CUDA cores",
+        "bound_fp32_ms": run_b["bound_fp32_ms"],
         "library_ms": None,
     })
     per_step_ms = run_b["ms"] / TRAIN_STEPS
     print(f"  deform_conv_bwd per {TRAIN_STEPS}-step run: {bwd_launches} "
           f"launches, kernel {run_b['ms']:.3f} ms, plain "
           f"{run_b['plain_ms']:.3f} ms, bound {run_b['bound_ms']:.4f} ms "
-          f"({by}); per step {per_step_ms:.3f} ms of the backward's "
+          f"(3xTF32, {by}; fp32 CUDA cores {run_b['bound_fp32_ms']:.4f} "
+          f"ms); per step {per_step_ms:.3f} ms of the backward's "
           f"{record['train']['backward_ms']:.3f} ms")
 
     print("== 9. sampling, banded forward and matmul kernels vs plain on "

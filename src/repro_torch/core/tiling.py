@@ -5,9 +5,10 @@
 vector memory: here a thread block gets at most 227 KB of shared memory
 and the card has 132 SMs to fill.  The chooser is a plain function of the
 layer's shape and datapath (no cache, no tuning table); ``smem_bytes``,
-``q_smem_bytes`` and ``bwd_smem_bytes`` mirror the kernels' own
-``*_smem_bytes`` exports (``sample_smem_bytes`` that of the sampling
-kernels).  The TPU chooser's scheduling knobs (``cores``,
+``q_smem_bytes``, ``bwd_smem_bytes`` and ``bwd_dw_smem_bytes`` mirror the
+kernels' own ``*_smem_bytes`` exports (``sample_smem_bytes`` that of the
+sampling kernels), and the ``bwd_*`` planners give the backward kernel
+its grids.  The TPU chooser's scheduling knobs (``cores``,
 ``dw_flush_every_step``) have no counterpart here.
 """
 from __future__ import annotations
@@ -98,35 +99,170 @@ def q_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
     return 4 * words
 
 
-# The backward kernel (csrc/deform_conv_bwd.cu): rows of K*K*tile_c per
-# d_weights block, output channels of g and W per dP step, output channels
-# per d_weights block.
-BWD_ROWS = 64
-BWD_MC = 16
-BWD_TM = 64
+# The backward kernel (csrc/deform_conv_bwd.cu).  d_input / d_offsets:
+# output channels of g and W per dP step (row stride + 4), steps in
+# flight (cp.async), dP^T mma tiles (16 pixels x 8 rows) a warp keeps at
+# most.  Both kernels: blocks a grid should reach (two an SM: one wave)
+# and the share of its waves it should fill.  d_weights: rows of
+# K*K*tile_c and output channels a block (its channel width), row strides
+# of its g and patch tiles.
+BWD_MS = 16
+BWD_STAGES = 3
+BWD_MAX_WARP_TILES = 9
+BWD_TARGET_BLOCKS = 2 * SM_COUNT
+BWD_WAVE_FILL = 0.95
+BWD_DW_ROWS = 144
+BWD_DW_COLS = 128
+_BWD_LD_STEP = BWD_MS + 4
+_BWD_LD_G = BWD_DW_COLS + 8
+_BWD_LD_P = BWD_DW_ROWS + 8
+
+
+def _bwd_band_floats(tile_h: int, tile_w: int, tile_c: int, *,
+                     kernel_size: int, stride: int, dilation: int,
+                     offset_bound: float) -> int:
+    """The backward's band chunk: the Eq. 6 band's positions with tile_c
+    channels innermost, rounded to 4 floats."""
+    bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
+                     dilation=dilation, offset_bound=offset_bound)
+    return -(-bh * bw * tile_c // 4) * 4
+
+
+def bwd_rows_pad(tile_h: int, tile_w: int, tile_c: int, *,
+                 kernel_size: int) -> int:
+    """Rows of the d_input kernel's dP chunk: K*K*tile_c padded to
+    ``512 / pixel lanes``, so its (lanes / 16) x (rows / 8) mma tiles are
+    a multiple of 4."""
+    unit = 512 // pix_lanes(tile_h, tile_w)
+    return -(-kernel_size * kernel_size * tile_c // unit) * unit
+
+
+def _bwd_mma_tiles(tile_h: int, tile_w: int, tile_c: int, *,
+                   kernel_size: int) -> int:
+    """dP^T mma tiles of a d_input chunk: (lanes / 16) x (rows / 8)."""
+    return (pix_lanes(tile_h, tile_w) // 16) * bwd_rows_pad(
+        tile_h, tile_w, tile_c, kernel_size=kernel_size) // 8
+
+
+def bwd_k_split(tile_h: int, tile_w: int, tile_c: int, *,
+                kernel_size: int) -> int:
+    """Warp groups that share the d_input kernel's dP tiles, each taking
+    alternate halves of every M step: 1 where the mma tiles are a multiple
+    of the 8 warps, else 2."""
+    tiles = _bwd_mma_tiles(tile_h, tile_w, tile_c, kernel_size=kernel_size)
+    return 1 if tiles % 8 == 0 else 2
+
+
+def bwd_warp_tiles(tile_h: int, tile_w: int, tile_c: int, *,
+                   kernel_size: int) -> int:
+    """dP^T mma tiles (16 pixels x 8 rows) each warp of a d_input block
+    keeps in registers; at most ``BWD_MAX_WARP_TILES``."""
+    kw = dict(kernel_size=kernel_size)
+    return _bwd_mma_tiles(tile_h, tile_w, tile_c, **kw) \
+        * bwd_k_split(tile_h, tile_w, tile_c, **kw) // 8
 
 
 def bwd_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
                    kernel_size: int, stride: int, dilation: int,
                    offset_bound: float) -> int:
     """Dynamic shared memory of one block of the backward's d_input /
-    d_offsets kernel, the larger of its two; mirrors ``dcb_smem_bytes``
-    in ``csrc/deform_conv_bwd.cu``: the staged band chunk and the fp32
-    d_input band accumulator (channel-major, odd plane stride, rounded to
-    4 floats each), the dP chunk (K*K*tile_c rows padded to 4, by the
-    pixel lanes), one step of W^T and of g^T (16 output channels, rows
-    padded by 4), and per tap and pixel the corner geometry (index, ty,
-    tx) and the two d_offsets sums."""
+    d_offsets kernel; mirrors ``dcb_smem_bytes`` in
+    ``csrc/deform_conv_bwd.cu``: the staged band chunk
+    (``_bwd_band_floats``), ``BWD_STAGES`` M steps of W and g
+    (``bwd_rows_pad`` rows and the pixel lanes, 16 channels + 4) or the dP
+    chunk (lanes by the padded rows + 8 or + 16), whichever is larger; per
+    tap and pixel the corner geometry (index, ty, tx), the two d_offsets
+    sums and four (dP offset, weight) corner entries; per band position
+    an entry start (plus one) and a dx_pad offset."""
     pix = pix_lanes(tile_h, tile_w)
-    k2 = kernel_size * kernel_size
-    bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
-                     dilation=dilation, offset_bound=offset_bound)
-    bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
-                     dilation=dilation, offset_bound=offset_bound)
-    band = -(-tile_c * ((bh * bw) | 1) // 4) * 4
-    kkp = -(-k2 * tile_c // 4) * 4
-    return 4 * (2 * band + kkp * pix + BWD_MC * (kkp + 4)
-                + BWD_MC * (pix + 4) + 5 * k2 * pix)
+    pairs = kernel_size * kernel_size * pix
+    band = _bwd_band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
+                            stride=stride, dilation=dilation,
+                            offset_bound=offset_bound)
+    npos = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
+                       dilation=dilation, offset_bound=offset_bound) \
+        * band_extent(tile_w, kernel_size=kernel_size, stride=stride,
+                      dilation=dilation, offset_bound=offset_bound)
+    rp = bwd_rows_pad(tile_h, tile_w, tile_c, kernel_size=kernel_size)
+    ldr = rp + (8 if rp % 16 == 0 else 16)
+    union = max(BWD_STAGES * (rp + pix) * _BWD_LD_STEP, pix * ldr)
+    return 4 * (band + union + 13 * pairs + 2 * npos + 1)
+
+
+def bwd_dw_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
+                      kernel_size: int, stride: int, dilation: int,
+                      offset_bound: float) -> int:
+    """Dynamic shared memory of one block of the backward's d_weights
+    kernel; mirrors ``dcb_dw_smem_bytes``: two band chunks
+    (double-buffered), the tap and channel of each of its 144 rows, g
+    tiles (lanes x 128 channels + 8; two up to 32 lanes, one at 64) and a
+    patch tile (lanes x 144 rows + 8)."""
+    pix = pix_lanes(tile_h, tile_w)
+    band = _bwd_band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
+                            stride=stride, dilation=dilation,
+                            offset_bound=offset_bound)
+    g_tiles = 2 if pix <= 32 else 1
+    return 4 * (2 * band + 2 * BWD_DW_ROWS
+                + pix * (g_tiles * _BWD_LD_G + _BWD_LD_P))
+
+
+def _wave_fill(blocks: int) -> float:
+    """Share of the last of its waves (``BWD_TARGET_BLOCKS`` blocks each,
+    two an SM) that a grid of ``blocks`` fills, over all its waves."""
+    waves = -(-blocks // BWD_TARGET_BLOCKS)
+    return blocks / (waves * BWD_TARGET_BLOCKS)
+
+
+def bwd_c_groups(n: int, ho: int, wo: int, c: int, *, tile_h: int,
+                 tile_w: int, tile_c: int) -> int:
+    """Groups of C chunks the d_input kernel's grid splits C into: 1 when
+    the output tiles alone reach ``BWD_TARGET_BLOCKS`` blocks, else the
+    fewest groups (at most one a chunk) that reach it and fill whole waves
+    to ``BWD_WAVE_FILL`` (the best fill when none does)."""
+    tiles = n * -(-ho // tile_h) * -(-wo // tile_w)
+    chunks = c // tile_c
+    if tiles >= BWD_TARGET_BLOCKS:
+        return 1
+    cands = range(min(chunks, -(-BWD_TARGET_BLOCKS // tiles)), chunks + 1)
+    for groups in cands:
+        if _wave_fill(tiles * groups) >= BWD_WAVE_FILL:
+            return groups
+    return max(cands, key=lambda gr: _wave_fill(tiles * gr))
+
+
+def bwd_c_range(chunks: int, groups: int, group: int) -> range:
+    """The C chunks of one d_input group, as the kernel takes them."""
+    return range(group * chunks // groups, (group + 1) * chunks // groups)
+
+
+def bwd_dw_grid(c: int, m: int, *, kernel_size: int,
+                tile_c: int) -> tuple[int, int, int]:
+    """The d_weights grid before the pixel splits: (C chunks, blocks of
+    ``BWD_DW_ROWS`` rows of K*K*tile_c, blocks of ``BWD_DW_COLS`` output
+    channels)."""
+    rows = kernel_size * kernel_size * tile_c
+    return (c // tile_c, -(-rows // BWD_DW_ROWS), -(-m // BWD_DW_COLS))
+
+
+def bwd_dw_splits(n: int, ho: int, wo: int, c: int, m: int, *,
+                  kernel_size: int, tile_h: int, tile_w: int,
+                  tile_c: int) -> int:
+    """Pixel splits of the backward's d_weights kernel (at most one per
+    output tile): the fewest whose grid, ``bwd_dw_grid`` x splits, holds
+    at least ``BWD_WAVE_FILL`` of a wave and fills whole waves to
+    ``BWD_WAVE_FILL``; else enough for one wave."""
+    chunks, rows, cols = bwd_dw_grid(c, m, kernel_size=kernel_size,
+                                     tile_c=tile_c)
+    base = chunks * rows * cols
+    tiles = n * -(-ho // tile_h) * -(-wo // tile_w)
+    for splits in range(1, tiles + 1):
+        blocks = base * splits
+        if blocks >= BWD_WAVE_FILL * BWD_TARGET_BLOCKS \
+                and _wave_fill(blocks) >= BWD_WAVE_FILL:
+            return splits
+    return max(1, min(tiles, -(-BWD_TARGET_BLOCKS // base)))
 
 
 # The sampling kernels (csrc/deform_sample.cu): a block writes tile_c <= 32
@@ -150,32 +286,6 @@ def sample_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
     bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
                      dilation=dilation, offset_bound=offset_bound)
     return 4 * (bh * bw * tile_c + 3 * k2 * tile_h * tile_w)
-
-
-BWD_ROW_BLOCKS = 5   # 64-row blocks one d_weights block takes, at most
-BWD_MAX_QUADS = 3 * 256   # 4x4 dP tiles of a d_input block (3 a thread)
-
-
-def bwd_quads(tile_h: int, tile_w: int, tile_c: int, *,
-              kernel_size: int) -> int:
-    """4x4 register tiles of the d_input kernel's dP chunk: rows of
-    K*K*tile_c (padded to 4) by pixel lanes, four by four."""
-    k2 = kernel_size * kernel_size
-    return -(-k2 * tile_c // 4) * (pix_lanes(tile_h, tile_w) // 4)
-
-
-def bwd_dw_splits(n: int, ho: int, wo: int, c: int, m: int, *,
-                  kernel_size: int, tile_h: int, tile_w: int,
-                  tile_c: int) -> int:
-    """Pixel splits of the backward's d_weights kernel: its grid is
-    (C / tile_c) x (groups of up to five 64-row blocks of K*K*tile_c) x
-    (64-channel blocks of M) x splits; enough splits for two blocks per
-    SM, at most one per output tile."""
-    rows = -(-kernel_size * kernel_size * tile_c // BWD_ROWS)
-    groups = -(-rows // min(rows, BWD_ROW_BLOCKS))
-    base = (c // tile_c) * groups * -(-m // BWD_TM)
-    tiles = n * -(-ho // tile_h) * -(-wo // tile_w)
-    return max(1, min(tiles, -(-2 * SM_COUNT // base)))
 
 
 DTYPES = ("fp32", "int8", "int8_chain", "fp32_bwd", "sample", "banded")
@@ -216,8 +326,9 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
       (``"sample"``: ``tile_c``, the channels a block writes).
     * spatial: 8x8 clamped to the output; while the grid has fewer
       blocks than the card has SMs, halve the longer side, down to 16
-      pixels per block (the backward's grid counts no M tiles, the
-      sampling kernels' counts C / tile_c).  A given ``tile_h`` fixes the
+      pixels per block (the sampling kernels' grid counts C / tile_c; the
+      backward's counts neither M nor C tiles and stops at 32 pixels,
+      since its d_input kernel splits C over the grid, ``bwd_c_groups``).  A given ``tile_h`` fixes the
       rows (not clamped to the output: the caller clamps) and only
       ``tile_w`` is halved; ``"banded"`` always fixes them at the bands'
       row tile (default ``BANDED_TILE_H``), so a block covers a whole
@@ -230,9 +341,11 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
       per channel), else twice, else once.  The chain kernel streams C in
       these chunks too (two passes, see ``deform_conv_q.cu``), so its
       ``tile_c`` is not pinned to C.
-    * ``tile_c``, fp32_bwd: as fp32, against the backward's own model
-      (``bwd_smem_bytes``), and at most ``BWD_MAX_QUADS`` dP register
-      tiles (``bwd_quads``); ``tile_m`` only shapes the forward's grid.
+    * ``tile_c``, fp32_bwd: as fp32, against the backward's d_input
+      model (``bwd_smem_bytes``), with at most ``BWD_MAX_WARP_TILES`` dP
+      mma tiles a warp (``bwd_warp_tiles``) and a d_weights block that
+      fits once (``bwd_dw_smem_bytes``); ``tile_m`` only shapes the
+      forward's grid.
     * ``tile_c``, sample: no contraction, so the block is sized by what it
       writes, ``tile_h * tile_w * K*K * tile_c`` patches: the largest
       divisor of C up to ``SAMPLE_TC_MAX`` whose band chunk fits four
@@ -266,8 +379,10 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
         tm = _divisor_at_most(m, TILE_M_MAX)
         # The backward's d_input kernel has no M axis in its grid.
         grid_c, grid_t = m, (m if dtype == "fp32_bwd" else tm)
+    # The backward splits C over its grid, so its tiles stop at 32 pixels.
+    least = 32 if dtype == "fp32_bwd" else 16
     while (grid_blocks(n, ho, wo, grid_c, KernelTiles(th, tw, 1, grid_t))
-           < SM_COUNT and th * tw > 16):
+           < SM_COUNT and th * tw > least):
         if th >= tw and tile_h is None and dtype != "banded":
             th = -(-th // 2)
         elif tw > 1:
@@ -285,8 +400,11 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
         budgets = (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
         model = bwd_smem_bytes if dtype == "fp32_bwd" else smem_bytes
         if dtype == "fp32_bwd":
-            cands = [tc for tc in cands if bwd_quads(
-                th, tw, tc, kernel_size=kernel_size) <= BWD_MAX_QUADS]
+            cands = [tc for tc in cands
+                     if bwd_warp_tiles(th, tw, tc, kernel_size=kernel_size)
+                     <= BWD_MAX_WARP_TILES
+                     and bwd_dw_smem_bytes(th, tw, tc, **geom)
+                     <= SMEM_PER_BLOCK]
 
         def block_bytes(tc):
             return model(th, tw, tc, **geom)

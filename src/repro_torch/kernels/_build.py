@@ -57,9 +57,10 @@ SIGNATURES = {
         "mm_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_conv_bwd": {
-        "dcb_backward": (_I, [_P] * 8 + [_I] * 10 + [ctypes.c_float]
-                         + [_I] * 5 + [_P]),
+        "dcb_backward": (_I, [_P] * 10 + [_I] * 10 + [ctypes.c_float]
+                         + [_I] * 7 + [_P]),
         "dcb_smem_bytes": (ctypes.c_longlong, [_I] * 7),
+        "dcb_dw_smem_bytes": (ctypes.c_longlong, [_I] * 7),
         "dcb_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_conv_q": {

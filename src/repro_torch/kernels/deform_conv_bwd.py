@@ -123,7 +123,8 @@ def deform_conv_bwd_zerocopy(
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (fp32, contiguous, ``tile_h * tile_w <= 64``, at most
-    ``tiling.BWD_MAX_QUADS`` dP tiles) and count the launch in
+    ``tiling.BWD_MAX_WARP_TILES`` dP mma tiles a warp) at the plan of
+    ``bwd_plan`` and count the launch in
     ``deform_conv_bwd_zerocopy.launches``.
     """
     if x_pad.device.type == "cpu":
@@ -133,8 +134,7 @@ def deform_conv_bwd_zerocopy(
             tile_h=tile_h, tile_w=tile_w, tile_c=tile_c)
     if x_pad.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_pad.device}")
-    from repro_torch.core.tiling import (BWD_MAX_QUADS, bwd_dw_splits,
-                                         bwd_quads)
+    from repro_torch.core.tiling import BWD_MAX_WARP_TILES
 
     n, hp, wp, c = x_pad.shape
     _, ho, wo, _ = offsets.shape
@@ -147,16 +147,17 @@ def deform_conv_bwd_zerocopy(
                 or t.device != x_pad.device:
             raise ValueError(f"{name} must be a contiguous float32 tensor on "
                              f"{x_pad.device}")
-    if bwd_quads(tile_h, tile_w, tc, kernel_size=kernel_size) \
-            > BWD_MAX_QUADS:                  # raises past 64 pixels too
+    plan = bwd_plan(n, ho, wo, c, m, kernel_size=kernel_size,
+                    tile_h=tile_h, tile_w=tile_w, tile_c=tc)  # raises > 64 px
+    if plan["warp_tiles"] > BWD_MAX_WARP_TILES:
         raise ValueError(
-            f"tile {tile_h}x{tile_w} with tile_c={tc} gives more than "
-            f"{BWD_MAX_QUADS} 4x4 dP tiles at K={kernel_size}: take a "
-            f"smaller tile_c (the chooser's fp32_bwd tiles fit)")
+            f"tile {tile_h}x{tile_w} with tile_c={tc} gives "
+            f"{plan['warp_tiles']} dP mma tiles a warp at K={kernel_size}, "
+            f"more than {BWD_MAX_WARP_TILES}: take a smaller tile_c (the "
+            f"chooser's fp32_bwd tiles fit)")
     BandSpec(kernel_size, stride, dilation, offset_bound, tile_h,
              tile_w).check_padded(hp, wp, -(-ho // tile_h), -(-wo // tile_w))
-    splits = bwd_dw_splits(n, ho, wo, c, m, kernel_size=kernel_size,
-                           tile_h=tile_h, tile_w=tile_w, tile_c=tc)
+    groups, splits = plan["c_groups"], plan["dw_splits"]
 
     dev = x_pad.device
     dx_pad = torch.empty_like(x_pad)
@@ -164,20 +165,66 @@ def deform_conv_bwd_zerocopy(
     dw = torch.empty_like(w_tiles)
     partial = torch.empty((splits, *w_tiles.shape), dtype=torch.float32,
                           device=dev) if splits > 1 else None
+    doff_partial = torch.empty((groups, *offsets.shape), dtype=torch.float32,
+                               device=dev) if groups > 1 else None
+    geom = torch.empty(plan["tiles"] * 3 * kernel_size ** 2 * plan["lanes"],
+                       dtype=torch.float32, device=dev)
     lib = load_kernel()
+    vec = staging_vec(x_pad, g, w_tiles, tc)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = lib.dcb_backward(
             x_pad.data_ptr(), offsets.data_ptr(), g.data_ptr(),
             w_tiles.data_ptr(), dx_pad.data_ptr(), d_off.data_ptr(),
-            dw.data_ptr(), None if partial is None else partial.data_ptr(),
+            dw.data_ptr(), ptr(partial), ptr(doff_partial), geom.data_ptr(),
             n, hp, wp, c, ho, wo, m, kernel_size, stride, dilation,
             float(offset_bound), int(math.ceil(offset_bound)), tile_h,
-            tile_w, tc, splits, torch.cuda.current_stream(dev).cuda_stream)
+            tile_w, tc, groups, splits, vec,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"deform_conv_bwd kernel launch failed: "
                            f"{lib.dcb_error_string(err).decode()} ({err})")
     deform_conv_bwd_zerocopy.launches += 1
     return dx_pad, d_off, dw
+
+
+def staging_vec(x_pad: Tensor, g: Tensor, w_tiles: Tensor,
+                tile_c: int) -> int:
+    """How the kernel stages its operands: bit 0, W and g in 16-byte
+    copies (M a multiple of 4, both 16-byte aligned); bit 1, the band of
+    x_pad (tile_c and C multiples of 4, x_pad 16-byte aligned); else
+    element by element."""
+    wg = w_tiles.shape[2] % 4 == 0 and g.data_ptr() % 16 == 0 \
+        and w_tiles.data_ptr() % 16 == 0
+    band = tile_c % 4 == 0 and x_pad.shape[3] % 4 == 0 \
+        and x_pad.data_ptr() % 16 == 0
+    return int(wg) | 2 * int(band)
+
+
+def bwd_plan(n: int, ho: int, wo: int, c: int, m: int, *, kernel_size: int,
+             tile_h: int, tile_w: int, tile_c: int) -> dict:
+    """The kernel's plan for one call (``core.tiling``'s mirrors of
+    ``csrc/deform_conv_bwd.cu``): pixel lanes of the instance, output
+    tiles, the d_input grid's C groups and the dP mma tiles a warp with
+    the k-split that balances them, the d_weights grid (C chunks, row and
+    channel blocks of ``BWD_DW_ROWS`` x ``BWD_DW_COLS``) and its pixel
+    splits."""
+    from repro_torch.core import tiling as T
+    kw = dict(tile_h=tile_h, tile_w=tile_w, tile_c=tile_c)
+    tiles = n * -(-ho // tile_h) * -(-wo // tile_w)
+    return dict(
+        lanes=T.pix_lanes(tile_h, tile_w), tiles=tiles,
+        c_groups=T.bwd_c_groups(n, ho, wo, c, **kw),
+        warp_tiles=T.bwd_warp_tiles(tile_h, tile_w, tile_c,
+                                    kernel_size=kernel_size),
+        k_split=T.bwd_k_split(tile_h, tile_w, tile_c,
+                              kernel_size=kernel_size),
+        dw_grid=T.bwd_dw_grid(c, m, kernel_size=kernel_size, tile_c=tile_c),
+        dw_cols=T.BWD_DW_COLS,
+        dw_splits=T.bwd_dw_splits(n, ho, wo, c, m, kernel_size=kernel_size,
+                                  **kw))
 
 
 deform_conv_bwd_zerocopy.launches = 0

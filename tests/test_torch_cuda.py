@@ -123,17 +123,35 @@ def test_deform_conv_refuses_gradients(cuda):
                                precision="int8").is_cuda
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_backward_kernel_matches_plain(case, cuda):
-    k, s, d, b, h, w, c, m, th, tw, tc = CASES[case]
-    x, off, wd = _inputs(k, h, w, c, m, s, d, b, len(case), cuda)
+# Backward-only geometries, same layout: 128 output tiles (2 x 8 x 8), so
+# C is split into 3 groups of uneven size (1, 1, 2 chunks); tile_c = 8 (72
+# rows of K*K*tile_c, padded to 96, two warp groups); M = 44 (not a
+# multiple of 8); C = 20 with tile_c = 5 and M = 30 (W and g rows not
+# 16-byte aligned: staged element by element).
+BWD_CASES = {
+    "c_groups_128_tiles": (3, 1, 1, 2.0, 32, 32, 128, 64, 4, 4, 32),
+    "tc8_72_rows": (3, 1, 1, 2.0, 12, 12, 16, 32, 4, 4, 8),
+    "m44": (3, 1, 1, 2.0, 12, 12, 16, 44, 4, 8, 16),
+    "c20_tc5_m30_unaligned": (3, 1, 1, 2.0, 10, 10, 20, 30, 4, 4, 5),
+}
+
+
+def _bwd_case(case, device):
+    k, s, d, b, h, w, c, m, th, tw, tc = {**CASES, **BWD_CASES}[case]
+    x, off, wd = _inputs(k, h, w, c, m, s, d, b, len(case), device)
     ho, wo = off.shape[1], off.shape[2]
     g = torch.randn(2, ho, wo, m, generator=torch.Generator().manual_seed(
-        len(case))).to(cuda)
+        len(case))).to(device)
     spec = plan.DCSpec(k, s, d, b, th, tw, tc, None)
     xp, op, wt = plan.zerocopy_inputs(spec, x, off, wd, th, tw, tc)
     kw = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b,
               tile_h=th, tile_w=tw, tile_c=tc)
+    return xp, op, g, wt, kw
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(BWD_CASES))
+def test_backward_kernel_matches_plain(case, cuda):
+    xp, op, g, wt, kw = _bwd_case(case, cuda)
     before = deform_conv_bwd_zerocopy.launches
     got = deform_conv_bwd_zerocopy(xp, op, g, wt, **kw)
     torch.cuda.synchronize()
@@ -148,6 +166,20 @@ def test_backward_kernel_matches_plain(case, cuda):
         deform_conv_bwd_zerocopy(
             xp, op, g.transpose(1, 2).contiguous().transpose(1, 2), wt, **kw)
     assert deform_conv_bwd_zerocopy.launches == before + 1
+
+
+@pytest.mark.parametrize("case", ["c_groups_128_tiles", "tile32_m96",
+                                  "s1_ragged_csteps"])
+def test_backward_kernel_is_deterministic(case, cuda):
+    """d_weights (fixed-order split sums) and d_offsets (fixed-order sums
+    over channel parts and C groups) are bit for bit the same from call to
+    call; only d_input adds with atomics."""
+    xp, op, g, wt, kw = _bwd_case(case, cuda)
+    _, doff_a, dw_a = deform_conv_bwd_zerocopy(xp, op, g, wt, **kw)
+    _, doff_b, dw_b = deform_conv_bwd_zerocopy(xp, op, g, wt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dw_a, dw_b)
+    assert torch.equal(doff_a, doff_b)
 
 
 def test_small_model_training_step_matches_plain_path(cuda):
