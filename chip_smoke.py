@@ -8,12 +8,20 @@ Phases, each of which exits non-zero on failure:
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: nvcc builds every kernel source of ``src/repro_torch/kernels/
    csrc`` for sm_90a (one nvcc per source, in parallel);
-3. kernel vs plain: the fused DCL kernel against its plain PyTorch
+3. kernel vs plain: the fused DCL kernel (1a) against its plain PyTorch
    version on the card, at every distinct DCL shape of resnet50_dcn_bounded
-   at buckets 256 and 512 and batch 4 and at edge geometries (ragged
-   output, dilation 2, stride 2), with offsets of which ~18% exceed ±B;
-   tolerance ``max|kernel - plain| <= 1e-5 * max|plain|``; times from CUDA
-   events, also of the input preparation (padding, weight blocking);
+   at buckets 256 and 512 and batch 4, at the five shapes of a training
+   step (batch 8, 512) and at edge geometries (ragged output, dilation 2,
+   stride 2), with offsets of which ~18% exceed ±B; tolerance
+   ``max|kernel - plain| <= 1e-5 * max|plain|``; two calls must give
+   ``torch.equal`` outputs; the shared memory must equal the chooser's
+   mirror.  Each case prints its instance (pixel lanes, output tiles, M
+   tiles, C groups, 16-byte or element-wise staging, blocks an SM) and
+   two bounds with the kernel's share of each: fp32 on the CUDA cores and
+   its own 3xTF32 products at the TF32 rate (the lower is the row's
+   bound); kernel 1a a training step is the five training shapes times
+   their DCLs a step.  Times from CUDA events, also of the input
+   preparation (padding, weight blocking);
 4. serve: full-width resnet50_dcn_bounded (random seeded params, offset
    conv perturbed so taps interpolate) through the port's serving engine
    at buckets 256/512, 4 slots, 8 requests; every request must be ``ok``
@@ -66,7 +74,8 @@ Phases, each of which exits non-zero on failure:
    ``train``); 4 steps plus a resumed run to 6 within a relative norm of
    1e-4 of the uninterrupted run (params).  Step time (host clock
    and CUDA events), its forward/backward split and the device-busy share
-   from ``torch.profiler``, and kernel 2's share of the device time.
+   from ``torch.profiler``, and kernels 2's and 1a's shares of the device
+   time.
 
 9. sampling, banded forward and matmul kernels vs plain on the card:
    kernel 1b (zero-copy sampling) and kernel 3 (banded sampling) at the
@@ -74,8 +83,10 @@ Phases, each of which exits non-zero on failure:
    dilation-2 case, within 1e-6 absolute, beside the time of
    ``F.grid_sample`` computing the same function (held to the plain
    version within 1e-5 * max|plain|); kernel 4 (the banded fused forward)
-   at every distinct DCL shape of both buckets and the same two edge
-   cases, within 1e-5 * max|plain|; kernel 5 (matmul) at 256^3, 512^3,
+   at every distinct DCL shape of both buckets, the five training shapes
+   at batch 8 (kernel 4 a banded training step) and the same two edge
+   cases, within 1e-5 * max|plain|, each with phase 3's instance, bounds
+   and ``torch.equal`` check; kernel 5 (matmul) at 256^3, 512^3,
    4096^3 and 257x129x65 in fp32 (1e-5 * max|plain|) and 512^3 and
    4096^3 in bf16 (one bf16 step, 2^-7 * max|plain|), beside
    ``torch.matmul``, each case naming the instance it ran (tile, aligned
@@ -95,7 +106,7 @@ Phases, each of which exits non-zero on failure:
    1a; losses finite, no step skipped; step 0's loss within 1e-5 relative
    of phase 8's zero-copy step 0 and its gradients within phase 8's gate
    (the plain path's own spread) of the plain path's; step time, device
-   idle share and kernel 2's share of the device time.
+   idle share and kernels 2's and 4's shares of the device time.
 
 12. flash attention (kernel 6) vs plain on the card: the six cases of
    ``tests/test_flash_attention.py`` in fp32 and bf16 (tolerance
@@ -149,7 +160,11 @@ run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
 launches of that shape in the run of phase 4 (of the kernel's rung in
 phase 6, of phase 8's 6 training steps, of phase 10 for kernel 4, of
 phase 9's entry-point run for 1b, 3 and 5, of phase 12's run for 6),
-summed.
+summed.  Kernels 1a and 4 also carry ``training``: their launches and
+times in phase 8's 6 steps (1a) and phase 11's 2 banded steps (4), with
+the step's ``torch.profiler`` time of their launches; their
+``bound_ms`` (and kernel 2's) is the lower of the 3xTF32 and the fp32
+CUDA-core bounds.
 
 TF32 is off for every fp32 matmul and convolution.  Without a GPU, or
 without the rest of the repository beside it, the script prints no result
@@ -235,6 +250,52 @@ def time_ms(fn, *, reps: int, iters: int) -> float:
     return statistics.median(times)
 
 
+def fwd_instance(lib, src, wt, *, n, ho, wo, c, m, s, d, b, th, tw, tc,
+                 tm) -> dict:
+    """The fp32 forward's instance at one call (kernels 1a and 4): pixel
+    lanes, output and M tiles, C groups, staging and blocks an SM."""
+    from repro_torch.kernels.deform_conv_fused import fwd_plan, staging_vec
+    inst = fwd_plan(n, ho, wo, c, m, tile_h=th, tile_w=tw, tile_c=tc,
+                    tile_m=tm)
+    vec = staging_vec(src, wt, tc, tm)
+    inst["loads"] = ("W 16-byte" if vec & 1 else "W element-wise") \
+        + (", band 16-byte" if vec & 2 else ", band element-wise")
+    inst["blocks_per_sm"] = lib.dcf_blocks_per_sm(K, s, d, math.ceil(b),
+                                                  th, tw, tc)
+    return inst
+
+
+def two_bounds(flops: float, nbytes: float) -> dict:
+    """The two bounds (ms) of a kernel with split-fp32 products (1a, 4,
+    2): fp32 on the CUDA cores, and its own 3xTF32 products (three tf32
+    products a product) at the TF32 rate; the lower is the row's bound."""
+    byte_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+    fp32_ms = max(flops / PEAK_FP32_FLOPS * 1e3, byte_ms)
+    tf32x3_ms = max(3 * flops / PEAK_TF32_FLOPS * 1e3, byte_ms)
+    bound_ms = min(fp32_ms, tf32x3_ms)
+    return dict(bound_ms=bound_ms, bound_fp32_ms=fp32_ms,
+                bound_3xtf32_ms=tf32x3_ms,
+                bound_by="operations" if bound_ms > byte_ms else "bytes")
+
+
+def fwd_case_line(rec: dict, ok: bool) -> str:
+    i = rec["instance"]
+    return (f"  {rec['label']:<28} n={rec['n']} tiles "
+            f"{rec['tiles'][0]}x{rec['tiles'][1]} tc={rec['tiles'][2]} "
+            f"tm={rec['tiles'][3]} smem={rec['smem_bytes']} err="
+            f"{rec['max_abs_err']:.3e} (max|plain|={rec['max_abs_plain']:.3f})"
+            f" kernel={rec['ms']:.4f} ms plain={rec['plain_ms']:.3f} ms "
+            f"prep={rec['prep_ms']:.4f} ms bound fp32="
+            f"{rec['bound_fp32_ms']:.4f} ms ({rec['bound_fp32_ms'] / rec['ms']:.1%})"
+            f" 3xTF32={rec['bound_3xtf32_ms']:.4f} ms "
+            f"({rec['bound_3xtf32_ms'] / rec['ms']:.1%}) "
+            f"per_step={rec.get('per_step', {})} {'ok' if ok else 'FAIL'}\n"
+            f"    instance: {i['lanes']} pixel lanes, {i['tiles']} tiles x "
+            f"{i['m_tiles']} M tiles x {i['c_groups']} C groups, "
+            f"{i['loads']}, {i['blocks_per_sm']} blocks an SM; two calls "
+            f"torch.equal: {rec['repeatable']}")
+
+
 def check_kernel(case: dict, gen) -> dict:
     """Kernel vs plain on one geometry; returns the record."""
     import torch
@@ -262,11 +323,15 @@ def check_kernel(case: dict, gen) -> dict:
               tile_h=th, tile_w=tw, tile_c=tc, tile_m=tm)
     y = deform_conv_fused_zerocopy(xp, offp, wt, **kw)
     torch.cuda.synchronize()
+    repeatable = torch.equal(y, deform_conv_fused_zerocopy(xp, offp, wt,
+                                                           **kw))
     yp = deform_conv_fused_zerocopy_plain(xp, offp, wt, **kw)
     err = (y - yp).abs().max().item()
     scale = yp.abs().max().item()
     lib = _build.load("deform_conv_fused")
     smem_c = lib.dcf_smem_bytes(K, s, d, 2, th, tw, tc)
+    inst = fwd_instance(lib, xp, wt, n=n, ho=ho, wo=wo, c=c, m=m, s=s, d=d,
+                        b=B, th=th, tw=tw, tc=tc, tm=tm)
     smem_py = smem_bytes(th, tw, tc, kernel_size=K, stride=s, dilation=d,
                          offset_bound=B)
     ms = time_ms(lambda: deform_conv_fused_zerocopy(xp, offp, wt, **kw),
@@ -280,28 +345,22 @@ def check_kernel(case: dict, gen) -> dict:
     flops = 2 * n * ho * wo * K * K * c * m
     nbytes = 4 * (n * h * w * c + n * ho * wo * 2 * K * K + K * K * c * m
                   + n * ho * wo * m)
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S) \
-        * 1e3
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc, tm],
-               smem_bytes=smem_c, max_abs_err=err, max_abs_plain=scale,
+               smem_bytes=smem_c, instance=inst, repeatable=repeatable,
+               max_abs_err=err, max_abs_plain=scale,
                clamped_share=(off.abs() > B).float().mean().item(),
                ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
-               bound_ms=bound_ms,
-               bound_by="operations" if flops / PEAK_FP32_FLOPS
-               >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
-               flops=flops, bytes=nbytes)
-    ok = err <= KERNEL_RTOL * scale and smem_c == smem_py
-    print(f"  {case['label']:<28} tiles {th}x{tw} tc={tc} tm={tm} "
-          f"smem={smem_c} err={err:.3e} (max|plain|={scale:.3f}) "
-          f"kernel={ms:.4f} ms plain={plain_ms:.3f} ms "
-          f"prep={prep_ms:.4f} ms bound={bound_ms:.4f} ms "
-          f"per_step={case.get('per_step', {})} {'ok' if ok else 'FAIL'}")
+               **two_bounds(flops, nbytes), flops=flops, bytes=nbytes)
+    ok = err <= KERNEL_RTOL * scale and smem_c == smem_py and repeatable
+    print(fwd_case_line(rec, ok))
     if smem_c != smem_py:
         fail(f"{case['label']}: shared memory {smem_c} (kernel) != "
              f"{smem_py} (chooser)")
     if err > KERNEL_RTOL * scale:
         fail(f"{case['label']}: max|kernel - plain| = {err} exceeds "
              f"{KERNEL_RTOL} * {scale}")
+    if not repeatable:
+        fail(f"{case['label']}: two calls of the kernel differ")
     return rec
 
 
@@ -524,13 +583,15 @@ def device_profile(fn, top: int = 6) -> tuple[float | None, list]:
     return (total or None), [(k[:60], round(ms, 4)) for k, ms in events[:top]]
 
 
-def kernel2_share(events: list[tuple[str, float]]) -> tuple[float, float]:
-    """Kernel 2's device time among ``events`` (its four launches: the
-    d_input, d_weights and two reduction kernels, ``dcb_*``) and its share
-    of their total."""
-    k2 = sum(ms for k, ms in events if "dcb_" in k)
+def kernel_share(events: list[tuple[str, float]],
+                 tag: str) -> tuple[float, float]:
+    """The device time among ``events`` of the launches whose names hold
+    ``tag`` (``dcb_``: kernel 2's d_input, d_weights and two reduction
+    kernels; ``dcf_``: the fp32 forward, kernel 1a or 4, and its
+    reduction) and its share of their total."""
+    k = sum(ms for name, ms in events if tag in name)
     total = sum(ms for _, ms in events)
-    return k2, (k2 / total if total else float("nan"))
+    return k, (k / total if total else float("nan"))
 
 
 def check_q_kernel(case: dict, gen) -> dict:
@@ -869,21 +930,13 @@ def check_bwd_kernel(case: dict, gen) -> dict:
     p = n * ho * wo
     flops = 2 * 2 * p * k2 * c * m        # dw = P^T g and dP = g W^T
     nbytes = 4 * (2 * n * h * w * c + 2 * p * 2 * k2 + p * m + 2 * k2 * c * m)
-    byte_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-    # Two bounds: the fp32 flops on the CUDA cores, and the three tf32
-    # products of each fp32 product (3xTF32) at the dense TF32 rate, the
-    # kernel's own arithmetic; the lower is the row's bound.
-    fp32_ms = max(flops / PEAK_FP32_FLOPS * 1e3, byte_ms)
-    tf32x3_ms = max(3 * flops / PEAK_TF32_FLOPS * 1e3, byte_ms)
-    bound_ms = min(fp32_ms, tf32x3_ms)
+    bounds = two_bounds(flops, nbytes)
+    fp32_ms, tf32x3_ms = bounds["bound_fp32_ms"], bounds["bound_3xtf32_ms"]
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc], smem_bytes=smem_c,
                plan=kplan, max_abs_err=max(errs.values()), errs=errs,
                max_abs_plain=scales, autograd_rel_err=auto, parts_ms=parts,
                clamped_share=(off.abs() > b).float().mean().item(),
-               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_fp32_ms=fp32_ms, bound_3xtf32_ms=tf32x3_ms,
-               bound_by="operations" if bound_ms > byte_ms else "bytes",
-               flops=flops, bytes=nbytes)
+               ms=ms, plain_ms=plain_ms, **bounds, flops=flops, bytes=nbytes)
     ok = all(errs[nm] <= BWD_RTOL * scales[nm] for nm in names) \
         and max(auto.values()) <= BWD_RTOL and smem_c == smem_py
     print(f"  {case['label']:<28} tiles {th}x{tw} tc={tc} smem={smem_c} "
@@ -1122,7 +1175,8 @@ def train(record: dict) -> tuple[int, dict]:
     events = device_events(lambda: trainer._one_step(step_batch))
     busy = sum(ms for _, ms in events) or None
     top = [(k[:60], round(ms, 4)) for k, ms in events[:6]]
-    k2_ms, k2_share = kernel2_share(events)
+    k2_ms, k2_share = kernel_share(events, "dcb_")
+    k1_ms, k1_share = kernel_share(events, "dcf_")
     share = "not measured" if busy is None else f"{1 - busy / step_ms:.0%}"
     host_ms = [t * 1e3 for t in trainer.step_seconds]
     # The same step with cuDNN free to pick non-deterministic algorithms
@@ -1132,7 +1186,8 @@ def train(record: dict) -> tuple[int, dict]:
     free_events = device_events(lambda: trainer._one_step(step_batch))
     free_busy = sum(ms for _, ms in free_events) or None
     free_top = [(k[:60], round(ms, 4)) for k, ms in free_events[:6]]
-    free_k2_ms, free_k2_share = kernel2_share(free_events)
+    free_k2_ms, free_k2_share = kernel_share(free_events, "dcb_")
+    free_k1_ms, free_k1_share = kernel_share(free_events, "dcf_")
     torch.backends.cudnn.deterministic = True
     print(f"  step (forward + backward + SGD), batch {TRAIN_BATCH}: "
           f"{step_ms:.3f} ms (CUDA events); forward {fwd_ms:.3f} ms, "
@@ -1146,6 +1201,9 @@ def train(record: dict) -> tuple[int, dict]:
     print(f"  kernel 2 (dcb_* launches) in the step's device time: "
           f"{k2_ms:.3f} ms ({k2_share:.1%}) with cuDNN deterministic, "
           f"{free_k2_ms:.3f} ms ({free_k2_share:.1%}) without")
+    print(f"  kernel 1a (dcf_* launches) in the step's device time: "
+          f"{k1_ms:.3f} ms ({k1_share:.1%}) with cuDNN deterministic, "
+          f"{free_k1_ms:.3f} ms ({free_k1_share:.1%}) without")
     record["train"] = dict(
         steps=TRAIN_STEPS, batch=TRAIN_BATCH, img_size=tcfg.img_size,
         wall_s=wall, losses=losses, telemetry=trainer.telemetry,
@@ -1161,7 +1219,10 @@ def train(record: dict) -> tuple[int, dict]:
         step_ms_cudnn_free=free_ms, device_busy_ms_cudnn_free=free_busy,
         device_top_cudnn_free=free_top, kernel2_device_ms=k2_ms,
         kernel2_device_share=k2_share, kernel2_device_ms_cudnn_free=free_k2_ms,
-        kernel2_device_share_cudnn_free=free_k2_share)
+        kernel2_device_share_cudnn_free=free_k2_share,
+        kernel1a_device_ms=k1_ms, kernel1a_device_share=k1_share,
+        kernel1a_device_ms_cudnn_free=free_k1_ms,
+        kernel1a_device_share_cudnn_free=free_k1_share)
     step0 = dict(loss=loss_k, loss_plain=loss_p, grads=g_k, grads_plain=g_p,
                  gate=max(TRAIN_GRAD_RTOL, spread))
     return counts["deform_conv_bwd"], step0
@@ -1313,11 +1374,15 @@ def check_banded_kernel(case: dict, gen) -> dict:
               tile_h=th, tile_w=tw, tile_c=tc, tile_m=tm)
     y = F.deform_conv_fused_banded(bands, offb, wt, **kw)
     torch.cuda.synchronize()
+    repeatable = torch.equal(y, F.deform_conv_fused_banded(bands, offb, wt,
+                                                           **kw))
     yp = F.deform_conv_fused_banded_plain(bands, offb, wt, **kw)
     err = (y - yp).abs().max().item()
     scale = yp.abs().max().item()
-    smem_c = F.load_kernel().dcf_smem_bytes(K, s, d, math.ceil(b), th, tw,
-                                            tc)
+    lib = F.load_kernel()
+    smem_c = lib.dcf_smem_bytes(K, s, d, math.ceil(b), th, tw, tc)
+    inst = fwd_instance(lib, bands, wt, n=n, ho=offb.shape[1], wo=wo, c=c,
+                        m=m, s=s, d=d, b=b, th=th, tw=tw, tc=tc, tm=tm)
     smem_py = smem_bytes(th, tw, tc, kernel_size=K, stride=s, dilation=d,
                          offset_bound=b)
     ms = time_ms(lambda: F.deform_conv_fused_banded(bands, offb, wt, **kw),
@@ -1329,30 +1394,24 @@ def check_banded_kernel(case: dict, gen) -> dict:
                                plan.tile_weights(wd, tc)), reps=5, iters=10)
     flops = 2 * n * offb.shape[1] * wo * K * K * c * m
     nbytes = 4 * (bands.numel() + offb.numel() + wt.numel() + y.numel())
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S) \
-        * 1e3
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc, tm], smem_bytes=smem_c,
+               instance=inst, repeatable=repeatable,
                bands_bytes=4 * bands.numel(), input_bytes=4 * x.numel(),
                max_abs_err=err, max_abs_plain=scale,
                clamped_share=(off.abs() > b).float().mean().item(),
-               ms=ms, plain_ms=plain_ms, prep_ms=prep_ms, bound_ms=bound_ms,
-               bound_by="operations" if flops / PEAK_FP32_FLOPS
-               >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
-               flops=flops, bytes=nbytes)
-    ok = err <= KERNEL_RTOL * scale and smem_c == smem_py
-    print(f"  {case['label']:<28} tiles {th}x{tw} tc={tc} tm={tm} "
-          f"smem={smem_c} bands/input "
-          f"{bands.numel() / x.numel():.2f}x err={err:.3e} "
-          f"(max|plain|={scale:.3f}) kernel={ms:.4f} ms "
-          f"plain={plain_ms:.3f} ms prep={prep_ms:.4f} ms "
-          f"bound={bound_ms:.4f} ms per_step={case.get('per_step', {})} "
-          f"{'ok' if ok else 'FAIL'}")
+               ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
+               **two_bounds(flops, nbytes), flops=flops, bytes=nbytes)
+    ok = err <= KERNEL_RTOL * scale and smem_c == smem_py and repeatable
+    print(fwd_case_line(rec, ok) + f"; bands/input "
+          f"{bands.numel() / x.numel():.2f}x")
     if smem_c != smem_py:
         fail(f"banded {case['label']}: shared memory {smem_c} (kernel) != "
              f"{smem_py} (chooser)")
     if err > KERNEL_RTOL * scale:
         fail(f"banded {case['label']}: max|kernel - plain| = {err} exceeds "
              f"{KERNEL_RTOL} * {scale}")
+    if not repeatable:
+        fail(f"banded {case['label']}: two calls of the kernel differ")
     return rec
 
 
@@ -1550,8 +1609,9 @@ def serve_banded(record: dict, params, zc_reqs) -> int:
     return counts["deform_conv_banded"]
 
 
-def train_banded(record: dict, step0: dict) -> None:
-    """Phase 11: phase 8's training settings on the banded dataflow."""
+def train_banded(record: dict, step0: dict) -> int:
+    """Phase 11: phase 8's training settings on the banded dataflow.
+    Returns kernel 4's launches in the 2-step run."""
     import shutil
 
     import numpy as np
@@ -1631,12 +1691,14 @@ def train_banded(record: dict, step0: dict) -> None:
     events = device_events(lambda: trainer._one_step(step_batch))
     busy = sum(ms for _, ms in events) or None
     top = [(k[:60], round(ms, 4)) for k, ms in events[:6]]
-    k2_ms, k2_share = kernel2_share(events)
+    k2_ms, k2_share = kernel_share(events, "dcb_")
+    k4_ms, k4_share = kernel_share(events, "dcf_")
     share = "not measured" if busy is None else f"{1 - busy / step_ms:.0%}"
     print(f"  banded step (forward + backward + SGD), batch {TRAIN_BATCH}: "
           f"{step_ms:.3f} ms (CUDA events, cuDNN deterministic); device "
           f"busy {busy if busy is None else round(busy, 3)} ms, idle "
-          f"{share}; kernel 2 {k2_ms:.3f} ms of it ({k2_share:.1%}); top "
+          f"{share}; kernel 2 {k2_ms:.3f} ms of it ({k2_share:.1%}), "
+          f"kernel 4 (dcf_*) {k4_ms:.3f} ms ({k4_share:.1%}); top "
           f"{top[:5]}")
     record["train_banded"] = dict(
         steps=BANDED_TRAIN_STEPS, wall_s=wall, losses=losses,
@@ -1645,7 +1707,9 @@ def train_banded(record: dict, step0: dict) -> None:
         step0_loss=loss.item(), step0_loss_rel=loss_rel,
         step0_grad_rel_plain=rel_plain, step0_grad_rel_zero_copy=rel_zc,
         step_ms=step_ms, device_busy_ms=busy, device_top=top,
-        kernel2_device_ms=k2_ms, kernel2_device_share=k2_share)
+        kernel2_device_ms=k2_ms, kernel2_device_share=k2_share,
+        kernel4_device_ms=k4_ms, kernel4_device_share=k4_share)
+    return counts["deform_conv_banded"]
 
 
 # ---------------------------------------------------------------------------
@@ -2302,6 +2366,38 @@ def per_run(shapes: list[dict], steps_per_bucket: dict, launches: int,
     return run, bound_by
 
 
+def run_two_bounds(shapes: list[dict], steps_per_bucket: dict,
+                   launches: int, what: str) -> tuple[dict, str]:
+    """``per_run`` for kernels 1a, 4 and 2 with both bounds: the 3xTF32
+    products at the TF32 rate and the fp32 flops on the CUDA cores; the
+    lower is ``bound_ms``."""
+    run, by = per_run(shapes, steps_per_bucket, launches,
+                      PEAK_TF32_FLOPS / 3, what)
+    run_fp32, by_fp32 = per_run(shapes, steps_per_bucket, launches,
+                                PEAK_FP32_FLOPS, what)
+    run["bound_3xtf32_ms"] = run["bound_ms"]
+    run["bound_fp32_ms"] = run_fp32["bound_ms"]
+    if run_fp32["bound_ms"] < run["bound_ms"]:
+        run["bound_ms"], by = run_fp32["bound_ms"], by_fp32
+    return run, by
+
+
+def fwd_training(shapes: list[dict], launches: int, steps: int, what: str,
+                 device_step_ms: float) -> dict:
+    """A forward kernel's training run for the kernels line: its launches,
+    the phase-3 (phase-9) shape times times their DCLs a step over
+    ``steps`` steps, per step, and the step's profiler time of the
+    kernel."""
+    run, by = run_two_bounds(shapes, {"train": steps}, launches, what)
+    return dict(launches=launches, steps=steps, ms=run["ms"],
+                plain_ms=run["plain_ms"], bound_ms=run["bound_ms"],
+                bound_fp32_ms=run["bound_fp32_ms"], bound_by=by,
+                step_ms=run["ms"] / steps,
+                step_bound_ms=run["bound_ms"] / steps,
+                step_bound_fp32_ms=run["bound_fp32_ms"] / steps,
+                device_step_ms=device_step_ms)
+
+
 def main() -> int:
     try:
         import torch
@@ -2356,6 +2452,18 @@ def main() -> int:
     cases = [dict(label=f"{h}x{w}x{c}->{m} s{s}", n=BATCH, h=h, w=w, c=c,
                   m=m, stride=s, dilation=1, per_step=cnt)
              for (h, w, c, m, s), cnt in per_step.items()]
+    # {shape: {"train": DCLs of that shape in one training step}}: phase
+    # 8's batch 8 at 512.
+    train_step: dict[tuple, dict[str, int]] = {}
+    for dims in bucket_layer_dims(CONFIG_BOUNDED, 512).values():
+        key = (dims["h"], dims["w"], dims["c"], dims["m"], dims["stride"])
+        cnt = train_step.setdefault(key, {})
+        cnt["train"] = cnt.get("train", 0) + 1
+    train_cases = [dict(label=f"train {h}x{w}x{c}->{m} s{s}",
+                        n=TRAIN_BATCH, h=h, w=w, c=c, m=m, stride=s,
+                        dilation=1, per_step=cnt)
+                   for (h, w, c, m, s), cnt in train_step.items()]
+    cases += train_cases
     cases += [
         dict(label="ragged 17x23x64->64 s1", n=2, h=17, w=23, c=64, m=64,
              stride=1, dilation=1),
@@ -2365,15 +2473,30 @@ def main() -> int:
              stride=2, dilation=1),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    record["shapes"] = [check_kernel(c, gen) for c in cases]
-    main_path = [r for r in record["shapes"] if r.get("per_step")]
+    # The training shapes draw from a generator of their own, so every
+    # later phase sees the inputs it saw before phases 3 and 9 had them.
+    gen_train = torch.Generator(device="cuda").manual_seed(1)
+    record["shapes"] = [check_kernel(c, gen_train if c in train_cases
+                                     else gen) for c in cases]
+    main_path = [r for r in record["shapes"]
+                 if r.get("per_step") and "train" not in r["per_step"]]
+    train_path = [r for r in record["shapes"]
+                  if "train" in r.get("per_step", {})]
+    step = {k: sum(r[k] * r["per_step"]["train"] for r in train_path)
+            for k in ("ms", "bound_fp32_ms", "bound_3xtf32_ms")}
+    print(f"  kernel 1a a training step ({sum(r['per_step']['train'] for r in train_path)}"
+          f" DCLs, batch {TRAIN_BATCH}): {step['ms']:.3f} ms; bounds fp32 "
+          f"{step['bound_fp32_ms']:.4f} ms ({step['bound_fp32_ms'] / step['ms']:.1%}),"
+          f" 3xTF32 {step['bound_3xtf32_ms']:.4f} ms "
+          f"({step['bound_3xtf32_ms'] / step['ms']:.1%})")
     print("  no single PyTorch call computes the bounded deformable conv, "
           "so there is no library time to compare with")
 
     print("== 4. serve")
     launches, record, params, zc_reqs = serve(record)
-    run, bound_by = per_run(main_path, record["serve"]["steps_per_bucket"],
-                            launches, PEAK_FP32_FLOPS, "deform_conv_fused")
+    run, bound_by = run_two_bounds(
+        main_path, record["serve"]["steps_per_bucket"], launches,
+        "deform_conv_fused")
     run["prep_ms"] = sum(r["prep_ms"] * r["launches_in_run"]
                          for r in main_path)
     record["run"] = run
@@ -2388,6 +2511,9 @@ def main() -> int:
         "plain_ms": run["plain_ms"],
         "bound_ms": run["bound_ms"],
         "bound_by": bound_by,
+        "bound_note": "3xTF32 (three tf32 products a product) at 494.7 "
+                      "TFLOP/s; bound_fp32_ms: fp32 on the CUDA cores",
+        "bound_fp32_ms": run["bound_fp32_ms"],
         "library_ms": None,
     }]}
     fwd = record["serve"]["forward_ms_in_run"]
@@ -2395,6 +2521,10 @@ def main() -> int:
           f"its {launches} DCL launches, {run['ms'] / fwd:.0%} of its "
           f"steps' {fwd:.3f} ms of forward; input preparation "
           f"{run['prep_ms']:.3f} ms)")
+    print(f"  deform_conv_fused per served run: {launches} launches, kernel "
+          f"{run['ms']:.3f} ms, plain {run['plain_ms']:.3f} ms, bound "
+          f"{run['bound_ms']:.4f} ms (3xTF32, {bound_by}; fp32 CUDA cores "
+          f"{run['bound_fp32_ms']:.4f} ms)")
 
     print("== 5. int8 kernels vs plain on the card (exact)")
     q_cases = []
@@ -2489,13 +2619,8 @@ def main() -> int:
     print("== 8. train")
     bwd_launches, step0 = train(record)
     shapes = [r for r in record["bwd_shapes"] if r.get("per_step")]
-    # Bounds per run: the 3xTF32 products at the TF32 rate (the lower,
-    # the row's bound) and the fp32 flops on the CUDA cores.
-    run_b, by = per_run(shapes, {"512": TRAIN_STEPS}, bwd_launches,
-                        PEAK_TF32_FLOPS / 3, "deform_conv_bwd")
-    run_fp32, _ = per_run(shapes, {"512": TRAIN_STEPS}, bwd_launches,
-                          PEAK_FP32_FLOPS, "deform_conv_bwd")
-    run_b["bound_fp32_ms"] = run_fp32["bound_ms"]
+    run_b, by = run_two_bounds(shapes, {"512": TRAIN_STEPS}, bwd_launches,
+                               "deform_conv_bwd")
     record["run_deform_conv_bwd"] = run_b
     kernels["kernels"].append({
         "name": "deform_conv_bwd",
@@ -2514,6 +2639,19 @@ def main() -> int:
         "library_ms": None,
     })
     per_step_ms = run_b["ms"] / TRAIN_STEPS
+    # Kernel 1a in the same run: as many launches as kernel 2 (train()
+    # checks both counts).
+    k1 = fwd_training(train_path, bwd_launches, TRAIN_STEPS,
+                      "deform_conv_fused",
+                      record["train"]["kernel1a_device_ms"])
+    record["run_deform_conv_fused_train"] = k1
+    kernels["kernels"][0]["training"] = k1
+    print(f"  deform_conv_fused per {TRAIN_STEPS}-step run: {k1['launches']} "
+          f"launches, kernel {k1['ms']:.3f} ms ({k1['step_ms']:.3f} ms a "
+          f"step; torch.profiler reads {k1['device_step_ms']:.3f} ms a "
+          f"step), plain {k1['plain_ms']:.3f} ms, bound "
+          f"{k1['bound_ms']:.4f} ms (3xTF32; fp32 CUDA cores "
+          f"{k1['bound_fp32_ms']:.4f} ms)")
     print(f"  deform_conv_bwd per {TRAIN_STEPS}-step run: {bwd_launches} "
           f"launches, kernel {run_b['ms']:.3f} ms, plain "
           f"{run_b['plain_ms']:.3f} ms, bound {run_b['bound_ms']:.4f} ms "
@@ -2541,9 +2679,21 @@ def main() -> int:
                                for r in check_sample_kernels(case, gen)]
     banded_cases = [dict(label=f"{h}x{w}x{c}->{m} s{s}", n=BATCH, h=h, w=w,
                          c=c, m=m, stride=s, dilation=1, per_step=cnt)
-                    for (h, w, c, m, s), cnt in per_step.items()] + edge
-    record["banded_shapes"] = [check_banded_kernel(case, gen)
-                               for case in banded_cases]
+                    for (h, w, c, m, s), cnt in per_step.items()] \
+        + train_cases + edge
+    record["banded_shapes"] = [
+        check_banded_kernel(case, gen_train if case in train_cases else gen)
+        for case in banded_cases]
+    banded_train = [r for r in record["banded_shapes"]
+                    if "train" in r.get("per_step", {})]
+    step = {k: sum(r[k] * r["per_step"]["train"] for r in banded_train)
+            for k in ("ms", "bound_fp32_ms", "bound_3xtf32_ms")}
+    print(f"  kernel 4 a banded training step "
+          f"({sum(r['per_step']['train'] for r in banded_train)} DCLs, batch "
+          f"{TRAIN_BATCH}): {step['ms']:.3f} ms; bounds fp32 "
+          f"{step['bound_fp32_ms']:.4f} ms ({step['bound_fp32_ms'] / step['ms']:.1%}),"
+          f" 3xTF32 {step['bound_3xtf32_ms']:.4f} ms "
+          f"({step['bound_3xtf32_ms'] / step['ms']:.1%})")
     print("  no single PyTorch call computes the banded fused forward, so "
           "there is no library time to compare with")
     record["mm_shapes"] = [check_matmul(*shape, gen) for shape in MM_SHAPES]
@@ -2582,10 +2732,11 @@ def main() -> int:
 
     print("== 10. serve banded")
     banded_launches = serve_banded(record, params, zc_reqs)
-    shapes = [r for r in record["banded_shapes"] if r.get("per_step")]
-    run_4, by = per_run(shapes, record["serve_banded"]["steps_per_bucket"],
-                        banded_launches, PEAK_FP32_FLOPS,
-                        "deform_conv_banded")
+    shapes = [r for r in record["banded_shapes"]
+              if r.get("per_step") and "train" not in r["per_step"]]
+    run_4, by = run_two_bounds(
+        shapes, record["serve_banded"]["steps_per_bucket"], banded_launches,
+        "deform_conv_banded")
     run_4["prep_ms"] = sum(r["prep_ms"] * r["launches_in_run"]
                            for r in shapes)
     record["run_deform_conv_banded"] = run_4
@@ -2600,16 +2751,31 @@ def main() -> int:
         "plain_ms": run_4["plain_ms"],
         "bound_ms": run_4["bound_ms"],
         "bound_by": by,
+        "bound_note": "3xTF32 (three tf32 products a product) at 494.7 "
+                      "TFLOP/s; bound_fp32_ms: fp32 on the CUDA cores",
+        "bound_fp32_ms": run_4["bound_fp32_ms"],
         "library_ms": None,
     })
     print(f"  deform_conv_banded per served run: {banded_launches} launches, "
           f"kernel {run_4['ms']:.3f} ms, plain {run_4['plain_ms']:.3f} ms, "
-          f"bound {run_4['bound_ms']:.4f} ms ({by}); bands and weights "
+          f"bound {run_4['bound_ms']:.4f} ms (3xTF32, {by}; fp32 CUDA cores "
+          f"{run_4['bound_fp32_ms']:.4f} ms); bands and weights "
           f"prepared in {run_4['prep_ms']:.3f} ms")
 
     print("== 11. train banded")
-    train_banded(record, step0)
+    k4_launches = train_banded(record, step0)
     del step0
+    k4 = fwd_training(banded_train, k4_launches, BANDED_TRAIN_STEPS,
+                      "deform_conv_banded",
+                      record["train_banded"]["kernel4_device_ms"])
+    record["run_deform_conv_banded_train"] = k4
+    kernels["kernels"][-1]["training"] = k4
+    print(f"  deform_conv_banded per {BANDED_TRAIN_STEPS}-step banded run: "
+          f"{k4['launches']} launches, kernel {k4['ms']:.3f} ms "
+          f"({k4['step_ms']:.3f} ms a step; torch.profiler reads "
+          f"{k4['device_step_ms']:.3f} ms a step), plain "
+          f"{k4['plain_ms']:.3f} ms, bound {k4['bound_ms']:.4f} ms (3xTF32; "
+          f"fp32 CUDA cores {k4['bound_fp32_ms']:.4f} ms)")
 
     mm = record["mm_shapes"]
     op_ms = sum(r["op_ms"] for r in mm)

@@ -14,17 +14,31 @@ its grids.  The TPU chooser's scheduling knobs (``cores``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 # H100 SXM (NVIDIA's data sheet / Hopper tuning guide).
 SM_COUNT = 132
 SMEM_PER_BLOCK = 232_448          # 227 KB, dynamic shared memory opt-in
 
-# Register tile of the kernel (src/repro_torch/kernels/csrc/
-# deform_conv_fused.cu): a block computes up to PIX_LANES output pixels
-# by TILE_M_MAX output channels, 4 x 4 per thread.
+# Register tile of the int8 kernels (src/repro_torch/kernels/csrc/
+# deform_conv_q.cu): a block computes up to PIX_LANES output pixels by
+# TILE_M_MAX output channels, 4 x 4 per thread.  The fp32 forward takes
+# the same pixel lanes.
 TILE_M_MAX = 64
 PIX_LANES = (16, 32, 64)
+
+# The fp32 forward (csrc/deform_conv_fused.cu, kernels 1a and 4): a block
+# of 8 warps computes up to PIX_LANES[-1] output pixels by FWD_TILE_M
+# output channels on the tensor cores, stepping C in chunks of up to
+# FWD_TILE_C channels, two in flight; a chunk of FWD_TILE_C_MIN channels
+# at a larger pixel tile beats FWD_TILE_C at a smaller one.  FWD_SMEM_TWO:
+# the most shared memory a block may take so that two fit an SM (228 KB an
+# SM, 1 KB of it reserved a block).
+FWD_TILE_M = 128
+FWD_TILE_C = 8
+FWD_TILE_C_MIN = 4
+FWD_SMEM_TWO = 233_472 // 2 - 1_024
 
 
 def band_extent(tile: int, *, kernel_size: int, stride: int,
@@ -53,22 +67,27 @@ def pix_lanes(tile_h: int, tile_w: int) -> int:
                      f"{PIX_LANES[-1]} pixels per block")
 
 
+def fwd_rows_pad(tile_c: int, *, kernel_size: int) -> int:
+    """Rows of the fp32 forward's patch and weight chunks: K*K*tile_c
+    padded to whole 8-deep mma steps."""
+    return -(-kernel_size * kernel_size * tile_c // 8) * 8
+
+
 def smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
                stride: int, dilation: int, offset_bound: float) -> int:
-    """Dynamic shared memory of one block; mirrors ``dcf_smem_bytes`` in
-    the CUDA source: the band (channel-major, odd plane stride, rounded
-    to 4 floats), the patch tile, the weight tile and the corner
-    geometry (index, ty, tx per tap and pixel)."""
+    """Dynamic shared memory of one block of the fp32 forward; mirrors
+    ``dcf_smem_bytes`` in ``csrc/deform_conv_fused.cu``: two band chunks
+    (``_band_floats``), two weight chunks (``fwd_rows_pad`` rows by
+    ``FWD_TILE_M`` channels), the patch tile (pixel lanes by the padded
+    rows + 4) and the corner geometry (ty, tx, index per tap and pixel)."""
     pix = pix_lanes(tile_h, tile_w)
     k2 = kernel_size * kernel_size
-    bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
-                     dilation=dilation, offset_bound=offset_bound)
-    bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
-                     dilation=dilation, offset_bound=offset_bound)
-    band = tile_c * ((bh * bw) | 1)
-    band = -(-band // 4) * 4
-    kk = k2 * tile_c
-    return 4 * (band + kk * pix + kk * TILE_M_MAX + 3 * k2 * pix)
+    band = _band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
+                        stride=stride, dilation=dilation,
+                        offset_bound=offset_bound)
+    rows = fwd_rows_pad(tile_c, kernel_size=kernel_size)
+    return 4 * (2 * band + 2 * rows * FWD_TILE_M + pix * (rows + 4)
+                + 3 * k2 * pix)
 
 
 def q_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
@@ -118,11 +137,12 @@ _BWD_LD_G = BWD_DW_COLS + 8
 _BWD_LD_P = BWD_DW_ROWS + 8
 
 
-def _bwd_band_floats(tile_h: int, tile_w: int, tile_c: int, *,
-                     kernel_size: int, stride: int, dilation: int,
-                     offset_bound: float) -> int:
-    """The backward's band chunk: the Eq. 6 band's positions with tile_c
-    channels innermost, rounded to 4 floats."""
+def _band_floats(tile_h: int, tile_w: int, tile_c: int, *,
+                 kernel_size: int, stride: int, dilation: int,
+                 offset_bound: float) -> int:
+    """The band chunk of the fp32 forward and of the backward: the Eq. 6
+    band's positions with tile_c channels innermost, rounded to 4
+    floats."""
     bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
                      dilation=dilation, offset_bound=offset_bound)
     bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
@@ -178,9 +198,9 @@ def bwd_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
     an entry start (plus one) and a dx_pad offset."""
     pix = pix_lanes(tile_h, tile_w)
     pairs = kernel_size * kernel_size * pix
-    band = _bwd_band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
-                            stride=stride, dilation=dilation,
-                            offset_bound=offset_bound)
+    band = _band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
+                        stride=stride, dilation=dilation,
+                        offset_bound=offset_bound)
     npos = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
                        dilation=dilation, offset_bound=offset_bound) \
         * band_extent(tile_w, kernel_size=kernel_size, stride=stride,
@@ -200,9 +220,9 @@ def bwd_dw_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
     tiles (lanes x 128 channels + 8; two up to 32 lanes, one at 64) and a
     patch tile (lanes x 144 rows + 8)."""
     pix = pix_lanes(tile_h, tile_w)
-    band = _bwd_band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
-                            stride=stride, dilation=dilation,
-                            offset_bound=offset_bound)
+    band = _band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
+                        stride=stride, dilation=dilation,
+                        offset_bound=offset_bound)
     g_tiles = 2 if pix <= 32 else 1
     return 4 * (2 * band + 2 * BWD_DW_ROWS
                 + pix * (g_tiles * _BWD_LD_G + _BWD_LD_P))
@@ -215,14 +235,13 @@ def _wave_fill(blocks: int) -> float:
     return blocks / (waves * BWD_TARGET_BLOCKS)
 
 
-def bwd_c_groups(n: int, ho: int, wo: int, c: int, *, tile_h: int,
-                 tile_w: int, tile_c: int) -> int:
-    """Groups of C chunks the d_input kernel's grid splits C into: 1 when
-    the output tiles alone reach ``BWD_TARGET_BLOCKS`` blocks, else the
-    fewest groups (at most one a chunk) that reach it and fill whole waves
-    to ``BWD_WAVE_FILL`` (the best fill when none does)."""
-    tiles = n * -(-ho // tile_h) * -(-wo // tile_w)
-    chunks = c // tile_c
+@functools.lru_cache(maxsize=None)
+def _c_groups(tiles: int, chunks: int) -> int:
+    """The groups a grid of ``tiles`` blocks a group splits its
+    ``chunks`` C chunks into: 1 when the tiles alone reach
+    ``BWD_TARGET_BLOCKS`` blocks, else the fewest groups (at most one a
+    chunk) that reach it and fill whole waves to ``BWD_WAVE_FILL`` (the
+    best fill when none does)."""
     if tiles >= BWD_TARGET_BLOCKS:
         return 1
     cands = range(min(chunks, -(-BWD_TARGET_BLOCKS // tiles)), chunks + 1)
@@ -232,8 +251,24 @@ def bwd_c_groups(n: int, ho: int, wo: int, c: int, *, tile_h: int,
     return max(cands, key=lambda gr: _wave_fill(tiles * gr))
 
 
+def bwd_c_groups(n: int, ho: int, wo: int, c: int, *, tile_h: int,
+                 tile_w: int, tile_c: int) -> int:
+    """Groups of C chunks the d_input kernel's grid splits C into, over
+    its output tiles (``_c_groups``)."""
+    return _c_groups(n * -(-ho // tile_h) * -(-wo // tile_w), c // tile_c)
+
+
+def fwd_c_groups(n: int, ho: int, wo: int, c: int, m: int, *, tile_h: int,
+                 tile_w: int, tile_c: int, tile_m: int) -> int:
+    """Groups of C chunks the fp32 forward's grid splits C into, over its
+    output tiles times its M tiles (``_c_groups``, as the backward)."""
+    return _c_groups(n * -(-ho // tile_h) * -(-wo // tile_w)
+                     * -(-m // tile_m), c // tile_c)
+
+
 def bwd_c_range(chunks: int, groups: int, group: int) -> range:
-    """The C chunks of one d_input group, as the kernel takes them."""
+    """The C chunks of one group, as the backward's d_input kernel and
+    the fp32 forward take them."""
     return range(group * chunks // groups, (group + 1) * chunks // groups)
 
 
@@ -323,19 +358,24 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
     ``"banded"`` for the banded forward of ``deform_conv_fused.cu``).
 
     * ``tile_m``: the largest divisor of M up to the kernel's 64 lanes
-      (``"sample"``: ``tile_c``, the channels a block writes).
+      (``"sample"``: ``tile_c``, the channels a block writes; fp32 and
+      banded: up to ``FWD_TILE_M``).
     * spatial: 8x8 clamped to the output; while the grid has fewer
       blocks than the card has SMs, halve the longer side, down to 16
       pixels per block (the sampling kernels' grid counts C / tile_c; the
       backward's counts neither M nor C tiles and stops at 32 pixels,
-      since its d_input kernel splits C over the grid, ``bwd_c_groups``).  A given ``tile_h`` fixes the
-      rows (not clamped to the output: the caller clamps) and only
-      ``tile_w`` is halved; ``"banded"`` always fixes them at the bands'
-      row tile (default ``BANDED_TILE_H``), so a block covers a whole
-      band tile's rows and ``tile_w`` of its columns.
-    * ``tile_c``, fp32 and banded: the largest divisor of C up to 32
-      whose block fits twice in an SM's shared memory (so two blocks can
-      be resident), else the largest that fits once.
+      since its d_input kernel splits C over the grid, ``bwd_c_groups``).
+      A given ``tile_h`` fixes the rows (not clamped to the output: the
+      caller clamps) and only ``tile_w`` is halved; ``"banded"`` always
+      fixes them at the bands' row tile (default ``BANDED_TILE_H``), so a
+      block covers a whole band tile's rows and ``tile_w`` of its columns.
+    * fp32 and banded (``_fwd_tiles``): the grid splits C into groups
+      (``fwd_c_groups``), so the spatial tile is halved only where its
+      block does not fit twice in an SM at any ``tile_c`` from the largest
+      divisor of C up to ``FWD_TILE_C`` down to ``FWD_TILE_C_MIN``, or where
+      even one group a chunk would leave the grid short of
+      ``BWD_TARGET_BLOCKS``; failing that, smaller divisors of C, then
+      blocks that fit once.
     * ``tile_c``, int8: the largest multiple-of-4 divisor of C up to 64
       whose block fits four times in an SM (a quarter of the fp32 bytes
       per channel), else twice, else once.  The chain kernel streams C in
@@ -369,6 +409,9 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
         tw = min(tw, PIX_LANES[-1] // th)
     geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
                 offset_bound=offset_bound)
+    if dtype in ("fp32", "banded"):
+        return _fwd_tiles(n, ho, wo, c, m, th, tw, geom, rows_fixed=(
+            tile_h is not None or dtype == "banded"))
     if dtype == "sample":
         cands = sorted({_divisor_at_most(c, cap)
                         for cap in (SAMPLE_TC_MAX, 16, 8, 4, 2, 1)},
@@ -394,20 +437,17 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
 
         def block_bytes(tc):
             return sample_smem_bytes(th, tw, tc, **geom)
-    elif dtype in ("fp32", "fp32_bwd", "banded"):
+    elif dtype == "fp32_bwd":
         cands = sorted({_divisor_at_most(c, cap)
                         for cap in (32, 16, 8, 4, 2, 1)}, reverse=True)
         budgets = (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
-        model = bwd_smem_bytes if dtype == "fp32_bwd" else smem_bytes
-        if dtype == "fp32_bwd":
-            cands = [tc for tc in cands
-                     if bwd_warp_tiles(th, tw, tc, kernel_size=kernel_size)
-                     <= BWD_MAX_WARP_TILES
-                     and bwd_dw_smem_bytes(th, tw, tc, **geom)
-                     <= SMEM_PER_BLOCK]
+        cands = [tc for tc in cands
+                 if bwd_warp_tiles(th, tw, tc, kernel_size=kernel_size)
+                 <= BWD_MAX_WARP_TILES
+                 and bwd_dw_smem_bytes(th, tw, tc, **geom) <= SMEM_PER_BLOCK]
 
         def block_bytes(tc):
-            return model(th, tw, tc, **geom)
+            return bwd_smem_bytes(th, tw, tc, **geom)
     else:
         if c % 4:
             raise ValueError(
@@ -425,8 +465,51 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
             if block_bytes(tc) <= budget:
                 return KernelTiles(th, tw, tc,
                                    tc if dtype == "sample" else tm)
+    _no_fit(th, tw, geom)
+
+
+def _no_fit(th: int, tw: int, geom: dict):
     raise ValueError(
         f"no channel tile fits {SMEM_PER_BLOCK} bytes of shared memory for "
-        f"a {th}x{tw} tile at B={offset_bound}, stride {stride}, dilation "
-        f"{dilation}: the Eq. 6 band is too large — train with a smaller "
-        f"offset bound")
+        f"a {th}x{tw} tile at B={geom['offset_bound']}, stride "
+        f"{geom['stride']}, dilation {geom['dilation']}: the Eq. 6 band is "
+        f"too large — train with a smaller offset bound")
+
+
+def _fwd_tiles(n: int, ho: int, wo: int, c: int, m: int, th: int, tw: int,
+               geom: dict, *, rows_fixed: bool) -> KernelTiles:
+    """The fp32 forward's tiles (see ``choose_kernel_tiles``): spatial
+    tiles from ``th`` x ``tw`` down to 16 pixels, halving the longer side
+    (only ``tw`` when the rows are fixed), each at the largest ``tile_c``
+    that fits, from the divisors of C down to ``FWD_TILE_C_MIN`` (then
+    all of them); per budget (two blocks an SM, then one), the first tile
+    whose grid, at one group a chunk, reaches ``BWD_TARGET_BLOCKS``, else
+    the smallest that fits."""
+    tm = _divisor_at_most(m, FWD_TILE_M)
+    shapes = [(th, tw)]
+    while th * tw > PIX_LANES[0]:
+        if th >= tw and not rows_fixed:
+            th = -(-th // 2)
+        elif tw > 1:
+            tw = -(-tw // 2)
+        else:
+            break
+        shapes.append((th, tw))
+    tcs = sorted({_divisor_at_most(c, cap)
+                  for cap in (FWD_TILE_C, 4, 2, 1)}, reverse=True)
+    least = min(FWD_TILE_C_MIN, tcs[0])
+    for budget in (FWD_SMEM_TWO, SMEM_PER_BLOCK):
+        for cands in ([tc for tc in tcs if tc >= least], tcs):
+            fit = []
+            for a, b in shapes:
+                tc = next((tc for tc in cands
+                           if smem_bytes(a, b, tc, **geom) <= budget), None)
+                if tc is not None:
+                    fit.append(KernelTiles(a, b, tc, tm))
+            for t in fit:
+                if grid_blocks(n, ho, wo, m, t) * (c // t.tile_c) \
+                        >= BWD_TARGET_BLOCKS:
+                    return t
+            if fit:
+                return fit[-1]
+    _no_fit(shapes[-1][0], shapes[-1][1], geom)

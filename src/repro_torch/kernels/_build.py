@@ -30,11 +30,12 @@ _I = ctypes.c_int
 # C signatures of every exported function, per library.
 SIGNATURES = {
     "deform_conv_fused": {
-        "dcf_forward": (_I, [_P, _P, _P, _P] + [_I] * 10
-                        + [ctypes.c_float] + [_I] * 5 + [_P]),
-        "dcf_forward_banded": (_I, [_P, _P, _P, _P] + [_I] * 10
-                               + [ctypes.c_float] + [_I] * 5 + [_P]),
+        "dcf_forward": (_I, [_P] * 5 + [_I] * 10 + [ctypes.c_float]
+                        + [_I] * 7 + [_P]),
+        "dcf_forward_banded": (_I, [_P] * 5 + [_I] * 10 + [ctypes.c_float]
+                               + [_I] * 7 + [_P]),
         "dcf_smem_bytes": (ctypes.c_longlong, [_I] * 7),
+        "dcf_blocks_per_sm": (_I, [_I] * 7),
         "dcf_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_sample": {

@@ -86,6 +86,7 @@ using wmma_sm90::cp_async16;
 using wmma_sm90::cp_async4;
 using wmma_sm90::cp_async_commit;
 using wmma_sm90::cp_async_wait;
+using wmma_sm90::copy4;
 using wmma_sm90::mma_3xtf32;
 using wmma_sm90::split_tf32;
 
@@ -231,21 +232,6 @@ __device__ inline void stage_band(const float* __restrict__ x_pad,
       cp_async16(band + pos * g.tc + 4 * e, src + 4 * e, 16);
     else
       cp_async4(band + pos * g.tc + e, src + e, 4);
-  }
-}
-
-// Four floats to the 16-byte aligned dst, of which the first `count`
-// (clamped to 0..4) come from src and the rest are zero: one 16-byte
-// cp.async when `vec`, else four 4-byte ones.  src is not read past count.
-__device__ inline void copy4(float* dst, const float* src, int count,
-                             bool vec) {
-  count = count < 0 ? 0 : count > 4 ? 4 : count;
-  if (vec) {
-    cp_async16(dst, src, 4 * count);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      cp_async4(dst + e, e < count ? src + e : src, e < count ? 4 : 0);
   }
 }
 

@@ -15,93 +15,190 @@
 //   y[n, oy, ox, m] = sum_{tap, c} bilinear(x_pad[n, :, :, c], pos(tap))
 //                                 * w_tiles[c / tc, tap * tc + c % tc, m]
 // where pos(tap) is the band-local Eq. 6 position of the tap plus its
-// offset clamped to +-B.  x_pad is zero padded by pad + ceil(B) on the
-// top/left, so every corner of every clamped tap lies inside its band and
-// no mask is needed (the zero padding stands in for the reference's
-// validity mask).  The banded kernel computes the same over bands[n, j],
-// the rows of row tile j; see "Banded" below.
+// offset clamped to +-B (fminf(fmaxf(o, -B), B), which also sends a NaN to
+// -B), and bilinear takes the corners in the order 00, 01, 10, 11.  x_pad
+// is zero padded by pad + ceil(B) on the top/left, so every corner of
+// every clamped tap lies inside its band and no mask is needed (the zero
+// padding stands in for the reference's validity mask).  The banded kernel
+// computes the same over bands[n, j], the rows of row tile j; see
+// "Banded" below.
 //
-// What bounds it on this card: operations.  Each output needs K*K*C FMAs
-// over data that is re-used M/tile_m and tile-overlap times from shared
-// memory; at the ResNet-50-DCN shapes the fp32 FMA work is 10-50x the time
+// What bounds it on this card: operations.  Each output needs K*K*C
+// multiply-adds; at the ResNet-50-DCN shapes that work is 10-50x the time
 // of moving x, the offsets, the weights and y once through device memory.
+// The products run on the tensor cores as split-fp32 products ("3xTF32",
+// warp_mma.cuh: a = hi + lo with hi, lo tf32, and a.b ~ a_lo b_hi +
+// a_hi b_lo + a_hi b_hi in fp32), which keeps fp32 accuracy (~2^-22
+// relative a product) at three tf32 mma.sync each, so the bound is the
+// lower of 2*P*K*K*C*M flops on the fp32 CUDA cores and three times that
+// at the dense TF32 rate.  A single TF32 pass (~2^-11) would not meet the
+// fp32 contract.
 //
-// Design (simple first; tensor cores, TMA and double buffering are later
-// work):
-//   * one block per (image, tile_h x tile_w output pixels, tile_m <= 64
-//     output channels); the TPU's sequential C-step grid axis is a loop
-//     inside the block;
-//   * corner geometry (flat band index, ty, tx) for every pixel and tap,
-//     once per block, in shared memory;
-//   * per channel chunk of tile_c: stage the band channel-major (odd
-//     plane stride, so the staging writes and the corner reads spread
-//     over the banks) and the weight slice, build the patch tile
-//     P[K*K*tile_c][pixels] with the JAX corner order (00, 01, 10, 11),
-//     then accumulate P^T W in registers, 4 pixels x 4 channels a thread;
-//   * flush the accumulator, masking the ragged edge of the image and of M.
-// The fp32 datapath runs on CUDA-core FMAs: no TF32.
+// Design.
+//   * One block of 8 warps per (image, output tile of up to 64 pixels,
+//     up to 128 output channels, group of C chunks): the band is gathered
+//     once for 128 channels.  A warp takes 32 (16) pixels by 32 channels
+//     at 64 (32) pixel lanes, 16 by 16 at 16 lanes: two or one 16-row mma
+//     tiles by four or two 8-column ones.  Two blocks fit an SM (128
+//     registers a thread, <= 113 KB of shared memory a block): one block's
+//     gather runs beside the other's products (a trial build whose block
+//     fitted only once an SM was far slower).
+//   * The grid counts pixel tiles x M tiles x C groups.  Where the first
+//     two leave the card short of two blocks an SM, C is split into
+//     groups as the backward's d_input grid splits it
+//     (tiling.fwd_c_groups): each group writes an fp32 partial into a
+//     workspace and dcf_reduce_kernel adds the partials in group order.
+//     With one group the block writes y itself.  Either way every output
+//     is summed in a fixed order, so y is the same bit for bit from call
+//     to call.
+//   * Per block, once: the corner geometry (band index, ty, tx) of every
+//     (tap, pixel) in shared memory, as band_pipeline.corner_geometry
+//     computes it.
+//   * Per chunk of tile_c channels (two chunks in flight): the band chunk
+//     and the weight chunk are copied with cp.async into double buffers,
+//     16-byte copies where the channels (the band) or the output channels
+//     (W) are contiguous and 16-byte aligned (the wrapper's `vec` bits),
+//     element by element otherwise.  Chunk c+1 lands while chunk c is
+//     gathered and multiplied: wait, barrier, issue c+1, gather c into the
+//     patch tile P, barrier, products of c.
+//   * Layouts.  The band chunk is position-major with the channels
+//     innermost (band[pos * tc + ch], as the backward reads it): a thread
+//     builds four channels of one (tap, pixel) from four float4 corner
+//     reads, and neighbouring lanes take neighbouring pixels' channels,
+//     so taps that land on neighbouring positions read neighbouring words
+//     (no bank conflicts; offsets that scatter the taps cost some).  P is
+//     [pixel][K*K*tc padded to 8, + 4]: the +4 puts the eight rows of an
+//     A fragment on distinct banks.  W is [row][128] with its 16-byte
+//     groups XOR-swizzled by 2 * (row % 4), so the 32 lanes of a B
+//     fragment read 32 distinct banks with no padding.  Rows of K*K*tc past
+//     a multiple of 8 are zero in both P and W.
+//   * Products: A = P (pixels x rows), B = W (rows x channels), split
+//     into hi and lo as each fragment is loaded (integer rounding), three
+//     mma.sync m16n8k8 a product into a zeroed fragment, which is added to
+//     the fp32 accumulators in registers (round to nearest).  The tensor
+//     cores' own accumulation truncates: chained over a whole C loop (one
+//     C group, hundreds of mma steps) it drifted past the 1e-5 contract
+//     at the training shapes; summed a step at a time it stays near the
+//     plain version's own fp32 error.  Every warp runs all its 8-column
+//     tiles, the zero columns past M included: a branch per tile cut the
+//     k-step into blocks the scheduler could not overlap.  P is not split
+//     once as it is built: a split tile takes twice P's shared memory
+//     (39 KB at 64 pixels, tile_c 8), two blocks then no longer fit an SM
+//     beside the double-buffered W, and at tile_c 4, where they do, a
+//     trial build saved nothing: the loads of the split tile cost what
+//     the splits did.
+//   * Flush, masking the ragged edge of the image and of M.
 //
 // Banded (kernel 4).  The TPU block holds a whole band tile (tile_h rows
 // by the full output width) and a tile_h*Wo x M fp32 accumulator: 256 KB
 // at every DCL of the 512 bucket, more than a Hopper block has.  Here a
 // block takes the band tile's tile_h rows, tile_w of its output columns
-// and tile_m <= 64 output channels, and stages only the band columns those
-// outputs reach (u0*S .. u0*S + band_w(tile_w)), in tile_c chunks; the
-// accumulator stays in registers as for kernel 1a.  Column positions are
-// those of the whole band, (u0 + u)*S + hb + kx*d plus the offset, as the
-// TPU kernel computes them over the full width, shifted by u0*S after the
-// floor (an exact integer step), so the corners and coefficients are
-// JAX's.  Staged columns past the band's w_pad read 0: only masked pixels
-// of the ragged last column tile reach them.
+// and up to 128 output channels, and stages only the band columns those
+// outputs reach (u0*S .. u0*S + band_w(tile_w)), in tile_c chunks, with the
+// same body as kernel 1a.  Column positions are those of the whole band,
+// (u0 + u)*S + hb + kx*d plus the offset, as the TPU kernel computes them
+// over the full width, shifted by u0*S after the floor (an exact integer
+// step), so the corners and coefficients are JAX's.  Staged columns past
+// the band's w_pad read 0: only masked pixels of the ragged last column
+// tile reach them.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
-constexpr int kTileMMax = 64;   // output channels per block (16 x 4 lanes)
+using wmma_sm90::cp_async16;
+using wmma_sm90::cp_async4;
+using wmma_sm90::cp_async_commit;
+using wmma_sm90::cp_async_wait;
+using wmma_sm90::copy4;
+using wmma_sm90::mma_3xtf32;
+using wmma_sm90::split_tf32;
+
+constexpr int kThreads = 256;     // threads of every block (8 warps)
+constexpr int kTileM = 128;       // output channels a block, at most
+constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in ceiling
+constexpr int kVecW = 1;          // vec bit: W in 16-byte copies
+constexpr int kVecBand = 2;       // vec bit: the band in 16-byte copies
 
 struct Geometry {
-  int hp, wp, c, ho, wo, m;   // hp x wp: one source plane (x_pad or a band)
-  int nt;                     // banded: band tiles per image; 0: x_pad
+  int n, hp, wp, c, ho, wo, m;  // hp x wp: one source plane (x_pad or a band)
+  int nt;                       // banded: band tiles per image; 0: x_pad
   int k, s, d, hb;
   float bound;
   int th, tw, tc, tm;
-  int band_h, band_w, w_tiles;
+  int band_h, band_w, h_tiles, w_tiles;
 };
 
+// Warps of a block: kP along the pixels, kN along the output channels;
+// each takes kMT 16-row mma tiles by kNT 8-column ones.
+template <int PIX>
+struct Warps {
+  static constexpr int kP = PIX >= 32 ? 2 : 1;
+  static constexpr int kN = 8 / kP;
+  static constexpr int kMT = PIX / 16 / kP;
+  static constexpr int kNT = kTileM / kN / 8;
+};
+
+__host__ __device__ inline int round_up(int v, int u) {
+  return (v + u - 1) / u * u;
+}
+__host__ __device__ inline int kk_rows(const Geometry& g) {
+  return g.k * g.k * g.tc;
+}
+// Rows of K*K*tc padded to whole 8-deep mma steps.
+__host__ __device__ inline int kk_pad(const Geometry& g) {
+  return round_up(kk_rows(g), 8);
+}
+// Row stride of the patch tile: 4 modulo 8.
+__host__ __device__ inline int p_ld(const Geometry& g) {
+  return kk_pad(g) + 4;
+}
+// The band chunk: positions of the Eq. 6 band, tile_c channels innermost.
 __host__ __device__ inline int band_floats(const Geometry& g) {
-  int plane = (g.band_h * g.band_w) | 1;
-  return ((g.tc * plane + 3) / 4) * 4;
+  return round_up(g.band_h * g.band_w * g.tc, 4);
+}
+__host__ __device__ inline int w_floats(const Geometry& g) {
+  return kk_pad(g) * kTileM;
 }
 
+// Two band chunks, two weight chunks, the patch tile and the corner
+// geometry (ty, tx, index per tap and pixel).
 inline size_t smem_bytes(const Geometry& g, int pix) {
-  size_t k2 = (size_t)g.k * g.k;
-  size_t kk = k2 * g.tc;
-  return 4 * ((size_t)band_floats(g) + kk * pix + kk * kTileMMax +
-              3 * k2 * pix);
+  return 4 * (2 * (size_t)band_floats(g) + 2 * (size_t)w_floats(g) +
+              (size_t)pix * p_ld(g) + 3 * (size_t)g.k * g.k * pix);
 }
 
 template <int PIX>
-__global__ void __launch_bounds__(PIX * 4)
+__global__ void __launch_bounds__(kThreads, 2)
 dcf_kernel(const float* __restrict__ src, const float* __restrict__ off,
-           const float* __restrict__ w_tiles, float* __restrict__ out,
-           Geometry g) {
+           const float* __restrict__ w_tiles, float* __restrict__ dst,
+           Geometry g, int groups, int vec) {
+  using L = Warps<PIX>;
   extern __shared__ __align__(16) float smem[];
   const int k2 = g.k * g.k;
-  const int kk_n = k2 * g.tc;
-  const int plane_stride = (g.band_h * g.band_w) | 1;
-  float* band = smem;
-  float* P = band + band_floats(g);
-  float* W = P + kk_n * PIX;
-  float* gty = W + kk_n * kTileMMax;
+  const int tc = g.tc;
+  const int kk_n = kk_rows(g), kkp = kk_pad(g), ldp = p_ld(g);
+  const int bf = band_floats(g), wf = w_floats(g);
+  float* bands = smem;                    // [2][bf]
+  float* Ws = bands + 2 * bf;             // [2][kkp][kTileM], swizzled
+  float* P = Ws + 2 * wf;                 // [PIX][ldp]
+  float* gty = P + PIX * ldp;             // [k2][PIX]
   float* gtx = gty + k2 * PIX;
   int* gidx = reinterpret_cast<int*>(gtx + k2 * PIX);
 
   const int n = blockIdx.z;
-  const int m0 = blockIdx.y * g.tm;
+  const int m_tiles = (g.m + g.tm - 1) / g.tm;
+  const int grp = blockIdx.y / m_tiles;
+  const int m0 = (blockIdx.y % m_tiles) * g.tm;
+  const int m_live = min(g.tm, g.m - m0);  // channels of this block
   const int jt = blockIdx.x / g.w_tiles;
   const int wt = blockIdx.x % g.w_tiles;
+  const int chunks = g.c / tc;
+  const int cs0 = grp * chunks / groups, cs1 = (grp + 1) * chunks / groups;
   // Origin of the staged band in its source plane, and the first output
   // column whose position base the band's columns start from (banded).
   const float* plane;
@@ -116,9 +213,11 @@ dcf_kernel(const float* __restrict__ src, const float* __restrict__ off,
     pu0 = 0;
   }
   const int col0 = wt * g.tw * g.s;
-  const int tid = threadIdx.y * 16 + threadIdx.x;
-  constexpr int kThreads = PIX * 4;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
   const int npix = g.th * g.tw;
+  const bool vw = vec & kVecW, vband = vec & kVecBand;
 
   // Corner geometry of every (tap, pixel), band-local, as
   // repro/kernels/band_pipeline.py corner_geometry computes it.
@@ -150,92 +249,188 @@ dcf_kernel(const float* __restrict__ src, const float* __restrict__ off,
     gty[i] = fy;
     gtx[i] = fx;
   }
+  // The patch tile's pad rows (K*K*tc .. kkp) stay zero.
+  const int pad = kkp - kk_n;
+  for (int i = tid; i < PIX * pad; i += kThreads)
+    P[(i / pad) * ldp + kk_n + i % pad] = 0.f;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // Chunk cs of the band and of W into buffer b.
+  auto stage = [&](int cs, int b) {
+    float* band = bands + b * bf;
+    const int c0 = cs * tc;
+    const int per = vband ? tc / 4 : tc;     // copies a position
+    const int total = g.band_h * g.band_w * per;
+    for (int i = tid; i < total; i += kThreads) {
+      const int pos = i / per, e = i - pos * per;
+      const int r = pos / g.band_w, q = pos - r * g.band_w;
+      const bool in = col0 + q < g.wp;
+      const float* s =
+          in ? plane + ((size_t)(row0 + r) * g.wp + col0 + q) * g.c + c0
+             : plane;
+      if (vband)
+        cp_async16(band + pos * tc + 4 * e, s + 4 * e, in ? 16 : 0);
+      else
+        cp_async4(band + pos * tc + e, s + e, in ? 4 : 0);
+    }
+    float* wd = Ws + b * wf;
+    const float* wsrc = w_tiles + (size_t)cs * kk_n * g.m + m0;
+    for (int i = tid; i < kkp * (kTileM / 4); i += kThreads) {
+      const int kk = i / (kTileM / 4), q = i % (kTileM / 4);
+      const int cnt = kk < kk_n ? m_live - 4 * q : 0;
+      copy4(wd + kk * kTileM + ((q ^ ((kk & 3) << 1)) << 2),
+            cnt > 0 ? wsrc + (size_t)kk * g.m + 4 * q : w_tiles, cnt, vw);
+    }
+  };
 
-  const int c_steps = g.c / g.tc;
-  const int band_n = g.band_h * g.band_w * g.tc;
-  for (int cs = 0; cs < c_steps; ++cs) {
-    const int c0 = cs * g.tc;
-    __syncthreads();  // the previous chunk's FMAs are done with P and W
-    // Band: consecutive threads read consecutive channels (coalesced).
-    for (int i = tid; i < band_n; i += kThreads) {
-      const int ch = i % g.tc, pos = i / g.tc;
-      const int r = pos / g.band_w, q = pos % g.band_w;
-      band[ch * plane_stride + pos] =
-          col0 + q < g.wp
-              ? plane[((size_t)(row0 + r) * g.wp + col0 + q) * g.c + c0 + ch]
-              : 0.f;
-    }
-    // Weight slice of this chunk: rows tap * tc + ch, tile_m columns.
-    const float* wsrc = w_tiles + (size_t)cs * kk_n * g.m;
-    for (int i = tid; i < kk_n * kTileMMax; i += kThreads) {
-      const int kk = i / kTileMMax, j = i % kTileMMax;
-      W[i] = (j < g.tm && m0 + j < g.m) ? wsrc[(size_t)kk * g.m + m0 + j]
-                                        : 0.f;
-    }
-    __syncthreads();
-    // Patch tile P[tap * tc + ch][pixel].
-    for (int i = tid; i < kk_n * PIX; i += kThreads) {
-      const int p = i % PIX, kk = i / PIX;
-      const int kt = kk / g.tc, ch = kk % g.tc;
-      const int gi = kt * PIX + p;
-      const float ty = gty[gi], tx = gtx[gi];
-      const float* b = band + ch * plane_stride + gidx[gi];
-      float v = b[0] * ((1.f - ty) * (1.f - tx));
-      v += b[1] * ((1.f - ty) * tx);
-      v += b[g.band_w] * (ty * (1.f - tx));
-      v += b[g.band_w + 1] * (ty * tx);
-      P[i] = (p < npix) ? v : 0.f;
-    }
-    __syncthreads();
-    const float* pa = P + threadIdx.y * 4;
-    const float* wb = W + threadIdx.x * 4;
-#pragma unroll 4
-    for (int kk = 0; kk < kk_n; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(pa + kk * PIX);
-      const float4 b = *reinterpret_cast<const float4*>(wb + kk * kTileMMax);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+  // This warp's share of the output tile.
+  const int prow = (warp / L::kN) * (PIX / L::kP);
+  const int ncol = (warp % L::kN) * (kTileM / L::kN);
+  float acc[L::kMT][L::kNT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < L::kMT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int j = 0; j < L::kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int bwf = g.band_w * tc;   // a band row, in floats
+  stage(cs0, 0);
+  cp_async_commit();
+  for (int cs = cs0, it = 0; cs < cs1; ++cs, ++it) {
+    const int b = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk cs landed; chunk cs - 1's products are done
+    if (cs + 1 < cs1) stage(cs + 1, b ^ 1);
+    cp_async_commit();
+    // Patch tile P[pixel][tap * tc + ch], the corners in JAX's order.
+    const float* band = bands + b * bf;
+    if (tc % 4 == 0) {
+      const int q4 = tc / 4;
+      for (int i = tid; i < k2 * PIX * q4; i += kThreads) {
+        const int pr = i / q4, q = i - pr * q4;
+        const int kt = pr / PIX, p = pr - kt * PIX;
+        const float ty = gty[pr], tx = gtx[pr];
+        const float w00 = (1.f - ty) * (1.f - tx), w01 = (1.f - ty) * tx;
+        const float w10 = ty * (1.f - tx), w11 = ty * tx;
+        const float* bp = band + gidx[pr] * tc + 4 * q;
+        const float4 a = *reinterpret_cast<const float4*>(bp);
+        const float4 c = *reinterpret_cast<const float4*>(bp + tc);
+        const float4 e = *reinterpret_cast<const float4*>(bp + bwf);
+        const float4 f = *reinterpret_cast<const float4*>(bp + bwf + tc);
+        float4 v;
+        v.x = a.x * w00 + c.x * w01 + e.x * w10 + f.x * w11;
+        v.y = a.y * w00 + c.y * w01 + e.y * w10 + f.y * w11;
+        v.z = a.z * w00 + c.z * w01 + e.z * w10 + f.z * w11;
+        v.w = a.w * w00 + c.w * w01 + e.w * w10 + f.w * w11;
+        if (p >= npix) v = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(P + p * ldp + kt * tc + 4 * q) = v;
+      }
+    } else {
+      for (int i = tid; i < k2 * PIX * tc; i += kThreads) {
+        const int pr = i / tc, ch = i - pr * tc;
+        const int kt = pr / PIX, p = pr - kt * PIX;
+        const float ty = gty[pr], tx = gtx[pr];
+        const float* bp = band + gidx[pr] * tc + ch;
+        float v = bp[0] * ((1.f - ty) * (1.f - tx));
+        v += bp[tc] * ((1.f - ty) * tx);
+        v += bp[bwf] * (ty * (1.f - tx));
+        v += bp[bwf + tc] * (ty * tx);
+        P[p * ldp + kt * tc + ch] = p < npix ? v : 0.f;
+      }
+    }
+    __syncthreads();  // P is built
+    // y += P W on the tensor cores: A = P (16 pixels x 8 rows), B = W
+    // (8 rows x 8 channels), each split into tf32 hi and lo.
+    const float* Wb = Ws + b * wf;
+    const int swz = tig << 1;            // (row % 4) << 1 of rows kb + tig
+    for (int kb = 0; kb < kkp; kb += 8) {
+      uint32_t ah[L::kMT][4], al[L::kMT][4];
+#pragma unroll
+      for (int i = 0; i < L::kMT; ++i) {
+        const float* pa = P + (prow + i * 16 + gid) * ldp + kb + tig;
+        split_tf32(pa[0], ah[i][0], al[i][0]);
+        split_tf32(pa[8 * ldp], ah[i][1], al[i][1]);
+        split_tf32(pa[4], ah[i][2], al[i][2]);
+        split_tf32(pa[8 * ldp + 4], ah[i][3], al[i][3]);
+      }
+      const float* w0 = Wb + (kb + tig) * kTileM;
+#pragma unroll
+      for (int j = 0; j < L::kNT; ++j) {
+        const int nn = ncol + j * 8 + gid;
+        const int col = (((nn >> 2) ^ swz) << 2) | (nn & 3);
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(w0[col], bh0, bl0);
+        split_tf32(w0[4 * kTileM + col], bh1, bl1);
+#pragma unroll
+        for (int i = 0; i < L::kMT; ++i) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(d, ah[i], al[i], bh0, bh1, bl0, bl1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
+        }
+      }
     }
   }
+  cp_async_wait<0>();
 
-  // Flush, masking the ragged edge of the image and of M.
+  // Flush, masking the ragged edge of the image and of M: y itself (one
+  // C group) or this group's partial.
+  float* o = groups > 1
+                 ? dst + (size_t)grp * g.n * g.ho * g.wo * g.m
+                 : dst;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = threadIdx.y * 4 + i;
-    if (p >= npix) continue;
-    const int oy = jt * g.th + p / g.tw, ox = wt * g.tw + p % g.tw;
-    if (oy >= g.ho || ox >= g.wo) continue;
-    float* o = out + (((size_t)n * g.ho + oy) * g.wo + ox) * g.m + m0;
+  for (int i = 0; i < L::kMT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int mj = threadIdx.x * 4 + j;
-      if (mj < g.tm && m0 + mj < g.m) o[mj] = acc[i][j];
-    }
+    for (int j = 0; j < L::kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = prow + i * 16 + gid + (e >> 1) * 8;
+        const int ch = ncol + j * 8 + 2 * tig + (e & 1);
+        if (p >= npix || ch >= m_live) continue;
+        const int oy = jt * g.th + p / g.tw, ox = wt * g.tw + p % g.tw;
+        if (oy >= g.ho || ox >= g.wo) continue;
+        o[(((size_t)n * g.ho + oy) * g.wo + ox) * g.m + m0 + ch] =
+            acc[i][j][e];
+      }
+}
+
+// y[i] = the C groups' partials summed in group order.
+__global__ void dcf_reduce_kernel(const float* __restrict__ partial,
+                                  float* __restrict__ y, long long count,
+                                  int groups) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < count; i += (long long)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int s = 0; s < groups; ++s) v += partial[s * count + i];
+    y[i] = v;
   }
+}
+
+inline int grid_1d(long long count) {
+  const long long blocks = (count + 255) / 256;
+  return (int)(blocks < 1024 ? (blocks < 1 ? 1 : blocks) : 1024);
+}
+
+template <int PIX>
+int allow(void) {
+  static unsigned long long done = 0;
+  return wmma_sm90::allow_smem(dcf_kernel<PIX>, kMaxSmem, &done);
 }
 
 template <int PIX>
 cudaError_t launch(const float* src, const float* off, const float* w_tiles,
-                   float* out, int n, const Geometry& g, cudaStream_t stream) {
-  const size_t smem = smem_bytes(g, PIX);
-  cudaError_t e = cudaFuncSetAttribute(
-      dcf_kernel<PIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  const int h_tiles = (g.ho + g.th - 1) / g.th;
-  const dim3 grid(h_tiles * g.w_tiles, (g.m + g.tm - 1) / g.tm, n);
-  const dim3 block(16, PIX / 4);
-  dcf_kernel<PIX><<<grid, block, smem, stream>>>(src, off, w_tiles, out, g);
+                   float* out, float* partial, const Geometry& g, int groups,
+                   int vec, cudaStream_t stream) {
+  if (int e = allow<PIX>()) return (cudaError_t)e;
+  const int m_tiles = (g.m + g.tm - 1) / g.tm;
+  const dim3 grid(g.h_tiles * g.w_tiles, m_tiles * groups, g.n);
+  dcf_kernel<PIX><<<grid, kThreads, smem_bytes(g, PIX), stream>>>(
+      src, off, w_tiles, groups > 1 ? partial : out, g, groups, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || groups == 1) return err;
+  const long long count = (long long)g.n * g.ho * g.wo * g.m;
+  dcf_reduce_kernel<<<grid_1d(count), 256, 0, stream>>>(partial, out, count,
+                                                        groups);
   return cudaGetLastError();
 }
 
@@ -244,35 +439,47 @@ int pix_lanes(int th, int tw) {
   return npix <= 16 ? 16 : npix <= 32 ? 32 : npix <= 64 ? 64 : 0;
 }
 
-Geometry make_geometry(int hp, int wp, int c, int ho, int wo, int m, int k,
-                       int s, int d, float bound, int hb, int th, int tw,
-                       int tc, int tm) {
+Geometry make_geometry(int n, int hp, int wp, int c, int ho, int wo, int m,
+                       int k, int s, int d, float bound, int hb, int th,
+                       int tw, int tc, int tm) {
   Geometry g;
-  g.hp = hp; g.wp = wp; g.c = c; g.ho = ho; g.wo = wo; g.m = m; g.nt = 0;
+  g.n = n; g.hp = hp; g.wp = wp; g.c = c; g.ho = ho; g.wo = wo; g.m = m;
+  g.nt = 0;
   g.k = k; g.s = s; g.d = d; g.hb = hb; g.bound = bound;
   g.th = th; g.tw = tw; g.tc = tc; g.tm = tm;
   g.band_h = (th - 1) * s + (k - 1) * d + 2 * hb + 2;
   g.band_w = (tw - 1) * s + (k - 1) * d + 2 * hb + 2;
-  g.w_tiles = (wo + tw - 1) / tw;
+  g.h_tiles = th > 0 ? (ho + th - 1) / th : 0;
+  g.w_tiles = tw > 0 ? (wo + tw - 1) / tw : 0;
   return g;
 }
 
-// Check the tiles and launch the instantiation for their pixel count.
+// Check the arguments and launch the instantiation for the tile's pixel
+// count.
 int forward(const float* src, const float* off, const float* w_tiles,
-            float* out, int n, const Geometry& g, void* stream) {
+            float* out, float* partial, const Geometry& g, int groups,
+            int vec, void* stream) {
   const int pix = pix_lanes(g.th, g.tw);
-  if (pix == 0 || g.tm < 1 || g.tm > kTileMMax || g.tc < 1 ||
-      g.c % g.tc != 0)
+  if (pix == 0 || g.n < 1 || g.tm < 1 || g.tm > kTileM || g.tc < 1 ||
+      g.c % g.tc != 0 || groups < 1 || groups > g.c / g.tc ||
+      (groups > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes(g, pix) > 232448) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(g, pix) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (((vec & kVecW) &&
+       (g.m % 4 != 0 || g.tm % 4 != 0 ||
+        reinterpret_cast<uintptr_t>(w_tiles) % 16 != 0)) ||
+      ((vec & kVecBand) &&
+       (g.tc % 4 != 0 || g.c % 4 != 0 ||
+        reinterpret_cast<uintptr_t>(src) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (pix == 16)
-    e = launch<16>(src, off, w_tiles, out, n, g, st);
+    e = launch<16>(src, off, w_tiles, out, partial, g, groups, vec, st);
   else if (pix == 32)
-    e = launch<32>(src, off, w_tiles, out, n, g, st);
+    e = launch<32>(src, off, w_tiles, out, partial, g, groups, vec, st);
   else
-    e = launch<64>(src, off, w_tiles, out, n, g, st);
+    e = launch<64>(src, off, w_tiles, out, partial, g, groups, vec, st);
   return (int)e;
 }
 
@@ -285,36 +492,72 @@ extern "C" {
 long long dcf_smem_bytes(int k, int s, int d, int hb, int th, int tw,
                          int tc) {
   const int pix = pix_lanes(th, tw);
-  if (pix == 0) return 0;
-  Geometry g = make_geometry(0, 0, 0, 0, 0, 0, k, s, d, 0.f, hb, th, tw, tc,
-                             0);
+  if (pix == 0 || tc < 1) return 0;
+  Geometry g = make_geometry(0, 0, 0, 0, 0, 0, 0, k, s, d, 0.f, hb, th, tw,
+                             tc, 0);
   return (long long)smem_bytes(g, pix);
 }
 
-// Launch the fused forward on `stream`.  Returns a cudaError_t (0 on
-// success); invalid tiles return cudaErrorInvalidValue before launching.
+// Blocks of the given tiles that fit one SM of the current device at once
+// (registers, threads and shared memory), or a negative cudaError_t.
+int dcf_blocks_per_sm(int k, int s, int d, int hb, int th, int tw, int tc) {
+  const int pix = pix_lanes(th, tw);
+  if (pix == 0 || tc < 1) return -(int)cudaErrorInvalidValue;
+  Geometry g = make_geometry(0, 0, 0, 0, 0, 0, 0, k, s, d, 0.f, hb, th, tw,
+                             tc, 0);
+  const size_t smem = smem_bytes(g, pix);
+  int blocks = 0, e;
+  cudaError_t err;
+  if (pix == 16) {
+    e = allow<16>();
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, dcf_kernel<16>, kThreads, smem);
+  } else if (pix == 32) {
+    e = allow<32>();
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, dcf_kernel<32>, kThreads, smem);
+  } else {
+    e = allow<64>();
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, dcf_kernel<64>, kThreads, smem);
+  }
+  if (e) return -e;
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Launch the fused forward on `stream`: x_pad (n, hp, wp, c), offsets
+// (n, ho, wo, 2*k*k), w_tiles (c / tc, k*k*tc, m), out (n, ho, wo, m).
+// groups: C groups of the grid (1 .. c / tc); with groups > 1, partial
+// holds groups x n*ho*wo*m floats, summed into out by a second kernel.
+// vec: bit 0, W is staged with 16-byte copies (m % 4 == tm % 4 == 0,
+// 16-byte aligned w_tiles); bit 1, the band (tc % 4 == c % 4 == 0, 16-byte aligned
+// x_pad).  Returns a cudaError_t (0 on success); invalid arguments return
+// cudaErrorInvalidValue before anything is launched.
 int dcf_forward(const float* x_pad, const float* off, const float* w_tiles,
-                float* out, int n, int hp, int wp, int c, int ho, int wo,
-                int m, int k, int s, int d, float bound, int hb, int th,
-                int tw, int tc, int tm, void* stream) {
-  Geometry g = make_geometry(hp, wp, c, ho, wo, m, k, s, d, bound, hb, th,
-                             tw, tc, tm);
-  return forward(x_pad, off, w_tiles, out, n, g, stream);
+                float* out, float* partial, int n, int hp, int wp, int c,
+                int ho, int wo, int m, int k, int s, int d, float bound,
+                int hb, int th, int tw, int tc, int tm, int groups, int vec,
+                void* stream) {
+  Geometry g = make_geometry(n, hp, wp, c, ho, wo, m, k, s, d, bound, hb,
+                             th, tw, tc, tm);
+  return forward(x_pad, off, w_tiles, out, partial, g, groups, vec, stream);
 }
 
 // Launch the banded forward (kernel 4) on `stream`: bands (n, nt, band_h,
 // w_pad, c) from plan.pad_and_band, offsets (n, nt * th, wo, 2*k*k), out
-// (n, nt * th, wo, m).  band_h must be the Eq. 6 extent of th rows.
+// (n, nt * th, wo, m); partial, groups and vec as for dcf_forward.
+// band_h must be the Eq. 6 extent of th rows.
 int dcf_forward_banded(const float* bands, const float* off,
-                       const float* w_tiles, float* out, int n, int nt,
-                       int band_h, int w_pad, int c, int wo, int m, int k,
-                       int s, int d, float bound, int hb, int th, int tw,
-                       int tc, int tm, void* stream) {
-  Geometry g = make_geometry(band_h, w_pad, c, nt * th, wo, m, k, s, d,
+                       const float* w_tiles, float* out, float* partial,
+                       int n, int nt, int band_h, int w_pad, int c, int wo,
+                       int m, int k, int s, int d, float bound, int hb,
+                       int th, int tw, int tc, int tm, int groups, int vec,
+                       void* stream) {
+  Geometry g = make_geometry(n, band_h, w_pad, c, nt * th, wo, m, k, s, d,
                              bound, hb, th, tw, tc, tm);
   if (nt < 1 || g.band_h != band_h) return (int)cudaErrorInvalidValue;
   g.nt = nt;
-  return forward(bands, off, w_tiles, out, n, g, stream);
+  return forward(bands, off, w_tiles, out, partial, g, groups, vec, stream);
 }
 
 const char* dcf_error_string(int code) {
@@ -322,4 +565,3 @@ const char* dcf_error_string(int code) {
 }
 
 }  // extern "C"
-

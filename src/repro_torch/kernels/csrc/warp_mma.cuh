@@ -1,6 +1,7 @@
 // Warp-level tensor-core and async-copy helpers for sm_90a (H100), shared
-// by flash_attention.cu, matmul.cu and deform_conv_bwd.cu: 16-byte and
-// 4-byte cp.async with zero fill, ldmatrix (plain and transposed), the bf16
+// by flash_attention.cu, matmul.cu, deform_conv_bwd.cu and
+// deform_conv_fused.cu: 16-byte and 4-byte cp.async with zero fill (and
+// four floats either way), ldmatrix (plain and transposed), the bf16
 // m16n8k16 and the tf32 m16n8k8 mma.sync with fp32 accumulation, the
 // split-fp32 ("3xTF32") product built on the latter, and the host's
 // dynamic-shared-memory opt-in.
@@ -48,6 +49,21 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+
+// Four floats to the 16-byte aligned dst, of which the first `count`
+// (clamped to 0..4) come from src and the rest are zero: one 16-byte
+// cp.async when `vec`, else four 4-byte ones.  src is not read past count.
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      int count, bool vec) {
+  count = count < 0 ? 0 : count > 4 ? 4 : count;
+  if (vec) {
+    cp_async16(dst, src, 4 * count);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cp_async4(dst + e, e < count ? src + e : src, e < count ? 4 : 0);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -15,6 +15,11 @@ padded offsets: Ho and Wo need not be tile multiples (the input must
 still be padded for ``ceil(Ho / tile_h)`` row tiles, see
 ``plan.pad_zerocopy``).  The banded kernel keeps the JAX contract: the
 offsets have ``n_tiles * tile_h`` rows.
+
+Both kernels split C into groups where the output tiles alone would
+leave the card idle (``fwd_plan``); the groups' fp32 partials go to a
+workspace the wrapper allocates and a second kernel adds them in group
+order, so the output is the same bit for bit from call to call.
 """
 from __future__ import annotations
 
@@ -46,6 +51,70 @@ def load_kernel():
     """Build (first time only) and load the kernel's library."""
     from repro_torch.kernels import _build
     return _build.load("deform_conv_fused")
+
+
+def fwd_plan(n: int, ho: int, wo: int, c: int, m: int, *, tile_h: int,
+             tile_w: int, tile_c: int, tile_m: int) -> dict:
+    """The kernel's grid for one call (``core.tiling``'s mirror of
+    ``csrc/deform_conv_fused.cu``): pixel lanes of the instance, output
+    tiles, M tiles and the C groups the grid splits C into."""
+    from repro_torch.core import tiling as T
+    return dict(
+        lanes=T.pix_lanes(tile_h, tile_w),
+        tiles=n * -(-ho // tile_h) * -(-wo // tile_w),
+        m_tiles=-(-m // tile_m),
+        c_groups=T.fwd_c_groups(n, ho, wo, c, m, tile_h=tile_h,
+                                tile_w=tile_w, tile_c=tile_c, tile_m=tile_m))
+
+
+def staging_vec(src: Tensor, w_tiles: Tensor, tile_c: int,
+                tile_m: int) -> int:
+    """How the kernel stages its chunks: bit 0, W in 16-byte copies (M and
+    tile_m multiples of 4, w_tiles 16-byte aligned); bit 1, the band
+    (tile_c and C multiples of 4, the source 16-byte aligned); else
+    element by element."""
+    w = w_tiles.shape[2] % 4 == 0 and tile_m % 4 == 0 \
+        and w_tiles.data_ptr() % 16 == 0
+    band = tile_c % 4 == 0 and src.shape[-1] % 4 == 0 \
+        and src.data_ptr() % 16 == 0
+    return int(w) | 2 * int(band)
+
+
+def _check_launch(src: Tensor, offsets: Tensor, w_tiles: Tensor,
+                  names: tuple[str, str, str], tile_h: int, tile_w: int,
+                  tm: int) -> None:
+    """What the kernel takes: contiguous fp32 on one device, at most 64
+    pixels and ``FWD_TILE_M`` output channels a block."""
+    from repro_torch.core.tiling import FWD_TILE_M, pix_lanes
+    for name, t in zip(names, (src, offsets, w_tiles)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != src.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor on "
+                             f"{src.device}")
+    pix_lanes(tile_h, tile_w)                 # raises past 64 pixels
+    if not 1 <= tm <= FWD_TILE_M:
+        raise ValueError(f"tile_m={tm} outside the kernel's 1..{FWD_TILE_M}")
+
+
+def _launch(fn: str, src: Tensor, offsets: Tensor, w_tiles: Tensor,
+            out: Tensor, plan: dict, dims: tuple, geom: tuple,
+            tiles: tuple) -> None:
+    """Allocate the C groups' workspace and launch ``fn`` of the library
+    on the current stream; raise if the launch fails."""
+    lib = load_kernel()
+    groups = plan["c_groups"]
+    partial = torch.empty((groups, *out.shape), dtype=torch.float32,
+                          device=out.device) if groups > 1 else None
+    vec = staging_vec(src, w_tiles, tiles[2], tiles[3])
+    with torch.cuda.device(src.device):
+        err = getattr(lib, fn)(
+            src.data_ptr(), offsets.data_ptr(), w_tiles.data_ptr(),
+            out.data_ptr(), None if partial is None else partial.data_ptr(),
+            *dims, *geom, *tiles, groups, vec,
+            torch.cuda.current_stream(src.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn} kernel launch failed: "
+                           f"{lib.dcf_error_string(err).decode()} ({err})")
 
 
 def deform_conv_fused_zerocopy_plain(
@@ -99,7 +168,7 @@ def deform_conv_fused_zerocopy(
     returns: (N, Ho, Wo, M)
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (fp32, contiguous, ``tile_h * tile_w <= 64``, ``tile_m <= 64``) and
+    (fp32, contiguous, ``tile_h * tile_w <= 64``, ``tile_m <= 128``) and
     count the launch in ``deform_conv_fused_zerocopy.launches``.
     """
     if x_pad.device.type == "cpu":
@@ -109,39 +178,27 @@ def deform_conv_fused_zerocopy(
             tile_w=tile_w, tile_c=tile_c, tile_m=tile_m)
     if x_pad.device.type != "cuda":
         raise ValueError(f"no kernel for device {x_pad.device}")
-    from repro_torch.core.tiling import TILE_M_MAX, pix_lanes
+    from repro_torch.core.tiling import FWD_TILE_M
 
     n, hp, wp, c = x_pad.shape
     _, ho, wo, _ = offsets.shape
     m = w_tiles.shape[2]
     tc = tile_c or c
-    tm = tile_m or min(m, TILE_M_MAX)
+    tm = tile_m or min(m, FWD_TILE_M)
     _check(x_pad, offsets, w_tiles, kernel_size=kernel_size, tile_c=tc)
-    for name, t in (("x_pad", x_pad), ("offsets", offsets),
-                    ("w_tiles", w_tiles)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != x_pad.device:
-            raise ValueError(f"{name} must be a contiguous float32 tensor on "
-                             f"{x_pad.device}")
-    pix_lanes(tile_h, tile_w)                 # raises past 64 pixels
-    if not 1 <= tm <= TILE_M_MAX:
-        raise ValueError(f"tile_m={tm} outside the kernel's 1..{TILE_M_MAX}")
+    _check_launch(x_pad, offsets, w_tiles, ("x_pad", "offsets", "w_tiles"),
+                  tile_h, tile_w, tm)
     BandSpec(kernel_size, stride, dilation, offset_bound, tile_h,
              tile_w).check_padded(hp, wp, -(-ho // tile_h), -(-wo // tile_w))
 
     out = torch.empty((n, ho, wo, m), dtype=torch.float32,
                       device=x_pad.device)
-    lib = load_kernel()
-    with torch.cuda.device(x_pad.device):
-        err = lib.dcf_forward(
-            x_pad.data_ptr(), offsets.data_ptr(), w_tiles.data_ptr(),
-            out.data_ptr(), n, hp, wp, c, ho, wo, m, kernel_size, stride,
-            dilation, float(offset_bound), int(math.ceil(offset_bound)),
-            tile_h, tile_w, tc, tm,
-            torch.cuda.current_stream(x_pad.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"deform_conv_fused kernel launch failed: "
-                           f"{lib.dcf_error_string(err).decode()} ({err})")
+    plan = fwd_plan(n, ho, wo, c, m, tile_h=tile_h, tile_w=tile_w,
+                    tile_c=tc, tile_m=tm)
+    _launch("dcf_forward", x_pad, offsets, w_tiles, out, plan,
+            (n, hp, wp, c, ho, wo, m),
+            (kernel_size, stride, dilation, float(offset_bound),
+             int(math.ceil(offset_bound))), (tile_h, tile_w, tc, tm))
     deform_conv_fused_zerocopy.launches += 1
     return out
 
@@ -182,10 +239,10 @@ def deform_conv_fused_banded(
 
     A block of the kernel takes a band tile's ``tile_h`` rows, ``tile_w``
     output columns (default: as many as fit 64 pixels, at most 8) and
-    ``tile_m`` output channels (default: up to 64), stepping C in
+    ``tile_m`` output channels (default: up to 128), stepping C in
     ``tile_c`` chunks.  CPU tensors run the plain version; CUDA tensors
     launch the kernel (fp32, contiguous, ``tile_h * tile_w <= 64``,
-    ``tile_m <= 64``) and count the launch in
+    ``tile_m <= 128``) and count the launch in
     ``deform_conv_fused_banded.launches``.
     """
     if bands.device.type == "cpu":
@@ -195,41 +252,29 @@ def deform_conv_fused_banded(
             tile_w=tile_w, tile_c=tile_c, tile_m=tile_m)
     if bands.device.type != "cuda":
         raise ValueError(f"no kernel for device {bands.device}")
-    from repro_torch.core.tiling import TILE_M_MAX, pix_lanes
+    from repro_torch.core.tiling import FWD_TILE_M
 
     n, nt, band_h, w_pad, c = bands.shape
     _, ho, wo, _ = offsets.shape
     m = w_tiles.shape[2]
     tc = tile_c or c
-    tm = tile_m or min(m, TILE_M_MAX)
+    tm = tile_m or min(m, FWD_TILE_M)
     tw = tile_w or max(1, min(8, wo, 64 // tile_h))
     _check(bands, offsets, w_tiles, kernel_size=kernel_size,
            tile_c=tc)
-    for name, t in (("bands", bands), ("offsets", offsets),
-                    ("w_tiles", w_tiles)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != bands.device:
-            raise ValueError(f"{name} must be a contiguous float32 tensor on "
-                             f"{bands.device}")
+    _check_launch(bands, offsets, w_tiles, ("bands", "offsets", "w_tiles"),
+                  tile_h, tw, tm)
     check_banded(bands, offsets, kernel_size=kernel_size, stride=stride,
                  dilation=dilation, offset_bound=offset_bound, tile_h=tile_h)
-    pix_lanes(tile_h, tw)                     # raises past 64 pixels
-    if not 1 <= tm <= TILE_M_MAX:
-        raise ValueError(f"tile_m={tm} outside the kernel's 1..{TILE_M_MAX}")
 
-    lib = load_kernel()
     out = torch.empty((n, ho, wo, m), dtype=torch.float32,
                       device=bands.device)
-    with torch.cuda.device(bands.device):
-        err = lib.dcf_forward_banded(
-            bands.data_ptr(), offsets.data_ptr(), w_tiles.data_ptr(),
-            out.data_ptr(), n, nt, band_h, w_pad, c, wo, m, kernel_size,
-            stride, dilation, float(offset_bound),
-            int(math.ceil(offset_bound)), tile_h, tw, tc, tm,
-            torch.cuda.current_stream(bands.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"deform_conv_fused_banded kernel launch failed: "
-                           f"{lib.dcf_error_string(err).decode()} ({err})")
+    plan = fwd_plan(n, ho, wo, c, m, tile_h=tile_h, tile_w=tw, tile_c=tc,
+                    tile_m=tm)
+    _launch("dcf_forward_banded", bands, offsets, w_tiles, out, plan,
+            (n, nt, band_h, w_pad, c, wo, m),
+            (kernel_size, stride, dilation, float(offset_bound),
+             int(math.ceil(offset_bound))), (tile_h, tw, tc, tm))
     deform_conv_fused_banded.launches += 1
     return out
 

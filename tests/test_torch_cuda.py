@@ -7,8 +7,9 @@ GPU and no JAX:
 
 Without a GPU every test skips (the kernels have no CPU mode).
 Tolerances: fp32 forward kernels (1a, 4) ``max|kernel - plain| <= 1e-5 *
-max|plain|`` (the same gather and corner arithmetic, contracted in
-another order), TF32 off; the backward kernel ``1e-4 * max|plain|`` per
+max|plain|`` (the same gather and corner arithmetic, contracted on split
+fp32 "3xTF32" tensor-core products in another order), TF32 off for the
+PyTorch side; the backward kernel ``1e-4 * max|plain|`` per
 cotangent (its fp32 atomics and split partial sums reorder the sums);
 int8 kernels exact (``torch.equal``: the same fp32 roundings and exact
 integer sums); the sampling kernels (1b, 3) 1e-6 absolute (the plain
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.tiling import out_hw
+from repro_torch.core.tiling import FWD_TILE_M, out_hw
 from repro_torch.kernels import ops, plan, ref
 from repro_torch.kernels import deform_conv_q as Q
 from repro_torch.kernels.deform_conv_bwd import (
@@ -96,8 +97,72 @@ def test_invalid_tiles_raise_before_launch(cuda):
     with pytest.raises(ValueError):
         deform_conv_fused_zerocopy(xp, op, wt, kernel_size=3, stride=1,
                                    dilation=1, offset_bound=2.0, tile_h=8,
-                                   tile_w=8, tile_c=4, tile_m=128)
+                                   tile_w=8, tile_c=4,
+                                   tile_m=FWD_TILE_M + 1)
     assert deform_conv_fused_zerocopy.launches == before
+
+
+# The fp32 forward's wide instances, both kernels (1a zero-copy, 4
+# banded): (k, s, d, B, H, W, C, M, th, tw, tc, tm).  tile_m = 128 with 8
+# C groups; M = 200 in tiles of 128 and 72; M = 50 (W staged element by
+# element, a ragged 8-column mma tile) at stride 2; C = 20 with tile_c = 5
+# (45 rows padded to 48, the band staged and gathered element by element).
+FWD_CASES = {
+    "tm128_groups": (3, 1, 1, 2.0, 16, 16, 64, 128, 8, 8, 8, 128),
+    "ragged_m200": (3, 1, 1, 2.0, 12, 12, 32, 200, 4, 8, 8, 128),
+    "s2_m50": (3, 2, 1, 2.0, 13, 11, 16, 50, 4, 4, 4, 50),
+    "c20_tc5_m30": (3, 1, 1, 2.0, 10, 10, 20, 30, 4, 4, 5, 30),
+}
+
+
+def _fwd_call(case, kernel, device):
+    """(kernel wrapper, its plain version, args, kwargs, plan) of one
+    FWD_CASES case on the zero-copy or the banded dataflow."""
+    from repro_torch.kernels import deform_conv_fused as F
+    k, s, d, b, h, w, c, m, th, tw, tc, tm = FWD_CASES[case]
+    x, off, wd = _inputs(k, h, w, c, m, s, d, b, len(case), device)
+    kw = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b,
+              tile_h=th, tile_w=tw, tile_c=tc, tile_m=tm)
+    if kernel == "zero_copy":
+        spec = plan.DCSpec(k, s, d, b, th, tw, tc, tm)
+        args = plan.zerocopy_inputs(spec, x, off, wd, th, tw, tc)
+        fns = (F.deform_conv_fused_zerocopy,
+               F.deform_conv_fused_zerocopy_plain)
+    else:
+        spec = plan.DCSpec(k, s, d, b, th, dataflow="banded")
+        args = (*plan.banded_inputs(spec, x, off, th),
+                plan.tile_weights(wd, tc))
+        fns = (F.deform_conv_fused_banded, F.deform_conv_fused_banded_plain)
+    ho, wo = args[1].shape[1], args[1].shape[2]
+    kplan = F.fwd_plan(2, ho, wo, c, m, tile_h=th, tile_w=tw, tile_c=tc,
+                       tile_m=tm)
+    return fns, args, kw, kplan
+
+
+@pytest.mark.parametrize("kernel", ["zero_copy", "banded"])
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_forward_kernels_match_plain_at_wide_tiles(case, kernel, cuda):
+    (fn, plain), args, kw, kplan = _fwd_call(case, kernel, cuda)
+    assert kplan["c_groups"] > 1
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args, **kw)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= RTOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("kernel", ["zero_copy", "banded"])
+@pytest.mark.parametrize("case", ["tm128_groups", "ragged_m200"])
+def test_forward_kernels_are_deterministic(case, kernel, cuda):
+    """The C groups' partials are added in a fixed order: two calls give
+    the same bits."""
+    (fn, _), args, kw, _ = _fwd_call(case, kernel, cuda)
+    a = fn(*args, **kw)
+    b = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_deform_conv_refuses_gradients(cuda):

@@ -175,15 +175,19 @@ def test_chooser_fits_shared_memory_and_fills_the_card(h, c, s, n):
     kw = dict(kernel_size=3, stride=s, dilation=1, offset_bound=2.0)
     t = TT.choose_kernel_tiles(n, h, h, c, c, **kw)
     assert c % t.tile_c == 0 and c % t.tile_m == 0
-    assert t.tile_m <= TT.TILE_M_MAX and t.tile_h * t.tile_w <= 64
+    assert t.tile_m <= TT.FWD_TILE_M and t.tile_h * t.tile_w <= 64
     smem = TT.smem_bytes(t.tile_h, t.tile_w, t.tile_c, **kw)
-    assert smem <= TT.SMEM_PER_BLOCK // 2          # two blocks per SM
+    assert smem <= TT.FWD_SMEM_TWO                 # two blocks per SM
     ho, wo = TT.out_hw(h, h, kernel_size=3, stride=s)
-    blocks = TT.grid_blocks(n, ho, wo, c, t)
-    # Either the card is filled, or no smaller tile (>= 16 pixels) could.
-    floor = TT.grid_blocks(n, ho, wo, c, TT.KernelTiles(4, 4, 1, t.tile_m))
-    assert blocks >= TT.SM_COUNT or t.tile_h * t.tile_w == 16 \
-        or floor < TT.SM_COUNT
+    groups = TT.fwd_c_groups(n, ho, wo, c, c, tile_h=t.tile_h,
+                             tile_w=t.tile_w, tile_c=t.tile_c,
+                             tile_m=t.tile_m)
+    blocks = TT.grid_blocks(n, ho, wo, c, t) * groups
+    # Either the grid (with its C groups) holds two blocks an SM, or no
+    # smaller tile (>= 16 pixels) could at one group a chunk.
+    floor = TT.grid_blocks(n, ho, wo, c, TT.KernelTiles(4, 4, 1, t.tile_m)) \
+        * (c // t.tile_c)
+    assert blocks >= TT.BWD_TARGET_BLOCKS or floor < TT.BWD_TARGET_BLOCKS
 
 
 def test_chooser_raises_when_no_band_fits():
@@ -193,9 +197,14 @@ def test_chooser_raises_when_no_band_fits():
 
 
 def test_smem_bytes_formula():
-    # band 15x15 (odd plane 225), tc=16, K=3, 64 pixel lanes
-    want = 4 * (16 * 225 + 9 * 16 * 64 * 2 + 3 * 9 * 64)
+    # band 15x15 x tc=16 (twice), K=3: W 144 rows x 128 channels (twice),
+    # patch tile 64 pixel lanes x (144 + 4), geometry 3 x 9 x 64
+    want = 4 * (2 * 16 * 225 + 2 * 144 * 128 + 64 * 148 + 3 * 9 * 64)
     assert TT.smem_bytes(8, 8, 16, kernel_size=3, stride=1, dilation=1,
+                         offset_bound=2.0) == want
+    # tc=4: 36 rows padded to 40; a 4x4 tile's 11x11 band, 16 lanes
+    want = 4 * (2 * 4 * 121 + 2 * 40 * 128 + 16 * 44 + 3 * 9 * 16)
+    assert TT.smem_bytes(4, 4, 4, kernel_size=3, stride=1, dilation=1,
                          offset_bound=2.0) == want
     assert TT.pix_lanes(4, 4) == 16 and TT.pix_lanes(4, 8) == 32
     with pytest.raises(ValueError):
