@@ -28,12 +28,23 @@ Phases, each of which exits non-zero on failure:
    on ``fp32_kernel``, the kernel must launch 12 times per engine step,
    and ``cls``/``box`` must match the plain path on the card within
    ``1e-3 * max|ref|``.  Each bucket's forward is timed with CUDA events.
-5. int8 kernels vs plain on the card: the int8 dequant kernel (dcq) and
-   the int8 chain kernel (dcc, int8 emission) at every distinct DCL shape
-   of both buckets at batch 4, and at edge geometries (ragged output,
-   dilation 2 with B = 1.5, stride 2 on an odd extent, fp32 emission, an
-   int8 input handed over verbatim), offsets beyond ±B in a share of
-   taps; each must equal its plain version exactly (``torch.equal``).
+5. int8 kernels vs plain on the card: first ``mma_s8`` (the s8
+   tensor-core product with the kernels' fragment loads) against an int
+   matmul; then the int8 dequant kernel (dcq) and the int8 chain kernel
+   (dcc, int8 emission) at every distinct DCL shape of both buckets at
+   batch 4, and at edge geometries (ragged output, dilation 2 with B =
+   1.5, stride 2 on an odd extent, 4-byte staging with several C groups
+   and with one, fp32 emission, an int8 input handed over verbatim),
+   offsets beyond ±B in a share of taps; each must equal its plain
+   version exactly (``torch.equal``), two calls must be equal, and the
+   shared memory must equal the chooser's mirror.  Each case prints its
+   instance (pixel lanes, tile_m, output and M tiles, C groups, 16-byte or
+   4-byte staging, blocks an SM), its device launches a call with each
+   one's time (``torch.profiler``), its time queued behind a busy device
+   and back to back (CUDA events), and three floors with the kernel's
+   share of the largest, the row's bound: int8 products at the
+   tensor-core rate, bytes at the HBM rate and ``sample_bound_ms``, the
+   patch build (7 fp32 operations a bilinear sample) on the CUDA cores.
 6. int8 serve: the same model, calibrated on the card, served on
    ``int8_chain`` and on ``int8`` (cuDNN deterministic, so every path
    feeds the same offsets); every request ``ok`` on its rung, 12 launches
@@ -51,8 +62,12 @@ Phases, each of which exits non-zero on failure:
    every case has tile_c < C), offsets beyond ±B in a share of taps;
    tolerance ``max|kernel - plain| <= 1e-4 * max|plain|`` for each of dx,
    d_offsets and dw (fp32 atomics reorder the sums); the autograd function
-   on the card against autograd through the plain forward, same
-   tolerance; both kernels' shared memory against the chooser's mirrors;
+   on the card against autograd through the band-local plain forward on
+   the same padded inputs (all three gradients), and through the
+   global-frame reference (d_input and d_weights; its d_offsets error is
+   printed beside the share of taps whose floor differs between the two
+   frames, where the bilinear gradient jumps), same tolerance; both
+   kernels' shared memory against the chooser's mirrors;
    times from CUDA events, each sub-kernel's from ``torch.profiler``.
    Each case prints its plan (C groups, the d_weights channel width, the
    instance: pixel lanes, mma tiles a warp, k-split, 16-byte or
@@ -164,7 +179,10 @@ summed.  Kernels 1a and 4 also carry ``training``: their launches and
 times in phase 8's 6 steps (1a) and phase 11's 2 banded steps (4), with
 the step's ``torch.profiler`` time of their launches; their
 ``bound_ms`` (and kernel 2's) is the lower of the 3xTF32 and the fp32
-CUDA-core bounds.
+CUDA-core bounds.  The int8 kernels' (1c, 1d) rows add ``queued_ms``,
+phase 5's time queued behind a busy device (a call is 2-4 launches of
+5-60 µs, below the host's launch path), and their ``bound_ms`` is the
+largest of their three floors.
 
 TF32 is off for every fp32 matmul and convolution.  Without a GPU, or
 without the rest of the repository beside it, the script prints no result
@@ -188,7 +206,15 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 # cores (dense), HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
+# The int8 kernels' patch build: fp32 operations a bilinear sample (4
+# products, 3 sums, no FMA), at one a lane a clock on the CUDA cores.
+SAMPLE_OPS = 7
+CUDA_CORE_LANE_OPS = 132 * 128 * 1.98e9
 PEAK_HBM_BYTES_PER_S = 3.35e12
+# Names of the device launches a call of kernel 6 and of the int8 kernels
+# makes, as torch.profiler reports them.
+FA_KERNEL_NAMES = r"fa_(tc_kernel|kernel|combine)[^(]*"
+Q_KERNEL_NAMES = r"dc[qoc]_\w+|dqt_\w+|Memset"
 KERNEL_RTOL = 1e-5
 BWD_RTOL = 1e-4             # per cotangent: fp32 atomics reorder the sums
 SERVE_RTOL = 1e-3
@@ -594,6 +620,31 @@ def kernel_share(events: list[tuple[str, float]],
     return k, (k / total if total else float("nan"))
 
 
+def mma_s8_check(gen) -> None:
+    """The s8 tensor-core product (``mma_s8`` with the int8 kernels'
+    ldmatrix fragment loads) against a plain int matmul, before any kernel
+    that uses it is trusted."""
+    import torch
+
+    from repro_torch.kernels import deform_conv_q as Q
+    lib = Q.load_kernel()
+    for trial in range(4):
+        a = torch.randint(-128, 128, (16, 32), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        b = torch.randint(-128, 128, (16, 32), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        if trial == 0:          # the extremes, where a byte-order slip shows
+            a[0], b[0] = -128, 127
+        d = torch.empty(16, 16, dtype=torch.int32, device="cuda")
+        err = lib.dcq_mma_s8_check(a.data_ptr(), b.data_ptr(), d.data_ptr())
+        want = (a.cpu().long() @ b.cpu().long().T).int()
+        if err or not torch.equal(d.cpu(), want):
+            fail(f"mma_s8 (16x32 . 32x16, trial {trial}) != int matmul "
+                 f"(error {err})")
+    print("  mma_s8 m16n8k32 with ldmatrix fragments == int matmul "
+          "(4 trials, the extremes included)")
+
+
 def check_q_kernel(case: dict, gen) -> dict:
     """An int8 kernel vs its plain version on one geometry (``torch.equal``
     or fail); returns the record."""
@@ -613,7 +664,8 @@ def check_q_kernel(case: dict, gen) -> dict:
     ho, wo = out_hw(h, w, kernel_size=K, stride=s, dilation=d)
     th, tw, tc, tm = plan.resolve_tiles(
         n, h, w, c, m, kernel_size=K, stride=s, dilation=d,
-        offset_bound=b, dtype="int8_chain" if chain else "int8")
+        offset_bound=b, tile_c=case.get("tile_c"),
+        dtype="int8_chain" if chain else "int8")
     th, tw = min(th, ho), min(tw, wo)
     x = torch.randn(n, h, w, c, device="cuda", generator=gen)
     wd = torch.randn(k2, c, m, device="cuda", generator=gen) / (k2 * c) ** 0.5
@@ -645,7 +697,6 @@ def check_q_kernel(case: dict, gen) -> dict:
         kw.update(emit=emit, ho=ho, wo=wo)
         fn, plain = (Q.deform_conv_fused_zerocopy_chain,
                      Q.deform_conv_fused_zerocopy_chain_plain)
-        smem_c = lib.dcc_smem_bytes(K, s, d, math.ceil(b), th, tw, tc)
     else:
         off = torch.randn(n, ho, wo, 2 * k2, device="cuda",
                           generator=gen) * 1.5
@@ -653,13 +704,19 @@ def check_q_kernel(case: dict, gen) -> dict:
                 (sx * sw).reshape(m).contiguous())
         fn, plain = (Q.deform_conv_fused_zerocopy_q,
                      Q.deform_conv_fused_zerocopy_q_plain)
-        smem_c = lib.dcq_smem_bytes(K, s, d, math.ceil(b), th, tw, tc)
+    smem_c = lib.dcq_smem_bytes(K, s, d, math.ceil(b), th, tw, tc)
     smem_py = q_smem_bytes(th, tw, tc, kernel_size=K, stride=s, dilation=d,
-                           offset_bound=b, chain=chain)
+                           offset_bound=b)
+    inst = Q.q_plan(n, ho, wo, c, m, tile_h=th, tile_w=tw, tile_c=tc,
+                    tile_m=tm)
+    inst["staging"] = "16-byte" if Q.staging_vec(xp, tc) else "4-byte"
+    inst["blocks_per_sm"] = lib.dcq_blocks_per_sm(K, s, d, math.ceil(b),
+                                                  th, tw, tc)
     y = fn(*args, **kw)
     torch.cuda.synchronize()
+    repeat = torch.equal(y, fn(*args, **kw))
     yp = plain(*args, **kw)
-    equal = torch.equal(y, yp)
+    equal = torch.equal(y, yp) and repeat
     err = (y.float() - yp.float()).abs().max().item()
     if case.get("verbatim"):
         # ops.deform_conv_chain: an int8 input on the x_scale grid is taken
@@ -677,35 +734,69 @@ def check_q_kernel(case: dict, gen) -> dict:
                                          out_bias, **ck)
         equal = equal and torch.equal(head, verbatim) \
             and torch.equal(verbatim, want)
+    # Time a call back to back (CUDA events, as every kernel row); queued
+    # behind a busy device as well, which hides the host's launch path,
+    # and each launch's device time by torch.profiler.
     ms = time_ms(lambda: fn(*args, **kw), reps=7, iters=10)
+    queued = statistics.median(queued_ms(lambda: fn(*args, **kw))
+                               for _ in range(5))
+    parts = kernel_device_ms(lambda: fn(*args, **kw), Q_KERNEL_NAMES)
+    launches = sum(ct for ct, _ in parts.values())
     plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, iters=2)
-    ops_n = 2 * n * ho * wo * k2 * c * (m + (2 * k2 if chain else 0))
+    samples = n * ho * wo * k2 * c
+    ops_n = 2 * samples * (m + (2 * k2 if chain else 0))
     out_b = 1 if emit == "int8" and chain else 4
     nbytes = (n * h * w * c + k2 * c * m + n * ho * wo * m * out_b + 4 * m
               + (k2 * c * 2 * k2 + 4 * (4 * k2 + m) if chain
                  else 4 * n * ho * wo * 2 * k2))
-    bound_ms = max(ops_n / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
+    bounds = q_bounds(ops_n, nbytes, samples)
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc, tm], smem_bytes=smem_c,
-               equal=equal, max_abs_err=err,
-               max_abs_plain=yp.float().abs().max().item(),
+               instance=inst, equal=equal, repeatable=repeat,
+               max_abs_err=err, max_abs_plain=yp.float().abs().max().item(),
                clamped_share=(off.abs() > b).float().mean().item(),
-               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by="operations" if ops_n / PEAK_INT8_OPS
-               >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
-               flops=ops_n, bytes=nbytes)
+               ms=ms, queued_ms=queued, plain_ms=plain_ms,
+               launches_per_call=launches, parts_ms=parts, **bounds,
+               flops=ops_n, bytes=nbytes, samples=samples)
+    ok = equal and smem_c == smem_py
     print(f"  {kind} {case['label']:<28} tiles {th}x{tw} tc={tc} tm={tm} "
           f"smem={smem_c} equal={equal} err={err:.1e} "
-          f"clamped={rec['clamped_share']:.3f} kernel={ms:.4f} ms "
-          f"plain={plain_ms:.3f} ms bound={bound_ms:.5f} ms "
-          f"per_step={case.get('per_step', {})} "
-          f"{'ok' if equal and smem_c == smem_py else 'FAIL'}")
+          f"clamped={rec['clamped_share']:.3f} kernel={ms:.4f} ms (queued "
+          f"{queued:.4f}) plain={plain_ms:.3f} ms bound="
+          f"{bounds['bound_ms']:.5f} ms ({bounds['bound_ms'] / ms:.1%}; int8 "
+          f"{bounds['bound_int8_ms']:.5f}, bytes {bounds['bound_bytes_ms']:.5f},"
+          f" sample_bound_ms {bounds['sample_bound_ms']:.5f}) "
+          f"per_step={case.get('per_step', {})} {'ok' if ok else 'FAIL'}\n"
+          f"    instance: {inst['lanes']} pixel lanes, tile_m {tm}, "
+          f"{inst['tiles']} tiles x {inst['m_tiles']} M tiles x "
+          f"{inst['c_groups']} C groups"
+          + (f" (offset conv: {inst['off_groups']})" if chain else "")
+          + f", {inst['staging']} staging, "
+          f"{inst['blocks_per_sm']} blocks an SM; {launches:g} device "
+          f"launches a call: "
+          f"{[(nm, ct, round(t, 5)) for nm, (ct, t) in parts.items()]}; two "
+          f"calls torch.equal: {repeat}")
     if smem_c != smem_py:
         fail(f"{kind} {case['label']}: shared memory {smem_c} (kernel) != "
              f"{smem_py} (chooser)")
     if not equal:
         fail(f"{kind} {case['label']}: kernel != plain version "
-             f"(max abs difference {err})")
+             f"(max abs difference {err}; two calls equal: {repeat})")
     return rec
+
+
+def q_bounds(ops_n: float, nbytes: float, samples: float) -> dict:
+    """The int8 kernels' three floors (ms): their int8 products at the
+    tensor-core rate, their bytes at the HBM rate, and the bilinear patch
+    build on the CUDA cores (4 products and 3 sums a sample, uncontracted,
+    at 132 SMs x 128 lanes x 1.98 GHz); the row's bound is the largest,
+    since the work has to be done whichever way it overlaps."""
+    int8_ms = ops_n / PEAK_INT8_OPS * 1e3
+    byte_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+    sample_ms = SAMPLE_OPS * samples / CUDA_CORE_LANE_OPS * 1e3
+    bound = max(int8_ms, byte_ms, sample_ms)
+    return dict(bound_ms=bound, bound_int8_ms=int8_ms,
+                bound_bytes_ms=byte_ms, sample_bound_ms=sample_ms,
+                bound_by="bytes" if bound == byte_ms else "operations")
 
 
 def serve_int8(record: dict, params) -> dict[str, int]:
@@ -869,6 +960,8 @@ def check_bwd_kernel(case: dict, gen) -> dict:
     from repro_torch.kernels.deform_conv_bwd import (
         bwd_plan, deform_conv_bwd_zerocopy, deform_conv_bwd_zerocopy_plain,
         load_kernel, staging_vec)
+    from repro_torch.kernels.deform_conv_fused import \
+        deform_conv_fused_zerocopy_plain
 
     n, h, w, c, m = case["n"], case["h"], case["w"], case["c"], case["m"]
     s, d, b = case["stride"], case["dilation"], case.get("bound", B)
@@ -895,7 +988,13 @@ def check_bwd_kernel(case: dict, gen) -> dict:
             zip(names, got, want)}
     scales = {nm: r.abs().max().item() for nm, r in zip(names, want)}
     # The autograd function on the card (forward and backward kernels)
-    # against autograd through the plain forward, for y . g.
+    # against autograd through two plain forwards, for y . g: the
+    # band-local plain forward on the same padded inputs and tiles, whose
+    # positions round as the kernels' do (all three gradients gated), and
+    # the global-frame reference (d_input and d_weights gated).  An offset
+    # within an ulp of an integer can floor to another cell in the global
+    # frame, where the bilinear gradient jumps: that d_offsets error is
+    # printed beside the share of taps whose floor differs.
     leaves = [t.clone().requires_grad_(True) for t in (x, off, wd)]
     ag = torch.autograd.grad(
         (ops.deform_conv(*leaves, offset_bound=b, stride=s, dilation=d)
@@ -903,9 +1002,21 @@ def check_bwd_kernel(case: dict, gen) -> dict:
     ap = torch.autograd.grad(
         (ref.deform_conv_fused_ref(*leaves, offset_bound=b, stride=s,
                                    dilation=d) * g).sum(), leaves)
+    xl, ol, wl = leaves
+    band_local = deform_conv_fused_zerocopy_plain(
+        plan.pad_zerocopy(xl, kernel_size=K, stride=s, dilation=d,
+                          offset_bound=b, tile_h=th, tile_w=tw, ho=ho,
+                          wo=wo), ol, plan.tile_weights(wl, tc),
+        kernel_size=K, stride=s, dilation=d, offset_bound=b, tile_h=th,
+        tile_w=tw, tile_c=tc)
+    al = torch.autograd.grad((band_local * g).sum(), leaves)
+    grads = ("d_input", "d_offsets", "d_weights")
     auto = {nm: (a - r).abs().max().item() / r.abs().max().item()
-            for nm, a, r in zip(("d_input", "d_offsets", "d_weights"), ag,
-                                ap)}
+            for nm, a, r in zip(grads, ag, al)}
+    auto_global = {nm: (a - r).abs().max().item() / r.abs().max().item()
+                   for nm, a, r in zip(grads, ag, ap)}
+    floor_share = frame_floor_share(off, ho=ho, wo=wo, s=s, d=d, b=b,
+                                    th=th, tw=tw)
     # Kernel 2 is up to four launches (d_input/d_offsets, d_weights, the
     # reductions of the d_offsets and d_weights partials) beside a memset:
     # their device times.
@@ -934,14 +1045,22 @@ def check_bwd_kernel(case: dict, gen) -> dict:
     fp32_ms, tf32x3_ms = bounds["bound_fp32_ms"], bounds["bound_3xtf32_ms"]
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc], smem_bytes=smem_c,
                plan=kplan, max_abs_err=max(errs.values()), errs=errs,
-               max_abs_plain=scales, autograd_rel_err=auto, parts_ms=parts,
+               max_abs_plain=scales, autograd_rel_err=auto,
+               autograd_rel_err_global=auto_global,
+               floor_differs_share=floor_share, parts_ms=parts,
                clamped_share=(off.abs() > b).float().mean().item(),
                ms=ms, plain_ms=plain_ms, **bounds, flops=flops, bytes=nbytes)
+    global_gated = max(auto_global["d_input"], auto_global["d_weights"])
     ok = all(errs[nm] <= BWD_RTOL * scales[nm] for nm in names) \
-        and max(auto.values()) <= BWD_RTOL and smem_c == smem_py
+        and max(auto.values()) <= BWD_RTOL and global_gated <= BWD_RTOL \
+        and smem_c == smem_py
     print(f"  {case['label']:<28} tiles {th}x{tw} tc={tc} smem={smem_c} "
           + " ".join(f"{nm}={errs[nm]:.2e}/{scales[nm]:.2f}" for nm in names)
-          + f" autograd={max(auto.values()):.1e} "
+          + f" autograd={max(auto.values()):.1e} (global frame: d_input "
+          f"{auto_global['d_input']:.1e}, d_weights "
+          f"{auto_global['d_weights']:.1e}, d_offsets "
+          f"{auto_global['d_offsets']:.1e}; floors differ at "
+          f"{floor_share:.2e} of taps) "
           f"clamped={rec['clamped_share']:.3f} kernel={ms:.4f} ms "
           f"plain={plain_ms:.3f} ms bound fp32={fp32_ms:.4f} ms "
           f"({fp32_ms / ms:.1%}) 3xTF32={tf32x3_ms:.4f} ms "
@@ -963,8 +1082,41 @@ def check_bwd_kernel(case: dict, gen) -> dict:
                  f"{errs[nm]} exceeds {BWD_RTOL} * {scales[nm]}")
     if max(auto.values()) > BWD_RTOL:
         fail(f"backward {case['label']}: autograd through the kernels is "
-             f"{auto} from autograd through the plain forward")
+             f"{auto} from autograd through the band-local plain forward")
+    if global_gated > BWD_RTOL:
+        fail(f"backward {case['label']}: autograd through the kernels is "
+             f"{auto_global} from autograd through the global-frame "
+             f"reference (d_input and d_weights gated)")
     return rec
+
+
+def frame_floor_share(off, *, ho: int, wo: int, s: int, d: int, b: float,
+                      th: int, tw: int) -> float:
+    """Share of the taps whose position floors to another cell in the
+    global frame (``ref``: ``oy*s - pad + ky*d + o``) than in the
+    band-local one (the kernels: ``t*s + hb + ky*d + o`` in the band of
+    tile ``oy // th``), both in fp32 on the clamped offsets."""
+    import torch
+    k2 = K * K
+    pad, hb = d * (K // 2), math.ceil(b)
+    o = off.clamp(-b, b).reshape(*off.shape[:3], k2, 2)
+    dev = off.device
+    kk = torch.arange(k2, device=dev)
+    differs = torch.zeros(o.shape[:4], dtype=torch.bool, device=dev)
+    for axis, (extent, tile, tap) in enumerate(
+            ((ho, th, (kk // K) * d), (wo, tw, (kk % K) * d))):
+        q = torch.arange(extent, device=dev)
+        glob = (q * s - pad)[:, None] + tap
+        local = ((q % tile) * s + hb)[:, None] + tap
+        shift = (pad + hb - (q // tile) * tile * s)[:, None]
+        if axis == 0:
+            glob, local, shift = (t[:, None, :] for t in (glob, local, shift))
+        else:
+            glob, local, shift = (t[None, :, :] for t in (glob, local, shift))
+        fg = torch.floor(glob.float() + o[..., axis])
+        fl = torch.floor(local.float() + o[..., axis])
+        differs |= (fg + shift) != fl
+    return differs.float().mean().item()
 
 
 class plain_training_kernels:
@@ -1834,10 +1986,12 @@ def queued_ms(fn, calls: int = 10) -> float:
     return start.elapsed_time(end) / calls
 
 
-def kernel_device_ms(fn, calls: int = 10) -> dict:
+def kernel_device_ms(fn, pattern: str, calls: int = 10) -> dict:
     """torch.profiler over ``calls`` calls of ``fn`` (after one warm-up):
-    device ms a call of each kernel of ``flash_attention.cu``, by name.
-    One short call alone leaves the profiler with no kernel record."""
+    ``{name: (launches a call, device ms a call)}`` of each device-side
+    event whose name matches ``pattern`` (keyed by the match), longest
+    first.  One short call alone leaves the profiler with no kernel
+    record."""
     import re
 
     import torch
@@ -1853,10 +2007,11 @@ def kernel_device_ms(fn, calls: int = 10) -> dict:
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None) or getattr(
             e, "cuda_time_total", 0)
-        name = re.search(r"fa_(tc_kernel|kernel|combine)[^(]*", e.key)
-        if t and name:
-            out[name.group(0)] = out.get(name.group(0), 0.0) + t / 1e3 / calls
-    return out
+        name = re.search(pattern, e.key)
+        if t and name and e.device_type == torch.autograd.DeviceType.CUDA:
+            ct, ms = out.get(name.group(0), (0.0, 0.0))
+            out[name.group(0)] = (ct + e.count / calls, ms + t / 1e3 / calls)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][1]))
 
 
 def check_flash(c: dict, gen) -> tuple[dict, tuple]:
@@ -1905,8 +2060,9 @@ def check_flash(c: dict, gen) -> tuple[dict, tuple]:
     if splits > 1:
         # The combine's share of the device time of a call (torch.profiler
         # over 10 calls: its sums can read low, the ratio is what is kept).
-        per_kernel = kernel_device_ms(lambda: FA.flash_attention(q, k, v,
-                                                                 **kw))
+        per_kernel = {name: t for name, (_, t) in kernel_device_ms(
+            lambda: FA.flash_attention(q, k, v, **kw),
+            FA_KERNEL_NAMES).items()}
         busy = sum(per_kernel.values())
         comb = sum(t for name, t in per_kernel.items() if "fa_combine" in name)
         rec.update(profile_kernels=per_kernel, combine_ms=comb,
@@ -2540,6 +2696,10 @@ def main() -> int:
                  w=20, c=64, m=64, stride=1, dilation=2, bound=1.5),
             dict(kind=kind, label="odd s2 15x15x32->48", n=1, h=15, w=15,
                  c=32, m=48, stride=2, dilation=1),
+            dict(kind=kind, label="4-byte s2 15x15x32->48 tc8", n=1, h=15,
+                 w=15, c=32, m=48, stride=2, dilation=1, tile_c=8),
+            dict(kind=kind, label="1 group 4-byte 64x64x24->200", n=4, h=64,
+                 w=64, c=24, m=200, stride=1, dilation=1),
         ]
     q_cases += [
         dict(kind="dcc", label="emit fp32 32x32x128->128", n=BATCH, h=32,
@@ -2547,7 +2707,12 @@ def main() -> int:
         dict(kind="dcc", label="int8 input verbatim 16x16x64", n=2, h=16,
              w=16, c=64, m=64, stride=1, dilation=1, verbatim=True),
     ]
+    mma_s8_check(gen)
     record["q_shapes"] = [check_q_kernel(c, gen) for c in q_cases]
+    if not {r["instance"]["staging"] for r in record["q_shapes"]} \
+            >= {"16-byte", "4-byte"} or \
+            min(r["instance"]["c_groups"] for r in record["q_shapes"]) > 1:
+        fail("phase 5 missed 16-byte or 4-byte staging, or one C group")
     print("  no single PyTorch call computes either int8 function, so "
           "there is no library time to compare with")
 
@@ -2558,9 +2723,14 @@ def main() -> int:
     for name, (kind, rung, line) in sources.items():
         shapes = [r for r in record["q_shapes"]
                   if r["kind"] == kind and r.get("per_step")]
-        run_q, by = per_run(
+        run_q, _ = per_run(
             shapes, record["serve_int8"][rung]["steps_per_bucket"],
             q_launches[name], PEAK_INT8_OPS, name)
+        for k in ("queued_ms", "samples"):
+            run_q[k] = sum(r[k] * r["launches_in_run"] for r in shapes)
+        run_q.update(q_bounds(run_q["flops"], run_q["bytes"],
+                              run_q["samples"]))
+        by = run_q["bound_by"]
         record[f"run_{name}"] = run_q
         kernels["kernels"].append({
             "name": name,
@@ -2575,11 +2745,23 @@ def main() -> int:
             "plain_ms": run_q["plain_ms"],
             "bound_ms": run_q["bound_ms"],
             "bound_by": by,
+            "bound_note": "the largest of the int8 products at 1,979 "
+                          "TOP/s, the bytes at 3.35 TB/s and the patch "
+                          "build (7 fp32 operations a sample) on the CUDA "
+                          "cores; queued_ms: queued behind a busy device",
+            "bound_int8_ms": run_q["bound_int8_ms"],
+            "sample_bound_ms": run_q["sample_bound_ms"],
+            "queued_ms": run_q["queued_ms"],
             "library_ms": None,
         })
         print(f"  {name} per served {rung} run: {q_launches[name]} launches, "
-              f"kernel {run_q['ms']:.3f} ms, plain {run_q['plain_ms']:.3f} "
-              f"ms, bound {run_q['bound_ms']:.4f} ms ({by})")
+              f"kernel {run_q['ms']:.3f} ms (queued "
+              f"{run_q['queued_ms']:.3f}), plain "
+              f"{run_q['plain_ms']:.3f} ms, bound {run_q['bound_ms']:.4f} ms "
+              f"({by}; int8 {run_q['bound_int8_ms']:.4f}, bytes "
+              f"{run_q['bound_bytes_ms']:.4f}, sample_bound_ms "
+              f"{run_q['sample_bound_ms']:.4f}), "
+              f"{run_q['bound_ms'] / run_q['ms']:.1%} of it")
 
     print("== 7. backward kernel vs plain on the card")
     # {shape: {"512": DCLs of that shape in one training step}}

@@ -7,8 +7,9 @@ and the card has 132 SMs to fill.  The chooser is a plain function of the
 layer's shape and datapath (no cache, no tuning table); ``smem_bytes``,
 ``q_smem_bytes``, ``bwd_smem_bytes`` and ``bwd_dw_smem_bytes`` mirror the
 kernels' own ``*_smem_bytes`` exports (``sample_smem_bytes`` that of the
-sampling kernels), and the ``bwd_*`` planners give the backward kernel
-its grids.  The TPU chooser's scheduling knobs (``cores``,
+sampling kernels), the ``bwd_*`` planners give the backward kernel its
+grids and ``fwd_c_groups`` the forward kernels' (fp32 and int8) C
+groups.  The TPU chooser's scheduling knobs (``cores``,
 ``dw_flush_every_step``) have no counterpart here.
 """
 from __future__ import annotations
@@ -21,12 +22,22 @@ import math
 SM_COUNT = 132
 SMEM_PER_BLOCK = 232_448          # 227 KB, dynamic shared memory opt-in
 
-# Register tile of the int8 kernels (src/repro_torch/kernels/csrc/
-# deform_conv_q.cu): a block computes up to PIX_LANES output pixels by
-# TILE_M_MAX output channels, 4 x 4 per thread.  The fp32 forward takes
-# the same pixel lanes.
-TILE_M_MAX = 64
+# Pixel lanes of the fused forward kernels' instances (fp32 and int8): a
+# block computes up to PIX_LANES[-1] output pixels.
 PIX_LANES = (16, 32, 64)
+
+# The int8 forward (csrc/deform_conv_q.cu, kernels 1c and 1d): a block of
+# 8 warps computes up to PIX_LANES[-1] output pixels by Q_TILE_M output
+# channels on the s8 tensor cores, stepping C in chunks of up to Q_TILE_C
+# channels (a multiple of 4), Q_STAGES in flight; a chunk of Q_TILE_C_MIN
+# channels at a larger pixel tile beats Q_TILE_C at a smaller one.
+# K*K*tile_c is padded to whole 32-deep mma steps (``q_rows_pad``), and
+# each patch and weight row takes Q_ROW_PAD bytes more.
+Q_TILE_M = 128
+Q_TILE_C = 32
+Q_TILE_C_MIN = 16
+Q_STAGES = 2
+Q_ROW_PAD = 16
 
 # The fp32 forward (csrc/deform_conv_fused.cu, kernels 1a and 4): a block
 # of 8 warps computes up to PIX_LANES[-1] output pixels by FWD_TILE_M
@@ -90,32 +101,34 @@ def smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
                 + 3 * k2 * pix)
 
 
+def q_rows_pad(tile_c: int, *, kernel_size: int) -> int:
+    """Bytes of the int8 kernels' patch and weight rows before their pad:
+    K*K*tile_c padded to whole 32-deep s8 mma steps."""
+    return -(-kernel_size * kernel_size * tile_c // 32) * 32
+
+
 def q_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
-                 stride: int, dilation: int, offset_bound: float,
-                 chain: bool = False) -> int:
-    """Dynamic shared memory of one block of the int8 kernels; mirrors
-    ``dcq_smem_bytes`` / ``dcc_smem_bytes`` in ``csrc/deform_conv_q.cu``.
-    Everything is counted in 32-bit words of four channels: the band
-    (channel-group-major, odd plane stride, rounded to 4 words), the
-    patch tile, the weight tile and the corner geometry (index and four
-    coefficients per tap and pixel); the chain kernel adds the offset-conv
-    weight tile and the offset accumulators."""
+                 stride: int, dilation: int, offset_bound: float) -> int:
+    """Dynamic shared memory of one block of the int8 kernels (both run
+    the same main body); mirrors ``dcq_smem_bytes`` in
+    ``csrc/deform_conv_q.cu``: ``Q_STAGES`` band chunks (int8,
+    position-major, rounded to 16 bytes), ``Q_STAGES`` weight chunks of
+    ``Q_TILE_M`` rows and the patch tile (pixel lanes rows), each row
+    ``q_rows_pad`` + ``Q_ROW_PAD`` bytes, and the corner geometry (index,
+    ty, tx per tap and pixel)."""
     if tile_c % 4:
-        raise ValueError(f"tile_c={tile_c}: the int8 kernels contract packed "
+        raise ValueError(f"tile_c={tile_c}: the int8 kernels copy and sample "
                          f"4-channel words, so tile_c must be a multiple "
                          f"of 4")
     pix = pix_lanes(tile_h, tile_w)
-    k2 = kernel_size * kernel_size
     bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
                      dilation=dilation, offset_bound=offset_bound)
     bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
                      dilation=dilation, offset_bound=offset_bound)
-    kk4 = k2 * (tile_c // 4)
-    band = -(-(tile_c // 4) * ((bh * bw) | 1) // 4) * 4
-    words = band + kk4 * pix + kk4 * TILE_M_MAX + 5 * k2 * pix
-    if chain:
-        words += kk4 * 2 * k2 + pix * 2 * k2
-    return 4 * words
+    band = -(-bh * bw * tile_c // 16) * 16
+    row = q_rows_pad(tile_c, kernel_size=kernel_size) + Q_ROW_PAD
+    return Q_STAGES * band + (Q_STAGES * Q_TILE_M + pix) * row \
+        + 12 * kernel_size * kernel_size * pix
 
 
 # The backward kernel (csrc/deform_conv_bwd.cu).  d_input / d_offsets:
@@ -130,6 +143,10 @@ BWD_STAGES = 3
 BWD_MAX_WARP_TILES = 9
 BWD_TARGET_BLOCKS = 2 * SM_COUNT
 BWD_WAVE_FILL = 0.95
+# The int8 forward takes a grid that already holds BWD_WAVE_FILL of a wave
+# whole (``fwd_c_groups``): a split costs it a reduction launch and the
+# partials' traffic, and its blocks are short.
+Q_GROUP_LEAST = BWD_WAVE_FILL * BWD_TARGET_BLOCKS
 BWD_DW_ROWS = 144
 BWD_DW_COLS = 128
 _BWD_LD_STEP = BWD_MS + 4
@@ -236,15 +253,16 @@ def _wave_fill(blocks: int) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def _c_groups(tiles: int, chunks: int) -> int:
+def _c_groups(tiles: int, chunks: int,
+              least: float = BWD_TARGET_BLOCKS) -> int:
     """The groups a grid of ``tiles`` blocks a group splits its
-    ``chunks`` C chunks into: 1 when the tiles alone reach
-    ``BWD_TARGET_BLOCKS`` blocks, else the fewest groups (at most one a
-    chunk) that reach it and fill whole waves to ``BWD_WAVE_FILL`` (the
+    ``chunks`` C chunks into: 1 when the tiles alone reach ``least``
+    blocks, else the fewest groups (at most one a chunk) that reach it and
+    fill whole waves of ``BWD_TARGET_BLOCKS`` to ``BWD_WAVE_FILL`` (the
     best fill when none does)."""
-    if tiles >= BWD_TARGET_BLOCKS:
+    if tiles >= least:
         return 1
-    cands = range(min(chunks, -(-BWD_TARGET_BLOCKS // tiles)), chunks + 1)
+    cands = range(min(chunks, math.ceil(least / tiles)), chunks + 1)
     for groups in cands:
         if _wave_fill(tiles * groups) >= BWD_WAVE_FILL:
             return groups
@@ -259,11 +277,23 @@ def bwd_c_groups(n: int, ho: int, wo: int, c: int, *, tile_h: int,
 
 
 def fwd_c_groups(n: int, ho: int, wo: int, c: int, m: int, *, tile_h: int,
-                 tile_w: int, tile_c: int, tile_m: int) -> int:
-    """Groups of C chunks the fp32 forward's grid splits C into, over its
-    output tiles times its M tiles (``_c_groups``, as the backward)."""
+                 tile_w: int, tile_c: int, tile_m: int,
+                 least: float = BWD_TARGET_BLOCKS) -> int:
+    """Groups of C chunks the forward kernels' grids split C into, over
+    their output tiles times their M tiles (``_c_groups``, as the
+    backward); the int8 forward passes ``least=Q_GROUP_LEAST``."""
     return _c_groups(n * -(-ho // tile_h) * -(-wo // tile_w)
-                     * -(-m // tile_m), c // tile_c)
+                     * -(-m // tile_m), c // tile_c, least)
+
+
+def q_off_groups(n: int, ho: int, wo: int, c: int, *, tile_h: int,
+                 tile_w: int, tile_c: int) -> int:
+    """Groups of C chunks the int8 chain's offset conv splits C into (their
+    int32 sums meet by atomics): about ``BWD_TARGET_BLOCKS`` blocks over
+    the output tiles, at least one chunk a group."""
+    tiles = n * -(-ho // tile_h) * -(-wo // tile_w)
+    return max(1, min(c // tile_c,
+                      (BWD_TARGET_BLOCKS + tiles // 2) // tiles))
 
 
 def bwd_c_range(chunks: int, groups: int, group: int) -> range:
@@ -357,9 +387,9 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
     ``"sample"`` for the sampling kernels of ``deform_sample.cu`` and
     ``"banded"`` for the banded forward of ``deform_conv_fused.cu``).
 
-    * ``tile_m``: the largest divisor of M up to the kernel's 64 lanes
-      (``"sample"``: ``tile_c``, the channels a block writes; fp32 and
-      banded: up to ``FWD_TILE_M``).
+    * ``tile_m``: the largest divisor of M up to ``FWD_TILE_M`` (int8:
+      ``Q_TILE_M``; ``"sample"``: ``tile_c``, the channels a block
+      writes; fp32_bwd: unused by the backward).
     * spatial: 8x8 clamped to the output; while the grid has fewer
       blocks than the card has SMs, halve the longer side, down to 16
       pixels per block (the sampling kernels' grid counts C / tile_c; the
@@ -376,11 +406,11 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
       even one group a chunk would leave the grid short of
       ``BWD_TARGET_BLOCKS``; failing that, smaller divisors of C, then
       blocks that fit once.
-    * ``tile_c``, int8: the largest multiple-of-4 divisor of C up to 64
-      whose block fits four times in an SM (a quarter of the fp32 bytes
-      per channel), else twice, else once.  The chain kernel streams C in
-      these chunks too (two passes, see ``deform_conv_q.cu``), so its
-      ``tile_c`` is not pinned to C.
+    * int8 and int8_chain (``_fwd_tiles`` too; both kernels run one
+      main body): as fp32, over the multiple-of-4 divisors of C up to
+      ``Q_TILE_C`` (``Q_TILE_C_MIN`` and up first) against
+      ``q_smem_bytes``, the grid split into C groups by ``fwd_c_groups``.
+      The chain's ``tile_c`` is a free chunk size, not C.
     * ``tile_c``, fp32_bwd: as fp32, against the backward's d_input
       model (``bwd_smem_bytes``), with at most ``BWD_MAX_WARP_TILES`` dP
       mma tiles a warp (``bwd_warp_tiles``) and a d_weights block that
@@ -410,8 +440,21 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
     geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
                 offset_bound=offset_bound)
     if dtype in ("fp32", "banded"):
-        return _fwd_tiles(n, ho, wo, c, m, th, tw, geom, rows_fixed=(
-            tile_h is not None or dtype == "banded"))
+        return _fwd_tiles(
+            n, ho, wo, c, m, th, tw, geom,
+            rows_fixed=tile_h is not None or dtype == "banded",
+            tcs=[_divisor_at_most(c, cap) for cap in (FWD_TILE_C, 4, 2, 1)],
+            tc_min=FWD_TILE_C_MIN, tile_m=FWD_TILE_M, block_bytes=smem_bytes)
+    if dtype in ("int8", "int8_chain"):
+        if c % 4:
+            raise ValueError(
+                f"C={c}: the int8 kernels copy and sample 4-channel words, "
+                f"so C must be a multiple of 4")
+        return _fwd_tiles(
+            n, ho, wo, c, m, th, tw, geom, rows_fixed=tile_h is not None,
+            tcs=[4 * _divisor_at_most(c // 4, cap // 4)
+                 for cap in (Q_TILE_C, 16, 8, 4)],
+            tc_min=Q_TILE_C_MIN, tile_m=Q_TILE_M, block_bytes=q_smem_bytes)
     if dtype == "sample":
         cands = sorted({_divisor_at_most(c, cap)
                         for cap in (SAMPLE_TC_MAX, 16, 8, 4, 2, 1)},
@@ -419,9 +462,9 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
         # The grid's third axis is C / tile_c (counted at the widest chunk).
         grid_c, grid_t = c, cands[0]
     else:
-        tm = _divisor_at_most(m, TILE_M_MAX)
+        tm = _divisor_at_most(m, FWD_TILE_M)
         # The backward's d_input kernel has no M axis in its grid.
-        grid_c, grid_t = m, (m if dtype == "fp32_bwd" else tm)
+        grid_c, grid_t = m, m
     # The backward splits C over its grid, so its tiles stop at 32 pixels.
     least = 32 if dtype == "fp32_bwd" else 16
     while (grid_blocks(n, ho, wo, grid_c, KernelTiles(th, tw, 1, grid_t))
@@ -437,7 +480,7 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
 
         def block_bytes(tc):
             return sample_smem_bytes(th, tw, tc, **geom)
-    elif dtype == "fp32_bwd":
+    else:
         cands = sorted({_divisor_at_most(c, cap)
                         for cap in (32, 16, 8, 4, 2, 1)}, reverse=True)
         budgets = (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
@@ -448,18 +491,6 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
 
         def block_bytes(tc):
             return bwd_smem_bytes(th, tw, tc, **geom)
-    else:
-        if c % 4:
-            raise ValueError(
-                f"C={c}: the int8 kernels contract packed 4-channel words, "
-                f"so C must be a multiple of 4")
-        cands = sorted({4 * _divisor_at_most(c // 4, cap // 4)
-                        for cap in (64, 32, 16, 8, 4)}, reverse=True)
-        budgets = (SMEM_PER_BLOCK // 4, SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
-
-        def block_bytes(tc):
-            return q_smem_bytes(th, tw, tc, chain=dtype == "int8_chain",
-                                **geom)
     for budget in budgets:
         for tc in cands:
             if block_bytes(tc) <= budget:
@@ -477,15 +508,17 @@ def _no_fit(th: int, tw: int, geom: dict):
 
 
 def _fwd_tiles(n: int, ho: int, wo: int, c: int, m: int, th: int, tw: int,
-               geom: dict, *, rows_fixed: bool) -> KernelTiles:
-    """The fp32 forward's tiles (see ``choose_kernel_tiles``): spatial
-    tiles from ``th`` x ``tw`` down to 16 pixels, halving the longer side
-    (only ``tw`` when the rows are fixed), each at the largest ``tile_c``
-    that fits, from the divisors of C down to ``FWD_TILE_C_MIN`` (then
-    all of them); per budget (two blocks an SM, then one), the first tile
-    whose grid, at one group a chunk, reaches ``BWD_TARGET_BLOCKS``, else
-    the smallest that fits."""
-    tm = _divisor_at_most(m, FWD_TILE_M)
+               geom: dict, *, rows_fixed: bool, tcs: list[int], tc_min: int,
+               tile_m: int, block_bytes) -> KernelTiles:
+    """The fused forward kernels' tiles (fp32 and int8; see
+    ``choose_kernel_tiles``): spatial tiles from ``th`` x ``tw`` down to 16
+    pixels, halving the longer side (only ``tw`` when the rows are fixed),
+    each at the largest ``tile_c`` of ``tcs`` whose ``block_bytes`` fit,
+    from those of at least ``tc_min`` (then all of them); per budget (two
+    blocks an SM, then one), the first tile whose grid, at one group a
+    chunk, reaches ``BWD_TARGET_BLOCKS``, else the smallest that fits.
+    ``tile_m``: the largest divisor of M up to ``tile_m``."""
+    tm = _divisor_at_most(m, tile_m)
     shapes = [(th, tw)]
     while th * tw > PIX_LANES[0]:
         if th >= tw and not rows_fixed:
@@ -495,15 +528,14 @@ def _fwd_tiles(n: int, ho: int, wo: int, c: int, m: int, th: int, tw: int,
         else:
             break
         shapes.append((th, tw))
-    tcs = sorted({_divisor_at_most(c, cap)
-                  for cap in (FWD_TILE_C, 4, 2, 1)}, reverse=True)
-    least = min(FWD_TILE_C_MIN, tcs[0])
+    tcs = sorted(set(tcs), reverse=True)
+    least = min(tc_min, tcs[0])
     for budget in (FWD_SMEM_TWO, SMEM_PER_BLOCK):
         for cands in ([tc for tc in tcs if tc >= least], tcs):
             fit = []
             for a, b in shapes:
                 tc = next((tc for tc in cands
-                           if smem_bytes(a, b, tc, **geom) <= budget), None)
+                           if block_bytes(a, b, tc, **geom) <= budget), None)
                 if tc is not None:
                     fit.append(KernelTiles(a, b, tc, tm))
             for t in fit:

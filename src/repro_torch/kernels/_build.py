@@ -65,12 +65,13 @@ SIGNATURES = {
         "dcb_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_conv_q": {
-        "dcq_forward": (_I, [_P] * 5 + [_I] * 10 + [ctypes.c_float]
-                        + [_I] * 5 + [_P]),
-        "dcc_forward": (_I, [_P] * 8 + [_I] * 11 + [ctypes.c_float]
-                        + [_I] * 5 + [_P]),
+        "dcq_forward": (_I, [_P] * 7 + [_I] * 10 + [ctypes.c_float]
+                        + [_I] * 7 + [_P]),
+        "dcc_forward": (_I, [_P] * 12 + [_I] * 11 + [ctypes.c_float]
+                        + [_I] * 8 + [_P]),
         "dcq_smem_bytes": (ctypes.c_longlong, [_I] * 7),
-        "dcc_smem_bytes": (ctypes.c_longlong, [_I] * 7),
+        "dcq_blocks_per_sm": (_I, [_I] * 7),
+        "dcq_mma_s8_check": (_I, [_P] * 3),
         "dcq_error_string": (ctypes.c_char_p, [_I]),
     },
 }

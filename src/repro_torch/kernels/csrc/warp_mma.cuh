@@ -1,9 +1,10 @@
 // Warp-level tensor-core and async-copy helpers for sm_90a (H100), shared
-// by flash_attention.cu, matmul.cu, deform_conv_bwd.cu and
-// deform_conv_fused.cu: 16-byte and 4-byte cp.async with zero fill (and
-// four floats either way), ldmatrix (plain and transposed), the bf16
-// m16n8k16 and the tf32 m16n8k8 mma.sync with fp32 accumulation, the
-// split-fp32 ("3xTF32") product built on the latter, and the host's
+// by flash_attention.cu, matmul.cu, deform_conv_bwd.cu,
+// deform_conv_fused.cu and deform_conv_q.cu: 16-byte and 4-byte cp.async
+// with zero fill (and four floats either way), ldmatrix (plain and
+// transposed), the bf16 m16n8k16 and the tf32 m16n8k8 mma.sync with fp32
+// accumulation, the split-fp32 ("3xTF32") product built on the latter,
+// the s8 m16n8k32 mma.sync with s32 accumulation, and the host's
 // dynamic-shared-memory opt-in.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 * gid +
@@ -18,6 +19,17 @@
 // a3 = (gid + 8, tig + 4).  B (8 x 8, k x n): b0 = (k tig, n gid), b1 =
 // (k tig + 4, n gid).  C/D as for bf16: d0, d1 = (gid, 2 tig..+1), d2, d3
 // = (gid + 8, ..).  The unit reads the 19 high bits of each element.
+//
+// mma.m16n8k32 with .s8 (four 8-bit elements a register, the lowest k in
+// the low byte): A (16 x 32, row-major): a0 = (gid, k 4 tig..+3), a1 =
+// (gid + 8, k 4 tig..+3), a2 = (gid, k 16 + 4 tig..+3), a3 = (gid + 8, k 16
+// + 4 tig..+3).  B (32 x 8, k x n, "col": k contiguous for each n): b0 =
+// (k 4 tig..+3, n gid), b1 = (k 16 + 4 tig..+3, n gid).  C/D (16 x 8,
+// s32): d0, d1 = (gid, 2 tig..+1), d2, d3 = (gid + 8, ..).  These are the
+// bytes of the bf16 m16n8k16 fragments, so ldmatrix (b16) loads them: A
+// from a [row][k] tile, B from a [n][k] tile (no transpose; ldmatrix has
+// no 8-bit one).  Without .satfinite the s32 sums wrap; the callers keep
+// them in range.
 
 #pragma once
 
@@ -116,6 +128,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b on the tensor cores: s8 inputs, s32 accumulator (exact).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -425,6 +425,93 @@ def test_int8_kernels_refuse_bad_inputs_before_launch(kernel, bad, cuda):
     assert fn.launches == before
 
 
+def test_mma_s8_matches_int_matmul(cuda):
+    """The s8 tensor-core product with the int8 kernels' ldmatrix
+    fragment loads, against a plain int matmul (the extremes included:
+    a byte-order slip still gives plausible integers)."""
+    lib = Q.load_kernel()
+    gen = torch.Generator().manual_seed(3)
+    for trial in range(3):
+        a = torch.randint(-128, 128, (16, 32), dtype=torch.int8,
+                          generator=gen)
+        b = torch.randint(-128, 128, (16, 32), dtype=torch.int8,
+                          generator=gen)
+        if trial == 0:
+            a[0], b[0], a[5, 7], b[9, 31] = -128, 127, 127, -128
+        d = torch.empty(16, 16, dtype=torch.int32, device=cuda)
+        assert lib.dcq_mma_s8_check(a.to(cuda).data_ptr(),
+                                    b.to(cuda).data_ptr(), d.data_ptr()) == 0
+        assert torch.equal(d.cpu(), (a.long() @ b.long().T).int())
+
+
+# (N, H, W, C, M): one C group (the tiles alone fill a wave) and several,
+# 16-byte staging (C, tile_c multiples of 16) and 4-byte (C = 24, 48).
+Q_GRID_CASES = {
+    "one_group_16byte": (4, 64, 64, 16, 16),
+    "groups_16byte": (1, 16, 16, 64, 32),
+    "one_group_4byte": (4, 64, 64, 24, 40),
+    "groups_4byte": (1, 12, 12, 48, 20),
+}
+
+
+@pytest.mark.parametrize("kernel", ["dcq", "dcc_int8", "dcc_fp32"])
+@pytest.mark.parametrize("case", sorted(Q_GRID_CASES))
+def test_int8_kernels_equal_plain_across_groups_and_staging(case, kernel,
+                                                            cuda):
+    """At the chooser's tiles: one C group and several, 16-byte and
+    4-byte staging, each emission; bit-equal to the plain version and
+    from call to call (integer partials, so the grouping cannot show)."""
+    n, h, w, c, m = Q_GRID_CASES[case]
+    k, s, d, b = 3, 1, 1, 2.0
+    chain = kernel != "dcq"
+    ho, wo = out_hw(h, w, kernel_size=k, stride=s, dilation=d)
+    th, tw, tc, tm = plan.resolve_tiles(
+        n, h, w, c, m, kernel_size=k, stride=s, dilation=d, offset_bound=b,
+        dtype="int8_chain" if chain else "int8")
+    th, tw = min(th, ho), min(tw, wo)
+    gen = torch.Generator().manual_seed(len(case))
+    x = torch.randn(n, h, w, c, generator=gen).to(cuda)
+    wd = torch.randn(k * k, c, m, generator=gen).to(cuda)
+    sx, sw = compute_scale(x), compute_scale(wd, axis=-1)
+    xp = plan.pad_zerocopy(quantize_values(x, sx), kernel_size=k, stride=s,
+                           dilation=d, offset_bound=b, tile_h=th, tile_w=tw,
+                           ho=ho, wo=wo)
+    wq = quantize_values(wd, sw)
+    kw = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b,
+              tile_h=th, tile_w=tw, tile_c=tc, tile_m=tm)
+    if chain:
+        woff = torch.randn(k * k, c, 2 * k * k, generator=gen).to(cuda)
+        woq = quantize_values(woff, compute_scale(woff, axis=-1))
+        acc_std = (k * k * c) ** 0.5 * 40 * 73          # offsets ~1.5 px
+        args = (xp, plan.tile_weights(wq, c), plan.tile_weights(woq, c),
+                torch.full((2 * k * k,), 1.5 / acc_std, device=cuda),
+                (torch.randn(2 * k * k, generator=gen) * 0.5).to(cuda),
+                torch.full((m,), 60.0 / ((k * k * c) ** 0.5 * 20 * 47),
+                           device=cuda),
+                (torch.randn(m, generator=gen) * 2).to(cuda))
+        kw.update(emit=kernel[4:], ho=ho, wo=wo)
+        fn, plain = (Q.deform_conv_fused_zerocopy_chain,
+                     Q.deform_conv_fused_zerocopy_chain_plain)
+    else:
+        off = (torch.randn(n, ho, wo, 2 * k * k, generator=gen) * 1.5) \
+            .to(cuda)
+        args = (xp, off, plan.tile_weights(wq, tc),
+                (sx * sw).reshape(m).contiguous())
+        fn, plain = (Q.deform_conv_fused_zerocopy_q,
+                     Q.deform_conv_fused_zerocopy_q_plain)
+    groups = Q.q_plan(n, ho, wo, c, m, tile_h=th, tile_w=tw, tile_c=tc,
+                      tile_m=tm)["c_groups"]
+    assert (groups == 1) == case.startswith("one_group")
+    assert Q.staging_vec(xp, tc) == case.endswith("16byte")
+    before = fn.launches
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, plain(*args, **kw))
+
+
 def test_int8_chain_engine_step_runs_the_chain_kernel_only(cuda):
     """One engine step of a full-depth (narrow) model on int8_chain
     launches the chain kernel once per DCL and no other DCL kernel."""

@@ -10,8 +10,8 @@ swizzled weight layout, the patch tile's stride); (c) a plain emulation
 of its split-fp32 tensor-core products ("3xTF32") with its fixed C-group
 reduction, held to ``contract_chunks`` within phase 3's
 ``1e-5 * max|plain|``, against a single-pass TF32 product that lies at
-least 10x further off; and (d) the int8 kernels' tiles, which this
-kernel's limits must not move.
+least 10x further off; and (d) the int8 kernels' tiles at the serving
+shapes, pinned (their planner is held in ``tests/test_torch_q_plan.py``).
 """
 import numpy as np
 import pytest
@@ -304,30 +304,32 @@ def test_group_order_is_fixed():
 
 
 # ---------------------------------------------------------------------------
-# (d) The int8 kernels' tiles stay where they were.
+# (d) The int8 kernels' tiles: one main body for both, 8x8 pixels by 128
+#     output channels at tile_c 16 (two blocks an SM) at every main-path
+#     shape; C groups fill the grid (tests/test_torch_q_plan.py).
 # ---------------------------------------------------------------------------
 
 INT8_TILES = {  # (dtype, bucket, h, c, stride): (tile_h, tile_w, tc, tm)
-    ("int8", 256, 32, 128, 1): (4, 8, 32, 64),
-    ("int8", 256, 32, 256, 2): (4, 4, 32, 64),
-    ("int8", 256, 16, 256, 1): (4, 4, 64, 64),
-    ("int8", 256, 16, 512, 2): (4, 4, 32, 64),
-    ("int8", 256, 8, 512, 1): (4, 4, 64, 64),
-    ("int8", 512, 64, 128, 1): (8, 8, 32, 64),
-    ("int8", 512, 64, 256, 2): (8, 8, 16, 64),
-    ("int8", 512, 32, 256, 1): (8, 8, 32, 64),
-    ("int8", 512, 32, 512, 2): (4, 8, 32, 64),
-    ("int8", 512, 16, 512, 1): (4, 8, 32, 64),
-    ("int8_chain", 256, 32, 128, 1): (4, 8, 32, 64),
-    ("int8_chain", 256, 32, 256, 2): (4, 4, 32, 64),
-    ("int8_chain", 256, 16, 256, 1): (4, 4, 32, 64),
-    ("int8_chain", 256, 16, 512, 2): (4, 4, 32, 64),
-    ("int8_chain", 256, 8, 512, 1): (4, 4, 32, 64),
-    ("int8_chain", 512, 64, 128, 1): (8, 8, 16, 64),
-    ("int8_chain", 512, 64, 256, 2): (8, 8, 16, 64),
-    ("int8_chain", 512, 32, 256, 1): (8, 8, 16, 64),
-    ("int8_chain", 512, 32, 512, 2): (4, 8, 32, 64),
-    ("int8_chain", 512, 16, 512, 1): (4, 8, 32, 64),
+    ("int8", 256, 32, 128, 1): (8, 8, 16, 128),
+    ("int8", 256, 32, 256, 2): (8, 8, 16, 128),
+    ("int8", 256, 16, 256, 1): (8, 8, 16, 128),
+    ("int8", 256, 16, 512, 2): (8, 8, 16, 128),
+    ("int8", 256, 8, 512, 1): (8, 8, 16, 128),
+    ("int8", 512, 64, 128, 1): (8, 8, 16, 128),
+    ("int8", 512, 64, 256, 2): (8, 8, 16, 128),
+    ("int8", 512, 32, 256, 1): (8, 8, 16, 128),
+    ("int8", 512, 32, 512, 2): (8, 8, 16, 128),
+    ("int8", 512, 16, 512, 1): (8, 8, 16, 128),
+    ("int8_chain", 256, 32, 128, 1): (8, 8, 16, 128),
+    ("int8_chain", 256, 32, 256, 2): (8, 8, 16, 128),
+    ("int8_chain", 256, 16, 256, 1): (8, 8, 16, 128),
+    ("int8_chain", 256, 16, 512, 2): (8, 8, 16, 128),
+    ("int8_chain", 256, 8, 512, 1): (8, 8, 16, 128),
+    ("int8_chain", 512, 64, 128, 1): (8, 8, 16, 128),
+    ("int8_chain", 512, 64, 256, 2): (8, 8, 16, 128),
+    ("int8_chain", 512, 32, 256, 1): (8, 8, 16, 128),
+    ("int8_chain", 512, 32, 512, 2): (8, 8, 16, 128),
+    ("int8_chain", 512, 16, 512, 1): (8, 8, 16, 128),
 }
 
 
@@ -337,4 +339,4 @@ def test_int8_tiles_are_pinned(key):
     t = T.choose_kernel_tiles(4, h, h, c, c, kernel_size=K, stride=s,
                               dilation=1, offset_bound=B, dtype=dtype)
     assert (t.tile_h, t.tile_w, t.tile_c, t.tile_m) == INT8_TILES[key]
-    assert T.TILE_M_MAX == 64 and T.PIX_LANES == (16, 32, 64)
+    assert T.Q_TILE_M == 128 and T.PIX_LANES == (16, 32, 64)

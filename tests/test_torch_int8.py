@@ -329,7 +329,7 @@ def test_q_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "tile_c":
         kw = dict(kw, tile_c=2)
     elif bad == "tile_m":
-        kw = dict(kw, tile_m=65)
+        kw = dict(kw, tile_m=TT.Q_TILE_M + 1)
     else:
         kw = dict(kw, tile_h=9, tile_w=8)
     with pytest.raises(ValueError):
@@ -368,8 +368,7 @@ def test_int8_chooser_fits_and_packs_words(dtype):
             assert kt.tile_c % 4 == 0 and dims["c"] % kt.tile_c == 0
             smem = TT.q_smem_bytes(kt.tile_h, kt.tile_w, kt.tile_c,
                                    kernel_size=3, stride=dims["stride"],
-                                   dilation=1, offset_bound=2.0,
-                                   chain=dtype == "int8_chain")
+                                   dilation=1, offset_bound=2.0)
             assert smem <= TT.SMEM_PER_BLOCK // 2
     with pytest.raises(ValueError, match="multiple of 4"):
         TT.choose_kernel_tiles(1, 8, 8, 6, 8, kernel_size=3, stride=1,
