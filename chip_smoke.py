@@ -95,21 +95,31 @@ Phases, each of which exits non-zero on failure:
 9. sampling, banded forward and matmul kernels vs plain on the card:
    kernel 1b (zero-copy sampling) and kernel 3 (banded sampling) at the
    five DCL shapes of the 512 bucket at batch 4 and at a ragged H and a
-   dilation-2 case, within 1e-6 absolute, beside the time of
-   ``F.grid_sample`` computing the same function (held to the plain
-   version within 1e-5 * max|plain|); kernel 4 (the banded fused forward)
-   at every distinct DCL shape of both buckets, the five training shapes
-   at batch 8 (kernel 4 a banded training step) and the same two edge
-   cases, within 1e-5 * max|plain|, each with phase 3's instance, bounds
+   dilation-2 case, in fp32 and bf16, each ``torch.equal`` to its plain
+   version (fp32 also within 1e-6 absolute) with its shared memory equal
+   to the chooser's mirror; each prints its tiles, C groups and vector
+   width, its time back to back, queued behind a busy device and with
+   the L2 flushed by a read before each call (the reads' own time taken
+   off, so a call also pays the write-back of its output; CUDA events),
+   its host launch path (host clock), its bytes bound (at its element
+   size) and its share of it (queued, or flushed where the output fits
+   in the 50 MB L2), beside ``F.grid_sample`` computing the same function
+   in the same dtype (held to the plain version within 1e-5 * max|plain|
+   in fp32; a bf16 grid moves positions, so its bf16 error is printed
+   only); kernel 4 (the banded fused forward) at every distinct DCL
+   shape of both buckets, the five training shapes at batch 8 (kernel 4
+   a banded training step) and the same two edge cases, within 1e-5 * max|plain|, each with phase 3's instance, bounds
    and ``torch.equal`` check; kernel 5 (matmul) at 256^3, 512^3,
    4096^3 and 257x129x65 in fp32 (1e-5 * max|plain|) and 512^3 and
    4096^3 in bf16 (one bf16 step, 2^-7 * max|plain|), beside
    ``torch.matmul``, each case naming the instance it ran (tile, aligned
    16-byte or element-wise loads).  Then the
    entry points as a user calls them: ``ops.deform_sample`` on both
-   dataflows and ``ops.deform_conv(dataflow=...)`` on both at the five
-   shapes (sample + einsum within 1e-5 * max|fused| of the fused output)
-   and ``ops.matmul`` at the six matmul cases, counting launches.
+   dataflows in fp32 and bf16 and ``ops.deform_conv(dataflow=...)`` on
+   both at the five shapes (sample + einsum within 1e-5 * max|fused| of
+   the fused output; the bf16 patches ``torch.equal`` to the fp32
+   kernel's on the same bf16 inputs, rounded once) and ``ops.matmul`` at
+   the six matmul cases, counting launches.
 10. serve banded: phase 4's model and requests with ``dataflow="banded"``
    on ``fp32_kernel``; every request ``ok``, 12 launches of kernel 4 per
    step and none of 1a, ``cls``/``box`` within ``1e-3 * max|ref|`` of the
@@ -182,7 +192,10 @@ the step's ``torch.profiler`` time of their launches; their
 CUDA-core bounds.  The int8 kernels' (1c, 1d) rows add ``queued_ms``,
 phase 5's time queued behind a busy device (a call is 2-4 launches of
 5-60 µs, below the host's launch path), and their ``bound_ms`` is the
-largest of their three floors.
+largest of their three floors.  The sampling kernels' (1b, 3) rows count
+their fp32 and bf16 launches of phase 9's entry-point run, add
+``queued_ms`` and ``flushed_ms`` (phase 9's times queued and with the L2
+flushed) and give each dtype apart in ``by_dtype``.
 
 TF32 is off for every fp32 matmul and convolution.  Without a GPU, or
 without the rest of the repository beside it, the script prints no result
@@ -226,7 +239,11 @@ TRAIN_STEPS = 6
 INT8_VS_FP32_MAX = 0.1      # relative norm error of cls, int8 vs fp32_kernel
 SAMPLE_ATOL = 1e-6          # sampling kernels: the plain version's roundings
 LIBRARY_RTOL = 1e-5         # grid_sample vs the plain sampling (its grid
-                            # is normalised, so positions move ~1e-6 px)
+                            # is normalised, so positions move ~1e-6 px;
+                            # fp32 only: a bf16 grid moves them ~0.1 px)
+SAMPLE_DTYPES = ("float32", "bfloat16")
+L2_BYTES = 50 * 2 ** 20     # H100 L2 cache
+L2_FLUSH_BYTES = 2 * L2_BYTES
 BF16_RTOL = 2.0 ** -7       # one bf16 step at the largest output
 BANDED_VS_ZC_RTOL = 1e-4    # served banded vs zero-copy (summation order)
 BANDED_LOSS_RTOL = 1e-5     # step-0 loss, banded vs zero-copy
@@ -1412,92 +1429,168 @@ def grid_sample_patches(xc, grid, ho: int, wo: int):
     return y.reshape(n, c, ho, wo, K * K).permute(0, 2, 3, 4, 1)
 
 
+def flushed_ms(fn, calls: int = 20, reps: int = 3) -> float:
+    """Device time of one call of ``fn`` (ms) with the L2 cache flushed
+    before it: ``calls`` pairs of (a read of ``L2_FLUSH_BYTES``, which also
+    writes back the last call's output; ``fn``) less ``calls`` reads
+    alone, each sequence between two CUDA events queued behind a busy
+    device, as ``queued_ms``; the median over ``reps``."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def seq(with_fn: bool) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(calls):
+            flush.sum()
+            if with_fn:
+                fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median((seq(True) - seq(False)) / calls
+                             for _ in range(reps))
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one call of ``fn`` (µs): its launch path, read on the
+    host clock around ``calls`` calls enqueued behind a busy device, so
+    none waits on the device."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def check_sample_kernels(case: dict, gen) -> list[dict]:
-    """Kernels 1b and 3 vs their plain versions on one geometry, at the
-    tiles ``ops.deform_sample`` picks, and ``F.grid_sample`` computing the
-    same function; returns the two records."""
+    """Kernels 1b and 3 vs their plain versions on one geometry, in fp32
+    and bf16, at the tiles ``ops.deform_sample`` picks, and
+    ``F.grid_sample`` computing the same function; returns the four
+    records."""
     import torch
 
-    from repro_torch.core.tiling import out_hw, sample_smem_bytes
+    from repro_torch.core.tiling import (out_hw, sample_c_groups,
+                                         sample_smem_bytes, sample_vec_bytes)
     from repro_torch.kernels import deform_sample as S
     from repro_torch.kernels import plan
 
     n, h, w, c = case["n"], case["h"], case["w"], case["c"]
     s, d, b = case["stride"], case["dilation"], case.get("bound", B)
-    k2 = K * K
     ho, wo = out_hw(h, w, kernel_size=K, stride=s, dilation=d)
     geom = dict(kernel_size=K, stride=s, dilation=d, offset_bound=b)
-    x = torch.randn(n, h, w, c, device="cuda", generator=gen)
-    off = torch.randn(n, ho, wo, 2 * k2, device="cuda", generator=gen) * 1.5
+    x32 = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    off32 = torch.randn(n, ho, wo, 2 * K * K, device="cuda",
+                        generator=gen) * 1.5
     lib = S.load_kernel()
-    xc, grid = grid_sample_inputs(x, off, stride=s, dilation=d, bound=b)
-    lib_out = grid_sample_patches(xc, grid, ho, wo)
-    library_ms = time_ms(lambda: grid_sample_patches(xc, grid, ho, wo),
-                         reps=7, iters=10)
-
-    th, tw, tc, _ = plan.resolve_tiles(n, h, w, c, c, tile_h=8,
-                                       dtype="sample", **geom)
-    th, tw = min(th, ho), min(tw, wo)
-    xp = plan.pad_zerocopy(x, tile_h=th, tile_w=tw, ho=ho, wo=wo, **geom)
-    spec = plan.DCSpec(K, s, d, b, 8, dataflow="banded")
-    thb, twb, tcb, _ = plan.banded_tiles(spec, x, off, c, dtype="sample")
-    bands, offb = plan.banded_inputs(spec, x, off, thb)
-    runs = {
-        "deform_sample_zerocopy": (
-            S.deform_sample_zerocopy, S.deform_sample_zerocopy_plain,
-            (xp, off.contiguous()), dict(tile_h=th, tile_w=tw, tile_c=tc),
-            [th, tw, tc]),
-        "deform_sample_banded": (
-            S.deform_sample_banded, S.deform_sample_banded_plain,
-            (bands, offb), dict(tile_h=thb, tile_w=twb, tile_c=tcb),
-            [thb, twb, tcb]),
-    }
     recs = []
-    for name, (fn, plain, args, tiles, tl) in runs.items():
-        kw = dict(tiles, **geom)
-        y = fn(*args, **kw)
-        torch.cuda.synchronize()
-        yp = plain(*args, **kw)
-        err = (y - yp).abs().max().item()
-        scale = yp.abs().max().item()
-        lib_err = (lib_out - yp[:, :ho]).abs().max().item()
-        ms = time_ms(lambda: fn(*args, **kw), reps=7, iters=10)
-        plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, iters=2)
-        smem_c = lib.ds_smem_bytes(K, s, d, math.ceil(b), tl[0], tl[1],
-                                   tl[2])
-        smem_py = sample_smem_bytes(tl[0], tl[1], tl[2], kernel_size=K,
-                                    stride=s, dilation=d, offset_bound=b)
-        flops = 7 * y.numel()      # four products and three sums a sample
-        nbytes = 4 * (args[0].numel() + args[1].numel() + y.numel())
-        bound_ms = max(flops / PEAK_FP32_FLOPS,
-                       nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
-        rec = dict(case, kernel=name, ho=ho, wo=wo, tiles=tl,
-                   smem_bytes=smem_c, max_abs_err=err, max_abs_plain=scale,
-                   library_err=lib_err,
-                   clamped_share=(off.abs() > b).float().mean().item(),
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms,
-                   bound_by="operations" if flops / PEAK_FP32_FLOPS
-                   >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
-                   flops=flops, bytes=nbytes)
-        ok = err <= SAMPLE_ATOL and smem_c == smem_py \
-            and lib_err <= LIBRARY_RTOL * scale
-        print(f"  {name:<22} {case['label']:<26} tiles {tl[0]}x{tl[1]} "
-              f"tc={tl[2]} smem={smem_c} err={err:.1e} "
-              f"grid_sample err={lib_err:.1e} (max|plain|={scale:.2f}) "
-              f"kernel={ms:.4f} ms plain={plain_ms:.3f} ms "
-              f"grid_sample={library_ms:.4f} ms bound={bound_ms:.4f} ms "
-              f"{'ok' if ok else 'FAIL'}")
-        if smem_c != smem_py:
-            fail(f"{name} {case['label']}: shared memory {smem_c} (kernel) "
-                 f"!= {smem_py} (chooser)")
-        if err > SAMPLE_ATOL:
-            fail(f"{name} {case['label']}: max|kernel - plain| = {err} "
-                 f"exceeds {SAMPLE_ATOL}")
-        if lib_err > LIBRARY_RTOL * scale:
-            fail(f"{name} {case['label']}: grid_sample is {lib_err} from "
-                 f"the plain version: not the same function")
-        recs.append(rec)
+    for dt in SAMPLE_DTYPES:
+        dtype = getattr(torch, dt)
+        x, off = x32.to(dtype), off32.to(dtype)
+        item = x.element_size()
+        xc, grid = grid_sample_inputs(x.float(), off.float(), stride=s,
+                                      dilation=d, bound=b)
+        xc, grid = xc.to(dtype), grid.to(dtype)
+        try:
+            lib_out = grid_sample_patches(xc, grid, ho, wo)
+        except RuntimeError as e:          # a dtype grid_sample refuses
+            print(f"  F.grid_sample refuses {dtype}: {e}")
+            lib_out = library_ms = None
+        else:
+            library_ms = time_ms(lambda: grid_sample_patches(xc, grid, ho,
+                                                             wo),
+                                 reps=7, iters=10)
+        th, tw, tc, _ = plan.resolve_tiles(n, h, w, c, c, tile_h=8,
+                                           dtype="sample", itemsize=item,
+                                           **geom)
+        th, tw = min(th, ho), min(tw, wo)
+        xp = plan.pad_zerocopy(x, tile_h=th, tile_w=tw, ho=ho, wo=wo, **geom)
+        spec = plan.DCSpec(K, s, d, b, 8, dataflow="banded")
+        thb, twb, tcb, _ = plan.banded_tiles(spec, x, off, c, dtype="sample")
+        bands, offb = plan.banded_inputs(spec, x, off, thb)
+        runs = {
+            "deform_sample_zerocopy": (
+                S.deform_sample_zerocopy, S.deform_sample_zerocopy_plain,
+                (xp, off.contiguous()), [th, tw, tc]),
+            "deform_sample_banded": (
+                S.deform_sample_banded, S.deform_sample_banded_plain,
+                (bands, offb), [thb, twb, tcb]),
+        }
+        for name, (fn, plain, args, tl) in runs.items():
+            kw = dict(tile_h=tl[0], tile_w=tl[1], tile_c=tl[2], **geom)
+            y = fn(*args, **kw)
+            torch.cuda.synchronize()
+            yp = plain(*args, **kw)
+            equal = torch.equal(y, yp)
+            err = (y.float() - yp.float()).abs().max().item()
+            scale = yp.float().abs().max().item()
+            lib_err = None if lib_out is None else \
+                (lib_out.float() - yp[:, :ho].float()).abs().max().item()
+            ms = time_ms(lambda: fn(*args, **kw), reps=7, iters=10)
+            q_ms = queued_ms(lambda: fn(*args, **kw))
+            f_ms = flushed_ms(lambda: fn(*args, **kw))
+            h_us = host_us(lambda: fn(*args, **kw))
+            plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, iters=2)
+            smem_c = lib.ds_smem_bytes(K, s, d, math.ceil(b), tl[0], tl[1],
+                                       tl[2], item)
+            smem_py = sample_smem_bytes(tl[0], tl[1], tl[2], kernel_size=K,
+                                        stride=s, dilation=d, offset_bound=b,
+                                        itemsize=item)
+            groups = sample_c_groups(n, y.shape[1], wo, c, tile_h=tl[0],
+                                     tile_w=tl[1], tile_c=tl[2])
+            flops = SAMPLE_OPS * y.numel()  # four products, three sums
+            nbytes = item * y.numel() + sum(
+                t.numel() * t.element_size() for t in args)
+            peak = PEAK_FP32_FLOPS       # the sums are fp32 in both dtypes
+            bound_ms = max(flops / peak, nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
+            in_l2 = item * y.numel() <= L2_BYTES
+            rec = dict(case, kernel=name, dtype=dt,
+                       ho=ho, wo=wo, tiles=tl, groups=groups,
+                       vec_bytes=sample_vec_bytes(tl[2], item),
+                       smem_bytes=smem_c, equal=equal, max_abs_err=err,
+                       max_abs_plain=scale, library_err=lib_err,
+                       clamped_share=(off32.abs() > b).float().mean().item(),
+                       ms=ms, queued_ms=q_ms, flushed_ms=f_ms, host_us=h_us,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms,
+                       bound_by="operations" if flops / peak
+                       >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
+                       out_in_l2=in_l2,
+                       share=bound_ms / (f_ms if in_l2 else q_ms),
+                       flops=flops, bytes=nbytes)
+            ok = equal and err <= SAMPLE_ATOL and smem_c == smem_py and (
+                lib_err is None or dtype != torch.float32
+                or lib_err <= LIBRARY_RTOL * scale)
+            lib_line = "refused" if library_ms is None else \
+                f"{library_ms:.4f} ms (err {lib_err:.1e})"
+            print(f"  {name:<22} {dt:<8} {case['label']:<26} "
+                  f"tiles {tl[0]}x{tl[1]} tc={tl[2]} groups={groups} "
+                  f"vec={rec['vec_bytes']} smem={smem_c} equal={equal} "
+                  f"err={err:.1e} kernel={ms:.4f} ms queued={q_ms:.4f} "
+                  f"flushed={f_ms:.4f} host={h_us:.1f} us "
+                  f"plain={plain_ms:.3f} ms grid_sample={lib_line} "
+                  f"bound={bound_ms:.4f} ms share={rec['share']:.1%}"
+                  f"{' (flushed: output fits in L2)' if in_l2 else ''} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if smem_c != smem_py:
+                fail(f"{name} {case['label']} {dt}: shared memory "
+                     f"{smem_c} (kernel) != {smem_py} (chooser)")
+            if not equal or err > SAMPLE_ATOL:
+                fail(f"{name} {case['label']} {dt}: the kernel is not "
+                     f"equal to its plain version (max|diff| = {err})")
+            if dtype == torch.float32 and lib_err > LIBRARY_RTOL * scale:
+                fail(f"{name} {case['label']}: grid_sample is {lib_err} "
+                     f"from the plain version: not the same function")
+            recs.append(rec)
     return recs
 
 
@@ -1638,6 +1731,15 @@ def entry_points(cases: list[dict], gen) -> dict[str, int]:
         getattr(torch, dt)), torch.randn(k, n, device="cuda",
                                           generator=gen).to(getattr(torch, dt)))
         for m, k, n, dt in MM_SHAPES]
+    # The bf16 calls' reference: the fp32 kernel on the same bf16-rounded
+    # inputs, rounded once to bf16 (the same fp32 sums), before the count.
+    bf16_want = {}
+    for case, x, off, _ in inputs:
+        kw = dict(offset_bound=B, stride=case["stride"], device="cuda")
+        for dataflow in ("zero_copy", "banded"):
+            bf16_want[case["label"], dataflow] = ops.deform_sample(
+                x.bfloat16().float(), off.bfloat16().float(),
+                dataflow=dataflow, **kw).bfloat16()
     torch.cuda.synchronize()
     reset_counts()
     worst = {}
@@ -1652,6 +1754,12 @@ def entry_points(cases: list[dict], gen) -> dict[str, int]:
             if rel > KERNEL_RTOL or patches.shape[-2:] != (K * K, x.shape[-1]):
                 fail(f"{case['label']} {dataflow}: sample + einsum is {rel} "
                      f"(relative) from the fused forward")
+            patches = ops.deform_sample(x.bfloat16(), off.bfloat16(),
+                                        dataflow=dataflow, **kw)
+            if not torch.equal(patches,
+                               bf16_want.pop((case["label"], dataflow))):
+                fail(f"{case['label']} {dataflow}: bf16 patches differ from "
+                     f"the fp32 kernel's on the same inputs, rounded")
     for x, w in mm_inputs:
         y = ops.matmul(x, w)
         if y.dtype != x.dtype or not torch.isfinite(y.float()).all():
@@ -1660,12 +1768,13 @@ def entry_points(cases: list[dict], gen) -> dict[str, int]:
     torch.cuda.synchronize()
     counts = read_counts()
     want = {name: 0 for name in counts}
-    want.update(deform_sample_zerocopy=len(cases),
-                deform_sample_banded=len(cases),
+    want.update(deform_sample_zerocopy=len(cases) * len(SAMPLE_DTYPES),
+                deform_sample_banded=len(cases) * len(SAMPLE_DTYPES),
                 deform_conv_fused=len(cases), deform_conv_banded=len(cases),
                 matmul=len(MM_SHAPES))
     print(f"  entry points: launches {counts}; sample + einsum vs fused, "
-          f"worst relative {worst}")
+          f"worst relative {worst}; bf16 patches equal to the fp32 "
+          f"kernel's on the same inputs, rounded")
     if counts != want:
         fail(f"the entry-point run launched {counts}; expected {want}")
     return counts
@@ -2891,7 +3000,34 @@ def main() -> int:
                   if r["kernel"] == name and r["label"] in five_labels]
         run_s, by = per_run(shapes, {"run": 1}, entry[name],
                             PEAK_FP32_FLOPS, name)
-        run_s["library_ms"] = sum(r["library_ms"] for r in shapes)
+        by_dtype = {}
+        for dt in SAMPLE_DTYPES:
+            sub = [r for r in shapes if r["dtype"] == dt]
+            lib_ms = [r["library_ms"] for r in sub]
+            by_dtype[dt] = dict(
+                {k: sum(r[k] for r in sub)
+                 for k in ("ms", "queued_ms", "flushed_ms", "plain_ms",
+                           "bytes")},
+                launches=len(sub),
+                bound_ms=sum(r["bytes"] for r in sub)
+                / PEAK_HBM_BYTES_PER_S * 1e3,
+                library_ms=None if None in lib_ms else sum(lib_ms),
+                host_us=statistics.median(r["host_us"] for r in sub))
+            run_dt = by_dtype[dt]
+            print(f"  {name} {dt} per entry-point run: {len(sub)} launches, "
+                  f"kernel {run_dt['ms']:.4f} ms back to back, "
+                  f"{run_dt['queued_ms']:.4f} queued "
+                  f"({run_dt['bound_ms'] / run_dt['queued_ms']:.1%} of the "
+                  f"bound), {run_dt['flushed_ms']:.4f} L2 flushed; plain "
+                  f"{run_dt['plain_ms']:.3f} ms, grid_sample "
+                  f"{run_dt['library_ms']} ms, bound "
+                  f"{run_dt['bound_ms']:.4f} ms (bytes); host path "
+                  f"{run_dt['host_us']:.1f} us a call (median)")
+        run_s.update(queued_ms=sum(r["queued_ms"] for r in shapes),
+                     flushed_ms=sum(r["flushed_ms"] for r in shapes),
+                     library_ms=sum(r["library_ms"] for r in shapes
+                                    if r["library_ms"] is not None),
+                     by_dtype=by_dtype)
         record[f"run_{name}"] = run_s
         kernels["kernels"].append({
             "name": name,
@@ -2906,10 +3042,18 @@ def main() -> int:
             "bound_ms": run_s["bound_ms"],
             "bound_by": by,
             "library_ms": run_s["library_ms"],
+            "library_note": "F.grid_sample on the shapes it takes"
+                            + ("" if None not in (r["library_ms"]
+                                                  for r in shapes)
+                               else " (it refuses bf16: fp32 only)"),
+            "queued_ms": run_s["queued_ms"],
+            "flushed_ms": run_s["flushed_ms"],
+            "by_dtype": by_dtype,
         })
-        print(f"  {name} per entry-point run: {entry[name]} launches, kernel "
-              f"{run_s['ms']:.3f} ms, plain {run_s['plain_ms']:.3f} ms, "
-              f"grid_sample {run_s['library_ms']:.3f} ms, bound "
+        print(f"  {name} per entry-point run: {entry[name]} launches (fp32 "
+              f"and bf16), kernel {run_s['ms']:.3f} ms, queued "
+              f"{run_s['queued_ms']:.4f} ms, plain {run_s['plain_ms']:.3f} "
+              f"ms, grid_sample {run_s['library_ms']:.3f} ms, bound "
               f"{run_s['bound_ms']:.4f} ms ({by})")
 
     print("== 10. serve banded")

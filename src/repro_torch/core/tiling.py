@@ -330,9 +330,17 @@ def bwd_dw_splits(n: int, ho: int, wo: int, c: int, m: int, *,
     return max(1, min(tiles, -(-BWD_TARGET_BLOCKS // base)))
 
 
-# The sampling kernels (csrc/deform_sample.cu): a block writes tile_c <= 32
-# channels of each (pixel, tap), one 128-byte line of fp32 patches.
-SAMPLE_TC_MAX = 32
+# The sampling kernels (csrc/deform_sample.cu, kernels 1b and 3): a block
+# writes one output tile's patches for a group of C chunks, staging each
+# band chunk through a ring of SAMPLE_STAGES; a chunk is at most
+# SAMPLE_LINE bytes of channels (one 128-byte line a position), and a
+# thread moves up to 16 bytes at once.  The grid splits C into
+# groups until it holds SAMPLE_TARGET_BLOCKS blocks, one an SM: fewer
+# groups walk more chunks a block, through the ring (PERF.md section 6,
+# PR 20).
+SAMPLE_STAGES = 2
+SAMPLE_LINE = 128
+SAMPLE_TARGET_BLOCKS = SM_COUNT
 # The banded dataflow's row tile when the caller gives none (the JAX
 # ``plan.bounded_forward`` and ``ops.deform_sample`` default).
 BANDED_TILE_H = 8
@@ -340,17 +348,47 @@ BANDED_TILE_H = 8
 
 def sample_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
                       kernel_size: int, stride: int, dilation: int,
-                      offset_bound: float) -> int:
-    """Dynamic shared memory of one block of the sampling kernels; mirrors
-    ``ds_smem_bytes`` in ``csrc/deform_sample.cu``: the band chunk
-    (position-major, channels innermost) and the corner geometry (index,
-    ty, tx per tap and pixel)."""
-    k2 = kernel_size * kernel_size
+                      offset_bound: float, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one block of the sampling kernels for
+    elements of ``itemsize`` bytes; mirrors ``ds_smem_bytes`` in
+    ``csrc/deform_sample.cu``: ``SAMPLE_STAGES`` band chunks
+    (position-major, channels innermost, each rounded to 16 bytes), the
+    four corner weights (fp32) and the band position and output offset
+    (int32) of every (pixel, tap) row, and each staged position's offset
+    (int32)."""
     bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
                      dilation=dilation, offset_bound=offset_bound)
     bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
                      dilation=dilation, offset_bound=offset_bound)
-    return 4 * (bh * bw * tile_c + 3 * k2 * tile_h * tile_w)
+    npos = bh * bw
+    rows = tile_h * tile_w * kernel_size * kernel_size
+    stage = -(-npos * tile_c * itemsize // 16) * 16
+    return SAMPLE_STAGES * stage + 24 * rows + 4 * npos
+
+
+def sample_vec_bytes(tile_c: int, itemsize: int, address: int = 0) -> int:
+    """Bytes a thread of the sampling kernels moves at once: the largest
+    power of two up to 16 that divides a chunk's bytes (``tile_c *
+    itemsize``) and the source's ``address``, at least one element."""
+    for vec in (16, 8, 4, 2):
+        if vec >= itemsize and (tile_c * itemsize) % vec == 0 \
+                and address % vec == 0:
+            return vec
+    raise ValueError(f"address {address:#x} is not aligned to its "
+                     f"{itemsize}-byte elements")
+
+
+def sample_c_groups(n: int, ho: int, wo: int, c: int, *, tile_h: int,
+                    tile_w: int, tile_c: int) -> int:
+    """Groups of C chunks the sampling kernels' grid splits C into: 1 when
+    the output tiles alone reach ``SAMPLE_TARGET_BLOCKS`` blocks, else the
+    fewest that divide the chunks evenly and reach it (all of them when
+    none does)."""
+    tiles = n * -(-ho // tile_h) * -(-wo // tile_w)
+    chunks = c // tile_c
+    need = -(-SAMPLE_TARGET_BLOCKS // tiles)
+    return next((g for g in range(min(need, chunks), chunks + 1)
+                 if chunks % g == 0), chunks)
 
 
 DTYPES = ("fp32", "int8", "int8_chain", "fp32_bwd", "sample", "banded")
@@ -379,7 +417,8 @@ def grid_blocks(n: int, ho: int, wo: int, m: int, t: KernelTiles) -> int:
 def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
                         kernel_size: int, stride: int, dilation: int = 1,
                         offset_bound: float, dtype: str = "fp32",
-                        tile_h: int | None = None) -> KernelTiles:
+                        tile_h: int | None = None,
+                        itemsize: int = 4) -> KernelTiles:
     """Tiles of the fused kernels for one layer shape and datapath
     (``dtype``: ``"fp32"`` for ``deform_conv_fused.cu``, ``"int8"`` and
     ``"int8_chain"`` for the two kernels of ``deform_conv_q.cu``,
@@ -392,9 +431,9 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
       writes; fp32_bwd: unused by the backward).
     * spatial: 8x8 clamped to the output; while the grid has fewer
       blocks than the card has SMs, halve the longer side, down to 16
-      pixels per block (the sampling kernels' grid counts C / tile_c; the
-      backward's counts neither M nor C tiles and stops at 32 pixels,
-      since its d_input kernel splits C over the grid, ``bwd_c_groups``).
+      pixels per block (the backward's grid counts neither M nor C tiles
+      and stops at 32 pixels, since its d_input kernel splits C over the
+      grid, ``bwd_c_groups``; the sampling kernels' rule is below).
       A given ``tile_h`` fixes the rows (not clamped to the output: the
       caller clamps) and only ``tile_w`` is halved; ``"banded"`` always
       fixes them at the bands' row tile (default ``BANDED_TILE_H``), so a
@@ -416,10 +455,16 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
       mma tiles a warp (``bwd_warp_tiles``) and a d_weights block that
       fits once (``bwd_dw_smem_bytes``); ``tile_m`` only shapes the
       forward's grid.
-    * ``tile_c``, sample: no contraction, so the block is sized by what it
-      writes, ``tile_h * tile_w * K*K * tile_c`` patches: the largest
-      divisor of C up to ``SAMPLE_TC_MAX`` whose band chunk fits four
-      times in an SM, else twice, else once.
+    * sample (``_sample_tiles``): no contraction, so the block is sized
+      by what it stages and writes.  ``tile_c``: the largest divisor of C
+      whose chunk is at most ``SAMPLE_LINE`` bytes of ``itemsize``-byte
+      elements; spatial tiles from 8x8 down to 16 pixels as above (a
+      given ``tile_h`` fixes the rows), the first whose block fits twice
+      in an SM (``sample_smem_bytes``) and whose tiles times C chunks reach
+      ``SAMPLE_TARGET_BLOCKS`` (one block an SM), else the smallest that
+      fits twice; failing that, smaller chunks, then blocks that fit
+      once.  The grid's C groups are ``sample_c_groups``.  ``itemsize``
+      (element bytes) is read by this datapath alone.
     None fitting raises.
     """
     if dtype not in DTYPES:
@@ -456,47 +501,63 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
                  for cap in (Q_TILE_C, 16, 8, 4)],
             tc_min=Q_TILE_C_MIN, tile_m=Q_TILE_M, block_bytes=q_smem_bytes)
     if dtype == "sample":
-        cands = sorted({_divisor_at_most(c, cap)
-                        for cap in (SAMPLE_TC_MAX, 16, 8, 4, 2, 1)},
-                       reverse=True)
-        # The grid's third axis is C / tile_c (counted at the widest chunk).
-        grid_c, grid_t = c, cands[0]
-    else:
-        tm = _divisor_at_most(m, FWD_TILE_M)
-        # The backward's d_input kernel has no M axis in its grid.
-        grid_c, grid_t = m, m
-    # The backward splits C over its grid, so its tiles stop at 32 pixels.
-    least = 32 if dtype == "fp32_bwd" else 16
-    while (grid_blocks(n, ho, wo, grid_c, KernelTiles(th, tw, 1, grid_t))
-           < SM_COUNT and th * tw > least):
-        if th >= tw and tile_h is None and dtype != "banded":
+        return _sample_tiles(n, ho, wo, c, th, tw, geom,
+                             rows_fixed=tile_h is not None,
+                             itemsize=itemsize)
+    tm = _divisor_at_most(m, FWD_TILE_M)
+    # The backward splits C over its grid (its d_input kernel has no M
+    # axis), so its tiles stop at 32 pixels.
+    while (grid_blocks(n, ho, wo, m, KernelTiles(th, tw, 1, m)) < SM_COUNT
+           and th * tw > 32):
+        if th >= tw and tile_h is None:
             th = -(-th // 2)
         elif tw > 1:
             tw = -(-tw // 2)
         else:
             break
-    if dtype == "sample":
-        budgets = (SMEM_PER_BLOCK // 4, SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
-
-        def block_bytes(tc):
-            return sample_smem_bytes(th, tw, tc, **geom)
-    else:
-        cands = sorted({_divisor_at_most(c, cap)
-                        for cap in (32, 16, 8, 4, 2, 1)}, reverse=True)
-        budgets = (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK)
-        cands = [tc for tc in cands
-                 if bwd_warp_tiles(th, tw, tc, kernel_size=kernel_size)
-                 <= BWD_MAX_WARP_TILES
-                 and bwd_dw_smem_bytes(th, tw, tc, **geom) <= SMEM_PER_BLOCK]
-
-        def block_bytes(tc):
-            return bwd_smem_bytes(th, tw, tc, **geom)
-    for budget in budgets:
+    cands = sorted({_divisor_at_most(c, cap)
+                    for cap in (32, 16, 8, 4, 2, 1)}, reverse=True)
+    cands = [tc for tc in cands
+             if bwd_warp_tiles(th, tw, tc, kernel_size=kernel_size)
+             <= BWD_MAX_WARP_TILES
+             and bwd_dw_smem_bytes(th, tw, tc, **geom) <= SMEM_PER_BLOCK]
+    for budget in (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK):
         for tc in cands:
-            if block_bytes(tc) <= budget:
-                return KernelTiles(th, tw, tc,
-                                   tc if dtype == "sample" else tm)
+            if bwd_smem_bytes(th, tw, tc, **geom) <= budget:
+                return KernelTiles(th, tw, tc, tm)
     _no_fit(th, tw, geom)
+
+
+def _sample_tiles(n: int, ho: int, wo: int, c: int, th: int, tw: int,
+                  geom: dict, *, rows_fixed: bool,
+                  itemsize: int) -> KernelTiles:
+    """The sampling kernels' tiles (see ``choose_kernel_tiles``); their
+    ``tile_m`` is their ``tile_c``."""
+    shapes = [(th, tw)]
+    while th * tw > PIX_LANES[0]:
+        if th >= tw and not rows_fixed:
+            th = -(-th // 2)
+        elif tw > 1:
+            tw = -(-tw // 2)
+        else:
+            break
+        shapes.append((th, tw))
+    line = SAMPLE_LINE // itemsize
+    tcs = sorted({_divisor_at_most(c, cap)
+                  for cap in (line, 32, 16, 8, 4, 2, 1) if cap <= line},
+                 reverse=True)
+    for budget in (FWD_SMEM_TWO, SMEM_PER_BLOCK):
+        for tc in tcs:
+            fit = [(a, b) for a, b in shapes
+                   if sample_smem_bytes(a, b, tc, itemsize=itemsize,
+                                        **geom) <= budget]
+            for a, b in fit:
+                if n * -(-ho // a) * -(-wo // b) * (c // tc) \
+                        >= SAMPLE_TARGET_BLOCKS:
+                    return KernelTiles(a, b, tc, tc)
+            if fit:
+                return KernelTiles(*fit[-1], tc, tc)
+    _no_fit(shapes[-1][0], shapes[-1][1], geom)
 
 
 def _no_fit(th: int, tw: int, geom: dict):

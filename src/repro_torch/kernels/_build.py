@@ -39,11 +39,9 @@ SIGNATURES = {
         "dcf_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_sample": {
-        "ds_zerocopy": (_I, [_P] * 3 + [_I] * 9 + [ctypes.c_float]
-                        + [_I] * 4 + [_P]),
-        "ds_banded": (_I, [_P] * 3 + [_I] * 9 + [ctypes.c_float]
-                      + [_I] * 4 + [_P]),
-        "ds_smem_bytes": (ctypes.c_longlong, [_I] * 7),
+        "ds_plan": (_I, [_P]),
+        "ds_launch": (_I, [_P] * 4 + [_I, _P]),
+        "ds_smem_bytes": (ctypes.c_longlong, [_I] * 8),
         "ds_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {

@@ -120,7 +120,8 @@ def deform_sample(x: Tensor, offsets: Tensor, *, kernel_size: int = 3,
     """Stage 1: bilinear patch sampling.
 
     x: (N, H, W, C); offsets: (N, Ho, Wo, 2*K*K) raw offset-conv output.
-    Returns (N, Ho, Wo, K*K, C).  Unbounded (``offset_bound`` None): the
+    Returns (N, Ho, Wo, K*K, C) in x's dtype (the kernels take fp32 and
+    bf16 inputs, offsets in either).  Unbounded (``offset_bound`` None): the
     plain gather of ``core.deform_conv.sample_patches``, offsets as they
     are.  Bounded: the offsets are clamped to ±B and sampled by kernel 1b
     from the zero-padded input (``dataflow="zero_copy"``; unspecified
@@ -153,7 +154,7 @@ def deform_sample(x: Tensor, offsets: Tensor, *, kernel_size: int = 3,
         return patches[:, :ho]
     th, tw, tc, _ = _plan.resolve_tiles(
         n, h, w, c, c, tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
-        dtype="sample", **geom)
+        dtype="sample", itemsize=x.element_size(), **geom)
     th, tw = min(th, ho), min(tw, wo)
     xp = _plan.pad_zerocopy(x, tile_h=th, tile_w=tw, ho=ho, wo=wo, **geom)
     return deform_sample_zerocopy(xp, offsets.contiguous(), tile_h=th,

@@ -91,18 +91,19 @@ def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
                   kernel_size: int, stride: int, dilation: int,
                   offset_bound: float, tile_h: int | None = None,
                   tile_w: int | None = None, tile_c: int | None = None,
-                  tile_m: int | None = None,
-                  dtype: str = "fp32") -> tuple[int, int, int, int]:
+                  tile_m: int | None = None, dtype: str = "fp32",
+                  itemsize: int = 4) -> tuple[int, int, int, int]:
     """Explicit tiles win; the chooser for ``dtype`` (``"fp32"``,
     ``"int8"``, ``"int8_chain"``, ``"fp32_bwd"``, ``"sample"``,
-    ``"banded"``) fills the rest, around an explicit ``tile_h``.  Raises
+    ``"banded"``) fills the rest, around an explicit ``tile_h``
+    (``itemsize``: the element bytes the sampling kernels stage).  Raises
     on channel tiles that do not divide the layer."""
     from repro_torch.kernels.ops import check_channel_tiles
     if None in (tile_h, tile_w, tile_c, tile_m):
         kt = choose_kernel_tiles(n, h, w, c, m, kernel_size=kernel_size,
                                  stride=stride, dilation=dilation,
                                  offset_bound=offset_bound, dtype=dtype,
-                                 tile_h=tile_h)
+                                 tile_h=tile_h, itemsize=itemsize)
         tile_h = tile_h or kt.tile_h
         tile_w = tile_w or kt.tile_w
         tile_c = tile_c or kt.tile_c
@@ -211,7 +212,7 @@ def banded_tiles(spec: DCSpec, x: Tensor, offsets: Tensor, m: int, *,
         kernel_size=spec.kernel_size, stride=spec.stride,
         dilation=spec.dilation, offset_bound=spec.offset_bound, tile_h=th,
         tile_w=spec.tile_w, tile_c=spec.tile_c, tile_m=spec.tile_m,
-        dtype=dtype)
+        dtype=dtype, itemsize=x.element_size())
     return th, min(tw, offsets.shape[2]), tc, tm
 
 

@@ -12,9 +12,10 @@ fp32 "3xTF32" tensor-core products in another order), TF32 off for the
 PyTorch side; the backward kernel ``1e-4 * max|plain|`` per
 cotangent (its fp32 atomics and split partial sums reorder the sums);
 int8 kernels exact (``torch.equal``: the same fp32 roundings and exact
-integer sums); the sampling kernels (1b, 3) 1e-6 absolute (the plain
-version's roundings in its order); the matmul 1e-5 * max|plain| in fp32
-and one bf16 step (2^-7 * max|plain|) in bf16.
+integer sums); the sampling kernels (1b, 3) exact in fp32 and bf16
+(``torch.equal``: the plain version's roundings in its order); the
+matmul 1e-5 * max|plain| in fp32 and one bf16 step (2^-7 * max|plain|)
+in bf16.
 """
 import dataclasses
 
@@ -573,38 +574,106 @@ def test_trainer_retry_replays_on_the_kernels(cuda, tmp_path):
 
 # -- sampling (1b, 3), banded forward (4), matmul (5) ---------------------------
 
-SAMPLE_ATOL = 1e-6      # the same roundings in the same order: expect 0
 MM_RTOL = 1e-5          # fp32 sums over k in another order than cuBLAS
 BF16_RTOL = 2.0 ** -7   # one bf16 step at the largest output
+SAMPLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _sample_inputs(case, dtype, device, seed):
+    """A case's zero-copy and banded operands in ``dtype`` (offsets too),
+    at the case's tiles."""
+    k, s, d, b, h, w, c, m, th, tw, tc = case
+    x, off, _ = _inputs(k, h, w, c, m, s, d, b, seed, device)
+    x, off = x.to(dtype), off.to(dtype)
+    ho, wo = off.shape[1], off.shape[2]
+    geom = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b)
+    xp = plan.pad_zerocopy(x, tile_h=th, tile_w=tw, ho=ho, wo=wo, **geom)
+    spec = plan.DCSpec(k, s, d, b, th, dataflow="banded")
+    bands, off_b = plan.banded_inputs(spec, x, off, th)
+    kw = dict(tile_h=th, tile_w=tw, tile_c=tc, **geom)
+    return ((xp, off), (bands, off_b)), kw
+
+
+def _check_sample_kernels(case, dtype, device, seed):
+    """Both sampling kernels against their plain versions: one launch
+    counted each, ``torch.equal``, in ``dtype``."""
+    from repro_torch.kernels import deform_sample as S
+    k, _, _, _, _, _, c, *_ = case
+    (zc, bd), kw = _sample_inputs(case, dtype, device, seed)
+    for fn, plain, args in ((S.deform_sample_zerocopy,
+                             S.deform_sample_zerocopy_plain, zc),
+                            (S.deform_sample_banded,
+                             S.deform_sample_banded_plain, bd)):
+        before = fn.launches
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        want = plain(*args, **kw)
+        assert got.dtype == want.dtype == dtype
+        assert got.shape == want.shape == args[1].shape[:3] + (k * k, c)
+        assert torch.equal(got, want), (
+            fn.__name__, (got.float() - want.float()).abs().max().item())
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_sample_kernels_match_plain(case, cuda):
-    from repro_torch.kernels import deform_sample as S
-    k, s, d, b, h, w, c, m, th, tw, tc = CASES[case]
-    x, off, _ = _inputs(k, h, w, c, m, s, d, b, len(case), cuda)
-    ho, wo = off.shape[1], off.shape[2]
-    geom = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b)
-    xp = plan.pad_zerocopy(x, tile_h=th, tile_w=tw, ho=ho, wo=wo, **geom)
-    kw = dict(tile_h=th, tile_w=tw, tile_c=tc, **geom)
-    before = S.deform_sample_zerocopy.launches
-    got = S.deform_sample_zerocopy(xp, off, **kw)
-    torch.cuda.synchronize()
-    assert S.deform_sample_zerocopy.launches == before + 1
-    want = S.deform_sample_zerocopy_plain(xp, off, **kw)
-    assert got.shape == want.shape == (2, ho, wo, k * k, c)
-    assert (got - want).abs().max().item() <= SAMPLE_ATOL
+    """Kernels 1b and 3 in fp32 and bf16: the plain version's roundings in
+    its order, so equal (the fp32 one and its bf16 rounding)."""
+    for dtype in SAMPLE_DTYPES:
+        _check_sample_kernels(CASES[case], dtype, cuda, len(case))
 
-    spec = plan.DCSpec(k, s, d, b, th, dataflow="banded")
-    bands, off_b = plan.banded_inputs(spec, x, off, th)
-    kw = dict(tile_h=th, tile_w=tw, tile_c=tc, **geom)
-    before = S.deform_sample_banded.launches
-    got = S.deform_sample_banded(bands, off_b, **kw)
-    torch.cuda.synchronize()
-    assert S.deform_sample_banded.launches == before + 1
-    want = S.deform_sample_banded_plain(bands, off_b, **kw)
-    assert got.shape == want.shape
-    assert (got - want).abs().max().item() <= SAMPLE_ATOL
+
+# (k, s, d, B, H, W, C, M, th, tw, tc) narrower than a 16-byte vector:
+# one channel a chunk (4-byte fp32, 2-byte bf16 vectors, the bf16 chunk
+# staged without cp.async), and three (lanes not a power of two).
+NARROW = {
+    "tc1": (3, 1, 1, 2.0, 9, 11, 4, 4, 4, 4, 1),
+    "c6_tc3": (3, 2, 1, 1.5, 12, 9, 6, 6, 4, 2, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NARROW))
+def test_sample_kernels_narrow_vectors(case, cuda):
+    from repro_torch.core.tiling import sample_vec_bytes
+    tc = NARROW[case][-1]
+    assert sample_vec_bytes(tc, 4) == 4 and sample_vec_bytes(tc, 2) == 2
+    for dtype in SAMPLE_DTYPES:
+        _check_sample_kernels(NARROW[case], dtype, cuda, len(case))
+
+
+@pytest.mark.parametrize("dtype", SAMPLE_DTYPES)
+def test_sample_kernels_misaligned_source_and_repeat(dtype, cuda):
+    """A source 4 bytes past a 16-byte boundary takes narrower vectors;
+    two calls on the same inputs are equal."""
+    from repro_torch.kernels import deform_sample as S
+    (zc, bd), kw = _sample_inputs(CASES["s1"], dtype, cuda, 2)
+    for fn, plain, (src, off) in (
+            (S.deform_sample_zerocopy, S.deform_sample_zerocopy_plain, zc),
+            (S.deform_sample_banded, S.deform_sample_banded_plain, bd)):
+        shift = 4 // src.element_size()
+        buf = torch.empty(src.numel() + shift, dtype=dtype, device=cuda)
+        moved = buf[shift:].view(src.shape)
+        moved.copy_(src)
+        assert moved.is_contiguous() and moved.data_ptr() % 16 == 4
+        got = fn(moved, off, **kw)
+        again = fn(moved, off, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got, plain(src, off, **kw))
+        assert torch.equal(fn(src, off, **kw), got)
+
+
+def test_sample_kernels_refuse_other_dtypes(cuda):
+    """fp16 (source or offsets) raises before any launch."""
+    from repro_torch.kernels import deform_sample as S
+    (zc, bd), kw = _sample_inputs(CASES["s1"], torch.float32, cuda, 2)
+    for fn, (src, off) in ((S.deform_sample_zerocopy, zc),
+                           (S.deform_sample_banded, bd)):
+        before = fn.launches
+        for args in ((src.half(), off), (src, off.half())):
+            with pytest.raises(ValueError, match="float32 or bfloat16"):
+                fn(*args, **kw)
+        assert fn.launches == before
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
