@@ -179,6 +179,30 @@ Phases, each of which exits non-zero on failure:
    (``torch.profiler``), peak memory.  The LM path runs no kernel of the
    port (its attention is plain PyTorch, as the JAX model's is XLA): the
    phase counts 0 launches of every kernel.
+14. bf16 DCL: the bf16 instances of kernels 1a, 4 and 2 at the five DCL
+   shapes of a training step (batch 8, 512), both serving buckets'
+   shapes at batch 4, phase 3's three edge geometries and a narrow chunk
+   (C 4, tile_c 2), on bf16 inputs (offsets beyond ±B in a share of
+   taps).  Per case and dataflow: 1a-bf16 (zero-copy) and 4-bf16
+   (banded) within one bf16 step of their plain versions on the card
+   (``max|kernel - plain| <= 2^-7 * max|plain|``, and at most 1% of
+   the outputs unequal: a kernel that skipped the bf16 rounding of the
+   patches differs in ~40%), two calls ``torch.equal``, shared memory
+   equal to the chooser's bf16 mirror; per case kernel 2-bf16 against
+   its plain version (dx and d_offsets, rounded to bf16, within one bf16
+   step of their max|plain|; dw, fp32, within phase 7's 1e-4) and its
+   shared memory against the mirrors.  Each prints its instance, its
+   time back to back and queued behind a busy device (CUDA events), the
+   fp32 kernel's time on the same inputs upcast, the plain version's,
+   its bound and its share of it: the bf16 products at 989 TFLOP/s or
+   the bytes at 2 an element over 3.35 TB/s (1a, 4); kernel 2's dP as
+   one bf16 pass at 989 TFLOP/s plus its dw as two tf32 passes at 494.7
+   TFLOP/s, or its bytes (2).  Then
+   the entry-point run: every count set to 0, and per case and dataflow
+   one ``ops.deform_conv`` on the bf16 inputs and one gradient through
+   it, each forward launching exactly one bf16 kernel of its dataflow and
+   no fp32 forward kernel, each gradient one bf16 kernel 2 with d_x,
+   d_offsets and d_w within one bf16 step of the plain backward.
 
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
 run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
@@ -195,7 +219,10 @@ phase 5's time queued behind a busy device (a call is 2-4 launches of
 largest of their three floors.  The sampling kernels' (1b, 3) rows count
 their fp32 and bf16 launches of phase 9's entry-point run, add
 ``queued_ms`` and ``flushed_ms`` (phase 9's times queued and with the L2
-flushed) and give each dtype apart in ``by_dtype``.
+flushed) and give each dtype apart in ``by_dtype``.  The bf16 rows of
+kernels 1a, 4 and 2 (``*_bf16``) count phase 14's entry-point run, their
+times are phase 14's per case summed over the run's launches, and they add
+``queued_ms`` and ``fp32_ms`` (the fp32 kernel on the same inputs).
 
 TF32 is off for every fp32 matmul and convolution.  Without a GPU, or
 without the rest of the repository beside it, the script prints no result
@@ -245,6 +272,9 @@ SAMPLE_DTYPES = ("float32", "bfloat16")
 L2_BYTES = 50 * 2 ** 20     # H100 L2 cache
 L2_FLUSH_BYTES = 2 * L2_BYTES
 BF16_RTOL = 2.0 ** -7       # one bf16 step at the largest output
+BF16_UNEQUAL_MAX = 0.01     # share of a bf16 forward's outputs unequal to
+                            # the plain version's (fp32 sums reordered; a
+                            # kernel without the bf16 patch rounding: ~40%)
 BANDED_VS_ZC_RTOL = 1e-4    # served banded vs zero-copy (summation order)
 BANDED_LOSS_RTOL = 1e-5     # step-0 loss, banded vs zero-copy
 BANDED_TRAIN_STEPS = 2
@@ -302,10 +332,19 @@ def fwd_instance(lib, src, wt, *, n, ho, wo, c, m, s, d, b, th, tw, tc,
                     tile_m=tm)
     vec = staging_vec(src, wt, tc, tm)
     inst["loads"] = ("W 16-byte" if vec & 1 else "W element-wise") \
-        + (", band 16-byte" if vec & 2 else ", band element-wise")
-    inst["blocks_per_sm"] = lib.dcf_blocks_per_sm(K, s, d, math.ceil(b),
-                                                  th, tw, tc)
+        + band_loads(vec, src.element_size())
+    inst["blocks_per_sm"] = lib.dcf_blocks_per_sm(
+        K, s, d, math.ceil(b), th, tw, tc, src.element_size())
     return inst
+
+
+def band_loads(vec: int, size: int) -> str:
+    """The band staging that a ``staging_vec`` of kernels 1a, 4 or 2
+    names, for elements of ``size`` bytes."""
+    from repro_torch.kernels._staging import band_channels
+    unit = band_channels(vec)
+    return f", band {unit * size}-byte" if unit > 1 \
+        else ", band element-wise"
 
 
 def two_bounds(flops: float, nbytes: float) -> dict:
@@ -372,7 +411,7 @@ def check_kernel(case: dict, gen) -> dict:
     err = (y - yp).abs().max().item()
     scale = yp.abs().max().item()
     lib = _build.load("deform_conv_fused")
-    smem_c = lib.dcf_smem_bytes(K, s, d, 2, th, tw, tc)
+    smem_c = lib.dcf_smem_bytes(K, s, d, 2, th, tw, tc, 4)
     inst = fwd_instance(lib, xp, wt, n=n, ho=ho, wo=wo, c=c, m=m, s=s, d=d,
                         b=B, th=th, tw=tw, tc=tc, tm=tm)
     smem_py = smem_bytes(th, tw, tc, kernel_size=K, stride=s, dilation=d,
@@ -565,9 +604,32 @@ def counted():
             "flash_attention_bh": flash_attention_bh}
 
 
+def counted_bf16():
+    """The wrappers with a bf16 instance, whose ``launches_bf16`` counts
+    its launches (``launches`` counts both instances)."""
+    from repro_torch.kernels import deform_conv_fused as F
+    from repro_torch.kernels.deform_conv_bwd import deform_conv_bwd_zerocopy
+    return {"deform_conv_fused_bf16": F.deform_conv_fused_zerocopy,
+            "deform_conv_banded_bf16": F.deform_conv_fused_banded,
+            "deform_conv_bwd_bf16": deform_conv_bwd_zerocopy}
+
+
 def reset_counts() -> None:
     for fn in counted().values():
         fn.launches = 0
+    for fn in counted_bf16().values():
+        fn.launches_bf16 = 0
+
+
+def read_bf16_counts() -> dict[str, int]:
+    """Launches of each bf16 instance, and of the fp32 forward instances
+    (``fp32_forward``: kernels 1a and 4 together)."""
+    fns = counted_bf16()
+    out = {name: fn.launches_bf16 for name, fn in fns.items()}
+    out["fp32_forward"] = sum(
+        fns[k].launches - fns[k].launches_bf16
+        for k in ("deform_conv_fused_bf16", "deform_conv_banded_bf16"))
+    return out
 
 
 def read_counts() -> dict[str, int]:
@@ -1041,15 +1103,15 @@ def check_bwd_kernel(case: dict, gen) -> dict:
         lambda: deform_conv_bwd_zerocopy(xp, offp, g, wt, **kw))
     lib = load_kernel()
     geom = dict(kernel_size=K, stride=s, dilation=d, offset_bound=b)
-    smem_c = (lib.dcb_smem_bytes(K, s, d, math.ceil(b), th, tw, tc),
-              lib.dcb_dw_smem_bytes(K, s, d, math.ceil(b), th, tw, tc))
+    smem_c = (lib.dcb_smem_bytes(K, s, d, math.ceil(b), th, tw, tc, 4),
+              lib.dcb_dw_smem_bytes(K, s, d, math.ceil(b), th, tw, tc, 4))
     smem_py = (bwd_smem_bytes(th, tw, tc, **geom),
                bwd_dw_smem_bytes(th, tw, tc, **geom))
     kplan = bwd_plan(n, ho, wo, c, m, kernel_size=K, tile_h=th, tile_w=tw,
                      tile_c=tc)
     vec = staging_vec(xp, g, wt, tc)
     kplan["loads"] = ("W/g 16-byte" if vec & 1 else "W/g element-wise") \
-        + (", band 16-byte" if vec & 2 else ", band element-wise")
+        + band_loads(vec, xp.element_size())
     ms = time_ms(lambda: deform_conv_bwd_zerocopy(xp, offp, g, wt, **kw),
                  reps=5, iters=5)
     plain_ms = time_ms(
@@ -1625,7 +1687,7 @@ def check_banded_kernel(case: dict, gen) -> dict:
     err = (y - yp).abs().max().item()
     scale = yp.abs().max().item()
     lib = F.load_kernel()
-    smem_c = lib.dcf_smem_bytes(K, s, d, math.ceil(b), th, tw, tc)
+    smem_c = lib.dcf_smem_bytes(K, s, d, math.ceil(b), th, tw, tc, 4)
     inst = fwd_instance(lib, bands, wt, n=n, ho=offb.shape[1], wo=wo, c=c,
                         m=m, s=s, d=d, b=b, th=th, tw=tw, tc=tc, tm=tm)
     smem_py = smem_bytes(th, tw, tc, kernel_size=K, stride=s, dilation=d,
@@ -2663,6 +2725,363 @@ def fwd_training(shapes: list[dict], launches: int, steps: int, what: str,
                 device_step_ms=device_step_ms)
 
 
+BF16_RTOL = 2.0 ** -7        # one bf16 step at the largest output
+
+
+def bf16_bound(op_ms: float, nbytes: float) -> dict:
+    """A bf16 instance's bound (ms): its products' time ``op_ms`` at their
+    types' peak rates, or its bytes at the HBM rate, whichever is
+    larger."""
+    byte_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(op_ms, byte_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes")
+
+
+def bf16_case(case: dict, gen) -> dict:
+    """Phase 14 on one geometry: kernels 1a and 4 in bf16 against their
+    plain versions on the card (one bf16 step, two calls equal, shared
+    memory against the chooser's mirror), timed back to back and queued
+    beside the fp32 kernel on the same inputs; kernel 2 in bf16 timed the
+    same way, and the plain backward that the entry-point run's gradients
+    are held to.  Returns the record (inputs under ``inputs``)."""
+    import torch
+
+    from repro_torch.core.tiling import (bwd_dw_smem_bytes, bwd_smem_bytes,
+                                         out_hw, smem_bytes)
+    from repro_torch.kernels import deform_conv_bwd as BW
+    from repro_torch.kernels import deform_conv_fused as F
+    from repro_torch.kernels import plan
+
+    n, h, w, c, m = case["n"], case["h"], case["w"], case["c"], case["m"]
+    s, d, b = case["stride"], case["dilation"], case.get("bound", B)
+    k2 = K * K
+    ho, wo = out_hw(h, w, kernel_size=K, stride=s, dilation=d)
+    x = torch.randn(n, h, w, c, device="cuda", generator=gen).bfloat16()
+    off = (torch.randn(n, ho, wo, 2 * k2, device="cuda", generator=gen)
+           * 1.5).bfloat16()
+    wd = (torch.randn(k2, c, m, device="cuda", generator=gen)
+          / (k2 * c) ** 0.5).bfloat16()
+    g = torch.randn(n, ho, wo, m, device="cuda", generator=gen).bfloat16()
+    f32 = [t.float() for t in (x, off, wd, g)]
+    geom = dict(kernel_size=K, stride=s, dilation=d, offset_bound=b)
+    lib = F.load_kernel()
+    p = n * ho * wo
+    flops = 2 * p * k2 * c * m
+    rec = dict(case, ho=ho, wo=wo, inputs=(x, off, wd, g))
+
+    def prepare(xx, oo, ww, dataflow):
+        spec = plan.DCSpec(K, s, d, b, tile_c=case.get("tile_c"),
+                           dataflow=dataflow)
+        if dataflow == "zero_copy":
+            th, tw, tc, tm = plan.spec_tiles(spec, xx, oo, ww)
+            src, op, wt = plan.zerocopy_inputs(spec, xx, oo, ww, th, tw, tc)
+            fns = (F.deform_conv_fused_zerocopy,
+                   F.deform_conv_fused_zerocopy_plain)
+        else:
+            th, tw, tc, tm = plan.banded_tiles(spec, xx, oo, m,
+                                               dtype="banded")
+            src, op = plan.banded_inputs(spec, xx, oo, th)
+            wt = plan.tile_weights(ww, tc)
+            fns = (F.deform_conv_fused_banded,
+                   F.deform_conv_fused_banded_plain)
+        kw = dict(geom, tile_h=th, tile_w=tw, tile_c=tc, tile_m=tm)
+        return fns, (src, op, wt), kw
+
+    for dataflow in ("zero_copy", "banded"):
+        (fn, plain), args, kw = prepare(x, off, wd, dataflow)
+        y = fn(*args, **kw)
+        torch.cuda.synchronize()
+        repeatable = torch.equal(y, fn(*args, **kw))
+        yp = plain(*args, **kw)
+        err = (y.float() - yp.float()).abs().max().item()
+        scale = yp.float().abs().max().item()
+        unequal = (y != yp).float().mean().item()
+        th, tw, tc, tm = (kw["tile_h"], kw["tile_w"], kw["tile_c"],
+                          kw["tile_m"])
+        smem_c = lib.dcf_smem_bytes(K, s, d, math.ceil(b), th, tw, tc, 2)
+        smem_py = smem_bytes(th, tw, tc, itemsize=2, **geom)
+        inst = fwd_instance(lib, args[0], args[2], n=n, ho=args[1].shape[1],
+                            wo=wo, c=c, m=m, s=s, d=d, b=b, th=th, tw=tw,
+                            tc=tc, tm=tm)
+        ms = time_ms(lambda: fn(*args, **kw), reps=3, iters=10)
+        q_ms = queued_ms(lambda: fn(*args, **kw))
+        plain_ms = time_ms(lambda: plain(*args, **kw), reps=2, iters=2)
+        (fn32, _), args32, kw32 = prepare(*f32[:3], dataflow)
+        fp32_ms = time_ms(lambda: fn32(*args32, **kw32), reps=3, iters=10)
+        nbytes = 2 * (n * h * w * c + p * 2 * k2 + k2 * c * m + p * m)
+        part = dict(tiles=[th, tw, tc, tm], smem_bytes=smem_c, instance=inst,
+                    repeatable=repeatable, max_abs_err=err,
+                    max_abs_plain=scale, unequal_share=unequal, ms=ms,
+                    queued_ms=q_ms, plain_ms=plain_ms, fp32_ms=fp32_ms,
+                    flops=flops, op_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                    bytes=nbytes,
+                    **bf16_bound(flops / PEAK_BF16_FLOPS * 1e3, nbytes))
+        rec[dataflow] = part
+        ok = err <= BF16_RTOL * scale and repeatable and smem_c == smem_py \
+            and unequal <= BF16_UNEQUAL_MAX
+        print(f"  {case['label']:<28} {dataflow:<9} n={n} tiles {th}x{tw} "
+              f"tc={tc} tm={tm} smem={smem_c} err={err:.3e} "
+              f"(max|plain|={scale:.3f}, {unequal:.2e} unequal) kernel="
+              f"{ms:.4f} ms queued={q_ms:.4f} ms fp32 kernel={fp32_ms:.4f} "
+              f"ms plain={plain_ms:.3f} ms bound={part['bound_ms']:.4f} ms "
+              f"({part['bound_by']}; {part['bound_ms'] / ms:.1%} of "
+              f"kernel, {part['bound_ms'] / q_ms:.1%} of queued) "
+              f"{'ok' if ok else 'FAIL'}\n"
+              f"    instance: {inst['lanes']} pixel lanes, {inst['tiles']} "
+              f"tiles x {inst['m_tiles']} M tiles x {inst['c_groups']} C "
+              f"groups, {inst['loads']}, {inst['blocks_per_sm']} blocks an "
+              f"SM; two calls torch.equal: {repeatable}")
+        if smem_c != smem_py:
+            fail(f"bf16 {case['label']} {dataflow}: shared memory {smem_c} "
+                 f"(kernel) != {smem_py} (chooser)")
+        if err > BF16_RTOL * scale:
+            fail(f"bf16 {case['label']} {dataflow}: max|kernel - plain| = "
+                 f"{err} exceeds 2^-7 * {scale}")
+        if unequal > BF16_UNEQUAL_MAX:
+            fail(f"bf16 {case['label']} {dataflow}: {unequal:.2e} of the "
+                 f"outputs differ from the plain version's, more than "
+                 f"{BF16_UNEQUAL_MAX}")
+        if not repeatable:
+            fail(f"bf16 {case['label']} {dataflow}: two calls differ")
+
+    # Kernel 2 at the backward's own tiles (plan.bounded_backward's).
+    spec = plan.DCSpec(K, s, d, b, tile_c=case.get("tile_c"))
+
+    def bwd_args(xx, oo, ww):
+        th, tw, tc, _ = plan.spec_tiles(spec, xx, oo, ww, dtype="fp32_bwd")
+        xp, op, wt = plan.zerocopy_inputs(spec, xx, oo, ww, th, tw, tc)
+        return (xp, op, wt), dict(geom, tile_h=th, tile_w=tw, tile_c=tc)
+
+    (xp, op, wt), kwb = bwd_args(x, off, wd)
+
+    def bwd():
+        return BW.deform_conv_bwd_zerocopy(xp, op, g, wt, **kwb)
+    got = bwd()
+    torch.cuda.synchronize()
+    dxp, doff, dwt = BW.deform_conv_bwd_zerocopy_plain(xp, op, g, wt, **kwb)
+    p0 = d * (K // 2) + math.ceil(b)
+    want = (dxp[:, p0:p0 + h, p0:p0 + w], doff,
+            plan.untile_weights(dwt, K).bfloat16())
+    # d_input and d_offsets (rounded to bf16) within one bf16 step,
+    # d_weights (fp32) within phase 7's BWD_RTOL.
+    rel = [(a.float() - r.float()).abs().max().item()
+           / r.float().abs().max().item()
+           for a, r in zip(got, (dxp, doff, dwt))]
+    k_err = max(rel[:2])
+    ms = time_ms(bwd, reps=3, iters=3)
+    q_ms = queued_ms(bwd, calls=5)
+    plain_ms = time_ms(lambda: BW.deform_conv_bwd_zerocopy_plain(
+        xp, op, g, wt, **kwb), reps=1, iters=1)
+    (xp32, op32, wt32), kwb32 = bwd_args(*f32[:3])
+    g32 = f32[3]
+    fp32_ms = time_ms(lambda: BW.deform_conv_bwd_zerocopy(
+        xp32, op32, g32, wt32, **kwb32), reps=3, iters=3)
+    lib_b = BW.load_kernel()
+    th, tw, tc = kwb["tile_h"], kwb["tile_w"], kwb["tile_c"]
+    smem_c = (lib_b.dcb_smem_bytes(K, s, d, math.ceil(b), th, tw, tc, 2),
+              lib_b.dcb_dw_smem_bytes(K, s, d, math.ceil(b), th, tw, tc, 2))
+    smem_py = (bwd_smem_bytes(th, tw, tc, itemsize=2, **geom),
+               bwd_dw_smem_bytes(th, tw, tc, itemsize=2, **geom))
+    kplan = BW.bwd_plan(n, ho, wo, c, m, kernel_size=K, tile_h=th,
+                        tile_w=tw, tile_c=tc)
+    vec = BW.staging_vec(xp, g, wt, tc)
+    kplan["loads"] = ("W/g 8-byte" if vec & 1 else "W/g element-wise") \
+        + band_loads(vec, 2)
+    # Its products: dP one bf16 pass, dw two tf32 passes (P split, g
+    # exact in tf32).
+    op_ms = (flops / PEAK_BF16_FLOPS + 2 * flops / PEAK_TF32_FLOPS) * 1e3
+    nbytes = 2 * (2 * n * h * w * c + 2 * p * 2 * k2 + p * m + k2 * c * m) \
+        + 4 * k2 * c * m
+    part = dict(tiles=[th, tw, tc], smem_bytes=smem_c, plan=kplan,
+                kernel_rel_err=k_err, dw_rel_err=rel[2], ms=ms,
+                queued_ms=q_ms, plain_ms=plain_ms, fp32_ms=fp32_ms,
+                flops=3 * flops, op_ms=op_ms, bytes=nbytes,
+                **bf16_bound(op_ms, nbytes))
+    rec["backward"] = part
+    rec["plain_grads"] = want
+    print(f"  {case['label']:<28} kernel 2  tiles {th}x{tw} tc={tc} smem="
+          f"{smem_c} kernel vs plain {k_err:.2e} (relative, larger of dx, "
+          f"d_off) dw {rel[2]:.2e} kernel={ms:.4f} ms queued={q_ms:.4f} ms "
+          f"fp32 kernel={fp32_ms:.4f} ms plain={plain_ms:.3f} ms bound="
+          f"{part['bound_ms']:.4f} ms ({part['bound_by']}, dP one bf16 "
+          f"pass, dw two tf32; {part['bound_ms'] / ms:.1%} of kernel)\n"
+          f"    plan: C groups {kplan['c_groups']} x {kplan['tiles']} tiles, "
+          f"d_weights grid {kplan['dw_grid']} x {kplan['dw_splits']} splits, "
+          f"{kplan['lanes']} pixel lanes, {kplan['warp_tiles']} mma tiles a "
+          f"warp, {kplan['loads']}")
+    if smem_c != smem_py:
+        fail(f"bf16 backward {case['label']}: shared memory {smem_c} "
+             f"(kernel) != {smem_py} (chooser)")
+    if k_err > BF16_RTOL:
+        fail(f"bf16 backward {case['label']}: kernel vs plain {k_err} "
+             f"exceeds 2^-7")
+    if rel[2] > BWD_RTOL:
+        fail(f"bf16 backward {case['label']}: d_weights (fp32) vs plain "
+             f"{rel[2]} exceeds {BWD_RTOL}")
+    return rec
+
+
+def bf16_entry_run(cases: list[dict]) -> dict[str, int]:
+    """The bf16 main path as a user drives it: per case and dataflow one
+    ``ops.deform_conv`` on the case's bf16 inputs and one gradient of
+    sum(y * g) through it, with every count set to 0 just before the run
+    and read just after.  Each forward must launch exactly one bf16
+    kernel of its dataflow and no fp32 forward kernel, each gradient one
+    bf16 kernel 2, and d_x, d_offsets and d_w must lie within one bf16
+    step of the plain backward."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    reset_counts()
+    fwd_of = {"zero_copy": "deform_conv_fused_bf16",
+              "banded": "deform_conv_banded_bf16"}
+    for rec in cases:
+        x, off, wd, g = rec["inputs"]
+        for dataflow in ("zero_copy", "banded"):
+            leaves = [t.clone().requires_grad_(True) for t in (x, off, wd)]
+            before = read_bf16_counts()
+            y = ops.deform_conv(*leaves, offset_bound=rec.get("bound", B),
+                                stride=rec["stride"],
+                                dilation=rec["dilation"],
+                                tile_c=rec.get("tile_c"), dataflow=dataflow)
+            mid = read_bf16_counts()
+            grads = torch.autograd.grad((y.float() * g.float()).sum(),
+                                        leaves)
+            torch.cuda.synchronize()
+            after = read_bf16_counts()
+            want_fwd = {k: before[k] + (k == fwd_of[dataflow])
+                        for k in before}
+            if mid != want_fwd or y.dtype != torch.bfloat16:
+                fail(f"bf16 {rec['label']} {dataflow}: ops.deform_conv "
+                     f"launched {before} -> {mid} ({y.dtype})")
+            if after != dict(mid, deform_conv_bwd_bf16=mid[
+                    "deform_conv_bwd_bf16"] + 1):
+                fail(f"bf16 {rec['label']} {dataflow}: the gradient "
+                     f"launched {mid} -> {after}")
+            errs = {}
+            for name, a, r in zip(("d_x", "d_offsets", "d_w"), grads,
+                                  rec["plain_grads"]):
+                scale = r.float().abs().max().item()
+                errs[name] = (a.float() - r.float()).abs().max().item() \
+                    / scale
+                if a.dtype != torch.bfloat16 or errs[name] > BF16_RTOL:
+                    fail(f"bf16 {rec['label']} {dataflow} {name}: "
+                         f"{errs[name]:.3e} of max|plain| ({a.dtype})")
+            rec[dataflow]["grad_rel_err"] = errs
+    return read_bf16_counts()
+
+
+def bf16_per_path(recs: list[dict], key: str, path: str) -> dict:
+    """One bf16 instance's phase-14 times summed over a path's DCLs, with
+    its bound: ``train`` a training step (batch 8, 512), ``served`` one
+    step of each bucket (batch 4)."""
+    def dcls(r):
+        cnt = r.get("per_step", {})
+        return cnt.get("train", 0) if path == "train" else \
+            sum(v for k, v in cnt.items() if k != "train")
+    out = {k: sum(r[key][k] * dcls(r) for r in recs)
+           for k in ("ms", "queued_ms", "fp32_ms", "op_ms", "bytes")}
+    out["dcls"] = sum(dcls(r) for r in recs)
+    out.update(bf16_bound(out["op_ms"], out["bytes"]))
+    return out
+
+
+def bf16_phase(per_step: dict, train_step: dict,
+               gen) -> tuple[list[dict], list[dict]]:
+    """Phase 14; returns its cases' records and the three bf16 rows of the
+    kernels line."""
+    cases = [dict(label=f"{h}x{w}x{c}->{m} s{s}", n=BATCH, h=h, w=w, c=c,
+                  m=m, stride=s, dilation=1, per_step=cnt)
+             for (h, w, c, m, s), cnt in per_step.items()]
+    cases += [dict(label=f"train {h}x{w}x{c}->{m} s{s}", n=TRAIN_BATCH, h=h,
+                   w=w, c=c, m=m, stride=s, dilation=1, per_step=cnt)
+              for (h, w, c, m, s), cnt in train_step.items()]
+    cases += [
+        dict(label="ragged 17x23x64->64 s1", n=2, h=17, w=23, c=64, m=64,
+             stride=1, dilation=1),
+        dict(label="dilation2 20x20x64->64", n=2, h=20, w=20, c=64, m=64,
+             stride=1, dilation=2),
+        dict(label="ragged 15x15x32->48 s2", n=1, h=15, w=15, c=32, m=48,
+             stride=2, dilation=1),
+        dict(label="narrow 16x16x4->8 tc2", n=2, h=16, w=16, c=4, m=8,
+             stride=1, dilation=1, tile_c=2),
+    ]
+    recs = [bf16_case(case, gen) for case in cases]
+    if not any(r["zero_copy"]["tiles"][2] == 2 for r in recs):
+        fail("phase 14 missed the narrow-chunk case")
+    launches = bf16_entry_run(recs)
+    print(f"  entry-point run (ops.deform_conv and its gradient, both "
+          f"dataflows, {len(recs)} cases): launches {launches}")
+    if launches["fp32_forward"] or any(
+            launches[k] != len(recs) for k in ("deform_conv_fused_bf16",
+                                               "deform_conv_banded_bf16")) \
+            or launches["deform_conv_bwd_bf16"] != 2 * len(recs):
+        fail(f"phase 14's run launched {launches}")
+    for r in recs:
+        del r["inputs"], r["plain_grads"]
+    rows = []
+    for name, key, source, replaces in (
+            ("deform_conv_fused_bf16", "zero_copy", "deform_conv_fused.cu",
+             "src/repro/kernels/band_pipeline.py:644"),
+            ("deform_conv_banded_bf16", "banded", "deform_conv_fused.cu",
+             "src/repro/kernels/deform_conv_fused.py:130"),
+            ("deform_conv_bwd_bf16", "backward", "deform_conv_bwd.cu",
+             "src/repro/kernels/deform_conv_bwd.py:304")):
+        parts = [r[key] for r in recs]
+        # One launch of each case in the run (two of kernel 2: one a
+        # dataflow), so the run's time is the cases' times summed.
+        per = 2 if key == "backward" else 1
+        run = {k: per * sum(pt[k] for pt in parts)
+               for k in ("ms", "queued_ms", "plain_ms", "fp32_ms", "op_ms",
+                         "bytes")}
+        bound = bf16_bound(run["op_ms"], run["bytes"])
+        err_key = "kernel_rel_err" if key == "backward" else "max_abs_err"
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces + " (bf16)",
+            "launches": launches[name],
+            "max_abs_err": max(pt[err_key] for pt in parts),
+            "ms": run["ms"],
+            "plain_ms": run["plain_ms"],
+            "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
+            "library_ms": None,
+            "queued_ms": run["queued_ms"],
+            "fp32_ms": run["fp32_ms"],
+            "bound_note": ("dP one bf16 pass at 989 TFLOP/s, dw two tf32 "
+                           "passes at 494.7 TFLOP/s" if key == "backward"
+                           else "bf16 products at 989 TFLOP/s")
+                          + ", or the bytes at 3.35 TB/s",
+        }
+        if key == "backward":
+            row["max_abs_err_note"] = "larger of dx, d_off relative to " \
+                                      "its max|plain|"
+            row["dw_rel_err"] = max(pt["dw_rel_err"] for pt in parts)
+        paths = ("train",) if key == "backward" else ("train", "served")
+        for path in paths:
+            row[path] = t = bf16_per_path(recs, key, path)
+            what = "a training step" if path == "train" else "a served run"
+            print(f"  {name} {what} ({t['dcls']} DCLs): kernel "
+                  f"{t['ms']:.3f} ms (queued "
+                  f"{t['queued_ms']:.3f}), fp32 kernel on the same inputs "
+                  f"{t['fp32_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}; {t['bound_ms'] / t['ms']:.1%} of the "
+                  f"kernel)")
+        rows.append(row)
+        print(f"  {name} per entry-point run: {row['launches']} launches, "
+              f"kernel {row['ms']:.3f} ms (queued {row['queued_ms']:.3f}), "
+              f"fp32 kernel on the same inputs {row['fp32_ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.1%} of "
+              f"the kernel)")
+    print("  no single PyTorch call computes the bounded deformable conv or "
+          "its backward, so there is no library time to compare with")
+    return recs, rows
+
+
 def main() -> int:
     try:
         import torch
@@ -3133,6 +3552,11 @@ def main() -> int:
 
     print("== 13. LM serving at full width")
     lm_phase(record)
+
+    print("== 14. bf16 DCL (kernels 1a, 4 and 2 in bf16) vs plain on the "
+          "card")
+    record["bf16_shapes"], bf16_rows = bf16_phase(per_step, train_step, gen)
+    kernels["kernels"] += bf16_rows
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

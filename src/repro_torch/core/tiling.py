@@ -6,11 +6,12 @@ vector memory: here a thread block gets at most 227 KB of shared memory
 and the card has 132 SMs to fill.  The chooser is a plain function of the
 layer's shape and datapath (no cache, no tuning table); ``smem_bytes``,
 ``q_smem_bytes``, ``bwd_smem_bytes`` and ``bwd_dw_smem_bytes`` mirror the
-kernels' own ``*_smem_bytes`` exports (``sample_smem_bytes`` that of the
-sampling kernels), the ``bwd_*`` planners give the backward kernel its
-grids and ``fwd_c_groups`` the forward kernels' (fp32 and int8) C
-groups.  The TPU chooser's scheduling knobs (``cores``,
-``dw_flush_every_step``) have no counterpart here.
+kernels' own ``*_smem_bytes`` exports at the element size of their
+instance (``sample_smem_bytes`` that of the sampling kernels), the
+``bwd_*`` planners give the backward kernel its grids and
+``fwd_c_groups`` the forward kernels' (fp32, bf16 and int8) C groups.
+The TPU chooser's scheduling knobs (``cores``, ``dw_flush_every_step``)
+have no counterpart here.
 """
 from __future__ import annotations
 
@@ -39,17 +40,24 @@ Q_TILE_C_MIN = 16
 Q_STAGES = 2
 Q_ROW_PAD = 16
 
-# The fp32 forward (csrc/deform_conv_fused.cu, kernels 1a and 4): a block
-# of 8 warps computes up to PIX_LANES[-1] output pixels by FWD_TILE_M
-# output channels on the tensor cores, stepping C in chunks of up to
-# FWD_TILE_C channels, two in flight; a chunk of FWD_TILE_C_MIN channels
-# at a larger pixel tile beats FWD_TILE_C at a smaller one.  FWD_SMEM_TWO:
-# the most shared memory a block may take so that two fit an SM (228 KB an
-# SM, 1 KB of it reserved a block).
+# The fused forward (csrc/deform_conv_fused.cu, kernels 1a and 4, fp32 and
+# bf16): a block of 8 warps computes up to PIX_LANES[-1] output pixels by
+# FWD_TILE_M output channels on the tensor cores, stepping C in chunks of
+# up to FWD_TILE_C channels, two in flight; a chunk of FWD_TILE_C_MIN
+# channels at a larger pixel tile beats FWD_TILE_C at a smaller one.
+# FWD_SMEM_TWO: the most shared memory a block may take so that two fit an
+# SM (228 KB an SM, 1 KB of it reserved a block).  Per element size (4:
+# fp32, 2: bf16): FWD_MMA_DEPTH, the rows of one mma step (tf32 m16n8k8,
+# bf16 m16n8k16); FWD_P_PAD and FWD_W_PAD, the elements a patch row and a
+# weight row take past their data (bank spread: the fp32 W rows are
+# XOR-swizzled instead).
 FWD_TILE_M = 128
 FWD_TILE_C = 8
 FWD_TILE_C_MIN = 4
 FWD_SMEM_TWO = 233_472 // 2 - 1_024
+FWD_MMA_DEPTH = {4: 8, 2: 16}
+FWD_P_PAD = {4: 4, 2: 8}
+FWD_W_PAD = {4: 0, 2: 8}
 
 
 def band_extent(tile: int, *, kernel_size: int, stride: int,
@@ -78,27 +86,40 @@ def pix_lanes(tile_h: int, tile_w: int) -> int:
                      f"{PIX_LANES[-1]} pixels per block")
 
 
-def fwd_rows_pad(tile_c: int, *, kernel_size: int) -> int:
-    """Rows of the fp32 forward's patch and weight chunks: K*K*tile_c
-    padded to whole 8-deep mma steps."""
-    return -(-kernel_size * kernel_size * tile_c // 8) * 8
+def _check_itemsize(itemsize: int) -> None:
+    if itemsize not in (4, 2):
+        raise ValueError(f"element size {itemsize}: the fused DCL kernels "
+                         f"take fp32 (4 bytes) or bf16 (2 bytes)")
+
+
+def fwd_rows_pad(tile_c: int, *, kernel_size: int, itemsize: int = 4) -> int:
+    """Rows of the fused forward's patch and weight chunks: K*K*tile_c
+    padded to whole mma steps (``FWD_MMA_DEPTH``: 8 deep in fp32, 16 in
+    bf16)."""
+    _check_itemsize(itemsize)
+    step = FWD_MMA_DEPTH[itemsize]
+    return -(-kernel_size * kernel_size * tile_c // step) * step
 
 
 def smem_bytes(tile_h: int, tile_w: int, tile_c: int, *, kernel_size: int,
-               stride: int, dilation: int, offset_bound: float) -> int:
-    """Dynamic shared memory of one block of the fp32 forward; mirrors
-    ``dcf_smem_bytes`` in ``csrc/deform_conv_fused.cu``: two band chunks
-    (``_band_floats``), two weight chunks (``fwd_rows_pad`` rows by
-    ``FWD_TILE_M`` channels), the patch tile (pixel lanes by the padded
-    rows + 4) and the corner geometry (ty, tx, index per tap and pixel)."""
+               stride: int, dilation: int, offset_bound: float,
+               itemsize: int = 4) -> int:
+    """Dynamic shared memory of one block of the fused forward for
+    elements of ``itemsize`` bytes; mirrors ``dcf_smem_bytes`` in
+    ``csrc/deform_conv_fused.cu``: two band chunks (``_band_bytes``), two
+    weight chunks (``fwd_rows_pad`` rows by ``FWD_TILE_M`` channels +
+    ``FWD_W_PAD``), the patch tile (pixel lanes by the padded rows +
+    ``FWD_P_PAD``) and the corner geometry (ty, tx, index per tap and
+    pixel, 4 bytes each)."""
     pix = pix_lanes(tile_h, tile_w)
     k2 = kernel_size * kernel_size
-    band = _band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
-                        stride=stride, dilation=dilation,
-                        offset_bound=offset_bound)
-    rows = fwd_rows_pad(tile_c, kernel_size=kernel_size)
-    return 4 * (2 * band + 2 * rows * FWD_TILE_M + pix * (rows + 4)
-                + 3 * k2 * pix)
+    band = _band_bytes(tile_h, tile_w, tile_c, kernel_size=kernel_size,
+                       stride=stride, dilation=dilation,
+                       offset_bound=offset_bound, itemsize=itemsize)
+    rows = fwd_rows_pad(tile_c, kernel_size=kernel_size, itemsize=itemsize)
+    return 2 * band + itemsize * (
+        2 * rows * (FWD_TILE_M + FWD_W_PAD[itemsize])
+        + pix * (rows + FWD_P_PAD[itemsize])) + 12 * k2 * pix
 
 
 def q_rows_pad(tile_c: int, *, kernel_size: int) -> int:
@@ -154,17 +175,18 @@ _BWD_LD_G = BWD_DW_COLS + 8
 _BWD_LD_P = BWD_DW_ROWS + 8
 
 
-def _band_floats(tile_h: int, tile_w: int, tile_c: int, *,
-                 kernel_size: int, stride: int, dilation: int,
-                 offset_bound: float) -> int:
-    """The band chunk of the fp32 forward and of the backward: the Eq. 6
-    band's positions with tile_c channels innermost, rounded to 4
-    floats."""
+def _band_bytes(tile_h: int, tile_w: int, tile_c: int, *,
+                kernel_size: int, stride: int, dilation: int,
+                offset_bound: float, itemsize: int = 4) -> int:
+    """The band chunk of the fused forward and of the backward: the Eq. 6
+    band's positions with tile_c channels innermost, in elements of
+    ``itemsize`` bytes, rounded to 16 bytes."""
+    _check_itemsize(itemsize)
     bh = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
                      dilation=dilation, offset_bound=offset_bound)
     bw = band_extent(tile_w, kernel_size=kernel_size, stride=stride,
                      dilation=dilation, offset_bound=offset_bound)
-    return -(-bh * bw * tile_c // 4) * 4
+    return -(-bh * bw * tile_c * itemsize // 16) * 16
 
 
 def bwd_rows_pad(tile_h: int, tile_w: int, tile_c: int, *,
@@ -203,46 +225,49 @@ def bwd_warp_tiles(tile_h: int, tile_w: int, tile_c: int, *,
 
 def bwd_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
                    kernel_size: int, stride: int, dilation: int,
-                   offset_bound: float) -> int:
+                   offset_bound: float, itemsize: int = 4) -> int:
     """Dynamic shared memory of one block of the backward's d_input /
-    d_offsets kernel; mirrors ``dcb_smem_bytes`` in
-    ``csrc/deform_conv_bwd.cu``: the staged band chunk
-    (``_bwd_band_floats``), ``BWD_STAGES`` M steps of W and g
-    (``bwd_rows_pad`` rows and the pixel lanes, 16 channels + 4) or the dP
-    chunk (lanes by the padded rows + 8 or + 16), whichever is larger; per
-    tap and pixel the corner geometry (index, ty, tx), the two d_offsets
-    sums and four (dP offset, weight) corner entries; per band position
-    an entry start (plus one) and a dx_pad offset."""
+    d_offsets kernel for inputs of ``itemsize`` bytes; mirrors
+    ``dcb_smem_bytes`` in ``csrc/deform_conv_bwd.cu``: the staged band
+    chunk (``_band_bytes``), ``BWD_STAGES`` M steps of W and g in the
+    inputs' type (``bwd_rows_pad`` rows and the pixel lanes, 16 channels
+    + 4) or the fp32 dP chunk (lanes by the padded rows + 8 or + 16),
+    whichever is larger; per tap and pixel the corner geometry (index,
+    ty, tx), the two d_offsets sums and four (dP offset, weight) corner
+    entries; per band position an entry start (plus one) and a dx_pad
+    offset (4 bytes each)."""
     pix = pix_lanes(tile_h, tile_w)
     pairs = kernel_size * kernel_size * pix
-    band = _band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
-                        stride=stride, dilation=dilation,
-                        offset_bound=offset_bound)
+    band = _band_bytes(tile_h, tile_w, tile_c, kernel_size=kernel_size,
+                       stride=stride, dilation=dilation,
+                       offset_bound=offset_bound, itemsize=itemsize)
     npos = band_extent(tile_h, kernel_size=kernel_size, stride=stride,
                        dilation=dilation, offset_bound=offset_bound) \
         * band_extent(tile_w, kernel_size=kernel_size, stride=stride,
                       dilation=dilation, offset_bound=offset_bound)
     rp = bwd_rows_pad(tile_h, tile_w, tile_c, kernel_size=kernel_size)
     ldr = rp + (8 if rp % 16 == 0 else 16)
-    union = max(BWD_STAGES * (rp + pix) * _BWD_LD_STEP, pix * ldr)
-    return 4 * (band + union + 13 * pairs + 2 * npos + 1)
+    union = max(itemsize * BWD_STAGES * (rp + pix) * _BWD_LD_STEP,
+                4 * pix * ldr)
+    return band + union + 4 * (13 * pairs + 2 * npos + 1)
 
 
 def bwd_dw_smem_bytes(tile_h: int, tile_w: int, tile_c: int, *,
                       kernel_size: int, stride: int, dilation: int,
-                      offset_bound: float) -> int:
+                      offset_bound: float, itemsize: int = 4) -> int:
     """Dynamic shared memory of one block of the backward's d_weights
-    kernel; mirrors ``dcb_dw_smem_bytes``: two band chunks
-    (double-buffered), the tap and channel of each of its 144 rows, g
-    tiles (lanes x 128 channels + 8; two up to 32 lanes, one at 64) and a
-    patch tile (lanes x 144 rows + 8)."""
+    kernel for inputs of ``itemsize`` bytes; mirrors
+    ``dcb_dw_smem_bytes``: two band chunks (double-buffered), the tap and
+    channel of each of its 144 rows, g tiles in the inputs' type (lanes x
+    128 channels + 8; two up to 32 lanes, one at 64) and an fp32 patch
+    tile (lanes x 144 rows + 8)."""
     pix = pix_lanes(tile_h, tile_w)
-    band = _band_floats(tile_h, tile_w, tile_c, kernel_size=kernel_size,
-                        stride=stride, dilation=dilation,
-                        offset_bound=offset_bound)
+    band = _band_bytes(tile_h, tile_w, tile_c, kernel_size=kernel_size,
+                       stride=stride, dilation=dilation,
+                       offset_bound=offset_bound, itemsize=itemsize)
     g_tiles = 2 if pix <= 32 else 1
-    return 4 * (2 * band + 2 * BWD_DW_ROWS
-                + pix * (g_tiles * _BWD_LD_G + _BWD_LD_P))
+    return 2 * band + 8 * BWD_DW_ROWS \
+        + pix * (itemsize * g_tiles * _BWD_LD_G + 4 * _BWD_LD_P)
 
 
 def _wave_fill(blocks: int) -> float:
@@ -463,9 +488,9 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
       in an SM (``sample_smem_bytes``) and whose tiles times C chunks reach
       ``SAMPLE_TARGET_BLOCKS`` (one block an SM), else the smallest that
       fits twice; failing that, smaller chunks, then blocks that fit
-      once.  The grid's C groups are ``sample_c_groups``.  ``itemsize``
-      (element bytes) is read by this datapath alone.
-    None fitting raises.
+      once.  The grid's C groups are ``sample_c_groups``.
+    ``itemsize`` (element bytes: 4 fp32, 2 bf16) sizes the shared memory
+    of every datapath but the int8 ones.  None fitting raises.
     """
     if dtype not in DTYPES:
         raise ValueError(f"unknown kernel dtype {dtype!r}; expected one of "
@@ -489,7 +514,8 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
             n, ho, wo, c, m, th, tw, geom,
             rows_fixed=tile_h is not None or dtype == "banded",
             tcs=[_divisor_at_most(c, cap) for cap in (FWD_TILE_C, 4, 2, 1)],
-            tc_min=FWD_TILE_C_MIN, tile_m=FWD_TILE_M, block_bytes=smem_bytes)
+            tc_min=FWD_TILE_C_MIN, tile_m=FWD_TILE_M,
+            block_bytes=functools.partial(smem_bytes, itemsize=itemsize))
     if dtype in ("int8", "int8_chain"):
         if c % 4:
             raise ValueError(
@@ -520,10 +546,12 @@ def choose_kernel_tiles(n: int, h: int, w: int, c: int, m: int, *,
     cands = [tc for tc in cands
              if bwd_warp_tiles(th, tw, tc, kernel_size=kernel_size)
              <= BWD_MAX_WARP_TILES
-             and bwd_dw_smem_bytes(th, tw, tc, **geom) <= SMEM_PER_BLOCK]
+             and bwd_dw_smem_bytes(th, tw, tc, itemsize=itemsize, **geom)
+             <= SMEM_PER_BLOCK]
     for budget in (SMEM_PER_BLOCK // 2, SMEM_PER_BLOCK):
         for tc in cands:
-            if bwd_smem_bytes(th, tw, tc, **geom) <= budget:
+            if bwd_smem_bytes(th, tw, tc, itemsize=itemsize,
+                              **geom) <= budget:
                 return KernelTiles(th, tw, tc, tm)
     _no_fit(th, tw, geom)
 

@@ -31,11 +31,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     "deform_conv_fused": {
         "dcf_forward": (_I, [_P] * 5 + [_I] * 10 + [ctypes.c_float]
-                        + [_I] * 7 + [_P]),
+                        + [_I] * 9 + [_P]),
         "dcf_forward_banded": (_I, [_P] * 5 + [_I] * 10 + [ctypes.c_float]
-                               + [_I] * 7 + [_P]),
-        "dcf_smem_bytes": (ctypes.c_longlong, [_I] * 7),
-        "dcf_blocks_per_sm": (_I, [_I] * 7),
+                               + [_I] * 9 + [_P]),
+        "dcf_smem_bytes": (ctypes.c_longlong, [_I] * 8),
+        "dcf_blocks_per_sm": (_I, [_I] * 8),
         "dcf_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_sample": {
@@ -56,10 +56,10 @@ SIGNATURES = {
         "mm_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_conv_bwd": {
-        "dcb_backward": (_I, [_P] * 10 + [_I] * 10 + [ctypes.c_float]
-                         + [_I] * 7 + [_P]),
-        "dcb_smem_bytes": (ctypes.c_longlong, [_I] * 7),
-        "dcb_dw_smem_bytes": (ctypes.c_longlong, [_I] * 7),
+        "dcb_backward": (_I, [_P] * 11 + [_I] * 10 + [ctypes.c_float]
+                         + [_I] * 9 + [_P]),
+        "dcb_smem_bytes": (ctypes.c_longlong, [_I] * 8),
+        "dcb_dw_smem_bytes": (ctypes.c_longlong, [_I] * 8),
         "dcb_error_string": (ctypes.c_char_p, [_I]),
     },
     "deform_conv_q": {

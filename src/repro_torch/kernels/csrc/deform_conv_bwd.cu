@@ -1,8 +1,11 @@
-// Fused backward of the bounded deformable convolution, fp32, for sm_90a.
+// Fused backward of the bounded deformable convolution, fp32 and bf16, for
+// sm_90a.
 //
 // Replaces the TPU kernel of repro/kernels/deform_conv_bwd.py
 // deform_conv_bwd_zerocopy (:241; pallas_call at :304, body
-// _bwd_zerocopy_kernel at :88).
+// _bwd_zerocopy_kernel at :88), in both its instances: fp32 inputs, and
+// bf16 x_pad, g and w (the offsets fp32 or bf16), whose values the TPU
+// kernel converts to fp32 before all its math (:150-170).
 //
 // What it computes, for the cotangent g of y = deform_conv(x, off, w):
 //   P[p, tap, c]  = bilinear(x_pad[c], pos(p, tap))          (recomputed)
@@ -73,22 +76,52 @@
 // bytes where the layout allows (the wrapper's `vec` bits: W and g when M
 // is a multiple of 4, the band when tile_c and C are, 16-byte aligned
 // pointers), else element by element.
+//
+// The bf16 instance (T = __nv_bfloat16) stages the bf16 band, W and g as
+// they are (no fp32 copy in device memory).  Its copies move 4 channels of
+// W and g (8 bytes) and 8, 4 or 2 channels of the band (16, 8 or 4 bytes)
+// where the layout allows, else one bf16 element by a plain load
+// (cp.async has no 2-byte form).  Its products need fewer tensor-core
+// passes: dP = g W^T is one bf16 m16n8k16 mma a 16-channel step (bf16
+// times bf16 is exact in the fp32 sum), dw^T = g^T P two tf32 passes (P
+// split into tf32 hi and lo, as in fp32; g is exact in tf32).  Every other
+// value is converted to fp32 where it is read.  d_input still adds in
+// fp32, into a zeroed fp32 workspace, and is rounded once to bf16 at the
+// end (dcb_round_kernel); d_offsets is rounded once to the offsets' dtype
+// and d_weights stays fp32.  (The TPU kernel instead adds each tile's band
+// into a bf16 dx_pad, rounding an overlapping halo once per visit; the
+// single rounding is the more accurate, tests/test_torch_bf16_dcl.py.)
+// Its bound is those products at their dense rates: 2*P*K*K*C*M flops at
+// the bf16 rate and twice that at the TF32 rate.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "dcl_staging.cuh"
 #include "warp_mma.cuh"
 
 namespace {
 
-using wmma_sm90::cp_async16;
-using wmma_sm90::cp_async4;
+using bf16 = __nv_bfloat16;
+using dcl_staging::band_unit;
+using dcl_staging::kVecBand;
+using dcl_staging::kVecBand2;
+using dcl_staging::kVecBand8;
+using dcl_staging::load_off;
+using wmma_sm90::bf16_hi;
+using wmma_sm90::bf16_lo;
+using wmma_sm90::copy4;
+using wmma_sm90::copy_elems;
+using wmma_sm90::cp_async8;
 using wmma_sm90::cp_async_commit;
 using wmma_sm90::cp_async_wait;
-using wmma_sm90::copy4;
 using wmma_sm90::mma_3xtf32;
+using wmma_sm90::mma_bf16;
+using wmma_sm90::mma_tf32;
 using wmma_sm90::split_tf32;
+using wmma_sm90::to_f;
 
 constexpr int kThreads = 256;    // threads of every block (8 warps)
 constexpr int kMS = 16;          // output channels of W and g per dP step
@@ -100,8 +133,7 @@ constexpr int kMB = 128;         // output channels per d_weights block
 constexpr int kLdG = kMB + 8;    // row stride of d_weights' g tile
 constexpr int kLdP = kRB + 8;    // row stride of d_weights' patch tile
 constexpr int kMaxSmem = 232448; // 227 KB, the opt-in ceiling
-constexpr int kVecWG = 1;        // vec bit: W and g in 16-byte copies
-constexpr int kVecBand = 2;      // vec bit: the band in 16-byte copies
+constexpr int kVecWG = 1;        // vec bit: W and g 4 channels a copy
 
 struct Geometry {
   int n, hp, wp, c, ho, wo, m;
@@ -109,14 +141,17 @@ struct Geometry {
   float bound;
   int th, tw, tc;
   int band_h, band_w, h_tiles, w_tiles;
+  int off_bf16;                  // the offsets (and d_offsets) in bf16
 };
 
 __host__ __device__ inline int round_up(int v, int u) {
   return (v + u - 1) / u * u;
 }
-// The band chunk: positions of the Eq. 6 band, tile_c channels innermost.
-__host__ __device__ inline int band_floats(const Geometry& g) {
-  return round_up(g.band_h * g.band_w * g.tc, 4);
+// The band chunk: positions of the Eq. 6 band, tile_c channels innermost,
+// rounded to 16 bytes.
+template <typename T>
+__host__ __device__ inline int band_bytes(const Geometry& g) {
+  return round_up((int)sizeof(T) * g.band_h * g.band_w * g.tc, 16);
 }
 __host__ __device__ inline int kk_rows(const Geometry& g) {
   return g.k * g.k * g.tc;
@@ -142,11 +177,12 @@ __host__ __device__ inline int dp_ld(const Geometry& g, int pix) {
   const int rp = rows_pad(g, pix);
   return rp + (rp % 16 == 0 ? 8 : 16);
 }
-// d_input's W / g steps (kStages of them in flight), which the dP chunk
-// reuses once a chunk's products are done.
-__host__ __device__ inline int union_floats(const Geometry& g, int pix) {
-  const int steps = kStages * (rows_pad(g, pix) + pix) * kLdS;
-  const int dp = pix * dp_ld(g, pix);
+// d_input's W / g steps (kStages of them in flight, in T), which the fp32
+// dP chunk reuses once a chunk's products are done (bytes).
+template <typename T>
+__host__ __device__ inline int union_bytes(const Geometry& g, int pix) {
+  const int steps = (int)sizeof(T) * kStages * (rows_pad(g, pix) + pix) * kLdS;
+  const int dp = 4 * pix * dp_ld(g, pix);
   return steps > dp ? steps : dp;
 }
 
@@ -155,11 +191,12 @@ __host__ __device__ inline int union_floats(const Geometry& g, int pix) {
 // every (tap, pixel), the four corners of each as (dP offset, weight)
 // entries sorted by band position, and the positions' entry starts and
 // dx_pad offsets.
+template <typename T>
 inline size_t input_smem_bytes(const Geometry& g, int pix) {
   const size_t pairs = (size_t)g.k * g.k * pix;
   const size_t npos = (size_t)g.band_h * g.band_w;
-  return 4 * ((size_t)band_floats(g) + (size_t)union_floats(g, pix) +
-              13 * pairs + 2 * npos + 1);
+  return (size_t)band_bytes<T>(g) + (size_t)union_bytes<T>(g, pix) +
+         4 * (13 * pairs + 2 * npos + 1);
 }
 
 // dcb_weight_kernel's g tiles: double-buffered up to 32 pixel lanes,
@@ -169,10 +206,51 @@ __host__ __device__ constexpr int g_buffers(int pix) {
 }
 
 // dcb_weight_kernel: two bands (double-buffered), the tap and channel of
-// each of its rows, the g tiles and the patch tile.
+// each of its rows, the g tiles (in T) and the fp32 patch tile.
+template <typename T>
 inline size_t weight_smem_bytes(const Geometry& g, int pix) {
-  return 4 * (2 * (size_t)band_floats(g) + 2 * kRB +
-              (size_t)pix * (g_buffers(pix) * kLdG + kLdP));
+  return 2 * (size_t)band_bytes<T>(g) + 8 * kRB +
+         (size_t)pix * (sizeof(T) * g_buffers(pix) * kLdG + 4 * kLdP);
+}
+
+__device__ inline void store_off(void* d_off, size_t i, float v, int bf) {
+  if (bf)
+    static_cast<bf16*>(d_off)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(d_off)[i] = v;
+}
+
+// Two consecutive bf16 values (4-byte aligned) as one mma register.
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Four elements of T (8-byte aligned for bf16, 16 for fp32) as floats.
+__device__ inline float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ inline float4 load4(const bf16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+}
+
+// Four elements of T to dst, of which the first `count` (clamped to 0..4)
+// come from src and the rest are zero: one copy of 4 * sizeof(T) bytes
+// when `vec`, else element by element; src is not read past count.
+__device__ inline void copy4t(float* dst, const float* src, int count,
+                              bool vec) {
+  copy4(dst, src, count, vec);
+}
+__device__ inline void copy4t(bf16* dst, const bf16* src, int count,
+                              bool vec) {
+  count = count < 0 ? 0 : count > 4 ? 4 : count;
+  if (vec) {
+    cp_async8(dst, src, 2 * count);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      copy_elems(dst + e, e < count ? src + e : src, 1, e < count);
+  }
 }
 
 __device__ inline bool pixel_in(const Geometry& g, int jt, int wt, int p,
@@ -186,7 +264,7 @@ __device__ inline bool pixel_in(const Geometry& g, int jt, int wt, int p,
 // Band-local corner geometry of every (tap, pixel) of tile (jt, wt), as
 // deform_conv_fused.cu computes it: gidx/gty/gtx[tap * pix + p]; index -1
 // marks a pixel outside Ho x Wo.
-__device__ inline void tile_geometry(const float* __restrict__ off,
+__device__ inline void tile_geometry(const void* __restrict__ off,
                                      const Geometry& g, int n, int jt,
                                      int wt, int pix, int tid, int* gidx,
                                      float* gty, float* gtx) {
@@ -197,10 +275,12 @@ __device__ inline void tile_geometry(const float* __restrict__ off,
     float fy = 0.f, fx = 0.f;
     if (pixel_in(g, jt, wt, p, &oy, &ox)) {
       const int t = p / g.tw, u = p % g.tw;
-      const float* o =
-          off + (((size_t)n * g.ho + oy) * g.wo + ox) * (2 * k2) + 2 * kt;
-      const float dy = fminf(fmaxf(o[0], -g.bound), g.bound);
-      const float dx = fminf(fmaxf(o[1], -g.bound), g.bound);
+      const size_t o =
+          (((size_t)n * g.ho + oy) * g.wo + ox) * (2 * k2) + 2 * kt;
+      const float dy =
+          fminf(fmaxf(load_off(off, o, g.off_bf16), -g.bound), g.bound);
+      const float dx =
+          fminf(fmaxf(load_off(off, o + 1, g.off_bf16), -g.bound), g.bound);
       const float py = (float)(t * g.s + g.hb + (kt / g.k) * g.d) + dy;
       const float px = (float)(u * g.s + g.hb + (kt % g.k) * g.d) + dx;
       const float y0 = floorf(py), x0 = floorf(px);
@@ -215,48 +295,46 @@ __device__ inline void tile_geometry(const float* __restrict__ off,
 }
 
 // Channels [c0, c0 + tc) of the band of tile (jt, wt) into shared memory,
-// position-major with the channels innermost (band[pos * tc + ch]): 16-byte
-// cp.async where `vec4`, else 4-byte.
-__device__ inline void stage_band(const float* __restrict__ x_pad,
+// position-major with the channels innermost (band[pos * tc + ch]), `unit`
+// channels a copy (band_unit).
+template <typename T>
+__device__ inline void stage_band(const T* __restrict__ x_pad,
                                   const Geometry& g, int n, int jt, int wt,
-                                  int c0, int tid, float* band, bool vec4) {
+                                  int c0, int tid, T* band, int unit) {
   const int row0 = jt * g.th * g.s, col0 = wt * g.tw * g.s;
-  const int per = vec4 ? g.tc / 4 : g.tc;   // copies a position
+  const int per = g.tc / unit;              // copies a position
   const int total = g.band_h * g.band_w * per;
   for (int i = tid; i < total; i += kThreads) {
     const int pos = i / per, e = i - pos * per;
     const int r = pos / g.band_w, q = pos - r * g.band_w;
-    const float* src =
+    const T* src =
         x_pad + (((size_t)n * g.hp + row0 + r) * g.wp + col0 + q) * g.c + c0;
-    if (vec4)
-      cp_async16(band + pos * g.tc + 4 * e, src + 4 * e, 16);
-    else
-      cp_async4(band + pos * g.tc + e, src + e, 4);
+    copy_elems(band + pos * g.tc + unit * e, src + unit * e, unit, true);
   }
 }
 
-template <int PIX>
+template <typename T, int PIX>
 __global__ void __launch_bounds__(kThreads, 2)
-dcb_input_kernel(const float* __restrict__ x_pad,
-                 const float* __restrict__ off, const float* __restrict__ gy,
-                 const float* __restrict__ w_tiles, float* __restrict__ dx_pad,
-                 float* __restrict__ d_off, float* __restrict__ geom,
-                 Geometry g, int groups, int vec) {
-  extern __shared__ __align__(16) float smem[];
+dcb_input_kernel(const T* __restrict__ x_pad, const void* __restrict__ off,
+                 const T* __restrict__ gy, const T* __restrict__ w_tiles,
+                 float* __restrict__ dx_pad, void* __restrict__ d_off,
+                 float* __restrict__ geom, Geometry g, int groups, int vec) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int k2 = g.k * g.k;
   const int tc = g.tc;
   const int kk_n = kk_rows(g);
   const int rp = rows_pad(g, PIX);
-  const int bf = band_floats(g);
   const int ldr = dp_ld(g, PIX);
-  const int bw = g.band_w * tc;              // a band row, in floats
+  const int bw = g.band_w * tc;              // a band row, in elements
   const int npos = g.band_h * g.band_w;      // band positions
   const int pairs = k2 * PIX;                // (tap, pixel) pairs
-  float* band = smem;
-  float* ws = band + bf;                     // [kStages][rp][kLdS]
-  float* gs = ws + kStages * rp * kLdS;      // [kStages][PIX][kLdS]
-  float* dP = ws;                            // [PIX][ldr], after a chunk
-  float* gty = ws + union_floats(g, PIX);
+  T* band = reinterpret_cast<T*>(smem);
+  unsigned char* un = smem + band_bytes<T>(g);
+  T* ws = reinterpret_cast<T*>(un);          // [kStages][rp][kLdS]
+  T* gs = ws + kStages * rp * kLdS;          // [kStages][PIX][kLdS]
+  float* dP = reinterpret_cast<float*>(un);  // [PIX][ldr], after a chunk
+  float* gty = reinterpret_cast<float*>(un + union_bytes<T>(g, PIX));
   float* gtx = gty + pairs;
   int* gidx = reinterpret_cast<int*>(gtx + pairs);
   float* doff = reinterpret_cast<float*>(gidx + pairs);   // [pairs][2]
@@ -278,7 +356,8 @@ dcb_input_kernel(const float* __restrict__ x_pad,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const bool vwg = vec & kVecWG, vband = vec & kVecBand;
+  const bool vwg = vec & kVecWG;
+  const int unit = band_unit(vec);
 
   // This warp's dP^T tiles: k-split group, pixel tile, first 8-row tile.
   const int ks = k_split(g, PIX);
@@ -370,27 +449,27 @@ dcb_input_kernel(const float* __restrict__ x_pad,
   float acc[kMaxWarpTiles][4];
 
   for (int cs = cs0; cs < cs1; ++cs) {
-    const float* wsrc = w_tiles + (size_t)cs * kk_n * g.m;
+    const T* wsrc = w_tiles + (size_t)cs * kk_n * g.m;
     auto issue = [&](int ms) {
       const int m0 = ms * kMS, b = ms % kStages;
-      float* wdst = ws + b * rp * kLdS;
+      T* wdst = ws + b * rp * kLdS;
       for (int i = tid; i < rp * (kMS / 4); i += kThreads) {
         const int kk = i / (kMS / 4), q = i % (kMS / 4);
         const int m = m0 + 4 * q;
         const int cnt = kk < kk_n ? g.m - m : 0;
-        copy4(wdst + kk * kLdS + 4 * q,
-              cnt > 0 ? wsrc + (size_t)kk * g.m + m : w_tiles, cnt, vwg);
+        copy4t(wdst + kk * kLdS + 4 * q,
+               cnt > 0 ? wsrc + (size_t)kk * g.m + m : w_tiles, cnt, vwg);
       }
-      float* gdst = gs + b * PIX * kLdS;
+      T* gdst = gs + b * PIX * kLdS;
       for (int i = tid; i < PIX * (kMS / 4); i += kThreads) {
         const int p = i / (kMS / 4), q = i % (kMS / 4);
         const int m = m0 + 4 * q;
         int oy = 0, ox = 0;
         const int cnt = pixel_in(g, jt, wt, p, &oy, &ox) ? g.m - m : 0;
-        copy4(gdst + p * kLdS + 4 * q,
-              cnt > 0 ? gy + (((size_t)n * g.ho + oy) * g.wo + ox) * g.m + m
-                      : gy,
-              cnt, vwg);
+        copy4t(gdst + p * kLdS + 4 * q,
+               cnt > 0 ? gy + (((size_t)n * g.ho + oy) * g.wo + ox) * g.m + m
+                       : gy,
+               cnt, vwg);
       }
     };
 #pragma unroll
@@ -399,7 +478,7 @@ dcb_input_kernel(const float* __restrict__ x_pad,
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
     // Steps 0 and 1, and the chunk's band (needed only by the d_off pass).
     issue(0);
-    stage_band(x_pad, g, n, jt, wt, cs * tc, tid, band, vband);
+    stage_band(x_pad, g, n, jt, wt, cs * tc, tid, band, unit);
     cp_async_commit();
     if (m_steps > 1) issue(1);
     cp_async_commit();
@@ -408,26 +487,46 @@ dcb_input_kernel(const float* __restrict__ x_pad,
       __syncthreads();  // step ms landed; step ms - 1's buffer is free
       if (ms + kStages - 1 < m_steps) issue(ms + kStages - 1);
       cp_async_commit();
-      const float* wb = ws + (ms % kStages) * rp * kLdS;
-      const float* gb = gs + (ms % kStages) * PIX * kLdS;
+      const T* wb = ws + (ms % kStages) * rp * kLdS;
+      const T* gb = gs + (ms % kStages) * PIX * kLdS;
+      if constexpr (kF32) {
+        // A = g (16 pixels x 8 channels), B = W^T (8 channels x 8 rows),
+        // fp32 split into tf32 hi and lo (3xTF32); with a k split each
+        // group takes one half of the step.
 #pragma unroll
-      for (int k8 = 0; k8 < kMS / 8; ++k8) {
-        if (ks == 2 && k8 != kgrp) continue;
-        // A = g (16 pixels x 8 channels), B = W^T (8 channels x 8 rows).
-        const float* ga = gb + (pt * 16 + gid) * kLdS + k8 * 8 + tig;
-        uint32_t ah[4], al[4];
-        split_tf32(ga[0], ah[0], al[0]);
-        split_tf32(ga[8 * kLdS], ah[1], al[1]);
-        split_tf32(ga[4], ah[2], al[2]);
-        split_tf32(ga[8 * kLdS + 4], ah[3], al[3]);
-        const float* wr = wb + (j0 * 8 + gid) * kLdS + k8 * 8 + tig;
+        for (int k8 = 0; k8 < kMS / 8; ++k8) {
+          if (ks == 2 && k8 != kgrp) continue;
+          const T* ga = gb + (pt * 16 + gid) * kLdS + k8 * 8 + tig;
+          const T* wr = wb + (j0 * 8 + gid) * kLdS + k8 * 8 + tig;
+          uint32_t ah[4], al[4];
+          split_tf32(ga[0], ah[0], al[0]);
+          split_tf32(ga[8 * kLdS], ah[1], al[1]);
+          split_tf32(ga[4], ah[2], al[2]);
+          split_tf32(ga[8 * kLdS + 4], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < kMaxWarpTiles; ++j) {
+            if (j >= tpw) break;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(wr[j * 8 * kLdS], bh0, bl0);
+            split_tf32(wr[j * 8 * kLdS + 4], bh1, bl1);
+            mma_3xtf32(acc[j], ah, al, bh0, bh1, bl0, bl1);
+          }
+        }
+      } else if (ks == 1 || (ms & 1) == kgrp) {
+        // A = g (16 pixels x 16 channels), B = W^T (16 channels x 8
+        // rows): the whole step is one bf16 m16n8k16 mma, whose products
+        // of bf16 values are exact; with a k split each group takes
+        // alternate steps.  Each register holds two channels (m
+        // innermost in both staged tiles).
+        const T* ga = gb + (pt * 16 + gid) * kLdS + 2 * tig;
+        const T* wr = wb + (j0 * 8 + gid) * kLdS + 2 * tig;
+        const uint32_t a[4] = {ld_pair(ga), ld_pair(ga + 8 * kLdS),
+                               ld_pair(ga + 8), ld_pair(ga + 8 * kLdS + 8)};
 #pragma unroll
         for (int j = 0; j < kMaxWarpTiles; ++j) {
           if (j >= tpw) break;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(wr[j * 8 * kLdS], bh0, bl0);
-          split_tf32(wr[j * 8 * kLdS + 4], bh1, bl1);
-          mma_3xtf32(acc[j], ah, al, bh0, bh1, bl0, bl1);
+          mma_bf16(acc[j], a, ld_pair(wr + j * 8 * kLdS),
+                   ld_pair(wr + j * 8 * kLdS + 8));
         }
       }
     }
@@ -467,7 +566,7 @@ dcb_input_kernel(const float* __restrict__ x_pad,
         const int kt = i / PIX, p = i % PIX;
         const float ty = gty[i], tx = gtx[i];
         const float* drow = dP + p * ldr + kt * tc;
-        const float* b0 = band + idx * tc;
+        const T* b0 = band + idx * tc;
         auto add = [&](float dp, float v00, float v01, float v10,
                        float v11) {
           sy += dp * ((1.f - tx) * (v10 - v00) + tx * (v11 - v01));
@@ -476,11 +575,10 @@ dcb_input_kernel(const float* __restrict__ x_pad,
         if (vw == 4) {
           for (int ch = 4 * li; ch < tc; ch += 128) {
             const float4 d = *reinterpret_cast<const float4*>(drow + ch);
-            const float4 a = *reinterpret_cast<const float4*>(b0 + ch);
-            const float4 c = *reinterpret_cast<const float4*>(b0 + tc + ch);
-            const float4 e = *reinterpret_cast<const float4*>(b0 + bw + ch);
-            const float4 f =
-                *reinterpret_cast<const float4*>(b0 + bw + tc + ch);
+            const float4 a = load4(b0 + ch);
+            const float4 c = load4(b0 + tc + ch);
+            const float4 e = load4(b0 + bw + ch);
+            const float4 f = load4(b0 + bw + tc + ch);
             add(d.x, a.x, c.x, e.x, f.x);
             add(d.y, a.y, c.y, e.y, f.y);
             add(d.z, a.z, c.z, e.z, f.z);
@@ -488,7 +586,8 @@ dcb_input_kernel(const float* __restrict__ x_pad,
           }
         } else {
           for (int ch = li; ch < tc; ch += 32)
-            add(drow[ch], b0[ch], b0[tc + ch], b0[bw + ch], b0[bw + tc + ch]);
+            add(drow[ch], to_f(b0[ch]), to_f(b0[tc + ch]), to_f(b0[bw + ch]),
+                to_f(b0[bw + tc + ch]));
         }
       }
       for (int o = o_top; o > 0; o >>= 1) {
@@ -537,12 +636,17 @@ dcb_input_kernel(const float* __restrict__ x_pad,
     const size_t at =
         (((size_t)n * g.ho + oy) * g.wo + ox) * (2 * k2) + 2 * kt;
     if (groups == 1) {
-      const float ry = off[at], rx = off[at + 1];
-      d_off[at] = (ry >= -g.bound && ry <= g.bound) ? doff[2 * i] : 0.f;
-      d_off[at + 1] = (rx >= -g.bound && rx <= g.bound) ? doff[2 * i + 1]
-                                                        : 0.f;
+      const float ry = load_off(off, at, g.off_bf16);
+      const float rx = load_off(off, at + 1, g.off_bf16);
+      store_off(d_off, at,
+                (ry >= -g.bound && ry <= g.bound) ? doff[2 * i] : 0.f,
+                g.off_bf16);
+      store_off(d_off, at + 1,
+                (rx >= -g.bound && rx <= g.bound) ? doff[2 * i + 1] : 0.f,
+                g.off_bf16);
     } else {
-      float* dst = d_off + (size_t)grp * g.n * g.ho * g.wo * (2 * k2);
+      float* dst = static_cast<float*>(d_off) +
+                   (size_t)grp * g.n * g.ho * g.wo * (2 * k2);
       dst[at] = doff[2 * i];
       dst[at + 1] = doff[2 * i + 1];
     }
@@ -550,39 +654,48 @@ dcb_input_kernel(const float* __restrict__ x_pad,
 }
 
 // d_off[i] = the C groups' partials summed in group order, masked by the
-// clamp.
+// clamp, in the offsets' dtype.
 __global__ void dcb_doff_reduce_kernel(const float* __restrict__ partial,
-                                       const float* __restrict__ off,
-                                       float* __restrict__ d_off,
+                                       const void* __restrict__ off,
+                                       void* __restrict__ d_off,
                                        long long count, int groups,
-                                       float bound) {
+                                       float bound, int off_bf16) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < count; i += (long long)gridDim.x * blockDim.x) {
     float v = 0.f;
     for (int s = 0; s < groups; ++s) v += partial[s * count + i];
-    const float r = off[i];
-    d_off[i] = (r >= -bound && r <= bound) ? v : 0.f;
+    const float r = load_off(off, i, off_bf16);
+    store_off(d_off, i, (r >= -bound && r <= bound) ? v : 0.f, off_bf16);
   }
 }
 
-template <int PIX>
+// dx[i] = the fp32 d_input workspace rounded once to bf16.
+__global__ void dcb_round_kernel(const float* __restrict__ ws,
+                                 bf16* __restrict__ dx, long long count) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < count; i += (long long)gridDim.x * blockDim.x)
+    dx[i] = __float2bfloat16_rn(ws[i]);
+}
+
+template <typename T, int PIX>
 __global__ void __launch_bounds__(kThreads, 2)
-dcb_weight_kernel(const float* __restrict__ x_pad,
-                  const float* __restrict__ gy,
+dcb_weight_kernel(const T* __restrict__ x_pad, const T* __restrict__ gy,
                   const float* __restrict__ geom, float* __restrict__ dw_out,
                   Geometry g, int splits, int vec) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int k2 = g.k * g.k;
   const int tc = g.tc;
   const int kk_n = kk_rows(g);
-  const int bf = band_floats(g);
+  const int be = band_bytes<T>(g) / (int)sizeof(T);
   const int pairs = k2 * PIX;
   const int bw = g.band_w * tc;
-  float* bands = smem;                                // [2][bf]
-  int* rtap = reinterpret_cast<int*>(bands + 2 * bf); // [kRB]
+  T* bands = reinterpret_cast<T*>(smem);              // [2][be]
+  int* rtap = reinterpret_cast<int*>(bands + 2 * be); // [kRB]
   int* rch = rtap + kRB;                              // [kRB]
-  float* Gs = reinterpret_cast<float*>(rch + kRB);    // [gbuf][PIX][kLdG]
-  float* P = Gs + g_buffers(PIX) * PIX * kLdG;        // [PIX][kLdP]
+  T* Gs = reinterpret_cast<T*>(rch + kRB);            // [gbuf][PIX][kLdG]
+  float* P = reinterpret_cast<float*>(Gs + g_buffers(PIX) * PIX * kLdG);
+                                                      // [PIX][kLdP]
 
   const int cs = blockIdx.x;
   const int m_blocks = (g.m + kMB - 1) / kMB;
@@ -595,7 +708,8 @@ dcb_weight_kernel(const float* __restrict__ x_pad,
   const int wm = warp & 3, wn = warp >> 2;   // 32 channels x 72 rows a warp
   const int per_image = g.h_tiles * g.w_tiles;
   const int tiles = g.n * per_image;
-  const bool vwg = vec & kVecWG, vband = vec & kVecBand;
+  const bool vwg = vec & kVecWG;
+  const int unit = band_unit(vec);
 
   // The tap and channel of each of the block's rows (tap -1: past K*K*tc).
   for (int r = tid; r < kRB; r += kThreads) {
@@ -624,22 +738,22 @@ dcb_weight_kernel(const float* __restrict__ x_pad,
     const int n = t / per_image;
     const int jt = (t % per_image) / g.w_tiles;
     const int wt = t % g.w_tiles;
-    stage_band(x_pad, g, n, jt, wt, cs * tc, tid, bands + b * bf, vband);
+    stage_band(x_pad, g, n, jt, wt, cs * tc, tid, bands + b * be, unit);
   };
   auto stage_g = [&](int t, int gb) {
     const int n = t / per_image;
     const int jt = (t % per_image) / g.w_tiles;
     const int wt = t % g.w_tiles;
-    float* G = Gs + gb * PIX * kLdG;
+    T* G = Gs + gb * PIX * kLdG;
     for (int i = tid; i < PIX * (kMB / 4); i += kThreads) {
       const int p = i / (kMB / 4), q = i % (kMB / 4);
       const int m = m0 + 4 * q;
       int oy = 0, ox = 0;
       const int cnt = pixel_in(g, jt, wt, p, &oy, &ox) ? g.m - m : 0;
-      copy4(G + p * kLdG + 4 * q,
-            cnt > 0 ? gy + (((size_t)n * g.ho + oy) * g.wo + ox) * g.m + m
-                    : gy,
-            cnt, vwg);
+      copy4t(G + p * kLdG + 4 * q,
+             cnt > 0 ? gy + (((size_t)n * g.ho + oy) * g.wo + ox) * g.m + m
+                     : gy,
+             cnt, vwg);
     }
   };
   constexpr bool g2 = g_buffers(PIX) == 2;
@@ -663,11 +777,11 @@ dcb_weight_kernel(const float* __restrict__ x_pad,
       if (g2) stage_g(t + splits, b ^ 1);
     }
     cp_async_commit();
-    const float* G = Gs + (g2 ? b : 0) * PIX * kLdG;
+    const T* G = Gs + (g2 ? b : 0) * PIX * kLdG;
     // Rows r0 .. r0 + 143 of this tile's patches, P[pixel][row], from the
     // band and the geometry the d_input kernel wrote; four rows (one tap,
     // four channels) a thread where tile_c is a multiple of 4.
-    const float* band = bands + b * bf;
+    const T* band = bands + b * be;
     const float* gm = geom + (size_t)t * 3 * pairs;
     const int rstep = tc % 4 == 0 ? 4 : 1;
     for (int i = tid; i < PIX * (kRB / rstep); i += kThreads) {
@@ -681,19 +795,19 @@ dcb_weight_kernel(const float* __restrict__ x_pad,
         const float tx = __ldg(gm + 2 * pairs + gi);
         const float w00 = (1.f - ty) * (1.f - tx), w01 = (1.f - ty) * tx;
         const float w10 = ty * (1.f - tx), w11 = ty * tx;
-        const float* bp = band + idx * tc + rch[r];
+        const T* bp = band + idx * tc + rch[r];
         if (rstep == 4) {
-          const float4 a = *reinterpret_cast<const float4*>(bp);
-          const float4 c = *reinterpret_cast<const float4*>(bp + tc);
-          const float4 e = *reinterpret_cast<const float4*>(bp + bw);
-          const float4 f = *reinterpret_cast<const float4*>(bp + bw + tc);
+          const float4 a = load4(bp);
+          const float4 c = load4(bp + tc);
+          const float4 e = load4(bp + bw);
+          const float4 f = load4(bp + bw + tc);
           val.x = a.x * w00 + c.x * w01 + e.x * w10 + f.x * w11;
           val.y = a.y * w00 + c.y * w01 + e.y * w10 + f.y * w11;
           val.z = a.z * w00 + c.z * w01 + e.z * w10 + f.z * w11;
           val.w = a.w * w00 + c.w * w01 + e.w * w10 + f.w * w11;
         } else {
-          val.x = bp[0] * w00 + bp[tc] * w01 + bp[bw] * w10 +
-                  bp[bw + tc] * w11;
+          val.x = to_f(bp[0]) * w00 + to_f(bp[tc]) * w01 +
+                  to_f(bp[bw]) * w10 + to_f(bp[bw + tc]) * w11;
         }
       }
       if (rstep == 4)
@@ -704,17 +818,25 @@ dcb_weight_kernel(const float* __restrict__ x_pad,
     cp_async_wait<1>();  // g landed (the next tile's band may still fly)
     __syncthreads();
     // dw^T += g^T P: A = g^T (16 channels x 8 pixels), B = P (8 pixels x
-    // 8 rows).
+    // 8 rows), P split into tf32 hi and lo; g too in fp32 (3xTF32), while
+    // a bf16 g is exact in tf32 (two passes: g P_lo, g P_hi).
 #pragma unroll
     for (int k8 = 0; k8 < PIX / 8; ++k8) {
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float* ga = G + (k8 * 8 + tig) * kLdG + wm * 32 + i * 16 + gid;
-        split_tf32(ga[0], ah[i][0], al[i][0]);
-        split_tf32(ga[8], ah[i][1], al[i][1]);
-        split_tf32(ga[4 * kLdG], ah[i][2], al[i][2]);
-        split_tf32(ga[4 * kLdG + 8], ah[i][3], al[i][3]);
+        const T* ga = G + (k8 * 8 + tig) * kLdG + wm * 32 + i * 16 + gid;
+        if constexpr (kF32) {
+          split_tf32(ga[0], ah[i][0], al[i][0]);
+          split_tf32(ga[8], ah[i][1], al[i][1]);
+          split_tf32(ga[4 * kLdG], ah[i][2], al[i][2]);
+          split_tf32(ga[4 * kLdG + 8], ah[i][3], al[i][3]);
+        } else {
+          ah[i][0] = __float_as_uint(to_f(ga[0]));
+          ah[i][1] = __float_as_uint(to_f(ga[8]));
+          ah[i][2] = __float_as_uint(to_f(ga[4 * kLdG]));
+          ah[i][3] = __float_as_uint(to_f(ga[4 * kLdG + 8]));
+        }
       }
       const float* pb = P + (k8 * 8 + tig) * kLdP + wn * 72 + gid;
 #pragma unroll
@@ -724,9 +846,15 @@ dcb_weight_kernel(const float* __restrict__ x_pad,
         split_tf32(pb[j * 8], bh0, bl0);
         split_tf32(pb[j * 8 + 4 * kLdP], bh1, bl1);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          if (m_live[i]) mma_3xtf32(acc[i][j], ah[i], al[i], bh0, bh1, bl0,
-                                    bl1);
+        for (int i = 0; i < 2; ++i) {
+          if (!m_live[i]) continue;
+          if constexpr (kF32) {
+            mma_3xtf32(acc[i][j], ah[i], al[i], bh0, bh1, bl0, bl1);
+          } else {
+            mma_tf32(acc[i][j], ah[i], bl0, bl1);
+            mma_tf32(acc[i][j], ah[i], bh0, bh1);
+          }
+        }
       }
     }
   }
@@ -765,45 +893,59 @@ inline int grid_1d(long long count) {
   return (int)(blocks < 1024 ? (blocks < 1 ? 1 : blocks) : 1024);
 }
 
-template <int PIX>
-cudaError_t launch(const float* x_pad, const float* off, const float* gy,
-                   const float* w_tiles, float* dx_pad, float* d_off,
+template <typename T, int PIX>
+cudaError_t launch(const T* x_pad, const void* off, const T* gy,
+                   const T* w_tiles, T* dx_pad, float* dx_ws, void* d_off,
                    float* dw_tiles, float* dw_partial, float* doff_partial,
                    float* geom, int groups, int splits, int vec,
                    const Geometry& g, cudaStream_t stream) {
   static unsigned long long in_done = 0, w_done = 0;
-  int e = wmma_sm90::allow_smem(dcb_input_kernel<PIX>, kMaxSmem, &in_done);
+  int e = wmma_sm90::allow_smem(dcb_input_kernel<T, PIX>, kMaxSmem, &in_done);
   if (e) return (cudaError_t)e;
-  e = wmma_sm90::allow_smem(dcb_weight_kernel<PIX>, kMaxSmem, &w_done);
+  e = wmma_sm90::allow_smem(dcb_weight_kernel<T, PIX>, kMaxSmem, &w_done);
   if (e) return (cudaError_t)e;
-  cudaError_t err = cudaMemsetAsync(
-      dx_pad, 0, sizeof(float) * (size_t)g.n * g.hp * g.wp * g.c, stream);
+  // d_input adds into fp32: dx_pad itself (fp32) or the workspace (bf16).
+  float* dx_acc = sizeof(T) == 4 ? reinterpret_cast<float*>(dx_pad) : dx_ws;
+  const long long dx_count = (long long)g.n * g.hp * g.wp * g.c;
+  cudaError_t err =
+      cudaMemsetAsync(dx_acc, 0, sizeof(float) * (size_t)dx_count, stream);
   if (err != cudaSuccess) return err;
   const int tiles = g.n * g.h_tiles * g.w_tiles;
-  dcb_input_kernel<PIX><<<dim3(tiles, groups), kThreads,
-                          input_smem_bytes(g, PIX), stream>>>(
-      x_pad, off, gy, w_tiles, dx_pad, groups > 1 ? doff_partial : d_off,
-      geom, g, groups, vec);
+  dcb_input_kernel<T, PIX><<<dim3(tiles, groups), kThreads,
+                             input_smem_bytes<T>(g, PIX), stream>>>(
+      x_pad, off, gy, w_tiles, dx_acc,
+      groups > 1 ? static_cast<void*>(doff_partial) : d_off, geom, g, groups,
+      vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (groups > 1) {
     const long long count = (long long)g.n * g.ho * g.wo * 2 * g.k * g.k;
     dcb_doff_reduce_kernel<<<grid_1d(count), 256, 0, stream>>>(
-        doff_partial, off, d_off, count, groups, g.bound);
+        doff_partial, off, d_off, count, groups, g.bound, g.off_bf16);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const int row_blocks = (kk_rows(g) + kRB - 1) / kRB;
   const int m_blocks = (g.m + kMB - 1) / kMB;
-  dcb_weight_kernel<PIX><<<dim3(g.c / g.tc, row_blocks * m_blocks, splits),
-                           kThreads, weight_smem_bytes(g, PIX), stream>>>(
+  dcb_weight_kernel<T, PIX><<<dim3(g.c / g.tc, row_blocks * m_blocks, splits),
+                              kThreads, weight_smem_bytes<T>(g, PIX),
+                              stream>>>(
       x_pad, gy, geom, splits > 1 ? dw_partial : dw_tiles, g, splits, vec);
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long count = (long long)kk_rows(g) * g.m * (g.c / g.tc);
-  dcb_reduce_kernel<<<grid_1d(count), 256, 0, stream>>>(dw_partial, dw_tiles,
-                                                        count, splits);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (splits > 1) {
+    const long long count = (long long)kk_rows(g) * g.m * (g.c / g.tc);
+    dcb_reduce_kernel<<<grid_1d(count), 256, 0, stream>>>(
+        dw_partial, dw_tiles, count, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if constexpr (sizeof(T) == 2) {
+    dcb_round_kernel<<<grid_1d(dx_count), 256, 0, stream>>>(dx_ws, dx_pad,
+                                                            dx_count);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 int pix_lanes(int th, int tw) {
@@ -822,86 +964,136 @@ Geometry make_geometry(int n, int hp, int wp, int c, int ho, int wo, int m,
   g.band_w = (tw - 1) * s + (k - 1) * d + 2 * hb + 2;
   g.h_tiles = th > 0 ? (ho + th - 1) / th : 0;
   g.w_tiles = tw > 0 ? (wo + tw - 1) / tw : 0;
+  g.off_bf16 = 0;
   return g;
+}
+
+// The `vec` bits the instance of T takes at these arguments: W and g in
+// copies of 4 channels need M % 4 == 0 and both pointers aligned to the
+// copy; the band copy's channels must divide tile_c and C, its bytes the
+// address of x_pad; fp32 takes 4-channel band copies only.
+template <typename T>
+bool vec_ok(int vec, const Geometry& g, const void* x_pad, const void* gy,
+            const void* w_tiles) {
+  const uintptr_t wg = 4 * sizeof(T);
+  if ((vec & kVecWG) &&
+      (g.m % 4 != 0 || reinterpret_cast<uintptr_t>(gy) % wg != 0 ||
+       reinterpret_cast<uintptr_t>(w_tiles) % wg != 0))
+    return false;
+  const int band_bits = vec & (kVecBand | kVecBand8 | kVecBand2);
+  if (band_bits == 0) return true;
+  if (band_bits != kVecBand && band_bits != kVecBand8 &&
+      band_bits != kVecBand2)
+    return false;
+  if (sizeof(T) == 4 && band_bits != kVecBand) return false;
+  const int unit = band_unit(vec);
+  return g.tc % unit == 0 && g.c % unit == 0 &&
+         reinterpret_cast<uintptr_t>(x_pad) % (unit * sizeof(T)) == 0;
+}
+
+template <typename T>
+int backward(const void* x_v, const void* off, const void* gy_v,
+             const void* w_v, void* dx_v, float* dx_ws, void* d_off,
+             float* dw_tiles, float* dw_partial, float* doff_partial,
+             float* geom, const Geometry& g, int pix, int groups, int splits,
+             int vec, void* stream) {
+  const T* x_pad = static_cast<const T*>(x_v);
+  const T* gy = static_cast<const T*>(gy_v);
+  const T* w_tiles = static_cast<const T*>(w_v);
+  T* dx_pad = static_cast<T*>(dx_v);
+  if (sizeof(T) == 2 && dx_ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (input_smem_bytes<T>(g, pix) > kMaxSmem ||
+      weight_smem_bytes<T>(g, pix) > kMaxSmem ||
+      warp_tiles(g, pix) > kMaxWarpTiles ||
+      !vec_ok<T>(vec, g, x_pad, gy, w_tiles))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (pix == 16)
+    e = launch<T, 16>(x_pad, off, gy, w_tiles, dx_pad, dx_ws, d_off,
+                      dw_tiles, dw_partial, doff_partial, geom, groups,
+                      splits, vec, g, st);
+  else if (pix == 32)
+    e = launch<T, 32>(x_pad, off, gy, w_tiles, dx_pad, dx_ws, d_off,
+                      dw_tiles, dw_partial, doff_partial, geom, groups,
+                      splits, vec, g, st);
+  else
+    e = launch<T, 64>(x_pad, off, gy, w_tiles, dx_pad, dx_ws, d_off,
+                      dw_tiles, dw_partial, doff_partial, geom, groups,
+                      splits, vec, g, st);
+  return (int)e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one block of the d_input/d_offsets kernel (bytes); 0
-// if the tile has more pixels than its 64 lanes.
+// Shared memory of one block of the d_input/d_offsets kernel (bytes) for
+// inputs of `elt` bytes (4: fp32, 2: bf16); 0 if the tile has more pixels
+// than its 64 lanes or elt is neither.
 long long dcb_smem_bytes(int k, int s, int d, int hb, int th, int tw,
-                         int tc) {
+                         int tc, int elt) {
   const int pix = pix_lanes(th, tw);
-  if (pix == 0 || tc < 1) return 0;
+  if (pix == 0 || tc < 1 || (elt != 4 && elt != 2)) return 0;
   Geometry g = make_geometry(0, 0, 0, 0, 0, 0, 0, k, s, d, 0.f, hb, th, tw,
                              tc);
-  return (long long)input_smem_bytes(g, pix);
+  return (long long)(elt == 4 ? input_smem_bytes<float>(g, pix)
+                              : input_smem_bytes<bf16>(g, pix));
 }
 
 // Shared memory of one block of the d_weights kernel (bytes); 0 as above.
 long long dcb_dw_smem_bytes(int k, int s, int d, int hb, int th, int tw,
-                            int tc) {
+                            int tc, int elt) {
   const int pix = pix_lanes(th, tw);
-  if (pix == 0 || tc < 1) return 0;
+  if (pix == 0 || tc < 1 || (elt != 4 && elt != 2)) return 0;
   Geometry g = make_geometry(0, 0, 0, 0, 0, 0, 0, k, s, d, 0.f, hb, th, tw,
                              tc);
-  return (long long)weight_smem_bytes(g, pix);
+  return (long long)(elt == 4 ? weight_smem_bytes<float>(g, pix)
+                              : weight_smem_bytes<bf16>(g, pix));
 }
 
-// Launch the fused backward on `stream`: zero dx_pad, then the d_input /
-// d_offsets kernel over (tiles, groups) (with groups > 1, its partials in
-// doff_partial: groups x N*Ho*Wo*2K^2 floats, summed by
+// Launch the fused backward on `stream`: zero d_input's fp32 sums (dx_pad
+// itself in fp32, the workspace dx_ws, n*hp*wp*c floats, in bf16), then
+// the d_input / d_offsets kernel over (tiles, groups) (with groups > 1,
+// its partials in doff_partial: groups x N*Ho*Wo*2K^2 floats, summed by
 // dcb_doff_reduce_kernel), the d_weights kernel over (C / tc, row blocks
-// x channel blocks, splits) and, with splits > 1, the reduction of its
-// partials (dw_partial: splits x C/tc x K*K*tc x M floats).  geom holds
-// tiles x 3 x K^2 x pixel lanes floats.  vec: bit 0, W and g are staged
-// with 16-byte copies (M % 4 == 0, 16-byte aligned pointers); bit 1, the
-// band (tile_c % 4 == C % 4 == 0, 16-byte aligned x_pad).  Returns a
-// cudaError_t (0 on success); invalid arguments return
-// cudaErrorInvalidValue before anything is launched.
-int dcb_backward(const float* x_pad, const float* off, const float* gy,
-                 const float* w_tiles, float* dx_pad, float* d_off,
+// x channel blocks, splits), with splits > 1 the reduction of its
+// partials (dw_partial: splits x C/tc x K*K*tc x M floats), and in bf16
+// the rounding of dx_ws into dx_pad.  elt: bytes of an element of x_pad,
+// g, w_tiles and dx_pad (4: fp32, 2: bf16); off_elt: of the offsets and
+// d_off (4 or 2); dw_tiles is fp32.  geom holds tiles x 3 x K^2 x pixel
+// lanes floats.  vec: bit 0, W and g are staged 4 channels a copy (M % 4
+// == 0, pointers aligned to 4 elements); bit 1, the band 4 channels a
+// copy; bf16 only: bit 2, 8 channels, bit 3, 2 channels (tile_c and C
+// multiples of them, x_pad aligned to the copy); no band bit: element by
+// element.  Returns a cudaError_t (0 on success); invalid arguments
+// return cudaErrorInvalidValue before anything is launched.
+int dcb_backward(const void* x_pad, const void* off, const void* gy,
+                 const void* w_tiles, void* dx_pad, void* d_off,
                  float* dw_tiles, float* dw_partial, float* doff_partial,
-                 float* geom, int n, int hp, int wp, int c, int ho, int wo,
-                 int m, int k, int s, int d, float bound, int hb, int th,
-                 int tw, int tc, int groups, int splits, int vec,
-                 void* stream) {
+                 float* geom, float* dx_ws, int n, int hp, int wp, int c,
+                 int ho, int wo, int m, int k, int s, int d, float bound,
+                 int hb, int th, int tw, int tc, int groups, int splits,
+                 int vec, int elt, int off_elt, void* stream) {
   const int pix = pix_lanes(th, tw);
   if (pix == 0 || tc < 1 || c % tc != 0 || splits < 1 || n < 1 ||
       groups < 1 || groups > c / tc || geom == nullptr ||
       (splits > 1 && dw_partial == nullptr) ||
-      (groups > 1 && doff_partial == nullptr))
+      (groups > 1 && doff_partial == nullptr) ||
+      (off_elt != 4 && off_elt != 2))
     return (int)cudaErrorInvalidValue;
   Geometry g = make_geometry(n, hp, wp, c, ho, wo, m, k, s, d, bound, hb, th,
                              tw, tc);
-  if (input_smem_bytes(g, pix) > kMaxSmem ||
-      weight_smem_bytes(g, pix) > kMaxSmem ||
-      warp_tiles(g, pix) > kMaxWarpTiles)
-    return (int)cudaErrorInvalidValue;
-  if (((vec & kVecWG) &&
-       (m % 4 != 0 || reinterpret_cast<uintptr_t>(gy) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(w_tiles) % 16 != 0)) ||
-      ((vec & kVecBand) &&
-       (tc % 4 != 0 || c % 4 != 0 ||
-        reinterpret_cast<uintptr_t>(x_pad) % 16 != 0)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (pix == 16)
-    e = launch<16>(x_pad, off, gy, w_tiles, dx_pad, d_off, dw_tiles,
-                   dw_partial, doff_partial, geom, groups, splits, vec, g,
-                   st);
-  else if (pix == 32)
-    e = launch<32>(x_pad, off, gy, w_tiles, dx_pad, d_off, dw_tiles,
-                   dw_partial, doff_partial, geom, groups, splits, vec, g,
-                   st);
-  else
-    e = launch<64>(x_pad, off, gy, w_tiles, dx_pad, d_off, dw_tiles,
-                   dw_partial, doff_partial, geom, groups, splits, vec, g,
-                   st);
-  return (int)e;
+  g.off_bf16 = off_elt == 2;
+  if (elt == 4)
+    return backward<float>(x_pad, off, gy, w_tiles, dx_pad, dx_ws, d_off,
+                           dw_tiles, dw_partial, doff_partial, geom, g, pix,
+                           groups, splits, vec, stream);
+  if (elt == 2)
+    return backward<bf16>(x_pad, off, gy, w_tiles, dx_pad, dx_ws, d_off,
+                          dw_tiles, dw_partial, doff_partial, geom, g, pix,
+                          groups, splits, vec, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* dcb_error_string(int code) {

@@ -1,10 +1,11 @@
 // Warp-level tensor-core and async-copy helpers for sm_90a (H100), shared
 // by flash_attention.cu, matmul.cu, deform_conv_bwd.cu,
-// deform_conv_fused.cu and deform_conv_q.cu: 16-byte and 4-byte cp.async
-// with zero fill (and four floats either way), ldmatrix (plain and
-// transposed), the bf16 m16n8k16 and the tf32 m16n8k8 mma.sync with fp32
-// accumulation, the split-fp32 ("3xTF32") product built on the latter,
-// the s8 m16n8k32 mma.sync with s32 accumulation, and the host's
+// deform_conv_fused.cu and deform_conv_q.cu: 16-, 8- and 4-byte cp.async
+// with zero fill (four floats either way, and 1-8 elements of fp32 or
+// bf16 as one copy), ldmatrix (plain and transposed), the bf16 m16n8k16
+// and the tf32 m16n8k8 mma.sync with fp32 accumulation, the split-fp32
+// ("3xTF32") product built on the latter, the s8 m16n8k32 mma.sync with
+// s32 accumulation, fp32 <-> bf16 conversions, and the host's
 // dynamic-shared-memory opt-in.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 * gid +
@@ -61,6 +62,35 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+
+// 8 bytes global -> shared, asynchronous (src_bytes 0: writes zeros).
+// Both addresses 8-byte aligned.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// n elements of T (n * sizeof(T) = 16, 8, 4 or 2 bytes, both addresses
+// aligned to it) global -> shared, or zeros where !in: one cp.async from 4
+// bytes up; one bf16 element by a plain load and store (cp.async has no
+// 2-byte form).
+template <typename T>
+__device__ __forceinline__ void copy_elems(T* dst, const T* src, int n,
+                                           bool in) {
+  const int bytes = n * (int)sizeof(T);
+  if (bytes == 16)
+    cp_async16(dst, src, in ? 16 : 0);
+  else if (bytes == 8)
+    cp_async8(dst, src, in ? 8 : 0);
+  else if (bytes == 4)
+    cp_async4(dst, src, in ? 4 : 0);
+  else
+    *reinterpret_cast<unsigned short*>(dst) =
+        in ? *reinterpret_cast<const unsigned short*>(src) : 0;
 }
 
 // Four floats to the 16-byte aligned dst, of which the first `count`
@@ -167,6 +197,30 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Element conversions: to fp32 (exact from bf16) and back (bf16 rounded
+// to nearest even); the two bf16 halves of a 32-bit word (the lower
+// address in the low half) to fp32.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
 }
 
 // Host: lets `kernel` take `bytes` of dynamic shared memory on the

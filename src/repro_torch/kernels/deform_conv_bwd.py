@@ -15,6 +15,12 @@ PyTorch version below, which follows the same explicit formulas:
 * ``d_input`` = ``index_add_`` of the four weighted corners into the
   padded plane.
 
+Both take fp32 inputs, or bf16 x_pad, g and w_tiles (the offsets fp32 or
+bf16), as the TPU kernel does: every value converted to fp32 before the
+math.  d_input is summed in fp32 and rounded once to x_pad's dtype,
+d_offsets to the offsets' dtype; d_weights is fp32 (the caller casts it
+to w's dtype).
+
 Unlike the TPU kernel, the cotangent needs no padding to tile multiples:
 pixels outside Ho x Wo contribute nothing.  There is no fallback from the
 kernel to the plain version: a failed launch raises.
@@ -25,6 +31,8 @@ import math
 
 import torch
 
+from repro_torch.kernels._staging import (KERNEL_DTYPES, band_vec,
+                                          count_launch)
 from repro_torch.kernels.band_pipeline import (BandSpec, corner_derivatives,
                                                corner_weights, tile_corners,
                                                tile_offsets, tile_pixels,
@@ -122,10 +130,12 @@ def deform_conv_bwd_zerocopy(
              dw_tiles in the layout of ``w_tiles``)
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (fp32, contiguous, ``tile_h * tile_w <= 64``, at most
+    (x_pad, g and w_tiles all fp32 or all bf16, offsets either,
+    contiguous, ``tile_h * tile_w <= 64``, at most
     ``tiling.BWD_MAX_WARP_TILES`` dP mma tiles a warp) at the plan of
     ``bwd_plan`` and count the launch in
-    ``deform_conv_bwd_zerocopy.launches``.
+    ``deform_conv_bwd_zerocopy.launches`` (a bf16 one also in
+    ``.launches_bf16``).
     """
     if x_pad.device.type == "cpu":
         return deform_conv_bwd_zerocopy_plain(
@@ -143,10 +153,14 @@ def deform_conv_bwd_zerocopy(
     _check(x_pad, offsets, g, w_tiles, kernel_size=kernel_size, tile_c=tc)
     for name, t in (("x_pad", x_pad), ("offsets", offsets), ("g", g),
                     ("w_tiles", w_tiles)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
+        if t.dtype not in KERNEL_DTYPES or not t.is_contiguous() \
                 or t.device != x_pad.device:
-            raise ValueError(f"{name} must be a contiguous float32 tensor on "
-                             f"{x_pad.device}")
+            raise ValueError(f"{name} must be a contiguous float32 or "
+                             f"bfloat16 tensor on {x_pad.device}")
+    if not g.dtype == w_tiles.dtype == x_pad.dtype:
+        raise ValueError(f"x_pad, g and w_tiles are {x_pad.dtype}, {g.dtype} "
+                         f"and {w_tiles.dtype}: the kernel takes all float32 "
+                         f"or all bfloat16")
     plan = bwd_plan(n, ho, wo, c, m, kernel_size=kernel_size,
                     tile_h=tile_h, tile_w=tile_w, tile_c=tc)  # raises > 64 px
     if plan["warp_tiles"] > BWD_MAX_WARP_TILES:
@@ -161,8 +175,11 @@ def deform_conv_bwd_zerocopy(
 
     dev = x_pad.device
     dx_pad = torch.empty_like(x_pad)
+    # bf16: d_input adds into an fp32 workspace, rounded once into dx_pad.
+    dx_ws = torch.empty(x_pad.shape, dtype=torch.float32, device=dev) \
+        if x_pad.dtype == torch.bfloat16 else None
     d_off = torch.empty_like(offsets)
-    dw = torch.empty_like(w_tiles)
+    dw = torch.empty(w_tiles.shape, dtype=torch.float32, device=dev)
     partial = torch.empty((splits, *w_tiles.shape), dtype=torch.float32,
                           device=dev) if splits > 1 else None
     doff_partial = torch.empty((groups, *offsets.shape), dtype=torch.float32,
@@ -179,28 +196,28 @@ def deform_conv_bwd_zerocopy(
             x_pad.data_ptr(), offsets.data_ptr(), g.data_ptr(),
             w_tiles.data_ptr(), dx_pad.data_ptr(), d_off.data_ptr(),
             dw.data_ptr(), ptr(partial), ptr(doff_partial), geom.data_ptr(),
-            n, hp, wp, c, ho, wo, m, kernel_size, stride, dilation,
-            float(offset_bound), int(math.ceil(offset_bound)), tile_h,
-            tile_w, tc, groups, splits, vec,
+            ptr(dx_ws), n, hp, wp, c, ho, wo, m, kernel_size, stride,
+            dilation, float(offset_bound), int(math.ceil(offset_bound)),
+            tile_h, tile_w, tc, groups, splits, vec, x_pad.element_size(),
+            offsets.element_size(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"deform_conv_bwd kernel launch failed: "
                            f"{lib.dcb_error_string(err).decode()} ({err})")
-    deform_conv_bwd_zerocopy.launches += 1
+    count_launch(deform_conv_bwd_zerocopy, x_pad)
     return dx_pad, d_off, dw
 
 
 def staging_vec(x_pad: Tensor, g: Tensor, w_tiles: Tensor,
                 tile_c: int) -> int:
-    """How the kernel stages its operands: bit 0, W and g in 16-byte
-    copies (M a multiple of 4, both 16-byte aligned); bit 1, the band of
-    x_pad (tile_c and C multiples of 4, x_pad 16-byte aligned); else
-    element by element."""
-    wg = w_tiles.shape[2] % 4 == 0 and g.data_ptr() % 16 == 0 \
-        and w_tiles.data_ptr() % 16 == 0
-    band = tile_c % 4 == 0 and x_pad.shape[3] % 4 == 0 \
-        and x_pad.data_ptr() % 16 == 0
-    return int(wg) | 2 * int(band)
+    """How the kernel stages its operands, for x_pad's element size: bit
+    0, W and g 4 channels a copy (16 bytes in fp32, 8 in bf16; M a
+    multiple of 4, both pointers aligned to the copy); the band of x_pad
+    as ``_staging.band_vec``."""
+    size = x_pad.element_size()
+    wg = w_tiles.shape[2] % 4 == 0 and g.data_ptr() % (4 * size) == 0 \
+        and w_tiles.data_ptr() % (4 * size) == 0
+    return int(wg) | band_vec(x_pad, tile_c)
 
 
 def bwd_plan(n: int, ho: int, wo: int, c: int, m: int, *, kernel_size: int,
@@ -228,3 +245,4 @@ def bwd_plan(n: int, ho: int, wo: int, c: int, m: int, *, kernel_size: int,
 
 
 deform_conv_bwd_zerocopy.launches = 0
+deform_conv_bwd_zerocopy.launches_bf16 = 0

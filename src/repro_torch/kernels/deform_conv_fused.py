@@ -1,13 +1,17 @@
 """Fused bounded DCL forward: bilinear sampling + dynamic convolution.
 
 Counterpart of ``repro.kernels.deform_conv_fused``: ``deform_conv_fused_
-zerocopy`` (TPU kernel 1a, the fp32 plan of ``band_pipeline.forward_call``)
-takes the zero-padded input whole, ``deform_conv_fused_banded`` (TPU
-kernel 4) the HBM-materialised bands of ``plan.pad_and_band``; both take
-the raw offsets and the channel-blocked weights.  On a CUDA tensor each
-wrapper launches its entry point of the hand-written kernel of
-``csrc/deform_conv_fused.cu``, on a CPU tensor it runs the plain PyTorch
-version below, which does the same band-local arithmetic.  There is no
+zerocopy`` (TPU kernel 1a, the fp32 and bf16 plans of
+``band_pipeline.forward_call``) takes the zero-padded input whole,
+``deform_conv_fused_banded`` (TPU kernel 4) the HBM-materialised bands of
+``plan.pad_and_band``; both take the raw offsets and the channel-blocked
+weights.  On a CUDA tensor each wrapper launches its entry point of the
+hand-written kernel of ``csrc/deform_conv_fused.cu``, in its fp32 or its
+bf16 instance (the input's and the weights' dtype; offsets fp32 or bf16),
+on a CPU tensor it runs the plain PyTorch version below, which does the
+same band-local arithmetic: patches gathered in fp32, rounded to the
+input's dtype (as the TPU kernel rounds them), contracted with fp32
+accumulation, the output rounded once to the input's dtype.  There is no
 fallback from one to the other: a failed launch raises.
 
 Unlike the TPU kernel, the ragged edge of the zero-copy kernel needs no
@@ -27,6 +31,8 @@ import math
 
 import torch
 
+from repro_torch.kernels._staging import (KERNEL_DTYPES, band_vec,
+                                          count_launch)
 from repro_torch.kernels.band_pipeline import (BandSpec, check_banded,
                                                sample_bands, sample_tiles,
                                                tile_offsets, untile)
@@ -69,28 +75,31 @@ def fwd_plan(n: int, ho: int, wo: int, c: int, m: int, *, tile_h: int,
 
 def staging_vec(src: Tensor, w_tiles: Tensor, tile_c: int,
                 tile_m: int) -> int:
-    """How the kernel stages its chunks: bit 0, W in 16-byte copies (M and
-    tile_m multiples of 4, w_tiles 16-byte aligned); bit 1, the band
-    (tile_c and C multiples of 4, the source 16-byte aligned); else
-    element by element."""
-    w = w_tiles.shape[2] % 4 == 0 and tile_m % 4 == 0 \
+    """How the kernel stages its chunks, for the source's element size:
+    bit 0, W in 16-byte copies (M and tile_m multiples of 16 bytes'
+    elements, w_tiles 16-byte aligned); the band as ``_staging.band_vec``."""
+    per_16 = 16 // src.element_size()
+    w = w_tiles.shape[2] % per_16 == 0 and tile_m % per_16 == 0 \
         and w_tiles.data_ptr() % 16 == 0
-    band = tile_c % 4 == 0 and src.shape[-1] % 4 == 0 \
-        and src.data_ptr() % 16 == 0
-    return int(w) | 2 * int(band)
+    return int(w) | band_vec(src, tile_c)
 
 
 def _check_launch(src: Tensor, offsets: Tensor, w_tiles: Tensor,
                   names: tuple[str, str, str], tile_h: int, tile_w: int,
                   tm: int) -> None:
-    """What the kernel takes: contiguous fp32 on one device, at most 64
-    pixels and ``FWD_TILE_M`` output channels a block."""
+    """What the kernel takes: contiguous tensors on one device, the source
+    and the weights both float32 or both bfloat16, the offsets either; at
+    most 64 pixels and ``FWD_TILE_M`` output channels a block."""
     from repro_torch.core.tiling import FWD_TILE_M, pix_lanes
     for name, t in zip(names, (src, offsets, w_tiles)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
+        if t.dtype not in KERNEL_DTYPES or not t.is_contiguous() \
                 or t.device != src.device:
-            raise ValueError(f"{name} must be a contiguous float32 tensor on "
-                             f"{src.device}")
+            raise ValueError(f"{name} must be a contiguous float32 or "
+                             f"bfloat16 tensor on {src.device}")
+    if w_tiles.dtype != src.dtype:
+        raise ValueError(f"{names[2]} is {w_tiles.dtype} but {names[0]} is "
+                         f"{src.dtype}: the kernel takes both float32 or "
+                         f"both bfloat16")
     pix_lanes(tile_h, tile_w)                 # raises past 64 pixels
     if not 1 <= tm <= FWD_TILE_M:
         raise ValueError(f"tile_m={tm} outside the kernel's 1..{FWD_TILE_M}")
@@ -110,7 +119,8 @@ def _launch(fn: str, src: Tensor, offsets: Tensor, w_tiles: Tensor,
         err = getattr(lib, fn)(
             src.data_ptr(), offsets.data_ptr(), w_tiles.data_ptr(),
             out.data_ptr(), None if partial is None else partial.data_ptr(),
-            *dims, *geom, *tiles, groups, vec,
+            *dims, *geom, *tiles, groups, vec, src.element_size(),
+            offsets.element_size(),
             torch.cuda.current_stream(src.device).cuda_stream)
     if err:
         raise RuntimeError(f"{fn} kernel launch failed: "
@@ -125,9 +135,10 @@ def deform_conv_fused_zerocopy_plain(
     """Plain PyTorch version of the kernel, on any device.
 
     Every tile's corner geometry is computed band-locally (as the kernel
-    does), shifted to the padded plane, gathered, and contracted one
-    C-chunk at a time with fp32 accumulation (``tile_m`` only shapes the
-    kernel's grid)."""
+    does), shifted to the padded plane, gathered in fp32, rounded to
+    x_pad's dtype (as the TPU kernel's gather rounds its patches) and
+    contracted one C-chunk at a time with fp32 accumulation (``tile_m``
+    only shapes the kernel's grid)."""
     c = x_pad.shape[-1]
     _, ho, wo, _ = offsets.shape
     tc = tile_c or c
@@ -136,21 +147,22 @@ def deform_conv_fused_zerocopy_plain(
     patches = sample_tiles(x_pad, off_t, kernel_size=kernel_size,
                            stride=stride, dilation=dilation,
                            offset_bound=offset_bound)
-    y = contract_chunks(patches, w_tiles, tc)
+    y = contract_chunks(patches.to(x_pad.dtype), w_tiles, tc)
     return untile(y, ho, wo).to(x_pad.dtype)
 
 
 def contract_chunks(patches: Tensor, w_tiles: Tensor, tile_c: int) -> Tensor:
-    """(..., K*K, C) fp32 patches times the blocked weights (C // tile_c,
+    """(..., K*K, C) patches times the blocked weights (C // tile_c,
     K*K*tile_c, M), one C-chunk at a time with fp32 accumulation, as the
-    kernels step C.  Returns (..., M)."""
+    kernels step C: both operands converted to fp32 (exact from bf16, so
+    a bf16 product is exact too).  Returns (..., M) in fp32."""
     *lead, k2, c = patches.shape
     patches = patches.reshape(-1, k2, c)
     acc = torch.zeros(patches.shape[0], w_tiles.shape[2],
                       dtype=torch.float32, device=patches.device)
     for cs in range(c // tile_c):
         lhs = patches[:, :, cs * tile_c:(cs + 1) * tile_c] \
-            .reshape(-1, k2 * tile_c)
+            .reshape(-1, k2 * tile_c).float()
         acc = acc + lhs @ w_tiles[cs].float()
     return acc.reshape(*lead, -1)
 
@@ -168,8 +180,10 @@ def deform_conv_fused_zerocopy(
     returns: (N, Ho, Wo, M)
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (fp32, contiguous, ``tile_h * tile_w <= 64``, ``tile_m <= 128``) and
-    count the launch in ``deform_conv_fused_zerocopy.launches``.
+    (x_pad and w_tiles both fp32 or both bf16, offsets either, contiguous,
+    ``tile_h * tile_w <= 64``, ``tile_m <= 128``; the output in x_pad's
+    dtype) and count the launch in ``deform_conv_fused_zerocopy.launches``
+    (a bf16 one also in ``.launches_bf16``).
     """
     if x_pad.device.type == "cpu":
         return deform_conv_fused_zerocopy_plain(
@@ -191,7 +205,7 @@ def deform_conv_fused_zerocopy(
     BandSpec(kernel_size, stride, dilation, offset_bound, tile_h,
              tile_w).check_padded(hp, wp, -(-ho // tile_h), -(-wo // tile_w))
 
-    out = torch.empty((n, ho, wo, m), dtype=torch.float32,
+    out = torch.empty((n, ho, wo, m), dtype=x_pad.dtype,
                       device=x_pad.device)
     plan = fwd_plan(n, ho, wo, c, m, tile_h=tile_h, tile_w=tile_w,
                     tile_c=tc, tile_m=tm)
@@ -199,11 +213,12 @@ def deform_conv_fused_zerocopy(
             (n, hp, wp, c, ho, wo, m),
             (kernel_size, stride, dilation, float(offset_bound),
              int(math.ceil(offset_bound))), (tile_h, tile_w, tc, tm))
-    deform_conv_fused_zerocopy.launches += 1
+    count_launch(deform_conv_fused_zerocopy, x_pad)
     return out
 
 
 deform_conv_fused_zerocopy.launches = 0
+deform_conv_fused_zerocopy.launches_bf16 = 0
 
 
 def deform_conv_fused_banded_plain(
@@ -212,9 +227,10 @@ def deform_conv_fused_banded_plain(
         tile_h: int, tile_w: int | None = None, tile_c: int | None = None,
         tile_m: int | None = None) -> Tensor:
     """Plain PyTorch version of kernel 4, on any device: each band tile
-    sampled over the full width (``band_pipeline.sample_bands``), then
-    contracted one C-chunk at a time with fp32 accumulation (``tile_w``
-    and ``tile_m`` only shape the kernel's grid)."""
+    sampled over the full width (``band_pipeline.sample_bands``), rounded
+    to the bands' dtype, then contracted one C-chunk at a time with fp32
+    accumulation (``tile_w`` and ``tile_m`` only shape the kernel's
+    grid)."""
     c = bands.shape[-1]
     tc = tile_c or c
     _check(bands, offsets, w_tiles, kernel_size=kernel_size,
@@ -222,7 +238,8 @@ def deform_conv_fused_banded_plain(
     patches = sample_bands(bands, offsets, kernel_size=kernel_size,
                            stride=stride, dilation=dilation,
                            offset_bound=offset_bound, tile_h=tile_h)
-    return contract_chunks(patches, w_tiles, tc).to(bands.dtype)
+    return contract_chunks(patches.to(bands.dtype), w_tiles,
+                           tc).to(bands.dtype)
 
 
 def deform_conv_fused_banded(
@@ -241,9 +258,11 @@ def deform_conv_fused_banded(
     output columns (default: as many as fit 64 pixels, at most 8) and
     ``tile_m`` output channels (default: up to 128), stepping C in
     ``tile_c`` chunks.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (fp32, contiguous, ``tile_h * tile_w <= 64``,
-    ``tile_m <= 128``) and count the launch in
-    ``deform_conv_fused_banded.launches``.
+    launch the kernel (bands and w_tiles both fp32 or both bf16, offsets
+    either, contiguous, ``tile_h * tile_w <= 64``, ``tile_m <= 128``; the
+    output in the bands' dtype) and count the launch in
+    ``deform_conv_fused_banded.launches`` (a bf16 one also in
+    ``.launches_bf16``).
     """
     if bands.device.type == "cpu":
         return deform_conv_fused_banded_plain(
@@ -267,7 +286,7 @@ def deform_conv_fused_banded(
     check_banded(bands, offsets, kernel_size=kernel_size, stride=stride,
                  dilation=dilation, offset_bound=offset_bound, tile_h=tile_h)
 
-    out = torch.empty((n, ho, wo, m), dtype=torch.float32,
+    out = torch.empty((n, ho, wo, m), dtype=bands.dtype,
                       device=bands.device)
     plan = fwd_plan(n, ho, wo, c, m, tile_h=tile_h, tile_w=tw, tile_c=tc,
                     tile_m=tm)
@@ -275,8 +294,9 @@ def deform_conv_fused_banded(
             (n, nt, band_h, w_pad, c, wo, m),
             (kernel_size, stride, dilation, float(offset_bound),
              int(math.ceil(offset_bound))), (tile_h, tw, tc, tm))
-    deform_conv_fused_banded.launches += 1
+    count_launch(deform_conv_fused_banded, bands)
     return out
 
 
 deform_conv_fused_banded.launches = 0
+deform_conv_fused_banded.launches_bf16 = 0

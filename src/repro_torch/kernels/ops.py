@@ -2,11 +2,13 @@
 ``repro.kernels.ops``).
 
 * ``deform_conv`` with ``offset_bound`` given (the Eq. 5-trained model):
-  the fused fp32 kernel (``precision="fp32"``, ``plan.bounded_forward``)
-  over either dataflow (``dataflow="zero_copy"``, kernel 1a, or
-  ``"banded"``, kernel 4 over the bands of ``plan.pad_and_band``) or the
-  int8 kernel with its dequant epilogue (``precision="int8"``,
-  ``plan.int8_forward``, zero-copy only);
+  the fused kernel (``precision="fp32"``, ``plan.bounded_forward``) in
+  the inputs' dtype, fp32 or bf16 (x and w in bf16, offsets in either;
+  the patches rounded to bf16, fp32 sums, the output in bf16), over
+  either dataflow (``dataflow="zero_copy"``, kernel 1a, or ``"banded"``,
+  kernel 4 over the bands of ``plan.pad_and_band``), or the int8 kernel
+  with its dequant epilogue (``precision="int8"``, ``plan.int8_forward``,
+  zero-copy only);
 * ``deform_sample``: stage 1 alone, the patches (kernel 1b zero-copy,
   kernel 3 banded; the plain gather when unbounded);
 * ``deform_conv`` with ``offset_bound`` None (the lambda=0 baseline): the
@@ -21,11 +23,13 @@ the tensors must lie on it; the tensors' device then picks the kernel
 (CUDA) or its plain version (CPU).  A kernel failure raises: unlike the
 JAX package there is no fallback to a reference path.
 
-The fp32 bounded path is differentiable through ``BoundedDeformConv``
-(the counterpart of the JAX custom VJP): its forward is
-``plan.bounded_forward`` and its backward the fused backward kernel
-(``plan.bounded_backward``), on both devices and for both dataflows, as
-in JAX: the gradient is a property of the function, not of the dataflow.
+The bounded path (fp32 and bf16) is differentiable through
+``BoundedDeformConv`` (the counterpart of the JAX custom VJP): its forward
+is ``plan.bounded_forward`` and its backward the fused backward kernel
+(``plan.bounded_backward``; in bf16 its math in fp32, each gradient
+rounded once to its input's dtype), on both devices and for both
+dataflows, as in JAX: the gradient is a property of the function, not of
+the dataflow.
 The int8 and chain paths are inference only: on CUDA an input that needs
 a gradient raises there (quantized models train with ``quant="qat"``).
 
@@ -89,7 +93,8 @@ def _refuse_grad(dev: torch.device, op: str, *tensors: Tensor) -> None:
 
 
 class BoundedDeformConv(torch.autograd.Function):
-    """The bounded fp32 deform conv with the fused backward kernel.
+    """The bounded deform conv (fp32 or bf16) with the fused backward
+    kernel.
 
     Saves only ``(x, offsets, w)``, as the JAX custom VJP does: the
     backward recomputes the patches from the Eq. 6 band."""
@@ -175,11 +180,12 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
     Returns (N, Ho, Wo, M).  Unspecified tiles come from the Hopper
     chooser (``core.tiling.choose_kernel_tiles``) of the datapath.
 
-    ``dataflow`` picks the bounded fp32 forward: ``"zero_copy"`` (kernel
-    1a stages each band from the padded input) or ``"banded"`` (the
-    legacy dataflow: ``tile_h``-row bands, default 8, are materialised in
-    device memory and kernel 4 reads them).  Both have kernel 2 as their
-    backward.
+    ``dataflow`` picks the bounded forward: ``"zero_copy"`` (kernel 1a
+    stages each band from the padded input) or ``"banded"`` (the legacy
+    dataflow: ``tile_h``-row bands, default 8, are materialised in device
+    memory and kernel 4 reads them).  Both have kernel 2 as their
+    backward.  Each runs in x's dtype: fp32, or bf16 (w is cast to it;
+    the offsets stay fp32 or bf16); other dtypes raise on the card.
 
     ``precision="int8"`` (bounded only) runs the quantized inference
     datapath: int8 band, fp32 bilinear coefficients, patches rounded to

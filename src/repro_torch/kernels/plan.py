@@ -11,11 +11,12 @@
 * ``pad_zerocopy`` / ``zerocopy_inputs`` — zero-pad the input once so
   every Eq. 6 band is a plain window of it; ``pad_and_band`` — zero-pad
   and cut the overlapping row bands (PyTorch glue, as XLA glue in JAX);
-* ``bounded_forward`` (fp32), ``int8_forward`` and ``chain_forward`` —
-  prepare the inputs and call the kernel wrappers;
-* ``bounded_backward`` — the fp32 backward at its own tiles (the
-  ``"fp32_bwd"`` chooser), un-padded and un-blocked; it serves both
-  dataflows' forwards, as in JAX.
+* ``bounded_forward`` (fp32 or bf16, x's dtype), ``int8_forward`` and
+  ``chain_forward`` — prepare the inputs and call the kernel wrappers;
+* ``bounded_backward`` — the backward (fp32 math, for fp32 or bf16
+  inputs) at its own tiles (the ``"fp32_bwd"`` chooser at x's element
+  size), un-padded and un-blocked; it serves both dataflows' forwards, as
+  in JAX.
 
 The int8 paths quantize outside the kernels, as the JAX package does:
 the input per tensor, the weights per output channel, then pad the int8
@@ -96,8 +97,9 @@ def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
     """Explicit tiles win; the chooser for ``dtype`` (``"fp32"``,
     ``"int8"``, ``"int8_chain"``, ``"fp32_bwd"``, ``"sample"``,
     ``"banded"``) fills the rest, around an explicit ``tile_h``
-    (``itemsize``: the element bytes the sampling kernels stage).  Raises
-    on channel tiles that do not divide the layer."""
+    (``itemsize``: the element bytes the kernels stage, 4 fp32 or 2 bf16;
+    the int8 choosers do not read it).  Raises on channel tiles that do
+    not divide the layer."""
     from repro_torch.kernels.ops import check_channel_tiles
     if None in (tile_h, tile_w, tile_c, tile_m):
         kt = choose_kernel_tiles(n, h, w, c, m, kernel_size=kernel_size,
@@ -112,16 +114,24 @@ def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
     return tile_h, tile_w, tile_c, tile_m
 
 
+def kernel_itemsize(x: Tensor) -> int:
+    """The element bytes the fused DCL kernels stage for x: 2 for its bf16
+    instance, else 4 (the fp32 instance; other dtypes run only the plain
+    versions on the CPU, at the fp32 tiles, and raise on the card)."""
+    return 2 if x.dtype == torch.bfloat16 else 4
+
+
 def spec_tiles(spec: DCSpec, x: Tensor, offsets: Tensor, w: Tensor, *,
                dtype: str = "fp32") -> tuple[int, int, int, int]:
-    """Tiles of one call, spatial tiles clamped to the output extent."""
+    """Tiles of one call at ``kernel_itemsize(x)``, spatial tiles clamped
+    to the output extent."""
     ho, wo = offsets.shape[1], offsets.shape[2]
     th, tw, tc, tm = resolve_tiles(
         x.shape[0], x.shape[1], x.shape[2], x.shape[-1], w.shape[-1],
         kernel_size=spec.kernel_size, stride=spec.stride,
         dilation=spec.dilation, offset_bound=spec.offset_bound,
         tile_h=spec.tile_h, tile_w=spec.tile_w, tile_c=spec.tile_c,
-        tile_m=spec.tile_m, dtype=dtype)
+        tile_m=spec.tile_m, dtype=dtype, itemsize=kernel_itemsize(x))
     return min(th, ho), min(tw, wo), tc, tm
 
 
@@ -212,7 +222,7 @@ def banded_tiles(spec: DCSpec, x: Tensor, offsets: Tensor, m: int, *,
         kernel_size=spec.kernel_size, stride=spec.stride,
         dilation=spec.dilation, offset_bound=spec.offset_bound, tile_h=th,
         tile_w=spec.tile_w, tile_c=spec.tile_c, tile_m=spec.tile_m,
-        dtype=dtype, itemsize=x.element_size())
+        dtype=dtype, itemsize=kernel_itemsize(x))
     return th, min(tw, offsets.shape[2]), tc, tm
 
 
@@ -256,9 +266,10 @@ def bounded_forward(spec: DCSpec, x: Tensor, offsets: Tensor,
 
 def bounded_backward(spec: DCSpec, x: Tensor, offsets: Tensor, w: Tensor,
                      gy: Tensor) -> tuple[Tensor, Tensor, Tensor]:
-    """(d_input, d_offsets, d_weights) of one bounded fp32 call through
-    the fused backward kernel, at the backward's own tiles (explicit
-    tiles of ``spec`` win, as for the forward).  ``gy`` must be
+    """(d_input, d_offsets, d_weights) of one bounded call (fp32 or bf16)
+    through the fused backward kernel, at the backward's own tiles
+    (explicit tiles of ``spec`` win, as for the forward), each in its
+    input's dtype (the kernel's d_weights is fp32).  ``gy`` must be
     contiguous; the kernel masks the ragged edge, so it is not padded."""
     _, h, w_in, _ = x.shape
     th, tw, tc, _ = spec_tiles(spec, x, offsets, w, dtype="fp32_bwd")

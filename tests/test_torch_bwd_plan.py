@@ -8,7 +8,11 @@ adds, and (b) a plain emulation of its split-fp32 tensor-core products
 ("3xTF32": a = hi + lo with hi, lo rounded to tf32, a.b ~ a_lo b_hi +
 a_hi b_lo + a_hi b_hi, accumulated in fp32), held to the fp32 product
 within phase 7's ``1e-4 * max|plain|``, against a single-pass TF32 product
-that lies at least 10x further off.
+that lies at least 10x further off; and (c) the bf16 instance: its
+shared-memory mirrors and tiles at the training shapes, and its shorter
+products (dP = g W^T one bf16 mma, whose products of bf16 values are exact
+in fp32; dw = P^T g two tf32 passes, P split, g exact in tf32) held to
+the fp32 product.
 """
 import numpy as np
 import pytest
@@ -203,3 +207,99 @@ def test_split_tf32_products_meet_the_fp32_tolerance(label):
         err1 = (tf32(a) @ tf32(bm) - want).abs().max().item()
         assert err3 <= BWD_RTOL * scale, (name, err3, scale)
         assert err1 >= 10 * err3, (name, err1, err3)
+
+
+# ---------------------------------------------------------------------------
+# (c) The bf16 instance (chip_smoke.py phase 14).
+# ---------------------------------------------------------------------------
+
+def _plan_bf16(label):
+    n, h, w, c, m, s, d, b, tc = CASES[label]
+    ho, wo = T.out_hw(h, w, kernel_size=K, stride=s, dilation=d)
+    th, tw, tc, _ = plan.resolve_tiles(n, h, w, c, m, kernel_size=K,
+                                       stride=s, dilation=d, offset_bound=b,
+                                       tile_c=tc, dtype="fp32_bwd",
+                                       itemsize=2)
+    return dict(n=n, ho=ho, wo=wo, c=c, m=m, th=min(th, ho), tw=min(tw, wo),
+                tc=tc, geom=dict(kernel_size=K, stride=s, dilation=d,
+                                 offset_bound=b))
+
+
+@pytest.mark.parametrize("label", list(CASES))
+def test_bf16_backward_mirrors_and_tiles(label):
+    """``bwd_smem_bytes`` / ``bwd_dw_smem_bytes`` at itemsize 2 mirror the
+    bf16 kernels: the bf16 band (16-byte rounded), the W / g steps in bf16
+    or the fp32 dP chunk, whichever is larger, the fp32 sort and geometry;
+    the d_weights kernel's bf16 bands and g tiles beside its fp32 patch
+    tile.  The chooser's bf16 tiles fit (d_input twice an SM, d_weights
+    once) within the warp-tile limit, and the grid fills the card as in
+    fp32."""
+    q = _plan_bf16(label)
+    th, tw, tc, g = q["th"], q["tw"], q["tc"], q["geom"]
+    lanes = T.pix_lanes(th, tw)
+    pairs = K * K * lanes
+    bh = T.band_extent(th, **g)
+    bw = T.band_extent(tw, **g)
+    band = -(-2 * bh * bw * tc // 16) * 16
+    rp = T.bwd_rows_pad(th, tw, tc, kernel_size=K)
+    ldr = rp + (8 if rp % 16 == 0 else 16)
+    union = max(2 * 3 * (rp + lanes) * 20, 4 * lanes * ldr)
+    assert T.bwd_smem_bytes(th, tw, tc, itemsize=2, **g) \
+        == band + union + 4 * (13 * pairs + 2 * bh * bw + 1)
+    g_tiles = 2 if lanes <= 32 else 1
+    assert T.bwd_dw_smem_bytes(th, tw, tc, itemsize=2, **g) \
+        == 2 * band + 8 * 144 + lanes * (2 * g_tiles * 136 + 4 * 152)
+    assert T.bwd_smem_bytes(th, tw, tc, itemsize=2, **g) <= SMEM_MAX // 2
+    assert T.bwd_dw_smem_bytes(th, tw, tc, itemsize=2, **g) <= SMEM_MAX
+    assert T.bwd_warp_tiles(th, tw, tc, kernel_size=K) \
+        <= T.BWD_MAX_WARP_TILES
+    p = bwd_plan(q["n"], q["ho"], q["wo"], q["c"], q["m"], kernel_size=K,
+                 tile_h=th, tile_w=tw, tile_c=tc)
+    chunks = q["c"] // tc
+    assert p["tiles"] * p["c_groups"] >= T.BWD_TARGET_BLOCKS \
+        or p["c_groups"] == chunks
+    # The fp32 mirrors are the itemsize-4 ones.
+    assert T.bwd_smem_bytes(th, tw, tc, **g) \
+        == T.bwd_smem_bytes(th, tw, tc, itemsize=4, **g)
+
+
+@pytest.mark.parametrize("label", [c[0] for c in TRAINING])
+def test_bf16_products_take_fewer_tf32_passes(label):
+    """The bf16 instance runs dP = g W^T as one bf16 mma (every product
+    of two bf16 values exact in fp32, so only the fp32 sums' order
+    differs from the fp32 product) and dw = P^T g as two tf32 passes (g
+    is exact in tf32; g P_lo + g P_hi, the patches P fp32), within phase
+    7's 1e-4 * max|plain|; dropping P_lo lies at least 10x further off."""
+    n, h, w, c, m, s, d, b, _ = CASES[label]
+    ho, wo = T.out_hw(h, w, kernel_size=K, stride=s, dilation=d)
+    pixels = n * ho * wo
+    rng = np.random.RandomState(sum(map(ord, label)) + 1)
+    rows, cols = 48, 40
+    g = torch.from_numpy(rng.randn(pixels, m).astype(np.float32)) \
+        .bfloat16().float()
+    wt = torch.from_numpy((rng.randn(rows, m) / np.sqrt(K * K * c))
+                          .astype(np.float32)).bfloat16().float()
+    assert torch.equal(tf32(g), g) and torch.equal(tf32(wt), wt)
+    prods = g[:cols, None, :] * wt[None]
+    assert torch.equal(prods.double(),
+                       g[:cols, None, :].double() * wt[None].double())
+    dp = g[:cols] @ wt.T
+    assert (prods.sum(-1) - dp).abs().max().item() \
+        <= BWD_RTOL * dp.abs().max().item()
+    t = rng.rand(pixels, rows, 2).astype(np.float32)
+    v = torch.from_numpy(rng.randn(4, pixels, rows).astype(np.float32)) \
+        .bfloat16().float().numpy()
+    patches = torch.from_numpy(
+        (1 - t[..., 0]) * (1 - t[..., 1]) * v[0]
+        + (1 - t[..., 0]) * t[..., 1] * v[1]
+        + t[..., 0] * (1 - t[..., 1]) * v[2] + t[..., 0] * t[..., 1] * v[3])
+    gd = g[:, :cols]
+    want = patches.T @ gd
+    ph, pl = split(patches.T)
+    two = ph @ gd + pl @ gd
+    one = ph @ gd
+    scale = want.abs().max().item()
+    err2 = (two - want).abs().max().item()
+    err1 = (one - want).abs().max().item()
+    assert err2 <= BWD_RTOL * scale, (err2, scale)
+    assert err1 >= 10 * err2, (err1, err2)

@@ -15,7 +15,9 @@ int8 kernels exact (``torch.equal``: the same fp32 roundings and exact
 integer sums); the sampling kernels (1b, 3) exact in fp32 and bf16
 (``torch.equal``: the plain version's roundings in its order); the
 matmul 1e-5 * max|plain| in fp32 and one bf16 step (2^-7 * max|plain|)
-in bf16.
+in bf16; the bf16 DCL forwards (1a, 4) one bf16 step with at most 1% of
+the outputs unequal, kernel 2 in bf16 one bf16 step for d_input and
+d_offsets and 1e-4 * max|plain| for its fp32 d_weights.
 """
 import dataclasses
 
@@ -26,6 +28,7 @@ import torch
 from repro_torch.core.tiling import FWD_TILE_M, out_hw
 from repro_torch.kernels import ops, plan, ref
 from repro_torch.kernels import deform_conv_q as Q
+from repro_torch.kernels._staging import band_channels
 from repro_torch.kernels.deform_conv_bwd import (
     deform_conv_bwd_zerocopy, deform_conv_bwd_zerocopy_plain)
 from repro_torch.kernels.deform_conv_fused import (
@@ -576,6 +579,10 @@ def test_trainer_retry_replays_on_the_kernels(cuda, tmp_path):
 
 MM_RTOL = 1e-5          # fp32 sums over k in another order than cuBLAS
 BF16_RTOL = 2.0 ** -7   # one bf16 step at the largest output
+# Share of a bf16 forward's outputs that may differ from the plain
+# version's (fp32 sums in another order; a kernel that skipped the bf16
+# rounding of the patches differs in ~40%).
+BF16_UNEQUAL_MAX = 0.01
 SAMPLE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -1020,3 +1027,168 @@ def test_flash_attention_split_path(b, sq, sk, causal, dtype, cuda):
     _fa_check(got, FA.flash_attention_plain(q, k, v, causal=causal), dtype)
     # Fixed-order combine, no atomics: the same bits on every call.
     assert torch.equal(FA.flash_attention(q, k, v, causal=causal), got)
+
+
+# -- the bf16 instances of kernels 1a, 4 and 2 -------------------------------
+
+# (k, s, d, B, H, W, C, M, th, tw, tc, tm) and the forward's C groups (one
+# or several) and band staging (channels a copy, 1: element by element).
+# W in 16-byte copies wherever M and tile_m are multiples of 8.
+BF16_FWD_CASES = {
+    "one_group_8ch": ((3, 1, 1, 2.0, 72, 72, 16, 256, 8, 8, 8, 128), 1, 8),
+    "groups_8ch": ((3, 1, 1, 2.0, 16, 16, 64, 128, 8, 8, 8, 128), 8, 8),
+    "s2_groups_4ch": ((3, 2, 1, 2.0, 13, 11, 16, 48, 4, 4, 4, 48), 4, 4),
+    "narrow_tc2": ((3, 1, 1, 2.0, 12, 12, 4, 8, 4, 4, 2, 8), 2, 2),
+    "tc5_m30_elementwise": ((3, 1, 1, 2.0, 10, 10, 20, 30, 4, 4, 5, 30), 4,
+                            1),
+}
+
+
+def _bf16_fwd_call(case, kernel, device):
+    from repro_torch.kernels import deform_conv_fused as F
+    (k, s, d, b, h, w, c, m, th, tw, tc, tm), groups, unit = \
+        BF16_FWD_CASES[case]
+    x, off, wd = (t.bfloat16() for t in
+                  _inputs(k, h, w, c, m, s, d, b, len(case), device))
+    kw = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b,
+              tile_h=th, tile_w=tw, tile_c=tc, tile_m=tm)
+    if kernel == "zero_copy":
+        spec = plan.DCSpec(k, s, d, b, th, tw, tc, tm)
+        args = plan.zerocopy_inputs(spec, x, off, wd, th, tw, tc)
+        fns = (F.deform_conv_fused_zerocopy,
+               F.deform_conv_fused_zerocopy_plain)
+    else:
+        spec = plan.DCSpec(k, s, d, b, th, dataflow="banded")
+        args = (*plan.banded_inputs(spec, x, off, th),
+                plan.tile_weights(wd, tc))
+        fns = (F.deform_conv_fused_banded, F.deform_conv_fused_banded_plain)
+    kplan = F.fwd_plan(2, args[1].shape[1], args[1].shape[2], c, m,
+                       tile_h=th, tile_w=tw, tile_c=tc, tile_m=tm)
+    return fns, args, kw, kplan, groups, unit
+
+
+@pytest.mark.parametrize("kernel", ["zero_copy", "banded"])
+@pytest.mark.parametrize("case", sorted(BF16_FWD_CASES))
+def test_bf16_forward_kernels_match_plain(case, kernel, cuda):
+    """Kernels 1a and 4 in bf16 against their plain versions: one bf16
+    step at the largest output and at most ``BF16_UNEQUAL_MAX`` of the
+    outputs unequal, at one C group and at several, with the band staged
+    8, 4 or 2 channels a copy or element by element; two calls equal; one
+    launch counted in ``launches`` and ``launches_bf16``."""
+    from repro_torch.kernels import deform_conv_fused as F
+    (fn, plain), args, kw, kplan, groups, unit = _bf16_fwd_call(
+        case, kernel, cuda)
+    assert (kplan["c_groups"] > 1) == (groups > 1)
+    assert band_channels(F.staging_vec(args[0], args[2], kw["tile_c"],
+                                        kw["tile_m"])) == unit
+    before = (fn.launches, fn.launches_bf16)
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16) == (before[0] + 2, before[1] + 2)
+    want = plain(*args, **kw)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() \
+        <= BF16_RTOL * want.float().abs().max().item()
+    assert (got != want).float().mean().item() <= BF16_UNEQUAL_MAX
+    assert torch.equal(got, again)
+
+
+# Kernel 2 in bf16: (k, s, d, B, H, W, C, M, th, tw, tc), its d_input C
+# groups (one or several), band staging (channels a copy) and the offsets'
+# dtype.
+BF16_BWD_CASES = {
+    "one_group_8ch": ((3, 1, 1, 2.0, 72, 72, 16, 32, 4, 8, 16), 1, 8,
+                      torch.bfloat16),
+    "groups_8ch": ((3, 1, 1, 2.0, 12, 12, 16, 32, 4, 4, 8), 2, 8,
+                   torch.bfloat16),
+    "groups_8ch_fp32_offsets": ((3, 1, 1, 2.0, 12, 12, 16, 32, 4, 4, 8), 2,
+                                8, torch.float32),
+    "narrow_tc2": ((3, 1, 1, 2.0, 12, 12, 4, 8, 4, 4, 2), 2, 2,
+                   torch.bfloat16),
+    "tc5_m30_elementwise": ((3, 1, 1, 2.0, 10, 10, 20, 30, 4, 4, 5), 4, 1,
+                            torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_BWD_CASES))
+def test_bf16_backward_kernel_matches_plain(case, cuda):
+    """Kernel 2 on bf16 x_pad, g and w: d_input (in x's dtype) and
+    d_offsets (in the offsets') within one bf16 step of the plain
+    version's, relative to its max; d_weights, fp32, within phase 7's
+    ``BWD_RTOL``."""
+    (k, s, d, b, h, w, c, m, th, tw, tc), groups, unit, off_dtype = \
+        BF16_BWD_CASES[case]
+    x, off, wd = _inputs(k, h, w, c, m, s, d, b, len(case), cuda)
+    x, off, wd = x.bfloat16(), off.to(off_dtype), wd.bfloat16()
+    ho, wo = off.shape[1], off.shape[2]
+    g = torch.randn(2, ho, wo, m, generator=torch.Generator().manual_seed(
+        len(case))).to(cuda).bfloat16()
+    spec = plan.DCSpec(k, s, d, b, th, tw, tc, None)
+    xp, op, wt = plan.zerocopy_inputs(spec, x, off, wd, th, tw, tc)
+    kw = dict(kernel_size=k, stride=s, dilation=d, offset_bound=b,
+              tile_h=th, tile_w=tw, tile_c=tc)
+    from repro_torch.kernels.deform_conv_bwd import bwd_plan, staging_vec
+    assert bwd_plan(2, ho, wo, c, m, kernel_size=k, tile_h=th, tile_w=tw,
+                    tile_c=tc)["c_groups"] == groups
+    assert band_channels(staging_vec(xp, g, wt, tc)) == unit
+    fn = deform_conv_bwd_zerocopy
+    before = (fn.launches, fn.launches_bf16)
+    got = fn(xp, op, g, wt, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16) == (before[0] + 1, before[1] + 1)
+    want = deform_conv_bwd_zerocopy_plain(xp, op, g, wt, **kw)
+    for name, a, r, dtype, tol in zip(
+            ("dx", "d_off", "dw"), got, want,
+            (torch.bfloat16, off_dtype, torch.float32),
+            (BF16_RTOL, BF16_RTOL, BWD_RTOL)):
+        assert a.dtype == r.dtype == dtype and a.shape == r.shape, name
+        assert (a.float() - r.float()).abs().max().item() \
+            <= tol * r.float().abs().max().item(), name
+
+
+@pytest.mark.parametrize("dataflow", ["zero_copy", "banded"])
+def test_bf16_deform_conv_and_its_gradient_run_the_bf16_kernels(dataflow,
+                                                                 cuda):
+    """``ops.deform_conv`` on bf16 inputs launches one bf16 forward of its
+    dataflow and no fp32 one; its gradient one bf16 kernel 2, and the
+    gradients are bf16."""
+    from repro_torch.kernels import deform_conv_fused as F
+    x, off, wd = (t.bfloat16().requires_grad_(True) for t in
+                  _inputs(3, 12, 12, 16, 16, 1, 1, 2.0, 5, cuda))
+    fwd = F.deform_conv_fused_zerocopy if dataflow == "zero_copy" \
+        else F.deform_conv_fused_banded
+    other = F.deform_conv_fused_banded if dataflow == "zero_copy" \
+        else F.deform_conv_fused_zerocopy
+    counts = (lambda: (fwd.launches, fwd.launches_bf16, other.launches,
+                       deform_conv_bwd_zerocopy.launches_bf16))
+    before = counts()
+    y = ops.deform_conv(x, off, wd, offset_bound=2.0, dataflow=dataflow)
+    grads = torch.autograd.grad(y.float().sum(), (x, off, wd))
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2],
+                        before[3] + 1)
+    assert y.dtype == torch.bfloat16
+    assert all(t.dtype == torch.bfloat16 for t in grads)
+
+
+def test_bf16_kernels_refuse_fp16_and_mixed_dtypes(cuda):
+    """fp16 and int inputs, and bf16 with fp32 weights, raise before any
+    launch."""
+    from repro_torch.kernels import deform_conv_fused as F
+    (fn, _), (xp, op, wt), kw, _, _, _ = _bf16_fwd_call("groups_8ch",
+                                                        "zero_copy", cuda)
+    before = F.deform_conv_fused_zerocopy.launches
+    for args in ((xp.half(), op, wt.half()), (xp, op, wt.float()),
+                 (xp.int(), op, wt.int())):
+        with pytest.raises(ValueError, match="bfloat16"):
+            fn(*args, **kw)
+    g = torch.zeros(*op.shape[:3], wt.shape[2], device=cuda,
+                    dtype=torch.bfloat16)
+    kwb = {k: v for k, v in kw.items() if k != "tile_m"}
+    with pytest.raises(ValueError, match="bfloat16"):
+        deform_conv_bwd_zerocopy(xp.half(), op, g.half(), wt.half(), **kwb)
+    with pytest.raises(ValueError, match="bfloat16"):
+        deform_conv_bwd_zerocopy(xp, op, g.float(), wt, **kwb)
+    assert F.deform_conv_fused_zerocopy.launches == before

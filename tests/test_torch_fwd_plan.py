@@ -10,8 +10,12 @@ swizzled weight layout, the patch tile's stride); (c) a plain emulation
 of its split-fp32 tensor-core products ("3xTF32") with its fixed C-group
 reduction, held to ``contract_chunks`` within phase 3's
 ``1e-5 * max|plain|``, against a single-pass TF32 product that lies at
-least 10x further off; and (d) the int8 kernels' tiles at the serving
-shapes, pinned (their planner is held in ``tests/test_torch_q_plan.py``).
+least 10x further off; (d) the int8 kernels' tiles at the serving
+shapes, pinned (their planner is held in ``tests/test_torch_q_plan.py``);
+and (e) the bf16 instance's plan: its shared-memory mirror, rows padded to
+16-deep mma steps with ldmatrix-friendly strides, its staging, the tiles
+at both buckets and the training shapes, and a plain emulation of its
+bf16 products with the fixed C-group order against ``contract_chunks``.
 """
 import numpy as np
 import pytest
@@ -340,3 +344,182 @@ def test_int8_tiles_are_pinned(key):
                               dilation=1, offset_bound=B, dtype=dtype)
     assert (t.tile_h, t.tile_w, t.tile_c, t.tile_m) == INT8_TILES[key]
     assert T.Q_TILE_M == 128 and T.PIX_LANES == (16, 32, 64)
+
+
+# ---------------------------------------------------------------------------
+# (e) The bf16 instance (chip_smoke.py phase 14).
+# ---------------------------------------------------------------------------
+
+BF16_RTOL = 2.0 ** -7        # one bf16 step, chip_smoke.py phase 14
+
+
+def _tiles_bf16(label, dtype):
+    """``_tiles`` at bf16's element size."""
+    n, h, w, c, m, s, d, b = CASES[label]
+    ho, wo = T.out_hw(h, w, kernel_size=K, stride=s, dilation=d)
+    geom = dict(kernel_size=K, stride=s, dilation=d, offset_bound=b)
+    t = T.choose_kernel_tiles(n, h, w, c, m, dtype=dtype, itemsize=2, **geom)
+    th = min(t.tile_h, ho) if dtype == "fp32" else t.tile_h
+    tw = min(t.tile_w, wo)
+    return t, th, tw, geom
+
+
+def test_bf16_smem_mirror_at_the_chip_cases():
+    """``smem_bytes(itemsize=2)`` mirrors ``dcf_smem_bytes`` of the bf16
+    instance: two bf16 band chunks (rounded to 16 bytes), two bf16 weight
+    chunks of K*K*tc rows padded to 16 by 128 + 8 channels, the bf16 patch
+    tile (rows + 8) and the fp32 geometry; the fp32 mirror is unchanged."""
+    for label in CASES:
+        for dtype in ("fp32", "banded"):
+            t, th, tw, g = _tiles_bf16(label, dtype)
+            tc = t.tile_c
+            bh = T.band_extent(th, **g)
+            bw = T.band_extent(tw, **g)
+            rows = -(-K * K * tc // 16) * 16
+            lanes = T.pix_lanes(th, tw)
+            band = -(-2 * bh * bw * tc // 16) * 16
+            want = 2 * band + 2 * (2 * rows * 136 + lanes * (rows + 8)) \
+                + 12 * K * K * lanes
+            assert T.smem_bytes(th, tw, tc, itemsize=2, **g) == want
+            assert T.smem_bytes(th, tw, tc, **g) \
+                == T.smem_bytes(th, tw, tc, itemsize=4, **g)
+    with pytest.raises(ValueError, match="element size"):
+        T.smem_bytes(8, 8, 8, kernel_size=K, stride=1, dilation=1,
+                     offset_bound=B, itemsize=1)
+
+
+@pytest.mark.parametrize("tc", [1, 2, 4, 5, 8, 16])
+def test_bf16_rows_pad_to_16_and_ldmatrix_rows_spread(tc):
+    """K*K*tc rows padded to whole 16-deep bf16 mma steps; a patch row of
+    rows + 8 bf16 (16 mod 32 bytes) and a weight row of 136 bf16 (272
+    bytes) put the eight 16-byte rows an ldmatrix reads on eight distinct
+    16-byte bank groups, each row 16-byte aligned."""
+    rows = T.fwd_rows_pad(tc, kernel_size=K, itemsize=2)
+    assert rows % 16 == 0 and 0 <= rows - K * K * tc < 16
+    assert T.fwd_rows_pad(tc, kernel_size=K) % 8 == 0
+    for stride in (2 * (rows + T.FWD_P_PAD[2]),
+                   2 * (T.FWD_TILE_M + T.FWD_W_PAD[2])):
+        assert stride % 16 == 0
+        assert len({(r * stride) % 128 // 16 for r in range(8)}) == 8
+
+
+def test_bf16_staging_takes_the_widest_copy():
+    """The bf16 band goes 8, 4 or 2 channels a copy (16, 8 or 4 bytes) as
+    tile_c, C and the address allow, else element by element; W 16 bytes
+    where M and tile_m are multiples of 8.  fp32 keeps its 4-channel
+    copies."""
+    from repro_torch.kernels.deform_conv_fused import staging_vec
+    wt = torch.zeros(2, 72, 16, dtype=torch.bfloat16)
+    for c, tc, want in ((16, 8, 4), (16, 4, 2), (12, 4, 2), (4, 2, 8),
+                        (6, 2, 8), (20, 5, 0), (16, 16, 4)):
+        x = torch.zeros(1, 4, 4, c, dtype=torch.bfloat16)
+        assert staging_vec(x, wt, tc, 16) == want | 1, (c, tc)
+    x = torch.zeros(1, 4, 4, 16, dtype=torch.bfloat16)
+    assert staging_vec(x, wt, 8, 12) == 4            # tile_m not 8k: W
+    moved = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:]
+    assert staging_vec(moved.view(x.shape), wt, 8, 16) == 1   # 2 bytes off
+    x32 = torch.zeros(1, 4, 4, 16)
+    assert staging_vec(x32, wt.float(), 8, 16) == 3
+    assert staging_vec(x32, wt.float(), 2, 16) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_other_dtypes_take_the_fp32_tiles_on_the_cpu(dtype):
+    """Only bf16 sizes the chooser at 2 bytes: float64 and float16 inputs,
+    which only the plain versions take (on the CPU; the card refuses
+    them), get the fp32 instance's tiles, and ``ops.deform_conv`` without
+    explicit tiles runs them in both dataflows, near the fp32 call on the
+    same values."""
+    from repro_torch.kernels import ops
+    assert plan.kernel_itemsize(torch.zeros(1, dtype=torch.bfloat16)) == 2
+    rng = np.random.RandomState(7)
+    x32, off32, w32 = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                       .to(dtype).float()
+                       for shape in ((2, 12, 12, 16), (2, 12, 12, 2 * K * K),
+                                     (K * K, 16, 24)))
+    x, off, w = (t.to(dtype) for t in (x32, off32, w32))
+    spec = plan.DCSpec(K, 1, 1, B)
+    assert plan.spec_tiles(spec, x, off, w) \
+        == plan.spec_tiles(spec, x32, off32, w32)
+    assert plan.spec_tiles(spec, x, off, w, dtype="fp32_bwd") \
+        == plan.spec_tiles(spec, x32, off32, w32, dtype="fp32_bwd")
+    assert plan.banded_tiles(spec, x, off, 24, dtype="banded") \
+        == plan.banded_tiles(spec, x32, off32, 24, dtype="banded")
+    tol = 1e-5 if dtype == torch.float64 else 2.0 ** -9
+    for dataflow in ("zero_copy", "banded"):
+        y = ops.deform_conv(x, off, w, offset_bound=B, dataflow=dataflow,
+                            device="cpu")
+        want = ops.deform_conv(x32, off32, w32, offset_bound=B,
+                               dataflow=dataflow, device="cpu")
+        assert y.dtype == dtype and y.shape == want.shape
+        assert (y.float() - want).abs().max().item() \
+            <= tol * want.abs().max().item(), dataflow
+
+
+@pytest.mark.parametrize("label", list(CASES))
+def test_bf16_tiles_fit_twice_and_fill_the_card(label):
+    """At both buckets, the training shapes and the edge cases, on both
+    dataflows: the bf16 block fits twice an SM, and the main-path shapes
+    take 64 pixels by 128 channels at tile_c 8 (stride 2 too: its bf16
+    band fits) with a grid of two blocks an SM."""
+    for dtype in ("fp32", "banded"):
+        t, th, tw, g = _tiles_bf16(label, dtype)
+        n, h, w, c, m = CASES[label][:5]
+        assert T.smem_bytes(th, tw, t.tile_c, itemsize=2, **g) \
+            <= T.FWD_SMEM_TWO
+        if label.startswith(("256", "512", "train")):
+            assert (th * tw, t.tile_c, t.tile_m) == (64, 8, 128), dtype
+            ho, wo = T.out_hw(h, w, **{k: g[k] for k in
+                                       ("kernel_size", "stride",
+                                        "dilation")})
+            p = fwd_plan(n, ho, wo, c, m, tile_h=th, tile_w=tw,
+                         tile_c=t.tile_c, tile_m=t.tile_m)
+            assert p["tiles"] * p["m_tiles"] * p["c_groups"] \
+                >= T.BWD_TARGET_BLOCKS
+
+
+def contract_bf16(patches, w_tiles, tile_c, groups):
+    """The bf16 instance's products, emulated: bf16 patches times bf16
+    weights, each product exact in fp32, every chunk summed into its C
+    group's fp32 accumulator in order, the groups' partials added in group
+    order from zero, y rounded once to bf16."""
+    pix, k2, c = patches.shape
+    chunks = c // tile_c
+    out = torch.zeros(pix, w_tiles.shape[2])
+    for g in range(groups):
+        acc = torch.zeros_like(out)
+        for cs in T.bwd_c_range(chunks, groups, g):
+            a = patches[:, :, cs * tile_c:(cs + 1) * tile_c] \
+                .reshape(pix, k2 * tile_c).double()
+            acc = acc + (a @ w_tiles[cs].double()).float()
+        out = out + acc
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("label", [c[0] for c in SERVING + TRAINING])
+def test_bf16_products_with_the_fixed_group_order(label):
+    """At the shape's full contraction (its bf16 tile_c and C groups) and
+    reduced pixels and channels: the emulated kernel within one bf16 step
+    of ``contract_chunks`` on the same bf16 patches, the same bits from
+    call to call, and exactly the plain rounding wherever the two fp32
+    sums round alike."""
+    t, th, tw, g = _tiles_bf16(label, "fp32")
+    n, h, w, c, m = CASES[label][:5]
+    ho, wo = T.out_hw(h, w, kernel_size=K, stride=g["stride"],
+                      dilation=g["dilation"])
+    groups = fwd_plan(n, ho, wo, c, m, tile_h=th, tile_w=tw,
+                      tile_c=t.tile_c, tile_m=t.tile_m)["c_groups"]
+    rng = np.random.RandomState(sum(map(ord, label)))
+    patches = torch.from_numpy(rng.randn(48, K * K, c).astype(np.float32)) \
+        .bfloat16()
+    w_tiles = plan.tile_weights(torch.from_numpy(
+        (rng.randn(K * K, c, 24) / np.sqrt(K * K * c)).astype(np.float32))
+        .bfloat16(), t.tile_c)
+    want = contract_chunks(patches, w_tiles, t.tile_c).bfloat16()
+    got = contract_bf16(patches, w_tiles, t.tile_c, groups)
+    assert torch.equal(got, contract_bf16(patches, w_tiles, t.tile_c,
+                                          groups))
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() \
+        <= BF16_RTOL * scale
+    assert (got != want).float().mean().item() < 0.01
