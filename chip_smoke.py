@@ -203,13 +203,54 @@ Phases, each of which exits non-zero on failure:
    it, each forward launching exactly one bf16 kernel of its dataflow and
    no fp32 forward kernel, each gradient one bf16 kernel 2 with d_x,
    d_offsets and d_w within one bf16 step of the plain backward.
+15. operations, at full width, every count set to 0 first: (a) phase 8's
+   checkpoint (``build/smoke_train/full``) served through
+   ``launch.serve --ckpt`` on ``fp32_kernel`` and ``int8_chain`` (buckets
+   256/512, batch 4, 8 requests, all ``ok``), ``cls``/``box``
+   ``torch.equal`` to the same engine fed the trained params in memory;
+   (b) each run's divergence report: one row per DCL shape, 12
+   dispatches a step, every dispatch timed on the device and none above
+   1.05 of its H100 bound (``core.h100``); ``launch.obs_report`` renders
+   the telemetry; each bucket's forward with the recorder on (CUDA
+   events) beside phase 4's (6's) without it, and in turns without it,
+   with a hook that does nothing and with one that records only the
+   events; at 256 the recorder's host cost: the host's time to enqueue
+   a forward with and without it (``time.perf_counter``, 20 turns) and
+   its ``flush``, per dispatch (printed, not gated); (c)
+   ``tune_deform_conv`` on the 256 bucket's DCL shapes (fp32, int8,
+   int8_chain; batch 4) and the training step's largest (training
+   objective, batch 8), 4 candidates, best of 3, every entry keyed
+   ``cuda_sm90`` and every candidate measured (each passed
+   ``tiling.tiles_fit``, so one that raises fails the phase); with the cache
+   installed (plus ``cpu``-keyed entries for the 512 bucket) the engine
+   serves every 256 layer ``"tuned"`` and every 512 layer ``"analytic"``,
+   ``int8_chain`` ``torch.equal`` and ``fp32_kernel`` within 1e-5 *
+   max|analytic| of (a); (d) a serving chaos plan (slow_step,
+   malformed_request, bucket_miss_storm, one dispatch_fault) on
+   ``int8_chain`` at 256: every request typed, none degraded, the faulted
+   batch retried ok on its rung, the untouched requests ``torch.equal``
+   to a clean run; a ``FaultPlan.random`` over 8 full-width training
+   steps (nonfinite_grads, ckpt_corrupt, step_crash, data_hiccup): every
+   step completes, at least 3 kinds fire, the params within 1e-4
+   (relative norm) of the run that sees only its non-finite step (kernel
+   2 adds d_input by fp32 atomics, so a replayed step may round another
+   way), and the same plan with a wrong recovery planted (its first
+   restore loses the step it replays, or replays one already passed)
+   lands at least 3 x 1e-4 from it, so the check tells a wrong recovery
+   from a sound one; the skip-only run's last update is printed beside
+   them.  1a, 1c, 1d and 2 must each launch in the phase; the kernels
+   line gives each its ``operations_launches``.
 
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
 run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
 launches of that shape in the run of phase 4 (of the kernel's rung in
 phase 6, of phase 8's 6 training steps, of phase 10 for kernel 4, of
 phase 9's entry-point run for 1b, 3 and 5, of phase 12's run for 6),
-summed.  Kernels 1a and 4 also carry ``training``: their launches and
+summed.  Every bound, of a row and of each case, comes from
+``core.h100`` (the module that prices the engine's dispatches): each
+call's work, summed over the run's launches and bounded as one; kernel
+4's counts the materialised bands, checked against each call's
+tensors.  Kernels 1a and 4 also carry ``training``: their launches and
 times in phase 8's 6 steps (1a) and phase 11's 2 banded steps (4), with
 the step's ``torch.profiler`` time of their launches; their
 ``bound_ms`` (and kernel 2's) is the lower of the 3xTF32 and the fp32
@@ -242,15 +283,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 
-# H100 SXM, NVIDIA's data sheet: fp32 on CUDA cores, int8 on the tensor
-# cores (dense), HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_INT8_OPS = 1979e12
-# The int8 kernels' patch build: fp32 operations a bilinear sample (4
-# products, 3 sums, no FMA), at one a lane a clock on the CUDA cores.
-SAMPLE_OPS = 7
-CUDA_CORE_LANE_OPS = 132 * 128 * 1.98e9
-PEAK_HBM_BYTES_PER_S = 3.35e12
+# The H100's peaks (NVIDIA's data sheet), the DCL kernels' work and
+# every bound below, from the module that also prices the engine's
+# dispatches.  A script alone, without the repository beside it, finds
+# none: main() then exits 2 before any is read.
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.core import h100
+except ImportError:
+    pass
 # Names of the device launches a call of kernel 6 and of the int8 kernels
 # makes, as torch.profiler reports them.
 FA_KERNEL_NAMES = r"fa_(tc_kernel|kernel|combine)[^(]*"
@@ -281,8 +322,6 @@ BANDED_TRAIN_STEPS = 2
 MM_SHAPES = [(256, 256, 256, "float32"), (512, 512, 512, "float32"),
              (4096, 4096, 4096, "float32"), (257, 129, 65, "float32"),
              (512, 512, 512, "bfloat16"), (4096, 4096, 4096, "bfloat16")]
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores
 # Kernel 2 a training step as first written on CUDA cores (PERF.md §6),
 # and half of it.
 BWD_STEP_MS_BEFORE = 36.876
@@ -347,17 +386,34 @@ def band_loads(vec: int, size: int) -> str:
         else ", band element-wise"
 
 
-def two_bounds(flops: float, nbytes: float) -> dict:
-    """The two bounds (ms) of a kernel with split-fp32 products (1a, 4,
-    2): fp32 on the CUDA cores, and its own 3xTF32 products (three tf32
-    products a product) at the TF32 rate; the lower is the row's bound."""
-    byte_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-    fp32_ms = max(flops / PEAK_FP32_FLOPS * 1e3, byte_ms)
-    tf32x3_ms = max(3 * flops / PEAK_TF32_FLOPS * 1e3, byte_ms)
-    bound_ms = min(fp32_ms, tf32x3_ms)
-    return dict(bound_ms=bound_ms, bound_fp32_ms=fp32_ms,
-                bound_3xtf32_ms=tf32x3_ms,
-                bound_by="operations" if bound_ms > byte_ms else "bytes")
+# A ``core.h100`` work's seconds and the keys (ms) of this script's
+# records: the bound, each unit's bound of a split-fp32 kernel (1a, 4,
+# 2), the int8 kernels' three floors, the operations' time.
+BOUND_KEYS = {"bound_s": "bound_ms", "bound_fp32_s": "bound_fp32_ms",
+              "bound_3xtf32_s": "bound_3xtf32_ms", "int8_s": "bound_int8_ms",
+              "byte_s": "bound_bytes_ms", "sample_s": "sample_bound_ms",
+              "op_s": "op_ms"}
+
+
+def bound_fields(work: dict) -> dict:
+    """A record's bounds (ms), ``bound_by``, ``flops``, ``bytes`` (and
+    ``samples``) from one ``core.h100`` work, kept under ``work`` for
+    ``h100.total``."""
+    out = {ms: work[s] * 1e3 for s, ms in BOUND_KEYS.items() if s in work}
+    out.update(bound_by=work["bound_by"], flops=work["ops"],
+               bytes=work["bytes"], work=work)
+    if "samples" in work:
+        out["samples"] = work["samples"]
+    return out
+
+
+def same_bytes(work: dict, tensors, what: str) -> None:
+    """Fails unless a ``core.h100`` work counts the bytes of the tensors a
+    kernel call reads and writes (kernel 4: the materialised bands)."""
+    held = sum(t.numel() * t.element_size() for t in tensors)
+    if work["bytes"] != held:
+        fail(f"{what}: core.h100 counts {work['bytes']} bytes, the "
+             f"kernel's tensors hold {held}")
 
 
 def fwd_case_line(rec: dict, ok: bool) -> str:
@@ -424,15 +480,14 @@ def check_kernel(case: dict, gen) -> dict:
     prep_ms = time_ms(lambda: plan.zerocopy_inputs(spec, x, off, wd,
                                                    th, tw, tc),
                       reps=5, iters=10)
-    flops = 2 * n * ho * wo * K * K * c * m
-    nbytes = 4 * (n * h * w * c + n * ho * wo * 2 * K * K + K * K * c * m
-                  + n * ho * wo * m)
+    work = h100.forward_work(n, h, w, c, m, kernel_size=K, stride=s,
+                             dilation=d)
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc, tm],
                smem_bytes=smem_c, instance=inst, repeatable=repeatable,
                max_abs_err=err, max_abs_plain=scale,
                clamped_share=(off.abs() > B).float().mean().item(),
                ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
-               **two_bounds(flops, nbytes), flops=flops, bytes=nbytes)
+               **bound_fields(work))
     ok = err <= KERNEL_RTOL * scale and smem_c == smem_py and repeatable
     print(fwd_case_line(rec, ok))
     if smem_c != smem_py:
@@ -822,20 +877,15 @@ def check_q_kernel(case: dict, gen) -> dict:
     parts = kernel_device_ms(lambda: fn(*args, **kw), Q_KERNEL_NAMES)
     launches = sum(ct for ct, _ in parts.values())
     plain_ms = time_ms(lambda: plain(*args, **kw), reps=3, iters=2)
-    samples = n * ho * wo * k2 * c
-    ops_n = 2 * samples * (m + (2 * k2 if chain else 0))
-    out_b = 1 if emit == "int8" and chain else 4
-    nbytes = (n * h * w * c + k2 * c * m + n * ho * wo * m * out_b + 4 * m
-              + (k2 * c * 2 * k2 + 4 * (4 * k2 + m) if chain
-                 else 4 * n * ho * wo * 2 * k2))
-    bounds = q_bounds(ops_n, nbytes, samples)
+    bounds = bound_fields(h100.int8_work(n, h, w, c, m, kernel_size=K,
+                                         stride=s, dilation=d, chain=chain,
+                                         emit=emit))
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc, tm], smem_bytes=smem_c,
                instance=inst, equal=equal, repeatable=repeat,
                max_abs_err=err, max_abs_plain=yp.float().abs().max().item(),
                clamped_share=(off.abs() > b).float().mean().item(),
                ms=ms, queued_ms=queued, plain_ms=plain_ms,
-               launches_per_call=launches, parts_ms=parts, **bounds,
-               flops=ops_n, bytes=nbytes, samples=samples)
+               launches_per_call=launches, parts_ms=parts, **bounds)
     ok = equal and smem_c == smem_py
     print(f"  {kind} {case['label']:<28} tiles {th}x{tw} tc={tc} tm={tm} "
           f"smem={smem_c} equal={equal} err={err:.1e} "
@@ -861,21 +911,6 @@ def check_q_kernel(case: dict, gen) -> dict:
         fail(f"{kind} {case['label']}: kernel != plain version "
              f"(max abs difference {err}; two calls equal: {repeat})")
     return rec
-
-
-def q_bounds(ops_n: float, nbytes: float, samples: float) -> dict:
-    """The int8 kernels' three floors (ms): their int8 products at the
-    tensor-core rate, their bytes at the HBM rate, and the bilinear patch
-    build on the CUDA cores (4 products and 3 sums a sample, uncontracted,
-    at 132 SMs x 128 lanes x 1.98 GHz); the row's bound is the largest,
-    since the work has to be done whichever way it overlaps."""
-    int8_ms = ops_n / PEAK_INT8_OPS * 1e3
-    byte_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-    sample_ms = SAMPLE_OPS * samples / CUDA_CORE_LANE_OPS * 1e3
-    bound = max(int8_ms, byte_ms, sample_ms)
-    return dict(bound_ms=bound, bound_int8_ms=int8_ms,
-                bound_bytes_ms=byte_ms, sample_bound_ms=sample_ms,
-                bound_by="bytes" if bound == byte_ms else "operations")
 
 
 def serve_int8(record: dict, params) -> dict[str, int]:
@@ -1117,10 +1152,9 @@ def check_bwd_kernel(case: dict, gen) -> dict:
     plain_ms = time_ms(
         lambda: deform_conv_bwd_zerocopy_plain(xp, offp, g, wt, **kw),
         reps=3, iters=2)
-    p = n * ho * wo
-    flops = 2 * 2 * p * k2 * c * m        # dw = P^T g and dP = g W^T
-    nbytes = 4 * (2 * n * h * w * c + 2 * p * 2 * k2 + p * m + 2 * k2 * c * m)
-    bounds = two_bounds(flops, nbytes)
+    # dw = P^T g and dP = g W^T
+    bounds = bound_fields(h100.backward_work(n, h, w, c, m, kernel_size=K,
+                                             stride=s, dilation=d))
     fp32_ms, tf32x3_ms = bounds["bound_fp32_ms"], bounds["bound_3xtf32_ms"]
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc], smem_bytes=smem_c,
                plan=kplan, max_abs_err=max(errs.values()), errs=errs,
@@ -1128,7 +1162,7 @@ def check_bwd_kernel(case: dict, gen) -> dict:
                autograd_rel_err_global=auto_global,
                floor_differs_share=floor_share, parts_ms=parts,
                clamped_share=(off.abs() > b).float().mean().item(),
-               ms=ms, plain_ms=plain_ms, **bounds, flops=flops, bytes=nbytes)
+               ms=ms, plain_ms=plain_ms, **bounds)
     global_gated = max(auto_global["d_input"], auto_global["d_weights"])
     ok = all(errs[nm] <= BWD_RTOL * scales[nm] for nm in names) \
         and max(auto.values()) <= BWD_RTOL and global_gated <= BWD_RTOL \
@@ -1230,9 +1264,10 @@ class plain_training_kernels:
 
 def train(record: dict) -> tuple[int, dict]:
     """Phase 8: train full-width resnet50_dcn_bounded on the card.
-    Returns the backward kernel's launches in the 6-step run, and step 0
+    Returns the backward kernel's launches in the 6-step run, step 0
     (loss of the kernel path, gradients of both paths, the gate of the
-    kernel path against the plain path) for phase 11."""
+    kernel path against the plain path) for phase 11, and the trained
+    params (saved in ``build/smoke_train/full``) for phase 15."""
     import shutil
 
     import numpy as np
@@ -1242,7 +1277,7 @@ def train(record: dict) -> tuple[int, dict]:
     from repro_torch.data import DetectionDataConfig, detection_batch
     from repro_torch.launch import train as launch
     from repro_torch.models import resnet_dcn as R
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, tree_map
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -1271,6 +1306,9 @@ def train(record: dict) -> tuple[int, dict]:
     trainer = launch.train_detection(cfg, args(TRAIN_STEPS, "full"),
                                      params=params())
     wall = time.monotonic() - t0
+    # The params the checkpoint holds (the timing below steps the trainer
+    # further), for phase 15.
+    trained = tree_map(lambda t: t.detach().clone(), trainer.params)
     counts = read_counts()
     losses = [h["loss"] for h in trainer.history if "loss" in h]
     print(f"  {TRAIN_STEPS} steps in {wall:.2f} s; losses "
@@ -1456,7 +1494,7 @@ def train(record: dict) -> tuple[int, dict]:
         kernel1a_device_share_cudnn_free=free_k1_share)
     step0 = dict(loss=loss_k, loss_plain=loss_p, grads=g_k, grads_plain=g_p,
                  gate=max(TRAIN_GRAD_RTOL, spread))
-    return counts["deform_conv_bwd"], step0
+    return counts["deform_conv_bwd"], step0, trained
 
 
 def grid_sample_inputs(x, off, *, stride: int, dilation: int, bound: float):
@@ -1609,11 +1647,12 @@ def check_sample_kernels(case: dict, gen) -> list[dict]:
                                         itemsize=item)
             groups = sample_c_groups(n, y.shape[1], wo, c, tile_h=tl[0],
                                      tile_w=tl[1], tile_c=tl[2])
-            flops = SAMPLE_OPS * y.numel()  # four products, three sums
-            nbytes = item * y.numel() + sum(
-                t.numel() * t.element_size() for t in args)
-            peak = PEAK_FP32_FLOPS       # the sums are fp32 in both dtypes
-            bound_ms = max(flops / peak, nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
+            # Four products and three sums a sample, fp32 in both dtypes.
+            work = h100.rate_work(
+                item * y.numel() + sum(t.numel() * t.element_size()
+                                       for t in args),
+                h100.SAMPLE_OPS * y.numel(), h100.PEAK_FP32_FLOPS)
+            bound_ms = work["bound_s"] * 1e3
             in_l2 = item * y.numel() <= L2_BYTES
             rec = dict(case, kernel=name, dtype=dt,
                        ho=ho, wo=wo, tiles=tl, groups=groups,
@@ -1623,12 +1662,8 @@ def check_sample_kernels(case: dict, gen) -> list[dict]:
                        clamped_share=(off32.abs() > b).float().mean().item(),
                        ms=ms, queued_ms=q_ms, flushed_ms=f_ms, host_us=h_us,
                        plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms,
-                       bound_by="operations" if flops / peak
-                       >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
-                       out_in_l2=in_l2,
-                       share=bound_ms / (f_ms if in_l2 else q_ms),
-                       flops=flops, bytes=nbytes)
+                       **bound_fields(work), out_in_l2=in_l2,
+                       share=bound_ms / (f_ms if in_l2 else q_ms))
             ok = equal and err <= SAMPLE_ATOL and smem_c == smem_py and (
                 lib_err is None or dtype != torch.float32
                 or lib_err <= LIBRARY_RTOL * scale)
@@ -1699,15 +1734,16 @@ def check_banded_kernel(case: dict, gen) -> dict:
         reps=3, iters=2)
     prep_ms = time_ms(lambda: (plan.banded_inputs(spec, x, off, th),
                                plan.tile_weights(wd, tc)), reps=5, iters=10)
-    flops = 2 * n * offb.shape[1] * wo * K * K * c * m
-    nbytes = 4 * (bands.numel() + offb.numel() + wt.numel() + y.numel())
+    work = h100.banded_work(n, h, w, c, m, kernel_size=K, stride=s,
+                            dilation=d, offset_bound=b, tile_h=th)
+    same_bytes(work, (bands, offb, wt, y), f"banded {case['label']}")
     rec = dict(case, ho=ho, wo=wo, tiles=[th, tw, tc, tm], smem_bytes=smem_c,
                instance=inst, repeatable=repeatable,
                bands_bytes=4 * bands.numel(), input_bytes=4 * x.numel(),
                max_abs_err=err, max_abs_plain=scale,
                clamped_share=(off.abs() > b).float().mean().item(),
                ms=ms, plain_ms=plain_ms, prep_ms=prep_ms,
-               **two_bounds(flops, nbytes), flops=flops, bytes=nbytes)
+               **bound_fields(work))
     ok = err <= KERNEL_RTOL * scale and smem_c == smem_py and repeatable
     print(fwd_case_line(rec, ok) + f"; bands/input "
           f"{bands.numel() / x.numel():.2f}x")
@@ -1745,17 +1781,15 @@ def check_matmul(m: int, k: int, n: int, dtype: str, gen) -> dict:
     library_ms = time_ms(lambda: torch.matmul(x, w), reps=5,
                          iters=3 if big else 20)
     flops = 2 * m * n * k
-    peak = PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
-    nbytes = x.element_size() * (m * k + k * n + m * n)
-    bound_ms = max(flops / peak, nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
+    work = h100.rate_work(x.element_size() * (m * k + k * n + m * n), flops,
+                          h100.PEAK_FP32_FLOPS if dtype == "float32"
+                          else h100.PEAK_BF16_FLOPS)
+    bound_ms = work["bound_s"] * 1e3
     label = f"{m}x{k}x{n} {dtype}"
     rec = dict(label=label, m=m, k=k, n=n, dtype=dtype, instance=instance,
                max_abs_err=err,
                max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms,
-               bound_by="operations" if flops / peak
-               >= nbytes / PEAK_HBM_BYTES_PER_S else "bytes",
-               flops=flops, op_ms=flops / peak * 1e3, bytes=nbytes)
+               library_ms=library_ms, **bound_fields(work))
     print(f"  matmul {label:<24} [{instance}] err={err:.2e} "
           f"(max|plain|={scale:.2f}) "
           f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
@@ -2259,12 +2293,9 @@ def check_flash(c: dict, gen) -> tuple[dict, tuple]:
         lm_tol = LM_ATTN_TOL if c["dtype"] == "float32" else tol
         ok = ok and within(y, lm, lm_tol)
     ops, nbytes = fa_work(c)
-    peak = PEAK_FP32_FLOPS if c["dtype"] == "float32" else PEAK_BF16_FLOPS
-    rec.update(flops=ops, bytes=nbytes, op_ms=ops / peak * 1e3,
-               byte_ms=nbytes / PEAK_HBM_BYTES_PER_S * 1e3)
-    rec["bound_ms"] = max(rec["op_ms"], rec["byte_ms"])
-    rec["bound_by"] = "operations" if rec["op_ms"] >= rec["byte_ms"] \
-        else "bytes"
+    rec.update(bound_fields(h100.rate_work(
+        nbytes, ops, h100.PEAK_FP32_FLOPS if c["dtype"] == "float32"
+        else h100.PEAK_BF16_FLOPS)))
     lib = "-" if rec["library_ms"] is None else \
         f"{rec['library_ms']:.4f} ms (queued {rec['library_queued_ms']:.4f})"
     print(f"  {c['label']:<38} splits={splits} err={err:.2e} "
@@ -2332,8 +2363,7 @@ def flash_phase(record: dict, gen) -> dict:
     if counts != want:
         fail(f"the flash-attention run launched {counts}; expected {want}")
     shapes = record["flash_shapes"]
-    op_ms = sum(r["op_ms"] for r in shapes)
-    byte_ms = sum(r["byte_ms"] for r in shapes)
+    bound = h100.total((r["work"], 1) for r in shapes)
     # SDPA computes no softcap: ``library_ms`` sums the cases without one,
     # and ``ms_where_library`` the kernel's time on the same cases; the
     # bf16 totals are the LM's serving dtype, where SDPA runs its flash
@@ -2359,7 +2389,7 @@ def flash_phase(record: dict, gen) -> dict:
                decode_plain_ms=sum(r["plain_ms"] for r in decode),
                decode_library_ms=sum(r["library_ms"] for r in decode
                                      if r["library_ms"] is not None),
-               bound_ms=max(op_ms, byte_ms),
+               bound_ms=bound["bound_s"] * 1e3,
                bf16_max_rel_l2=max(r["rel_l2"] for r in shapes
                                    if r["dtype"] == "bfloat16"),
                bf16_max_split_rel_l2=max(
@@ -2393,7 +2423,7 @@ def flash_phase(record: dict, gen) -> dict:
         "ms": run["ms"],
         "plain_ms": run["plain_ms"],
         "bound_ms": run["bound_ms"],
-        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "bound_by": bound["bound_by"],
         "library_ms": run["library_ms"],
         **{key: run[key] for key in ("library_cases", "ms_where_library",
                                      "bf16_cases", "bf16_ms",
@@ -2674,9 +2704,10 @@ def lm_phase(record: dict) -> None:
 
 
 def per_run(shapes: list[dict], steps_per_bucket: dict, launches: int,
-            peak: float, what: str) -> tuple[dict, str]:
-    """Sum of each main-path shape's time (and work) times its launches in
-    the served run; fails unless the shapes account for every launch."""
+            what: str) -> tuple[dict, str]:
+    """Sum of each main-path shape's time (and ``core.h100`` work) times
+    its launches in the served run, bounded as one work; fails unless the
+    shapes account for every launch."""
     for r in shapes:
         r["launches_in_run"] = sum(n * steps_per_bucket.get(b, 0)
                                    for b, n in r["per_step"].items())
@@ -2685,28 +2716,10 @@ def per_run(shapes: list[dict], steps_per_bucket: dict, launches: int,
              f"{sum(r['launches_in_run'] for r in shapes)} launches, the "
              f"served run made {launches}")
     run = {k: sum(r[k] * r["launches_in_run"] for r in shapes)
-           for k in ("ms", "plain_ms", "flops", "bytes")}
-    run["bound_ms"] = max(run["flops"] / peak,
-                          run["bytes"] / PEAK_HBM_BYTES_PER_S) * 1e3
-    bound_by = "operations" if run["flops"] / peak \
-        >= run["bytes"] / PEAK_HBM_BYTES_PER_S else "bytes"
-    return run, bound_by
-
-
-def run_two_bounds(shapes: list[dict], steps_per_bucket: dict,
-                   launches: int, what: str) -> tuple[dict, str]:
-    """``per_run`` for kernels 1a, 4 and 2 with both bounds: the 3xTF32
-    products at the TF32 rate and the fp32 flops on the CUDA cores; the
-    lower is ``bound_ms``."""
-    run, by = per_run(shapes, steps_per_bucket, launches,
-                      PEAK_TF32_FLOPS / 3, what)
-    run_fp32, by_fp32 = per_run(shapes, steps_per_bucket, launches,
-                                PEAK_FP32_FLOPS, what)
-    run["bound_3xtf32_ms"] = run["bound_ms"]
-    run["bound_fp32_ms"] = run_fp32["bound_ms"]
-    if run_fp32["bound_ms"] < run["bound_ms"]:
-        run["bound_ms"], by = run_fp32["bound_ms"], by_fp32
-    return run, by
+           for k in ("ms", "plain_ms")}
+    run.update(bound_fields(h100.total((r["work"], r["launches_in_run"])
+                                       for r in shapes)))
+    return run, run["bound_by"]
 
 
 def fwd_training(shapes: list[dict], launches: int, steps: int, what: str,
@@ -2715,7 +2728,7 @@ def fwd_training(shapes: list[dict], launches: int, steps: int, what: str,
     the phase-3 (phase-9) shape times times their DCLs a step over
     ``steps`` steps, per step, and the step's profiler time of the
     kernel."""
-    run, by = run_two_bounds(shapes, {"train": steps}, launches, what)
+    run, by = per_run(shapes, {"train": steps}, launches, what)
     return dict(launches=launches, steps=steps, ms=run["ms"],
                 plain_ms=run["plain_ms"], bound_ms=run["bound_ms"],
                 bound_fp32_ms=run["bound_fp32_ms"], bound_by=by,
@@ -2726,15 +2739,6 @@ def fwd_training(shapes: list[dict], launches: int, steps: int, what: str,
 
 
 BF16_RTOL = 2.0 ** -7        # one bf16 step at the largest output
-
-
-def bf16_bound(op_ms: float, nbytes: float) -> dict:
-    """A bf16 instance's bound (ms): its products' time ``op_ms`` at their
-    types' peak rates, or its bytes at the HBM rate, whichever is
-    larger."""
-    byte_ms = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-    return dict(bound_ms=max(op_ms, byte_ms),
-                bound_by="operations" if op_ms >= byte_ms else "bytes")
 
 
 def bf16_case(case: dict, gen) -> dict:
@@ -2765,8 +2769,9 @@ def bf16_case(case: dict, gen) -> dict:
     f32 = [t.float() for t in (x, off, wd, g)]
     geom = dict(kernel_size=K, stride=s, dilation=d, offset_bound=b)
     lib = F.load_kernel()
-    p = n * ho * wo
-    flops = 2 * p * k2 * c * m
+    # Bytes at two an element (offsets bf16 too).
+    sizes = dict(kernel_size=K, stride=s, dilation=d, itemsize=2,
+                 offset_itemsize=2)
     rec = dict(case, ho=ho, wo=wo, inputs=(x, off, wd, g))
 
     def prepare(xx, oo, ww, dataflow):
@@ -2808,14 +2813,17 @@ def bf16_case(case: dict, gen) -> dict:
         plain_ms = time_ms(lambda: plain(*args, **kw), reps=2, iters=2)
         (fn32, _), args32, kw32 = prepare(*f32[:3], dataflow)
         fp32_ms = time_ms(lambda: fn32(*args32, **kw32), reps=3, iters=10)
-        nbytes = 2 * (n * h * w * c + p * 2 * k2 + k2 * c * m + p * m)
+        if dataflow == "zero_copy":
+            work = h100.forward_work(n, h, w, c, m, **sizes)
+        else:
+            work = h100.banded_work(n, h, w, c, m, offset_bound=b,
+                                    tile_h=th, **sizes)
+            same_bytes(work, (*args, y), f"bf16 banded {case['label']}")
         part = dict(tiles=[th, tw, tc, tm], smem_bytes=smem_c, instance=inst,
                     repeatable=repeatable, max_abs_err=err,
                     max_abs_plain=scale, unequal_share=unequal, ms=ms,
                     queued_ms=q_ms, plain_ms=plain_ms, fp32_ms=fp32_ms,
-                    flops=flops, op_ms=flops / PEAK_BF16_FLOPS * 1e3,
-                    bytes=nbytes,
-                    **bf16_bound(flops / PEAK_BF16_FLOPS * 1e3, nbytes))
+                    **bound_fields(work))
         rec[dataflow] = part
         ok = err <= BF16_RTOL * scale and repeatable and smem_c == smem_py \
             and unequal <= BF16_UNEQUAL_MAX
@@ -2889,14 +2897,10 @@ def bf16_case(case: dict, gen) -> dict:
         + band_loads(vec, 2)
     # Its products: dP one bf16 pass, dw two tf32 passes (P split, g
     # exact in tf32).
-    op_ms = (flops / PEAK_BF16_FLOPS + 2 * flops / PEAK_TF32_FLOPS) * 1e3
-    nbytes = 2 * (2 * n * h * w * c + 2 * p * 2 * k2 + p * m + k2 * c * m) \
-        + 4 * k2 * c * m
     part = dict(tiles=[th, tw, tc], smem_bytes=smem_c, plan=kplan,
                 kernel_rel_err=k_err, dw_rel_err=rel[2], ms=ms,
                 queued_ms=q_ms, plain_ms=plain_ms, fp32_ms=fp32_ms,
-                flops=3 * flops, op_ms=op_ms, bytes=nbytes,
-                **bf16_bound(op_ms, nbytes))
+                **bound_fields(h100.backward_work(n, h, w, c, m, **sizes)))
     rec["backward"] = part
     rec["plain_grads"] = want
     print(f"  {case['label']:<28} kernel 2  tiles {th}x{tw} tc={tc} smem="
@@ -2981,9 +2985,10 @@ def bf16_per_path(recs: list[dict], key: str, path: str) -> dict:
         return cnt.get("train", 0) if path == "train" else \
             sum(v for k, v in cnt.items() if k != "train")
     out = {k: sum(r[key][k] * dcls(r) for r in recs)
-           for k in ("ms", "queued_ms", "fp32_ms", "op_ms", "bytes")}
+           for k in ("ms", "queued_ms", "fp32_ms")}
     out["dcls"] = sum(dcls(r) for r in recs)
-    out.update(bf16_bound(out["op_ms"], out["bytes"]))
+    out.update(bound_fields(h100.total((r[key]["work"], dcls(r))
+                                       for r in recs)))
     return out
 
 
@@ -3033,9 +3038,8 @@ def bf16_phase(per_step: dict, train_step: dict,
         # dataflow), so the run's time is the cases' times summed.
         per = 2 if key == "backward" else 1
         run = {k: per * sum(pt[k] for pt in parts)
-               for k in ("ms", "queued_ms", "plain_ms", "fp32_ms", "op_ms",
-                         "bytes")}
-        bound = bf16_bound(run["op_ms"], run["bytes"])
+               for k in ("ms", "queued_ms", "plain_ms", "fp32_ms")}
+        bound = bound_fields(h100.total((pt["work"], per) for pt in parts))
         err_key = "kernel_rel_err" if key == "backward" else "max_abs_err"
         row = {
             "name": name,
@@ -3082,6 +3086,574 @@ def bf16_phase(per_step: dict, train_step: dict,
     return recs, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the operations layer (serve a checkpoint, divergence, tuning,
+# chaos)
+# ---------------------------------------------------------------------------
+
+SHARE_MAX = 1.05            # no dispatch beats the card's bound
+CHAOS_SEED = 20260808
+CHAOS_STEPS = 8
+CHAOS_REQUESTS = 10
+CHAOS_STALL_S = 1.0         # fake-clock stall of slow_step
+CHAOS_DEADLINE_S = 0.5      # the last two requests' deadline
+TUNE_REPS = 3
+TUNE_CANDIDATES = 4
+HOST_TURNS = 20             # forwards a kind, in turns, for the host cost
+PLANTED_MIN = 3             # a wrong recovery lands >= 3 x RESUME_RTOL off
+# The kernels phase 15's path runs: 1a, 1c (the tuner's int8 sweep), 1d
+# and 2 (the tuner's training objective and the chaos training).
+OPS_KERNELS = ("deform_conv_fused", "deform_conv_fused_q",
+               "deform_conv_chain", "deform_conv_bwd")
+
+
+class FakeClock:
+    """The engine's clock in the chaos run: ``slow_step`` advances it, so
+    the deadlines expire the same way on every card."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def recorder_host_us(forward, n_dcl: int) -> dict:
+    """The recorder's host cost at one bucket: the host's time (µs,
+    ``time.perf_counter``) to enqueue one forward without a hook and
+    under a fresh recorder, as the engine makes one a forward (one
+    registry and tracker for all, as the engine keeps them), in
+    ``HOST_TURNS`` turns, the device synchronised outside the timed
+    call; and its ``flush`` after the synchronisation (the rows' close:
+    metrics, span, tracker).  Medians; ``per_dispatch_us`` is the
+    enqueue difference plus the flush over the forward's DCLs."""
+    import torch
+
+    from repro_torch.obs import (DispatchRecorder, DivergenceTracker,
+                                 MetricsRegistry)
+    registry, tracker = MetricsRegistry(), DivergenceTracker()
+    turns: dict[str, list] = {"unrecorded": [], "recorded": [], "flush": []}
+    for i in range(HOST_TURNS + 1):     # the first turn prices each shape
+        for kind in ("unrecorded", "recorded"):
+            rec = None if kind == "unrecorded" else DispatchRecorder(
+                registry=registry, tracker=tracker)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(rec)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            if rec is not None:
+                t2 = time.perf_counter()
+                rec.flush()
+                if i:
+                    turns["flush"].append((time.perf_counter() - t2) * 1e6)
+            if i:
+                turns[kind].append((t1 - t0) * 1e6)
+    out = {k: statistics.median(v) for k, v in turns.items()}
+    out["per_dispatch_us"] = (out["recorded"] - out["unrecorded"]
+                              + out["flush"]) / n_dcl
+    out["turns"] = turns
+    return out
+
+
+def results_of(engine) -> dict:
+    return {r.uid: r for r in engine.completed}
+
+
+def same_results(a, b, *, rtol: float | None = None) -> tuple[bool, float]:
+    """Whether two requests' ``cls``/``box`` agree: ``torch.equal``, or
+    within ``rtol * max|a|``; and the largest relative difference."""
+    import torch
+    ok, worst = True, 0.0
+    for key in ("cls", "box"):
+        x = torch.from_numpy(a.result[key])
+        y = torch.from_numpy(b.result[key])
+        scale = x.abs().max().item()
+        err = (x - y).abs().max().item()
+        worst = max(worst, err / scale)
+        ok = ok and (torch.equal(x, y) if rtol is None
+                     else err <= rtol * scale)
+    return ok, worst
+
+
+def serve_checkpoint(record: dict, trained, n_shapes: int,
+                     n_dcl: int) -> dict:
+    """Phase 15 (a) and (b): serve phase 8's checkpoint through
+    ``launch.serve --ckpt`` on ``fp32_kernel`` and ``int8_chain``, against
+    the same engine fed the trained params in memory; each run's
+    divergence rows against their bounds."""
+    import torch
+
+    from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
+    from repro_torch.kernels import ops
+    from repro_torch.launch import obs_report
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import resnet_dcn as R
+    from repro_torch.obs import (DispatchRecorder, DivergenceTracker,
+                                 MetricsRegistry, dump_telemetry)
+
+    ckpt = ROOT / "build" / "smoke_train" / "full"
+    out: dict = {}
+    for rung in ("fp32_kernel", "int8_chain"):
+        args = launch.build_parser().parse_args(
+            ["--arch", CONFIG_BOUNDED.name, "--buckets", BUCKETS,
+             "--requests", "8", "--slots", str(BATCH), "--device", "cuda",
+             "--seed", "0", "--quant", rung, "--ckpt", str(ckpt)])
+        engine, _, seconds = launch.serve_detection(
+            launch.detection_config(args), args)
+        print(launch.report(engine, seconds))
+        mem, _, _ = launch.serve_detection(
+            CONFIG_BOUNDED, serve_args(CONFIG_BOUNDED, rung), params=trained,
+            scale_table=engine.scale_table)
+        got, want = results_of(engine), results_of(mem)
+        bad = [u for u, r in got.items() if r.outcome != "ok"
+               or r.ladder != rung or r.degraded]
+        if len(got) != 8 or bad or len(want) != 8:
+            fail(f"15(a) {rung}: requests not all ok from the checkpoint: "
+                 f"{[(r.uid, r.outcome, r.ladder, r.error) for r in got.values()]}")
+        diffs = {u: same_results(got[u], want[u]) for u in got}
+        unequal = {u: err for u, (ok, err) in diffs.items() if not ok}
+        print(f"  15(a) {rung}: 8/8 ok from {ckpt.relative_to(ROOT)}; "
+              f"cls/box torch.equal to the in-memory params: "
+              f"{not unequal}")
+        if unequal:
+            fail(f"15(a) {rung}: requests differ between the checkpoint "
+                 f"and the trained params in memory (relative to max: "
+                 f"{unequal})")
+
+        # (b) one divergence row per DCL shape, 12 dispatches a step.
+        tel = engine.telemetry()
+        rows = tel["divergence"]["dispatches"]
+        n_disp = sum(r["n"] for r in rows)
+        shares = [r["share"] for r in rows]
+        for r in rows:
+            print(f"    {r['key']:<52} n={r['n']} best "
+                  f"{r['best_s'] * 1e3:.4f} ms ({r['clock']}), tiles "
+                  f"{r['tiles']}, {r['modeled_bytes'] / 1e6:.3f} MB, bound "
+                  f"{r['bound_s'] * 1e3:.5f} ms ({r['bound_by']}), share "
+                  f"{r['share']:.2%}")
+        if len(rows) != n_shapes or n_disp != n_dcl * engine.steps:
+            fail(f"15(b) {rung}: {len(rows)} divergence rows and {n_disp} "
+                 f"dispatches; expected {n_shapes} rows and {n_dcl} x "
+                 f"{engine.steps} steps")
+        if None in shares or max(shares) > SHARE_MAX \
+                or {r["clock"] for r in rows} != {"device"}:
+            fail(f"15(b) {rung}: shares {shares} (clocks "
+                 f"{ {r['clock'] for r in rows} }): a dispatch beat the "
+                 f"card's bound, or was not timed on the device")
+        path = ROOT / "chiprun_out" / f"phase15_{rung}_telemetry.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        dump_telemetry(path, tel)
+        obs_report.main(["--metrics", str(path), "--divergence", str(path)])
+
+        # A served step's forward with the recorder on, beside phase 4's
+        # (6's) without it and, in turns here, without it, with a hook
+        # that does nothing and with one that only records the two events
+        # (CUDA events, not gated).
+        cfg = dataclasses.replace(launch._served_cfg(CONFIG_BOUNDED),
+                                  quant="none" if rung == "fp32_kernel"
+                                  else rung)
+        scales = engine._scales if rung == "int8_chain" else None
+        fwd = {}
+        for bucket in sorted({r.bucket for r in got.values()}):
+            x = engine.batch_array(bucket, [r for r in got.values()
+                                            if r.bucket == bucket])
+            recs = []
+
+            def forward(hook=None):
+                with torch.no_grad(), ops.dispatch_hook_scope(hook):
+                    R.forward(trained, cfg, x, quant_scales=scales,
+                              device="cuda")
+
+            def recorded():
+                rec = DispatchRecorder(registry=MetricsRegistry(),
+                                       tracker=DivergenceTracker())
+                forward(rec)
+                recs.append(rec)
+
+            def events_hook(ctx):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                return lambda out=None, error=None: end.record()
+            fns = {"unrecorded": forward,
+                   "no-op hook": lambda: forward(lambda ctx: None),
+                   "events only": lambda: forward(events_hook),
+                   "recorded": recorded}
+            turns = {k: [] for k in fns}
+            for _ in range(3):
+                for k, fn in fns.items():
+                    turns[k].append(time_ms(fn, reps=3, iters=2))
+            for rec in recs:
+                rec.flush()
+            before = (record["serve"]["forward_ms"][str(bucket)]
+                      ["kernel_path"] if rung == "fp32_kernel"
+                      else record["forward_ms"][str(bucket)][rung])
+            fwd[str(bucket)] = dict(
+                {k: statistics.median(v) for k, v in turns.items()},
+                turns=turns, phase_4_or_6_ms=before)
+            print(f"  15(b) {rung} {bucket}-bucket forward (CUDA events, "
+                  f"median of 3 turns): "
+                  + ", ".join(f"{k} {statistics.median(v):.3f} ms"
+                              for k, v in turns.items())
+                  + f"; phase {4 if rung == 'fp32_kernel' else 6} "
+                  f"without a hook: {before:.3f} ms")
+            if bucket == 256:
+                host = recorder_host_us(forward, n_dcl)
+                fwd[str(bucket)]["host_us"] = host
+                print(f"  15(b) {rung} 256-bucket host enqueue of a forward "
+                      f"(perf_counter, median of {HOST_TURNS} turns): "
+                      f"unrecorded {host['unrecorded']:.1f} us, recorded "
+                      f"{host['recorded']:.1f} us, flush "
+                      f"{host['flush']:.1f} us: the recorder's host cost "
+                      f"{host['per_dispatch_us']:.2f} us a dispatch")
+        out[rung] = dict(engine=engine, rows=rows, forward_ms=fwd)
+    return out
+
+
+def tune_and_serve(record: dict, trained, served: dict, shapes_256: list,
+                   train_largest: tuple) -> dict:
+    """Phase 15 (c): tune the 256 bucket's DCL shapes (forward: fp32,
+    int8, int8_chain) and the training step's largest (training), install
+    the cache and serve again on the tuned plans."""
+    from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import bucket_layer_dims
+    from repro_torch.tune import (TileCache, install_tile_cache,
+                                  tune_deform_conv)
+
+    cache = TileCache()
+    runs = []
+    t0 = time.monotonic()
+    for h, w, c, m, s in shapes_256:
+        r = tune_deform_conv(h=h, w=w, c=c, m=m, batch=BATCH, stride=s,
+                             offset_bound=B, objective="forward",
+                             reps=TUNE_REPS, max_candidates=TUNE_CANDIDATES,
+                             cache=cache, device="cuda")
+        runs += [r, *r["quant_sweep"].values()]
+    h, w, c, m, s = train_largest
+    runs.append(tune_deform_conv(
+        h=h, w=w, c=c, m=m, batch=TRAIN_BATCH, stride=s, offset_bound=B,
+        objective="training", reps=TUNE_REPS,
+        max_candidates=TUNE_CANDIDATES, cache=cache, device="cuda"))
+    tune_s = time.monotonic() - t0
+    for r in runs:
+        if r["platform"] != "cuda_sm90":
+            fail(f"15(c): the tuner keyed {r['platform']!r} on the card")
+        if r["n_candidates"] != r["n_given"]:
+            fail(f"15(c): {r['n_given'] - r['n_candidates']} of "
+                 f"{r['n_given']} candidates failed on the card for "
+                 f"{r['batch']}x{r['h']}x{r['w']}x{r['c']}->{r['m']} "
+                 f"{r['objective']}/{r['dtype'] or 'fp32'} (every one "
+                 f"passed tiling.tiles_fit): {r['failed']}")
+        print(f"  tuned {r['batch']}x{r['h']}x{r['w']}x{r['c']}->{r['m']} "
+              f"s{r['stride']} {r['objective']}/{r['dtype'] or 'fp32'}: "
+              f"{r['n_candidates']}/{r['n_given']} candidates, measured_us "
+              f"{r['best']['us']:.1f} at {r['best']['tiles']}, analytic_us "
+              f"{r['analytic']['us']:.1f} at {r['analytic']['tiles']} "
+              f"({r['tuned_vs_analytic_ratio']:.3f}x)")
+    # Each entry also under the cpu key, with the 512 bucket's shapes:
+    # a cpu entry is never served on the card.
+    dims_512 = bucket_layer_dims(CONFIG_BOUNDED, 512)
+    for d in dims_512.values():
+        for dtype in (None, "int8_chain"):
+            cache.put({"tiles": [4, 4, 4, min(d["m"], 64)]}, n=BATCH,
+                      h=d["h"], w=d["w"], c=d["c"], m=d["m"],
+                      stride=d["stride"], offset_bound=B,
+                      objective="forward", dtype=dtype, platform="cpu")
+    path = cache.save(str(ROOT / "build" / "phase15_tiles.json"))
+    print(f"  {len(runs)} tunings in {tune_s:.1f} s; {len(cache)} entries "
+          f"-> {Path(path).relative_to(ROOT)}")
+    install_tile_cache(path)
+    try:
+        out = {}
+        for rung, rtol in (("int8_chain", None), ("fp32_kernel",
+                                                   KERNEL_RTOL)):
+            before = served[rung]["engine"]
+            engine, _, _ = launch.serve_detection(
+                CONFIG_BOUNDED, serve_args(CONFIG_BOUNDED, rung),
+                params=trained, scale_table=before.scale_table)
+            tel = engine.telemetry()
+            sources = tel["plan_sources"]
+            if set(sources["256"].values()) != {"tuned"} \
+                    or set(sources["512"].values()) != {"analytic"}:
+                fail(f"15(c) {rung}: plan sources {sources}; expected every "
+                     f"256 layer tuned and every 512 layer analytic (its "
+                     f"entries are cpu-keyed)")
+            got, want = results_of(engine), results_of(before)
+            checks = {u: same_results(want[u], got[u], rtol=rtol)
+                      for u in want}
+            worst = max(err for _, err in checks.values())
+            print(f"  15(c) {rung} on the tuned plans: plan sources "
+                  f"{ {b: sorted(set(v.values())) for b, v in sources.items()} }, "
+                  f"tuned hits {tel['plan_cache']['tuned_hits']}; against the "
+                  f"analytic tiles: "
+                  + ("torch.equal" if rtol is None else
+                     f"largest difference {worst:.2e} of max|analytic|"))
+            if not all(ok for ok, _ in checks.values()) or any(
+                    r.outcome != "ok" for r in got.values()):
+                fail(f"15(c) {rung}: tuned-plan results differ from the "
+                     f"analytic tiles' ({checks})")
+            out[rung] = dict(plan_sources=sources, worst_rel=worst)
+    finally:
+        install_tile_cache(None)
+    return dict(entries=cache.entries, tune_s=tune_s, serve=out,
+                runs=[{k: v for k, v in r.items() if k != "quant_sweep"}
+                      for r in runs])
+
+
+def chaos_serve(trained, table) -> dict:
+    """Phase 15 (d), serving: slow_step, malformed_request,
+    bucket_miss_storm and a dispatch_fault on int8_chain at 256."""
+    import numpy as np
+
+    from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.resilience import ChaosHooks, FaultEvent, FaultPlan
+    from repro_torch.serve import (OUTCOMES, DCLServeConfig,
+                                   DCLServingEngine)
+
+    bucket = 256
+    rng = np.random.default_rng(CHAOS_SEED)
+    slow_at = int(rng.integers(1, 3))
+    plan = FaultPlan(events=(
+        FaultEvent(step=slow_at, kind="slow_step", mode=str(CHAOS_STALL_S)),
+        FaultEvent(step=0, kind="malformed_request"),
+        FaultEvent(step=0, kind="bucket_miss_storm", mode="2"),
+        FaultEvent(step=0, kind="dispatch_fault"),
+    ), seed=CHAOS_SEED)
+    images = [np.random.RandomState(CHAOS_SEED % 2**31 + i)
+              .randn(bucket, bucket, 3).astype(np.float32)
+              for i in range(CHAOS_REQUESTS)]
+
+    def engine(hooks=None):
+        clock = FakeClock()
+        if hooks is not None:
+            hooks.sleep = clock.advance
+        return DCLServingEngine(
+            trained, launch._served_cfg(CONFIG_BOUNDED),
+            DCLServeConfig(buckets=(bucket,), slots=2, quant="int8_chain"),
+            scale_table=table, device="cuda", clock=clock,
+            step_hook=None if hooks is None else hooks.serve_step_hook,
+            admit_hook=None if hooks is None else hooks.admit_hook)
+
+    hooks = ChaosHooks(plan)
+    eng = engine(hooks)
+    for uid, img in enumerate(images):
+        eng.submit(img, deadline=CHAOS_DEADLINE_S
+                   if uid >= CHAOS_REQUESTS - 2 else None)
+    with ops.dispatch_hook_scope(hooks.dispatch_hook):
+        eng.run_until_drained()
+    by_uid = results_of(eng)
+    outcomes = {u: (r.outcome, r.ladder, r.retries, r.degraded)
+                for u, r in sorted(by_uid.items())}
+    print(f"  15(d) serve chaos (slow step at {slow_at}): {outcomes}; "
+          f"fired {[f['kind'] for f in hooks.fired]}; counters "
+          f"{eng.counters}")
+    # The requests the plan did not touch, alone in a clean engine in the
+    # same batches (uids 3..9, served two a step as above).
+    clean = engine()
+    for uid in range(3, CHAOS_REQUESTS):
+        clean.submit(images[uid], uid=uid)
+    clean.run_until_drained()
+    ref = results_of(clean)
+    retried = [r for r in by_uid.values() if r.retries]
+    expired = {u for u, r in by_uid.items()
+               if r.outcome == "deadline_exceeded"}
+    untouched = [u for u, r in by_uid.items()
+                 if r.outcome == "ok" and not r.retries]
+    unequal = [u for u in untouched if not same_results(by_uid[u],
+                                                         ref[u])[0]]
+    problems = []
+    if len(by_uid) != CHAOS_REQUESTS or len(eng.queue) or any(
+            not r.done or r.outcome not in OUTCOMES
+            or r.outcome in ("pending", "failed") for r in by_uid.values()):
+        problems.append("a request untyped, failed or left pending")
+    if any(r.degraded for r in by_uid.values()):
+        problems.append("a request degraded: on the card a dispatch fault "
+                        "must stay on its rung")
+    if {f["kind"] for f in hooks.fired} != {
+            "slow_step", "malformed_request", "bucket_miss_storm",
+            "dispatch_fault"}:
+        problems.append("not every fault fired")
+    if [by_uid[u].outcome for u in (0, 1, 2)] != [
+            "malformed", "unbucketable", "unbucketable"]:
+        problems.append("admission faults not typed")
+    if not retried or any(r.outcome != "ok" or r.ladder != "int8_chain"
+                          for r in retried):
+        problems.append("the faulted batch was not retried ok on its rung")
+    if not expired or not expired <= {CHAOS_REQUESTS - 2,
+                                      CHAOS_REQUESTS - 1}:
+        problems.append(f"deadlines expired {expired}")
+    if not untouched or unequal:
+        problems.append(f"untouched requests {unequal} differ from the "
+                        f"clean run")
+    if problems:
+        fail(f"15(d) serve chaos: {problems}")
+    print(f"  15(d) serve chaos: every request typed, none degraded; the "
+          f"faulted batch {[r.uid for r in retried]} retried ok on "
+          f"int8_chain; expired {sorted(expired)}; {len(untouched)} "
+          f"untouched requests torch.equal to a clean run")
+    return dict(plan=plan.summary(), outcomes=outcomes,
+                fired=[f["kind"] for f in hooks.fired])
+
+
+def planted_recovery(hooks, shift: int):
+    """``hooks`` whose Trainer recovers wrongly once, a fault planted to
+    show that the training-chaos check separates: its first restore
+    moves the step counter by ``shift`` (+1 loses the step it should
+    replay, -1 replays a step the run had already passed)."""
+    bind = hooks.bind
+
+    def bind_wrong(trainer):
+        resume = trainer.try_resume
+        done = []
+
+        def wrong_resume() -> bool:
+            ok = resume()
+            if ok and not done:
+                done.append(trainer.step)
+                trainer.step += shift
+            return ok
+        trainer.try_resume = wrong_resume
+        return bind(trainer)
+    hooks.bind = bind_wrong
+    return hooks
+
+
+def chaos_train() -> dict:
+    """Phase 15 (d), training: a ``FaultPlan.random`` over
+    ``CHAOS_STEPS`` full-width steps against a run that sees only its
+    non-finite step, and the same plan with a wrong recovery planted
+    (a lost step, an extra step), each of which the check must
+    tell from a sound one; beside them the skip-only run's last update,
+    the distance one step moves the params."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
+    from repro_torch.launch import train as launch
+    from repro_torch.models import resnet_dcn as R
+    from repro_torch.resilience import ChaosHooks, FaultPlan
+    from repro_torch.tree import leaves
+
+    kinds = ("nonfinite_grads", "ckpt_corrupt", "step_crash", "data_hiccup")
+    plan = FaultPlan.random(CHAOS_SEED, total_steps=CHAOS_STEPS,
+                            kinds=kinds, min_step=2)
+    skip_only = FaultPlan(events=tuple(e for e in plan.events
+                                       if e.kind == "nonfinite_grads"),
+                          seed=CHAOS_SEED)
+    root = ROOT / "build" / "smoke_chaos"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def flat(params):
+        return torch.cat([p.detach().reshape(-1).clone()
+                          for p in leaves(params)])
+
+    def run(name: str, hooks):
+        args = launch.build_parser().parse_args(
+            ["--arch", CONFIG_BOUNDED.name, "--full", "--steps",
+             str(CHAOS_STEPS), "--global-batch", str(TRAIN_BATCH),
+             "--ckpt", str(root / name), "--ckpt-every", "1",
+             "--log-every", "1", "--seed", "0", "--device", "cuda"])
+        tcfg = launch.train_config(CONFIG_BOUNDED, args)
+        params = perturb_offsets(R.init_params(tcfg, seed=0,
+                                               device="cuda"), 1)
+        return launch.train_detection(CONFIG_BOUNDED, args, params=params,
+                                      chaos=hooks)
+
+    t0 = time.monotonic()
+    # The skip-only run, its params kept before its last step.
+    oracle_hooks = ChaosHooks(skip_only)
+    before_last = {}
+    fault_hook = oracle_hooks.fault_hook
+
+    def keep_before_last(step: int) -> None:
+        if step == CHAOS_STEPS - 1:
+            before_last["flat"] = flat(oracle_hooks.trainer.params)
+        fault_hook(step)
+    oracle_hooks.fault_hook = keep_before_last
+    oracle = run("skip_only", oracle_hooks)
+    flat_o = flat(oracle.params)
+    hooks = ChaosHooks(plan)
+    chaos = run("chaos", hooks)
+    rel = ((flat(chaos.params) - flat_o).norm() / flat_o.norm()).item()
+    last_update = ((flat_o - before_last["flat"]).norm()
+                   / flat_o.norm()).item()
+    planted = {}
+    for name, shift in (("lost_step", 1), ("extra_step", -1)):
+        wrong = run(name, planted_recovery(ChaosHooks(plan), shift))
+        planted[name] = ((flat(wrong.params) - flat_o).norm()
+                         / flat_o.norm()).item()
+    seconds = time.monotonic() - t0
+    fired = sorted({f["kind"] for f in hooks.fired})
+    losses = [h["loss"] for h in chaos.history if "loss" in h]
+    print(f"  15(d) train chaos {plan.summary()['events']}: {chaos.step}/"
+          f"{CHAOS_STEPS} steps, fired {fired}, telemetry "
+          f"{chaos.telemetry} (skip-only run {oracle.telemetry}); final "
+          f"params vs the skip-only run: relative norm {rel:.2e} (gate "
+          f"{RESUME_RTOL}); planted wrong recoveries "
+          + ", ".join(f"{k} {v:.2e}" for k, v in planted.items())
+          + f" (each at least {PLANTED_MIN} x the gate); the skip-only "
+          f"run's last update {last_update:.2e}; {seconds:.1f} s for the "
+          f"four runs")
+    if chaos.step != CHAOS_STEPS or len(fired) < 3 \
+            or not np.isfinite(losses).all() or rel > RESUME_RTOL:
+        fail(f"15(d) train chaos: {chaos.step} steps, fired {fired}, "
+             f"params {rel} from the skip-only run")
+    if min(planted.values()) < PLANTED_MIN * RESUME_RTOL:
+        fail(f"15(d) train chaos: a planted wrong recovery lands "
+             f"{planted} from the skip-only run, under {PLANTED_MIN} x "
+             f"{RESUME_RTOL}: the check does not separate it")
+    return dict(plan=plan.summary(), fired=fired,
+                telemetry=chaos.telemetry, rel_vs_skip_only=rel,
+                planted_rel_vs_skip_only=planted,
+                last_update_rel=last_update, losses=losses,
+                seconds=seconds)
+
+
+def operations_phase(record: dict, trained, per_step: dict,
+                     train_step: dict) -> dict[str, int]:
+    """Phase 15; returns each of ``OPS_KERNELS``' launches in it."""
+    import torch
+
+    t0 = time.monotonic()
+    n_dcl = sum(per_step[k].get("256", 0) for k in per_step)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    reset_counts()
+    served = serve_checkpoint(record, trained, len(per_step), n_dcl)
+    counts_a = read_counts()
+    shapes_256 = [k for k, cnt in per_step.items() if "256" in cnt]
+    largest = max(train_step, key=lambda k: (
+        k[0] * k[1] * k[2] * k[3] / k[4] ** 2, k[0] * k[1] * k[2]))
+    tuned = tune_and_serve(record, trained, served, shapes_256, largest)
+    counts_c = read_counts()
+    chaos = dict(serve=chaos_serve(trained,
+                                   served["int8_chain"]["engine"].scale_table),
+                 train=chaos_train())
+    counts = read_counts()
+    launches = {k: counts[k] for k in OPS_KERNELS}
+    print(f"  phase 15 launches: {launches} (after (a)-(b) "
+          f"{ {k: counts_a[k] for k in OPS_KERNELS} }, after (c) "
+          f"{ {k: counts_c[k] for k in OPS_KERNELS} })")
+    if not all(launches.values()):
+        fail(f"phase 15 launched a kernel of its path no time: {launches}")
+    seconds = time.monotonic() - t0
+    print(f"  phase 15 in {seconds:.1f} s on {smi()}")
+    record["operations"] = dict(
+        divergence={r: v["rows"] for r, v in served.items()},
+        forward_ms={r: v["forward_ms"] for r, v in served.items()},
+        tuned=tuned, chaos=chaos, launches=launches, seconds=seconds)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3095,7 +3667,6 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside the script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3178,7 +3749,7 @@ def main() -> int:
 
     print("== 4. serve")
     launches, record, params, zc_reqs = serve(record)
-    run, bound_by = run_two_bounds(
+    run, bound_by = per_run(
         main_path, record["serve"]["steps_per_bucket"], launches,
         "deform_conv_fused")
     run["prep_ms"] = sum(r["prep_ms"] * r["launches_in_run"]
@@ -3251,14 +3822,11 @@ def main() -> int:
     for name, (kind, rung, line) in sources.items():
         shapes = [r for r in record["q_shapes"]
                   if r["kind"] == kind and r.get("per_step")]
-        run_q, _ = per_run(
+        run_q, by = per_run(
             shapes, record["serve_int8"][rung]["steps_per_bucket"],
-            q_launches[name], PEAK_INT8_OPS, name)
-        for k in ("queued_ms", "samples"):
-            run_q[k] = sum(r[k] * r["launches_in_run"] for r in shapes)
-        run_q.update(q_bounds(run_q["flops"], run_q["bytes"],
-                              run_q["samples"]))
-        by = run_q["bound_by"]
+            q_launches[name], name)
+        run_q["queued_ms"] = sum(r["queued_ms"] * r["launches_in_run"]
+                                 for r in shapes)
         record[f"run_{name}"] = run_q
         kernels["kernels"].append({
             "name": name,
@@ -3327,10 +3895,10 @@ def main() -> int:
           "backward, so there is no library time to compare with")
 
     print("== 8. train")
-    bwd_launches, step0 = train(record)
+    bwd_launches, step0, trained = train(record)
     shapes = [r for r in record["bwd_shapes"] if r.get("per_step")]
-    run_b, by = run_two_bounds(shapes, {"512": TRAIN_STEPS}, bwd_launches,
-                               "deform_conv_bwd")
+    run_b, by = per_run(shapes, {"512": TRAIN_STEPS}, bwd_launches,
+                        "deform_conv_bwd")
     record["run_deform_conv_bwd"] = run_b
     kernels["kernels"].append({
         "name": "deform_conv_bwd",
@@ -3417,8 +3985,7 @@ def main() -> int:
             ("deform_sample_banded", "src/repro/kernels/deform_sample.py:107")):
         shapes = [dict(r, per_step={"run": 1}) for r in record["sample_shapes"]
                   if r["kernel"] == name and r["label"] in five_labels]
-        run_s, by = per_run(shapes, {"run": 1}, entry[name],
-                            PEAK_FP32_FLOPS, name)
+        run_s, by = per_run(shapes, {"run": 1}, entry[name], name)
         by_dtype = {}
         for dt in SAMPLE_DTYPES:
             sub = [r for r in shapes if r["dtype"] == dt]
@@ -3428,8 +3995,8 @@ def main() -> int:
                  for k in ("ms", "queued_ms", "flushed_ms", "plain_ms",
                            "bytes")},
                 launches=len(sub),
-                bound_ms=sum(r["bytes"] for r in sub)
-                / PEAK_HBM_BYTES_PER_S * 1e3,
+                bound_ms=h100.total((r["work"], 1) for r in sub)["bound_s"]
+                * 1e3,
                 library_ms=None if None in lib_ms else sum(lib_ms),
                 host_us=statistics.median(r["host_us"] for r in sub))
             run_dt = by_dtype[dt]
@@ -3479,7 +4046,7 @@ def main() -> int:
     banded_launches = serve_banded(record, params, zc_reqs)
     shapes = [r for r in record["banded_shapes"]
               if r.get("per_step") and "train" not in r["per_step"]]
-    run_4, by = run_two_bounds(
+    run_4, by = per_run(
         shapes, record["serve_banded"]["steps_per_bucket"], banded_launches,
         "deform_conv_banded")
     run_4["prep_ms"] = sum(r["prep_ms"] * r["launches_in_run"]
@@ -3523,12 +4090,11 @@ def main() -> int:
           f"fp32 CUDA cores {k4['bound_fp32_ms']:.4f} ms)")
 
     mm = record["mm_shapes"]
-    op_ms = sum(r["op_ms"] for r in mm)
-    byte_ms = sum(r["bytes"] for r in mm) / PEAK_HBM_BYTES_PER_S * 1e3
+    mm_work = h100.total((r["work"], 1) for r in mm)
     record["run_matmul"] = run_mm = dict(
         ms=sum(r["ms"] for r in mm), plain_ms=sum(r["plain_ms"] for r in mm),
         library_ms=sum(r["library_ms"] for r in mm),
-        bound_ms=max(op_ms, byte_ms))
+        bound_ms=mm_work["bound_s"] * 1e3)
     kernels["kernels"].append({
         "name": "matmul",
         "route": "cuda",
@@ -3539,7 +4105,7 @@ def main() -> int:
         "ms": run_mm["ms"],
         "plain_ms": run_mm["plain_ms"],
         "bound_ms": run_mm["bound_ms"],
-        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "bound_by": mm_work["bound_by"],
         "library_ms": run_mm["library_ms"],
     })
     print(f"  matmul per entry-point run: {entry['matmul']} launches, kernel "
@@ -3557,6 +4123,13 @@ def main() -> int:
           "card")
     record["bf16_shapes"], bf16_rows = bf16_phase(per_step, train_step, gen)
     kernels["kernels"] += bf16_rows
+
+    print("== 15. operations: serve a checkpoint, divergence, tuning, "
+          "chaos")
+    ops_launches = operations_phase(record, trained, per_step, train_step)
+    for row in kernels["kernels"]:
+        if row["name"] in ops_launches:
+            row["operations_launches"] = ops_launches[row["name"]]
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

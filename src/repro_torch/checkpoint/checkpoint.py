@@ -117,6 +117,23 @@ def latest_step(directory: PathLike) -> int | None:
     return steps[0] if steps else None
 
 
+def stored_structure(directory: PathLike) -> tuple[int, list | None]:
+    """(leaf count, key paths) of the newest complete checkpoint in
+    ``directory`` whose manifest reads; the paths are None for one
+    written by the JAX package.  Raises ``FileNotFoundError`` when there
+    is none."""
+    directory = pathlib.Path(directory)
+    for s in complete_steps(directory):
+        try:
+            manifest = _load_manifest(directory / f"step_{s:08d}")
+        except CheckpointCorruptError:
+            continue
+        paths = manifest.get("paths")
+        return len(manifest["leaves"]), (
+            None if paths is None else [tuple(q) for q in paths])
+    raise FileNotFoundError(f"no readable checkpoint in {directory}")
+
+
 def _load_manifest(path: pathlib.Path) -> dict:
     mf = path / "manifest.json"
     if not mf.exists():

@@ -634,3 +634,100 @@ def _fwd_tiles(n: int, ho: int, wo: int, c: int, m: int, th: int, tw: int,
             if fit:
                 return fit[-1]
     _no_fit(shapes[-1][0], shapes[-1][1], geom)
+
+
+# The datapaths whose tiles a tuned cache may set (``kernels.plan``) and
+# the autotuner searches (``neighbor_kernel_tiles``).
+TUNABLE = ("fp32", "int8", "int8_chain", "fp32_bwd")
+
+
+def tiles_fit(tile_h: int, tile_w: int, tile_c: int, tile_m: int, *, c: int,
+              m: int, kernel_size: int, stride: int, dilation: int,
+              offset_bound: float, dtype: str = "fp32",
+              itemsize: int = 4) -> bool:
+    """Whether the kernel of a tunable datapath (``TUNABLE``) takes these
+    tiles: positive ints, at most ``PIX_LANES[-1]`` pixels a block,
+    channel tiles that divide C and M, and one block's shared memory
+    within ``SMEM_PER_BLOCK`` at the datapath's mirror (``smem_bytes``;
+    ``q_smem_bytes``, whose tile_c is a multiple of 4; ``bwd_smem_bytes``
+    and ``bwd_dw_smem_bytes`` with at most ``BWD_MAX_WARP_TILES`` dP mma
+    tiles a warp), and ``tile_m`` within the forward kernels' output
+    channels a block."""
+    if dtype not in TUNABLE:
+        raise ValueError(f"datapath {dtype!r} has no tunable tiles; "
+                         f"expected one of {TUNABLE}")
+    tiles = (tile_h, tile_w, tile_c, tile_m)
+    if not all(isinstance(t, int) and t >= 1 for t in tiles) \
+            or tile_h * tile_w > PIX_LANES[-1] or c % tile_c or m % tile_m:
+        return False
+    geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
+                offset_bound=offset_bound)
+    if dtype == "fp32":
+        return tile_m <= FWD_TILE_M and smem_bytes(
+            tile_h, tile_w, tile_c, itemsize=itemsize, **geom) \
+            <= SMEM_PER_BLOCK
+    if dtype in ("int8", "int8_chain"):
+        return tile_c % 4 == 0 and tile_m <= Q_TILE_M and q_smem_bytes(
+            tile_h, tile_w, tile_c, **geom) <= SMEM_PER_BLOCK
+    return (bwd_warp_tiles(tile_h, tile_w, tile_c, kernel_size=kernel_size)
+            <= BWD_MAX_WARP_TILES
+            and max(bwd_smem_bytes(tile_h, tile_w, tile_c,
+                                   itemsize=itemsize, **geom),
+                    bwd_dw_smem_bytes(tile_h, tile_w, tile_c,
+                                      itemsize=itemsize, **geom))
+            <= SMEM_PER_BLOCK)
+
+
+def neighbor_kernel_tiles(n: int, h: int, w: int, c: int, m: int,
+                          seed: KernelTiles, *, kernel_size: int,
+                          stride: int, dilation: int = 1,
+                          offset_bound: float, dtype: str = "fp32",
+                          itemsize: int = 4,
+                          radius: int = 1) -> list[KernelTiles]:
+    """The autotuner's candidates around ``seed`` (the chooser's pick,
+    always first and never dropped): each of tile_h, tile_w, tile_c and
+    tile_m moves up to ``radius`` steps along its ladder (spatial tiles
+    powers of two clamped to the output; tile_c the divisors of C the
+    datapath's chooser draws from, multiples of 4 for int8; tile_m the
+    divisors of M up to the kernels' 128 channels; the backward, which
+    has no M tile, keeps the seed's), and the cross product is filtered
+    by ``tiles_fit``.  The int8 datapaths keep the seed's spatial tiles:
+    they set the band-local frame in which the sampling positions round,
+    so another spatial tile can round a patch to another int8 value,
+    where channel tiles only regroup exact integer sums (a tuned int8
+    plan serves the analytic plan's integers).  ``n`` is the batch,
+    unused: the candidates of a shape do not depend on it (the tuner
+    keys its entries by it)."""
+    del n
+    ho, wo = out_hw(h, w, kernel_size=kernel_size, stride=stride,
+                    dilation=dilation)
+    pows = (1, 2, 4, 8, 16, 32, 64)
+    ths = sorted({min(t, ho) for t in pows})
+    tws = sorted({min(t, wo) for t in pows})
+    if dtype in ("int8", "int8_chain"):
+        ths, tws = [seed.tile_h], [seed.tile_w]
+        tcs = sorted({4 * _divisor_at_most(c // 4, cap)
+                      for cap in (1, 2, 4, 8, 16)})
+    else:
+        tcs = sorted({_divisor_at_most(c, cap)
+                      for cap in (1, 2, 4, 8, 16, 32)})
+    tms = [seed.tile_m] if dtype == "fp32_bwd" else sorted(
+        {_divisor_at_most(m, cap) for cap in (16, 32, 64, 128)})
+
+    def near(ladder: list[int], v: int) -> list[int]:
+        i = min(range(len(ladder)), key=lambda j: abs(ladder[j] - v))
+        return ladder[max(0, i - radius):i + radius + 1]
+
+    geom = dict(c=c, m=m, kernel_size=kernel_size, stride=stride,
+                dilation=dilation, offset_bound=offset_bound, dtype=dtype,
+                itemsize=itemsize)
+    seed = KernelTiles(seed.tile_h, seed.tile_w, seed.tile_c, seed.tile_m)
+    out = [seed]
+    for th in near(ths, seed.tile_h):
+        for tw in near(tws, seed.tile_w):
+            for tc in near(tcs, seed.tile_c):
+                for tm in near(tms, seed.tile_m):
+                    kt = KernelTiles(th, tw, tc, tm)
+                    if kt not in out and tiles_fit(th, tw, tc, tm, **geom):
+                        out.append(kt)
+    return out

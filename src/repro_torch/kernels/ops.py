@@ -36,11 +36,15 @@ a gradient raises there (quantized models train with ``quant="qat"``).
 ``dispatch_hook_scope`` installs a callable that sees a context dict
 before each bounded dispatch of either op; raising from it aborts the
 call.  It is the fault-injection seam the serving engine's ladder is
-tested through.
+tested through, and the timing seam of ``obs.DispatchRecorder``: a hook
+may return ``finish(out=None, error=None)``, which is called after the
+call, on success or failure; a ``finish`` that raises is logged and
+ignored.
 """
 from __future__ import annotations
 
 import contextlib
+import logging
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -54,7 +58,14 @@ from repro_torch.kernels.matmul import matmul  # noqa: F401  (re-export)
 
 Tensor = torch.Tensor
 
+_log = logging.getLogger("repro_torch.kernels")
+
 _dispatch_hook = None
+
+
+def get_dispatch_hook():
+    """The installed dispatch hook (None when there is none)."""
+    return _dispatch_hook
 
 
 @contextlib.contextmanager
@@ -67,6 +78,30 @@ def dispatch_hook_scope(hook):
         yield
     finally:
         _dispatch_hook = prev
+
+
+def _finish(finish, **result) -> None:
+    """Close a hook's measurement; observability never breaks the call."""
+    if not callable(finish):
+        return
+    try:
+        finish(**result)
+    except Exception as e:  # noqa: BLE001 — logged, the call stands
+        _log.warning("dispatch finish hook raised %s: %s",
+                     type(e).__name__, e)
+
+
+def _dispatch(context: dict, run):
+    """``run()`` between the installed hook (whose raise aborts the call)
+    and the ``finish`` it returned."""
+    finish = _dispatch_hook(context) if _dispatch_hook is not None else None
+    try:
+        out = run()
+    except Exception as e:
+        _finish(finish, error=e)
+        raise
+    _finish(finish, out=out)
+    return out
 
 
 def check_channel_tiles(c: int, m: int, tile_c: int | None,
@@ -224,24 +259,25 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
 
     if precision == "int8":
         _refuse_grad(dev, "deform_conv(precision='int8')", x, offsets, w)
-    if _dispatch_hook is not None:
-        _dispatch_hook({"op": "deform_conv", "precision": precision,
-                        "dataflow": dataflow, "shape": tuple(x.shape),
-                        "m": m,
-                        "offset_bound": offset_bound,
-                        "kernel_size": kernel_size, "stride": stride,
-                        "dilation": dilation, "device": dev.type})
+    context = {"op": "deform_conv", "precision": precision,
+               "dataflow": dataflow, "shape": tuple(x.shape), "m": m,
+               "offset_bound": offset_bound, "kernel_size": kernel_size,
+               "stride": stride, "dilation": dilation, "device": dev.type,
+               "itemsize": x.element_size(),
+               "offset_itemsize": offsets.element_size(),
+               "tiles": (tile_h, tile_w, tile_c, tile_m)}
     if precision == "int8":
-        return _plan.int8_forward(
+        return _dispatch(context, lambda: _plan.int8_forward(
             x, offsets, w, kernel_size=kernel_size, stride=stride,
             dilation=dilation, offset_bound=offset_bound, tile_h=tile_h,
             tile_w=tile_w, tile_c=tile_c, tile_m=tile_m, x_scale=x_scale,
-            w_scale=w_scale)
+            w_scale=w_scale))
     spec = _plan.DCSpec(kernel_size=kernel_size, stride=stride,
                         dilation=dilation, offset_bound=offset_bound,
                         tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
                         tile_m=tile_m, dataflow=dataflow)
-    return BoundedDeformConv.apply(spec, x, offsets, w)
+    return _dispatch(context,
+                     lambda: BoundedDeformConv.apply(spec, x, offsets, w))
 
 
 def deform_conv_chain(x: Tensor, w: Tensor, w_offset: Tensor, b_offset,
@@ -289,15 +325,14 @@ def deform_conv_chain(x: Tensor, w: Tensor, w_offset: Tensor, b_offset,
     check_on(dev, x=x, w=w, w_offset=w_offset)
     check_channel_tiles(x.shape[-1], w.shape[-1], tile_c, tile_m)
     _refuse_grad(dev, "deform_conv_chain", x, w, w_offset)
-    if _dispatch_hook is not None:
-        _dispatch_hook({"op": "deform_conv_chain", "emit": emit,
-                        "shape": tuple(x.shape), "m": w.shape[-1],
-                        "offset_bound": offset_bound,
-                        "kernel_size": kernel_size, "stride": stride,
-                        "dilation": dilation, "device": dev.type})
-    return _plan.chain_forward(
+    context = {"op": "deform_conv_chain", "emit": emit,
+               "shape": tuple(x.shape), "m": w.shape[-1],
+               "offset_bound": offset_bound, "kernel_size": kernel_size,
+               "stride": stride, "dilation": dilation, "device": dev.type,
+               "tiles": (tile_h, tile_w, tile_c, tile_m)}
+    return _dispatch(context, lambda: _plan.chain_forward(
         x, w, w_offset, b_offset, b_deform, kernel_size=kernel_size,
         stride=stride, dilation=dilation, offset_bound=offset_bound,
         x_scale=x_scale, w_scale=w_scale, w_offset_scale=w_offset_scale,
         y_scale=y_scale, tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
-        tile_m=tile_m, emit=emit)
+        tile_m=tile_m, emit=emit))

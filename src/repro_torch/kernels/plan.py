@@ -5,9 +5,10 @@
   dataflow: ``"zero_copy"`` (the kernels stage their bands from the
   padded input) or ``"banded"`` (the legacy dataflow: the bands are
   materialised in device memory first, ``pad_and_band``);
-* tile resolution (``resolve_tiles``: explicit tiles win, the Hopper
-  chooser of ``core.tiling`` fills the rest, per datapath) and the
-  weight blocking;
+* tile resolution (``resolve_tiles``: explicit tiles win, then the
+  installed tuned-tile cache of ``repro_torch.tune`` for the tunable
+  datapaths, then the Hopper chooser of ``core.tiling``) and the weight
+  blocking;
 * ``pad_zerocopy`` / ``zerocopy_inputs`` — zero-pad the input once so
   every Eq. 6 band is a plain window of it; ``pad_and_band`` — zero-pad
   and cut the overlapping row bands (PyTorch glue, as XLA glue in JAX);
@@ -30,8 +31,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.tiling import (BANDED_TILE_H, choose_kernel_tiles,
-                                     out_hw)
+from repro_torch.core.tiling import (BANDED_TILE_H, TUNABLE,
+                                     choose_kernel_tiles, out_hw, tiles_fit)
 from repro_torch.kernels.band_pipeline import band_geometry
 from repro_torch.kernels.deform_conv_bwd import deform_conv_bwd_zerocopy
 from repro_torch.kernels.deform_conv_fused import (
@@ -55,6 +56,8 @@ class DCSpec:
     tile_c: int | None = None
     tile_m: int | None = None
     dataflow: str = "zero_copy"
+    # Explicit tiles of the backward (kernel 2), else its own resolution.
+    bwd_tiles: tuple[int, int, int] | None = None
 
 
 DATAFLOWS = ("zero_copy", "banded")
@@ -88,20 +91,96 @@ def untile_weights(w_tiles: Tensor, kernel_size: int) -> Tensor:
     return w.reshape(k2, n_c * tc, m)
 
 
-def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
-                  kernel_size: int, stride: int, dilation: int,
-                  offset_bound: float, tile_h: int | None = None,
-                  tile_w: int | None = None, tile_c: int | None = None,
-                  tile_m: int | None = None, dtype: str = "fp32",
-                  itemsize: int = 4) -> tuple[int, int, int, int]:
-    """Explicit tiles win; the chooser for ``dtype`` (``"fp32"``,
-    ``"int8"``, ``"int8_chain"``, ``"fp32_bwd"``, ``"sample"``,
-    ``"banded"``) fills the rest, around an explicit ``tile_h``
-    (``itemsize``: the element bytes the kernels stage, 4 fp32 or 2 bf16;
-    the int8 choosers do not read it).  Raises on channel tiles that do
-    not divide the layer."""
+# Resolutions since the last ``reset_tuned_stats``: served by the tuned
+# cache, by the chooser, and entries refused (the chooser served them).
+_TUNED_STATS = {"tuned_hits": 0, "analytic_resolves": 0,
+                "tuned_incompatible": 0}
+
+
+def reset_tuned_stats() -> None:
+    """Zero the tuned-vs-analytic resolution counters (tests)."""
+    for k in _TUNED_STATS:
+        _TUNED_STATS[k] = 0
+
+
+def _cache_key(dtype: str, itemsize: int) -> tuple[str, str]:
+    """(objective, dtype) of a tunable datapath's cache entries: the
+    backward's are the ``"training"`` objective's, bf16 has its own."""
+    objective = "training" if dtype == "fp32_bwd" else "forward"
+    if dtype in ("fp32", "fp32_bwd"):
+        return objective, "bf16" if itemsize == 2 else "fp32"
+    return objective, dtype
+
+
+def _tuned_tiles(n: int, h: int, w: int, c: int, m: int, *,
+                 kernel_size: int, stride: int, dilation: int,
+                 offset_bound: float, dtype: str, itemsize: int,
+                 device) -> tuple[tuple | None, bool]:
+    """(tiles, found) of the installed cache's entry for one resolution
+    on ``device``'s platform: ``(None, False)`` when no cache is
+    installed, the datapath is not tunable or the key is cold;
+    ``(None, True)`` for an entry the kernel would not take
+    (``tiling.tiles_fit``), or an int8 entry whose spatial tiles are not
+    the chooser's (they set the band frame the int8 patches round in, so
+    they would change the rung's integers)."""
+    from repro_torch.tune.cache import active_tile_cache, platform_of
+    cache = active_tile_cache()
+    if cache is None or device is None or dtype not in TUNABLE:
+        return None, False
+    objective, key_dtype = _cache_key(dtype, itemsize)
+    geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
+                offset_bound=offset_bound)
+    entry = cache.lookup(n=n, h=h, w=w, c=c, m=m, objective=objective,
+                         dtype=key_dtype, platform=platform_of(device),
+                         **geom)
+    if entry is None:
+        return None, False
+    tiles = entry.get("tiles") if isinstance(entry, dict) else None
+    if not (isinstance(tiles, list) and len(tiles) == 4 and tiles_fit(
+            *tiles, c=c, m=m, dtype=dtype, itemsize=itemsize, **geom)):
+        return None, True
+    if dtype in ("int8", "int8_chain"):
+        kt = choose_kernel_tiles(n, h, w, c, m, dtype=dtype, **geom)
+        if tiles[:2] != [kt.tile_h, kt.tile_w]:
+            return None, True
+    return tuple(tiles), True
+
+
+def resolve_tiles_and_source(
+        n: int, h: int, w: int, c: int, m: int, *, kernel_size: int,
+        stride: int, dilation: int, offset_bound: float,
+        tile_h: int | None = None, tile_w: int | None = None,
+        tile_c: int | None = None, tile_m: int | None = None,
+        dtype: str = "fp32", itemsize: int = 4, device=None,
+        count: bool = True) -> tuple[tuple[int, int, int, int], str]:
+    """``resolve_tiles`` and where its tiles came from: ``"explicit"``,
+    ``"tuned"`` (the installed cache) or ``"analytic"`` (the chooser
+    filled at least one).  ``count=False`` leaves the resolution counters
+    of ``tile_cache_info`` (and the one-time warning) alone: pricing a
+    dispatch is not a resolution."""
     from repro_torch.kernels.ops import check_channel_tiles
+    if (tile_h, tile_w, tile_c, tile_m) == (None,) * 4:
+        tuned, found = _tuned_tiles(n, h, w, c, m, kernel_size=kernel_size,
+                                    stride=stride, dilation=dilation,
+                                    offset_bound=offset_bound, dtype=dtype,
+                                    itemsize=itemsize, device=device)
+        if tuned is not None:
+            if count:
+                _TUNED_STATS["tuned_hits"] += 1
+            return tuned, "tuned"
+        if found and count:
+            from repro_torch.tune.cache import warn_once
+            _TUNED_STATS["tuned_incompatible"] += 1
+            warn_once(("entry", n, h, w, c, m, dtype, itemsize),
+                      "tuned-tile cache entry for %dx%dx%dx%d->%d (%s) is "
+                      "malformed or incompatible with the layer; falling "
+                      "back to the analytic chooser (warned once per key)",
+                      n, h, w, c, m, dtype)
+    source = "explicit"
     if None in (tile_h, tile_w, tile_c, tile_m):
+        source = "analytic"
+        if count:
+            _TUNED_STATS["analytic_resolves"] += 1
         kt = choose_kernel_tiles(n, h, w, c, m, kernel_size=kernel_size,
                                  stride=stride, dilation=dilation,
                                  offset_bound=offset_bound, dtype=dtype,
@@ -111,7 +190,51 @@ def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
         tile_c = tile_c or kt.tile_c
         tile_m = tile_m or kt.tile_m
     check_channel_tiles(c, m, tile_c, tile_m)
-    return tile_h, tile_w, tile_c, tile_m
+    return (tile_h, tile_w, tile_c, tile_m), source
+
+
+def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
+                  kernel_size: int, stride: int, dilation: int,
+                  offset_bound: float, tile_h: int | None = None,
+                  tile_w: int | None = None, tile_c: int | None = None,
+                  tile_m: int | None = None, dtype: str = "fp32",
+                  itemsize: int = 4,
+                  device=None) -> tuple[int, int, int, int]:
+    """Explicit tiles win; when none is given, the installed tuned cache's
+    entry for the call's datapath (``tiling.TUNABLE``: ``"fp32"``,
+    ``"int8"``, ``"int8_chain"``, ``"fp32_bwd"``; bf16 at its own
+    ``itemsize``) on ``device``'s platform serves, if the kernel takes
+    it; the chooser for ``dtype`` (also ``"sample"``, ``"banded"``)
+    fills the rest, around an explicit ``tile_h`` (``itemsize``: the
+    element bytes the kernels stage, 4 fp32 or 2 bf16; the int8 choosers
+    do not read it).  Without a ``device`` no cache is consulted.  Raises
+    on channel tiles that do not divide the layer.  Not memoised."""
+    return resolve_tiles_and_source(
+        n, h, w, c, m, kernel_size=kernel_size, stride=stride,
+        dilation=dilation, offset_bound=offset_bound, tile_h=tile_h,
+        tile_w=tile_w, tile_c=tile_c, tile_m=tile_m, dtype=dtype,
+        itemsize=itemsize, device=device)[0]
+
+
+def tile_source(n: int, h: int, w: int, c: int, m: int, *,
+                kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+                offset_bound: float, dtype: str = "fp32", itemsize: int = 4,
+                device=None) -> str:
+    """Where one layer's tiles come from: ``"tuned"`` when the installed
+    cache serves them on ``device``'s platform, else ``"analytic"``
+    (counts nothing)."""
+    return resolve_tiles_and_source(
+        n, h, w, c, m, kernel_size=kernel_size, stride=stride,
+        dilation=dilation, offset_bound=offset_bound, dtype=dtype,
+        itemsize=itemsize, device=device, count=False)[1]
+
+
+def tile_cache_info() -> dict:
+    """The resolution counters and the installed cache's status
+    (``tuned_cache``), so a cold, corrupt or refused cache shows in the
+    serving engine's telemetry."""
+    from repro_torch.tune.cache import cache_info
+    return dict(_TUNED_STATS, tuned_cache=cache_info())
 
 
 def kernel_itemsize(x: Tensor) -> int:
@@ -123,30 +246,41 @@ def kernel_itemsize(x: Tensor) -> int:
 
 def spec_tiles(spec: DCSpec, x: Tensor, offsets: Tensor, w: Tensor, *,
                dtype: str = "fp32") -> tuple[int, int, int, int]:
-    """Tiles of one call at ``kernel_itemsize(x)``, spatial tiles clamped
-    to the output extent."""
+    """Tiles of one call at ``kernel_itemsize(x)`` on x's device, spatial
+    tiles clamped to the output extent; the backward (``"fp32_bwd"``)
+    takes ``spec.bwd_tiles`` when given."""
     ho, wo = offsets.shape[1], offsets.shape[2]
-    th, tw, tc, tm = resolve_tiles(
-        x.shape[0], x.shape[1], x.shape[2], x.shape[-1], w.shape[-1],
-        kernel_size=spec.kernel_size, stride=spec.stride,
-        dilation=spec.dilation, offset_bound=spec.offset_bound,
-        tile_h=spec.tile_h, tile_w=spec.tile_w, tile_c=spec.tile_c,
-        tile_m=spec.tile_m, dtype=dtype, itemsize=kernel_itemsize(x))
+    if dtype == "fp32_bwd" and spec.bwd_tiles is not None:
+        th, tw, tc = spec.bwd_tiles
+        tm = w.shape[-1]
+    else:
+        th, tw, tc, tm = resolve_tiles(
+            x.shape[0], x.shape[1], x.shape[2], x.shape[-1], w.shape[-1],
+            kernel_size=spec.kernel_size, stride=spec.stride,
+            dilation=spec.dilation, offset_bound=spec.offset_bound,
+            tile_h=spec.tile_h, tile_w=spec.tile_w, tile_c=spec.tile_c,
+            tile_m=spec.tile_m, dtype=dtype, itemsize=kernel_itemsize(x),
+            device=x.device)
     return min(th, ho), min(tw, wo), tc, tm
 
 
 def warm_tile_cache(layers, *, batch: int, offset_bound: float,
                     kernel_size: int = 3, dilation: int = 1,
-                    dtype: str = "fp32"
-                    ) -> dict[str, tuple[int, int, int, int]]:
+                    dtype: str = "fp32", device=None
+                    ) -> tuple[dict[str, tuple[int, int, int, int]],
+                               dict[str, str]]:
     """Resolve the tiles of every named layer ``{name: {"h", "w", "c",
-    "m", "stride"?}}`` at ``batch`` for the ``dtype`` datapath — the
-    serving engine's per-bucket plans, resolved at engine start."""
-    return {name: resolve_tiles(
-                batch, d["h"], d["w"], d["c"], d["m"],
-                kernel_size=kernel_size, stride=d.get("stride", 1),
-                dilation=dilation, offset_bound=offset_bound, dtype=dtype)
-            for name, d in layers.items()}
+    "m", "stride"?}}`` at ``batch`` for the ``dtype`` datapath on
+    ``device`` — the serving engine's per-bucket plans, resolved at
+    engine start.  Returns ``(tiles, sources)``: each layer's tiles and
+    where they came from (``"tuned"`` or ``"analytic"``)."""
+    tiles, sources = {}, {}
+    for name, d in layers.items():
+        tiles[name], sources[name] = resolve_tiles_and_source(
+            batch, d["h"], d["w"], d["c"], d["m"], kernel_size=kernel_size,
+            stride=d.get("stride", 1), dilation=dilation,
+            offset_bound=offset_bound, dtype=dtype, device=device)
+    return tiles, sources
 
 
 def pad_zerocopy(x: Tensor, *, kernel_size: int, stride: int, dilation: int,
@@ -307,7 +441,7 @@ def int8_forward(x: Tensor, offsets: Tensor, w: Tensor, *,
         x.shape[0], x.shape[1], x.shape[2], x.shape[-1], m,
         kernel_size=kernel_size, stride=stride, dilation=dilation,
         offset_bound=offset_bound, tile_h=tile_h, tile_w=tile_w,
-        tile_c=tile_c, tile_m=tile_m, dtype="int8")
+        tile_c=tile_c, tile_m=tile_m, dtype="int8", device=x.device)
     th, tw = min(th, ho), min(tw, wo)
     sx = compute_scale(x) if x_scale is None else _f32(x_scale, x.device)
     sw = compute_scale(w, axis=-1) if w_scale is None \
@@ -354,7 +488,8 @@ def chain_forward(x: Tensor, w: Tensor, w_offset: Tensor, b_offset,
     th, tw, tc, tm = resolve_tiles(
         n, h, w_in, c, m, kernel_size=kernel_size, stride=stride,
         dilation=dilation, offset_bound=offset_bound, tile_h=tile_h,
-        tile_w=tile_w, tile_c=tile_c, tile_m=tile_m, dtype="int8_chain")
+        tile_w=tile_w, tile_c=tile_c, tile_m=tile_m, dtype="int8_chain",
+        device=dev)
     th, tw = min(th, ho), min(tw, wo)
     sx = _f32(x_scale, dev)
     sw = compute_scale(w, axis=-1) if w_scale is None \

@@ -1,10 +1,11 @@
 """Serve a model of the registry through the port's engines, at full
-width.
+width unless ``--reduced``.
 
 LM archs run the token slot engine (continuous batching):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
-        [--requests 8] [--slots 4] [--cache-len 128] [--max-new-tokens 16]
+        [--requests 8] [--slots 4] [--cache-len 128] [--max-new-tokens 16] \
+        [--ckpt DIR] [--reduced]
 
 with seeded prompts of 4-12 tokens.  DCL detection archs run the
 shape-bucketed engine:
@@ -12,12 +13,20 @@ shape-bucketed engine:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch resnet50_dcn_bounded --buckets 256,512 --requests 8 \
         [--slots 4] [--quant int8_chain] [--deadline 30] [--device cuda] \
-        [--telemetry OUT.json]
+        [--ckpt DIR] [--reduced] [--telemetry OUT.json]
 
-Params are random, from ``--seed``.  The int8 rungs (``int8_chain``, the
-default, and ``int8``) are calibrated first, as the JAX launcher does: two
-seeded images per bucket through the fp32 model give the scale table.
-The device defaults to ``cuda``; with no GPU the launcher raises unless
+Params are random, from ``--seed``, unless ``--ckpt DIR`` restores them
+from the newest complete checkpoint there: a params-only checkpoint (the
+JAX launcher's layout) or the bundle a Trainer saves
+(``repro_torch.launch.train``: params, optimizer state, step), of which
+the params are served.  ``--reduced`` serves the reduced config of the
+family (``launch.train.reduced_config`` for the DCL archs, what
+``launch.train`` trains without ``--full``; the registry's for the
+LMs).  A checkpoint that does not fit the chosen config raises the
+checkpoint's own error.  The int8 rungs (``int8_chain``, the default,
+and ``int8``) are calibrated first, as the JAX launcher does: two seeded
+images per bucket through the fp32 model give the scale table.  The
+device defaults to ``cuda``; with no GPU the launcher raises unless
 ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -29,7 +38,11 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tree as T
+from repro_torch.checkpoint import restore_checkpoint
+from repro_torch.checkpoint.checkpoint import stored_structure
 from repro_torch.configs import resnet50_dcn as configs
+from repro_torch.launch.train import reduced_config, train_optimizer
 from repro_torch.models import registry as reg
 from repro_torch.models import resnet_dcn as R
 from repro_torch.models import transformer as TF
@@ -37,6 +50,7 @@ from repro_torch.quant.calibrate import calibrate_resnet_dcn
 from repro_torch.serve import (LADDER, DCLServeConfig, DCLServingEngine,
                                Request, ServeConfig, ServingEngine)
 from repro_torch.serve.dcl_engine import INT8_RUNGS
+from repro_torch.train.trainer import checkpoint_bundle
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,9 +72,50 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
+    ap.add_argument("--ckpt", default=None,
+                    help="restore the served params from this checkpoint "
+                         "directory")
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the reduced config of the family")
     ap.add_argument("--telemetry", default=None,
                     help="write engine telemetry JSON here")
     return ap
+
+
+def restore_params(directory, params, arch: str):
+    """Restore served params from the newest complete checkpoint in
+    ``directory``: params-only (``params`` itself or ``{"params": ...}``)
+    or a Trainer bundle (``checkpoint_bundle`` with ``arch``'s launcher
+    optimizer), picked by the stored leaf count and key paths.  Returns
+    ``(params, step)``; a checkpoint that fits none of them raises the
+    restore's own error, from the bundle template."""
+    count, paths = stored_structure(directory)
+    bundle = checkpoint_bundle(
+        params, train_optimizer(arch, params, 1).init(params), 0)
+    for like in (params, {"params": params}, bundle):
+        flat = T.leaves_with_paths(like)
+        if len(flat) == count and (paths is None
+                                   or paths == [q for q, _ in flat]):
+            break
+    restored, step = restore_checkpoint(directory, like)
+    return (restored if like is params else restored["params"]), step
+
+
+def load_params(init, args):
+    """``init()`` (seeded params), or, with ``args.ckpt``, the params
+    restored into them (``restore_params``)."""
+    params = init()
+    if args.ckpt:
+        params, step = restore_params(args.ckpt, params, args.arch)
+        print(f"restored params from step {step}")
+    return params
+
+
+def detection_config(args) -> R.ResNetDCNConfig:
+    """The DCL config ``args`` serves: the arch's, or its reduced config
+    under ``--reduced``."""
+    cfg = configs.get(args.arch)
+    return reduced_config(cfg) if args.reduced else cfg
 
 
 def _served_cfg(cfg: R.ResNetDCNConfig) -> R.ResNetDCNConfig:
@@ -87,12 +142,14 @@ def serve_detection(cfg: R.ResNetDCNConfig, args, *, params=None,
                     scale_table=None):
     """Build the engine, submit ``args.requests`` seeded images spread
     over the buckets, drain it.  Returns ``(engine, images, seconds)``;
-    ``params`` replaces the seeded init when given.  The int8 rungs
-    calibrate first (``calibrate``) unless ``scale_table`` is given."""
+    ``params``, when given, replaces the seeded init and ``--ckpt``
+    (``load_params``).  The int8 rungs calibrate first (``calibrate``)
+    unless ``scale_table`` is given."""
     cfg = _served_cfg(cfg)
     buckets = _buckets(args)
     if params is None:
-        params = R.init_params(cfg, seed=args.seed, device=args.device)
+        params = load_params(lambda: R.init_params(
+            cfg, seed=args.seed, device=args.device), args)
     if scale_table is None and args.quant in INT8_RUNGS:
         scale_table = calibrate(cfg, params, args)
     engine = DCLServingEngine(
@@ -135,9 +192,11 @@ def serve_lm(cfg: TF.ModelConfig, args, *, params=None):
     """Build the slot engine, submit ``args.requests`` prompts of 4-12
     tokens drawn from ``np.random.RandomState(0)`` (as the JAX launcher
     does), run until drained.  Returns ``(engine, steps, seconds)``;
-    ``params`` replaces the init from ``args.seed`` when given."""
+    ``params``, when given, replaces the init from ``args.seed`` and
+    ``--ckpt``."""
     if params is None:
-        params = TF.init_params(cfg, seed=args.seed, device=args.device)
+        params = load_params(lambda: TF.init_params(
+            cfg, seed=args.seed, device=args.device), args)
     engine = ServingEngine(params, cfg,
                            ServeConfig(slots=args.slots,
                                        cache_len=args.cache_len),
@@ -170,10 +229,12 @@ def report_lm(engine: ServingEngine, steps: int, seconds: float) -> str:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.arch not in configs.ARCHS:
-        engine, steps, seconds = serve_lm(reg.get(args.arch).config, args)
+        arch = reg.get(args.arch)
+        cfg = reg.reduced_config(arch) if args.reduced else arch.config
+        engine, steps, seconds = serve_lm(cfg, args)
         print(report_lm(engine, steps, seconds))
         return
-    engine, _, seconds = serve_detection(configs.get(args.arch), args)
+    engine, _, seconds = serve_detection(detection_config(args), args)
     print(report(engine, seconds))
     if args.telemetry:
         from repro_torch.obs.metrics import dump_telemetry

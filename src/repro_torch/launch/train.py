@@ -64,12 +64,22 @@ def train_config(cfg: R.ResNetDCNConfig, args) -> R.ResNetDCNConfig:
     return cfg
 
 
-def train_detection(cfg: R.ResNetDCNConfig, args, *,
-                    params=None) -> Trainer:
+def train_optimizer(arch: str, params, steps: int):
+    """The launcher's optimizer for ``arch`` (``default_optimizer_for``
+    with a warm-up cosine schedule over ``steps``)."""
+    n_params = sum(p.numel() for p in leaves(params))
+    return default_optimizer_for(arch, n_params,
+                                 warmup_cosine(3e-3, 10, steps))
+
+
+def train_detection(cfg: R.ResNetDCNConfig, args, *, params=None,
+                    chaos=None) -> Trainer:
     """Build the Trainer for ``cfg`` (see ``train_config``), resume from
     ``args.ckpt`` if it holds a checkpoint, and run to ``args.steps``.
-    ``params`` replaces the seeded init when given.  Returns the Trainer
-    (its ``history``, ``telemetry`` and ``step_seconds``)."""
+    ``params`` replaces the seeded init when given; ``chaos`` (a
+    ``resilience.ChaosHooks``) is bound to the Trainer's fault and batch
+    hooks.  Returns the Trainer (its ``history``, ``telemetry`` and
+    ``step_seconds``)."""
     cfg = train_config(cfg, args)
     lam = args.lam or (0.005 if cfg.offset_bound else 0.0)
     if params is None:
@@ -77,9 +87,7 @@ def train_detection(cfg: R.ResNetDCNConfig, args, *,
     data = DetectionDataConfig(img_size=cfg.img_size,
                                global_batch=args.global_batch,
                                num_classes=cfg.num_classes, seed=args.seed)
-    n_params = sum(p.numel() for p in leaves(params))
-    opt = default_optimizer_for(args.arch, n_params,
-                                warmup_cosine(3e-3, 10, args.steps))
+    opt = train_optimizer(args.arch, params, args.steps)
     trainer = Trainer(
         loss_fn=lambda p, b: R.train_loss(p, cfg, b, lam=lam,
                                           device=args.device),
@@ -89,7 +97,11 @@ def train_detection(cfg: R.ResNetDCNConfig, args, *,
                              ckpt_every=args.ckpt_every,
                              ckpt_dir=args.ckpt, log_every=args.log_every,
                              microbatches=args.microbatches),
+        fault_hook=None if chaos is None else chaos.fault_hook,
+        batch_hook=None if chaos is None else chaos.batch_hook,
         device=args.device)
+    if chaos is not None:
+        chaos.bind(trainer)
     if trainer.try_resume():
         print(f"resumed from step {trainer.step}")
     trainer.run()

@@ -203,9 +203,16 @@ def _json_default(o):
     raise TypeError(f"not JSON-serializable: {type(o).__name__}")
 
 
-def dump_telemetry(path, record: dict) -> pathlib.Path:
-    """Write a telemetry record as JSON (numpy scalars and arrays coerced
-    to plain JSON).  Returns the written path."""
+def dump_telemetry(path, record: dict, extra: dict | None = None, *,
+                   registry: MetricsRegistry | None = None) -> pathlib.Path:
+    """Write a telemetry record, plus the ``extra`` keys, as JSON (numpy
+    scalars and arrays coerced to plain JSON); ``registry`` attaches its
+    snapshot under ``"metrics"``.  Returns the written path."""
+    rec = dict(record)
+    if extra:
+        rec.update(extra)
+    if registry is not None:
+        rec["metrics"] = registry.snapshot()
     p = pathlib.Path(path)
-    p.write_text(json.dumps(record, indent=2, default=_json_default))
+    p.write_text(json.dumps(rec, indent=2, default=_json_default))
     return p

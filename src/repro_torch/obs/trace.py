@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import json
+import pathlib
 import time
 
 __all__ = ["NOOP_SPAN", "Span", "Tracer", "get_tracer", "set_tracer",
@@ -136,6 +138,14 @@ class Tracer:
     def records(self) -> list[dict]:
         """All finished spans + events as plain dicts."""
         return [s.record() for s in self.spans] + list(self.events)
+
+    def export_jsonl(self, path) -> pathlib.Path:
+        """One JSON record a line (what ``launch.obs_report --trace``
+        reads).  Returns the written path."""
+        p = pathlib.Path(path)
+        p.write_text("".join(json.dumps(r, default=str) + "\n"
+                             for r in self.records()))
+        return p
 
 
 # ---------------------------------------------------------------------------

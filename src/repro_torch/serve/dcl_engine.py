@@ -30,6 +30,15 @@ Robustness, as in the JAX engine:
   (CPU tensors only), else retires ``failed``; the rung and the
   ``degraded`` flag are recorded per request.  Kernel failures raise out
   of ``ops`` (there is no silent fallback below the engine).
+
+Every forward runs under an ``obs.DispatchRecorder`` chained to the
+dispatch hook already installed (a chaos hook fires first): each DCL
+dispatch is timed against its H100 bound in ``divergence`` (on CUDA the
+stream's time between two events, host enqueue gaps included, read after
+the step's own copy of its outputs to the host).
+``telemetry()`` carries that report, ``plan_cache``
+(``plan.tile_cache_info``) and ``plan_sources`` (each layer's
+``"tuned"`` or ``"analytic"`` tiles, per bucket).
 """
 from __future__ import annotations
 
@@ -42,9 +51,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import deform_conv_fused, deform_conv_q, plan
+from repro_torch.kernels import deform_conv_fused, deform_conv_q, ops, plan
 from repro_torch.models import resnet_dcn as R
 from repro_torch.obs import trace as _trace
+from repro_torch.obs.divergence import DispatchRecorder, DivergenceTracker
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
 from repro_torch.quant.calibrate import load_scale_table, scale_table_on
@@ -147,6 +157,7 @@ class DCLServingEngine:
 
         self.metrics = registry if registry is not None else MetricsRegistry()
         self._tracer = tracer
+        self.divergence = DivergenceTracker()
         m = self.metrics
         self._c_requests = m.counter(
             "serve_requests_total", "retired requests by outcome and bucket")
@@ -204,6 +215,7 @@ class DCLServingEngine:
         # banded config plans for the banded forward (kernel 4, in the
         # same library as kernel 1a).
         self.plans: dict[int, dict[str, tuple]] = {}
+        self.plan_sources: dict[int, dict[str, str]] = {}
         dtype = RUNG_DTYPE.get(serve_cfg.quant)
         if dtype == "fp32" and model_cfg.dataflow == "banded":
             dtype = "banded"
@@ -213,9 +225,10 @@ class DCLServingEngine:
                  else deform_conv_q).load_kernel()
             for b in serve_cfg.buckets:
                 dims = bucket_layer_dims(model_cfg, b)
-                self.plans[b] = plan.warm_tile_cache(
+                self.plans[b], self.plan_sources[b] = plan.warm_tile_cache(
                     dims, batch=serve_cfg.slots,
-                    offset_bound=model_cfg.offset_bound, dtype=dtype)
+                    offset_bound=model_cfg.offset_bound, dtype=dtype,
+                    device=self.device)
 
         self.queue = AdmissionQueue(AdmissionConfig(
             capacity=serve_cfg.queue_capacity,
@@ -341,12 +354,23 @@ class DCLServingEngine:
             images[i, :arr.shape[0], :arr.shape[1], :] = arr
         return torch.from_numpy(images).to(self.device)
 
-    def _forward(self, rung: str, x: torch.Tensor):
+    def _forward(self, rung: str, x: torch.Tensor
+                 ) -> tuple[np.ndarray, np.ndarray]:
+        """One batch on ``rung``, every DCL dispatch recorded; returns
+        ``cls`` and ``box`` on the host."""
         scales = self._scales if rung in INT8_RUNGS else None
-        with torch.no_grad():
-            out, _ = R.forward(self.params, self._cfgs[rung], x,
-                               quant_scales=scales, device=self.device)
-        return out
+        rec = DispatchRecorder(registry=self.metrics, tracer=self._tracer,
+                               tracker=self.divergence,
+                               next_hook=ops.get_dispatch_hook(),
+                               clock=self.clock)
+        try:
+            with torch.no_grad(), ops.dispatch_hook_scope(rec):
+                out, _ = R.forward(self.params, self._cfgs[rung], x,
+                                   quant_scales=scales, device=self.device)
+            # The copies to the host are the step's synchronisation.
+            return out["cls"].cpu().numpy(), out["box"].cpu().numpy()
+        finally:
+            rec.flush()
 
     def _run_batch(self, bucket: int, reqs: list[DetRequest]) -> None:
         x = self.batch_array(bucket, reqs)
@@ -354,9 +378,7 @@ class DCLServingEngine:
         attempt = 0
         while True:
             try:
-                out = self._forward(self.rungs[rung_idx], x)
-                cls = out["cls"].cpu().numpy()
-                box = out["box"].cpu().numpy()
+                cls, box = self._forward(self.rungs[rung_idx], x)
                 break
             except Exception as e:   # noqa: BLE001 — recorded per request
                 self._c_retries.inc()
@@ -406,7 +428,9 @@ class DCLServingEngine:
 
     # -- telemetry -----------------------------------------------------
     def telemetry(self) -> dict:
-        """Per-request records + engine counters."""
+        """Per-request records, engine counters, the dispatches against
+        their bounds (``divergence``) and where the plans' tiles came
+        from (``plan_cache``, ``plan_sources``)."""
         per_bucket: dict[str, int] = {}
         for r in self.completed:
             if r.outcome == "ok":
@@ -428,8 +452,11 @@ class DCLServingEngine:
                                  for k, v in self._c_steps.items()},
             "counters": dict(self.counters),
             "served_per_bucket": per_bucket,
+            "plan_cache": plan.tile_cache_info(),
             "plans": {str(b): {k: list(v) for k, v in p.items()}
                       for b, p in self.plans.items()},
+            "plan_sources": {str(b): dict(s)
+                             for b, s in self.plan_sources.items()},
             "requests": [{
                 "uid": r.uid, "outcome": r.outcome, "bucket": r.bucket,
                 "ladder": r.ladder, "degraded": r.degraded,
@@ -437,4 +464,5 @@ class DCLServingEngine:
                 "error": r.error,
             } for r in self.completed],
             "metrics": self.metrics.snapshot(),
+            "divergence": self.divergence.report(),
         }

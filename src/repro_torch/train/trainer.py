@@ -47,6 +47,14 @@ from repro_torch.optim import Optimizer, global_norm
 Tensor = torch.Tensor
 
 
+def checkpoint_bundle(params: Any, opt_state: Any, step: int) -> dict:
+    """The tree a Trainer checkpoints (JAX's bundle: params, optimizer
+    state, the error-feedback slot, step); also the template a launcher
+    restores a Trainer checkpoint into."""
+    return {"params": params, "opt": opt_state, "ef": None,
+            "step": torch.tensor(step, dtype=torch.int32)}
+
+
 class NonFiniteDivergence(RuntimeError):
     """Training diverged: ``max_skips`` consecutive non-finite steps.
     Never retried: the replay would reproduce the same batch."""
@@ -180,8 +188,7 @@ class Trainer:
 
     # -- checkpoint bundle ----------------------------------------------
     def _bundle(self):
-        return {"params": self.params, "opt": self.opt_state, "ef": None,
-                "step": torch.tensor(self.step, dtype=torch.int32)}
+        return checkpoint_bundle(self.params, self.opt_state, self.step)
 
     def save(self):
         with self._tr.span("train/checkpoint", step=self.step):

@@ -1192,3 +1192,76 @@ def test_bf16_kernels_refuse_fp16_and_mixed_dtypes(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         deform_conv_bwd_zerocopy(xp, op, g.float(), wt, **kwb)
     assert F.deform_conv_fused_zerocopy.launches == before
+
+
+# -- the operations layer on the card ---------------------------------------
+
+def test_recorder_times_dispatches_on_the_device_without_a_sync(cuda,
+                                                                 monkeypatch):
+    """On CUDA the recorder records a pair of events per dispatch and
+    reads them only in ``flush``: no synchronisation per dispatch, device
+    seconds, and no dispatch above its H100 bound."""
+    from repro_torch.obs import DispatchRecorder, DivergenceTracker
+    x, off, wd = _inputs(3, 16, 16, 32, 32, 1, 1, 2.0, 7, cuda)
+    tracker = DivergenceTracker()
+    rec = DispatchRecorder(tracker=tracker)
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: syncs.append(a) or real(*a))
+    with ops.dispatch_hook_scope(rec):
+        for _ in range(3):
+            ops.deform_conv(x, off, wd, offset_bound=2.0)
+    assert syncs == [] and tracker.report()["dispatches"] == []
+    assert rec.flush() == 3
+    (row,) = tracker.report()["dispatches"]
+    assert row["n"] == 3 and row["clock"] == "device"
+    assert 0 < row["share"] <= 1.05
+
+
+def test_the_platform_key_and_a_cpu_entry_on_the_card(cuda):
+    from repro_torch.tune import (TileCache, platform_of, tile_cache_scope)
+    major, minor = torch.cuda.get_device_capability()
+    assert platform_of(cuda) == f"cuda_sm{major}{minor}"
+    geom = dict(kernel_size=3, stride=1, dilation=1, offset_bound=2.0)
+    cache = TileCache()
+    cache.put({"tiles": [4, 4, 4, 16]}, n=2, h=16, w=16, c=32, m=32,
+              objective="forward", dtype=None, platform="cpu", **geom)
+    with tile_cache_scope(cache):
+        assert plan.tile_source(2, 16, 16, 32, 32, device=cuda,
+                                **geom) == "analytic"
+        assert plan.tile_source(2, 16, 16, 32, 32, device="cpu",
+                                **geom) == "tuned"
+
+
+def test_the_tuner_keys_the_card(cuda):
+    from repro_torch.tune import TileCache, platform_of, tune_deform_conv
+    cache = TileCache()
+    res = tune_deform_conv(h=16, w=16, c=32, m=32, batch=2,
+                           objective="forward", reps=1, max_candidates=2,
+                           cache=cache, device=cuda)
+    assert res["platform"] == platform_of(cuda)
+    assert len(cache) == 3 and all(k.endswith(platform_of(cuda))
+                                   for k in cache.entries)
+
+
+@pytest.mark.parametrize("retries,outcome", [(2, "ok"), (0, "failed")])
+def test_a_dispatch_fault_on_the_card_never_degrades(retries, outcome,
+                                                     cuda):
+    from repro_torch.resilience import ChaosHooks, FaultEvent, FaultPlan
+    from repro_torch.serve import DCLServeConfig, DCLServingEngine
+    cfg = R.ResNetDCNConfig(stage_sizes=(1, 1, 1, 1),
+                            widths=(16, 32, 64, 128), stem_width=8,
+                            num_dcn=2, num_classes=4, img_size=32,
+                            offset_bound=2.0, use_kernel=True)
+    eng = DCLServingEngine(R.init_params(cfg, seed=0, device=cuda), cfg,
+                           DCLServeConfig(buckets=(32,), slots=2,
+                                          quant="fp32_kernel",
+                                          max_retries=retries),
+                           device=cuda)
+    hooks = ChaosHooks(FaultPlan(events=(FaultEvent(0, "dispatch_fault"),)))
+    with ops.dispatch_hook_scope(hooks.dispatch_hook):
+        r = eng.submit(np.zeros((32, 32, 3), np.float32))
+        eng.run_until_drained()
+    assert r.outcome == outcome and r.retries == 1 and not r.degraded
+    assert r.ladder in (None, "fp32_kernel")

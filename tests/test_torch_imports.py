@@ -117,15 +117,17 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
 
 
 def test_every_kernel_module_is_checked():
-    """The modules of this slice's kernels are among those the two tests
-    above import and parse."""
+    """The modules of the kernels and of the operations layer are among
+    those the two tests above import and parse."""
     mods = _modules()
     for name in ("deform_sample", "matmul", "deform_conv_fused",
                  "deform_conv_bwd", "deform_conv_q", "flash_attention"):
         assert f"repro_torch.kernels.{name}" in mods
     for name in ("models.transformer", "models.registry", "serve.engine",
                  "configs.tinyllama_1_1b", "configs.deepseek_7b",
-                 "configs.glm4_9b"):
+                 "configs.glm4_9b", "core.h100", "obs", "obs.divergence",
+                 "tune", "tune.cache", "tune.autotune", "resilience",
+                 "resilience.faults", "launch.obs_report"):
         assert f"repro_torch.{name}" in mods
 
 
