@@ -240,6 +240,34 @@ Phases, each of which exits non-zero on failure:
    from a sound one; the skip-only run's last update is printed beside
    them.  1a, 1c, 1d and 2 must each launch in the phase; the kernels
    line gives each its ``operations_launches``.
+16. LM training and the RG-LRU family, every count set to 0 first (no
+   TPU kernel lies on these paths, so none of the port's launches):
+   (a) full-width tinyllama-1.1b (1.100B fp32 params from seed 0, bf16
+   compute, remat "full", AdamW) through ``launch.train.train_lm`` at
+   batch 8 x 2048: 6 steps, every loss finite, none skipped, step 0
+   within 5% of ln(32000) and equal (1e-5) to the chunked CE of the same
+   batch; 4 steps and a new run resumed to 6 from the step-4 checkpoint,
+   its params within 1e-5 (relative norm) of the uninterrupted run's
+   (not bit for bit: the embedding's backward scatter-adds); on step 0's
+   batch and params the chunked CE within 1e-5 of the dense CE of the
+   full logits, the bf16 loss within 1e-2 of an fp32-compute loss, and
+   the gradients of one sequence under remat "full" and "dots" within
+   1e-6 of "none"'s; the step's forward, backward and AdamW time (CUDA
+   events), tokens/s, idle share (``torch.profiler``) and peak memory;
+   then the reduced config in fp32 for 5 steps on the card and on the
+   CPU, loss histories within 1e-4.  (b) full-width, full-depth
+   recurrentgemma-9b (9.396B fp32 params from seed 0, bf16 compute):
+   ``rg_lru_scan`` against 256 ``rg_lru_step`` calls on one full-width
+   layer (1e-5); ``serve_lm`` with its defaults at cache 2048; the
+   engine on phase 13's 8 prompts (128-1024 tokens, 32 new, 4 slots,
+   cache 2048 = the window) under phase 13's gates with the bf16 cap at
+   1.5 x max(the predicted 4e-2, 4e-2); 2 prompts x 16 tokens in fp32
+   equal to naive greedy decoding; prefill and decode times, idle share,
+   peak memory.  (c) recurrentgemma at full width and 5 layers (the
+   prefix and one period, 2.175B params cut from (b)'s; all 38 layers
+   need 150 GB of fp32 params, gradients and AdamW state) through
+   ``train_lm`` for 4 steps at batch 4 x 2048: losses finite, none
+   skipped; step time and peak memory.
 
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
 run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
@@ -2515,6 +2543,74 @@ def busy_share(fn) -> tuple[float, float, int, list]:
     return wall, busy, launches, [(e.key, dev_us(e) / 1e3) for e in events]
 
 
+def hold_served_logits(params, cfg, reqs, served: dict,
+                       cap: float) -> tuple[list, int, int]:
+    """Hold each request's served bf16 logits (``recording.served``) to a
+    teacher-forced ``forward(mode="train")`` over prompt + output in bf16
+    and in fp32 (relative norms), and the served tokens to the
+    teacher-forced argmax where its top-2 margin is clear; fail beyond
+    the gates.  Returns (rows, positions checked, positions under the
+    margin)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as TF
+
+    # bf16 at full depth: the served and teacher-forced bf16 logits (the
+    # same tokens through other shapes) differ by ~2e-2 (relative norm),
+    # and each lies ~3e-2 from the fp32 forward (PERF.md).  So the served
+    # logits are held to the bf16 path's own error: no farther from the
+    # teacher-forced bf16 logits than those are from the fp32 forward on
+    # the same params, and as far from that fp32 forward as the
+    # teacher-forced bf16 logits are, give or take LM_EXCESS; and the bf16
+    # path's own error is capped at ``cap``, above its readings.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rows = []
+    under, checked = 0, 0
+    with torch.inference_mode():
+        for r in reqs:
+            seq = torch.as_tensor(np.concatenate(
+                [r.prompt, np.asarray(r.output[:-1], np.int32)]),
+                dtype=torch.long, device="cuda")[None]
+            p = len(r.prompt)
+            tf, ex = (TF.forward(params, c, tokens=seq, mode="train")[0]
+                      [0, p - 1:].float().cpu() for c in (cfg, cfg32))
+            got = served[r.uid]
+            d = dict(uid=r.uid, prompt=p,
+                     served_tf=((got - tf).norm() / tf.norm()).item(),
+                     served_fp32=((got - ex).norm() / ex.norm()).item(),
+                     tf_fp32=((tf - ex).norm() / ex.norm()).item())
+            rows.append(d)
+            top2 = tf.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > LM_RTOL * tf.abs().amax(-1)
+            agree = tf.argmax(-1) == torch.as_tensor(r.output)
+            under += int((~sure).sum())
+            checked += int(sure.sum())
+            print(f"  request {r.uid} (prompt {p}): served vs teacher-forced "
+                  f"bf16 {d['served_tf']:.3e}; vs the fp32 forward: served "
+                  f"{d['served_fp32']:.3e}, teacher-forced bf16 "
+                  f"{d['tf_fp32']:.3e}")
+            if d["served_tf"] > max(LM_RTOL, d["tf_fp32"]) \
+                    or abs(d["served_fp32"] - d["tf_fp32"]) > LM_EXCESS \
+                    or max(d["tf_fp32"], d["served_fp32"]) > cap:
+                fail(f"request {r.uid}: the served logits stray beyond the "
+                     f"bf16 path's own error: {d}")
+            if not bool(agree[sure].all()):
+                bad = (~agree & sure).nonzero().flatten().tolist()
+                fail(f"request {r.uid}: argmax of the teacher-forced "
+                     f"logits disagrees with the served token at {bad}")
+    print(f"  served vs teacher-forced bf16 logits: worst relative norm "
+          f"{max(d['served_tf'] for d in rows):.3e} (gate: the bf16 "
+          f"path's own error, worst {max(d['tf_fp32'] for d in rows):.3e} "
+          f"from fp32, or {LM_RTOL}); the engine's "
+          f"excess over teacher-forced bf16, vs fp32: worst "
+          f"{max(abs(d['served_fp32'] - d['tf_fp32']) for d in rows):.1e} "
+          f"(<= {LM_EXCESS}); bf16 vs fp32 at most {cap}; argmax equal at "
+          f"all {checked} positions with a top-2 margin above {LM_RTOL} * "
+          f"max|logit|, {under} under it")
+    return rows, checked, under
+
+
 def lm_phase(record: dict) -> None:
     """Phase 13."""
     import numpy as np
@@ -2581,60 +2677,10 @@ def lm_phase(record: dict) -> None:
     if sorted((r.uid, len(r.output)) for r in engine.completed) \
             != [(i, LM_NEW) for i in range(len(prompts))]:
         fail("the engine did not serve every request its token count")
-    served = log.served(reqs)
-    # bf16 at full depth: the served and teacher-forced bf16 logits (the
-    # same tokens through other shapes) differ by ~2e-2 (relative norm),
-    # and each lies ~3e-2 from the fp32 forward (PERF.md).  So the served
-    # logits are held to the bf16 path's own error: no farther from the
-    # teacher-forced bf16 logits than those are from the fp32 forward on
-    # the same params, and as far from that fp32 forward as the
-    # teacher-forced bf16 logits are, give or take LM_EXCESS; and the bf16
-    # path's own error is capped at LM_BF16_MAX, above its readings.
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    rows = []
-    under, checked = 0, 0
-    with torch.inference_mode():
-        for r in reqs:
-            seq = torch.as_tensor(np.concatenate(
-                [r.prompt, np.asarray(r.output[:-1], np.int32)]),
-                dtype=torch.long, device="cuda")[None]
-            p = len(r.prompt)
-            tf, ex = (TF.forward(params, c, tokens=seq, mode="train")[0]
-                      [0, p - 1:].float().cpu() for c in (cfg, cfg32))
-            got = served[r.uid]
-            d = dict(uid=r.uid, prompt=p,
-                     served_tf=((got - tf).norm() / tf.norm()).item(),
-                     served_fp32=((got - ex).norm() / ex.norm()).item(),
-                     tf_fp32=((tf - ex).norm() / ex.norm()).item())
-            rows.append(d)
-            top2 = tf.topk(2, dim=-1).values
-            sure = (top2[:, 0] - top2[:, 1]) > LM_RTOL * tf.abs().amax(-1)
-            agree = tf.argmax(-1) == torch.as_tensor(r.output)
-            under += int((~sure).sum())
-            checked += int(sure.sum())
-            print(f"  request {r.uid} (prompt {p}): served vs teacher-forced "
-                  f"bf16 {d['served_tf']:.3e}; vs the fp32 forward: served "
-                  f"{d['served_fp32']:.3e}, teacher-forced bf16 "
-                  f"{d['tf_fp32']:.3e}")
-            if d["served_tf"] > max(LM_RTOL, d["tf_fp32"]) \
-                    or abs(d["served_fp32"] - d["tf_fp32"]) > LM_EXCESS \
-                    or max(d["tf_fp32"], d["served_fp32"]) > LM_BF16_MAX:
-                fail(f"request {r.uid}: the served logits stray beyond the "
-                     f"bf16 path's own error: {d}")
-            if not bool(agree[sure].all()):
-                bad = (~agree & sure).nonzero().flatten().tolist()
-                fail(f"request {r.uid}: argmax of the teacher-forced "
-                     f"logits disagrees with the served token at {bad}")
+    rows, checked, under = hold_served_logits(params, cfg, reqs,
+                                              log.served(reqs), LM_BF16_MAX)
     rec.update(logits=rows, argmax_checked=checked,
                argmax_under_margin=under)
-    print(f"  served vs teacher-forced bf16 logits: worst relative norm "
-          f"{max(d['served_tf'] for d in rows):.3e} (gate: the bf16 "
-          f"path's own error, worst {max(d['tf_fp32'] for d in rows):.3e} "
-          f"from fp32, or {LM_RTOL}); the engine's "
-          f"excess over teacher-forced bf16, vs fp32: worst "
-          f"{max(abs(d['served_fp32'] - d['tf_fp32']) for d in rows):.1e} "
-          f"(<= {LM_EXCESS}); bf16 vs fp32 at most {LM_BF16_MAX}; argmax equal at all {checked} positions with "
-          f"a top-2 margin above {LM_RTOL} * max|logit|, {under} under it")
 
     # Where the time goes: prefill per prompt length, the decode step.
     prefill_ms = {}
@@ -3654,6 +3700,520 @@ def operations_phase(record: dict, trained, per_step: dict,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: LM training at full width; the RG-LRU family served and trained
+# ---------------------------------------------------------------------------
+
+LM_TRAIN = ["--global-batch", "8", "--seq-len", "2048"]  # TinyLlama's context
+LM_TRAIN_STEPS, LM_RESUME_AT = 6, 4
+LM_LOSS0_RTOL = 0.05        # step-0 loss vs ln(vocab): random logits
+LM_RESUME_RTOL = 1e-5       # resumed params vs the uninterrupted run
+LM_CE_RTOL = 1e-5           # chunked CE vs dense CE of the full logits
+LM_REMAT_RTOL = 1e-6        # step-0 gradients, remat full / dots vs none
+LM_BF16_LOSS_RTOL = 1e-2    # bf16-compute loss vs fp32-compute loss
+LM_CARD_CPU_RTOL = 1e-4     # reduced fp32 loss history, card vs CPU
+LM_REDUCED_STEPS = 5
+RG_ARCH = "recurrentgemma-9b"
+RG_BF16_PREDICTED = 4e-2    # bf16 vs fp32 logits at 38 layers (PERF.md §6)
+RG_BF16_MAX = 1.5 * max(RG_BF16_PREDICTED, LM_BF16_MAX)
+RG_GREEDY_PROMPTS, RG_GREEDY_NEW = 2, 16
+RG_SCAN_TOKENS = 256
+RG_SCAN_RTOL = 1e-5         # rg_lru_scan vs repeated rg_lru_step
+RG_TRAIN_LAYERS, RG_TRAIN_STEPS = 5, 4
+RG_TRAIN = ["--global-batch", "4", "--seq-len", "2048"]
+
+
+def tree_rel(a, b) -> float:
+    """Relative norm of two trees of tensors, leaf by leaf (no flat copy
+    of a billion parameters)."""
+    from repro_torch.tree import leaves
+    num = den = 0.0
+    for x, y in zip(leaves(a), leaves(b)):
+        num += float((x.detach().float() - y.detach().float()).norm()) ** 2
+        den += float(y.detach().float().norm()) ** 2
+    return math.sqrt(num / den)
+
+
+def train_lm_args(arch: str, steps: int, ckpt, *extra: str):
+    from repro_torch.launch import train as launch
+    return launch.build_parser().parse_args(
+        ["--arch", arch, "--steps", str(steps), "--ckpt", str(ckpt),
+         "--ckpt-every", "100", "--log-every", "1", "--seed", "0",
+         "--device", "cuda", *extra])
+
+
+def gpu_memory() -> str:
+    import torch
+    return (f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def step_split(trainer, batch, reps: int = 3) -> dict:
+    """A training step's forward, backward and optimizer time (CUDA
+    events, median of ``reps`` steps after one warm-up), as the Trainer
+    runs them; the steps update the trainer's params."""
+    import torch
+
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import from_paths, leaves_with_paths
+
+    def one():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        pairs = leaves_with_paths(trainer.params)
+        ev[0].record()
+        loss, _ = trainer.loss_fn(trainer.params, batch)
+        ev[1].record()
+        gs = torch.autograd.grad(loss, [t for _, t in pairs])
+        ev[2].record()
+        grads = from_paths([(path, g.float()) for (path, _), g
+                            in zip(pairs, gs)])
+        global_norm(grads)
+        with torch.no_grad():
+            trainer.opt.update(grads, trainer.opt_state, trainer.params,
+                               trainer.step)
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    one()
+    runs = [one() for _ in range(reps)]
+    fwd, bwd, opt = (statistics.median(r[i] for r in runs) for i in range(3))
+    return dict(forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
+                step_ms=fwd + bwd + opt)
+
+
+def lm_training(record: dict) -> None:
+    """Phase 16(a): full-width tinyllama-1.1b through ``train_lm``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.launch import train as launch
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as reg
+    from repro_torch.models import transformer as TF
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = reg.get(LM_ARCH).config
+    root = ROOT / "build" / "smoke_lm"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    args = train_lm_args(LM_ARCH, LM_TRAIN_STEPS, root / "full", "--full",
+                         *LM_TRAIN)
+    rec = record["lm_train"] = dict(
+        arch=LM_ARCH, params=cfg.param_count(), batch=args.global_batch,
+        seq_len=args.seq_len, steps=LM_TRAIN_STEPS, remat=cfg.remat)
+    print(f"  config {cfg.name}: {cfg.param_count() / 1e9:.3f}B fp32 params, "
+          f"compute {cfg.dtype}, remat {cfg.remat!r}, batch "
+          f"{args.global_batch} x {args.seq_len}; disk free "
+          f"{shutil.disk_usage(root).free / 1e9:.0f} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    p0 = TF.init_params(cfg, seed=0, device="cuda")
+    rec["init_s"] = time.monotonic() - t0
+
+    def clone(tree):
+        return tree_map(lambda t: t.detach().clone(), tree)
+
+    # Step 0's checks, on the step-0 batch and the seeded params.
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                        global_batch=args.global_batch, seed=args.seed)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in lm_batch(data, 0).items()}
+    w = p0["unembed"]["unembedding"]
+    with torch.no_grad():
+        hidden = TF.forward(p0, cfg, tokens=batch["tokens"],
+                            return_hidden=True)[0]
+        chunked = L.chunked_cross_entropy(hidden, w, batch["targets"],
+                                          tied=False).item()
+        dense = L.cross_entropy(TF._logits(p0, cfg, hidden),
+                                batch["targets"]).item()
+        loss32 = TF.loss_fn(p0, dataclasses.replace(cfg, dtype=torch.float32),
+                            batch)[0].item()
+        del hidden
+    ce_rel = abs(chunked - dense) / dense
+    bf16_rel = abs(chunked - loss32) / loss32
+    print(f"  step 0: chunked CE {chunked:.6f}, dense CE of the full logits "
+          f"{dense:.6f} (rel {ce_rel:.2e}, gate {LM_CE_RTOL}); fp32-compute "
+          f"loss {loss32:.6f} (bf16 vs fp32 rel {bf16_rel:.2e}, gate "
+          f"{LM_BF16_LOSS_RTOL}); ln(vocab) {math.log(cfg.vocab):.4f}")
+    if ce_rel > LM_CE_RTOL:
+        fail(f"chunked CE {chunked} vs dense {dense}: rel {ce_rel}")
+    if bf16_rel > LM_BF16_LOSS_RTOL:
+        fail(f"bf16 loss {chunked} vs fp32 {loss32}: rel {bf16_rel}")
+
+    # Remat modes on one sequence of that batch: 'none' keeps every
+    # layer's (32, 2048, 2048) fp32 scores, ~1 GB a layer a sequence.
+    one = {k: v[:1] for k, v in batch.items()}
+    grads = {}
+    for mode in ("none", "full", "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        pg = tree_map(lambda t: t.detach().requires_grad_(True), p0)
+        loss, _ = TF.loss_fn(pg, dataclasses.replace(cfg, remat=mode), one)
+        grads[mode] = torch.autograd.grad(loss, leaves(pg))
+        rec[f"remat_{mode}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del pg, loss
+    remat_rel = {m: tree_rel(dict(enumerate(grads[m])),
+                             dict(enumerate(grads["none"])))
+                 for m in ("full", "dots")}
+    del grads
+    print(f"  step-0 gradients (1 x {args.seq_len}) vs remat 'none': "
+          + ", ".join(f"{m} {v:.2e}" for m, v in remat_rel.items())
+          + f" (gate {LM_REMAT_RTOL}); peak memory "
+          + ", ".join(f"{m} {rec[f'remat_{m}_peak_gb']:.1f} GB"
+                      for m in ("none", "full", "dots")))
+    if max(remat_rel.values()) > LM_REMAT_RTOL:
+        fail(f"remat modes change the gradients: {remat_rel}")
+
+    # 6 steps uninterrupted; then 4, and a new run resumed to 6.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    full = launch.train_lm(cfg, args, params=clone(p0))
+    rec["wall_s"] = time.monotonic() - t0
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in full.history if "loss" in h]
+    host_ms = [t * 1e3 for t in full.step_seconds]
+    print(f"  {LM_TRAIN_STEPS} steps in {rec['wall_s']:.1f} s (a checkpoint "
+          f"of params and AdamW state at the end); losses "
+          f"{[round(v, 5) for v in losses]}; host-clock steps "
+          f"{[round(t, 1) for t in host_ms]} ms; telemetry "
+          f"{full.telemetry}; peak memory {rec['peak_gb']:.2f} GB")
+    loss0_rel = abs(losses[0] - math.log(cfg.vocab)) / math.log(cfg.vocab)
+    if len(losses) != LM_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or full.telemetry["skipped"] or loss0_rel > LM_LOSS0_RTOL:
+        fail(f"LM training: losses {losses}, telemetry {full.telemetry}, "
+             f"step 0 {loss0_rel} from ln(vocab)")
+    if abs(losses[0] - chunked) > LM_CE_RTOL * chunked:
+        fail(f"the Trainer's step-0 loss {losses[0]} is not the chunked CE "
+             f"{chunked} of the same batch")
+    want, full_opt = full.params, full.opt_state
+    shutil.rmtree(root / "full", ignore_errors=True)
+    t0 = time.monotonic()
+    launch.train_lm(cfg, train_lm_args(LM_ARCH, LM_RESUME_AT, root / "resumed",
+                                       "--full", *LM_TRAIN),
+                    params=clone(p0))
+    resumed = launch.train_lm(
+        cfg, train_lm_args(LM_ARCH, LM_TRAIN_STEPS, root / "resumed",
+                           "--full", *LM_TRAIN),
+        params=tree_map(torch.zeros_like, p0))
+    rec["resume_wall_s"] = time.monotonic() - t0
+    resume_rel = tree_rel(resumed.params, want)
+    opt_rel = tree_rel(resumed.opt_state, full_opt)
+    moved = tree_rel(want, p0)
+    r_losses = [h["loss"] for h in resumed.history if "loss" in h]
+    print(f"  resumed at step {LM_RESUME_AT}: losses "
+          f"{[round(v, 5) for v in r_losses]} (uninterrupted "
+          f"{[round(v, 5) for v in losses[LM_RESUME_AT:]]}); params vs the "
+          f"uninterrupted run {resume_rel:.2e} (gate {LM_RESUME_RTOL}), AdamW "
+          f"state {opt_rel:.2e}; the {LM_TRAIN_STEPS} steps moved the params "
+          f"{moved:.2e}; 4 + 2 steps with their checkpoints in "
+          f"{rec['resume_wall_s']:.1f} s")
+    if resume_rel > LM_RESUME_RTOL or len(r_losses) != 2:
+        fail(f"resumed LM run is {resume_rel} from the uninterrupted run")
+    del want, full, full_opt
+
+    # Where a step's time goes (the resumed trainer steps on).
+    step_batch = resumed._device_batch(0)
+    split = step_split(resumed, step_batch)
+    wall, busy, n_launch, top = busy_share(
+        lambda: resumed._one_step(step_batch))
+    top = [(k[:60], round(ms, 3)) for k, ms in top[:6]]
+    tokens = args.global_batch * args.seq_len
+    print(f"  step {split['step_ms']:.1f} ms (CUDA events): forward "
+          f"{split['forward_ms']:.1f}, backward (recompute included) "
+          f"{split['backward_ms']:.1f}, AdamW {split['optimizer_ms']:.1f}; "
+          f"{tokens / split['step_ms'] * 1e3:.0f} tokens/s; under "
+          f"torch.profiler {wall:.1f} ms wall, {busy:.1f} ms device busy, "
+          f"idle {1 - busy / wall:.1%}, {n_launch} kernel launches; top "
+          f"{top[:5]}")
+    rec.update(losses=losses, resumed_losses=r_losses, host_step_ms=host_ms,
+               loss0=losses[0], loss0_vs_ln_vocab=loss0_rel,
+               chunked_ce=chunked, dense_ce=dense, ce_rel=ce_rel,
+               loss_fp32=loss32, bf16_loss_rel=bf16_rel, remat_rel=remat_rel,
+               resume_rel=resume_rel, resume_opt_rel=opt_rel, moved_rel=moved,
+               profiled_wall_ms=wall, device_busy_ms=busy,
+               device_idle=1 - busy / wall, launches_a_step=n_launch,
+               device_top=top,
+               tokens_per_s=tokens / split["step_ms"] * 1e3, **split)
+    del resumed, p0, batch, one, step_batch
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # The reduced config in fp32, 5 steps on the card and on the CPU.
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        a = train_lm_args(LM_ARCH, LM_REDUCED_STEPS, root / f"reduced_{dev}")
+        a.device = dev
+        tr = launch.train_lm(cfg, a)
+        hist[dev] = [h["loss"] for h in tr.history if "loss" in h]
+    card_cpu = max(abs(x - y) / abs(y) for x, y in zip(hist["cuda"],
+                                                       hist["cpu"]))
+    print(f"  reduced {LM_ARCH} (fp32, TF32 off), {LM_REDUCED_STEPS} steps: "
+          f"card {[round(v, 6) for v in hist['cuda']]}, CPU "
+          f"{[round(v, 6) for v in hist['cpu']]}; worst relative difference "
+          f"{card_cpu:.2e} (gate {LM_CARD_CPU_RTOL})")
+    if len(hist["cuda"]) != LM_REDUCED_STEPS or card_cpu > LM_CARD_CPU_RTOL:
+        fail(f"the reduced run differs between card and CPU: {hist}")
+    rec.update(reduced_card=hist["cuda"], reduced_cpu=hist["cpu"],
+               reduced_card_cpu_rel=card_cpu)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def rg_serving(record: dict):
+    """Phase 16(b): full-depth, full-width recurrentgemma-9b served.
+    Returns its params for (c)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import registry as reg
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    cfg = reg.get(RG_ARCH).config
+    rec = record["rg_serve"] = dict(arch=RG_ARCH, params=cfg.param_count(),
+                                    bf16_cap=RG_BF16_MAX,
+                                    bf16_predicted=RG_BF16_PREDICTED)
+    print(f"  config {cfg.name}: {cfg.n_layers} layers (prefix "
+          f"{cfg.prefix} + {cfg.n_periods} x {cfg.pattern}), d "
+          f"{cfg.d_model}, d_rnn {cfg.rglru.d_rnn}, {cfg.n_heads} heads / "
+          f"{cfg.kv_heads} KV, Dh {cfg.hd}, window {cfg.window}, vocab "
+          f"{cfg.vocab}, {cfg.param_count() / 1e9:.3f}B params (fp32, "
+          f"{cfg.param_count() * 4 / 1e9:.1f} GB), compute {cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = TF.init_params(cfg, seed=0, device="cuda")
+    rec["init_s"] = time.monotonic() - t0
+    print(f"  params drawn from seed 0 on the CPU and moved in "
+          f"{rec['init_s']:.1f} s; {gpu_memory()}")
+
+    # The scan against the step recurrence on one full-width layer.
+    rec_p = params["prefix0"]["rec"]
+    x = torch.randn(1, RG_SCAN_TOKENS, cfg.rglru.d_rnn, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    with torch.inference_mode():
+        y_scan, h_scan = RG.rg_lru_scan(rec_p, x)
+        h = torch.zeros(1, cfg.rglru.d_rnn, device="cuda")
+        steps = []
+        for t in range(RG_SCAN_TOKENS):
+            y, h = RG.rg_lru_step(rec_p, x[:, t], h)
+            steps.append(y)
+        y_step = torch.stack(steps, 1)
+    scan_rel = ((y_scan - y_step).norm() / y_step.norm()).item()
+    h_rel = ((h_scan - h).norm() / h.norm()).item()
+    print(f"  rg_lru_scan vs {RG_SCAN_TOKENS} rg_lru_step calls (d_rnn "
+          f"{cfg.rglru.d_rnn}): y {scan_rel:.2e}, final h {h_rel:.2e} "
+          f"(gate {RG_SCAN_RTOL})")
+    if max(scan_rel, h_rel) > RG_SCAN_RTOL:
+        fail(f"the RG-LRU scan is {scan_rel} / {h_rel} from its steps")
+    rec.update(scan_rel=scan_rel, scan_h_rel=h_rel)
+
+    # The launcher's LM branch with cache_len = window.
+    args = serve_launch.build_parser().parse_args(
+        ["--arch", RG_ARCH, "--device", "cuda", "--seed", "0",
+         "--cache-len", str(cfg.window)])
+    engine, steps, seconds = serve_launch.serve_lm(cfg, args, params=params)
+    print(serve_launch.report_lm(engine, steps, seconds))
+    if sorted((r.uid, len(r.output)) for r in engine.completed) \
+            != [(i, args.max_new_tokens) for i in range(args.requests)]:
+        fail("serve_lm did not serve every request its token count")
+    del engine
+
+    # The engine at long prompts, its logits kept.
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab, n).astype(np.int32)
+               for n in LM_PROMPTS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(params, cfg, ServeConfig(slots=BATCH,
+                                                    cache_len=LM_CACHE),
+                           device="cuda")
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=LM_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    with recording(engine) as log:
+        t0 = time.monotonic()
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rec["engine_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    toks = sum(len(r.output) for r in engine.completed)
+    rec.update(engine_s=wall, tokens=toks, tokens_per_s=toks / wall,
+               engine_steps=engine.steps)
+    print(f"  engine: {len(engine.completed)} requests / {toks} tokens in "
+          f"{wall:.3f} s ({toks / wall:.1f} tok/s, prefills included), "
+          f"{engine.steps} decode steps; peak memory "
+          f"{rec['engine_peak_gb']:.2f} GB")
+    if sorted((r.uid, len(r.output)) for r in engine.completed) \
+            != [(i, LM_NEW) for i in range(len(prompts))]:
+        fail("the engine did not serve every request its token count")
+    c = engine.caches
+    print(f"  caches: h {tuple(c['layers']['m0']['h'].shape)} "
+          f"{c['layers']['m0']['h'].dtype}, conv "
+          f"{tuple(c['layers']['m0']['conv'].shape)} "
+          f"{c['layers']['m0']['conv'].dtype}, K "
+          f"{tuple(c['layers']['m2']['k'].shape)} "
+          f"{c['layers']['m2']['k'].dtype}")
+    if c["prefix0"]["h"].dtype != torch.float32 \
+            or c["prefix0"]["conv"].dtype != cfg.dtype:
+        fail("the recurrent caches lost their dtypes")
+    rows, checked, under = hold_served_logits(params, cfg, reqs,
+                                              log.served(reqs), RG_BF16_MAX)
+    rec.update(logits=rows, argmax_checked=checked,
+               argmax_under_margin=under,
+               bf16_vs_fp32_worst=max(max(d["tf_fp32"], d["served_fp32"])
+                                      for d in rows))
+
+    # Where the time goes: prefill per prompt length, the decode step.
+    prefill_ms = {}
+    with torch.inference_mode():
+        for p in prompts:
+            t = torch.as_tensor(p, dtype=torch.long, device="cuda")[None]
+            prefill_ms[len(p)] = time_ms(
+                lambda: TF.prefill(params, cfg, t, cache_len=LM_CACHE),
+                reps=3, iters=1)
+        caches, pos = engine.caches, torch.full((BATCH,), 1100,
+                                                device="cuda")
+        tok = torch.zeros(BATCH, dtype=torch.long, device="cuda")
+        decode_ms = time_ms(lambda: TF.decode_step(params, cfg, tok, caches,
+                                                   pos), reps=3, iters=3)
+        n = 4
+        wall_ms, busy_ms, n_launch, top = busy_share(lambda: [
+            TF.decode_step(params, cfg, tok, caches, pos)[0].argmax(-1)
+            .tolist() for _ in range(n)])
+    cast_ms = sum(ms for key, ms in top if "copy" in key.lower())
+    top = [(key[:70], round(ms / n, 4)) for key, ms in top[:8]]
+    rec.update(prefill_ms=prefill_ms, decode_ms=decode_ms,
+               decode_wall_ms=wall_ms / n, decode_busy_ms=busy_ms / n,
+               decode_idle=1 - busy_ms / wall_ms, decode_copy_ms=cast_ms / n,
+               decode_top=top, decode_launches=n_launch / n)
+    print(f"  prefill (1 prompt, CUDA events): "
+          f"{ {k: round(v, 2) for k, v in prefill_ms.items()} } ms")
+    print(f"  decode step ({BATCH} slots, cache {LM_CACHE}): {decode_ms:.2f} "
+          f"ms (CUDA events); under torch.profiler {wall_ms / n:.2f} ms "
+          f"wall, {busy_ms / n:.2f} ms device busy, idle "
+          f"{1 - busy_ms / wall_ms:.1%}; {n_launch / n:.0f} kernel launches "
+          f"a step; dtype casts and copies {cast_ms / n:.2f} ms a step; top "
+          f"{top[:5]}")
+    del engine, caches
+
+    # fp32: the engine equals naive greedy decoding.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    engine = ServingEngine(params, cfg32, ServeConfig(slots=BATCH,
+                                                      cache_len=LM_CACHE),
+                           device="cuda")
+    for i, p in enumerate(prompts[:RG_GREEDY_PROMPTS]):
+        engine.submit(Request(uid=i, prompt=p, max_new_tokens=RG_GREEDY_NEW))
+    t0 = time.monotonic()
+    engine.run_until_drained()
+    with torch.inference_mode():
+        for r in engine.completed:
+            cur = torch.as_tensor(r.prompt, dtype=torch.long,
+                                  device="cuda")[None]
+            ref = []
+            for _ in range(len(r.output)):
+                logits, _, _ = TF.forward(params, cfg32, tokens=cur,
+                                          mode="train")
+                nxt = int(logits[0, -1].argmax())
+                ref.append(nxt)
+                cur = torch.cat([cur, torch.tensor([[nxt]], device="cuda")],
+                                1)
+            if r.output != ref:
+                fail(f"fp32 request {r.uid}: served {r.output} but greedy "
+                     f"decoding gives {ref}")
+    rec["fp32_greedy_s"] = time.monotonic() - t0
+    print(f"  fp32: {len(engine.completed)} requests x {RG_GREEDY_NEW} "
+          f"tokens equal naive greedy decoding token for token "
+          f"({rec['fp32_greedy_s']:.1f} s); {gpu_memory()}")
+    del engine
+    return params
+
+
+def rg_training(record: dict, held: dict) -> None:
+    """Phase 16(c): recurrentgemma at full width and 5 layers (the
+    prefix and one period, cut from (b)'s params, which ``held`` gives up
+    so that they are freed) through ``train_lm``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as launch
+    from repro_torch.models import registry as reg
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(reg.get(RG_ARCH).config,
+                              n_layers=RG_TRAIN_LAYERS)
+    params = held.pop("params")
+    keep = {k: v for k, v in params.items() if k != "layers"}
+    keep["layers"] = tree_map(lambda t: t[:cfg.n_periods], params["layers"])
+    cut = tree_map(lambda t: t.detach().clone(), keep)
+    del keep, params
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "smoke_rg"
+    shutil.rmtree(root, ignore_errors=True)
+    args = train_lm_args(RG_ARCH, RG_TRAIN_STEPS, root, "--full", *RG_TRAIN)
+    n = cfg.param_count()
+    rec = record["rg_train"] = dict(layers=cfg.n_layers, params=n,
+                                    batch=args.global_batch,
+                                    seq_len=args.seq_len)
+    print(f"  config: {cfg.n_layers} layers (prefix {cfg.prefix} + "
+          f"{cfg.n_periods} x {cfg.pattern}), {n / 1e9:.3f}B params: fp32 "
+          f"params, gradients and AdamW state {n * 16 / 1e9:.1f} GB (the "
+          f"full {reg.get(RG_ARCH).config.param_count() / 1e9:.3f}B would "
+          f"need {reg.get(RG_ARCH).config.param_count() * 16 / 1e9:.0f} GB, "
+          f"more than one 80 GB card); batch {args.global_batch} x "
+          f"{args.seq_len}; disk free "
+          f"{shutil.disk_usage(ROOT / 'build').free / 1e9:.0f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = launch.train_lm(cfg, args, params=cut)
+    rec["wall_s"] = time.monotonic() - t0
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in tr.history if "loss" in h]
+    host_ms = [t * 1e3 for t in tr.step_seconds]
+    tokens = args.global_batch * args.seq_len
+    step_ms = statistics.median(host_ms[1:])
+    print(f"  {RG_TRAIN_STEPS} steps in {rec['wall_s']:.1f} s (a checkpoint "
+          f"at the end); losses {[round(v, 5) for v in losses]}; host-clock "
+          f"steps {[round(t, 1) for t in host_ms]} ms (median after the "
+          f"first {step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s); "
+          f"telemetry {tr.telemetry}; peak memory {rec['peak_gb']:.2f} GB")
+    if len(losses) != RG_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or tr.telemetry["skipped"]:
+        fail(f"recurrentgemma training: losses {losses}, telemetry "
+             f"{tr.telemetry}")
+    rec.update(losses=losses, host_step_ms=host_ms, step_ms=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3)
+    del tr, cut
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def lm_train_phase(record: dict) -> None:
+    """Phase 16: (a), (b), (c); no kernel of the port launches."""
+    t0 = time.monotonic()
+    reset_counts()
+    print("  (a) tinyllama-1.1b training at full width")
+    lm_training(record)
+    print("  (b) recurrentgemma-9b served at full width and depth")
+    held = {"params": rg_serving(record)}
+    print("  (c) recurrentgemma at full width, 5 layers, trained")
+    rg_training(record, held)
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"the LM paths launched a kernel: {counts}")
+    record["phase16_s"] = time.monotonic() - t0
+    print(f"  phase 16 in {record['phase16_s']:.1f} s on {smi()}; no kernel "
+          f"of the port launched (its LM paths are plain PyTorch, as the "
+          f"JAX model's are XLA)")
+
+
 def main() -> int:
     try:
         import torch
@@ -4130,6 +4690,10 @@ def main() -> int:
     for row in kernels["kernels"]:
         if row["name"] in ops_launches:
             row["operations_launches"] = ops_launches[row["name"]]
+
+    print("== 16. LM training at full width; recurrentgemma-9b served and "
+          "trained")
+    lm_train_phase(record)
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

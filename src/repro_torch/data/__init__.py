@@ -1,1 +1,2 @@
-from .pipeline import DetectionDataConfig, detection_batch  # noqa: F401
+from .pipeline import (DetectionDataConfig, LMDataConfig,  # noqa: F401
+                       detection_batch, lm_batch)

@@ -1,5 +1,6 @@
-"""Deterministic, stateless synthetic detection data (counterpart of
-``repro.data.pipeline``; the LM side, ``lm_batch``, waits for the LM slice).
+"""Deterministic, stateless synthetic data (counterpart of
+``repro.data.pipeline``): ``lm_batch``, a token LM with learnable
+structure, and ``detection_batch``, scenes for the DCN detector.
 
 Every batch is a pure function of (seed, step, host shard), so a restart
 regenerates any step exactly.  The generator is numpy, as in the JAX
@@ -10,6 +11,43 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class LMDataConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    codebooks: int = 1
+    seed: int = 0
+    noise: float = 0.05          # fraction of uniformly-resampled tokens
+
+
+def lm_batch(cfg: LMDataConfig, step: int, *, host_id: int = 0,
+             num_hosts: int = 1) -> dict[str, np.ndarray]:
+    """A noisy affine-mod sequence (token_{t+1} = 31 token_t + 17 mod V,
+    a share ``noise`` resampled uniformly): tokens and next-token targets,
+    int32 (B, S) or (B, S, codebooks)."""
+    if cfg.global_batch % num_hosts:
+        raise ValueError(f"global_batch={cfg.global_batch} does not split "
+                         f"over {num_hosts} hosts")
+    b = cfg.global_batch // num_hosts
+    rng = np.random.RandomState(
+        (cfg.seed * 1_000_003 + step * 7919 + host_id * 104729) % (2**31))
+    a = 31 % cfg.vocab or 1
+    c = 17 % cfg.vocab
+    shape = (b, cfg.seq_len + 1)
+    if cfg.codebooks > 1:
+        shape = (b, cfg.seq_len + 1, cfg.codebooks)
+    start = rng.randint(0, cfg.vocab, shape[:1] + shape[2:])
+    seq = np.empty(shape, np.int64)
+    seq[:, 0] = start
+    for t in range(1, cfg.seq_len + 1):
+        seq[:, t] = (seq[:, t - 1] * a + c) % cfg.vocab
+    flip = rng.rand(*shape) < cfg.noise
+    seq = np.where(flip, rng.randint(0, cfg.vocab, shape), seq)
+    return {"tokens": seq[:, :-1].astype(np.int32),
+            "targets": seq[:, 1:].astype(np.int32)}
 
 
 @dataclasses.dataclass(frozen=True)

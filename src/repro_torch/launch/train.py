@@ -1,9 +1,12 @@
-"""Train a DCL detection model through the port's Trainer.
+"""Train a DCL detection model or a registry LM through the port's
+Trainer.
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch resnet50_dcn_bounded [--full] --steps 6 [--ckpt DIR] \
         [--ckpt-every 20] [--microbatches 1] [--lam 0.005] \
         [--global-batch 8] [--seed 0] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch tinyllama-1.1b [--full] --steps 50 [--seq-len 64] ...
 
 The default is the JAX launcher's REDUCED config of the same family
 (stages 1/1/1/1, widths 32...256, 2 DCLs, 64x64 images); ``--full`` trains
@@ -14,6 +17,12 @@ the fused backward kernel.  The unbounded arch (``resnet50_dcn``, the
 lambda = 0 baseline) trains through the plain gather.  Params and data
 come from ``--seed``; the run resumes from the latest checkpoint in
 ``--ckpt``.  The device defaults to ``cuda``.
+
+An LM arch (``repro_torch.models.registry``) trains the registry's
+reduced config unless ``--full``, on ``lm_batch`` data of ``--seq-len``
+tokens, with the JAX launcher's optimizer (``default_optimizer_for``
+with a warm-up cosine from 3e-3 over 10 steps: AdamW below 90B params)
+and the config's ``remat``.
 """
 from __future__ import annotations
 
@@ -21,8 +30,11 @@ import argparse
 import dataclasses
 
 from repro_torch.configs import resnet50_dcn as configs
-from repro_torch.data import DetectionDataConfig, detection_batch
+from repro_torch.data import (DetectionDataConfig, LMDataConfig,
+                              detection_batch, lm_batch)
+from repro_torch.models import registry as reg
 from repro_torch.models import resnet_dcn as R
+from repro_torch.models import transformer as TF
 from repro_torch.optim import default_optimizer_for, warmup_cosine
 from repro_torch.train import Trainer, TrainerConfig
 from repro_torch.tree import leaves
@@ -30,7 +42,8 @@ from repro_torch.tree import leaves
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True, choices=sorted(configs.ARCHS))
+    ap.add_argument("--arch", required=True,
+                    choices=sorted(configs.ARCHS) + reg.names())
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--ckpt", default="build/train_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=20)
@@ -41,6 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true",
                     help="train the published widths (default: reduced)")
     ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="tokens a sequence (LM archs)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
@@ -108,12 +123,42 @@ def train_detection(cfg: R.ResNetDCNConfig, args, *, params=None,
     return trainer
 
 
+def train_lm(cfg: TF.ModelConfig, args, *, params=None) -> Trainer:
+    """Build the Trainer for the LM ``cfg`` (the registry's reduced
+    config of it unless ``args.full``), resume from ``args.ckpt`` if it
+    holds a checkpoint, and run to ``args.steps``.  ``params`` replaces
+    the seeded init when given.  Returns the Trainer."""
+    if not args.full:
+        cfg = reg.reduced_config(cfg)
+    if params is None:
+        params = TF.init_params(cfg, seed=args.seed, device=args.device)
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                        global_batch=args.global_batch,
+                        codebooks=cfg.codebooks, seed=args.seed)
+    opt = default_optimizer_for(args.arch, cfg.param_count(),
+                                warmup_cosine(3e-3, 10, args.steps))
+    trainer = Trainer(
+        loss_fn=lambda p, b: TF.loss_fn(p, cfg, b), params=params,
+        optimizer=opt, batch_fn=lambda step: lm_batch(data, step),
+        config=TrainerConfig(total_steps=args.steps,
+                             ckpt_every=args.ckpt_every,
+                             ckpt_dir=args.ckpt, log_every=args.log_every,
+                             microbatches=args.microbatches),
+        device=args.device)
+    if trainer.try_resume():
+        print(f"resumed from step {trainer.step}")
+    trainer.run()
+    return trainer
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    cfg = configs.get(args.arch)
     print(f"arch={args.arch} ({'full' if args.full else 'reduced'}), "
           f"device={args.device or 'cuda'}")
-    trainer = train_detection(cfg, args)
+    if args.arch in configs.ARCHS:
+        trainer = train_detection(configs.get(args.arch), args)
+    else:
+        trainer = train_lm(reg.get(args.arch).config, args)
     for h in trainer.history:
         print(h)
     print(f"median step {trainer.median_step_sec() * 1e3:.1f} ms")

@@ -1,8 +1,9 @@
 """Parameter declarations, the LM layers and the DCL layer (counterpart of
 ``repro.models.layers``): norms, rotary embeddings, GQA attention with its
 dense, chunked and sliding-window paths and KV-cache decode, MLPs,
-embeddings and logits; ``dcl_apply`` with its fp32, ``qat``, ``int8`` and
-``int8_chain`` datapaths, and the int8 -> int8 chain helpers.
+embeddings, logits and the chunked cross entropy; ``dcl_apply`` with its
+fp32, ``qat``, ``int8`` and ``int8_chain`` datapaths, and the int8 ->
+int8 chain helpers.
 
 Params are nested dicts of tensors, declared once as a ``ParamDef`` tree
 and materialised by ``init_tree`` from an explicit ``torch.Generator``.
@@ -26,6 +27,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core.deform_conv import (DCLConfig, conv2d, dcl_forward,
                                           offset_abs_max)
@@ -66,7 +68,7 @@ def init_param(gen: torch.Generator, d: ParamDef) -> Tensor:
     if d.init == "ones":
         return torch.ones(d.shape, dtype=d.dtype)
     if d.init in ("normal", "embed"):
-        return (torch.randn(d.shape, generator=gen) * default_scale(d)) \
+        return torch.randn(d.shape, generator=gen).mul_(default_scale(d)) \
             .to(d.dtype)
     if d.init == "uniform":
         lim = default_scale(d)
@@ -391,7 +393,13 @@ def attn_decode(params, x: Tensor, cfg: AttnConfig, *, cache: dict,
                             (wraps - 1) * s_cache + idx)
     else:
         k_pos = idx
-    mask = _scores_mask(pos[:, None], k_pos, cfg.window)
+    # A slot the ring's first pass has not reached yet holds a negative
+    # position: it is no key, though it may lie inside the window.  (The
+    # JAX package's decode keeps such slots, so before its ring fills a
+    # windowed layer attends to zero keys and its decode leaves its own
+    # forward: ROADMAP Queue C.)
+    mask = _scores_mask(pos[:, None], k_pos, cfg.window) \
+        & (k_pos >= 0)[..., None, :]
     out = _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask,
                 cfg.softcap)
     out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim)
@@ -508,6 +516,67 @@ def unembed_apply(params, x: Tensor, *, softcap: float | None = None
                   ) -> Tensor:
     w = params["unembedding"].to(x.dtype)
     return _softcap(x.float() @ w.float(), softcap)
+
+
+def chunked_cross_entropy(x: Tensor, w: Tensor, targets: Tensor,
+                          mask: Tensor | None = None, *, tied: bool,
+                          logit_scale: float = 1.0,
+                          softcap: float | None = None,
+                          chunk: int = 1024) -> Tensor:
+    """Mean CE without materialising (B, S, V) logits.
+
+    A loop over token chunks: each computes a (B, chunk, V) logit block,
+    reduces it to per-token NLL and discards it.  Each chunk is
+    checkpointed, so the backward recomputes its block instead of saving
+    it (JAX's ``jax.checkpoint`` scan body).  The product is
+    ``logits_apply``'s: ``w`` rounded to the activation dtype, then
+    multiplied in fp32.
+
+    x: (B, S, D) final hidden; w: embedding (V, D) if tied else (D, V).
+    """
+    b, s, _ = x.shape
+    pad = (-s) % chunk
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    wt = w.to(x.dtype).float()
+    wt = wt.T if tied else wt
+
+    def body(xb: Tensor, wt: Tensor, tb: Tensor, mb: Tensor):
+        logits = _softcap((xb.float() @ wt) * logit_scale, softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, tb[..., None].long())[..., 0]
+        mb = mb.float()
+        return torch.sum((lse - gold) * mb), torch.sum(mb)
+
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    m = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s + pad, chunk):
+        part = (x[:, i:i + chunk], wt, targets[:, i:i + chunk],
+                mask[:, i:i + chunk])
+        if torch.is_grad_enabled():
+            n_c, m_c = torch.utils.checkpoint.checkpoint(
+                body, *part, use_reentrant=False)
+        else:
+            n_c, m_c = body(*part)
+        nll, m = nll + n_c, m + m_c
+    return nll / torch.clamp_min(m, 1.0)
+
+
+def cross_entropy(logits: Tensor, targets: Tensor,
+                  mask: Tensor | None = None) -> Tensor:
+    """Mean CE over (possibly masked) targets; logits taken in fp32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,12 @@
 """Architecture registry: ``--arch <id>`` -> config and shape set
-(counterpart of ``repro.models.registry`` for the dense LMs the port
-runs).
+(counterpart of ``repro.models.registry`` for the LMs the port runs: the
+dense ones and the RG-LRU hybrid).
 
 Each ported config module registers an ``ArchSpec`` with its published
 configuration.  The DCL detection configs are in
 ``repro_torch.configs.resnet50_dcn``; the other architectures of the JAX
-registry (MoE, RWKV-6, RG-LRU, multi-codebook, VLM, command-r) wait in
-ROADMAP Queue A item 6.
+registry wait in ROADMAP Queue A: RWKV-6 (item 7), MoE (item 8),
+multi-codebook and VLM (item 9), command-r (item 10).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import importlib
 
 import torch
 
+from repro_torch.models.rglru import RGLRUConfig
 from repro_torch.models.transformer import ModelConfig
 
 
@@ -39,7 +40,7 @@ LM_SHAPES: dict[str, ShapeSpec] = {
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str                       # dense
+    family: str                       # dense | hybrid
     config: ModelConfig
     shapes: dict[str, ShapeSpec]
     long_context_ok: bool = False     # may run long_500k
@@ -49,7 +50,8 @@ class ArchSpec:
 
 _REGISTRY: dict[str, ArchSpec] = {}
 
-ARCH_MODULES = ["tinyllama_1_1b", "glm4_9b", "deepseek_7b"]
+ARCH_MODULES = ["tinyllama_1_1b", "glm4_9b", "deepseek_7b",
+                "recurrentgemma_9b"]
 
 
 def register(spec: ArchSpec) -> ArchSpec:
@@ -71,7 +73,7 @@ def get(name: str) -> ArchSpec:
             f"arch {name!r} is not in the port's registry, which has "
             f"{sorted(_REGISTRY)}; the DCL configs are in "
             f"repro_torch.configs.resnet50_dcn, the other architectures "
-            f"wait in ROADMAP Queue A item 6")
+            f"wait in ROADMAP Queue A items 7-10")
     return _REGISTRY[name]
 
 
@@ -80,10 +82,11 @@ def names() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def reduced_config(arch: ArchSpec) -> ModelConfig:
-    """Small same-family config for CPU tests: the same GQA ratio, rotary
-    fraction and biases at tiny widths, in fp32 (as the JAX package's)."""
-    cfg = arch.config
+def reduced_config(arch: ArchSpec | ModelConfig) -> ModelConfig:
+    """Small same-family config for CPU tests: the same mixer pattern, GQA
+    ratio, rotary fraction and biases at tiny widths, in fp32 (as the JAX
+    package's).  Takes an ``ArchSpec`` or its config."""
+    cfg = arch.config if isinstance(arch, ArchSpec) else arch
     plen = len(cfg.pattern)
     kw = dict(
         n_layers=plen * 2 + (cfg.n_layers % plen), d_model=64, n_heads=4,
@@ -92,4 +95,6 @@ def reduced_config(arch: ArchSpec) -> ModelConfig:
         name=cfg.name + "-reduced")
     if cfg.window is not None:
         kw["window"] = 16
+    if cfg.rglru is not None:
+        kw["rglru"] = RGLRUConfig(d_model=64, d_rnn=64)
     return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,138 @@
+"""RG-LRU recurrent block of RecurrentGemma / Griffin (arXiv:2402.19427),
+the counterpart of ``repro.models.rglru``.
+
+Recurrence (per channel of width d_rnn):
+
+    r_t = sigmoid(W_a x_t + b_a)          recurrence gate
+    i_t = sigmoid(W_x x_t + b_x)          input gate
+    log a_t = -c * softplus(Lambda) * r_t  (c = 8)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+The block wraps the LRU with a width-4 temporal conv and a GeLU gate
+branch (Griffin's "recurrent block").  A full sequence runs the
+recurrence as a log-depth scan on tensors (Hillis-Steele doubling, 11
+steps at S = 2048), where JAX runs ``jax.lax.associative_scan``; decode
+carries (h, conv taps) as state.  The gates, the scan and ``h`` are fp32.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import ParamDef, _gelu
+
+Tensor = torch.Tensor
+
+LRU_C = 8.0
+CONV_WIDTH = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    d_model: int
+    d_rnn: int            # lru width (RecurrentGemma-9B: 4096)
+
+
+def rglru_block_def(cfg: RGLRUConfig) -> dict[str, ParamDef]:
+    d, dr = cfg.d_model, cfg.d_rnn
+    return {
+        # Griffin recurrent block: two input branches
+        "w_gate_in": ParamDef((d, dr)),                # GeLU branch
+        "w_rec_in": ParamDef((d, dr)),                 # conv + LRU branch
+        "conv_w": ParamDef((CONV_WIDTH, dr), scale=0.1),
+        "conv_b": ParamDef((dr,), init="zeros"),
+        # RG-LRU gates
+        "w_a": ParamDef((dr, dr)),
+        "b_a": ParamDef((dr,), init="zeros"),
+        "w_x": ParamDef((dr, dr)),
+        "b_x": ParamDef((dr,), init="zeros"),
+        "lam": ParamDef((dr,), init="ones"),
+        "w_out": ParamDef((dr, d)),
+    }
+
+
+def _log_a(params, r: Tensor) -> Tensor:
+    lam = F.softplus(params["lam"].float())
+    return -LRU_C * lam * r.float()
+
+
+def _decay_and_input(params, x: Tensor) -> tuple[Tensor, Tensor]:
+    """(a_t, sqrt(1 - a_t^2) * i_t * x_t) in fp32, the gates fp32
+    products of ``x`` widened to fp32."""
+    xf = x.float()
+    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"].float())
+    i = torch.sigmoid(xf @ params["w_x"].float() + params["b_x"].float())
+    log_a = _log_a(params, r)                          # <= 0
+    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
+                                       1e-12)) * (i * xf)
+    return torch.exp(log_a), gated
+
+
+def rg_lru_scan(params, x: Tensor, h0: Tensor | None = None):
+    """x: (B, S, d_rnn).  Returns (y (B, S, d_rnn) in x's dtype, h_final
+    (B, d_rnn) fp32)."""
+    a, b = _decay_and_input(params, x)
+    if h0 is not None:
+        # the carried state enters as a virtual step 0
+        a = torch.cat([torch.ones_like(a[:, :1]), a], 1)
+        b = torch.cat([h0.float()[:, None], b], 1)
+    # h_t = a_t h_{t-1} + b_t: after the step of shift d, (a_t, b_t) is
+    # the composition of the 2d steps ending at t,
+    # (a1, b1) then (a2, b2) -> (a1 a2, a2 b1 + b2).
+    s, d = a.shape[1], 1
+    while d < s:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], 1)
+        if 2 * d < s:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+        d *= 2
+    if h0 is not None:
+        b = b[:, 1:]
+    return b.to(x.dtype), b[:, -1]
+
+
+def rg_lru_step(params, x: Tensor, h: Tensor):
+    """Decode: x (B, d_rnn), h (B, d_rnn) -> (y in x's dtype, h' fp32)."""
+    a, gated = _decay_and_input(params, x)
+    h = a * h.float() + gated
+    return h.to(x.dtype), h
+
+
+def _causal_conv(x: Tensor, w: Tensor, b: Tensor,
+                 state: Tensor | None = None):
+    """Width-4 depthwise causal conv.  x: (B, S, dr).
+    state: (B, CONV_WIDTH-1, dr) trailing inputs from the previous call."""
+    bsz, s, dr = x.shape
+    if state is None:
+        state = x.new_zeros((bsz, CONV_WIDTH - 1, dr))
+    xp = torch.cat([state.to(x.dtype), x], 1)
+    out = 0
+    for i in range(CONV_WIDTH):
+        out = out + xp[:, i:i + s] * w[i].to(x.dtype)
+    return out + b.to(x.dtype), xp[:, -(CONV_WIDTH - 1):]
+
+
+def rglru_block_apply(params, x: Tensor, cfg: RGLRUConfig, *,
+                      state: dict | None = None):
+    """Griffin recurrent block.  x: (B, S, D).
+    state: {'h': (B, d_rnn), 'conv': (B, 3, d_rnn)} or None.
+    Returns (y, new_state)."""
+    gate = _gelu(x @ params["w_gate_in"].to(x.dtype))
+    u = x @ params["w_rec_in"].to(x.dtype)
+    u, conv_state = _causal_conv(u, params["conv_w"], params["conv_b"],
+                                 state["conv"] if state else None)
+    y, h = rg_lru_scan(params, u, state["h"] if state else None)
+    out = (y * gate) @ params["w_out"].to(x.dtype)
+    return out, {"h": h, "conv": conv_state}
+
+
+def rglru_block_step(params, x: Tensor, cfg: RGLRUConfig, *, state: dict):
+    """Decode one token.  x: (B, D)."""
+    gate = _gelu(x @ params["w_gate_in"].to(x.dtype))
+    u = x @ params["w_rec_in"].to(x.dtype)
+    u3, conv_state = _causal_conv(u[:, None], params["conv_w"],
+                                  params["conv_b"], state["conv"])
+    y, h = rg_lru_step(params, u3[:, 0], state["h"])
+    out = (y * gate) @ params["w_out"].to(x.dtype)
+    return out, {"h": h, "conv": conv_state}

@@ -1,31 +1,41 @@
-"""Decoder-only transformer LM: the dense GQA configs of the registry
-(counterpart of ``repro.models.transformer`` for patterns of attention
-layers without MoE).
+"""Decoder-only LM: the dense GQA configs and the RG-LRU / local-attention
+hybrid of the registry (counterpart of ``repro.models.transformer`` for
+patterns of 'attn' and 'rglru' layers without MoE).
 
 Parameters of one pattern period are stacked along a leading
 ``n_periods`` axis (``params["layers"]``), as in the JAX package, so a
 converted JAX tree has the same layout; ``forward`` runs the periods in a
-Python loop where JAX scans them (``remat`` and ``scan_layers`` change no
-result and are not read).  Three modes share the layer code: 'train'
-(full sequence, no cache), 'prefill' (full sequence, emits caches) and
-'decode' (one token, carries caches).  Attention is the plain PyTorch
-``layers.attention``, as the JAX model's is plain XLA.
+Python loop where JAX scans them (``scan_layers`` is not read).  A
+remainder prefix of the pattern runs before the periods.  ``remat``
+recomputes each period's activations in the backward as JAX's
+``_maybe_remat`` does: 'full' keeps only the period's inputs, 'dots' also
+the weight products, 'none' keeps everything; no mode changes a result.
+Three modes share the layer code: 'train' (full sequence, no cache),
+'prefill' (full sequence, emits caches) and 'decode' (one token, carries
+caches).  Attention is the plain PyTorch ``layers.attention``, as the JAX
+model's is plain XLA.  ``loss_fn`` is the training objective: the
+chunked cross entropy of the final hidden state.
 
-The MoE, RWKV-6 and RG-LRU mixers, multi-codebook heads and frontend
-embeddings are not ported yet (ROADMAP Queue A item 6): a config that
-asks for one raises ``NotImplementedError``.
+The MoE and RWKV-6 mixers, multi-codebook heads and frontend embeddings
+are not ported yet (ROADMAP Queue A items 7-9): a config that asks for
+one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch import tree as T
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.rglru import (CONV_WIDTH, RGLRUConfig,
+                                      rglru_block_apply, rglru_block_def,
+                                      rglru_block_step)
 
 Tensor = torch.Tensor
 
@@ -59,11 +69,11 @@ class ModelConfig:
     pattern: tuple[str, ...] = ("attn",)
     moe: Any = None                    # not ported yet (ROADMAP)
     rwkv: Any = None                   # not ported yet (ROADMAP)
-    rglru: Any = None                  # not ported yet (ROADMAP)
+    rglru: RGLRUConfig | None = None
     codebooks: int = 1                 # musicgen: 4 parallel codebooks
     frontend_embeds: bool = False      # pixtral: extra (B, P, D) embeds input
     dtype: torch.dtype = torch.bfloat16
-    remat: str = "none"                # none | full | dots (no effect here)
+    remat: str = "none"                # none | full | dots
     moe_aux_coef: float = 0.01
     scan_layers: bool = True           # no effect here: periods are a loop
 
@@ -103,27 +113,31 @@ class ModelConfig:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a config that needs a module the port lacks."""
     missing = [what for what, used in (
-        ("MoE (models/moe.py)", cfg.moe is not None),
-        ("RWKV-6 (models/rwkv6.py)",
+        ("MoE (models/moe.py, ROADMAP Queue A item 8)", cfg.moe is not None),
+        ("RWKV-6 (models/rwkv6.py, ROADMAP Queue A item 7)",
          cfg.rwkv is not None or "rwkv6" in cfg.pattern),
-        ("RG-LRU (models/rglru.py)",
-         cfg.rglru is not None or "rglru" in cfg.pattern),
-        ("multi-codebook heads", cfg.codebooks > 1),
-        ("frontend embeddings", cfg.frontend_embeds)) if used]
-    if set(cfg.pattern) != {"attn"} and not missing:
-        missing.append(f"pattern {cfg.pattern}")
+        ("multi-codebook heads (ROADMAP Queue A item 9)", cfg.codebooks > 1),
+        ("frontend embeddings (ROADMAP Queue A item 9)",
+         cfg.frontend_embeds)) if used]
+    if not missing and not set(cfg.pattern) <= set(_LAYER_APPLY):
+        missing.append(f"pattern {cfg.pattern} (ROADMAP Queue A)")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; see ROADMAP "
-            f"Queue A item 6 (the port runs the dense attention LMs)")
+            f"{cfg.name}: {', '.join(missing)} not ported yet; the port runs "
+            f"patterns of attention and RG-LRU layers")
 
 
 # ---------------------------------------------------------------------------
 # Parameter and cache definitions
 # ---------------------------------------------------------------------------
 
-def _layer_def(cfg: ModelConfig) -> dict:
+def _layer_def(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
+    if kind == "rglru":
+        return {"norm1": L.norm_def(d, cfg.norm),
+                "rec": rglru_block_def(cfg.rglru),
+                "norm2": L.norm_def(d, cfg.norm),
+                "ffn": L.mlp_def(cfg.mlp_cfg())}
     out = {"norm1": L.norm_def(d, cfg.norm),
            "attn": L.attn_def(cfg.attn_cfg())}
     if not cfg.parallel_block:
@@ -140,10 +154,10 @@ def model_def(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         defs["unembed"] = L.unembed_def(v, d)
     defs["final_norm"] = L.norm_def(d, cfg.norm)
-    for i, _ in enumerate(cfg.prefix):
-        defs[f"prefix{i}"] = _layer_def(cfg)
-    defs["period"] = {f"m{j}": _layer_def(cfg)
-                      for j, _ in enumerate(cfg.pattern)}
+    for i, kind in enumerate(cfg.prefix):
+        defs[f"prefix{i}"] = _layer_def(cfg, kind)
+    defs["period"] = {f"m{j}": _layer_def(cfg, kind)
+                      for j, kind in enumerate(cfg.pattern)}
     return defs
 
 
@@ -169,20 +183,34 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def _layer_cache_def(cfg: ModelConfig, kind: str, batch: int,
+                     cache_len: int) -> dict:
+    if kind == "rglru":
+        dr = cfg.rglru.d_rnn
+        return {"h": L.ParamDef((batch, dr), init="zeros",
+                                dtype=torch.float32),
+                "conv": L.ParamDef((batch, CONV_WIDTH - 1, dr),
+                                   init="zeros", dtype=cfg.dtype)}
+    return L.attn_cache_def(cfg.attn_cfg(), batch, cache_len,
+                            dtype=cfg.dtype)
+
+
 def cache_def(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
     check_supported(cfg)
-    layer = L.attn_cache_def(cfg.attn_cfg(), batch, cache_len,
-                             dtype=cfg.dtype)
-    defs: dict[str, Any] = {f"prefix{i}": layer
-                            for i, _ in enumerate(cfg.prefix)}
-    defs["period"] = {f"m{j}": layer for j, _ in enumerate(cfg.pattern)}
+    defs: dict[str, Any] = {
+        f"prefix{i}": _layer_cache_def(cfg, kind, batch, cache_len)
+        for i, kind in enumerate(cfg.prefix)}
+    defs["period"] = {f"m{j}": _layer_cache_def(cfg, kind, batch, cache_len)
+                      for j, kind in enumerate(cfg.pattern)}
     return defs
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: str | torch.device | None = None) -> dict:
-    """Zero caches: ``layers`` leaves (n_periods, batch, cache_len, KV, Dh)
-    in ``cfg.dtype``."""
+    """Zero caches, ``layers`` leaves led by the period axis: attention
+    K/V (n_periods, batch, cache_len, KV, Dh) in ``cfg.dtype``; RG-LRU
+    ``h`` (n_periods, batch, d_rnn) in fp32 and ``conv`` taps
+    (n_periods, batch, 3, d_rnn) in ``cfg.dtype``."""
     dev = resolve_device(device)
     defs = cache_def(cfg, batch, cache_len)
     period = defs.pop("period")
@@ -241,6 +269,30 @@ def _apply_attn_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
     return x, new_cache
 
 
+def _apply_rglru_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
+                       cache, positions: Tensor, cache_len: int | None):
+    h = L.apply_norm(params["norm1"], x, cfg.norm)
+    if mode == "decode":
+        y, state = rglru_block_step(params["rec"], h[:, 0], cfg.rglru,
+                                    state=cache)
+        x = x + y[:, None]
+    else:
+        y, state = rglru_block_apply(params["rec"], h, cfg.rglru)
+        x = x + y
+    h2 = L.apply_norm(params["norm2"], x, cfg.norm)
+    x = x + L.mlp_apply(params["ffn"], h2, cfg.mlp_cfg())
+    new_cache = None
+    if mode in ("decode", "prefill"):
+        new_cache = {"h": state["h"], "conv": state["conv"].to(cfg.dtype)}
+    return x, new_cache
+
+
+_LAYER_APPLY = {
+    "attn": _apply_attn_layer,
+    "rglru": _apply_rglru_layer,
+}
+
+
 # ---------------------------------------------------------------------------
 # Full model forward
 # ---------------------------------------------------------------------------
@@ -264,12 +316,44 @@ def _logits(params, cfg: ModelConfig, x: Tensor) -> Tensor:
     return logits
 
 
+_aten = torch.ops.aten
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the products
+    without a batch dimension (``mm``, ``addmm``, and the batch-1 ``bmm``
+    an einsum of activations by a weight becomes), recompute the rest,
+    attention's batched products included."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` checkpointed as ``cfg.remat`` says, when autograd records."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_weight_products)}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
 def forward(params, cfg: ModelConfig, *, tokens: Tensor, mode: str = "train",
             caches=None, positions: Tensor | None = None,
-            cache_len: int | None = None):
+            cache_len: int | None = None, return_hidden: bool = False):
     """Returns (logits_or_hidden, new_caches, aux_loss); aux_loss is 0 (no
-    MoE).  tokens: (B, S) integer.  Prefill slices to the last position
-    before the unembedding, as in JAX."""
+    MoE).  tokens: (B, S) integer.  ``return_hidden`` returns the
+    final-normed hidden state and skips the unembedding (the training
+    loss takes the chunked CE path instead); prefill slices to the last
+    position before the unembedding, as in JAX."""
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -277,38 +361,64 @@ def forward(params, cfg: ModelConfig, *, tokens: Tensor, mode: str = "train",
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    kw = dict(mode=mode, positions=positions, cache_len=cache_len)
     new_caches: dict[str, Any] = {}
-    for i, _ in enumerate(cfg.prefix):
+    for i, kind in enumerate(cfg.prefix):
         c = caches.get(f"prefix{i}") if caches else None
-        x, nc = _apply_attn_layer(params[f"prefix{i}"], x, cfg, mode=mode,
-                                  cache=c, positions=positions,
-                                  cache_len=cache_len)
+        x, nc = _LAYER_APPLY[kind](params[f"prefix{i}"], x, cfg, cache=c,
+                                   **kw)
         if nc is not None:
             new_caches[f"prefix{i}"] = nc
+
+    def period(x, per_params, per_caches):
+        per_new = {}
+        for j, kind in enumerate(cfg.pattern):
+            name = f"m{j}"
+            c = per_caches[name] if per_caches is not None else None
+            x, nc = _LAYER_APPLY[kind](per_params[name], x, cfg, cache=c,
+                                       **kw)
+            if nc is not None:
+                per_new[name] = nc
+        return x, per_new
+
+    body = _maybe_remat(period, cfg)
     layer_caches = caches["layers"] if caches else None
     period_caches = []
     for i in range(cfg.n_periods):
-        per_new = {}
-        for j, _ in enumerate(cfg.pattern):
-            name = f"m{j}"
-            c = None if layer_caches is None \
-                else T.tree_map(lambda a: a[i], layer_caches[name])
-            x, nc = _apply_attn_layer(
-                T.tree_map(lambda a: a[i], params["layers"][name]), x, cfg,
-                mode=mode, cache=c, positions=positions,
-                cache_len=cache_len)
-            if nc is not None:
-                per_new[name] = nc
+        def take(t):
+            return T.tree_map(lambda a: a[i], t)
+        x, per_new = body(x, take(params["layers"]),
+                          None if layer_caches is None
+                          else take(layer_caches))
         if per_new:
             period_caches.append(per_new)
     if period_caches:
         new_caches["layers"] = T.tree_map(lambda *xs: torch.stack(xs),
                                           *period_caches)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    aux = torch.zeros((), device=x.device)
+    if return_hidden:
+        return x, (new_caches or None), aux
     if mode == "prefill":
         x = x[:, -1:]
-    return _logits(params, cfg, x), (new_caches or None), \
-        torch.zeros((), device=x.device)
+    return _logits(params, cfg, x), (new_caches or None), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict):
+    """batch: tokens (B, S), targets (B, S), optional mask (B, S).
+    Returns (loss, {"ce", "moe_aux"}).  The chunked-CE path: the
+    (B, S, V) logits tensor never exists."""
+    hidden, _, aux = forward(params, cfg, tokens=batch["tokens"],
+                             mode="train", return_hidden=True)
+    if cfg.tie_embeddings:
+        w, tied = params["embed"]["embedding"], True
+    else:
+        w, tied = params["unembed"]["unembedding"], False
+    ce = L.chunked_cross_entropy(hidden, w, batch["targets"],
+                                 batch.get("mask"), tied=tied,
+                                 logit_scale=cfg.logit_scale,
+                                 softcap=cfg.logits_softcap)
+    return ce + cfg.moe_aux_coef * aux, {"ce": ce, "moe_aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, tokens: Tensor, *, cache_len: int):

@@ -127,7 +127,9 @@ def test_every_kernel_module_is_checked():
                  "configs.tinyllama_1_1b", "configs.deepseek_7b",
                  "configs.glm4_9b", "core.h100", "obs", "obs.divergence",
                  "tune", "tune.cache", "tune.autotune", "resilience",
-                 "resilience.faults", "launch.obs_report"):
+                 "resilience.faults", "launch.obs_report", "models.rglru",
+                 "configs.recurrentgemma_9b", "data.pipeline",
+                 "launch.train"):
         assert f"repro_torch.{name}" in mods
 
 

@@ -386,3 +386,10 @@ def test_entry_points_default_to_cuda():
     args = argparse.Namespace(seed=0, device=None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.serve_lm(cfg, args)
+    from repro_torch.launch import train as train_launch
+    args = train_launch.build_parser().parse_args(
+        ["--arch", "tinyllama-1.1b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launch.train_lm(TReg.get(args.arch).config, args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.init_params(TReg.reduced_config(TReg.get("recurrentgemma-9b")))
