@@ -268,6 +268,40 @@ Phases, each of which exits non-zero on failure:
    need 150 GB of fp32 params, gradients and AdamW state) through
    ``train_lm`` for 4 steps at batch 4 x 2048: losses finite, none
    skipped; step time and peak memory.
+17. the remaining LM families, every count set to 0 first (no TPU
+   kernel lies on these paths either): (a) full-width, full-depth
+   rwkv6-3b (3.073B fp32 params from seed 0, bf16 compute):
+   ``wkv_chunked`` against 256 ``wkv_step`` calls on layer 0's decays
+   (5e-4, JAX's bound); ``serve_lm`` with its defaults; the engine on
+   phase 13's prompts, whose bf16 logits are held by
+   ``hold_chaotic_logits`` (the random model moves its fp32 logits ~0.5
+   under a bf16 roundoff of its embeddings, so phase 13's cap cannot
+   hold): served bf16 no farther from teacher-forced bf16 than that is
+   from fp32, the fp32 engine's logits within 1e-3 of a teacher-forced
+   fp32 forward and its tokens the argmax at clear margins; 2 x 16
+   tokens in fp32 equal to naive greedy decoding; prefill and decode
+   times, idle share; its first 16 layers (1.705B params; all 32 fit
+   at 70.6 GB, but their checkpoint would take ~80 s more) through
+   ``train_lm`` for 6 steps at batch 4 x 2048, remat "full": losses
+   finite, none skipped, step 0 within 5% of ln(V) + 1/2; step time, one
+   step profiled, peak memory.
+   (b) dbrx-132b at its widths cut to 2 layers (7.751B params): the
+   launcher at capacity factor 1.25, the share of choices each prefill
+   drops printed; phase 13's gates on a drop-free copy (factor e/k = 4);
+   2 x 16 fp32 tokens at 1.25 equal to per-request ``prefill`` +
+   ``decode_step`` outside the engine; one layer of the same params
+   through ``loss_fn`` and its backward at batch 1 x 2048: finite, aux
+   above 0, bf16 within 1e-2 of fp32 compute. (c) full musicgen-medium:
+   fp32 prefill + 8 ``decode_step`` calls with (2, 4) tokens within
+   1e-5 of the teacher-forced forward; ``serve_lm`` refuses it with the
+   JAX launcher's message; step-0 checks as (a) of phase 16; 6 steps of
+   ``train_lm`` at batch 8 x 2048. (d) pixtral-12b at its widths cut to
+   4 layers: a forward with a (2, 256, 5120) frontend, ``loss_fn`` on
+   the text positions equal to the chunked CE of the hidden state after
+   the frontend, prefill with the frontend + 4 decode steps within 1e-5
+   of the teacher-forced forward. (e) the five reduced configs in fp32,
+   3 ``train_lm`` steps on the card and on the CPU within 1e-4.
+   ``--only 17`` runs phases 1 and 17 alone and prints no result.
 
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
 run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
@@ -4214,6 +4248,824 @@ def lm_train_phase(record: dict) -> None:
           f"JAX model's are XLA)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the remaining LM families: RWKV-6, MoE, codebooks, frontend
+# ---------------------------------------------------------------------------
+
+RW_ARCH = "rwkv6-3b"
+RW_BF16_PREDICTED = 3e-2    # bf16 vs fp32 logits at 32 layers (PERF.md §6)
+RW_BF16_MAX = 1.5 * max(RW_BF16_PREDICTED, LM_BF16_MAX)
+RW_FP32_RTOL = 1e-3         # served vs teacher-forced fp32 logits (rel norm)
+RW_SENSITIVITY_EPS = 2.0 ** -9  # bf16's unit roundoff, on the embeddings
+RW_WKV_TOKENS = 256
+RW_WKV_RTOL = 5e-4          # chunked vs step: JAX's own bound
+RW_GREEDY_PROMPTS, RW_GREEDY_NEW = 2, 16
+RW_TRAIN_STEPS = 6
+RW_TRAIN_LAYERS = 16        # of 32: all 32 fit (70.6 GB at batch 4), but
+                            # their 37 GB checkpoint takes ~80 s (PERF.md §4)
+RW_TRAIN_BATCH, RW_SEQ = 4, 2048
+MOE_ARCH = "dbrx-132b"
+MOE_LAYERS = 2              # 7.75B params; all 40 need 528 GB in fp32
+MOE_BF16_PREDICTED = 2e-2   # bf16 vs fp32 logits at 2 layers (PERF.md §6)
+MOE_BF16_MAX = 1.5 * max(MOE_BF16_PREDICTED, LM_BF16_MAX)
+MOE_GREEDY_PROMPTS, MOE_GREEDY_NEW = 2, 16
+MOE_LOSS_BATCH = (1, 2048)
+MOE_LOSS_BF16_RTOL = 1e-2   # bf16- vs fp32-compute loss, one layer
+MG_ARCH = "musicgen-medium"
+MG_TRAIN = ["--global-batch", "8", "--seq-len", "2048"]
+MG_TRAIN_STEPS = 6
+MG_PROMPT, MG_DECODE_STEPS = 256, 8
+PX_ARCH = "pixtral-12b"
+PX_LAYERS = 4               # 2.43B params; all 40 need 49 GB of fp32 params
+PX_FRONTEND, PX_TEXT, PX_DECODE_STEPS = 256, 512, 4
+DECODE_RTOL = 1e-5          # fp32 prefill + decode vs teacher-forced forward
+P17_ARCHS = [RW_ARCH, "dbrx-132b", "grok-1-314b", MG_ARCH, PX_ARCH]
+P17_REDUCED_STEPS = 3
+
+
+def ce_prediction(cfg) -> float:
+    """Step-0 cross entropy of random untied heads: the logits are normal
+    with variance D / fan-in of the head (1 for a (D, V) unembedding, 1/CB
+    for (CB, D, V) heads), so the loss is ln(V) + var / 2."""
+    return math.log(cfg.vocab) + 0.5 / cfg.codebooks
+
+
+class drops:
+    """Within the block each MoE dispatch of a prefill or train forward
+    (not decode's full capacity) records (choices, dropped)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self.real = M.dispatch_slots
+
+        def dispatch_slots(experts, e, cap):
+            slot, keep = self.real(experts, e, cap)
+            if cap < experts.shape[1] * experts.shape[2]:
+                self.calls.append((keep.numel(), int((~keep).sum())))
+            return slot, keep
+        M.dispatch_slots = dispatch_slots
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+        M.dispatch_slots = self.real
+
+    def share(self) -> float:
+        n = sum(c for c, _ in self.calls)
+        return sum(d for _, d in self.calls) / max(n, 1)
+
+
+def hold_chaotic_logits(params, cfg, prompts, served: dict, reqs) -> dict:
+    """Where the random model amplifies a rounding into O(0.1) logits
+    (rwkv6-3b at 32 layers: a bf16 run and an fp32 run whose embeddings
+    moved by bf16's roundoff land about as far from the fp32 forward),
+    phase 13's bf16 cap and margins cannot hold.  Then: the bf16 served
+    logits (``served``, ``reqs``) no farther from the teacher-forced bf16
+    forward than that is from the fp32 forward (phase 13's first gate);
+    the fp32 engine on the same prompts, its logits recorded, within
+    ``RW_FP32_RTOL`` (relative norm) of the teacher-forced fp32 forward
+    and its tokens the teacher-forced argmax wherever the top-2 margin is
+    clear; the fp32 forward's movement under embeddings perturbed by
+    ``RW_SENSITIVITY_EPS`` printed beside the bf16 readings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def seq_of(r):
+        return torch.as_tensor(np.concatenate(
+            [r.prompt, np.asarray(r.output[:-1], np.int32)]),
+            dtype=torch.long, device="cuda")[None]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    out = dict(bf16=[], fp32=[])
+    with torch.inference_mode():
+        for r in reqs:
+            seq, p = seq_of(r), len(r.prompt)
+            tf, ex = (TF.forward(params, c, tokens=seq)[0][0, p - 1:]
+                      .float().cpu() for c in (cfg, cfg32))
+            d = dict(uid=r.uid, prompt=p, served_tf=rel(served[r.uid], tf),
+                     served_fp32=rel(served[r.uid], ex),
+                     tf_fp32=rel(tf, ex))
+            out["bf16"].append(d)
+            if d["served_tf"] > max(LM_RTOL, d["tf_fp32"]) \
+                    or not bool(torch.isfinite(served[r.uid]).all()):
+                fail(f"request {r.uid}: the served bf16 logits stray beyond "
+                     f"the bf16 path's own error: {d}")
+        real = TF._embed
+
+        def perturbed(*a):
+            x = real(*a)
+            g = torch.Generator(device="cuda").manual_seed(11)
+            return x + RW_SENSITIVITY_EPS * x.float().std() * torch.randn(
+                x.shape, device=x.device, generator=g)
+        seq, p = seq_of(reqs[0]), len(reqs[0].prompt)
+        ex = TF.forward(params, cfg32, tokens=seq)[0][0, p - 1:]
+        TF._embed = perturbed
+        try:
+            moved = TF.forward(params, cfg32, tokens=seq)[0][0, p - 1:]
+        finally:
+            TF._embed = real
+        out["sensitivity"] = rel(moved, ex)
+
+    engine = ServingEngine(params, cfg32, ServeConfig(slots=BATCH,
+                                                      cache_len=LM_CACHE),
+                           device="cuda")
+    reqs32 = [Request(uid=i, prompt=pr, max_new_tokens=LM_NEW)
+              for i, pr in enumerate(prompts)]
+    for r in reqs32:
+        engine.submit(r)
+    with recording(engine) as log:
+        engine.run_until_drained()
+    served32 = log.served(reqs32)
+    checked = under = 0
+    with torch.inference_mode():
+        for r in reqs32:
+            p = len(r.prompt)
+            tf = TF.forward(params, cfg32, tokens=seq_of(r))[0][0, p - 1:] \
+                .float().cpu()
+            d = dict(uid=r.uid, prompt=p, served_tf=rel(served32[r.uid], tf))
+            top2 = tf.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > LM_RTOL * tf.abs().amax(-1)
+            agree = tf.argmax(-1) == torch.as_tensor(r.output)
+            checked += int(sure.sum())
+            under += int((~sure).sum())
+            out["fp32"].append(d)
+            if d["served_tf"] > RW_FP32_RTOL or not bool(agree[sure].all()):
+                fail(f"fp32 request {r.uid}: served logits {d['served_tf']} "
+                     f"from the teacher-forced fp32 forward, or a served "
+                     f"token off its argmax")
+    b, f = out["bf16"], out["fp32"]
+    for d in b:
+        print(f"  request {d['uid']} (prompt {d['prompt']}), bf16: served vs "
+              f"teacher-forced bf16 {d['served_tf']:.3e}; vs the fp32 "
+              f"forward: served {d['served_fp32']:.3e}, teacher-forced bf16 "
+              f"{d['tf_fp32']:.3e}")
+    print(f"  the fp32 forward moves {out['sensitivity']:.3e} when its "
+          f"embeddings move by {RW_SENSITIVITY_EPS:.1e} (relative), where "
+          f"bf16 lies {max(d['tf_fp32'] for d in b):.3e} from it at worst: "
+          f"the random model amplifies a rounding, so bf16 logits are held "
+          f"only to the bf16 path's own error")
+    print(f"  fp32 served vs teacher-forced fp32 logits: worst "
+          f"{max(d['served_tf'] for d in f):.3e} (gate {RW_FP32_RTOL}); "
+          f"argmax equal at all {checked} positions with a top-2 margin "
+          f"above {LM_RTOL} * max|logit|, {under} under it")
+    out.update(fp32_checked=checked, fp32_under_margin=under)
+    return out
+
+
+def family_serving(rec: dict, params, cfg, *, cap: float, reference,
+                   greedy: tuple[int, int], fp32_cfg=None,
+                   chaotic: bool = False) -> None:
+    """Phase 13's checks on one family: the engine on phase 13's prompts
+    (128-1024 tokens, 32 new, 4 slots, cache 2048), its bf16 logits held to
+    teacher-forced forwards (``hold_served_logits``, bf16 cap ``cap``);
+    prefill per prompt length and the decode step timed, the decode step's
+    idle share under torch.profiler; then ``greedy`` = (prompts, tokens)
+    served in fp32 on ``fp32_cfg`` (default ``cfg``), equal to
+    ``reference(params, cfg32, prompt, n)``, with the share of MoE choices
+    its prefills drop.  ``chaotic`` holds the logits by
+    ``hold_chaotic_logits`` instead."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab, n).astype(np.int32)
+               for n in LM_PROMPTS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(params, cfg, ServeConfig(slots=BATCH,
+                                                    cache_len=LM_CACHE),
+                           device="cuda")
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=LM_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    with recording(engine) as log:
+        t0 = time.monotonic()
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rec["engine_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    toks = sum(len(r.output) for r in engine.completed)
+    rec.update(engine_s=wall, tokens=toks, tokens_per_s=toks / wall,
+               engine_steps=engine.steps)
+    print(f"  engine: {len(engine.completed)} requests / {toks} tokens in "
+          f"{wall:.3f} s ({toks / wall:.1f} tok/s, prefills included), "
+          f"{engine.steps} decode steps; peak memory "
+          f"{rec['engine_peak_gb']:.2f} GB")
+    if sorted((r.uid, len(r.output)) for r in engine.completed) \
+            != [(i, LM_NEW) for i in range(len(prompts))]:
+        fail("the engine did not serve every request its token count")
+    if chaotic:
+        held = hold_chaotic_logits(params, cfg, prompts, log.served(reqs),
+                                   reqs)
+        rows = held.pop("bf16")
+        rec.update(logits=rows, **held)
+    else:
+        rows, checked, under = hold_served_logits(params, cfg, reqs,
+                                                  log.served(reqs), cap)
+        rec.update(logits=rows, argmax_checked=checked,
+                   argmax_under_margin=under, bf16_cap=cap)
+    rec["bf16_vs_fp32_worst"] = max(max(d["tf_fp32"], d["served_fp32"])
+                                    for d in rows)
+
+    prefill_ms = {}
+    with torch.inference_mode():
+        for p in prompts:
+            t = torch.as_tensor(p, dtype=torch.long, device="cuda")[None]
+            prefill_ms[len(p)] = time_ms(
+                lambda: TF.prefill(params, cfg, t, cache_len=LM_CACHE),
+                reps=3, iters=1)
+        caches, pos = engine.caches, torch.full((BATCH,), 1100,
+                                                device="cuda")
+        tok = torch.zeros(BATCH, dtype=torch.long, device="cuda")
+        decode_ms = time_ms(lambda: TF.decode_step(params, cfg, tok, caches,
+                                                   pos), reps=3, iters=3)
+        n = 4
+        wall_ms, busy_ms, n_launch, top = busy_share(lambda: [
+            TF.decode_step(params, cfg, tok, caches, pos)[0].argmax(-1)
+            .tolist() for _ in range(n)])
+    cast_ms = sum(ms for key, ms in top if "copy" in key.lower())
+    top = [(key[:70], round(ms / n, 4)) for key, ms in top[:8]]
+    rec.update(prefill_ms=prefill_ms, decode_ms=decode_ms,
+               decode_wall_ms=wall_ms / n, decode_busy_ms=busy_ms / n,
+               decode_idle=1 - busy_ms / wall_ms, decode_copy_ms=cast_ms / n,
+               decode_top=top, decode_launches=n_launch / n,
+               decode_tokens_per_s=BATCH / decode_ms * 1e3)
+    print(f"  prefill (1 prompt, CUDA events): "
+          f"{ {k: round(v, 2) for k, v in prefill_ms.items()} } ms")
+    print(f"  decode step ({BATCH} slots): {decode_ms:.2f} ms (CUDA events, "
+          f"{BATCH / decode_ms * 1e3:.1f} tokens/s); under torch.profiler "
+          f"{wall_ms / n:.2f} ms wall, {busy_ms / n:.2f} ms device busy, "
+          f"idle {1 - busy_ms / wall_ms:.1%}; {n_launch / n:.0f} kernel "
+          f"launches a step; dtype casts and copies {cast_ms / n:.2f} ms a "
+          f"step; top {top[:5]}")
+    del engine, caches
+
+    cfg32 = dataclasses.replace(fp32_cfg or cfg, dtype=torch.float32)
+    engine = ServingEngine(params, cfg32, ServeConfig(slots=BATCH,
+                                                      cache_len=LM_CACHE),
+                           device="cuda")
+    n_req, n_new = greedy
+    for i, p in enumerate(prompts[:n_req]):
+        engine.submit(Request(uid=i, prompt=p, max_new_tokens=n_new))
+    t0 = time.monotonic()
+    with drops() as log:
+        engine.run_until_drained()
+    with torch.inference_mode():
+        for r in engine.completed:
+            ref = reference(params, cfg32, r.prompt, len(r.output))
+            if r.output != ref:
+                fail(f"fp32 request {r.uid}: served {r.output} but "
+                     f"{reference.__name__} gives {ref}")
+    rec.update(fp32_reference_s=time.monotonic() - t0,
+               fp32_prefill_drop_share=log.share())
+    moe = cfg32.moe
+    print(f"  fp32: {len(engine.completed)} requests x {n_new} tokens equal "
+          f"{reference.__name__} token for token "
+          f"({rec['fp32_reference_s']:.1f} s)"
+          + ("" if moe is None else
+             f"; at capacity factor {moe.capacity_factor} the engine's "
+             f"prefills drop {log.share():.2%} of choices")
+          + f"; {gpu_memory()}")
+
+
+def greedy_forward(params, cfg, prompt, n: int) -> list[int]:
+    """Naive greedy decoding: a full forward over the sequence a token."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+    cur = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+    out = []
+    for _ in range(n):
+        nxt = int(TF.forward(params, cfg, tokens=cur)[0][0, -1].argmax())
+        out.append(nxt)
+        cur = torch.cat([cur, torch.tensor([[nxt]], device="cuda")], 1)
+    return out
+
+
+def greedy_steps(params, cfg, prompt, n: int) -> list[int]:
+    """Greedy decoding by ``prefill`` and ``decode_step`` at batch 1,
+    outside the engine."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+    t = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+    logits, caches = TF.prefill(params, cfg, t, cache_len=LM_CACHE)
+    out = [int(logits[0].argmax())]
+    pos = len(prompt)
+    while len(out) < n:
+        logits, caches = TF.decode_step(
+            params, cfg, torch.tensor([out[-1]], device="cuda"), caches,
+            torch.tensor([pos], device="cuda"))
+        out.append(int(logits[0].argmax()))
+        pos += 1
+    return out
+
+
+def step_profile(trainer) -> dict:
+    """One more training step of ``trainer`` (its step-0 batch) under
+    torch.profiler: wall, device busy, idle share, launches and the top
+    device entries; the step updates the trainer's params."""
+    batch = trainer._device_batch(0)
+    wall, busy, n_launch, top = busy_share(lambda: trainer._one_step(batch))
+    top = [(key[:60], round(ms, 2)) for key, ms in top[:8]]
+    print(f"  one step under torch.profiler: {wall:.1f} ms wall, "
+          f"{busy:.1f} ms device busy, idle {1 - busy / wall:.1%}, "
+          f"{n_launch} kernel launches; top device entries (ms) {top[:6]}")
+    return dict(profiled_wall_ms=wall, device_busy_ms=busy,
+                device_idle=1 - busy / wall, launches_a_step=n_launch,
+                device_top=top)
+
+
+def draw(cfg, what: str) -> dict:
+    """Params of ``cfg`` from seed 0 (drawn on the CPU, moved)."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    params = TF.init_params(cfg, seed=0, device="cuda")
+    print(f"  {what}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.param_count() / 1e9:.3f}B params (fp32, "
+          f"{cfg.param_count() * 4 / 1e9:.1f} GB), compute {cfg.dtype}; "
+          f"drawn from seed 0 on the CPU and moved in "
+          f"{time.monotonic() - t0:.1f} s")
+    return params
+
+
+def rwkv_phase(record: dict) -> None:
+    """Phase 17(a): full-depth rwkv6-3b: the WKV scan on one full-width
+    layer, served; its first ``RW_TRAIN_LAYERS`` layers trained."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as launch
+    from repro_torch.models import registry as reg
+    from repro_torch.models import rwkv6 as RW
+    from repro_torch.tree import tree_map
+
+    cfg = reg.get(RW_ARCH).config
+    rec = record["rwkv"] = dict(arch=RW_ARCH, params=cfg.param_count(),
+                                bf16_predicted=RW_BF16_PREDICTED)
+    params = draw(cfg, cfg.name)
+
+    # The chunked scan against the step recurrence on layer 0's decays.
+    tm = tree_map(lambda t: t[0], params["layers"]["m0"]["tm"])
+    h, dh = cfg.rwkv.n_heads, cfg.rwkv.head_dim
+    x = torch.randn(1, RW_WKV_TOKENS, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    with torch.inference_mode():
+        r, k, v, _, lw = RW._projections(tm, x, RW._token_shift(x, None),
+                                         (1, RW_WKV_TOKENS, h, dh))
+        u = tm["bonus_u"].reshape(h, dh)
+        o_c, s_c = RW.wkv_chunked(r, k, v, lw, u)
+        s = torch.zeros(1, h, dh, dh, device="cuda")
+        outs = []
+        for t in range(RW_WKV_TOKENS):
+            o, s = RW.wkv_step(r[:, t], k[:, t], v[:, t], lw[:, t], u, s)
+            outs.append(o)
+        o_s = torch.stack(outs, 1)
+    wkv_rel = ((o_c - o_s).norm() / o_s.norm()).item()
+    state_rel = ((s_c - s).norm() / s.norm()).item()
+    print(f"  wkv_chunked vs {RW_WKV_TOKENS} wkv_step calls ({h} heads x "
+          f"{dh}, decays {lw.min().item():.3f} to {lw.max().item():.3f}): "
+          f"out {wkv_rel:.2e}, final state {state_rel:.2e} (gate "
+          f"{RW_WKV_RTOL})")
+    if max(wkv_rel, state_rel) > RW_WKV_RTOL:
+        fail(f"the chunked WKV is {wkv_rel} / {state_rel} from its steps")
+    rec.update(wkv_rel=wkv_rel, wkv_state_rel=state_rel)
+    del tm, x, r, k, v, lw, o_c, o_s, s, s_c, outs
+
+    # The launcher with its defaults, then phase 13's checks.
+    args = serve_launch.build_parser().parse_args(
+        ["--arch", RW_ARCH, "--device", "cuda", "--seed", "0"])
+    engine, steps, seconds = serve_launch.serve_lm(cfg, args, params=params)
+    print(serve_launch.report_lm(engine, steps, seconds))
+    if sorted((r.uid, len(r.output)) for r in engine.completed) \
+            != [(i, args.max_new_tokens) for i in range(args.requests)]:
+        fail("serve_lm did not serve every request its token count")
+    rec["serve_lm_s"] = seconds
+    c = engine.caches["layers"]["m0"]
+    print(f"  caches: shift_tm {tuple(c['shift_tm'].shape)} "
+          f"{c['shift_tm'].dtype}, wkv {tuple(c['wkv'].shape)} "
+          f"{c['wkv'].dtype}")
+    if c["wkv"].dtype != torch.float32 or c["shift_tm"].dtype != cfg.dtype:
+        fail("the RWKV caches lost their dtypes")
+    del engine, c
+    family_serving(rec, params, cfg, cap=RW_BF16_MAX,
+                   reference=greedy_forward, chaotic=True,
+                   greedy=(RW_GREEDY_PROMPTS, RW_GREEDY_NEW))
+
+    # Training: the first RW_TRAIN_LAYERS layers of the served params.
+    tcfg = dataclasses.replace(cfg, n_layers=RW_TRAIN_LAYERS)
+    keep = {key: val for key, val in params.items() if key != "layers"}
+    keep["layers"] = tree_map(lambda t: t[:RW_TRAIN_LAYERS].clone(),
+                              params["layers"])
+    del params
+    params = keep
+    root = ROOT / "build" / "smoke_rwkv"
+    shutil.rmtree(root, ignore_errors=True)
+    batch = RW_TRAIN_BATCH
+    args = train_lm_args(RW_ARCH, RW_TRAIN_STEPS, root, "--full",
+                         "--global-batch", str(batch), "--seq-len",
+                         str(RW_SEQ))
+    loss0_want = ce_prediction(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = launch.train_lm(tcfg, args, params=params)
+    rec.update(train_wall_s=time.monotonic() - t0,
+               train_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               train_batch=batch, seq_len=RW_SEQ,
+               train_layers=RW_TRAIN_LAYERS,
+               train_params=tcfg.param_count())
+    losses = [hh["loss"] for hh in tr.history if "loss" in hh]
+    host_ms = [t * 1e3 for t in tr.step_seconds]
+    step_ms = statistics.median(host_ms[1:])
+    tokens = batch * RW_SEQ
+    loss0_rel = abs(losses[0] - loss0_want) / loss0_want
+    print(f"  trained {RW_TRAIN_LAYERS} layers ({tcfg.param_count() / 1e9:.3f}"
+          f"B params) {RW_TRAIN_STEPS} steps at batch {batch} x {RW_SEQ} "
+          f"(remat {cfg.remat!r}, AdamW) in {rec['train_wall_s']:.1f} s (a "
+          f"checkpoint of params and AdamW state at the end); losses "
+          f"{[round(v, 5) for v in losses]}; step 0 vs the predicted "
+          f"{loss0_want:.4f}: {loss0_rel:.2%}; host-clock steps "
+          f"{[round(t, 1) for t in host_ms]} ms (median after the first "
+          f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s); "
+          f"telemetry {tr.telemetry}; peak memory "
+          f"{rec['train_peak_gb']:.2f} GB")
+    if len(losses) != RW_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or tr.telemetry["skipped"] or loss0_rel > LM_LOSS0_RTOL:
+        fail(f"{RW_ARCH} training: losses {losses}, telemetry "
+             f"{tr.telemetry}, step 0 {loss0_rel} from {loss0_want}")
+    rec.update(losses=losses, host_step_ms=host_ms, step_ms=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3, loss0_predicted=loss0_want,
+               **step_profile(tr))
+    del tr, params
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def moe_phase(record: dict) -> None:
+    """Phase 17(b): dbrx-132b at its published widths, cut to
+    ``MOE_LAYERS`` layers: served, then one layer's loss and gradient."""
+    import torch
+
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import registry as reg
+    from repro_torch.models import transformer as TF
+    from repro_torch.tree import leaves, tree_map
+
+    full = reg.get(MOE_ARCH).config
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    cfg_free = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=e / k))
+    rec = record["moe"] = dict(
+        arch=MOE_ARCH, layers=MOE_LAYERS, params=cfg.param_count(),
+        active_params=cfg.active_param_count(),
+        full_params=full.param_count(), bf16_predicted=MOE_BF16_PREDICTED)
+    print(f"  (the full {full.n_layers} layers hold "
+          f"{full.param_count() / 1e9:.1f}B params, "
+          f"{full.param_count() * 4 / 1e9:.0f} GB in fp32; {MOE_LAYERS} "
+          f"layers: {cfg.active_param_count() / 1e9:.3f}B active a token, "
+          f"{e} experts, top {k})")
+    params = draw(cfg, f"{cfg.name} cut to {MOE_LAYERS} layers")
+
+    # The launcher at the published capacity factor, its drops printed.
+    args = serve_launch.build_parser().parse_args(
+        ["--arch", MOE_ARCH, "--device", "cuda", "--seed", "0"])
+    with drops() as log:
+        engine, steps, seconds = serve_launch.serve_lm(cfg, args,
+                                                       params=params)
+    print(serve_launch.report_lm(engine, steps, seconds))
+    if sorted((r.uid, len(r.output)) for r in engine.completed) \
+            != [(i, args.max_new_tokens) for i in range(args.requests)]:
+        fail("serve_lm did not serve every request its token count")
+    per = [round(d / c, 4) for c, d in log.calls]
+    print(f"  capacity factor {cfg.moe.capacity_factor}: share of choices "
+          f"dropped in each prefill's MoE layers {per}; {log.share():.2%} "
+          f"over all; decode drops none (full capacity)")
+    rec.update(serve_lm_s=seconds, prefill_drop_shares=per,
+               prefill_drop_share=log.share())
+    del engine
+
+    # Phase 13's checks on the drop-free copy; fp32 at the published
+    # factor against prefill + decode_step outside the engine.
+    family_serving(rec, params, cfg_free, cap=MOE_BF16_MAX,
+                   reference=greedy_steps, fp32_cfg=cfg,
+                   greedy=(MOE_GREEDY_PROMPTS, MOE_GREEDY_NEW))
+    # One layer of the same params through loss_fn and its backward.
+    one = dataclasses.replace(cfg, n_layers=1)
+    p1 = {key: val for key, val in params.items() if key != "layers"}
+    p1["layers"] = tree_map(lambda t: t[:1].clone(), params["layers"])
+    del params
+    torch.cuda.empty_cache()
+    b, s = MOE_LOSS_BATCH
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), device="cuda",
+                                     generator=g),
+             "targets": torch.randint(0, cfg.vocab, (b, s), device="cuda",
+                                      generator=g)}
+    torch.cuda.reset_peak_memory_stats()
+    pg = tree_map(lambda t: t.detach().requires_grad_(True), p1)
+    t0 = time.monotonic()
+    with drops() as log:
+        loss, metrics = TF.loss_fn(pg, one, batch)
+    grads = torch.autograd.grad(loss, leaves(pg))
+    torch.cuda.synchronize()
+    loss_s = time.monotonic() - t0
+    gnorm = math.sqrt(sum(float(gr.float().square().sum()) for gr in grads))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del grads, pg
+    with torch.no_grad():
+        loss32, m32 = TF.loss_fn(p1, dataclasses.replace(
+            one, dtype=torch.float32), batch)
+    loss, aux, loss32 = loss.item(), metrics["moe_aux"].item(), loss32.item()
+    rel = abs(loss - loss32) / loss32
+    want = ce_prediction(one)
+    print(f"  1 layer ({one.param_count() / 1e9:.3f}B params), batch {b} x "
+          f"{s}: loss {loss:.5f} (predicted ~{want:.3f} + 0.01 x aux), aux "
+          f"{aux:.5f}, drops {log.share():.2%}; fp32-compute loss "
+          f"{loss32:.5f} (rel {rel:.2e}, gate {MOE_LOSS_BF16_RTOL}); "
+          f"gradient norm {gnorm:.4e}; forward + backward {loss_s:.2f} s; "
+          f"peak memory {peak:.2f} GB")
+    if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0
+            and math.isfinite(aux) and aux > 0) \
+            or rel > MOE_LOSS_BF16_RTOL:
+        fail(f"{MOE_ARCH} one-layer loss {loss}, aux {aux}, fp32 {loss32}, "
+             f"gradient norm {gnorm}")
+    rec.update(loss_layers=1, loss=loss, aux=aux, loss_fp32=loss32,
+               loss_bf16_rel=rel, grad_norm=gnorm, loss_peak_gb=peak,
+               loss_drop_share=log.share(), loss_s=loss_s)
+    del p1, batch
+    torch.cuda.empty_cache()
+
+
+def codebook_phase(record: dict) -> None:
+    """Phase 17(c): full musicgen-medium: decode with (B, CB) tokens
+    against the teacher-forced forward, the launcher's refusal, step-0
+    checks, 6 training steps."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as launch
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as reg
+    from repro_torch.models import transformer as TF
+
+    cfg = reg.get(MG_ARCH).config
+    cb = cfg.codebooks
+    rec = record["codebooks"] = dict(arch=MG_ARCH, params=cfg.param_count())
+    params = draw(cfg, cfg.name)
+
+    # fp32 prefill + decode with (B, CB) tokens vs the teacher-forced run.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (2, MG_PROMPT + MG_DECODE_STEPS, cb),
+                         device="cuda", generator=g)
+    worst = 0.0
+    with torch.inference_mode():
+        full = TF.forward(params, cfg32, tokens=toks)[0]
+        logits, caches = TF.prefill(params, cfg32, toks[:, :MG_PROMPT],
+                                    cache_len=LM_CACHE)
+        rows = [(logits, full[:, MG_PROMPT - 1])]
+        for i in range(MG_DECODE_STEPS):
+            pos = torch.full((2,), MG_PROMPT + i, device="cuda")
+            logits, caches = TF.decode_step(params, cfg32,
+                                            toks[:, MG_PROMPT + i], caches,
+                                            pos)
+            rows.append((logits, full[:, MG_PROMPT + i]))
+        for got, want in rows:
+            if got.shape != (2, cb, cfg.vocab):
+                fail(f"codebook logits of shape {tuple(got.shape)}")
+            worst = max(worst, ((got - want).abs().max()
+                                / want.abs().max()).item())
+    del full, caches
+    print(f"  fp32 prefill ({MG_PROMPT} tokens x {cb} codebooks) + "
+          f"{MG_DECODE_STEPS} decode steps with (2, {cb}) tokens: logits "
+          f"(2, {cb}, {cfg.vocab}), worst max|diff| / max|logit| vs the "
+          f"teacher-forced forward {worst:.2e} (gate {DECODE_RTOL})")
+    if worst > DECODE_RTOL:
+        fail(f"{MG_ARCH} decode is {worst} from its teacher-forced forward")
+    rec["decode_rel"] = worst
+
+    args = serve_launch.build_parser().parse_args(
+        ["--arch", MG_ARCH, "--device", "cuda"])
+    try:
+        serve_launch.serve_lm(cfg, args, params=params)
+        fail("serve_lm served a multi-codebook config")
+    except SystemExit as e:
+        print(f"  serve_lm refuses it: {e}")
+        rec["serve_refusal"] = str(e)
+
+    # Step 0 on the step-0 batch, then 6 steps through train_lm.
+    root = ROOT / "build" / "smoke_codebooks"
+    shutil.rmtree(root, ignore_errors=True)
+    args = train_lm_args(MG_ARCH, MG_TRAIN_STEPS, root, "--full", *MG_TRAIN)
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                        global_batch=args.global_batch, codebooks=cb,
+                        seed=args.seed)
+    batch = {key: torch.from_numpy(val).to("cuda")
+             for key, val in lm_batch(data, 0).items()}
+    w = params["heads"]["unembedding"]
+    with torch.no_grad():
+        hidden = TF.forward(params, cfg, tokens=batch["tokens"],
+                            return_hidden=True)[0]
+        chunked = (sum(L.chunked_cross_entropy(
+            hidden, w[i], batch["targets"][..., i], tied=False)
+            for i in range(cb)) / cb).item()
+        logits = TF._logits(params, cfg, hidden)
+        dense = (sum(L.cross_entropy(logits[:, :, i], batch["targets"][..., i])
+                     for i in range(cb)) / cb).item()
+        del logits, hidden
+        loss32 = TF.loss_fn(params, cfg32, batch)[0].item()
+    ce_rel = abs(chunked - dense) / dense
+    bf16_rel = abs(chunked - loss32) / loss32
+    want = ce_prediction(cfg)
+    print(f"  step 0: chunked CE {chunked:.6f} (mean of {cb} codebooks; "
+          f"predicted {want:.4f}), dense CE of the full logits {dense:.6f} "
+          f"(rel {ce_rel:.2e}, gate {LM_CE_RTOL}); fp32-compute loss "
+          f"{loss32:.6f} (rel {bf16_rel:.2e}, gate {LM_BF16_LOSS_RTOL})")
+    if ce_rel > LM_CE_RTOL or bf16_rel > LM_BF16_LOSS_RTOL:
+        fail(f"{MG_ARCH} step 0: chunked {chunked}, dense {dense}, fp32 "
+             f"{loss32}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = launch.train_lm(cfg, args, params=params)
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [hh["loss"] for hh in tr.history if "loss" in hh]
+    host_ms = [t * 1e3 for t in tr.step_seconds]
+    step_ms = statistics.median(host_ms[1:])
+    tokens = args.global_batch * args.seq_len
+    loss0_rel = abs(losses[0] - want) / want
+    print(f"  {MG_TRAIN_STEPS} steps at batch {args.global_batch} x "
+          f"{args.seq_len} x {cb} codebooks in {wall:.1f} s; losses "
+          f"{[round(v, 5) for v in losses]} (step 0 {loss0_rel:.2%} from "
+          f"the prediction); host-clock steps "
+          f"{[round(t, 1) for t in host_ms]} ms (median after the first "
+          f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s); "
+          f"telemetry {tr.telemetry}; peak memory {peak:.2f} GB")
+    if len(losses) != MG_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or tr.telemetry["skipped"] or loss0_rel > LM_LOSS0_RTOL \
+            or abs(losses[0] - chunked) > LM_CE_RTOL * chunked:
+        fail(f"{MG_ARCH} training: losses {losses}, telemetry "
+             f"{tr.telemetry}, step 0 vs chunked CE {chunked}")
+    rec.update(chunked_ce=chunked, dense_ce=dense, ce_rel=ce_rel,
+               loss_fp32=loss32, bf16_loss_rel=bf16_rel,
+               loss0_predicted=want, losses=losses, host_step_ms=host_ms,
+               step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+               train_peak_gb=peak, train_wall_s=wall, **step_profile(tr))
+    del tr, params, batch
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def frontend_phase(record: dict) -> None:
+    """Phase 17(d): pixtral-12b at its published widths, cut to
+    ``PX_LAYERS`` layers, with (B, 256, D) frontend embeddings."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as reg
+    from repro_torch.models import transformer as TF
+
+    full = reg.get(PX_ARCH).config
+    cfg32 = dataclasses.replace(full, n_layers=PX_LAYERS, dtype=torch.float32)
+    rec = record["frontend"] = dict(arch=PX_ARCH, layers=PX_LAYERS,
+                                    params=cfg32.param_count())
+    params = draw(cfg32, f"{full.name} cut to {PX_LAYERS} layers")
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    fe = torch.randn(2, PX_FRONTEND, full.d_model, device="cuda",
+                     generator=g)
+    toks = torch.randint(0, full.vocab, (2, PX_TEXT), device="cuda",
+                         generator=g)
+    targets = torch.randint(0, full.vocab, (2, PX_TEXT), device="cuda",
+                            generator=g)
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        logits = TF.forward(params, cfg32, tokens=toks, frontend=fe)[0]
+        torch.cuda.synchronize()
+        fwd_s = time.monotonic() - t0
+        if logits.shape != (2, PX_FRONTEND + PX_TEXT, full.vocab) \
+                or not bool(torch.isfinite(logits).all()):
+            fail(f"frontend forward: logits {tuple(logits.shape)}")
+        loss, _ = TF.loss_fn(params, cfg32, {"tokens": toks,
+                                             "targets": targets,
+                                             "frontend": fe})
+        hidden = TF.forward(params, cfg32, tokens=toks, frontend=fe,
+                            return_hidden=True)[0]
+        text = L.chunked_cross_entropy(hidden[:, PX_FRONTEND:],
+                                       params["unembed"]["unembedding"],
+                                       targets, tied=False)
+        loss_rel = abs(loss.item() - text.item()) / text.item()
+        worst = 0.0
+        n = PX_TEXT - PX_DECODE_STEPS
+        last, caches = TF.prefill(params, cfg32, toks[:, :n],
+                                  cache_len=LM_CACHE, frontend=fe)
+        worst = (last - logits[:, PX_FRONTEND + n - 1]).abs().max().item()
+        for i in range(PX_DECODE_STEPS):
+            pos = torch.full((2,), PX_FRONTEND + n + i, device="cuda")
+            last, caches = TF.decode_step(params, cfg32, toks[:, n + i],
+                                          caches, pos)
+            worst = max(worst, (last - logits[:, PX_FRONTEND + n + i])
+                        .abs().max().item())
+        worst /= logits.abs().max().item()
+    print(f"  forward with a (2, {PX_FRONTEND}, {full.d_model}) frontend and "
+          f"{PX_TEXT} text tokens in fp32: logits "
+          f"{tuple(logits.shape)} in {fwd_s:.2f} s; loss_fn {loss.item():.6f}"
+          f" vs the chunked CE of the hidden state after the frontend "
+          f"{text.item():.6f} (rel {loss_rel:.1e}); prefill with the "
+          f"frontend + {PX_DECODE_STEPS} decode steps vs the teacher-forced "
+          f"forward: worst {worst:.2e} (gate {DECODE_RTOL}); {gpu_memory()}")
+    if loss_rel > 1e-6 or worst > DECODE_RTOL:
+        fail(f"{PX_ARCH}: loss {loss.item()} vs {text.item()}, decode "
+             f"{worst}")
+    rec.update(loss=loss.item(), text_ce=text.item(), loss_rel=loss_rel,
+               decode_rel=worst, forward_s=fwd_s)
+    del params, logits, hidden, caches, fe
+    torch.cuda.empty_cache()
+
+
+def reduced_phase(record: dict) -> None:
+    """Phase 17(e): each family's reduced config in fp32, 3 steps of
+    ``train_lm`` on the card and on the CPU."""
+    import shutil
+
+    from repro_torch.launch import train as launch
+    from repro_torch.models import registry as reg
+
+    root = ROOT / "build" / "smoke_p17_reduced"
+    out = record["p17_reduced"] = {}
+    for arch in P17_ARCHS:
+        hist = {}
+        for dev in ("cuda", "cpu"):
+            a = train_lm_args(arch, P17_REDUCED_STEPS,
+                              root / f"{arch}_{dev}")
+            a.device = dev
+            tr = launch.train_lm(reg.get(arch).config, a)
+            hist[dev] = [hh["loss"] for hh in tr.history if "loss" in hh]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(hist["cuda"],
+                                                      hist["cpu"]))
+        print(f"  reduced {arch} (fp32, TF32 off): card "
+              f"{[round(v, 6) for v in hist['cuda']]}, CPU "
+              f"{[round(v, 6) for v in hist['cpu']]}; worst relative "
+              f"difference {rel:.2e} (gate {LM_CARD_CPU_RTOL})")
+        if len(hist["cuda"]) != P17_REDUCED_STEPS or rel > LM_CARD_CPU_RTOL:
+            fail(f"reduced {arch} differs between card and CPU: {hist}")
+        out[arch] = dict(card=hist["cuda"], cpu=hist["cpu"], rel=rel)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def families_phase(record: dict) -> None:
+    """Phase 17: (a)-(e); no kernel of the port launches."""
+    t0 = time.monotonic()
+    reset_counts()
+    print(f"  (a) rwkv6-3b at full width and depth: WKV, served; "
+          f"{RW_TRAIN_LAYERS} layers trained")
+    rwkv_phase(record)
+    print(f"  (b) {MOE_ARCH} at full width, {MOE_LAYERS} layers: served; one "
+          f"layer's loss and gradient")
+    moe_phase(record)
+    print("  (c) musicgen-medium at full width and depth: decode, refusal, "
+          "trained")
+    codebook_phase(record)
+    print(f"  (d) {PX_ARCH} at full width, {PX_LAYERS} layers, with frontend "
+          f"embeddings")
+    frontend_phase(record)
+    print("  (e) the five reduced configs, card vs CPU")
+    reduced_phase(record)
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"the LM paths launched a kernel: {counts}")
+    record["phase17_s"] = time.monotonic() - t0
+    print(f"  phase 17 in {record['phase17_s']:.1f} s on {smi()}; no kernel "
+          f"of the port launched (its LM paths are plain PyTorch, as the "
+          f"JAX model's are XLA)")
+
+
 def main() -> int:
     try:
         import torch
@@ -4240,6 +5092,15 @@ def main() -> int:
     print(f"  nvidia-smi: {card}")
     print(f"  TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}")
+    if sys.argv[1:] == ["--only", "17"]:
+        # A debugging run of phase 17 alone: no kernels line, no result.
+        print("== 17. the remaining LM families (alone)")
+        families_phase(record)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps(record, indent=2))
+        print(f"  details in {OUT.relative_to(ROOT)}; "
+              f"{time.monotonic() - t_start:.0f} s in all")
+        return 0
 
     print("== 2. build")
     from repro_torch.kernels import _build
@@ -4694,6 +5555,10 @@ def main() -> int:
     print("== 16. LM training at full width; recurrentgemma-9b served and "
           "trained")
     lm_train_phase(record)
+
+    print("== 17. the remaining LM families: rwkv6-3b, dbrx-132b, "
+          "musicgen-medium, pixtral-12b")
+    families_phase(record)
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

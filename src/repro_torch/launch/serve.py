@@ -7,8 +7,9 @@ LM archs run the token slot engine (continuous batching):
         [--requests 8] [--slots 4] [--cache-len 128] [--max-new-tokens 16] \
         [--ckpt DIR] [--reduced]
 
-with seeded prompts of 4-12 tokens.  DCL detection archs run the
-shape-bucketed engine:
+with seeded prompts of 4-12 tokens; a multi-codebook arch
+(musicgen-medium) is refused, as the JAX launcher refuses it.  DCL
+detection archs run the shape-bucketed engine:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch resnet50_dcn_bounded --buckets 256,512 --requests 8 \
@@ -193,7 +194,12 @@ def serve_lm(cfg: TF.ModelConfig, args, *, params=None):
     tokens drawn from ``np.random.RandomState(0)`` (as the JAX launcher
     does), run until drained.  Returns ``(engine, steps, seconds)``;
     ``params``, when given, replaces the init from ``args.seed`` and
-    ``--ckpt``."""
+    ``--ckpt``.  A multi-codebook config is refused, as the JAX launcher
+    refuses it: the engine keeps one token a slot."""
+    if cfg.codebooks > 1:
+        raise SystemExit("the slot engine tracks one token per slot; "
+                         "multi-codebook decoding (musicgen) needs a "
+                         "(slots, codebooks) token state — not wired yet")
     if params is None:
         params = load_params(lambda: TF.init_params(
             cfg, seed=args.seed, device=args.device), args)

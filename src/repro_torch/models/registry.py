@@ -1,12 +1,12 @@
 """Architecture registry: ``--arch <id>`` -> config and shape set
-(counterpart of ``repro.models.registry`` for the LMs the port runs: the
-dense ones and the RG-LRU hybrid).
+(counterpart of ``repro.models.registry`` for its LMs: dense, MoE,
+RWKV-6, the RG-LRU hybrid, multi-codebook audio and the VLM backbone).
 
-Each ported config module registers an ``ArchSpec`` with its published
+Each config module registers an ``ArchSpec`` with its published
 configuration.  The DCL detection configs are in
-``repro_torch.configs.resnet50_dcn``; the other architectures of the JAX
-registry wait in ROADMAP Queue A: RWKV-6 (item 7), MoE (item 8),
-multi-codebook and VLM (item 9), command-r (item 10).
+``repro_torch.configs.resnet50_dcn``.  command-r-35b waits for the
+port's ``distributed/`` (ROADMAP Queue A item 10): its 140 GB of fp32
+params fit no single card.
 """
 from __future__ import annotations
 
@@ -15,7 +15,9 @@ import importlib
 
 import torch
 
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.rglru import RGLRUConfig
+from repro_torch.models.rwkv6 import RWKVConfig
 from repro_torch.models.transformer import ModelConfig
 
 
@@ -40,7 +42,7 @@ LM_SHAPES: dict[str, ShapeSpec] = {
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str                       # dense | hybrid
+    family: str                       # dense | moe | ssm | hybrid | audio | vlm
     config: ModelConfig
     shapes: dict[str, ShapeSpec]
     long_context_ok: bool = False     # may run long_500k
@@ -51,7 +53,8 @@ class ArchSpec:
 _REGISTRY: dict[str, ArchSpec] = {}
 
 ARCH_MODULES = ["tinyllama_1_1b", "glm4_9b", "deepseek_7b",
-                "recurrentgemma_9b"]
+                "recurrentgemma_9b", "musicgen_medium", "pixtral_12b",
+                "rwkv6_3b", "dbrx_132b", "grok_1_314b"]
 
 
 def register(spec: ArchSpec) -> ArchSpec:
@@ -72,8 +75,8 @@ def get(name: str) -> ArchSpec:
         raise KeyError(
             f"arch {name!r} is not in the port's registry, which has "
             f"{sorted(_REGISTRY)}; the DCL configs are in "
-            f"repro_torch.configs.resnet50_dcn, the other architectures "
-            f"wait in ROADMAP Queue A items 7-10")
+            f"repro_torch.configs.resnet50_dcn, and command-r-35b waits "
+            f"for distributed/ (ROADMAP Queue A item 10)")
     return _REGISTRY[name]
 
 
@@ -84,8 +87,8 @@ def names() -> list[str]:
 
 def reduced_config(arch: ArchSpec | ModelConfig) -> ModelConfig:
     """Small same-family config for CPU tests: the same mixer pattern, GQA
-    ratio, rotary fraction and biases at tiny widths, in fp32 (as the JAX
-    package's).  Takes an ``ArchSpec`` or its config."""
+    ratio, rotary fraction, biases and MoE routing at tiny widths, in
+    fp32 (as the JAX package's).  Takes an ``ArchSpec`` or its config."""
     cfg = arch.config if isinstance(arch, ArchSpec) else arch
     plen = len(cfg.pattern)
     kw = dict(
@@ -95,6 +98,13 @@ def reduced_config(arch: ArchSpec | ModelConfig) -> ModelConfig:
         name=cfg.name + "-reduced")
     if cfg.window is not None:
         kw["window"] = 16
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(d_model=64, d_ff=128, num_experts=4,
+                              top_k=min(2, cfg.moe.top_k),
+                              kind=cfg.moe.kind)
+    if cfg.rwkv is not None:
+        kw["rwkv"] = RWKVConfig(d_model=64, d_ff=128, head_dim=16,
+                                decay_lora_rank=8)
     if cfg.rglru is not None:
         kw["rglru"] = RGLRUConfig(d_model=64, d_rnn=64)
     return dataclasses.replace(cfg, **kw)

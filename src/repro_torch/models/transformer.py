@@ -1,6 +1,9 @@
-"""Decoder-only LM: the dense GQA configs and the RG-LRU / local-attention
-hybrid of the registry (counterpart of ``repro.models.transformer`` for
-patterns of 'attn' and 'rglru' layers without MoE).
+"""Decoder-only LM covering the registry's architectures (counterpart of
+``repro.models.transformer``): dense GQA transformers, MoE transformers
+(dbrx, grok-1), multi-codebook audio decoders (musicgen), prepended
+frontend embeddings (pixtral), attention-free RWKV-6 and the RG-LRU /
+local-attention hybrid, through a periodic layer ``pattern`` of mixer
+kinds ('attn' | 'rwkv6' | 'rglru').
 
 Parameters of one pattern period are stacked along a leading
 ``n_periods`` axis (``params["layers"]``), as in the JAX package, so a
@@ -12,13 +15,12 @@ recomputes each period's activations in the backward as JAX's
 the weight products, 'none' keeps everything; no mode changes a result.
 Three modes share the layer code: 'train' (full sequence, no cache),
 'prefill' (full sequence, emits caches) and 'decode' (one token, carries
-caches).  Attention is the plain PyTorch ``layers.attention``, as the JAX
-model's is plain XLA.  ``loss_fn`` is the training objective: the
-chunked cross entropy of the final hidden state.
-
-The MoE and RWKV-6 mixers, multi-codebook heads and frontend embeddings
-are not ported yet (ROADMAP Queue A items 7-9): a config that asks for
-one raises ``NotImplementedError``.
+caches).  Every layer returns its MoE load-balancing loss (0 without
+MoE); ``forward`` sums them.  Attention is the plain PyTorch
+``layers.attention``, as the JAX model's is plain XLA.  ``loss_fn`` is
+the training objective: the chunked cross entropy of the final hidden
+state (on the text positions after a frontend; the mean over codebooks)
+plus ``moe_aux_coef`` times the summed aux loss.
 """
 from __future__ import annotations
 
@@ -33,6 +35,11 @@ import torch.utils.checkpoint as ckpt
 from repro_torch import tree as T
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_def
+from repro_torch.models.rwkv6 import (RWKVConfig, channel_mix_apply,
+                                      channel_mix_def, channel_mix_step,
+                                      time_mix_apply, time_mix_def,
+                                      time_mix_step)
 from repro_torch.models.rglru import (CONV_WIDTH, RGLRUConfig,
                                       rglru_block_apply, rglru_block_def,
                                       rglru_block_step)
@@ -67,8 +74,8 @@ class ModelConfig:
     tie_embeddings: bool = True
     qk_norm: bool = False
     pattern: tuple[str, ...] = ("attn",)
-    moe: Any = None                    # not ported yet (ROADMAP)
-    rwkv: Any = None                   # not ported yet (ROADMAP)
+    moe: MoEConfig | None = None
+    rwkv: RWKVConfig | None = None
     rglru: RGLRUConfig | None = None
     codebooks: int = 1                 # musicgen: 4 parallel codebooks
     frontend_embeds: bool = False      # pixtral: extra (B, P, D) embeds input
@@ -109,22 +116,15 @@ class ModelConfig:
             + self.n_periods * sum(math.prod(d.shape)
                                    for d in T.leaves(period))
 
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config that needs a module the port lacks."""
-    missing = [what for what, used in (
-        ("MoE (models/moe.py, ROADMAP Queue A item 8)", cfg.moe is not None),
-        ("RWKV-6 (models/rwkv6.py, ROADMAP Queue A item 7)",
-         cfg.rwkv is not None or "rwkv6" in cfg.pattern),
-        ("multi-codebook heads (ROADMAP Queue A item 9)", cfg.codebooks > 1),
-        ("frontend embeddings (ROADMAP Queue A item 9)",
-         cfg.frontend_embeds)) if used]
-    if not missing and not set(cfg.pattern) <= set(_LAYER_APPLY):
-        missing.append(f"pattern {cfg.pattern} (ROADMAP Queue A)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the port runs "
-            f"patterns of attention and RG-LRU layers")
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of num_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        experts = sum(math.prod(d.shape) for name, d in
+                      moe_def(self.moe).items() if name != "w_router")
+        inactive = experts * self.n_layers \
+            * (1 - self.moe.top_k / self.moe.num_experts)
+        return int(self.param_count() - inactive)
 
 
 # ---------------------------------------------------------------------------
@@ -133,26 +133,40 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _layer_def(cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
+    if kind == "attn":
+        out = {"norm1": L.norm_def(d, cfg.norm),
+               "attn": L.attn_def(cfg.attn_cfg())}
+        if not cfg.parallel_block:
+            out["norm2"] = L.norm_def(d, cfg.norm)
+        out["ffn"] = moe_def(cfg.moe) if cfg.moe else L.mlp_def(cfg.mlp_cfg())
+        return out
+    if kind == "rwkv6":
+        return {"norm1": L.norm_def(d, cfg.norm),
+                "tm": time_mix_def(cfg.rwkv),
+                "norm2": L.norm_def(d, cfg.norm),
+                "cm": channel_mix_def(cfg.rwkv)}
     if kind == "rglru":
         return {"norm1": L.norm_def(d, cfg.norm),
                 "rec": rglru_block_def(cfg.rglru),
                 "norm2": L.norm_def(d, cfg.norm),
                 "ffn": L.mlp_def(cfg.mlp_cfg())}
-    out = {"norm1": L.norm_def(d, cfg.norm),
-           "attn": L.attn_def(cfg.attn_cfg())}
-    if not cfg.parallel_block:
-        out["norm2"] = L.norm_def(d, cfg.norm)
-    out["ffn"] = L.mlp_def(cfg.mlp_cfg())
-    return out
+    raise ValueError(kind)
 
 
 def model_def(cfg: ModelConfig) -> dict:
-    """ParamDef tree (period layers declared ONCE; stacked at init)."""
-    check_supported(cfg)
+    """ParamDef tree (period layers declared ONCE; stacked at init).  A
+    multi-codebook model has a (CB, V, D) embedding and (CB, D, V)
+    heads."""
     d, v = cfg.d_model, cfg.vocab
-    defs: dict[str, Any] = {"embed": L.embed_def(v, d)}
-    if not cfg.tie_embeddings:
-        defs["unembed"] = L.unembed_def(v, d)
+    defs: dict[str, Any] = {}
+    if cfg.codebooks > 1:
+        defs["embed"] = {"embedding": L.ParamDef(
+            (cfg.codebooks, v, d), init="embed", scale=0.02)}
+        defs["heads"] = {"unembedding": L.ParamDef((cfg.codebooks, d, v))}
+    else:
+        defs["embed"] = L.embed_def(v, d)
+        if not cfg.tie_embeddings:
+            defs["unembed"] = L.unembed_def(v, d)
     defs["final_norm"] = L.norm_def(d, cfg.norm)
     for i, kind in enumerate(cfg.prefix):
         defs[f"prefix{i}"] = _layer_def(cfg, kind)
@@ -185,18 +199,27 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 def _layer_cache_def(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int) -> dict:
+    if kind == "attn":
+        return L.attn_cache_def(cfg.attn_cfg(), batch, cache_len,
+                                dtype=cfg.dtype)
+    if kind == "rwkv6":
+        h, dh, d = cfg.rwkv.n_heads, cfg.rwkv.head_dim, cfg.d_model
+        return {"shift_tm": L.ParamDef((batch, d), init="zeros",
+                                       dtype=cfg.dtype),
+                "wkv": L.ParamDef((batch, h, dh, dh), init="zeros",
+                                  dtype=torch.float32),
+                "shift_cm": L.ParamDef((batch, d), init="zeros",
+                                       dtype=cfg.dtype)}
     if kind == "rglru":
         dr = cfg.rglru.d_rnn
         return {"h": L.ParamDef((batch, dr), init="zeros",
                                 dtype=torch.float32),
                 "conv": L.ParamDef((batch, CONV_WIDTH - 1, dr),
                                    init="zeros", dtype=cfg.dtype)}
-    return L.attn_cache_def(cfg.attn_cfg(), batch, cache_len,
-                            dtype=cfg.dtype)
+    raise ValueError(kind)
 
 
 def cache_def(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
-    check_supported(cfg)
     defs: dict[str, Any] = {
         f"prefix{i}": _layer_cache_def(cfg, kind, batch, cache_len)
         for i, kind in enumerate(cfg.prefix)}
@@ -210,7 +233,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     """Zero caches, ``layers`` leaves led by the period axis: attention
     K/V (n_periods, batch, cache_len, KV, Dh) in ``cfg.dtype``; RG-LRU
     ``h`` (n_periods, batch, d_rnn) in fp32 and ``conv`` taps
-    (n_periods, batch, 3, d_rnn) in ``cfg.dtype``."""
+    (n_periods, batch, 3, d_rnn) in ``cfg.dtype``; RWKV-6 ``shift_tm``
+    and ``shift_cm`` (n_periods, batch, D) in ``cfg.dtype`` and ``wkv``
+    (n_periods, batch, H, Dh, Dh) in fp32."""
     dev = resolve_device(device)
     defs = cache_def(cfg, batch, cache_len)
     period = defs.pop("period")
@@ -260,13 +285,50 @@ def _apply_attn_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
             a = a + params["attn"]["bo"].to(x.dtype)
         if mode == "prefill":
             new_cache = _attn_prefill_cache(cfg, k, v, cache_len)
+    full_cap = mode == "decode"
+
+    def ffn(h):
+        if cfg.moe:
+            return moe_apply(params["ffn"], h, cfg.moe,
+                             full_capacity=full_cap)
+        return L.mlp_apply(params["ffn"], h, cfg.mlp_cfg()), 0.0
     if cfg.parallel_block:
-        x = x + a + L.mlp_apply(params["ffn"], h, cfg.mlp_cfg())
+        f, aux = ffn(h)
+        x = x + a + f
     else:
         x = x + a
+        f, aux = ffn(L.apply_norm(params["norm2"], x, cfg.norm))
+        x = x + f
+    return x, new_cache, aux
+
+
+def _apply_rwkv_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
+                      cache, positions: Tensor, cache_len: int | None):
+    """Train and prefill start from zero state, as JAX's do (its prefill
+    reads the cache's ``shift_tm`` and drops it); the caches hold the
+    normed inputs of the last token in ``cfg.dtype`` and the fp32 WKV
+    state."""
+    h = L.apply_norm(params["norm1"], x, cfg.norm)
+    if mode == "decode":
+        y, (sh_tm, wkv) = time_mix_step(
+            params["tm"], h[:, 0], cfg.rwkv, shift_state=cache["shift_tm"],
+            wkv_state=cache["wkv"])
+        x = x + y[:, None]
         h2 = L.apply_norm(params["norm2"], x, cfg.norm)
-        x = x + L.mlp_apply(params["ffn"], h2, cfg.mlp_cfg())
-    return x, new_cache
+        y2, sh_cm = channel_mix_step(params["cm"], h2[:, 0], cfg.rwkv,
+                                     shift_state=cache["shift_cm"])
+        x = x + y2[:, None]
+    else:
+        y, (sh_tm, wkv) = time_mix_apply(params["tm"], h, cfg.rwkv)
+        x = x + y
+        h2 = L.apply_norm(params["norm2"], x, cfg.norm)
+        y2, sh_cm = channel_mix_apply(params["cm"], h2, cfg.rwkv)
+        x = x + y2
+    new_cache = None
+    if mode in ("decode", "prefill"):
+        new_cache = {"shift_tm": sh_tm.to(cfg.dtype), "wkv": wkv,
+                     "shift_cm": sh_cm.to(cfg.dtype)}
+    return x, new_cache, 0.0
 
 
 def _apply_rglru_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
@@ -284,11 +346,12 @@ def _apply_rglru_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
     new_cache = None
     if mode in ("decode", "prefill"):
         new_cache = {"h": state["h"], "conv": state["conv"].to(cfg.dtype)}
-    return x, new_cache
+    return x, new_cache, 0.0
 
 
 _LAYER_APPLY = {
     "attn": _apply_attn_layer,
+    "rwkv6": _apply_rwkv_layer,
     "rglru": _apply_rglru_layer,
 }
 
@@ -297,15 +360,30 @@ _LAYER_APPLY = {
 # Full model forward
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    x = L.embed_apply(params["embed"], tokens, cfg.dtype)
+def _embed(params, cfg: ModelConfig, tokens: Tensor,
+           frontend: Tensor | None) -> Tensor:
+    """Token embeddings (a multi-codebook model sums its codebooks' in
+    order), scaled by sqrt(D) where the config says, after a prepended
+    frontend (B, P, D)."""
+    if cfg.codebooks > 1:
+        emb = params["embed"]["embedding"]               # (CB, V, D)
+        x = sum(emb[i][tokens[..., i]].to(cfg.dtype)
+                for i in range(cfg.codebooks))
+    else:
+        x = L.embed_apply(params["embed"], tokens, cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
+    if frontend is not None:
+        x = torch.cat([frontend.to(cfg.dtype), x], 1)
     return x
 
 
 def _logits(params, cfg: ModelConfig, x: Tensor) -> Tensor:
-    if cfg.tie_embeddings:
+    """fp32 logits (B, S, V), or (B, S, CB, V) with codebooks."""
+    if cfg.codebooks > 1:
+        w = params["heads"]["unembedding"].to(x.dtype)    # (CB, D, V)
+        logits = torch.einsum("bsd,cdv->bscv", x.float(), w.float())
+    elif cfg.tie_embeddings:
         logits = L.logits_apply(params["embed"], x)
     else:
         logits = L.unembed_apply(params["unembed"], x)
@@ -346,40 +424,45 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return run
 
 
-def forward(params, cfg: ModelConfig, *, tokens: Tensor, mode: str = "train",
+def forward(params, cfg: ModelConfig, *, tokens: Tensor,
+            frontend: Tensor | None = None, mode: str = "train",
             caches=None, positions: Tensor | None = None,
             cache_len: int | None = None, return_hidden: bool = False):
-    """Returns (logits_or_hidden, new_caches, aux_loss); aux_loss is 0 (no
-    MoE).  tokens: (B, S) integer.  ``return_hidden`` returns the
+    """Returns (logits_or_hidden, new_caches, aux_loss).  tokens: (B, S)
+    integer, (B, S, CB) with codebooks; frontend: (B, P, D) embeddings
+    prepended to the tokens'.  aux_loss (fp32) sums the layers' MoE
+    load-balancing losses, 0 without MoE.  ``return_hidden`` returns the
     final-normed hidden state and skips the unembedding (the training
     loss takes the chunked CE path instead); prefill slices to the last
     position before the unembedding, as in JAX."""
-    check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, frontend)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     kw = dict(mode=mode, positions=positions, cache_len=cache_len)
+    aux = torch.zeros((), device=x.device)
     new_caches: dict[str, Any] = {}
     for i, kind in enumerate(cfg.prefix):
         c = caches.get(f"prefix{i}") if caches else None
-        x, nc = _LAYER_APPLY[kind](params[f"prefix{i}"], x, cfg, cache=c,
-                                   **kw)
+        x, nc, a = _LAYER_APPLY[kind](params[f"prefix{i}"], x, cfg, cache=c,
+                                      **kw)
+        aux = aux + a
         if nc is not None:
             new_caches[f"prefix{i}"] = nc
 
-    def period(x, per_params, per_caches):
+    def period(x, aux, per_params, per_caches):
         per_new = {}
         for j, kind in enumerate(cfg.pattern):
             name = f"m{j}"
             c = per_caches[name] if per_caches is not None else None
-            x, nc = _LAYER_APPLY[kind](per_params[name], x, cfg, cache=c,
-                                       **kw)
+            x, nc, a = _LAYER_APPLY[kind](per_params[name], x, cfg, cache=c,
+                                          **kw)
+            aux = aux + a
             if nc is not None:
                 per_new[name] = nc
-        return x, per_new
+        return x, aux, per_new
 
     body = _maybe_remat(period, cfg)
     layer_caches = caches["layers"] if caches else None
@@ -387,16 +470,15 @@ def forward(params, cfg: ModelConfig, *, tokens: Tensor, mode: str = "train",
     for i in range(cfg.n_periods):
         def take(t):
             return T.tree_map(lambda a: a[i], t)
-        x, per_new = body(x, take(params["layers"]),
-                          None if layer_caches is None
-                          else take(layer_caches))
+        x, aux, per_new = body(x, aux, take(params["layers"]),
+                               None if layer_caches is None
+                               else take(layer_caches))
         if per_new:
             period_caches.append(per_new)
     if period_caches:
         new_caches["layers"] = T.tree_map(lambda *xs: torch.stack(xs),
                                           *period_caches)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    aux = torch.zeros((), device=x.device)
     if return_hidden:
         return x, (new_caches or None), aux
     if mode == "prefill":
@@ -405,35 +487,51 @@ def forward(params, cfg: ModelConfig, *, tokens: Tensor, mode: str = "train",
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict):
-    """batch: tokens (B, S), targets (B, S), optional mask (B, S).
-    Returns (loss, {"ce", "moe_aux"}).  The chunked-CE path: the
+    """batch: tokens (B, S[, CB]), targets (B, S[, CB]), optional mask
+    (B, S), optional frontend (B, P, D).  Returns (loss, {"ce",
+    "moe_aux"}): the chunked CE on the text positions (after the
+    frontend), the mean over codebooks, plus ``moe_aux_coef`` x aux.  The
     (B, S, V) logits tensor never exists."""
+    frontend = batch.get("frontend")
     hidden, _, aux = forward(params, cfg, tokens=batch["tokens"],
-                             mode="train", return_hidden=True)
-    if cfg.tie_embeddings:
-        w, tied = params["embed"]["embedding"], True
+                             frontend=frontend, mode="train",
+                             return_hidden=True)
+    if frontend is not None:
+        hidden = hidden[:, frontend.shape[1]:]
+    targets, mask = batch["targets"], batch.get("mask")
+    kw = dict(logit_scale=cfg.logit_scale, softcap=cfg.logits_softcap)
+    if cfg.codebooks > 1:
+        w = params["heads"]["unembedding"]               # (CB, D, V)
+        ce = sum(L.chunked_cross_entropy(hidden, w[i], targets[..., i], mask,
+                                         tied=False, **kw)
+                 for i in range(cfg.codebooks)) / cfg.codebooks
     else:
-        w, tied = params["unembed"]["unembedding"], False
-    ce = L.chunked_cross_entropy(hidden, w, batch["targets"],
-                                 batch.get("mask"), tied=tied,
-                                 logit_scale=cfg.logit_scale,
-                                 softcap=cfg.logits_softcap)
+        if cfg.tie_embeddings:
+            w, tied = params["embed"]["embedding"], True
+        else:
+            w, tied = params["unembed"]["unembedding"], False
+        ce = L.chunked_cross_entropy(hidden, w, targets, mask, tied=tied,
+                                     **kw)
     return ce + cfg.moe_aux_coef * aux, {"ce": ce, "moe_aux": aux}
 
 
-def prefill(params, cfg: ModelConfig, tokens: Tensor, *, cache_len: int):
-    """Returns (last-position logits (B, V), caches)."""
-    logits, caches, _ = forward(params, cfg, tokens=tokens, mode="prefill",
+def prefill(params, cfg: ModelConfig, tokens: Tensor, *, cache_len: int,
+            frontend: Tensor | None = None):
+    """Returns (last-position logits (B, V) or (B, CB, V), caches); the
+    caches' positions count the frontend's."""
+    logits, caches, _ = forward(params, cfg, tokens=tokens,
+                                frontend=frontend, mode="prefill",
                                 cache_len=cache_len)
     return logits[:, -1], caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens: Tensor, caches,
                 pos: Tensor):
-    """One decode step.  tokens: (B,); pos: (B,) absolute positions.
-    Returns (logits (B, V), new caches); the caches passed in are not
-    changed."""
+    """One decode step.  tokens: (B,), or (B, CB) with codebooks; pos:
+    (B,) absolute positions.  Returns (logits (B, V) or (B, CB, V), new
+    caches); the caches passed in are not changed."""
+    t = tokens[:, None] if cfg.codebooks == 1 else tokens[:, None, :]
     logits, new_caches, _ = forward(
-        params, cfg, tokens=tokens[:, None], mode="decode", caches=caches,
+        params, cfg, tokens=t, mode="decode", caches=caches,
         positions=pos[:, None], cache_len=None)
     return logits[:, 0], new_caches

@@ -129,7 +129,10 @@ def test_every_kernel_module_is_checked():
                  "tune", "tune.cache", "tune.autotune", "resilience",
                  "resilience.faults", "launch.obs_report", "models.rglru",
                  "configs.recurrentgemma_9b", "data.pipeline",
-                 "launch.train"):
+                 "launch.train", "models.rwkv6", "models.moe",
+                 "configs.rwkv6_3b", "configs.dbrx_132b",
+                 "configs.grok_1_314b", "configs.musicgen_medium",
+                 "configs.pixtral_12b"):
         assert f"repro_torch.{name}" in mods
 
 

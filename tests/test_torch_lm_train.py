@@ -280,13 +280,21 @@ def test_forward_returns_the_final_normed_hidden_state():
     assert _rel(TT._logits(tp, tcfg, got).detach(), logits.detach()) == 0
 
 
-def test_loss_fn_refuses_what_the_port_lacks():
-    _, tcfg = _configs("tinyllama-1.1b")
-    batch = {k: torch.from_numpy(v)
-             for k, v in _batch(tcfg.vocab, 1, 4, seed=0).items()}
-    for change in (dict(codebooks=4), dict(frontend_embeds=True)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TT.loss_fn({}, dataclasses.replace(tcfg, **change), batch)
+def test_unknown_layer_kind_raises_value_error():
+    """A pattern of a mixer kind neither package knows raises ValueError
+    naming it, in the params' and in the caches' definitions, as JAX's
+    ``_layer_def`` does."""
+    jcfg, tcfg = _configs("tinyllama-1.1b")
+    jbad = dataclasses.replace(jcfg, pattern=("attn", "mamba"))
+    tbad = dataclasses.replace(tcfg, pattern=("attn", "mamba"))
+    with pytest.raises(ValueError, match="mamba"):
+        JT.model_def(jbad)
+    with pytest.raises(ValueError, match="mamba"):
+        TT.model_def(tbad)
+    with pytest.raises(ValueError, match="mamba"):
+        TT.init_params(tbad, device="cpu")
+    with pytest.raises(ValueError, match="mamba"):
+        TT.init_cache(tbad, 1, 8, device="cpu")
 
 
 # ---------------------------------------------------------------------------
