@@ -302,6 +302,49 @@ Phases, each of which exits non-zero on failure:
    of the teacher-forced forward. (e) the five reduced configs in fp32,
    3 ``train_lm`` steps on the card and on the CPU within 1e-4.
    ``--only 17`` runs phases 1 and 17 alone and prints no result.
+18. the device mesh, on one card: every mesh repeats ``cuda:0`` (the
+   single-controller mesh of ``distributed.sharding``: one card runs every
+   shard, halo exchange and kernel launch).  (a) the spatial (height)
+   shard of kernels 1a, 1c and 2 at the five distinct shapes of the 512
+   bucket's 12 DCLs (batch 4) at 2 and 4 shards and a stride-2 edge case
+   (24x21, ragged width), offsets beyond ±B in a share of taps: 1a with
+   pinned tiles (tile_h dividing the shard's rows) ``torch.equal`` to the
+   unsharded kernel, with the chooser's shard-local tiles within 1e-5 *
+   max|y|; 1c pinned ``torch.equal``; kernel 2's three gradients within
+   1e-4 * max; one launch of each a shard; each case's unsharded and
+   sharded time (CUDA events).  (b) the engine at buckets 256/512 with
+   ``spatial_shards=((256, 2), (512, 4))`` on ``fp32_kernel`` and on an
+   ``int8_chain`` entry (which enters at ``int8``), 8 requests: every one
+   ``ok`` on its rung, 12 x shards launches of the rung's kernel a step,
+   ``cls``/``box`` against the flat engine within phase 10's 1e-4 * max
+   (fp32: another summation order); int8 by relative norm within half
+   the int8 rung's own error against the flat fp32 engine (the
+   shard-local tile_h moves the band frame a patch rounds in, and the
+   next layer's activation grid turns such a flip into a whole step);
+   each bucket's forward timed beside the flat one.  (c) 2 Trainer steps of full-width
+   resnet50_dcn_bounded at batch 8 x 512 on a (data=2) mesh without and
+   with ``int8_ef`` and with ``shard_spatial`` on a (model=2) mesh:
+   losses finite, 24 launches of 1a and of 2 a run's step; params within
+   a relative norm of the flat Trainer's of twice the flat run's own
+   spread under another summation order (the banded dataflow), and
+   never held below 1e-4 (one bit of the step-0 gradient moves the
+   random full-width model's later gradients by ~4e-3, phase 8), the
+   int8_ef run against the flat int8_ef run (the compression's own move
+   of the run is printed beside it).  cuDNN is deterministic.  (d)
+   command-r-35b at its widths cut to 4 of 40 layers (4.92B params drawn
+   on the card from a seeded CUDA generator): ``serve_lm`` with its
+   defaults, phase 13's prompts and gates through the engine (bf16 cap
+   1.5 x max(1e-2 predicted, 4e-2)), 2 x 8 fp32 tokens equal to
+   ``prefill`` + ``decode_step``; ``pipelined_forward`` at 2 stages x 2
+   layers and 4 microbatches within 1e-5 (relative norm) of
+   ``transformer.forward`` in fp32, and the bubble fraction.  (e) the
+   reduced command-r-35b (forward, pipelined) and the reduced DCL mesh
+   paths (a spatial forward at 128 on 2 shards, 2 data-parallel Trainer
+   steps on 2 shards) card vs CPU within 1e-4.  The main path's launches
+   of 1a, 1c and 2 are counted from 0 over (b) and (c); the kernels line
+   gives each row its ``mesh_launches``.  ``--only 18`` runs phases 1, 2
+   and 18 alone and prints no result.  Phases 16-18 draw their LM params
+   on the card (``card_params``).
 
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
 run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
@@ -4020,9 +4063,10 @@ def rg_serving(record: dict):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    params = TF.init_params(cfg, seed=0, device="cuda")
+    params = card_params(cfg, seed=0)
+    torch.cuda.synchronize()
     rec["init_s"] = time.monotonic() - t0
-    print(f"  params drawn from seed 0 on the CPU and moved in "
+    print(f"  params drawn from seed 0 on the card in "
           f"{rec['init_s']:.1f} s; {gpu_memory()}")
 
     # The scan against the step recurrence on one full-width layer.
@@ -4590,18 +4634,17 @@ def step_profile(trainer) -> dict:
 
 
 def draw(cfg, what: str) -> dict:
-    """Params of ``cfg`` from seed 0 (drawn on the CPU, moved)."""
+    """Params of ``cfg`` from seed 0, drawn on the card (``card_params``)."""
     import torch
 
-    from repro_torch.models import transformer as TF
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    params = TF.init_params(cfg, seed=0, device="cuda")
+    params = card_params(cfg, seed=0)
+    torch.cuda.synchronize()
     print(f"  {what}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
           f"{cfg.vocab}, {cfg.param_count() / 1e9:.3f}B params (fp32, "
           f"{cfg.param_count() * 4 / 1e9:.1f} GB), compute {cfg.dtype}; "
-          f"drawn from seed 0 on the CPU and moved in "
-          f"{time.monotonic() - t0:.1f} s")
+          f"drawn from seed 0 on the card in {time.monotonic() - t0:.1f} s")
     return params
 
 
@@ -5066,6 +5109,612 @@ def families_phase(record: dict) -> None:
           f"JAX model's are XLA)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the device mesh
+# ---------------------------------------------------------------------------
+
+DEV = "cuda"                # phase 18's device (a rehearsal sets "cpu")
+MESH_SHARDS = (2, 4)
+MESH_SPATIAL = ((256, 2), (512, 4))
+MESH_MAX_SHARDS = 4
+MESH_RTOL = 1e-5            # kernel 1a at the chooser's shard-local tiles
+MESH_SERVE_RTOL = BANDED_VS_ZC_RTOL   # served fp32: another summation order
+MESH_INT8_SHARE = 0.5       # served int8 vs the flat int8 engine (relative
+                            # norm) over the int8 rung's own error vs fp32:
+                            # shard-local tiles move the band frame a patch
+                            # rounds in, and the next layer's activation
+                            # grid turns those flips into whole steps
+MESH_SPREAD = 2.0           # params vs the flat Trainer (relative norm):
+                            # at most this x the flat run's own spread under
+                            # another summation order (the banded dataflow),
+                            # and never held below RESUME_RTOL
+MESH_TRAIN_STEPS = 2
+MESH_SECONDS = 90           # phase 18's budget (printed, not gated)
+CR_ARCH = "command-r-35b"
+CR_LAYERS = 4               # 4.92B params (19.7 GB fp32); all 40: 121 GB
+CR_BF16_PREDICTED = 1e-2    # bf16 vs fp32 logits at 4 layers (PERF.md §6)
+CR_BF16_MAX = 1.5 * max(CR_BF16_PREDICTED, LM_BF16_MAX)
+CR_PIPE = (2, 4)            # stages, microbatches
+CR_PIPE_TOKENS = (4, 256)
+CR_PIPE_RTOL = 1e-5         # pipelined vs transformer.forward (fp32)
+CR_GREEDY = (2, 8)
+MESH_CARD_CPU_RTOL = 1e-4
+
+
+def card_params(cfg, seed: int = 0) -> dict:
+    """Params of the LM ``cfg`` drawn on ``DEV`` from a seeded generator
+    of that device, at ``layers.init_param``'s scales: the same
+    distribution as ``transformer.init_params``, another draw, and no
+    host round trip (drawing 14.6B params on the CPU took 130 s, PR 24)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def one(d):
+        kw = dict(device=DEV)
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=d.dtype, **kw)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=d.dtype, **kw)
+        if d.init in ("normal", "embed"):
+            return torch.randn(d.shape, generator=gen, **kw) \
+                .mul_(L.default_scale(d)).to(d.dtype)
+        if d.init == "uniform":
+            lim = L.default_scale(d)
+            return (torch.rand(d.shape, generator=gen, **kw) * (2 * lim)
+                    - lim).to(d.dtype)
+        raise ValueError(f"unknown init {d.init!r}")
+
+    defs = TF.model_def(cfg)
+    period = defs.pop("period")
+    params = tree_map(one, defs)
+    params["layers"] = tree_map(one, TF._stacked(period, cfg.n_periods))
+    return params
+
+
+def repeated_mesh(n: int, names=("model",)):
+    """A mesh of ``n`` shards on the one card (or the CPU)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.sharding import Mesh
+    dev = torch.device(DEV, 0) if DEV == "cuda" else torch.device(DEV)
+    shape = (n,) if len(names) == 1 else n
+    devs = np.empty(shape, dtype=object)
+    devs[...] = dev
+    return Mesh(devs, names)
+
+
+def launch_want(n: int) -> int:
+    """Launches a kernel wrapper counts for ``n`` calls: none on the CPU
+    (the plain versions), where a rehearsal runs this phase."""
+    return n if DEV == "cuda" else 0
+
+
+def n_dcl(cfg) -> int:
+    return sum(cfg.is_dcn(i) for i in range(cfg.total_blocks))
+
+
+def mesh_dcl_config():
+    from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
+    return dataclasses.replace(CONFIG_BOUNDED, use_kernel=True)
+
+
+def rel_max(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def mesh_kernel_case(case: dict, gen) -> dict:
+    """Phase 18(a) at one DCL shape: kernel 1a sharded against unsharded
+    (pinned tiles ``torch.equal``, the chooser's within 1e-5), 1c pinned
+    ``torch.equal``, kernel 2's three gradients within 1e-4, and one
+    launch of each a shard."""
+    import math as _m
+
+    import torch
+
+    from repro_torch.core.tiling import out_hw
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels import ops, plan
+
+    n, h, w, c, m, s, shards = (case[k] for k in
+                                ("n", "h", "w", "c", "m", "stride",
+                                 "shards"))
+    ho, wo = out_hw(h, w, kernel_size=K, stride=s)
+    x = torch.randn(n, h, w, c, device=DEV, generator=gen)
+    off = torch.randn(n, ho, wo, 2 * K * K, device=DEV, generator=gen) * 1.5
+    wt = torch.randn(K * K, c, m, device=DEV, generator=gen) \
+        / (K * K * c) ** 0.5
+    mesh = repeated_mesh(shards)
+    kw = dict(offset_bound=B, stride=s, device=DEV)
+
+    def sharded(*args, **extra):
+        before = read_counts()
+        with use_rules(mesh=mesh):
+            out = ops.deform_conv(*args, shard_spatial=True, **kw, **extra)
+        return out, {k: v - before[k] for k, v in read_counts().items()}
+
+    ref = ops.deform_conv(x, off, wt, **kw)
+    y, launched = sharded(x, off, wt)
+    err_chooser = rel_max(y, ref)
+    ho_loc = ho // shards
+    geom = dict(kernel_size=K, stride=s, dilation=1, offset_bound=B)
+    th, tw, tc, tm = plan.resolve_tiles(n, h, w, c, m, device=x.device,
+                                        **geom)
+    pin = dict(tile_h=_m.gcd(min(th, ho), ho_loc), tile_w=tw, tile_c=tc,
+               tile_m=tm)
+    y_p, _ = sharded(x, off, wt, **pin)
+    equal_fp32 = torch.equal(y_p, ops.deform_conv(x, off, wt, **kw, **pin))
+    qh, qw, qc, qm = plan.resolve_tiles(n, h, w, c, m, dtype="int8",
+                                        device=x.device, **geom)
+    qpin = dict(tile_h=_m.gcd(min(qh, ho), ho_loc), tile_w=qw, tile_c=qc,
+                tile_m=qm)
+    with torch.no_grad():
+        q, q_launched = sharded(x, off, wt, precision="int8", **qpin)
+        equal_int8 = torch.equal(q, ops.deform_conv(
+            x, off, wt, precision="int8", **kw, **qpin))
+    leaves = [t.clone().requires_grad_() for t in (x, off, wt)]
+    gy = torch.randn(n, ho, wo, m, device=DEV, generator=gen)
+    g_ref = torch.autograd.grad(ops.deform_conv(*leaves, **kw), leaves, gy)
+    before = read_counts()
+    with use_rules(mesh=mesh):
+        ys = ops.deform_conv(*leaves, shard_spatial=True, **kw)
+    g_sh = torch.autograd.grad(ys, leaves, gy)
+    bwd = read_counts()["deform_conv_bwd"] - before["deform_conv_bwd"]
+    g_err = [rel_max(a, b) for a, b in zip(g_sh, g_ref)]
+    rec = dict(case, ho=ho, wo=wo, err_chooser=err_chooser,
+               pinned=list(pin.values()), int8_pinned=list(qpin.values()),
+               equal_fp32=equal_fp32, equal_int8=equal_int8,
+               grad_err=g_err, launches=dict(
+                   fwd=launched["deform_conv_fused"],
+                   int8=q_launched["deform_conv_fused_q"], bwd=bwd))
+    if DEV == "cuda":
+        with torch.no_grad():
+            rec["ms"] = time_ms(lambda: ops.deform_conv(x, off, wt, **kw),
+                                reps=3, iters=3)
+            with use_rules(mesh=mesh):
+                rec["sharded_ms"] = time_ms(lambda: ops.deform_conv(
+                    x, off, wt, shard_spatial=True, **kw), reps=3, iters=3)
+    ok = (err_chooser <= MESH_RTOL and equal_fp32 and equal_int8
+          and max(g_err) <= BWD_RTOL
+          and rec["launches"] == dict(fwd=launch_want(shards),
+                                      int8=launch_want(shards),
+                                      bwd=launch_want(shards)))
+    print(f"  {case['label']:<24} {shards} shards: 1a chooser "
+          f"{err_chooser:.2e}, pinned {tuple(pin.values())} equal "
+          f"{equal_fp32}; 1c pinned {tuple(qpin.values())} equal "
+          f"{equal_int8}; kernel 2 dx/doff/dw "
+          f"{', '.join(f'{e:.1e}' for e in g_err)}; launches "
+          f"{rec['launches']}"
+          + (f"; unsharded {rec['ms']:.3f} ms, sharded "
+             f"{rec['sharded_ms']:.3f} ms" if "ms" in rec else "")
+          + (" ok" if ok else " FAIL"))
+    if not ok:
+        fail(f"phase 18(a) {case['label']} at {shards} shards: {rec}")
+    return rec
+
+
+def mesh_kernels(record: dict) -> None:
+    """Phase 18(a): the 12 DCLs' shapes of the 512 bucket at batch 4 (5
+    distinct) at 2 and 4 shards, and a stride-2 edge case."""
+    import torch
+
+    from repro_torch.serve import bucket_layer_dims
+
+    shapes: dict[tuple, int] = {}
+    for dims in bucket_layer_dims(mesh_dcl_config(), 512).values():
+        key = (dims["h"], dims["w"], dims["c"], dims["m"], dims["stride"])
+        shapes[key] = shapes.get(key, 0) + 1
+    cases = [dict(label=f"{h}x{w}x{c}->{m} s{s} (x{k})", n=BATCH, h=h, w=w,
+                  c=c, m=m, stride=s, shards=sh)
+             for (h, w, c, m, s), k in shapes.items() for sh in MESH_SHARDS]
+    cases.append(dict(label="edge 24x21x32->48 s2", n=2, h=24, w=21, c=32,
+                      m=48, stride=2, shards=2))
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    record["mesh_kernels"] = [mesh_kernel_case(c, gen) for c in cases]
+
+
+def mesh_images(n: int = 8) -> list:
+    """``n`` seeded images, alternately of the two spatial buckets."""
+    import numpy as np
+    rng = np.random.RandomState(18)
+    sides = [b for b, _ in MESH_SPATIAL]
+    return [rng.randn(sides[i % 2], sides[i % 2], 3).astype(np.float32)
+            for i in range(n)]
+
+
+def mesh_engine(params, cfg, quant: str, spatial, table):
+    import torch
+
+    from repro_torch.serve import DCLServeConfig, DCLServingEngine
+    dev = torch.device(DEV, 0) if DEV == "cuda" else torch.device(DEV)
+    return DCLServingEngine(
+        params, cfg,
+        DCLServeConfig(buckets=tuple(b for b, _ in MESH_SPATIAL),
+                       slots=BATCH, quant=quant, spatial_shards=spatial),
+        scale_table=table, device=DEV, devices=[dev] * MESH_MAX_SHARDS)
+
+
+def mesh_serve(engine, images) -> list:
+    reqs = [engine.submit(img) for img in images]
+    engine.run_until_drained()
+    return reqs
+
+
+def mesh_serving(record: dict, params, flat_runs: dict, table) -> None:
+    """Phase 18(b): the engine at buckets 256/512 with 2 and 4 shards on
+    ``fp32_kernel`` and on an ``int8_chain`` entry (which enters at
+    ``int8``); ``flat_runs`` holds the flat engine's requests."""
+    import numpy as np
+
+    def rel_norm(a, b) -> float:
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def cat(reqs, key):
+        return np.concatenate([r.result[key].ravel() for r in reqs])
+
+    cfg = mesh_dcl_config()
+    images = mesh_images()
+    rec = record["mesh_serve"] = {}
+    # The int8 rung's own error: the flat int8 engine against the flat
+    # fp32 one (phase 6 reads 0.053-0.072 for cls).
+    int8_err = max(rel_norm(cat(flat_runs["int8"], k),
+                            cat(flat_runs["fp32_kernel"], k))
+                   for k in ("cls", "box"))
+    for quant, rung, fn in (("fp32_kernel", "fp32_kernel",
+                             "deform_conv_fused"),
+                            ("int8_chain", "int8", "deform_conv_fused_q")):
+        engine = mesh_engine(params, cfg, quant, MESH_SPATIAL,
+                             table if quant != "fp32_kernel" else None)
+        before = read_counts()
+        reqs = mesh_serve(engine, images)
+        after = read_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        steps = engine.telemetry()["steps_per_bucket"]
+        want = launch_want(sum(n_dcl(cfg) * dict(MESH_SPATIAL)[int(b)] * n
+                               for b, n in steps.items()))
+        bad = [(r.uid, r.outcome, r.ladder, r.error) for r in reqs
+               if r.outcome != "ok" or r.ladder != rung or r.degraded]
+        others = {k: v for k, v in launched.items() if k != fn and v}
+        worst, norm = {}, {}
+        for key in ("cls", "box"):
+            got, ref = cat(reqs, key), cat(flat_runs[rung], key)
+            worst[key] = float(abs(got - ref).max() / abs(ref).max())
+            norm[key] = rel_norm(got, ref)
+        if rung == "fp32_kernel":
+            ok = max(worst.values()) <= MESH_SERVE_RTOL
+            gate = f"max {MESH_SERVE_RTOL} x max|flat|"
+        else:
+            ok = max(norm.values()) <= MESH_INT8_SHARE * int8_err
+            gate = (f"relative norm {MESH_INT8_SHARE} x the int8 rung's own "
+                    f"{int8_err:.2e} from fp32")
+        sources = engine.telemetry()["plan_sources"]
+        print(f"  {quant} entry, spatial {dict(MESH_SPATIAL)} on "
+              f"{MESH_MAX_SHARDS} x {DEV}: {len(reqs)} requests "
+              f"{sorted({r.outcome for r in reqs})} on {rung}; {fn} "
+              f"{launched[fn]} launches in {dict(steps)} steps (want {want} "
+              f"= {n_dcl(cfg)} DCLs x shards a step); cls/box vs the flat "
+              f"engine max {worst['cls']:.2e} / {worst['box']:.2e} x "
+              f"max|flat|, relative norm {norm['cls']:.2e} / "
+              f"{norm['box']:.2e} (gate {gate}); plan sources "
+              f"{sorted({v for s in sources.values() for v in s.values()})}")
+        if bad or others or launched[fn] != want or not ok:
+            fail(f"phase 18(b) {quant}: bad {bad}, other launches {others}, "
+                 f"{launched[fn]} != {want}, worst {worst}, norm {norm}")
+        rec[quant] = dict(rung=rung, launches=launched[fn], want=want,
+                          steps=steps, worst=worst, rel_norm=norm,
+                          requests=len(reqs))
+    rec["int8_vs_fp32"] = int8_err
+
+
+def mesh_trainer(cfg, base, *, mesh=None, compression=None, tag="",
+                 device=None):
+    """``MESH_TRAIN_STEPS`` Trainer steps of ``cfg`` at batch 8 from
+    ``base``'s params (the launcher's optimizer and data) on ``device``
+    (default ``DEV``), on ``mesh`` where one is given."""
+    import shutil
+
+    from repro_torch.data import DetectionDataConfig, detection_batch
+    from repro_torch.launch.train import train_optimizer
+    from repro_torch.models import resnet_dcn as R
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import tree_map
+
+    dev = device or DEV
+    root = ROOT / "build" / "smoke_p18" / tag
+    shutil.rmtree(root, ignore_errors=True)
+    params = tree_map(lambda t: t.detach().clone(), base)
+    data = DetectionDataConfig(img_size=cfg.img_size,
+                               global_batch=TRAIN_BATCH,
+                               num_classes=cfg.num_classes, seed=0)
+    tr = Trainer(
+        loss_fn=lambda p, b: R.train_loss(p, cfg, b, lam=0.005, device=dev),
+        params=params, optimizer=train_optimizer(
+            "resnet50_dcn_bounded", params, MESH_TRAIN_STEPS),
+        batch_fn=lambda step: detection_batch(data, step),
+        config=TrainerConfig(total_steps=MESH_TRAIN_STEPS, ckpt_every=100,
+                             ckpt_dir=str(root), log_every=1,
+                             grad_compression=compression),
+        device=None if mesh is not None else dev, mesh=mesh)
+    tr.run()
+    shutil.rmtree(root, ignore_errors=True)
+    losses = [h["loss"] for h in tr.history if "loss" in h]
+    if len(losses) != MESH_TRAIN_STEPS or tr.telemetry["skipped"] \
+            or not all(math.isfinite(v) for v in losses):
+        fail(f"phase 18(c) {tag}: losses {losses}, {tr.telemetry}")
+    return tr
+
+
+def param_diff(a, b) -> tuple[float, float]:
+    """(max|a - b| / max|b|, relative norm) of two param trees."""
+    from repro_torch.tree import leaves
+    num = max(float((x.detach() - y.detach()).abs().max())
+              for x, y in zip(leaves(a), leaves(b)))
+    den = max(float(y.detach().abs().max()) for y in leaves(b))
+    return num / den, tree_rel(a, b)
+
+
+def mesh_training(record: dict, base, flat: dict) -> None:
+    """Phase 18(c): the Trainer on a (data=2) mesh with and without
+    int8_ef, and with ``shard_spatial`` on a (model=2) mesh, each against
+    the flat Trainer of the same compression (``flat``)."""
+    cfg = mesh_dcl_config()
+    rec = record["mesh_train"] = {}
+    runs = [("data2", repeated_mesh((2, 1), ("data", "model")), None, cfg),
+            ("data2_int8_ef", repeated_mesh((2, 1), ("data", "model")),
+             "int8_ef", cfg),
+            ("model2_spatial", repeated_mesh((1, 2), ("data", "model")),
+             None, dataclasses.replace(cfg, shard_spatial=True))]
+    ef_move = param_diff(flat["int8_ef"].params, flat[None].params)[1]
+    spread = param_diff(flat["banded"].params, flat[None].params)[1]
+    print(f"  the flat Trainer's own spread: banded vs zero-copy dataflow "
+          f"(another summation order) relative norm {spread:.2e}; int8_ef vs "
+          f"none {ef_move:.2e}")
+    for tag, mesh, compression, c in runs:
+        before = read_counts()
+        tr = mesh_trainer(c, base, mesh=mesh, compression=compression,
+                          tag=tag)
+        launched = {k: v - before[k] for k, v in read_counts().items()}
+        mx, rel = param_diff(tr.params, flat[compression].params)
+        want = launch_want(n_dcl(cfg) * 2 * MESH_TRAIN_STEPS)
+        losses = [round(h["loss"], 6) for h in tr.history if "loss" in h]
+        flat_losses = [round(h["loss"], 6) for h in flat[compression].history
+                       if "loss" in h]
+        tol = max(RESUME_RTOL, MESH_SPREAD * spread)
+        ok = rel <= tol
+        gate = f"relative norm {tol:.2e}"
+        print(f"  {tag} ({mesh.shape}, {compression}): losses {losses} "
+              f"(flat {flat_losses}); params vs flat: max {mx:.2e} x "
+              f"max|param|, relative norm {rel:.2e} (gate {gate}); "
+              f"launches 1a {launched['deform_conv_fused']}, 2 "
+              f"{launched['deform_conv_bwd']} (want {want} each)"
+              + (" ok" if ok else " FAIL"))
+        if not ok or launched["deform_conv_fused"] != want \
+                or launched["deform_conv_bwd"] != want:
+            fail(f"phase 18(c) {tag}: {mx}, {rel}, {launched}")
+        rec[tag] = dict(mesh=mesh.shape, compression=compression,
+                        losses=losses, max_rel=mx, rel=rel,
+                        launches=launched["deform_conv_fused"])
+    rec.update(int8_ef_move=ef_move, banded_spread=spread)
+
+
+def command_r_phase(record: dict) -> None:
+    """Phase 18(d): command-r-35b at its widths, cut to ``CR_LAYERS``
+    layers: served under phase 13's gates, the GPipe forward against
+    ``transformer.forward``."""
+    import torch
+
+    from repro_torch.distributed.pipeline import bubble_fraction
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import pipelined as PL
+    from repro_torch.models import registry as reg
+    from repro_torch.models import transformer as TF
+
+    full = reg.get(CR_ARCH).config
+    cfg = dataclasses.replace(full, n_layers=CR_LAYERS)
+    rec = record["command_r"] = dict(arch=CR_ARCH, layers=CR_LAYERS,
+                                     params=cfg.param_count(),
+                                     full_params=full.param_count(),
+                                     bf16_predicted=CR_BF16_PREDICTED)
+    t0 = time.monotonic()
+    params = card_params(cfg, seed=0)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    rec["init_s"] = time.monotonic() - t0
+    print(f"  {CR_ARCH} cut to {CR_LAYERS} of {full.n_layers} layers: d "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.kv_heads} KV, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_count() / 1e9:.3f}B "
+          f"params ({cfg.param_count() * 4 / 1e9:.1f} GB fp32; all "
+          f"{full.n_layers}: {full.param_count() * 4 / 1e9:.0f} GB), drawn "
+          f"on {DEV} from seed 0 in {rec['init_s']:.1f} s")
+    args = serve_launch.build_parser().parse_args(
+        ["--arch", CR_ARCH, "--device", DEV, "--seed", "0"])
+    engine, steps, seconds = serve_launch.serve_lm(cfg, args, params=params)
+    print(serve_launch.report_lm(engine, steps, seconds))
+    if sorted((r.uid, len(r.output)) for r in engine.completed) \
+            != [(i, args.max_new_tokens) for i in range(args.requests)]:
+        fail("serve_lm did not serve every request its token count")
+    del engine
+    family_serving(rec, params, cfg, cap=CR_BF16_MAX,
+                   reference=greedy_steps, greedy=CR_GREEDY)
+
+    stages, micro = CR_PIPE
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, remat="none")
+    g = torch.Generator(device=DEV).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, CR_PIPE_TOKENS, device=DEV,
+                         generator=g)
+    mesh = repeated_mesh(stages, ("stage",))
+    with torch.no_grad():
+        flat = TF.forward(params, cfg32, tokens=toks)[0]
+        pipe = PL.pipelined_forward(params, cfg32, toks, mesh=mesh,
+                                    n_stages=stages, microbatches=micro)
+    rel = float((pipe - flat).norm() / flat.norm())
+    bubble = bubble_fraction(stages, micro)
+    rec.update(pipeline_rel=rel, bubble_fraction=bubble)
+    print(f"  pipelined_forward, {stages} stages x {CR_LAYERS // stages} "
+          f"layers on {stages} x {DEV}, {micro} microbatches, tokens "
+          f"{CR_PIPE_TOKENS}, fp32: relative norm {rel:.2e} from "
+          f"transformer.forward (gate {CR_PIPE_RTOL}); GPipe bubble "
+          f"fraction (S-1)/(M+S-1) = {bubble:.3f}")
+    if not rel <= CR_PIPE_RTOL:
+        fail(f"pipelined_forward {rel} from transformer.forward")
+    del params, flat, pipe
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_card_vs_cpu(record: dict) -> None:
+    """Phase 18(e): the reduced command-r-35b (forward and pipelined) and
+    the reduced DCL mesh paths (a spatial forward, 2 data-parallel
+    Trainer steps), card against CPU."""
+    import torch
+
+    from repro_torch.distributed.sharding import Mesh, use_rules
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import pipelined as PL
+    from repro_torch.models import registry as reg
+    from repro_torch.models import resnet_dcn as R
+    from repro_torch.models import transformer as TF
+    from repro_torch.tree import tree_map
+
+    out = record["mesh_card_cpu"] = {}
+    cfg = reg.reduced_config(reg.get(CR_ARCH))
+    p_cpu = TF.init_params(cfg, seed=0, device="cpu")
+    p_dev = tree_map(lambda t: t.to(DEV), p_cpu)
+    toks = torch.randint(0, cfg.vocab, (4, 16),
+                         generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        res = {}
+        for where, p, mesh in (
+                ("cpu", p_cpu, Mesh(["cpu"] * 2, ("stage",))),
+                (DEV, p_dev, repeated_mesh(2, ("stage",)))):
+            t = toks.to(where)
+            res[where] = (TF.forward(p, cfg, tokens=t)[0].cpu(),
+                          PL.pipelined_forward(p, cfg, t, mesh=mesh,
+                                               n_stages=2,
+                                               microbatches=2).cpu())
+    lm = [float((a - b).norm() / b.norm())
+          for a, b in zip(res[DEV], res["cpu"])]
+    dcl = dataclasses.replace(reduced_config(mesh_dcl_config()),
+                              img_size=128)
+    base = perturb_offsets(R.init_params(dcl, seed=0, device="cpu"), 1)
+    img = torch.from_numpy(mesh_images(2)[0][None, :128, :128].copy())
+    ys = {}
+    with torch.no_grad():
+        for where, mesh in (("cpu", Mesh(["cpu"] * 2, ("model",))),
+                            (DEV, repeated_mesh(2))):
+            p = tree_map(lambda t: t.to(where), base)
+            with use_rules(mesh=mesh):
+                ys[where] = R.forward(p, dataclasses.replace(
+                    dcl, shard_spatial=True), img.to(where),
+                    device=where)[0]["cls"].cpu()
+    spatial = rel_max(ys[DEV], ys["cpu"])
+    small = dataclasses.replace(dcl, img_size=64)
+    hist = {}
+    for where, mesh in (("cpu", Mesh([["cpu"]] * 2, ("data", "model"))),
+                        (DEV, repeated_mesh((2, 1), ("data", "model")))):
+        tr = mesh_trainer(small, tree_map(lambda t: t.to(where), base),
+                          mesh=mesh, tag=f"reduced_{where}", device=where)
+        hist[where] = [h["loss"] for h in tr.history if "loss" in h]
+    train = max(abs(a - b) / abs(b) for a, b in zip(hist[DEV], hist["cpu"]))
+    out.update(lm_forward=lm[0], lm_pipelined=lm[1], dcl_spatial=spatial,
+               dcl_train=train, losses=hist)
+    print(f"  reduced {CR_ARCH} fp32, {DEV} vs CPU: forward {lm[0]:.2e}, "
+          f"pipelined (2 stages) {lm[1]:.2e}; reduced DCL config: spatial "
+          f"forward at 128 on 2 shards (cls) {spatial:.2e}, 2 data-parallel "
+          f"Trainer steps on 2 shards at 64 {[round(v, 6) for v in hist[DEV]]}"
+          f" vs {[round(v, 6) for v in hist['cpu']]} ({train:.2e}); gate "
+          f"{MESH_CARD_CPU_RTOL}")
+    if max(lm + [spatial, train]) > MESH_CARD_CPU_RTOL:
+        fail(f"phase 18(e) card vs CPU: {out}")
+
+
+def mesh_phase(record: dict, params) -> dict[str, int]:
+    """Phase 18: (a)-(e).  ``params``: phase 4's full-width DCL params.
+    Returns the launches of kernels 1a, 1c and 2 in the main path's run
+    ((b) the spatial engines and (c) the mesh Trainers), counted from 0
+    just before it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import resnet_dcn as R
+
+    t0 = time.monotonic()
+    # As phases 6 and 8: every path feeds the same offsets.
+    torch.backends.cudnn.deterministic = True
+    print(f"  meshes: up to {MESH_MAX_SHARDS} shards on {DEV}:0 (one card "
+          f"runs every shard, exchange and launch)")
+    print("  (a) spatial kernels: 1a, 1c, 2 sharded vs unsharded")
+    mesh_kernels(record)
+
+    cfg = mesh_dcl_config()
+    table = serve_launch.calibrate(cfg, params, serve_args(cfg, "int8"))
+    flat_runs = {}
+    for rung in ("fp32_kernel", "int8"):
+        flat_runs[rung] = mesh_serve(
+            mesh_engine(params, cfg, rung, (), table
+                        if rung != "fp32_kernel" else None), mesh_images())
+    base = perturb_offsets(R.init_params(cfg, seed=0, device=DEV), 1)
+    flat_train = {comp: mesh_trainer(cfg, base, compression=comp,
+                                     tag=f"flat_{comp}")
+                  for comp in (None, "int8_ef")}
+    flat_train["banded"] = mesh_trainer(
+        dataclasses.replace(cfg, dataflow="banded"), base, tag="flat_banded")
+
+    reset_counts()
+    print("  (b) spatial serving")
+    mesh_serving(record, params, flat_runs, table)
+    print(f"  (c) training, batch {TRAIN_BATCH} x {cfg.img_size}, "
+          f"{MESH_TRAIN_STEPS} steps")
+    mesh_training(record, base, flat_train)
+    counts = read_counts()
+    main = {k: counts[k] for k in ("deform_conv_fused",
+                                   "deform_conv_fused_q", "deform_conv_bwd")}
+    print(f"  main path ((b) + (c)) launches: {main}")
+    if not all(main.values()) and DEV == "cuda":
+        fail(f"a kernel of the mesh path never launched: {counts}")
+    del flat_train, base
+
+    # Each bucket's forward, spatial beside flat (CUDA events).
+    fwd = {}
+    if DEV == "cuda":
+        from repro_torch.distributed.sharding import use_rules
+        for b, shards in MESH_SPATIAL:
+            x = torch.from_numpy(np.stack(
+                [img for img in mesh_images() if img.shape[0] == b][:BATCH])
+            ).to(DEV)
+            sp = dataclasses.replace(cfg, shard_spatial=True)
+            mesh = repeated_mesh(shards)
+            with torch.no_grad():
+                flat_ms = time_ms(lambda: R.forward(params, cfg, x,
+                                                    device=DEV),
+                                  reps=3, iters=2)
+                with use_rules(mesh=mesh):
+                    sp_ms = time_ms(lambda: R.forward(params, sp, x,
+                                                      device=DEV),
+                                    reps=3, iters=2)
+            fwd[b] = dict(flat_ms=flat_ms, spatial_ms=sp_ms, shards=shards)
+            print(f"  {b}-bucket fp32 forward, batch {BATCH}: flat "
+                  f"{flat_ms:.3f} ms, {shards} shards on one card "
+                  f"{sp_ms:.3f} ms")
+    record["mesh_forward_ms"] = fwd
+
+    print(f"  (d) {CR_ARCH} at {CR_LAYERS} layers")
+    command_r_phase(record)
+    print("  (e) reduced configs, card vs CPU")
+    mesh_card_vs_cpu(record)
+    record["phase18_s"] = time.monotonic() - t0
+    print(f"  phase 18 in {record['phase18_s']:.1f} s (budget "
+          f"{MESH_SECONDS} s) on {smi() if DEV == 'cuda' else DEV}")
+    return main
+
+
 def main() -> int:
     try:
         import torch
@@ -5113,6 +5762,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     record["build_s"] = time.monotonic() - t0
+
+    if sys.argv[1:] == ["--only", "18"]:
+        # A debugging run of phase 18 alone (after the build): no kernels
+        # line, no result.
+        from repro_torch.models import resnet_dcn as R
+        print("== 18. the device mesh (alone)")
+        record["mesh_launches"] = mesh_phase(record, perturb_offsets(
+            R.init_params(mesh_dcl_config(), seed=0, device="cuda"), 1))
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps(record, indent=2))
+        print(f"  details in {OUT.relative_to(ROOT)}; "
+              f"{time.monotonic() - t_start:.0f} s in all")
+        return 0
 
     print("== 3. kernel vs plain on the card")
     from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
@@ -5559,6 +6221,13 @@ def main() -> int:
     print("== 17. the remaining LM families: rwkv6-3b, dbrx-132b, "
           "musicgen-medium, pixtral-12b")
     families_phase(record)
+
+    print("== 18. the device mesh: spatial shards, data parallel, int8_ef, "
+          "GPipe, command-r-35b")
+    mesh_launches = mesh_phase(record, params)
+    for row in kernels["kernels"]:
+        if row["name"] in mesh_launches:
+            row["mesh_launches"] = mesh_launches[row["name"]]
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

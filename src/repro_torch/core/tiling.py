@@ -77,6 +77,26 @@ def out_hw(h: int, w: int, *, kernel_size: int, stride: int,
     return ho, wo
 
 
+def spatial_halo_rows(*, kernel_size: int, dilation: int = 1,
+                      offset_bound: float) -> int:
+    """Input rows each height-shard neighbour contributes to the spatially
+    sharded bounded DCL (``distributed.spatial``).
+
+    Output row ``t`` samples input rows ``[t*s - (pad + hb), t*s + pad +
+    hb + 1]`` with ``pad = dilation*(K//2)``, ``hb = ceil(B)`` (the Eq. 5
+    bound) and the ``+1`` of the bilinear ``x0+1`` corner, so
+
+        halo = dilation*(K//2) + ceil(B) + 1
+
+    which for ``dilation=1`` and odd ``K`` is ``ceil(B) + ceil(K/2)``:
+    Eq. 6's locality argument across devices (4 rows at B = 2, K = 3)."""
+    if kernel_size < 1 or dilation < 1:
+        raise ValueError(f"kernel_size={kernel_size}/dilation={dilation} "
+                         f"must be >= 1")
+    return dilation * (kernel_size // 2) \
+        + int(math.ceil(float(offset_bound))) + 1
+
+
 def pix_lanes(tile_h: int, tile_w: int) -> int:
     """Pixel lanes of the kernel instantiation that serves a tile."""
     for p in PIX_LANES:

@@ -1,0 +1,76 @@
+"""Error-feedback int8 gradient compression (counterpart of
+``repro.distributed.compression``).
+
+int8 quantization cuts the bytes of a gradient all-reduce 4x (fp32).
+Error feedback keeps the accumulated quantization error in a per-leaf
+buffer and re-injects it next step, so the scheme is unbiased in the long
+run (EF-SGD; Karimireddy et al. 2019).
+
+* ``ef_compress_grads`` / ``init_ef_state``: the numerics-level wrapper
+  the Trainer applies before the optimizer (``grad_compression=
+  "int8_ef"``): quantize -> dequantize with error feedback;
+* ``compressed_psum``: the explicit collective over the shards of one
+  mesh axis, int8 payloads summed exactly in int32 on a shared grid.
+"""
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+
+from repro_torch import tree as T
+
+Tensor = torch.Tensor
+
+
+def init_ef_state(params: Any) -> Any:
+    return T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                            device=p.device), params)
+
+
+def _quantize(x: Tensor) -> tuple[Tensor, Tensor]:
+    """absmax / 127 + 1e-12 grid; ``torch.round`` rounds ties to even, as
+    ``jnp.round`` does."""
+    scale = x.abs().max() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q: Tensor, scale: Tensor) -> Tensor:
+    return q.float() * scale
+
+
+def ef_compress_grads(grads: Any, ef_state: Any) -> tuple[Any, Any]:
+    """Returns (compressed-then-decompressed grads, new ef_state)."""
+
+    def one(g, e):
+        g = g.float() + e
+        q, scale = _quantize(g)
+        deq = _dequantize(q, scale)
+        return deq, g - deq
+
+    both = T.tree_map(one, grads, ef_state)
+    return (T.tree_map(lambda t: t[0], both),
+            T.tree_map(lambda t: t[1], both))
+
+
+def compressed_psum(shards: Sequence[Tensor]) -> list[Tensor]:
+    """Quantize-then-sum over the shards of one mesh axis: ``shards[i]``
+    lies on the axis's i-th device; each gets the sum back on its device.
+
+    The grid is agreed first (the max of the shards' absmax scales), every
+    shard quantizes onto it, and the int8 payloads cross to the first
+    shard's device and add exactly in int32, so the result does not
+    depend on the shards' order or grouping."""
+    xs = [s.float() for s in shards]
+    home = xs[0].device
+    local = [x.abs().max() / 127.0 + 1e-12 for x in xs]
+    scale = torch.stack([s.to(home) for s in local]).max()
+    total = None
+    for x in xs:
+        q = torch.clamp(torch.round(x / scale.to(x.device)), -127,
+                        127).to(torch.int8)
+        q32 = q.to(home).to(torch.int32)
+        total = q32 if total is None else total + q32
+    out = total.float() * scale
+    return [out.to(x.device) for x in xs]

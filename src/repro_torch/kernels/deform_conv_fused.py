@@ -171,7 +171,7 @@ def deform_conv_fused_zerocopy(
         x_pad: Tensor, offsets: Tensor, w_tiles: Tensor, *,
         kernel_size: int, stride: int, dilation: int, offset_bound: float,
         tile_h: int, tile_w: int, tile_c: int | None = None,
-        tile_m: int | None = None) -> Tensor:
+        tile_m: int | None = None, c_groups: int | None = None) -> Tensor:
     """Fused DCL over the whole padded input.
 
     x_pad:   (N, Hp, Wp, C) zero-padded input (``plan.pad_zerocopy``)
@@ -184,6 +184,12 @@ def deform_conv_fused_zerocopy(
     ``tile_h * tile_w <= 64``, ``tile_m <= 128``; the output in x_pad's
     dtype) and count the launch in ``deform_conv_fused_zerocopy.launches``
     (a bf16 one also in ``.launches_bf16``).
+
+    ``c_groups`` pins the grid's C groups (default ``fwd_plan``'s, from
+    this call's tiles): ``distributed.spatial`` passes the unsharded
+    call's, so a height shard sums each pixel's C chunks in the groups
+    and order the unsharded kernel does.  The plain version sums the
+    chunks in order whatever the groups.
     """
     if x_pad.device.type == "cpu":
         return deform_conv_fused_zerocopy_plain(
@@ -209,6 +215,11 @@ def deform_conv_fused_zerocopy(
                       device=x_pad.device)
     plan = fwd_plan(n, ho, wo, c, m, tile_h=tile_h, tile_w=tile_w,
                     tile_c=tc, tile_m=tm)
+    if c_groups is not None:
+        if not 1 <= c_groups <= c // tc:
+            raise ValueError(f"c_groups={c_groups} outside 1..{c // tc} "
+                             f"(C={c} in chunks of {tc})")
+        plan["c_groups"] = c_groups
     _launch("dcf_forward", x_pad, offsets, w_tiles, out, plan,
             (n, hp, wp, c, ho, wo, m),
             (kernel_size, stride, dilation, float(offset_bound),

@@ -33,6 +33,14 @@ the dataflow.
 The int8 and chain paths are inference only: on CUDA an input that needs
 a gradient raises there (quantized models train with ``quant="qat"``).
 
+On a device mesh (``distributed.sharding.use_rules(mesh=...)``) the
+bounded call shards: ``shard_batch`` splits the batch over the mesh's
+'batch' axes (``resolve_batch_shard``; ``BatchShardedDeformConv`` sums
+d_weights over the shards), ``shard_spatial=True`` splits the height over
+the 'spatial' axis with the bounded halo exchange
+(``distributed.spatial``).  Each shard runs the kernels of the unsharded
+call on its block, on its device.
+
 ``dispatch_hook_scope`` installs a callable that sees a context dict
 before each bounded dispatch of either op; raising from it aborts the
 call.  It is the fault-injection seam the serving engine's ladder is
@@ -44,6 +52,7 @@ ignored.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 
 import torch
@@ -51,6 +60,8 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.core.deform_conv import DCLConfig, sample_patches
 from repro_torch.device import check_on, resolve_device
+from repro_torch.distributed import spatial as _spatial
+from repro_torch.distributed.sharding import Mesh, batch_mesh_axes
 from repro_torch.kernels import plan as _plan
 from repro_torch.kernels.deform_sample import (deform_sample_banded,
                                                deform_sample_zerocopy)
@@ -151,6 +162,93 @@ class BoundedDeformConv(torch.autograd.Function):
                 dw if need[3] else None)
 
 
+def check_batch_split(n: int, *, shards: int,
+                      axes: tuple[str, ...] = ()) -> None:
+    """Reject a batch that does not split into ``shards`` equal blocks,
+    naming the sizes, instead of a shape error deep in a shard."""
+    if n % shards != 0:
+        raise ValueError(
+            f"batch N={n} does not divide the mesh batch axes {axes} (total "
+            f"size {shards}); the sharded kernel path needs equal "
+            f"per-device shards — pad the batch to a multiple of {shards} "
+            f"or pass shard_batch=False")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Mesh context of one batch-sharded deform_conv call."""
+    mesh: Mesh
+    axes: tuple[str, ...]
+
+    def devices(self) -> list[torch.device]:
+        """One device per batch block, the first axis major."""
+        return self.mesh.shard_devices(self.axes)
+
+
+def resolve_batch_shard(n: int, *,
+                        shard_batch: bool | None = None) -> ShardSpec | None:
+    """Whether (and how) to shard the batch axis over the active mesh.
+
+    * ``None`` (auto): shard iff a mesh is active under
+      ``distributed.sharding.use_rules`` and its batch-mapped axes (size
+      > 1) divide ``n``; otherwise run unsharded;
+    * ``True``: require it — no active mesh or a non-dividing batch
+      raises a ``ValueError`` naming the sizes;
+    * ``False``: never shard."""
+    got = batch_mesh_axes() if shard_batch is not False else None
+    if got is None:
+        if shard_batch:
+            raise ValueError(
+                "shard_batch=True but no mesh maps the 'batch' logical axis "
+                "— activate one with distributed.sharding.use_rules("
+                "mesh=...) (axes of size > 1 required)")
+        return None
+    mesh, axes, size = got
+    if n % size != 0:
+        if shard_batch:
+            check_batch_split(n, shards=size, axes=axes)
+        return None
+    return ShardSpec(mesh=mesh, axes=axes)
+
+
+class BatchShardedDeformConv(torch.autograd.Function):
+    """The bounded deform conv over batch shards: each shard's forward and
+    backward kernels on its block and device, d_input and d_offsets
+    concatenated like their primals, d_weights (the weights are
+    replicated) the sum of the shards' in shard order."""
+
+    @staticmethod
+    def forward(ctx, spec, shard, x, offsets, w):
+        ctx.spec, ctx.shard = spec, shard
+        ctx.save_for_backward(x, offsets, w)
+        devs = shard.devices()
+        return torch.cat([
+            _plan.bounded_forward(spec, xb.to(d), ob.to(d), w.to(d))
+            .to(x.device)
+            for d, xb, ob in zip(devs, x.chunk(len(devs)),
+                                 offsets.chunk(len(devs)))], 0)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, offsets, w = ctx.saved_tensors
+        devs = ctx.shard.devices()
+        dxs, doffs, dw = [], [], None
+        for d, xb, ob, gb in zip(devs, x.chunk(len(devs)),
+                                 offsets.chunk(len(devs)),
+                                 gy.chunk(len(devs))):
+            dx, doff, dwp = _plan.bounded_backward(
+                ctx.spec, xb.to(d), ob.to(d), w.to(d), gb.to(d).contiguous())
+            dxs.append(dx.to(x.device))
+            doffs.append(doff.to(offsets.device))
+            dwp = dwp.to(w.device)
+            dw = dwp if dw is None else dw + dwp
+        need = ctx.needs_input_grad
+        return (None, None, torch.cat(dxs, 0) if need[2] else None,
+                torch.cat(doffs, 0) if need[3] else None,
+                dw if need[4] else None)
+
+
 def deform_sample(x: Tensor, offsets: Tensor, *, kernel_size: int = 3,
                   stride: int = 1, dilation: int = 1,
                   offset_bound: float | None = None,
@@ -207,6 +305,8 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
                 tile_h: int | None = None, tile_w: int | None = None,
                 tile_c: int | None = None, tile_m: int | None = None,
                 dataflow: str = "zero_copy", precision: str = "fp32",
+                shard_batch: bool | None = None,
+                shard_spatial: bool | None = None,
                 x_scale=None, w_scale=None,
                 device: str | torch.device | None = None) -> Tensor:
     """Fused DCL stage 1+2: y = g(x, o) * w_deform (Eq. 2).
@@ -227,6 +327,15 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
     int8, exact integer contraction, per-output-channel dequant.
     ``x_scale`` (per-tensor) and ``w_scale`` (per-output-channel, (M,))
     override the absmax scales with calibrated ones.
+
+    ``shard_batch`` (bounded fp32/bf16 only; None = auto, True = require,
+    False = never) splits the batch over the active mesh's 'batch' axes
+    (``resolve_batch_shard``).  ``shard_spatial=True`` (bounded,
+    zero-copy; fp32, bf16 or int8) splits the height over the 'spatial'
+    axis with one halo exchange of ``B + ceil(K/2)`` rows
+    (``distributed.spatial``); it needs an active mesh and ``H %
+    (stride*shards) == 0``, and folds an active batch shard into the same
+    call (a data x model mesh).
     """
     dev = resolve_device(device)
     check_on(dev, x=x, offsets=offsets, w=w)
@@ -249,6 +358,35 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
             f"precision='int8' supports only the zero-copy dataflow "
             f"(got {dataflow!r})")
 
+    shard = spatial = None
+    if shard_spatial:
+        if offset_bound is None:
+            raise ValueError(
+                "shard_spatial=True requires a trained offset_bound — the "
+                "halo exchange is bounded by Eq. 5/6 (B + ceil(K/2) rows); "
+                "the unbounded gather baseline has no bounded halo")
+        if dataflow != "zero_copy":
+            raise ValueError(
+                f"shard_spatial=True supports only the zero-copy dataflow "
+                f"(got {dataflow!r}); the banded path materialises "
+                f"full-width bands and has no per-shard slab to run on")
+    if offset_bound is not None and precision == "fp32":
+        shard = resolve_batch_shard(n, shard_batch=shard_batch)
+    elif shard_batch:
+        raise ValueError(
+            "shard_batch=True requires the bounded fp32 kernel path "
+            "(offset_bound set, precision='fp32'); the unbounded gather "
+            "baseline and the int8 inference datapath have no batch shard")
+    if shard_spatial:
+        # After the batch shard, so a data x model mesh folds the batch
+        # axes into the one spatial call.
+        spatial = _spatial.resolve_spatial_shard(
+            x.shape[1], shard_spatial=True, stride=stride,
+            kernel_size=kernel_size, dilation=dilation,
+            offset_bound=offset_bound,
+            batch_axes=shard.axes if shard is not None else ())
+        shard = None
+
     if offset_bound is None:
         cfg = DCLConfig(in_channels=c, out_channels=m,
                         kernel_size=kernel_size, stride=stride,
@@ -259,23 +397,38 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
 
     if precision == "int8":
         _refuse_grad(dev, "deform_conv(precision='int8')", x, offsets, w)
+    if spatial is not None:
+        shards = (len(spatial.devices()), spatial.shards)
+    else:
+        shards = (1 if shard is None else len(shard.devices()), 1)
     context = {"op": "deform_conv", "precision": precision,
                "dataflow": dataflow, "shape": tuple(x.shape), "m": m,
                "offset_bound": offset_bound, "kernel_size": kernel_size,
                "stride": stride, "dilation": dilation, "device": dev.type,
                "itemsize": x.element_size(),
                "offset_itemsize": offsets.element_size(),
-               "tiles": (tile_h, tile_w, tile_c, tile_m)}
+               "tiles": (tile_h, tile_w, tile_c, tile_m),
+               "shards": shards, "spatial_shards": shards[1]}
+    geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
+                offset_bound=offset_bound, tile_h=tile_h, tile_w=tile_w,
+                tile_c=tile_c, tile_m=tile_m, x_scale=x_scale,
+                w_scale=w_scale)
+    if precision == "int8" and spatial is not None:
+        return _dispatch(context, lambda: _spatial.spatial_int8_forward(
+            x, offsets, w, sspec=spatial, **geom))
     if precision == "int8":
         return _dispatch(context, lambda: _plan.int8_forward(
-            x, offsets, w, kernel_size=kernel_size, stride=stride,
-            dilation=dilation, offset_bound=offset_bound, tile_h=tile_h,
-            tile_w=tile_w, tile_c=tile_c, tile_m=tile_m, x_scale=x_scale,
-            w_scale=w_scale))
+            x, offsets, w, **geom))
     spec = _plan.DCSpec(kernel_size=kernel_size, stride=stride,
                         dilation=dilation, offset_bound=offset_bound,
                         tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
                         tile_m=tile_m, dataflow=dataflow)
+    if spatial is not None:
+        return _dispatch(context, lambda: _spatial.deform_conv_spatial(
+            spec, spatial, x, offsets, w))
+    if shard is not None:
+        return _dispatch(context, lambda: BatchShardedDeformConv.apply(
+            spec, shard, x, offsets, w))
     return _dispatch(context,
                      lambda: BoundedDeformConv.apply(spec, x, offsets, w))
 

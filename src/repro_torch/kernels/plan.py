@@ -216,13 +216,39 @@ def resolve_tiles(n: int, h: int, w: int, c: int, m: int, *,
         itemsize=itemsize, device=device)[0]
 
 
+def _spatial_local_h(h: int, stride: int, spatial_shards: int, name: str,
+                     *, kernel_size: int, dilation: int,
+                     offset_bound: float) -> int:
+    """The height a spatially sharded layer resolves its tiles at, after
+    the whole split check (ragged and thinner than the halo), so a shard
+    count that cannot serve fails when the plans are warmed (engine
+    start), not on the first sharded request."""
+    if spatial_shards <= 1:
+        return h
+    from repro_torch.core.tiling import spatial_halo_rows
+    from repro_torch.distributed.spatial import check_height_split
+    try:
+        check_height_split(
+            h, shards=spatial_shards, stride=stride,
+            min_rows=spatial_halo_rows(kernel_size=kernel_size,
+                                       dilation=dilation,
+                                       offset_bound=offset_bound))
+    except ValueError as e:
+        raise ValueError(f"layer {name!r}: {e}") from None
+    return h // spatial_shards
+
+
 def tile_source(n: int, h: int, w: int, c: int, m: int, *,
                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
                 offset_bound: float, dtype: str = "fp32", itemsize: int = 4,
-                device=None) -> str:
+                device=None, spatial_shards: int = 1) -> str:
     """Where one layer's tiles come from: ``"tuned"`` when the installed
     cache serves them on ``device``'s platform, else ``"analytic"``
-    (counts nothing)."""
+    (counts nothing).  ``spatial_shards`` asks for the shard-local plan
+    the spatial path resolves."""
+    h = _spatial_local_h(h, stride, spatial_shards, "tile_source",
+                         kernel_size=kernel_size, dilation=dilation,
+                         offset_bound=offset_bound)
     return resolve_tiles_and_source(
         n, h, w, c, m, kernel_size=kernel_size, stride=stride,
         dilation=dilation, offset_bound=offset_bound, dtype=dtype,
@@ -266,20 +292,29 @@ def spec_tiles(spec: DCSpec, x: Tensor, offsets: Tensor, w: Tensor, *,
 
 def warm_tile_cache(layers, *, batch: int, offset_bound: float,
                     kernel_size: int = 3, dilation: int = 1,
-                    dtype: str = "fp32", device=None
+                    dtype: str = "fp32", device=None,
+                    spatial_shards: int = 1
                     ) -> tuple[dict[str, tuple[int, int, int, int]],
                                dict[str, str]]:
     """Resolve the tiles of every named layer ``{name: {"h", "w", "c",
     "m", "stride"?}}`` at ``batch`` for the ``dtype`` datapath on
     ``device`` — the serving engine's per-bucket plans, resolved at
     engine start.  Returns ``(tiles, sources)``: each layer's tiles and
-    where they came from (``"tuned"`` or ``"analytic"``)."""
+    where they came from (``"tuned"`` or ``"analytic"``).
+
+    ``spatial_shards > 1`` warms the plans the spatial path resolves: a
+    shard sees the local height ``h // spatial_shards``; a height that
+    does not split raises the split error naming the layer."""
     tiles, sources = {}, {}
     for name, d in layers.items():
+        stride = d.get("stride", 1)
+        h = _spatial_local_h(d["h"], stride, spatial_shards, name,
+                             kernel_size=kernel_size, dilation=dilation,
+                             offset_bound=offset_bound)
         tiles[name], sources[name] = resolve_tiles_and_source(
-            batch, d["h"], d["w"], d["c"], d["m"], kernel_size=kernel_size,
-            stride=d.get("stride", 1), dilation=dilation,
-            offset_bound=offset_bound, dtype=dtype, device=device)
+            batch, h, d["w"], d["c"], d["m"], kernel_size=kernel_size,
+            stride=stride, dilation=dilation, offset_bound=offset_bound,
+            dtype=dtype, device=device)
     return tiles, sources
 
 
@@ -425,6 +460,19 @@ def _f32(v, device) -> Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
+def int8_operands(x: Tensor, w: Tensor, x_scale=None,
+                  w_scale=None) -> tuple[Tensor, Tensor, Tensor]:
+    """(x int8, w int8, the (M,) dequant scale ``s_x * s_w[m]``): x per
+    tensor, w per output channel, absmax unless calibrated scales are
+    given."""
+    m = w.shape[-1]
+    sx = compute_scale(x) if x_scale is None else _f32(x_scale, x.device)
+    sw = compute_scale(w, axis=-1) if w_scale is None \
+        else _f32(w_scale, x.device).reshape(1, 1, m)
+    return (quantize_values(x, sx), quantize_values(w, sw),
+            (sx * sw).reshape(m).contiguous())
+
+
 def int8_forward(x: Tensor, offsets: Tensor, w: Tensor, *,
                  kernel_size: int, stride: int, dilation: int,
                  offset_bound: float, tile_h: int | None = None,
@@ -443,15 +491,11 @@ def int8_forward(x: Tensor, offsets: Tensor, w: Tensor, *,
         offset_bound=offset_bound, tile_h=tile_h, tile_w=tile_w,
         tile_c=tile_c, tile_m=tile_m, dtype="int8", device=x.device)
     th, tw = min(th, ho), min(tw, wo)
-    sx = compute_scale(x) if x_scale is None else _f32(x_scale, x.device)
-    sw = compute_scale(w, axis=-1) if w_scale is None \
-        else _f32(w_scale, x.device).reshape(1, 1, m)
-    xp = pad_zerocopy(quantize_values(x, sx), kernel_size=kernel_size,
-                      stride=stride, dilation=dilation,
-                      offset_bound=offset_bound, tile_h=th, tile_w=tw,
-                      ho=ho, wo=wo)
-    w_tiled = tile_weights(quantize_values(w, sw), tc)
-    scale = (sx * sw).reshape(m).contiguous()
+    xq, wq, scale = int8_operands(x, w, x_scale, w_scale)
+    xp = pad_zerocopy(xq, kernel_size=kernel_size, stride=stride,
+                      dilation=dilation, offset_bound=offset_bound,
+                      tile_h=th, tile_w=tw, ho=ho, wo=wo)
+    w_tiled = tile_weights(wq, tc)
     y = deform_conv_fused_zerocopy_q(
         xp, offsets.float().contiguous(), w_tiled, scale,
         kernel_size=kernel_size, stride=stride, dilation=dilation,

@@ -19,8 +19,9 @@ detection archs run the shape-bucketed engine:
 Params are random, from ``--seed``, unless ``--ckpt DIR`` restores them
 from the newest complete checkpoint there: a params-only checkpoint (the
 JAX launcher's layout) or the bundle a Trainer saves
-(``repro_torch.launch.train``: params, optimizer state, step), of which
-the params are served.  ``--reduced`` serves the reduced config of the
+(``repro_torch.launch.train``: params, optimizer state, the
+error-feedback state of ``--grad-compression int8_ef`` if any, step), of
+which the params are served.  ``--reduced`` serves the reduced config of the
 family (``launch.train.reduced_config`` for the DCL archs, what
 ``launch.train`` trains without ``--full``; the registry's for the
 LMs).  A checkpoint that does not fit the chosen config raises the
@@ -43,6 +44,7 @@ from repro_torch import tree as T
 from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.checkpoint.checkpoint import stored_structure
 from repro_torch.configs import resnet50_dcn as configs
+from repro_torch.distributed.compression import init_ef_state
 from repro_torch.launch.train import reduced_config, train_optimizer
 from repro_torch.models import registry as reg
 from repro_torch.models import resnet_dcn as R
@@ -87,13 +89,17 @@ def restore_params(directory, params, arch: str):
     """Restore served params from the newest complete checkpoint in
     ``directory``: params-only (``params`` itself or ``{"params": ...}``)
     or a Trainer bundle (``checkpoint_bundle`` with ``arch``'s launcher
-    optimizer), picked by the stored leaf count and key paths.  Returns
+    optimizer, with or without the error-feedback state of
+    ``grad_compression="int8_ef"``), picked by the stored leaf count and
+    key paths.  Returns
     ``(params, step)``; a checkpoint that fits none of them raises the
     restore's own error, from the bundle template."""
     count, paths = stored_structure(directory)
-    bundle = checkpoint_bundle(
-        params, train_optimizer(arch, params, 1).init(params), 0)
-    for like in (params, {"params": params}, bundle):
+    opt_state = train_optimizer(arch, params, 1).init(params)
+    bundle = checkpoint_bundle(params, opt_state, 0)
+    ef_bundle = checkpoint_bundle(params, opt_state, 0,
+                                  init_ef_state(params))
+    for like in (params, {"params": params}, bundle, ef_bundle):
         flat = T.leaves_with_paths(like)
         if len(flat) == count and (paths is None
                                    or paths == [q for q, _ in flat]):

@@ -4,7 +4,8 @@ Trainer.
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch resnet50_dcn_bounded [--full] --steps 6 [--ckpt DIR] \
         [--ckpt-every 20] [--microbatches 1] [--lam 0.005] \
-        [--global-batch 8] [--seed 0] [--device cuda]
+        [--global-batch 8] [--seed 0] [--device cuda] \
+        [--grad-compression int8_ef]
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch tinyllama-1.1b [--full] --steps 50 [--seq-len 64] ...
 
@@ -16,7 +17,11 @@ otherwise, and every DCL runs the fused kernels: the forward kernel and
 the fused backward kernel.  The unbounded arch (``resnet50_dcn``, the
 lambda = 0 baseline) trains through the plain gather.  Params and data
 come from ``--seed``; the run resumes from the latest checkpoint in
-``--ckpt``.  The device defaults to ``cuda``.
+``--ckpt``.  The device defaults to ``cuda``.  The Trainer runs on the
+host's mesh (``launch.mesh.make_host_mesh``: the visible CUDA devices as
+the 'data' axis, or the CPU), so the DCLs split the batch over several
+cards where there are several; ``--grad-compression int8_ef`` compresses
+the gradients with error feedback (``distributed.compression``).
 
 An LM arch (``repro_torch.models.registry``) trains the registry's
 reduced config unless ``--full``, on ``lm_batch`` data of ``--seq-len``
@@ -32,6 +37,8 @@ import dataclasses
 from repro_torch.configs import resnet50_dcn as configs
 from repro_torch.data import (DetectionDataConfig, LMDataConfig,
                               detection_batch, lm_batch)
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import registry as reg
 from repro_torch.models import resnet_dcn as R
 from repro_torch.models import transformer as TF
@@ -59,7 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
+    ap.add_argument("--grad-compression", choices=["int8_ef"], default=None)
     return ap
+
+
+def host_mesh(args):
+    """The run's mesh: every visible card for a CUDA run, the CPU for a
+    CPU run."""
+    dev = resolve_device(args.device)
+    return make_host_mesh(None if dev.type == "cuda" else [dev])
 
 
 def reduced_config(cfg: R.ResNetDCNConfig) -> R.ResNetDCNConfig:
@@ -103,6 +118,7 @@ def train_detection(cfg: R.ResNetDCNConfig, args, *, params=None,
                                global_batch=args.global_batch,
                                num_classes=cfg.num_classes, seed=args.seed)
     opt = train_optimizer(args.arch, params, args.steps)
+    mesh = host_mesh(args)
     trainer = Trainer(
         loss_fn=lambda p, b: R.train_loss(p, cfg, b, lam=lam,
                                           device=args.device),
@@ -111,10 +127,11 @@ def train_detection(cfg: R.ResNetDCNConfig, args, *, params=None,
         config=TrainerConfig(total_steps=args.steps,
                              ckpt_every=args.ckpt_every,
                              ckpt_dir=args.ckpt, log_every=args.log_every,
-                             microbatches=args.microbatches),
+                             microbatches=args.microbatches,
+                             grad_compression=args.grad_compression),
         fault_hook=None if chaos is None else chaos.fault_hook,
         batch_hook=None if chaos is None else chaos.batch_hook,
-        device=args.device)
+        device=mesh.first_device, mesh=mesh)
     if chaos is not None:
         chaos.bind(trainer)
     if trainer.try_resume():
@@ -137,14 +154,16 @@ def train_lm(cfg: TF.ModelConfig, args, *, params=None) -> Trainer:
                         codebooks=cfg.codebooks, seed=args.seed)
     opt = default_optimizer_for(args.arch, cfg.param_count(),
                                 warmup_cosine(3e-3, 10, args.steps))
+    mesh = host_mesh(args)
     trainer = Trainer(
         loss_fn=lambda p, b: TF.loss_fn(p, cfg, b), params=params,
         optimizer=opt, batch_fn=lambda step: lm_batch(data, step),
         config=TrainerConfig(total_steps=args.steps,
                              ckpt_every=args.ckpt_every,
                              ckpt_dir=args.ckpt, log_every=args.log_every,
-                             microbatches=args.microbatches),
-        device=args.device)
+                             microbatches=args.microbatches,
+                             grad_compression=args.grad_compression),
+        device=mesh.first_device, mesh=mesh)
     if trainer.try_resume():
         print(f"resumed from step {trainer.step}")
     trainer.run()
@@ -154,7 +173,7 @@ def train_lm(cfg: TF.ModelConfig, args, *, params=None) -> Trainer:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     print(f"arch={args.arch} ({'full' if args.full else 'reduced'}), "
-          f"device={args.device or 'cuda'}")
+          f"device={args.device or 'cuda'}, mesh={host_mesh(args).shape}")
     if args.arch in configs.ARCHS:
         trainer = train_detection(configs.get(args.arch), args)
     else:

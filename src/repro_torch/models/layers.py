@@ -9,9 +9,10 @@ Params are nested dicts of tensors, declared once as a ``ParamDef`` tree
 and materialised by ``init_tree`` from an explicit ``torch.Generator``.
 Leaves are drawn in sorted-key order (the order JAX flattens dicts in);
 the numbers differ from ``jax.random``, so parity tests convert JAX
-params with ``repro_torch.convert.params_from_jax`` instead.  One device
-has no mesh, so the JAX layers' sharding hints (``logical_constraint``)
-have no counterpart here.
+params with ``repro_torch.convert.params_from_jax`` instead.  The port
+has no GSPMD, so the JAX layers' sharding hints (``logical_constraint``)
+have no counterpart here; the DCL's kernel calls shard over the active
+mesh (``dcl_apply``'s ``shard_batch`` and ``shard_spatial``).
 
 Activations keep the JAX layouts: x (B, S, D), heads (B, S, H, Dh), GQA
 queries (B, S, KV, G, Dh).  A JAX einsum with ``preferred_element_type=
@@ -602,6 +603,8 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
               offset_bound: float | None = None, use_kernel: bool = False,
               dataflow: str = "zero_copy", quant: str = "none",
               quant_scales: Mapping[str, Any] | None = None,
+              shard_batch: bool | None = None,
+              shard_spatial: bool | None = None,
               device: str | torch.device | None = None):
     """One DCL forward pass -> (y, o_max).
 
@@ -627,6 +630,10 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
     * ``"int8_chain"`` — the offset conv is fused into the kernel and the
       output is emitted int8 (a ``QTensor`` on the table's ``y_scale``)
       when the table has a ``y_scale``; see ``_dcl_chain_layer``.
+
+    ``shard_batch`` and ``shard_spatial`` pass to ``ops.deform_conv`` on
+    the kernel paths (the batch and height shards over the active mesh);
+    the chained datapath and the plain paths refuse them.
     """
     if quant not in QUANT_MODES:
         raise ValueError(f"unknown quant mode {quant!r}; expected one of "
@@ -637,11 +644,30 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
                 f"quant='int8_chain' supports only the zero-copy "
                 f"dataflow (got {dataflow!r}); the fused offset stage "
                 f"and int8 emission are band-pipeline plans")
+        if shard_batch:
+            raise ValueError(
+                "shard_batch=True is not supported by the chained int8 "
+                "inference datapath (it has no batch shard, like the int8 "
+                "branch); train chain configs via the STE reference "
+                "(use_kernel=False)")
+        if shard_spatial:
+            raise ValueError(
+                "shard_spatial=True is not supported by the chained int8 "
+                "datapath — the fused offset stage computes offsets from "
+                "the staged band, so halo rows alone cannot reproduce "
+                "them at shard seams; use quant='int8' for spatially "
+                "sharded buckets")
         return _dcl_chain_layer(params, x, kernel_size=kernel_size,
                                 stride=stride, dilation=dilation,
                                 offset_bound=offset_bound,
                                 use_kernel=use_kernel,
                                 quant_scales=quant_scales, device=device)
+    kernel_ok = use_kernel and offset_bound is not None
+    if shard_spatial and not kernel_ok:
+        raise ValueError(
+            "shard_spatial=True requires the bounded kernel path "
+            "(use_kernel=True with a trained offset_bound) — the "
+            "reference paths have no spatial shard")
     cin = x.shape[-1]
     cout = params["w_deform"].shape[-1]
     cfg = DCLConfig(in_channels=cin, out_channels=cout,
@@ -649,7 +675,7 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
                     dilation=dilation, offset_bound=offset_bound,
                     dtype=x.dtype)
     k = kernel_size
-    kernel_ok = use_kernel and offset_bound is not None
+    shards = dict(shard_batch=shard_batch, shard_spatial=shard_spatial)
     if quant in ("int8", "qat") or kernel_ok:
         offsets = conv2d(x, params["w_offset"].to(x.dtype), stride=stride,
                          dilation=dilation, padding=cfg.pad)
@@ -664,7 +690,8 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
                 y = ops.deform_conv(xq, offsets, wq, kernel_size=k,
                                     stride=stride, dilation=dilation,
                                     offset_bound=offset_bound,
-                                    dataflow=dataflow, device=device)
+                                    dataflow=dataflow, device=device,
+                                    **shards)
             else:
                 y = deform_conv_fused_ref(xq, offsets, wq, kernel_size=k,
                                           stride=stride, dilation=dilation,
@@ -676,7 +703,8 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
                                 dilation=dilation, offset_bound=offset_bound,
                                 dataflow=dataflow, precision="int8",
                                 x_scale=scales.get("x_scale"),
-                                w_scale=scales.get("w_scale"), device=device)
+                                w_scale=scales.get("w_scale"),
+                                device=device, **shards)
         elif quant == "int8":
             y = fake_quant_dcl_reference(
                 x, offsets, w, kernel_size=k, stride=stride,
@@ -685,7 +713,7 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
         else:
             y = ops.deform_conv(x, offsets, w, kernel_size=k, stride=stride,
                                 dilation=dilation, offset_bound=offset_bound,
-                                dataflow=dataflow, device=device)
+                                dataflow=dataflow, device=device, **shards)
         return y + params["b_deform"].to(x.dtype), o_max
     y, stats = dcl_forward(params, x, cfg)
     return y, stats["o_max"]

@@ -4,9 +4,7 @@ RWKV-6, the RG-LRU hybrid, multi-codebook audio and the VLM backbone).
 
 Each config module registers an ``ArchSpec`` with its published
 configuration.  The DCL detection configs are in
-``repro_torch.configs.resnet50_dcn``.  command-r-35b waits for the
-port's ``distributed/`` (ROADMAP Queue A item 10): its 140 GB of fp32
-params fit no single card.
+``repro_torch.configs.resnet50_dcn``.
 """
 from __future__ import annotations
 
@@ -54,7 +52,7 @@ _REGISTRY: dict[str, ArchSpec] = {}
 
 ARCH_MODULES = ["tinyllama_1_1b", "glm4_9b", "deepseek_7b",
                 "recurrentgemma_9b", "musicgen_medium", "pixtral_12b",
-                "rwkv6_3b", "dbrx_132b", "grok_1_314b"]
+                "rwkv6_3b", "dbrx_132b", "grok_1_314b", "command_r_35b"]
 
 
 def register(spec: ArchSpec) -> ArchSpec:
@@ -75,8 +73,7 @@ def get(name: str) -> ArchSpec:
         raise KeyError(
             f"arch {name!r} is not in the port's registry, which has "
             f"{sorted(_REGISTRY)}; the DCL configs are in "
-            f"repro_torch.configs.resnet50_dcn, and command-r-35b waits "
-            f"for distributed/ (ROADMAP Queue A item 10)")
+            f"repro_torch.configs.resnet50_dcn")
     return _REGISTRY[name]
 
 

@@ -10,7 +10,10 @@ path (``dcl_forward``, or the fake-quant references under ``quant``) is
 the parity reference.  ``quant`` picks the DCL datapath: ``"none"``
 (fp32), ``"qat"`` (fake-quant training over the fp32 kernels), ``"int8"``
 or ``"int8_chain"``, whose DCL output is emitted int8 and dequantized by
-the block before its GroupNorm.  ``forward(tap=)`` is the calibration
+the block before its GroupNorm.  ``shard_batch`` and ``shard_spatial``
+shard every DCL's kernel call over the active mesh (``kernels.ops``);
+the other layers run whole on the input's device, the mesh's first.
+``forward(tap=)`` is the calibration
 hook; ``detection_loss`` and ``train_loss`` are the training objective
 (Eq. 5 over a dense detection loss).
 """
@@ -46,6 +49,12 @@ class ResNetDCNConfig:
     use_kernel: bool = False       # route DCLs through the fused kernel
     dataflow: str = "zero_copy"    # kernel dataflow: zero_copy | banded
     quant: str = "none"            # none | qat | int8 | int8_chain
+    # The kernel path over the active mesh (distributed.sharding): the
+    # batch split over its 'batch' axes (None = auto, True = require,
+    # False = never) and the height split over its 'spatial' axis with
+    # the bounded halo exchange (None/False = off, True = require).
+    shard_batch: bool | None = None
+    shard_spatial: bool | None = None
 
     @property
     def total_blocks(self) -> int:
@@ -141,7 +150,9 @@ def _apply_block(params, x: Tensor, cfg: ResNetDCNConfig, *, stride: int,
                              offset_bound=cfg.offset_bound,
                              use_kernel=cfg.use_kernel,
                              dataflow=cfg.dataflow, quant=cfg.quant,
-                             quant_scales=quant_scales, device=device)
+                             quant_scales=quant_scales,
+                             shard_batch=cfg.shard_batch,
+                             shard_spatial=cfg.shard_spatial, device=device)
         if isinstance(h, QTensor):
             # int8_chain emission: the DCL output left the kernel as int8;
             # the GroupNorm consumer decodes it here.

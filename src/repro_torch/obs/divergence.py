@@ -52,11 +52,14 @@ class DispatchKey:
     stride: int
     dtype: str              # element type of the band: fp32 | bf16 | int8
     quant: str              # none | int8 | int8_chain
+    shards: tuple = (1, 1)  # (batch blocks, height shards) of a mesh call
 
     def label(self) -> str:
         n, h, w, c = self.shape
+        split = "" if self.shards == (1, 1) else \
+            f"@{self.shards[0]}x{self.shards[1]}shard"
         return (f"{self.op}[{n}x{h}x{w}x{c}->{self.m} s{self.stride}]"
-                f"/{self.dtype}/{self.quant}")
+                f"/{self.dtype}/{self.quant}{split}")
 
 
 def key_from_context(context: dict) -> DispatchKey | None:
@@ -73,7 +76,8 @@ def key_from_context(context: dict) -> DispatchKey | None:
         quant = "none"
     return DispatchKey(op=op, shape=tuple(int(s) for s in shape), m=int(m),
                        stride=int(context.get("stride", 1)), dtype=dtype,
-                       quant=quant)
+                       quant=quant,
+                       shards=tuple(context.get("shards", (1, 1))))
 
 
 def price_dispatch(context: dict) -> dict | None:
@@ -89,7 +93,12 @@ def price_dispatch(context: dict) -> dict | None:
         from repro_torch.kernels.plan import resolve_tiles_and_source
 
         key = key_from_context(context)
+        # A mesh call runs every shard's kernels at its block's shape (on
+        # a mesh that repeats a device, all of them on that device), so it
+        # is priced as the sum of the shards' work.
+        nb, ns = key.shards
         n, h, w, c = key.shape
+        n, h = n // nb, h // ns
         geom = dict(kernel_size=context.get("kernel_size", 3),
                     stride=key.stride, dilation=context.get("dilation", 1))
         bound = context["offset_bound"]
@@ -127,6 +136,8 @@ def price_dispatch(context: dict) -> dict | None:
                 work = h100.training_work(n, h, w, c, key.m, **geom, **sizes)
             else:
                 work = h100.forward_work(n, h, w, c, key.m, **geom, **sizes)
+        if nb * ns > 1:
+            work = h100.total([(work, nb * ns)])
         return dict(work, tiles=list(tiles))
     except Exception:  # noqa: BLE001 — a pricing failure is not a fault
         _log.debug("cannot price dispatch %r", context, exc_info=True)

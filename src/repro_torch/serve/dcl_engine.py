@@ -13,8 +13,14 @@ emitted int8), ``int8`` (every DCL through the int8 dequant kernel),
 ``fp32_kernel`` (the fused fp32 kernel, over the model config's
 dataflow) and ``fp32_ref`` (the plain reference).  The int8 rungs need a
 calibration scale table at engine start (``scale_table``: a dict or a
-JSON path, see ``quant.calibrate``).  Spatial sharding is not ported yet
-and raises at configuration.  On CUDA the ladder is the entry rung alone (``ladder``):
+JSON path, see ``quant.calibrate``).  ``spatial_shards`` runs the listed
+buckets' kernel rungs height-sharded over that many of the engine's
+devices, one halo exchange a DCL (``distributed.spatial``); such a bucket
+enters the ladder at ``int8`` where the entry rung is ``int8_chain``,
+whose fused offset stage cannot be split at shard seams.  The shard
+counts are checked at construction: more shards than devices, a layer
+thinner than its halo or a ragged split raise there, not on the first
+request.  On CUDA the ladder is the entry rung alone (``ladder``):
 a batch whose kernel keeps failing retires ``failed`` with the kernel's
 error and is never served by another rung.  ``fp32_ref`` runs there only
 when the caller chooses it as the entry rung.
@@ -42,6 +48,7 @@ the step's own copy of its outputs to the host).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import time
@@ -51,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import Mesh, use_rules
 from repro_torch.kernels import deform_conv_fused, deform_conv_q, ops, plan
 from repro_torch.models import resnet_dcn as R
 from repro_torch.obs import trace as _trace
@@ -93,6 +101,8 @@ class DCLServeConfig:
     retry_backoff: float = 0.0       # seconds; doubles per retry
     default_deadline: float | None = None
     batch_window: float = 0.0        # hold partial batches this long
+    # ((bucket, shards), ...): the bucket's kernel rungs run height-
+    # sharded over ``shards`` devices with the bounded halo exchange.
     spatial_shards: tuple[tuple[int, int], ...] = ()
 
     def __post_init__(self):
@@ -100,10 +110,19 @@ class DCLServeConfig:
             raise ValueError(
                 f"unknown serve datapath {self.quant!r}; expected one of "
                 f"{LADDER} (the ladder runs from the chosen rung down)")
-        if self.spatial_shards:
-            raise ValueError(
-                "spatial_shards is not ported yet: the PyTorch port serves "
-                "every bucket on one device")
+        for entry in self.spatial_shards:
+            if len(entry) != 2:
+                raise ValueError(
+                    f"spatial_shards entries are (bucket, shards) pairs "
+                    f"(got {entry!r})")
+            b, n = entry
+            if b not in self.buckets:
+                raise ValueError(
+                    f"spatial_shards names bucket {b} which is not in "
+                    f"buckets {self.buckets}")
+            if n < 1:
+                raise ValueError(
+                    f"spatial_shards for bucket {b} must be >= 1 (got {n})")
         if not self.buckets:
             raise ValueError("at least one shape bucket is required")
         if self.slots < 1:
@@ -111,6 +130,12 @@ class DCLServeConfig:
         if self.batch_window < 0:
             raise ValueError(
                 f"batch_window must be >= 0 (got {self.batch_window})")
+
+    def spatial_shards_for(self, bucket: int | None) -> int:
+        for b, n in self.spatial_shards:
+            if b == bucket:
+                return n
+        return 1
 
 
 def bucket_layer_dims(cfg: R.ResNetDCNConfig, res: int) -> dict[str, dict]:
@@ -134,12 +159,16 @@ class DCLServingEngine:
     """See module docstring.  ``clock``/``sleep`` are injectable for
     deterministic deadline and backoff tests; ``step_hook(step, ctx)`` and
     ``admit_hook(request)`` are fault-injection seams.  ``device``
-    defaults to ``cuda``; params must already lie there."""
+    defaults to ``cuda``; params must already lie there.  ``devices`` are
+    the ones a spatial bucket's shards may take, in order (default
+    ``launch.mesh.make_host_mesh``'s, or ``device`` alone on the CPU); a
+    caller may repeat one to run every shard on it."""
 
     def __init__(self, params, model_cfg: R.ResNetDCNConfig,
                  serve_cfg: DCLServeConfig, *,
                  scale_table: Mapping[str, Any] | str | None = None,
                  device: str | torch.device | None = None,
+                 devices=None,
                  clock: Callable[[], float] = time.monotonic,
                  sleep: Callable[[float], None] = time.sleep,
                  step_hook: Callable[[int, dict], None] | None = None,
@@ -210,25 +239,54 @@ class DCLServingEngine:
                                             use_kernel=False),
         }
 
-        # Per-bucket tile plans of the entry rung and its kernel build,
-        # done now rather than on the first request.  The fp32 rung of a
-        # banded config plans for the banded forward (kernel 4, in the
-        # same library as kernel 1a).
+        # Per-bucket meshes of the spatial buckets, checked now: a shard
+        # count the devices or a layer's height cannot take fails at
+        # construction.
+        if devices is None:
+            from repro_torch.launch.mesh import make_host_mesh
+            devices = [self.device] if self.device.type == "cpu" \
+                else list(make_host_mesh().devices.reshape(-1))
+        self.devices = [torch.device(d) for d in devices]
+        self._spatial_meshes: dict[int, Mesh] = {}
+        for b, n in serve_cfg.spatial_shards:
+            if n > len(self.devices):
+                raise ValueError(
+                    f"spatial_shards={n} for bucket {b} exceeds the "
+                    f"{len(self.devices)} available device(s) — the height "
+                    f"split needs one device per shard")
+            if n > 1:
+                if model_cfg.offset_bound is None:
+                    raise ValueError(
+                        f"spatial_shards={n} for bucket {b} needs a trained "
+                        f"offset_bound on the model config — the bounded "
+                        f"halo exchange is derived from it")
+                self._spatial_meshes[b] = Mesh(self.devices[:n], ("model",))
+
+        # Per-bucket tile plans of each bucket's entry rung and its kernel
+        # build, done now rather than on the first request; a spatial
+        # bucket's at the shard-local height ("analytic@2shard"), which
+        # raises here for a layer its shards cannot split.  The fp32 rung
+        # of a banded config plans for the banded forward (kernel 4, in
+        # the same library as kernel 1a).
         self.plans: dict[int, dict[str, tuple]] = {}
         self.plan_sources: dict[int, dict[str, str]] = {}
-        dtype = RUNG_DTYPE.get(serve_cfg.quant)
-        if dtype == "fp32" and model_cfg.dataflow == "banded":
-            dtype = "banded"
-        if model_cfg.offset_bound is not None and dtype is not None:
+        for b in serve_cfg.buckets:
+            dtype = RUNG_DTYPE.get(self.rungs_for(b)[0])
+            if dtype == "fp32" and model_cfg.dataflow == "banded":
+                dtype = "banded"
+            if model_cfg.offset_bound is None or dtype is None:
+                continue
             if self.device.type == "cuda":
                 (deform_conv_fused if dtype in ("fp32", "banded")
                  else deform_conv_q).load_kernel()
-            for b in serve_cfg.buckets:
-                dims = bucket_layer_dims(model_cfg, b)
-                self.plans[b], self.plan_sources[b] = plan.warm_tile_cache(
-                    dims, batch=serve_cfg.slots,
-                    offset_bound=model_cfg.offset_bound, dtype=dtype,
-                    device=self.device)
+            shards = serve_cfg.spatial_shards_for(b)
+            tiles, sources = plan.warm_tile_cache(
+                bucket_layer_dims(model_cfg, b), batch=serve_cfg.slots,
+                offset_bound=model_cfg.offset_bound, dtype=dtype,
+                device=self.device, spatial_shards=shards)
+            suffix = f"@{shards}shard" if shards > 1 else ""
+            self.plans[b] = tiles
+            self.plan_sources[b] = {k: v + suffix for k, v in sources.items()}
 
         self.queue = AdmissionQueue(AdmissionConfig(
             capacity=serve_cfg.queue_capacity,
@@ -236,6 +294,14 @@ class DCLServingEngine:
         self.completed: list[DetRequest] = []
         self.steps = 0
         self._uid = itertools.count()
+
+    def rungs_for(self, bucket: int) -> tuple[str, ...]:
+        """The ladder of ``bucket``: a spatial bucket whose entry rung is
+        ``int8_chain`` enters at ``int8``."""
+        if self.scfg.spatial_shards_for(bucket) > 1 \
+                and self.rungs[0] == "int8_chain":
+            return ladder("int8", self.device)
+        return self.rungs
 
     @property
     def _tr(self) -> Tracer:
@@ -354,18 +420,26 @@ class DCLServingEngine:
             images[i, :arr.shape[0], :arr.shape[1], :] = arr
         return torch.from_numpy(images).to(self.device)
 
-    def _forward(self, rung: str, x: torch.Tensor
+    def _forward(self, rung: str, x: torch.Tensor, bucket: int | None = None
                  ) -> tuple[np.ndarray, np.ndarray]:
         """One batch on ``rung``, every DCL dispatch recorded; returns
-        ``cls`` and ``box`` on the host."""
+        ``cls`` and ``box`` on the host.  A spatial bucket's kernel rungs
+        run height-sharded under its mesh."""
         scales = self._scales if rung in INT8_RUNGS else None
+        cfg = self._cfgs[rung]
+        mesh = self._spatial_meshes.get(bucket)
+        spatial = mesh is not None and rung in ("int8", "fp32_kernel")
+        if spatial:
+            cfg = dataclasses.replace(cfg, shard_spatial=True)
         rec = DispatchRecorder(registry=self.metrics, tracer=self._tracer,
                                tracker=self.divergence,
                                next_hook=ops.get_dispatch_hook(),
                                clock=self.clock)
         try:
-            with torch.no_grad(), ops.dispatch_hook_scope(rec):
-                out, _ = R.forward(self.params, self._cfgs[rung], x,
+            with torch.no_grad(), ops.dispatch_hook_scope(rec), \
+                    (use_rules(mesh=mesh) if spatial
+                     else contextlib.nullcontext()):
+                out, _ = R.forward(self.params, cfg, x,
                                    quant_scales=scales, device=self.device)
             # The copies to the host are the step's synchronisation.
             return out["cls"].cpu().numpy(), out["box"].cpu().numpy()
@@ -374,16 +448,17 @@ class DCLServingEngine:
 
     def _run_batch(self, bucket: int, reqs: list[DetRequest]) -> None:
         x = self.batch_array(bucket, reqs)
+        rungs = self.rungs_for(bucket)
         rung_idx = 0
         attempt = 0
         while True:
             try:
-                cls, box = self._forward(self.rungs[rung_idx], x)
+                cls, box = self._forward(rungs[rung_idx], x, bucket)
                 break
             except Exception as e:   # noqa: BLE001 — recorded per request
                 self._c_retries.inc()
                 self._tr.event("serve/retry", bucket=bucket,
-                               rung=self.rungs[rung_idx],
+                               rung=rungs[rung_idx],
                                attempt=attempt + 1,
                                error=f"{type(e).__name__}: {e}")
                 for r in reqs:
@@ -394,21 +469,21 @@ class DCLServingEngine:
                         self._sleep(self.scfg.retry_backoff
                                     * 2 ** (attempt - 1))
                     continue
-                if rung_idx + 1 < len(self.rungs):
+                if rung_idx + 1 < len(rungs):
                     rung_idx += 1
                     attempt = 0
                     for r in reqs:
                         r.degraded = True
                     self._c_degraded.inc()
                     self._tr.event("serve/degrade", bucket=bucket,
-                                   rung=self.rungs[rung_idx])
+                                   rung=rungs[rung_idx])
                     continue
                 for r in reqs:
                     self._retire(r, "failed", f"{type(e).__name__}: {e}")
                 return
         now = self.clock()
         for i, r in enumerate(reqs):
-            r.ladder = self.rungs[rung_idx]
+            r.ladder = rungs[rung_idx]
             self._c_ladder.inc(rung=r.ladder)
             if r.deadline is not None and now > r.deadline:
                 self._retire(r, "deadline_exceeded",
@@ -446,6 +521,7 @@ class DCLServingEngine:
                 "queue_capacity": self.scfg.queue_capacity,
                 "shed_policy": self.scfg.shed_policy,
                 "batch_window": self.scfg.batch_window,
+                "spatial_shards": [list(e) for e in self.scfg.spatial_shards],
             },
             "steps": self.steps,
             "steps_per_bucket": {dict(k)["bucket"]: int(v)

@@ -1,13 +1,23 @@
-"""Fault-tolerant training loop on one device (counterpart of
-``repro.train.trainer``; the mesh, ``param_specs`` and gradient
-compression belong to the distributed slice of the port).
+"""Fault-tolerant training loop (counterpart of ``repro.train.trainer``).
 
+* data-parallel on a ``mesh``: each step runs under
+  ``distributed.sharding.use_rules(mesh=...)``, so the DCLs' kernel calls
+  split the batch over the mesh's 'batch' axes (one shard a device,
+  ``kernels.ops.resolve_batch_shard``; a batch that does not divide runs
+  whole, as JAX's rules leave it replicated) or, with a config's
+  ``shard_spatial``, the height over its 'spatial' axis.  The port has no
+  GSPMD: params, optimizer state and every other layer stay whole on the
+  mesh's first device, ``param_specs`` (JAX's logical specs of the params,
+  or None) is checked against the params and kept, not applied;
+* optional int8 error-feedback gradient compression (``grad_compression=
+  "int8_ef"``, ``distributed.compression``), applied after the sentinel
+  read the uncompressed gradient norm;
 * gradient accumulation over ``microbatches`` slices of the batch;
 * checkpoint every ``ckpt_every`` steps (async, atomic, keep-k, CRC),
   resume from the latest complete one (``try_resume``);
 * numerics sentinel: the loss and the gradient norm are checked BEFORE
-  the optimizer update, and a non-finite step leaves every state leaf as
-  it was; ``max_skips`` consecutive non-finite steps raise
+  the optimizer update, and a non-finite step leaves every state leaf
+  (the error-feedback state too) as it was; ``max_skips`` consecutive non-finite steps raise
   ``NonFiniteDivergence`` (a replay from a checkpoint would replay it);
 * a step that raises is retried from the last checkpoint with
   exponential backoff (restore and replay: the data pipeline is
@@ -39,6 +49,9 @@ import torch
 from repro_torch import tree as T
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import resolve_device
+from repro_torch.distributed.compression import (ef_compress_grads,
+                                                 init_ef_state)
+from repro_torch.distributed.sharding import logical_spec, use_rules
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
@@ -47,11 +60,15 @@ from repro_torch.optim import Optimizer, global_norm
 Tensor = torch.Tensor
 
 
-def checkpoint_bundle(params: Any, opt_state: Any, step: int) -> dict:
+GRAD_COMPRESSIONS = (None, "int8_ef")
+
+
+def checkpoint_bundle(params: Any, opt_state: Any, step: int,
+                      ef: Any = None) -> dict:
     """The tree a Trainer checkpoints (JAX's bundle: params, optimizer
-    state, the error-feedback slot, step); also the template a launcher
-    restores a Trainer checkpoint into."""
-    return {"params": params, "opt": opt_state, "ef": None,
+    state, the error-feedback state or None, step); also the template a
+    launcher restores a Trainer checkpoint into."""
+    return {"params": params, "opt": opt_state, "ef": ef,
             "step": torch.tensor(step, dtype=torch.int32)}
 
 
@@ -67,7 +84,7 @@ class TrainerConfig:
     ckpt_dir: str = "build/train_ckpt"
     keep: int = 3
     microbatches: int = 1          # gradient accumulation factor
-    grad_compression: str | None = None   # the distributed slice's
+    grad_compression: str | None = None   # None | 'int8_ef'
     log_every: int = 10
     max_retries: int = 3
     max_skips: int = 3             # consecutive non-finite steps -> raise
@@ -84,17 +101,24 @@ class Trainer:
                  sleep: Callable[[float], None] | None = None,
                  registry: MetricsRegistry | None = None,
                  tracer: Tracer | None = None,
-                 device: str | torch.device | None = None):
-        if config.grad_compression is not None:
-            raise NotImplementedError(
-                f"grad_compression={config.grad_compression!r} compresses "
-                f"gradients between data-parallel replicas; it arrives with "
-                f"the distributed slice of the port (ROADMAP Queue A 5)")
+                 device: str | torch.device | None = None,
+                 mesh=None, param_specs: Any = None):
+        if config.grad_compression not in GRAD_COMPRESSIONS:
+            raise ValueError(
+                f"unknown grad_compression {config.grad_compression!r}; "
+                f"expected one of {GRAD_COMPRESSIONS}")
         if config.microbatches < 1:
             raise ValueError(f"microbatches={config.microbatches} must be "
                              f">= 1")
         self.cfg = config
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None or device \
+            is not None else mesh.first_device
+        if mesh is not None and mesh.first_device != self.device:
+            raise ValueError(
+                f"the Trainer runs on {self.device} but the mesh's first "
+                f"device is {mesh.first_device}: the unsharded layers run "
+                f"there")
+        self.mesh = mesh
         self.loss_fn = loss_fn
         self.opt = optimizer
         self.batch_fn = batch_fn
@@ -122,8 +146,22 @@ class Trainer:
         self.step_seconds: list[float] = []
         self.params = T.tree_map(
             lambda p: p.detach().requires_grad_(True), params)
+        if param_specs is not None:
+            T.tree_map(self._check_spec, self.params, param_specs)
+        self.param_specs = param_specs
         self.opt_state = optimizer.init(self.params)
+        self.ef_state = init_ef_state(self.params) \
+            if config.grad_compression == "int8_ef" else None
+        # Each batch leaf's partition on the mesh ({key: spec}), as the
+        # last ``_shard_batch`` laid it out.
+        self.batch_specs: dict[str, tuple] = {}
         self.step = 0
+
+    @staticmethod
+    def _check_spec(p: Tensor, spec) -> None:
+        if len(tuple(spec)) != p.ndim:
+            raise ValueError(f"param spec {spec} does not fit a param of "
+                             f"shape {tuple(p.shape)}")
 
     @property
     def _tr(self) -> Tracer:
@@ -140,7 +178,8 @@ class Trainer:
 
     # -- one step -------------------------------------------------------
     def _grads(self, batch) -> tuple[Tensor, Any]:
-        """Loss (mean over microbatches) and gradients (their mean)."""
+        """Loss (mean over microbatches) and gradients (their mean), under
+        the mesh's rules."""
         leaves = T.leaves_with_paths(self.params)
         tensors = [p for _, p in leaves]
         mb = self.cfg.microbatches
@@ -150,8 +189,9 @@ class Trainer:
             part = batch if mb == 1 else T.tree_map(
                 lambda x: x.reshape(mb, x.shape[0] // mb,
                                     *x.shape[1:])[i], batch)
-            loss, _ = self.loss_fn(self.params, part)
-            gs = torch.autograd.grad(loss, tensors, allow_unused=True)
+            with use_rules(mesh=self.mesh):
+                loss, _ = self.loss_fn(self.params, part)
+                gs = torch.autograd.grad(loss, tensors, allow_unused=True)
             gs = [torch.zeros_like(p) if g is None else g.float()
                   for g, p in zip(gs, tensors)]
             gsum = gs if gsum is None else [a + b for a, b in zip(gsum, gs)]
@@ -171,16 +211,37 @@ class Trainer:
             if mb > 1 and np.shape(x)[0] % mb:
                 raise ValueError(f"batch {k!r} of {np.shape(x)[0]} does not "
                                  f"split into {mb} microbatches")
-        return {k: torch.as_tensor(np.asarray(x)).to(self.device)
-                for k, x in batch.items()}
+        return self._shard_batch(batch)
+
+    def _shard_batch(self, batch):
+        """Lay the host batch out for the step: every leaf on the mesh's
+        first device (the Trainer's), and ``batch_specs`` records how the
+        mesh's rules split each one's sample axis (per microbatch): the
+        DCLs' sharded kernels take the same split, one block a device of
+        the 'batch' axes; a leaf whose batch does not divide stays whole
+        (``None``)."""
+        out = {k: torch.as_tensor(np.asarray(x)).to(self.device)
+               for k, x in batch.items()}
+        if self.mesh is not None:
+            mb = self.cfg.microbatches
+            self.batch_specs = {
+                k: logical_spec((x.shape[0] // mb, *x.shape[1:]),
+                                ("batch",) + (None,) * (x.ndim - 1),
+                                mesh=self.mesh)
+                for k, x in out.items() if x.ndim >= 1}
+        return out
 
     def _one_step(self, batch) -> tuple[float, float, bool]:
         loss, grads = self._grads(batch)
         grad_norm = global_norm(grads)
         finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
         if finite:
-            # The sentinel decided first: a non-finite step touches no
-            # state leaf.
+            # The sentinel decided first, on the uncompressed norm: a
+            # non-finite step touches no state leaf, the error-feedback
+            # state included.
+            if self.ef_state is not None:
+                grads, self.ef_state = ef_compress_grads(grads,
+                                                         self.ef_state)
             with torch.no_grad():
                 self.opt.update(grads, self.opt_state, self.params,
                                 self.step)
@@ -188,7 +249,8 @@ class Trainer:
 
     # -- checkpoint bundle ----------------------------------------------
     def _bundle(self):
-        return checkpoint_bundle(self.params, self.opt_state, self.step)
+        return checkpoint_bundle(self.params, self.opt_state, self.step,
+                                 self.ef_state)
 
     def save(self):
         with self._tr.span("train/checkpoint", step=self.step):
@@ -204,9 +266,10 @@ class Trainer:
         restored, _ = self.ckpt.restore(self._bundle())
         with torch.no_grad():
             T.tree_map(lambda dst, src: dst.copy_(src),
-                       {"params": self.params, "opt": self.opt_state},
+                       {"params": self.params, "opt": self.opt_state,
+                        "ef": self.ef_state},
                        {"params": restored["params"],
-                        "opt": restored["opt"]})
+                        "opt": restored["opt"], "ef": restored["ef"]})
         self.step = int(restored["step"])
         return True
 

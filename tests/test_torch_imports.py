@@ -44,6 +44,16 @@ def test_importing_every_module_loads_no_jax_and_no_reference_package():
     assert res.stdout.split()[0] == str(len(_modules()))
 
 
+def test_the_mesh_modules_are_among_those_checked():
+    """The device mesh's modules take part in both checks above."""
+    assert {"repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.spatial",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.pipeline", "repro_torch.launch.mesh",
+            "repro_torch.models.pipelined",
+            "repro_torch.configs.command_r_35b"} <= set(_modules())
+
+
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py"]
                          + sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))

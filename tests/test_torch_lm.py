@@ -372,15 +372,17 @@ def test_full_configs_match_the_jax_registry(name):
 
 
 def test_registry_holds_every_jax_lm_but_command_r():
-    """Every LM of the JAX registry is in the port's; command-r-35b (140
-    GB of fp32 params) waits for ``distributed/`` and raises naming its
-    ROADMAP item."""
+    """Every LM of the JAX registry is in the port's, command-r-35b too
+    since the port has its mesh (``test_torch_pipeline.py`` holds it);
+    an unknown arch raises naming the registry."""
     jax_lms = {n for n in JReg.names()
                if isinstance(JReg.get(n).config, JT.ModelConfig)}
-    assert set(TReg.names()) == jax_lms - {"command-r-35b"}
-    assert set(ARCHS + LATER + ["recurrentgemma-9b"]) == set(TReg.names())
-    with pytest.raises(KeyError, match="Queue A item 10"):
-        TReg.get("command-r-35b")
+    assert set(TReg.names()) == jax_lms
+    assert set(ARCHS + LATER + ["recurrentgemma-9b", "command-r-35b"]) \
+        == set(TReg.names())
+    assert TReg.get("command-r-35b").config.d_model == 8192
+    with pytest.raises(KeyError, match="not in the port's registry"):
+        TReg.get("command-r-36b")
 
 
 def test_entry_points_default_to_cuda():

@@ -394,8 +394,18 @@ def test_persistent_kernel_fault_fails_on_the_cuda_ladder(model):
 
 @pytest.mark.parametrize("kw", [dict(spatial_shards=((32, 2),))])
 def test_unported_features_raise(kw):
-    with pytest.raises(ValueError, match="not ported yet"):
-        DCLServeConfig(buckets=(32,), **kw)
+    """Spatial buckets are ported (``test_torch_spatial.py``); what a
+    one-device engine cannot serve raises at construction, and a shard
+    count for a bucket the engine lacks at configuration."""
+    with pytest.raises(ValueError, match="not in buckets"):
+        DCLServeConfig(buckets=(64,), **kw)
+    cfg = DCLServeConfig(buckets=(32,), **kw)
+    assert cfg.spatial_shards_for(32) == 2
+    model = R.ResNetDCNConfig(**SMALL, use_kernel=True)
+    with pytest.raises(ValueError, match="exceeds the 1 available"):
+        DCLServingEngine(R.init_params(model, seed=0, device="cpu"), model,
+                         dataclasses.replace(cfg, quant="fp32_kernel"),
+                         device="cpu")
 
 
 def test_config_validation():

@@ -488,8 +488,10 @@ def test_trainer_spans_and_refusals(tmp_path):
             "train/checkpoint", "ckpt/save"} <= names
     step = next(s for s in tracer.spans if s.name == "train/step")
     assert step.attrs["finite"] is True
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        _torch_trainer(tmp_path, grad_compression="int8_ef")
+    # int8_ef is ported (test_torch_compression.py); another raises.
+    with pytest.raises(ValueError, match="unknown grad_compression"):
+        _torch_trainer(tmp_path, grad_compression="int4_ef")
+    assert _torch_trainer(tmp_path, grad_compression="int8_ef").ef_state
 
 
 # -- the launcher ------------------------------------------------------------
