@@ -345,6 +345,29 @@ Phases, each of which exits non-zero on failure:
    gives each row its ``mesh_launches``.  ``--only 18`` runs phases 1, 2
    and 18 alone and prints no result.  Phases 16-18 draw their LM params
    on the card (``card_params``).
+19. the planning layer.  (a) ``launch.dryrun`` over every runnable (arch
+   x shape) cell of the registry on the three meshes (one card, 16x16,
+   2x16x16), all on the ``meta`` device; it runs in background CPU
+   processes (niced, no card) from the end of phase 2, and the phase
+   waits for it.  Each cell must have a record without an error, the
+   registry's skipped cells none; one line a cell: params, argument GB
+   a device on each mesh, peak live GB on one card, whether that fits
+   80 GB, the roofline's dominant term and time (``launch.roofline`` at
+   the H100's peaks).  (b) the shapes this script runs on the card —
+   resnet50_dcn_bounded's fp32 served forward at buckets 256 and 512
+   (batch 4) and phase 8's training step (batch 8 x 512), tinyllama-1.1b's
+   training step (8 x 2048) and a decode step (batch 4, cache 2048) —
+   each dry-run on ``meta``, then the same step (``launch.steps``) run on
+   the card on real tensors (phase 4's DCL params; tinyllama's drawn on
+   the card): the argument bytes must equal the real tensors' summed
+   ``nbytes`` and the FLOPs those ``FlopCounterMode`` counts over the
+   real step (DCL calls priced by ``core.h100``'s works in both); the dry
+   run's peak live bytes are printed beside the step's own
+   ``torch.cuda.max_memory_allocated()`` and the roofline time beside
+   the step's time between CUDA events, with their ratios.  The DCN
+   steps run kernels 1a and 2; their launches are counted from 0 over
+   (b) and must not be 0.  ``--only 19`` runs phases 1, 2 and 19 alone
+   (the dry run in the foreground) and prints no result.
 
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
 run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
@@ -376,9 +399,12 @@ and exits 2.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -5715,6 +5741,240 @@ def mesh_phase(record: dict, params) -> dict[str, int]:
     return main
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the planning layer (dry run on meta, roofline)
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_JOBS = 2             # background workers while phases 3-18 run
+DRYRUN_JOBS_ALONE = 6       # ``--only 19``: nothing else runs
+DRYRUN_WAIT_S = 900
+PLAN_SECONDS = 60           # phase 19's budget (printed, not gated)
+_dryrun: dict = {}
+
+
+def start_dryrun(jobs: int) -> None:
+    """Start phase 19(a)'s dry run of every cell: ``launch.dryrun --all``
+    in its own session (so it and its workers stop together), niced, on
+    the CPU with no card visible."""
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log = open(DRYRUN_DIR.parent / "dryrun.log", "w")
+
+    def detach():
+        os.setsid()
+        os.nice(19)
+    _dryrun["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "all", "--jobs", str(jobs), "--dir", str(DRYRUN_DIR)],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+        preexec_fn=detach)
+    _dryrun["t0"] = time.time()
+    _dryrun["jobs"] = jobs
+    atexit.register(stop_dryrun)
+
+
+def stop_dryrun() -> None:
+    proc = _dryrun.get("proc")
+    if proc is not None and proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def dryrun_cells(record: dict) -> None:
+    """Phase 19(a): wait for the dry run, check and print every cell."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import registry as reg
+
+    proc = _dryrun["proc"]
+    t0 = time.monotonic()
+    try:
+        rc = proc.wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        stop_dryrun()
+        fail(f"the dry run did not end within {DRYRUN_WAIT_S} s of "
+             f"phase 19")
+    log_path = DRYRUN_DIR.parent / "dryrun.log"
+    log = log_path.read_text()
+    waited = time.monotonic() - t0
+    # its last line is written as it ends
+    wall = log_path.stat().st_mtime - _dryrun["t0"]
+    print(f"  dry run: {_dryrun['jobs']} workers, ended {wall:.1f} s after "
+          f"its start, phase 19 waited {waited:.1f} s for it; exit {rc}")
+    if rc != 0:
+        print("\n".join(log.splitlines()[-20:]))
+        fail(f"launch.dryrun --all exited {rc}")
+    cells = reg.runnable_cells()
+    want = {f"{a}__{s}__{m}.json" for a, s in cells for m in dryrun.MESHES}
+    have = {p.name for p in DRYRUN_DIR.glob("*.json")}
+    if have != want:
+        fail(f"dry-run records missing {sorted(want - have)[:4]}, "
+             f"unexpected {sorted(have - want)[:4]}")
+    skipped = {(a, s) for a, s, _ in reg.skipped_cells()}
+    if skipped & set(cells):
+        fail("a skipped cell is also runnable")
+    rows = {}
+    for name in sorted(want):
+        rec = json.loads((DRYRUN_DIR / name).read_text())
+        if "error" in rec:
+            fail(f"dry run of {name}: {rec['error']}")
+        rows[(rec["arch"], rec["shape"], rec["mesh"])] = \
+            roofline.analyze_cell(rec)
+    trace_s = sum(json.loads((DRYRUN_DIR / f"{a}__{s}__card.json")
+                             .read_text())["trace_s"] for a, s in cells)
+    print(f"  {len(cells)} cells x {len(dryrun.MESHES)} meshes, "
+          f"{len(skipped)} skipped ({sorted(skipped)[0][1]} on the "
+          f"full-attention archs); each cell traced once, the traces' "
+          f"times summed over the workers {trace_s:.1f} s")
+    print("  cell: params | args GB/device card/16x16/2x16x16 | peak GB "
+          "(card) | fits 80 GB | dominant | roofline ms (card)")
+    out = []
+    for a, s in cells:
+        card = rows[(a, s, "card")]
+        args = "/".join(f"{rows[(a, s, m)]['argument_bytes'] / 1e9:.3f}"
+                        for m in dryrun.MESHES)
+        print(f"  {a} {s}: {card['params'] / 1e9:.3f}B | {args} | "
+              f"{card['peak_live_bytes'] / 1e9:.3f} | "
+              f"{'yes' if card['fits_card'] else 'no'} | {card['dominant']} | "
+              f"{card['roofline_ms']:.3f}")
+        out += [rows[(a, s, m)] for m in dryrun.MESHES]
+    dest = ROOT / "chiprun_out" / "dryrun"
+    dest.mkdir(parents=True, exist_ok=True)
+    for p in DRYRUN_DIR.glob("*.json"):
+        (dest / p.name).write_text(p.read_text())
+    (dest / "roofline.json").write_text(json.dumps(out, indent=1))
+    (dest / "roofline.md").write_text(roofline.markdown_table(out) + "\n")
+    record["dryrun"] = {"cells": len(cells), "wall_s": wall,
+                        "waited_s": waited, "trace_cpu_s": trace_s}
+
+
+def plan_cases(params) -> list[dict]:
+    """Phase 19(b)'s shapes: (label, arch, shape name, real params or
+    None to draw them on the card)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as reg
+    from repro_torch.models.registry import ShapeSpec
+
+    dcn = reg.get("resnet50_dcn_bounded")
+    lm = reg.get(LM_ARCH)
+    cases = [dict(label=f"{dcn.name} serve {b} (batch {BATCH})",
+                  arch=steps.with_shape(dcn, f"serve_{b}", ShapeSpec(
+                      "infer_det", 0, BATCH), img_size=b),
+                  shape=f"serve_{b}", params=params) for b in (256, 512)]
+    cases.append(dict(
+        label=f"{dcn.name} train (batch {TRAIN_BATCH} x 512)",
+        arch=steps.with_shape(dcn, "train_8", ShapeSpec(
+            "train_det", 0, TRAIN_BATCH)), shape="train_8", params=params))
+    cases.append(dict(label=f"{LM_ARCH} train (8 x 2048)",
+                      arch=steps.with_shape(lm, "train_8x2048", ShapeSpec(
+                          "train", 2048, 8)), shape="train_8x2048",
+                      params=None))
+    cases.append(dict(label=f"{LM_ARCH} decode (batch 4, cache 2048)",
+                      arch=steps.with_shape(lm, "decode_4x2048", ShapeSpec(
+                          "decode", 2048, 4)), shape="decode_4x2048",
+                      params=None))
+    return cases
+
+
+def plan_case(case: dict) -> dict:
+    """Dry-run one shape, run the same step on the card, compare."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.launch import dryrun, roofline, steps
+
+    arch, shape = case["arch"], case["shape"]
+    trace = dryrun.trace_cell(arch, shape)
+    rec = dryrun.run_cell(arch.name, shape, "card", arch=arch, trace=trace)
+    del trace
+    step, inputs, _, _ = steps.make_cell_step(arch, shape, None)
+    params = case["params"]
+    if params is None:
+        params = card_params(arch.config)
+    real = steps.real_inputs(arch, shape, inputs, DEV, params=params)
+    del inputs
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(real)
+                 if isinstance(t, torch.Tensor))
+    if nbytes != rec["argument_bytes"]:
+        fail(f"{case['label']}: argument bytes {rec['argument_bytes']} "
+             f"dry, {nbytes} on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with dryrun.StepCounter(known=real) as sc:
+        out = step(*real)
+    del out
+    torch.cuda.synchronize()
+    # the same counter over the card's tensors, beside the allocator's
+    # peak of that run
+    counted = sc.peak_new_bytes + nbytes
+    counted_alloc = torch.cuda.max_memory_allocated() - before + nbytes
+    if sc.flops != rec["flops"] or sc.dcl != rec["dcl_calls"]:
+        fail(f"{case['label']}: FLOPs {rec['flops']} dry, {sc.flops} on "
+             f"the card; DCL calls {rec['dcl_calls']} vs {sc.dcl}")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = step(*real)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    del out
+    # the step's own peak: what it allocated beyond the memory in use
+    # before it, plus its arguments
+    peak = torch.cuda.max_memory_allocated() - before + nbytes
+    roof = roofline.analyze_cell(rec, arch=arch)
+    res = dict(label=case["label"], argument_bytes=nbytes,
+               flops=rec["flops"], dcl_calls=rec["dcl_calls"],
+               dry_peak_bytes=rec["peak_live_bytes"], card_peak_bytes=peak,
+               peak_ratio=rec["peak_live_bytes"] / peak,
+               counted_peak_bytes=counted,
+               counted_run_peak_bytes=counted_alloc, step_ms=ms,
+               roofline_ms=roof["roofline_ms"], dominant=roof["dominant"],
+               roofline_fraction_measured=roof["roofline_ms"] / ms,
+               model_flops=roof["model_flops_per_device"],
+               model_share_measured=roof["model_flops_per_device"]
+               / h100.PEAK_BF16_FLOPS / (ms / 1e3), dtype=rec["dtype"])
+    print(f"  {case['label']}: args {nbytes} B (= dry run), FLOPs "
+          f"{rec['flops']:.6e} (= dry run; DCL calls {rec['dcl_calls']}); "
+          f"peak dry {rec['peak_live_bytes'] / 1e9:.3f} GB vs card "
+          f"{peak / 1e9:.3f} GB (ratio {res['peak_ratio']:.3f}; the "
+          f"counter over the card's tensors {counted / 1e9:.3f} GB, the "
+          f"allocator in that run {counted_alloc / 1e9:.3f} GB); roofline "
+          f"{roof['roofline_ms']:.3f} ms ({roof['dominant']}) vs "
+          f"{ms:.3f} ms between CUDA events (roofline fraction "
+          f"{res['roofline_fraction_measured']:.4f}; MODEL_FLOPS at the "
+          f"bf16 peak {res['model_share_measured']:.4f} of it; "
+          f"{rec['dtype']})")
+    del real, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def planning_phase(record: dict, params) -> dict[str, int]:
+    """Phase 19: (a) every cell's dry run, (b) the card's shapes against
+    their dry runs.  Returns the launches of kernels 1a and 2 in (b)."""
+    t0 = time.monotonic()
+    print("  (a) every cell on the meta device")
+    dryrun_cells(record)
+    print(f"  (b) dry run vs the same step on the card ({smi()})")
+    reset_counts()
+    record["plan_shapes"] = [plan_case(c) for c in plan_cases(params)]
+    counts = read_counts()
+    main = {k: counts[k] for k in ("deform_conv_fused", "deform_conv_bwd")}
+    print(f"  (b) launches: {main}")
+    if not all(main.values()):
+        fail(f"a kernel of the DCN steps never launched: {counts}")
+    record["phase19_s"] = time.monotonic() - t0
+    print(f"  phase 19 in {record['phase19_s']:.1f} s (budget "
+          f"{PLAN_SECONDS} s) on {smi()}")
+    return main
+
+
 def main() -> int:
     try:
         import torch
@@ -5763,6 +6023,21 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     record["build_s"] = time.monotonic() - t0
 
+    if sys.argv[1:] == ["--only", "19"]:
+        # A debugging run of phase 19 alone (after the build), the dry
+        # run in the foreground: no kernels line, no result.
+        from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
+        from repro_torch.models import resnet_dcn as R
+        print("== 19. the planning layer (alone)")
+        start_dryrun(DRYRUN_JOBS_ALONE)
+        planning_phase(record, perturb_offsets(
+            R.init_params(CONFIG_BOUNDED, seed=0, device="cuda"), 1))
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps(record, indent=2))
+        print(f"  details in {OUT.relative_to(ROOT)}; "
+              f"{time.monotonic() - t_start:.0f} s in all")
+        return 0
+
     if sys.argv[1:] == ["--only", "18"]:
         # A debugging run of phase 18 alone (after the build): no kernels
         # line, no result.
@@ -5775,6 +6050,8 @@ def main() -> int:
         print(f"  details in {OUT.relative_to(ROOT)}; "
               f"{time.monotonic() - t_start:.0f} s in all")
         return 0
+
+    start_dryrun(DRYRUN_JOBS)      # phase 19(a), in the background
 
     print("== 3. kernel vs plain on the card")
     from repro_torch.configs.resnet50_dcn import CONFIG_BOUNDED
@@ -6228,6 +6505,13 @@ def main() -> int:
     for row in kernels["kernels"]:
         if row["name"] in mesh_launches:
             row["mesh_launches"] = mesh_launches[row["name"]]
+
+    print("== 19. the planning layer: every cell dry-run on meta, the "
+          "card's shapes against their dry runs")
+    plan_launches = planning_phase(record, params)
+    for row in kernels["kernels"]:
+        if row["name"] in plan_launches:
+            row["planning_launches"] = plan_launches[row["name"]]
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

@@ -33,6 +33,8 @@ register(ArchSpec(
     shapes=dict(LM_SHAPES),
     long_context_ok=False,
     source="hf:databricks/dbrx-base (unverified tier)",
+    # expert parallelism: its 16 experts divide the 16-way model axis
+    rules_overrides={"experts": "model"},
     notes="long_500k skipped: pure full attention.  528 GB of fp32 "
           "params: one card holds it only cut in depth.",
 ))

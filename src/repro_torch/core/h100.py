@@ -27,7 +27,10 @@ Every bound is the larger of the operations' time and the bytes' time.
 ``total`` sums the works of many calls (a shape's times its launches)
 and bounds the sum, so a run's bound is that of its summed bytes and
 operations.  Kernel 4 reads the bands that ``plan.pad_and_band``
-materialises and computes and writes whole row tiles.  Imports no torch.
+materialises and computes and writes whole row tiles.  Bytes that cross
+between cards (a halo exchange, a gradient sum) are priced at
+``NVLINK_BYTES_PER_S``, NVLink 4's rate in one direction (the same data
+sheet).  Imports no torch.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ PEAK_TF32_FLOPS = 494.7e12        # dense TF32 on the tensor cores
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+# NVLink 4 between two H100 SXM cards: 900 GB/s a card in both directions
+# together (18 links of 50 GB/s), so 450 GB/s each way.
+NVLINK_BYTES_PER_S = 450e9
 # The int8 kernels' patch build: fp32 operations a bilinear sample (4
 # products, 3 sums, no FMA), at one a lane a clock on the CUDA cores.
 SAMPLE_OPS = 7

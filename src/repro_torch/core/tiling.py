@@ -12,6 +12,12 @@ instance (``sample_smem_bytes`` that of the sampling kernels), the
 ``fwd_c_groups`` the forward kernels' (fp32, bf16 and int8) C groups.
 The TPU chooser's scheduling knobs (``cores``, ``dw_flush_every_step``)
 have no counterpart here.
+
+The paper's own buffer algebra (Eqs. 4, 6 and 7: ``receptive_field``,
+``input_buffer_size``, ``output_buffer_size``, ``weight_buffer_size``,
+with ``LayerShape``, ``TileConfig`` and the paper's ``PAPER_TILES``) is
+the JAX package's, unchanged: it describes the paper's FPGA design and
+is what ``core.perf_model`` reads.
 """
 from __future__ import annotations
 
@@ -95,6 +101,65 @@ def spatial_halo_rows(*, kernel_size: int, dilation: int = 1,
                          f"must be >= 1")
     return dilation * (kernel_size // 2) \
         + int(math.ceil(float(offset_bound))) + 1
+
+
+# ---------------------------------------------------------------------------
+# The paper's buffer algebra (its FPGA design, not the card's)
+# ---------------------------------------------------------------------------
+
+def receptive_field(kernel_size: int, offset_bound: float) -> int:
+    """Eq. 4: the receptive field of a DCL whose offsets are bounded by
+    ``offset_bound``."""
+    return int(kernel_size + 2 * math.ceil(float(offset_bound)))
+
+
+def input_buffer_size(rf: int, stride: int, t_w: int, t_n: int,
+                      *, bytes_per_elem: int = 4) -> int:
+    """Eq. 6: bytes of input tile (+halo) needed for stall-free
+    sampling."""
+    return rf * (stride * t_w + rf - stride) * t_n * bytes_per_elem
+
+
+def output_buffer_size(t_w: int, t_n: int, kernel_size: int,
+                       *, bytes_per_elem: int = 4) -> int:
+    """Eq. 7: bytes of output buffer (offsets + interpolated inputs)."""
+    return t_w * t_n * 2 * kernel_size * kernel_size * bytes_per_elem
+
+
+def weight_buffer_size(kernel_size: int, t_n: int, t_m: int,
+                       *, bytes_per_elem: int = 4) -> int:
+    """The weight tile of the dynamic-convolution stage (the paper holds
+    every weight of the tile on chip)."""
+    return kernel_size * kernel_size * t_n * t_m * bytes_per_elem
+
+
+@dataclasses.dataclass(frozen=True)
+class TileConfig:
+    """One loop-tiling point of the paper's accelerator (it fixes T_N =
+    512, T_M = 64, T_H = 1, T_W = 8)."""
+    t_h: int
+    t_w: int
+    t_n: int   # input-channel tile
+    t_m: int   # output-channel tile
+
+
+PAPER_TILES = TileConfig(t_h=1, t_w=8, t_n=512, t_m=64)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerShape:
+    """Shape of one DCL invocation (the traffic reports' layer)."""
+    h: int
+    w: int
+    c_in: int
+    c_out: int
+    kernel_size: int = 3
+    stride: int = 1
+    offset_bound: float = 2.0
+
+    @property
+    def rf(self) -> int:
+        return receptive_field(self.kernel_size, self.offset_bound)
 
 
 def pix_lanes(tile_h: int, tile_w: int) -> int:

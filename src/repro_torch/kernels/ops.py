@@ -48,6 +48,18 @@ tested through, and the timing seam of ``obs.DispatchRecorder``: a hook
 may return ``finish(out=None, error=None)``, which is called after the
 call, on success or failure; a ``finish`` that raises is logged and
 ignored.
+
+``meta`` tensors (the dry run of ``launch.dryrun``) take a shape-only path
+in ``deform_conv`` and ``deform_conv_chain``: the output (and, through
+autograd, each input's gradient) is an empty ``meta`` tensor of the
+kernel's shape and dtype; no kernel, plan or shard runs.  The path is
+chosen by the tensors' device alone, so CPU and CUDA calls never take it.
+``work_scope`` installs a sink whose ``begin(phase, context)`` and
+``end(phase, context)`` bracket each bounded call of either op —
+``"forward"`` around the call, ``"backward"`` around its backward node
+when its gradient is taken — on every device, so a dry run and a real
+run price the same calls and can leave out what runs inside them
+(``launch.dryrun`` prices each call with ``core.h100``'s works).
 """
 from __future__ import annotations
 
@@ -59,6 +71,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core.deform_conv import DCLConfig, sample_patches
+from repro_torch.core.tiling import out_hw
 from repro_torch.device import check_on, resolve_device
 from repro_torch.distributed import spatial as _spatial
 from repro_torch.distributed.sharding import Mesh, batch_mesh_axes
@@ -72,6 +85,7 @@ Tensor = torch.Tensor
 _log = logging.getLogger("repro_torch.kernels")
 
 _dispatch_hook = None
+_work_sink = None
 
 
 def get_dispatch_hook():
@@ -89,6 +103,58 @@ def dispatch_hook_scope(hook):
         yield
     finally:
         _dispatch_hook = prev
+
+
+@contextlib.contextmanager
+def work_scope(sink):
+    """Install a work sink (see the module docstring) around a block,
+    restoring the previous one afterwards."""
+    global _work_sink
+    prev, _work_sink = _work_sink, sink
+    try:
+        yield
+    finally:
+        _work_sink = prev
+
+
+def _priced(context: dict, run):
+    """``run()`` between the installed sink's ``begin("forward",
+    context)`` and ``end``; when the result's gradient is taken, its
+    backward node runs between ``begin("backward", context)`` and
+    ``end``."""
+    sink = _work_sink
+    if sink is None:
+        return run()
+    sink.begin("forward", context)
+    try:
+        y = run()
+    finally:
+        sink.end("forward", context)
+    node = getattr(y, "grad_fn", None)
+    if node is not None:
+        node.register_prehook(lambda g: sink.begin("backward", context))
+        node.register_hook(lambda gi, go: sink.end("backward", context))
+    return y
+
+
+class _MetaDeformConv(torch.autograd.Function):
+    """The shape-only deform conv of ``meta`` tensors: it keeps what the
+    kernel path keeps for its backward (x, offsets, w) and returns empty
+    tensors of the output's and the gradients' shapes."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, w, shape, dtype):
+        ctx.save_for_backward(x, offsets, w)
+        return x.new_empty(shape, dtype=dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, offsets, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        return (torch.empty_like(x) if need[0] else None,
+                torch.empty_like(offsets) if need[1] else None,
+                torch.empty_like(w) if need[2] else None, None, None)
 
 
 def _finish(finish, **result) -> None:
@@ -409,28 +475,34 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
                "offset_itemsize": offsets.element_size(),
                "tiles": (tile_h, tile_w, tile_c, tile_m),
                "shards": shards, "spatial_shards": shards[1]}
+    if x.device.type == "meta":
+        return _priced(context, lambda: _MetaDeformConv.apply(
+            x, offsets, w, (n, ho, wo, m), x.dtype))
     geom = dict(kernel_size=kernel_size, stride=stride, dilation=dilation,
                 offset_bound=offset_bound, tile_h=tile_h, tile_w=tile_w,
                 tile_c=tile_c, tile_m=tile_m, x_scale=x_scale,
                 w_scale=w_scale)
     if precision == "int8" and spatial is not None:
-        return _dispatch(context, lambda: _spatial.spatial_int8_forward(
-            x, offsets, w, sspec=spatial, **geom))
+        return _priced(context, lambda: _dispatch(
+            context, lambda: _spatial.spatial_int8_forward(
+                x, offsets, w, sspec=spatial, **geom)))
     if precision == "int8":
-        return _dispatch(context, lambda: _plan.int8_forward(
-            x, offsets, w, **geom))
+        return _priced(context, lambda: _dispatch(
+            context, lambda: _plan.int8_forward(x, offsets, w, **geom)))
     spec = _plan.DCSpec(kernel_size=kernel_size, stride=stride,
                         dilation=dilation, offset_bound=offset_bound,
                         tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
                         tile_m=tile_m, dataflow=dataflow)
     if spatial is not None:
-        return _dispatch(context, lambda: _spatial.deform_conv_spatial(
-            spec, spatial, x, offsets, w))
-    if shard is not None:
-        return _dispatch(context, lambda: BatchShardedDeformConv.apply(
-            spec, shard, x, offsets, w))
-    return _dispatch(context,
-                     lambda: BoundedDeformConv.apply(spec, x, offsets, w))
+        run = lambda: _spatial.deform_conv_spatial(  # noqa: E731
+            spec, spatial, x, offsets, w)
+    elif shard is not None:
+        run = lambda: BatchShardedDeformConv.apply(  # noqa: E731
+            spec, shard, x, offsets, w)
+    else:
+        run = lambda: BoundedDeformConv.apply(  # noqa: E731
+            spec, x, offsets, w)
+    return _priced(context, lambda: _dispatch(context, run))
 
 
 def deform_conv_chain(x: Tensor, w: Tensor, w_offset: Tensor, b_offset,
@@ -483,9 +555,17 @@ def deform_conv_chain(x: Tensor, w: Tensor, w_offset: Tensor, b_offset,
                "offset_bound": offset_bound, "kernel_size": kernel_size,
                "stride": stride, "dilation": dilation, "device": dev.type,
                "tiles": (tile_h, tile_w, tile_c, tile_m)}
-    return _dispatch(context, lambda: _plan.chain_forward(
-        x, w, w_offset, b_offset, b_deform, kernel_size=kernel_size,
-        stride=stride, dilation=dilation, offset_bound=offset_bound,
-        x_scale=x_scale, w_scale=w_scale, w_offset_scale=w_offset_scale,
-        y_scale=y_scale, tile_h=tile_h, tile_w=tile_w, tile_c=tile_c,
-        tile_m=tile_m, emit=emit))
+    if x.device.type == "meta":
+        n, h, w_in, _ = x.shape
+        ho, wo = out_hw(h, w_in, kernel_size=kernel_size, stride=stride,
+                        dilation=dilation)
+        return _priced(context, lambda: x.new_empty(
+            (n, ho, wo, w.shape[-1]),
+            dtype=torch.int8 if emit == "int8" else torch.float32))
+    return _priced(context, lambda: _dispatch(
+        context, lambda: _plan.chain_forward(
+            x, w, w_offset, b_offset, b_deform, kernel_size=kernel_size,
+            stride=stride, dilation=dilation, offset_bound=offset_bound,
+            x_scale=x_scale, w_scale=w_scale,
+            w_offset_scale=w_offset_scale, y_scale=y_scale, tile_h=tile_h,
+            tile_w=tile_w, tile_c=tile_c, tile_m=tile_m, emit=emit)))

@@ -32,6 +32,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core.deform_conv import (DCLConfig, conv2d, dcl_forward,
                                           offset_abs_max)
+from repro_torch.distributed.sharding import logical_spec
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import deform_conv_fused_ref
 from repro_torch.quant.qat import (fake_quant_dcl_chain_reference,
@@ -44,11 +45,19 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """Declarative parameter: shape, init scheme and dtype."""
+    """Declarative parameter: shape, logical axes (one name or None a
+    dimension, resolved to mesh axes by ``distributed.sharding``), init
+    scheme and dtype."""
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
     init: str = "normal"          # normal | zeros | ones | embed | uniform
     scale: float | None = None    # stddev / limit override (default: fan-in)
     dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamDef of shape {self.shape} needs one "
+                             f"logical axis a dimension, got {self.axes}")
 
 
 def _fan_in(shape: tuple[int, ...]) -> int:
@@ -86,6 +95,22 @@ def init_tree(defs, gen: torch.Generator, device: torch.device) -> Any:
     return {k: init_tree(defs[k], gen, device) for k in sorted(defs)}
 
 
+def meta_tree(defs) -> Any:
+    """A ParamDef tree as ``meta`` tensors: shapes and dtypes, no
+    storage (the dry run's parameters)."""
+    if isinstance(defs, ParamDef):
+        return torch.empty(defs.shape, dtype=defs.dtype, device="meta")
+    return {k: meta_tree(defs[k]) for k in sorted(defs)}
+
+
+def spec_tree(defs) -> Any:
+    """A ParamDef tree as partition specs (``sharding.logical_spec`` of
+    each leaf under the active rules and mesh)."""
+    if isinstance(defs, ParamDef):
+        return logical_spec(defs.shape, defs.axes)
+    return {k: spec_tree(defs[k]) for k in sorted(defs)}
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -112,9 +137,9 @@ def layer_norm(x: Tensor, scale: Tensor, bias: Tensor | None = None,
 
 def norm_def(d_model: int, kind: str) -> dict[str, ParamDef]:
     if kind == "rms":
-        return {"scale": ParamDef((d_model,), init="zeros")}
-    return {"scale": ParamDef((d_model,), init="ones"),
-            "bias": ParamDef((d_model,), init="zeros")}
+        return {"scale": ParamDef((d_model,), (None,), init="zeros")}
+    return {"scale": ParamDef((d_model,), (None,), init="ones"),
+            "bias": ParamDef((d_model,), (None,), init="zeros")}
 
 
 def apply_norm(params: Mapping[str, Tensor], x: Tensor, kind: str) -> Tensor:
@@ -184,20 +209,20 @@ def effective_kv_heads(cfg: AttnConfig) -> int:
 def attn_def(cfg: AttnConfig) -> dict[str, ParamDef]:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
     defs: dict[str, ParamDef] = {
-        "wq": ParamDef((d, h, dh)),
-        "wk": ParamDef((d, kv, dh)),
-        "wv": ParamDef((d, kv, dh)),
-        "wo": ParamDef((h, dh, d)),
+        "wq": ParamDef((d, h, dh), ("embed", "heads", None)),
+        "wk": ParamDef((d, kv, dh), ("embed", "kv", None)),
+        "wv": ParamDef((d, kv, dh), ("embed", "kv", None)),
+        "wo": ParamDef((h, dh, d), ("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((h, dh), init="zeros")
-        defs["bk"] = ParamDef((kv, dh), init="zeros")
-        defs["bv"] = ParamDef((kv, dh), init="zeros")
+        defs["bq"] = ParamDef((h, dh), ("heads", None), init="zeros")
+        defs["bk"] = ParamDef((kv, dh), ("kv", None), init="zeros")
+        defs["bv"] = ParamDef((kv, dh), ("kv", None), init="zeros")
     if cfg.out_bias:
-        defs["bo"] = ParamDef((d,), init="zeros")
+        defs["bo"] = ParamDef((d,), (None,), init="zeros")
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((dh,), init="zeros")
-        defs["k_norm"] = ParamDef((dh,), init="zeros")
+        defs["q_norm"] = ParamDef((dh,), (None,), init="zeros")
+        defs["k_norm"] = ParamDef((dh,), (None,), init="zeros")
     return defs
 
 
@@ -416,10 +441,10 @@ def attn_cache_def(cfg: AttnConfig, batch: int, max_len: int,
     s = min(max_len, cfg.window) if cfg.window is not None else max_len
     ekv = effective_kv_heads(cfg)
     return {
-        "k": ParamDef((batch, s, ekv, cfg.head_dim), init="zeros",
-                      dtype=dtype),
-        "v": ParamDef((batch, s, ekv, cfg.head_dim), init="zeros",
-                      dtype=dtype),
+        "k": ParamDef((batch, s, ekv, cfg.head_dim),
+                      ("batch", None, "kv", None), init="zeros", dtype=dtype),
+        "v": ParamDef((batch, s, ekv, cfg.head_dim),
+                      ("batch", None, "kv", None), init="zeros", dtype=dtype),
     }
 
 
@@ -450,15 +475,15 @@ class MLPConfig:
 
 def mlp_def(cfg: MLPConfig) -> dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
-    defs = {"w_out": ParamDef((f, d))}
+    defs = {"w_out": ParamDef((f, d), ("ff", "embed"))}
     if cfg.kind in ("swiglu", "geglu"):
-        defs["w_gate"] = ParamDef((d, f))
-        defs["w_up"] = ParamDef((d, f))
+        defs["w_gate"] = ParamDef((d, f), ("embed", "ff"))
+        defs["w_up"] = ParamDef((d, f), ("embed", "ff"))
     else:
-        defs["w_in"] = ParamDef((d, f))
+        defs["w_in"] = ParamDef((d, f), ("embed", "ff"))
     if cfg.bias:
-        defs["b_in"] = ParamDef((f,), init="zeros")
-        defs["b_out"] = ParamDef((d,), init="zeros")
+        defs["b_in"] = ParamDef((f,), ("ff",), init="zeros")
+        defs["b_out"] = ParamDef((d,), (None,), init="zeros")
     return defs
 
 
@@ -487,8 +512,8 @@ def mlp_apply(params, x: Tensor, cfg: MLPConfig) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_def(vocab: int, d_model: int) -> dict[str, ParamDef]:
-    return {"embedding": ParamDef((vocab, d_model), init="embed",
-                                  scale=0.02)}
+    return {"embedding": ParamDef((vocab, d_model), ("vocab", None),
+                                  init="embed", scale=0.02)}
 
 
 def embed_apply(params, tokens: Tensor,
@@ -510,7 +535,7 @@ def logits_apply(params, x: Tensor, *, softcap: float | None = None
 
 
 def unembed_def(vocab: int, d_model: int) -> dict[str, ParamDef]:
-    return {"unembedding": ParamDef((d_model, vocab))}
+    return {"unembedding": ParamDef((d_model, vocab), (None, "vocab"))}
 
 
 def unembed_apply(params, x: Tensor, *, softcap: float | None = None
@@ -559,8 +584,11 @@ def chunked_cross_entropy(x: Tensor, w: Tensor, targets: Tensor,
         part = (x[:, i:i + chunk], wt, targets[:, i:i + chunk],
                 mask[:, i:i + chunk])
         if torch.is_grad_enabled():
+            # The body draws no random numbers, so a dry run on meta
+            # keeps no RNG snapshot.
             n_c, m_c = torch.utils.checkpoint.checkpoint(
-                body, *part, use_reentrant=False)
+                body, *part, use_reentrant=False,
+                preserve_rng_state=x.device.type != "meta")
         else:
             n_c, m_c = body(*part)
         nll, m = nll + n_c, m + m_c
@@ -588,10 +616,12 @@ def dcl_def(cin: int, cout: int, k: int = 3) -> dict[str, ParamDef]:
     """One DCL: offset conv (zero-init — offsets start on the regular
     grid) and the deform conv weights."""
     return {
-        "w_offset": ParamDef((k, k, cin, 2 * k * k), init="zeros"),
-        "b_offset": ParamDef((2 * k * k,), init="zeros"),
-        "w_deform": ParamDef((k, k, cin, cout)),
-        "b_deform": ParamDef((cout,), init="zeros"),
+        "w_offset": ParamDef((k, k, cin, 2 * k * k), (None,) * 4,
+                             init="zeros"),
+        "b_offset": ParamDef((2 * k * k,), (None,), init="zeros"),
+        "w_deform": ParamDef((k, k, cin, cout),
+                             (None, None, None, "conv_out")),
+        "b_deform": ParamDef((cout,), (None,), init="zeros"),
     }
 
 

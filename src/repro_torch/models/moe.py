@@ -41,13 +41,13 @@ class MoEConfig:
 
 def moe_def(cfg: MoEConfig) -> dict[str, ParamDef]:
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
-    defs = {"w_router": ParamDef((d, e), scale=0.02),
-            "w_out": ParamDef((e, f, d))}
+    defs = {"w_router": ParamDef((d, e), (None, None), scale=0.02),
+            "w_out": ParamDef((e, f, d), ("experts", "ff", "embed"))}
     if cfg.kind in ("swiglu", "geglu"):
-        defs["w_gate"] = ParamDef((e, d, f))
-        defs["w_up"] = ParamDef((e, d, f))
+        defs["w_gate"] = ParamDef((e, d, f), ("experts", "embed", "ff"))
+        defs["w_up"] = ParamDef((e, d, f), ("experts", "embed", "ff"))
     else:
-        defs["w_in"] = ParamDef((e, d, f))
+        defs["w_in"] = ParamDef((e, d, f), ("experts", "embed", "ff"))
     return defs
 
 

@@ -1,15 +1,19 @@
 """Architecture registry: ``--arch <id>`` -> config and shape set
-(counterpart of ``repro.models.registry`` for its LMs: dense, MoE,
-RWKV-6, the RG-LRU hybrid, multi-codebook audio and the VLM backbone).
+(counterpart of ``repro.models.registry``): the LMs (dense, MoE, RWKV-6,
+the RG-LRU hybrid, multi-codebook audio and the VLM backbone) and the
+paper's two ResNet-50-DCN detectors.
 
-Each config module registers an ``ArchSpec`` with its published
-configuration.  The DCL detection configs are in
-``repro_torch.configs.resnet50_dcn``.
+Each LM config module registers an ``ArchSpec`` with its published
+configuration; ``names()`` lists them.  The DCL detection configs are in
+``repro_torch.configs.resnet50_dcn`` (``det_names()``), which also holds
+their ``ArchSpec`` s; ``get`` finds either kind.  ``runnable_cells`` and
+``skipped_cells`` walk both, as the JAX registry's do.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Any
 
 import torch
 
@@ -21,7 +25,7 @@ from repro_torch.models.transformer import ModelConfig
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
-    kind: str               # train | prefill | decode
+    kind: str               # train | prefill | decode | train_det | infer_det
     seq_len: int = 0
     global_batch: int = 1
     note: str = ""
@@ -40,12 +44,14 @@ LM_SHAPES: dict[str, ShapeSpec] = {
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str                       # dense | moe | ssm | hybrid | audio | vlm
-    config: ModelConfig
+    family: str             # dense | moe | ssm | hybrid | audio | vlm | cnn
+    config: Any                       # ModelConfig or ResNetDCNConfig
     shapes: dict[str, ShapeSpec]
     long_context_ok: bool = False     # may run long_500k
     source: str = ""
     notes: str = ""
+    # per-arch logical -> mesh rule overrides (dbrx: expert parallelism)
+    rules_overrides: dict | None = None
 
 
 _REGISTRY: dict[str, ArchSpec] = {}
@@ -67,26 +73,66 @@ def _ensure_loaded() -> None:
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 
+def _det_specs() -> dict[str, ArchSpec]:
+    from repro_torch.configs import resnet50_dcn
+    return resnet50_dcn.SPECS
+
+
 def get(name: str) -> ArchSpec:
+    """The LM or detection ``ArchSpec`` named ``name``."""
     _ensure_loaded()
-    if name not in _REGISTRY:
-        raise KeyError(
-            f"arch {name!r} is not in the port's registry, which has "
-            f"{sorted(_REGISTRY)}; the DCL configs are in "
-            f"repro_torch.configs.resnet50_dcn")
-    return _REGISTRY[name]
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name in _det_specs():
+        return _det_specs()[name]
+    raise KeyError(
+        f"arch {name!r} is not in the port's registry, which has "
+        f"{sorted(_REGISTRY)}; the DCL configs are "
+        f"{sorted(_det_specs())} (repro_torch.configs.resnet50_dcn)")
 
 
 def names() -> list[str]:
+    """The LM archs."""
     _ensure_loaded()
     return sorted(_REGISTRY)
 
 
-def reduced_config(arch: ArchSpec | ModelConfig) -> ModelConfig:
+def det_names() -> list[str]:
+    """The DCL detection archs."""
+    return sorted(_det_specs())
+
+
+LONG_CONTEXT_SKIP = ("full-attention arch: 0.5M-token dense KV/attn per "
+                     "step is out of scope by design (DESIGN.md)")
+
+
+def runnable_cells() -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells, honouring the long-context skip."""
+    return [(name, shape_name)
+            for name in sorted(names() + det_names())
+            for shape_name in get(name).shapes
+            if shape_name != "long_500k" or get(name).long_context_ok]
+
+
+def skipped_cells() -> list[tuple[str, str, str]]:
+    """(arch, shape, reason) of each cell ``runnable_cells`` leaves out."""
+    return [(name, shape_name, LONG_CONTEXT_SKIP)
+            for name in sorted(names() + det_names())
+            for shape_name in get(name).shapes
+            if shape_name == "long_500k" and not get(name).long_context_ok]
+
+
+def reduced_config(arch: ArchSpec | ModelConfig):
     """Small same-family config for CPU tests: the same mixer pattern, GQA
     ratio, rotary fraction, biases and MoE routing at tiny widths, in
-    fp32 (as the JAX package's).  Takes an ``ArchSpec`` or its config."""
+    fp32 (as the JAX package's); a detector keeps its DCL bound at four
+    one-block stages.  Takes an ``ArchSpec`` or its config."""
+    from repro_torch.models.resnet_dcn import ResNetDCNConfig
     cfg = arch.config if isinstance(arch, ArchSpec) else arch
+    if isinstance(cfg, ResNetDCNConfig):
+        return dataclasses.replace(
+            cfg, stage_sizes=(1, 1, 1, 1), widths=(32, 64, 128, 256),
+            stem_width=16, num_dcn=2, num_classes=8, img_size=64)
     plen = len(cfg.pattern)
     kw = dict(
         n_layers=plen * 2 + (cfg.n_layers % plen), d_model=64, n_heads=4,

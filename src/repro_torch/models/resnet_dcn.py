@@ -66,12 +66,12 @@ class ResNetDCNConfig:
 
 
 def _conv_def(kh, kw, cin, cout):
-    return ParamDef((kh, kw, cin, cout))
+    return ParamDef((kh, kw, cin, cout), (None, None, None, "conv_out"))
 
 
 def _gn_def(c):
-    return {"scale": ParamDef((c,), init="ones"),
-            "bias": ParamDef((c,), init="zeros")}
+    return {"scale": ParamDef((c,), (None,), init="ones"),
+            "bias": ParamDef((c,), (None,), init="zeros")}
 
 
 def group_norm(x: Tensor, params, *, groups: int = GN_GROUPS,

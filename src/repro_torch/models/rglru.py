@@ -39,17 +39,17 @@ def rglru_block_def(cfg: RGLRUConfig) -> dict[str, ParamDef]:
     d, dr = cfg.d_model, cfg.d_rnn
     return {
         # Griffin recurrent block: two input branches
-        "w_gate_in": ParamDef((d, dr)),                # GeLU branch
-        "w_rec_in": ParamDef((d, dr)),                 # conv + LRU branch
-        "conv_w": ParamDef((CONV_WIDTH, dr), scale=0.1),
-        "conv_b": ParamDef((dr,), init="zeros"),
+        "w_gate_in": ParamDef((d, dr), ("embed", "rnn")),     # GeLU branch
+        "w_rec_in": ParamDef((d, dr), ("embed", "rnn")),      # conv + LRU
+        "conv_w": ParamDef((CONV_WIDTH, dr), (None, "rnn"), scale=0.1),
+        "conv_b": ParamDef((dr,), ("rnn",), init="zeros"),
         # RG-LRU gates
-        "w_a": ParamDef((dr, dr)),
-        "b_a": ParamDef((dr,), init="zeros"),
-        "w_x": ParamDef((dr, dr)),
-        "b_x": ParamDef((dr,), init="zeros"),
-        "lam": ParamDef((dr,), init="ones"),
-        "w_out": ParamDef((dr, d)),
+        "w_a": ParamDef((dr, dr), ("rnn", None)),
+        "b_a": ParamDef((dr,), (None,), init="zeros"),
+        "w_x": ParamDef((dr, dr), ("rnn", None)),
+        "b_x": ParamDef((dr,), (None,), init="zeros"),
+        "lam": ParamDef((dr,), (None,), init="ones"),
+        "w_out": ParamDef((dr, d), ("rnn", "embed")),
     }
 
 

@@ -46,33 +46,33 @@ class RWKVConfig:
 def time_mix_def(cfg: RWKVConfig) -> dict[str, ParamDef]:
     d, r = cfg.d_model, cfg.decay_lora_rank
     return {
-        "mu_r": ParamDef((d,), init="zeros"),
-        "mu_k": ParamDef((d,), init="zeros"),
-        "mu_v": ParamDef((d,), init="zeros"),
-        "mu_w": ParamDef((d,), init="zeros"),
-        "mu_g": ParamDef((d,), init="zeros"),
-        "w_r": ParamDef((d, d)),
-        "w_k": ParamDef((d, d)),
-        "w_v": ParamDef((d, d)),
-        "w_g": ParamDef((d, d)),
-        "w_o": ParamDef((d, d)),
+        "mu_r": ParamDef((d,), (None,), init="zeros"),
+        "mu_k": ParamDef((d,), (None,), init="zeros"),
+        "mu_v": ParamDef((d,), (None,), init="zeros"),
+        "mu_w": ParamDef((d,), (None,), init="zeros"),
+        "mu_g": ParamDef((d,), (None,), init="zeros"),
+        "w_r": ParamDef((d, d), ("embed", "heads")),
+        "w_k": ParamDef((d, d), ("embed", "heads")),
+        "w_v": ParamDef((d, d), ("embed", "heads")),
+        "w_g": ParamDef((d, d), ("embed", "heads")),
+        "w_o": ParamDef((d, d), ("heads", "embed")),
         # data-dependent decay: lw = -exp(w0 + tanh(x @ A) @ B)
-        "decay_w0": ParamDef((d,), init="zeros"),
-        "decay_A": ParamDef((d, r), scale=0.01),
-        "decay_B": ParamDef((r, d), scale=0.01),
-        "bonus_u": ParamDef((d,), init="zeros"),
-        "ln_x": ParamDef((d,), init="zeros"),      # per-head norm scale
+        "decay_w0": ParamDef((d,), (None,), init="zeros"),
+        "decay_A": ParamDef((d, r), ("embed", None), scale=0.01),
+        "decay_B": ParamDef((r, d), (None, None), scale=0.01),
+        "bonus_u": ParamDef((d,), (None,), init="zeros"),
+        "ln_x": ParamDef((d,), (None,), init="zeros"),  # per-head norm scale
     }
 
 
 def channel_mix_def(cfg: RWKVConfig) -> dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": ParamDef((d,), init="zeros"),
-        "mu_r": ParamDef((d,), init="zeros"),
-        "w_k": ParamDef((d, f)),
-        "w_v": ParamDef((f, d)),
-        "w_r": ParamDef((d, d)),
+        "mu_k": ParamDef((d,), (None,), init="zeros"),
+        "mu_r": ParamDef((d,), (None,), init="zeros"),
+        "w_k": ParamDef((d, f), ("embed", "ff")),
+        "w_v": ParamDef((f, d), ("ff", "embed")),
+        "w_r": ParamDef((d, d), ("embed", None)),
     }
 
 

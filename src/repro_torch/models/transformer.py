@@ -161,8 +161,10 @@ def model_def(cfg: ModelConfig) -> dict:
     defs: dict[str, Any] = {}
     if cfg.codebooks > 1:
         defs["embed"] = {"embedding": L.ParamDef(
-            (cfg.codebooks, v, d), init="embed", scale=0.02)}
-        defs["heads"] = {"unembedding": L.ParamDef((cfg.codebooks, d, v))}
+            (cfg.codebooks, v, d), (None, "vocab", None), init="embed",
+            scale=0.02)}
+        defs["heads"] = {"unembedding": L.ParamDef(
+            (cfg.codebooks, d, v), (None, None, "vocab"))}
     else:
         defs["embed"] = L.embed_def(v, d)
         if not cfg.tie_embeddings:
@@ -179,7 +181,7 @@ def _stacked(defs, n: int):
     """A period's ParamDef tree with a leading axis of ``n`` (each slice
     drawn at the unstacked leaf's scale)."""
     return T.tree_map(lambda d: dataclasses.replace(
-        d, shape=(n,) + d.shape,
+        d, shape=(n,) + d.shape, axes=(None,) + d.axes,
         scale=None if d.init in ("zeros", "ones") else L.default_scale(d)),
         defs)
 
@@ -204,18 +206,20 @@ def _layer_cache_def(cfg: ModelConfig, kind: str, batch: int,
                                 dtype=cfg.dtype)
     if kind == "rwkv6":
         h, dh, d = cfg.rwkv.n_heads, cfg.rwkv.head_dim, cfg.d_model
-        return {"shift_tm": L.ParamDef((batch, d), init="zeros",
-                                       dtype=cfg.dtype),
-                "wkv": L.ParamDef((batch, h, dh, dh), init="zeros",
+        return {"shift_tm": L.ParamDef((batch, d), ("batch", None),
+                                       init="zeros", dtype=cfg.dtype),
+                "wkv": L.ParamDef((batch, h, dh, dh),
+                                  ("batch", "heads", None, None), init="zeros",
                                   dtype=torch.float32),
-                "shift_cm": L.ParamDef((batch, d), init="zeros",
-                                       dtype=cfg.dtype)}
+                "shift_cm": L.ParamDef((batch, d), ("batch", None),
+                                       init="zeros", dtype=cfg.dtype)}
     if kind == "rglru":
         dr = cfg.rglru.d_rnn
-        return {"h": L.ParamDef((batch, dr), init="zeros",
+        return {"h": L.ParamDef((batch, dr), ("batch", "rnn"), init="zeros",
                                 dtype=torch.float32),
                 "conv": L.ParamDef((batch, CONV_WIDTH - 1, dr),
-                                   init="zeros", dtype=cfg.dtype)}
+                                   ("batch", None, "rnn"), init="zeros",
+                                   dtype=cfg.dtype)}
     raise ValueError(kind)
 
 
@@ -244,20 +248,43 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     return cache
 
 
+def param_defs(cfg: ModelConfig) -> dict:
+    """The ParamDef tree of ``init_params``' layout: the period's leaves
+    stacked under ``layers`` (a leading None logical axis, as JAX's
+    ``param_specs`` prepends)."""
+    defs = model_def(cfg)
+    defs["layers"] = _stacked(defs.pop("period"), cfg.n_periods)
+    return defs
+
+
+def cache_defs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+    """The ParamDef tree of ``init_cache``' layout."""
+    defs = cache_def(cfg, batch, cache_len)
+    defs["layers"] = _stacked(defs.pop("period"), cfg.n_periods)
+    return defs
+
+
 # ---------------------------------------------------------------------------
 # Layer application (one code path for train / prefill / decode)
 # ---------------------------------------------------------------------------
 
 def _attn_prefill_cache(cfg: ModelConfig, k: Tensor, v: Tensor,
                         cache_len: int) -> dict:
-    """Pack full-sequence K/V into the decode cache layout (ring-aware)."""
+    """Pack full-sequence K/V into the decode cache layout: the rows of
+    ``init_cache`` (``min(cache_len, window)`` for a windowed layer, the
+    ring ``attn_decode`` writes position p at slot p % rows), so the
+    engine takes a prefill whatever ``cache_len`` is.  The JAX package
+    packs ``cache_len`` rows, which its own engine cannot take either
+    when ``cache_len`` exceeds the window."""
     s = k.shape[1]
-    if s >= cache_len:
-        shift = s % cache_len
-        k_c = torch.roll(k[:, s - cache_len:], shift, dims=1)
-        v_c = torch.roll(v[:, s - cache_len:], shift, dims=1)
+    rows = min(cache_len, cfg.window) if cfg.window is not None \
+        else cache_len
+    if s >= rows:
+        shift = s % rows
+        k_c = torch.roll(k[:, s - rows:], shift, dims=1)
+        v_c = torch.roll(v[:, s - rows:], shift, dims=1)
     else:
-        pad = (0, 0, 0, 0, 0, cache_len - s)
+        pad = (0, 0, 0, 0, 0, rows - s)
         k_c = torch.nn.functional.pad(k, pad)
         v_c = torch.nn.functional.pad(v, pad)
     return {"k": k_c.to(cfg.dtype), "v": v_c.to(cfg.dtype)}
@@ -372,7 +399,8 @@ def _embed(params, cfg: ModelConfig, tokens: Tensor,
     else:
         x = L.embed_apply(params["embed"], tokens, cfg.dtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype,
+                             device=x.device)
     if frontend is not None:
         x = torch.cat([frontend.to(cfg.dtype), x], 1)
     return x
@@ -420,7 +448,11 @@ def _maybe_remat(fn, cfg: ModelConfig):
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+        # No layer draws random numbers, so a dry run on meta keeps no
+        # RNG snapshot.
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            preserve_rng_state=args[0].device.type != "meta", **kw)
     return run
 
 

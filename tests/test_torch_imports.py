@@ -54,6 +54,15 @@ def test_the_mesh_modules_are_among_those_checked():
             "repro_torch.configs.command_r_35b"} <= set(_modules())
 
 
+def test_the_planning_modules_are_among_those_checked():
+    """The planning layer's modules take part in both checks: the FPGA
+    model and traffic reports, the step builders, the meta dry run and
+    the roofline."""
+    assert {"repro_torch.core.perf_model", "repro_torch.launch.steps",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline"} <= set(_modules())
+
+
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py"]
                          + sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
