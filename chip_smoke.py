@@ -368,6 +368,31 @@ Phases, each of which exits non-zero on failure:
    steps run kernels 1a and 2; their launches are counted from 0 over
    (b) and must not be 0.  ``--only 19`` runs phases 1, 2 and 19 alone
    (the dry run in the foreground) and prints no result.
+20. an LM's params laid out on the mesh by their specs, every mesh
+   repeating the card.  (a) full-width tinyllama-1.1b (bf16 compute) on
+   (data=2, model=4): 3 AdamW steps of the Trainer's own step path at
+   batch 2 x 2048, plain, with int8_ef and with microbatches=2, each held
+   against the flat Trainer of the same setting by relative norm at most
+   2x the flat run's own spread (microbatches=2 against 1) and never
+   below 1e-4; each prints the bytes every mesh position holds
+   (``placement_summary``), the peak memory and the step's time between
+   CUDA events beside the flat step's (no gate on those).  (b) fp32
+   loss and gradients on placed params against the flat path (loss 1e-5
+   relative, each leaf 1e-4 relative norm): tinyllama on (1, 8) (KV 4
+   replicated per query group), musicgen-medium at 4 layers on (1, 16)
+   (sequence-parallel attention) and command-r-35b at 2 layers on (1, 4)
+   (the vocab-parallel tied CE); tinyllama's prefill on (1, 8): its cache
+   ``repeat_interleave`` of the flat cache's KV heads, cache and logits
+   within 1e-5 x max.  (c) tinyllama at full width, 4 layers (fp32, SGD
+   with momentum): 4 steps on (2, 2), a checkpoint, the state restored
+   on (4, 2) equal to the checkpointed one, 2 more steps, held against a
+   straight 6-step run on (4, 2) at JAX's elastic oracle (rtol 5e-4,
+   atol 5e-5), which a planted wrong restore (momentum lost) must fail;
+   a flat Trainer restores the same checkpoint; two straight runs with
+   JAX's AdamW on the two meshes print how far apart they lie (not
+   gated: AdamW's eps turns summation noise into whole steps at this
+   width).  The phase runs no kernel.  ``--only 20`` runs phases 1 and 20 alone and prints
+   no result.
 
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
 run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
@@ -5975,6 +6000,491 @@ def planning_phase(record: dict, params) -> dict[str, int]:
     return main
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: an LM's params laid out on the mesh by their specs
+# ---------------------------------------------------------------------------
+
+P20_ARCH = "tinyllama-1.1b"
+P20_MESH = (2, 4)           # (a): (data, model)
+P20_BATCH = (2, 2048)       # (a): batch x tokens
+P20_LAYERS = None           # (a): depth (None: all 22); cut first if late
+P20_STEPS = 3
+P20_SPREAD = 2.0            # (a): params vs the flat Trainer (relative norm)
+                            # at most this x the flat run's own spread under
+                            # another summation order (the same setting at
+                            # microbatches=2 vs 1, bf16 compute), never
+                            # below P20_RTOL
+P20_RTOL = 1e-4
+P20_LOSS_RTOL = 1e-5        # (b): loss vs the flat path (fp32 compute)
+P20_GRAD_RTOL = 1e-4        # (b): each leaf's gradient (relative norm)
+P20_LOGIT_TOL = 1e-5        # (b): logits and prefill caches, x max|value|
+P20_FWD_BATCH = (1, 2048)   # (b) tinyllama, musicgen
+P20_MG = ("musicgen-medium", 4, (1, 16))     # arch, layers, mesh
+P20_CR = ("command-r-35b", 2, (1, 4), (1, 512))
+P20_PREFILL = (1, 512)      # (b): tinyllama's prefill on (1, 8)
+P20_ELASTIC_LAYERS = 4      # (c)
+P20_ELASTIC = ((2, 2), (4, 2), 4, 2)   # first mesh, second, steps, more
+P20_ELASTIC_BATCH = (4, 512)
+P20_ELASTIC_TOL = dict(rtol=5e-4, atol=5e-5)  # JAX's elastic oracle
+P20_ELASTIC_LR = 0.1        # (c): SGD, momentum 0.9
+P20_SECONDS = 150           # phase 20's budget (printed, not gated)
+
+
+def p20_mesh(shape):
+    return repeated_mesh(tuple(shape), ("data", "model"))
+
+
+def p20_specs(cfg, mesh):
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    with use_rules(mesh=mesh):
+        return L.spec_tree(TF.param_defs(cfg))
+
+
+def p20_batch(cfg, shape, step: int = 0) -> dict:
+    """``lm_batch`` of ``shape`` (batch, tokens) at ``step``, on DEV."""
+    import torch
+
+    from repro_torch.data import LMDataConfig, lm_batch
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=shape[1],
+                        global_batch=shape[0], codebooks=cfg.codebooks,
+                        seed=0)
+    return {k: torch.from_numpy(v).to(DEV)
+            for k, v in lm_batch(data, step).items()}
+
+
+def p20_trainer(cfg, base, *, mesh=None, compression=None, micro=1,
+                opt=None, batch=P20_BATCH, tag="", steps=P20_STEPS):
+    """A Trainer of ``cfg`` from ``base``'s params (placed by their specs
+    on ``mesh``, else a copy on DEV), the launcher's optimizer unless
+    ``opt``, on ``lm_batch`` data of ``batch``."""
+    import torch
+
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import default_optimizer_for, warmup_cosine
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import tree_map
+
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=batch[1],
+                        global_batch=batch[0], codebooks=cfg.codebooks,
+                        seed=0)
+    opt = opt or default_optimizer_for(P20_ARCH, cfg.param_count(),
+                                       warmup_cosine(3e-3, 10, steps))
+    params = base if mesh is not None else tree_map(
+        lambda t: t.detach().clone(), base)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    return Trainer(
+        loss_fn=lambda p, b: TF.loss_fn(p, cfg, b), params=params,
+        optimizer=opt, batch_fn=lambda s: lm_batch(data, s),
+        config=TrainerConfig(total_steps=steps, ckpt_every=steps,
+                             ckpt_dir=str(ROOT / "build" / "smoke_p20" / tag),
+                             log_every=1, microbatches=micro,
+                             grad_compression=compression),
+        device=None if mesh is not None else DEV, mesh=mesh,
+        param_specs=None if mesh is None else p20_specs(cfg, mesh))
+
+
+def p20_steps(tr, n: int) -> tuple[list, list]:
+    """``n`` steps of the Trainer's own step path (its batch layout,
+    sentinel, compression and optimizer), without its checkpoint: the
+    losses and each step's time between CUDA events (host clock on the
+    CPU)."""
+    import torch
+    losses, ms = [], []
+    for _ in range(n):
+        batch = tr._device_batch(tr.step)
+        if DEV == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t0 = time.monotonic()
+        loss, _, finite = tr._one_step(batch)
+        if DEV == "cuda":
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        else:
+            ms.append((time.monotonic() - t0) * 1e3)
+        if not finite:
+            fail(f"phase 20: a non-finite step ({loss})")
+        losses.append(loss)
+        tr.step += 1
+    return losses, ms
+
+
+def p20_held(tr) -> dict:
+    """Bytes each mesh position holds of the Trainer's params and
+    optimizer state (``placement_summary``)."""
+    from repro_torch.distributed.sharding import placement_summary
+    return placement_summary({"params": tr.params, "opt": tr.opt_state},
+                             tr.mesh)
+
+
+def p20_training(record: dict) -> None:
+    """Phase 20(a): ``P20_STEPS`` AdamW steps of full-width tinyllama-1.1b
+    on (data=2, model=4), plain, with int8_ef and with microbatches=2,
+    each against the flat Trainer of the same setting."""
+    import torch
+
+    from repro_torch.models import registry as reg
+    from repro_torch.models import transformer as TF
+    from repro_torch.distributed.sharding import use_rules
+
+    cfg = reg.get(P20_ARCH).config
+    if P20_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=P20_LAYERS)
+    mesh = p20_mesh(P20_MESH)
+    with use_rules(mesh=mesh):
+        plan = TF.shard_plan(cfg, P20_BATCH[0])
+    rec = record["p20_train"] = dict(arch=P20_ARCH, layers=cfg.n_layers,
+                                     mesh=mesh.shape, batch=P20_BATCH,
+                                     steps=P20_STEPS, plan=plan)
+    print(f"  (a) {P20_ARCH} ({cfg.n_layers} layers, {cfg.dtype} compute) on "
+          f"{mesh.shape}, batch {P20_BATCH[0]} x {P20_BATCH[1]}, "
+          f"{P20_STEPS} AdamW steps; per shard: {plan}")
+    base = card_params(cfg)
+    runs = {"none": {}, "int8_ef": dict(compression="int8_ef"),
+            "micro2": dict(micro=2)}
+    flat = {}
+    for name, kw in {**runs, "int8_ef_micro2": dict(
+            compression="int8_ef", micro=2)}.items():
+        tr = p20_trainer(cfg, base, tag=f"flat_{name}", **kw)
+        losses, ms = p20_steps(tr, P20_STEPS)
+        flat[name] = dict(params=tr.params, losses=losses, ms=ms)
+        if DEV == "cuda":
+            flat[name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del tr
+    # Each setting's flat spread: the same setting at microbatches=2
+    # against 1 (the micro2 setting against microbatches=1).
+    other = {"none": "micro2", "int8_ef": "int8_ef_micro2",
+             "micro2": "none"}
+    spread = {name: tree_rel(flat[other[name]]["params"],
+                             flat[name]["params"]) for name in runs}
+    gates = {name: max(P20_RTOL, P20_SPREAD * v)
+             for name, v in spread.items()}
+    print("  the flat Trainer's own spread, microbatches=2 vs 1 (another "
+          "summation order), relative norm: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in spread.items()))
+    rec.update(spread=spread, gates=gates, runs={})
+    for name, kw in runs.items():
+        tol = gates[name]
+        tr = p20_trainer(cfg, base, mesh=mesh, tag=name, **kw)
+        held = p20_held(tr)
+        losses, ms = p20_steps(tr, P20_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9 \
+            if DEV == "cuda" else float("nan")
+        rel = tree_rel(gathered(tr.params), flat[name]["params"])
+        ok = rel <= tol
+        f_ms = statistics.median(flat[name]["ms"][1:])
+        s_ms = statistics.median(ms[1:])
+        gb = {"x".join(map(str, k)): round(v / 1e9, 3)
+              for k, v in held["held"].items()}
+        print(f"  {name}: losses {[round(v, 5) for v in losses]} (flat "
+              f"{[round(v, 5) for v in flat[name]['losses']]}); params vs "
+              f"flat relative norm {rel:.2e} (gate {tol:.2e})"
+              + (" ok" if ok else " FAIL"))
+        print(f"    held a position (GB, params + AdamW state): {gb}; "
+              f"{len(held['split'])} leaves split, {len(held['whole'])} "
+              f"whole; peak {peak:.2f} GB (flat "
+              f"{flat[name].get('peak_gb', float('nan')):.2f}); step "
+              f"{s_ms:.1f} ms sharded vs {f_ms:.1f} ms flat (CUDA events, "
+              f"median of steps 2-{P20_STEPS})")
+        rec["runs"][name] = dict(
+            losses=losses, flat_losses=flat[name]["losses"], rel=rel,
+            held_gb=gb, per_device_gb=held["per_device"] / 1e9,
+            split=len(held["split"]), whole=len(held["whole"]),
+            peak_gb=peak, flat_peak_gb=flat[name].get("peak_gb"),
+            step_ms=ms, flat_step_ms=flat[name]["ms"])
+        if not ok:
+            fail(f"phase 20(a) {name}: {rel} > {tol}")
+        del tr
+    del flat, base
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def gathered(tree):
+    from repro_torch.distributed.sharding import gather_tree
+    import torch
+    with torch.no_grad():
+        return gather_tree(tree)
+
+
+def p20_loss_case(rec: dict, cfg, mesh_shape, batch_shape, label: str):
+    """Loss and gradients of ``cfg`` (fp32 compute) on placed params on a
+    ``mesh_shape`` mesh against the flat path on the same params: loss
+    within P20_LOSS_RTOL, each leaf's gradient within P20_GRAD_RTOL
+    (relative norm)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.distributed.sharding import (gather, is_placed,
+                                                  place_tree, use_rules)
+    from repro_torch.models import transformer as TF
+
+    params = card_params(cfg)
+    batch = p20_batch(cfg, batch_shape)
+    leaves = [t.requires_grad_(True) for t in T.leaves(params)]
+    loss, _ = TF.loss_fn(params, cfg, batch)
+    flat_g = dict(zip([p for p, _ in T.leaves_with_paths(params)],
+                      torch.autograd.grad(loss, leaves)))
+    flat_loss = float(loss.detach())
+    del loss, leaves
+    mesh = p20_mesh(mesh_shape)
+    placed = place_tree(params, p20_specs(cfg, mesh), mesh)
+    del params
+    placed = T.tree_map(lambda t: t.requires_grad_(True), placed)
+    blocks = T.leaves(placed)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with use_rules(mesh=mesh):
+        plan = TF.shard_plan(cfg, batch_shape[0])
+        loss, _ = TF.loss_fn(placed, cfg, batch)
+        gs = torch.autograd.grad(loss, blocks, allow_unused=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if DEV == "cuda" else float("nan")
+    by_id = {id(b): torch.zeros_like(b) if g is None else g
+             for b, g in zip(blocks, gs)}
+    del gs
+    loss = float(loss.detach())
+    loss_rel = abs(loss - flat_loss) / abs(flat_loss)
+    worst, worst_path = 0.0, ""
+    for path, x in T.leaves_with_paths(placed, is_leaf=is_placed):
+        g = T.tree_map(lambda b: by_id[id(b)], x)
+        g = gather(g, device=DEV) if is_placed(g) else g
+        want = flat_g.pop(path)
+        rel = float((g - want).norm() / want.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_path = rel, "/".join(path)
+    ok = loss_rel <= P20_LOSS_RTOL and worst <= P20_GRAD_RTOL
+    print(f"  {label} on {mesh.shape}, batch {batch_shape[0]} x "
+          f"{batch_shape[1]}, fp32: loss {loss:.6f} vs flat "
+          f"{flat_loss:.6f} (rel {loss_rel:.2e}, gate {P20_LOSS_RTOL}); "
+          f"worst leaf gradient {worst:.2e} ({worst_path}; gate "
+          f"{P20_GRAD_RTOL}); peak {peak:.2f} GB"
+          + (" ok" if ok else " FAIL"))
+    print(f"    per shard: {plan}")
+    rec[label] = dict(mesh=mesh.shape, loss=loss, flat_loss=flat_loss,
+                      loss_rel=loss_rel, worst_grad=worst,
+                      worst_leaf=worst_path, peak_gb=peak, plan=plan)
+    if not ok:
+        fail(f"phase 20(b) {label}: loss {loss_rel}, gradient {worst}")
+    del placed, blocks, by_id, flat_g
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def p20_prefill(rec: dict, cfg) -> None:
+    """tinyllama (fp32) prefill on (1, 8): KV 4 does not split 8 ways, so
+    the cache holds 32 heads, ``repeat_interleave`` of the flat cache's 4;
+    the logits equal the flat ones, both within P20_LOGIT_TOL x max."""
+    import torch
+
+    from repro_torch.distributed.sharding import place_tree, use_rules
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+
+    params = card_params(cfg)
+    toks = p20_batch(cfg, P20_PREFILL)["tokens"]
+    mesh = p20_mesh((1, 8))
+    with torch.no_grad():
+        flat_logits, flat_c = TF.prefill(params, cfg, toks,
+                                         cache_len=P20_PREFILL[1])
+        placed = place_tree(params, p20_specs(cfg, mesh), mesh)
+        del params
+        with use_rules(mesh=mesh):
+            ekv = L.effective_kv_heads(cfg.attn_cfg())
+            logits, caches = TF.prefill(placed, cfg, toks,
+                                        cache_len=P20_PREFILL[1])
+    rep = ekv // cfg.kv_heads
+    errs = {}
+    for key in ("k", "v"):
+        want = torch.repeat_interleave(flat_c["layers"]["m0"][key], rep,
+                                       dim=3)
+        got = caches["layers"]["m0"][key]
+        if got.shape != want.shape:
+            fail(f"phase 20(b) prefill cache {key}: {tuple(got.shape)} vs "
+                 f"{tuple(want.shape)}")
+        errs[key] = float((got - want).abs().max() / want.abs().max())
+    errs["logits"] = float((logits - flat_logits).abs().max()
+                           / flat_logits.abs().max())
+    ok = max(errs.values()) <= P20_LOGIT_TOL
+    print(f"  prefill {P20_PREFILL[0]} x {P20_PREFILL[1]} on {mesh.shape}: "
+          f"effective KV heads {ekv} (of {cfg.kv_heads}); cache "
+          f"{tuple(caches['layers']['m0']['k'].shape)}; max error / max: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (gate {P20_LOGIT_TOL})" + (" ok" if ok else " FAIL"))
+    rec["prefill_1x8"] = dict(ekv=ekv, **errs)
+    if not ok:
+        fail(f"phase 20(b) prefill: {errs}")
+    del placed, caches, flat_c
+
+
+def p20_forward(record: dict) -> None:
+    """Phase 20(b): forward and loss on the other rules."""
+    import torch
+
+    from repro_torch.models import registry as reg
+
+    rec = record["p20_forward"] = {}
+    tl = dataclasses.replace(reg.get(P20_ARCH).config, dtype=torch.float32)
+    p20_loss_case(rec, tl, (1, 8), P20_FWD_BATCH, f"{P20_ARCH}")
+    p20_prefill(rec, tl)
+    name, layers, mesh = P20_MG
+    mg = dataclasses.replace(reg.get(name).config, n_layers=layers,
+                             dtype=torch.float32)
+    p20_loss_case(rec, mg, mesh, P20_FWD_BATCH, f"{name} ({layers} layers)")
+    name, layers, mesh, batch = P20_CR
+    cr = dataclasses.replace(reg.get(name).config, n_layers=layers,
+                             dtype=torch.float32)
+    p20_loss_case(rec, cr, mesh, batch, f"{name} ({layers} layers)")
+
+
+def p20_oracle_share(got, want) -> tuple[float, str]:
+    """The share of JAX's elastic allowance (``P20_ELASTIC_TOL``) the
+    worst element of two param trees uses (<= 1 passes), and its leaf."""
+    from repro_torch import tree as T
+    tol = P20_ELASTIC_TOL
+    worst, where = 0.0, ""
+    for (path, a), (_, b) in zip(T.leaves_with_paths(gathered(got)),
+                                 T.leaves_with_paths(gathered(want))):
+        a, b = a.detach(), b.detach()
+        used = float(((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs()))
+                     .max())
+        if used > worst:
+            worst, where = used, "/".join(path)
+    return worst, where
+
+
+def p20_elastic(record: dict) -> None:
+    """Phase 20(c): tinyllama at full width, ``P20_ELASTIC_LAYERS`` layers
+    (fp32), trains on (2, 2), checkpoints, resumes on (4, 2): the
+    restored state equals the checkpointed one, and the result is held
+    against a straight run on (4, 2) at JAX's elastic oracle, which a
+    planted wrong restore (the optimizer state lost) must fail.  The
+    checkpoint also restores into a flat Trainer.  SGD with momentum (the
+    paper's optimizer) trains: with JAX's AdamW (eps 1e-8) two straight
+    runs on the two meshes already differ past the oracle at this width
+    (printed), since fp32 summation noise on gradients near eps moves
+    whole steps."""
+    import shutil
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.distributed.sharding import is_placed
+    from repro_torch.models import registry as reg
+    from repro_torch.optim import adamw, constant, sgd
+
+    first_mesh, second_mesh, n1, n2 = P20_ELASTIC
+    cfg = dataclasses.replace(reg.get(P20_ARCH).config,
+                              n_layers=P20_ELASTIC_LAYERS,
+                              dtype=torch.float32)
+    root = ROOT / "build" / "smoke_p20"
+    shutil.rmtree(root / "elastic", ignore_errors=True)
+    base = card_params(cfg)
+
+    def build(mesh, tag, opt=None):
+        return p20_trainer(
+            cfg, base, mesh=mesh, batch=P20_ELASTIC_BATCH, tag=tag,
+            steps=n1 + n2, opt=opt or sgd(constant(P20_ELASTIC_LR),
+                                          momentum=0.9))
+
+    def state(tr):
+        return gathered({"params": tr.params, "opt": tr.opt_state})
+    first = build(p20_mesh(first_mesh), "elastic")
+    p20_steps(first, n1)
+    t0 = time.monotonic()
+    first.save()
+    first.ckpt.wait()
+    save_s = time.monotonic() - t0
+    saved = state(first)
+    del first
+    resumed = build(p20_mesh(second_mesh), "elastic")
+    t0 = time.monotonic()
+    if not resumed.try_resume() or resumed.step != n1:
+        fail(f"phase 20(c): no resume at step {n1}")
+    restore_s = time.monotonic() - t0
+    exact = all(torch.equal(a, b) for a, b in zip(T.leaves(state(resumed)),
+                                                  T.leaves(saved)))
+    del saved
+    p20_steps(resumed, n2)
+    straight = build(p20_mesh(second_mesh), "straight")
+    p20_steps(straight, n1 + n2)
+    worst, where = p20_oracle_share(resumed.params, straight.params)
+    del resumed
+    wrong = build(p20_mesh(second_mesh), "elastic")
+    wrong.try_resume()
+    with torch.no_grad():
+        T.tree_map(lambda t: t.zero_(), wrong.opt_state)
+    p20_steps(wrong, n2)
+    planted, _ = p20_oracle_share(wrong.params, straight.params)
+    del wrong
+    flat = p20_trainer(cfg, base, batch=P20_ELASTIC_BATCH, tag="elastic",
+                       steps=n1 + n2, opt=sgd(constant(P20_ELASTIC_LR),
+                                              momentum=0.9))
+    flat_ok = flat.try_resume() and flat.step == n1 and not any(
+        is_placed(x) for x in T.leaves(flat.params, is_leaf=is_placed))
+    del flat
+    # JAX's example optimizer: two straight runs, one on each mesh.
+    runs = []
+    for shape in (first_mesh, second_mesh):
+        tr = build(p20_mesh(shape), f"adamw_{shape[0]}",
+                   opt=adamw(constant(3e-3)))
+        p20_steps(tr, n1 + n2)
+        runs.append(tr)
+    adamw_share, adamw_where = p20_oracle_share(runs[0].params,
+                                                runs[1].params)
+    del runs, straight, base
+    tol = P20_ELASTIC_TOL
+    ok = exact and worst <= 1.0 and planted > 1.0 and flat_ok
+    print(f"  (c) {P20_ARCH} ({P20_ELASTIC_LAYERS} layers, fp32), batch "
+          f"{P20_ELASTIC_BATCH[0]} x {P20_ELASTIC_BATCH[1]}, SGD "
+          f"{P20_ELASTIC_LR} momentum 0.9: {n1} steps on "
+          f"{dict(zip(('data', 'model'), first_mesh))}, checkpoint "
+          f"({save_s:.1f} s), restored on "
+          f"{dict(zip(('data', 'model'), second_mesh))} ({restore_s:.1f} s;"
+          f" params and momentum equal to the checkpointed: {exact}), "
+          f"{n2} more steps")
+    print(f"    vs a straight {n1 + n2}-step run the worst element uses "
+          f"{worst:.4f} of rtol {tol['rtol']} + atol {tol['atol']} "
+          f"({where}); a planted wrong restore (momentum lost) {planted:.1f};"
+          f" a flat Trainer restores the checkpoint: {flat_ok}"
+          + (" ok" if ok else " FAIL"))
+    print(f"    JAX's AdamW(3e-3): straight runs on the two meshes differ by "
+          f"{adamw_share:.1f} of the allowance ({adamw_where}; not gated)")
+    record["p20_elastic"] = dict(
+        worst_share=worst, worst_leaf=where, planted_share=planted,
+        restored_exact=exact, flat_restore=flat_ok, save_s=save_s,
+        restore_s=restore_s, adamw_mesh_share=adamw_share,
+        adamw_leaf=adamw_where)
+    shutil.rmtree(root, ignore_errors=True)
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    if not ok:
+        fail(f"phase 20(c): exact {exact}, {worst} of the allowance, "
+             f"planted {planted}, flat {flat_ok}")
+
+
+def sharding_phase(record: dict) -> None:
+    """Phase 20: an LM's params laid out on the mesh by their specs."""
+    import torch
+
+    t0 = time.monotonic()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    print(f"  meshes repeat {DEV}:0 (one card holds every block)")
+    p20_training(record)
+    print("  (b) forward, loss and gradient on the other rules")
+    p20_forward(record)
+    p20_elastic(record)
+    record["phase20_s"] = time.monotonic() - t0
+    print(f"  phase 20 in {record['phase20_s']:.1f} s (budget "
+          f"{P20_SECONDS} s) on {smi() if DEV == 'cuda' else DEV}")
+
+
 def main() -> int:
     try:
         import torch
@@ -6005,6 +6515,16 @@ def main() -> int:
         # A debugging run of phase 17 alone: no kernels line, no result.
         print("== 17. the remaining LM families (alone)")
         families_phase(record)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps(record, indent=2))
+        print(f"  details in {OUT.relative_to(ROOT)}; "
+              f"{time.monotonic() - t_start:.0f} s in all")
+        return 0
+    if sys.argv[1:] == ["--only", "20"]:
+        # A debugging run of phase 20 alone (it runs no kernel): no
+        # kernels line, no result.
+        print("== 20. an LM's params on the mesh by their specs (alone)")
+        sharding_phase(record)
         OUT.parent.mkdir(parents=True, exist_ok=True)
         OUT.write_text(json.dumps(record, indent=2))
         print(f"  details in {OUT.relative_to(ROOT)}; "
@@ -6512,6 +7032,10 @@ def main() -> int:
     for row in kernels["kernels"]:
         if row["name"] in plan_launches:
             row["planning_launches"] = plan_launches[row["name"]]
+
+    print("== 20. an LM's params on the mesh by their specs: tensor-parallel "
+          "heads, ff and vocab, FSDP over embed, elastic restore")
+    sharding_phase(record)
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

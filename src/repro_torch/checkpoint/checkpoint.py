@@ -17,6 +17,14 @@ checkpoint raises ``CheckpointCorruptError``, and the restore of the
 latest step falls back to the previous complete one.  The manager sweeps
 stale ``step_*.tmp`` directories when it is created and writes in a
 background thread, one write at a time.
+
+A leaf laid out on a mesh (``distributed.sharding.Placed``) is gathered
+whole before it is written, so the files carry no mesh: a checkpoint of a
+sharded Trainer has the layout of a flat one's.  ``shardings`` (a tree of
+``sharding.Sharding``, JAX's ``NamedSharding``) lays each restored leaf
+out on a mesh, whatever mesh wrote it (the elastic restore); without
+one, a leaf goes where its template lies, a placed template's leaf
+placed as the template is.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed.sharding import gather, is_placed, place
 
 PathLike = str | os.PathLike
 
@@ -67,9 +76,20 @@ def _to_tensor(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
+def _host(x):
+    """A leaf on the host: a tensor detached and copied, a placed leaf
+    gathered whole, anything else as a numpy array."""
+    if isinstance(x, torch.Tensor) or is_placed(x):
+        with torch.no_grad():
+            return gather(x, device="cpu").detach().clone()
+    return np.array(x)
+
+
 def save_checkpoint(directory: PathLike, step: int, tree: Any, *,
                     keep: int = 3) -> pathlib.Path:
     """Synchronous atomic save.  Returns the final checkpoint path."""
+    if any(is_placed(x) for x in T.leaves(tree, is_leaf=is_placed)):
+        tree = T.tree_map(_host, tree, is_leaf=is_placed)
     directory = pathlib.Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
@@ -148,9 +168,11 @@ def _load_manifest(path: pathlib.Path) -> dict:
     return manifest
 
 
-def _restore_step(path: pathlib.Path, tree_like: Any) -> Any:
+def _restore_step(path: pathlib.Path, tree_like: Any,
+                  shardings: Any = None) -> Any:
     """Load and verify one published checkpoint into the structure of
-    ``tree_like``, each leaf on its template's device.
+    ``tree_like``, each leaf laid out by its ``shardings`` entry, else as
+    its template.
 
     Raises ``CheckpointCorruptError`` for damage on disk and
     ``ValueError`` when the checkpoint does not fit the template (leaf
@@ -158,7 +180,8 @@ def _restore_step(path: pathlib.Path, tree_like: Any) -> Any:
     checkpoint can fix the latter, so it never triggers the fallback.
     """
     manifest = _load_manifest(path)
-    like = T.leaves_with_paths(tree_like)
+    like = T.leaves_with_paths(tree_like, is_leaf=is_placed)
+    layout = dict(T.leaves_with_paths(shardings))
     n = len(like)
     if n != len(manifest["leaves"]):
         raise ValueError(
@@ -203,8 +226,14 @@ def _restore_step(path: pathlib.Path, tree_like: Any) -> Any:
                 f"checkpoint {path} leaf {i} ({'/'.join(key)}) has shape "
                 f"{tuple(arr.shape)}, the restore target {tshape}")
         t = _to_tensor(arr, entry["dtype"])
-        dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
-        out.append((key, t.to(dev)))
+        if key in layout:
+            t = layout[key].place(t)
+        elif is_placed(tmpl):
+            t = place(t, tmpl.spec, tmpl.mesh)
+        else:
+            t = t.to(tmpl.device if isinstance(tmpl, torch.Tensor)
+                     else "cpu")
+        out.append((key, t))
     return _rebuild(tree_like, dict(out))
 
 
@@ -218,21 +247,27 @@ def _rebuild(tree_like: Any, by_path: dict, prefix=()) -> Any:
 
 
 def restore_checkpoint(directory: PathLike, tree_like: Any, *,
-                       step: int | None = None) -> tuple[Any, int]:
-    """Restore into the structure of ``tree_like`` (each leaf on its
-    template's device).  With ``step=None`` a corrupt checkpoint is logged
-    and skipped for the previous complete step; an explicit ``step``
-    raises ``CheckpointCorruptError`` directly."""
+                       step: int | None = None,
+                       shardings: Any = None) -> tuple[Any, int]:
+    """Restore into the structure of ``tree_like``: each leaf laid out by
+    its entry of ``shardings`` (a tree of ``sharding.Sharding`` over the
+    same paths) where it has one, else as its template (on the
+    template's device, or placed as a placed template).  With
+    ``step=None`` a corrupt checkpoint is logged and skipped for the
+    previous complete step; an explicit ``step`` raises
+    ``CheckpointCorruptError`` directly."""
     directory = pathlib.Path(directory)
     if step is not None:
-        return _restore_step(directory / f"step_{step:08d}", tree_like), step
+        return _restore_step(directory / f"step_{step:08d}", tree_like,
+                             shardings), step
     steps = complete_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoint in {directory}")
     last_err: CheckpointCorruptError | None = None
     for s in steps:
         try:
-            restored = _restore_step(directory / f"step_{s:08d}", tree_like)
+            restored = _restore_step(directory / f"step_{s:08d}", tree_like,
+                                     shardings)
         except CheckpointCorruptError as e:
             _log.warning("checkpoint step %d failed verification (%s); "
                          "falling back to the previous complete step", s, e)
@@ -282,10 +317,8 @@ class CheckpointManager:
                                sync=not self.async_write):
             self.wait()
             # On the host before returning, so the caller may go on
-            # updating its tensors in place.
-            host = T.tree_map(
-                lambda x: x.detach().cpu().clone()
-                if isinstance(x, torch.Tensor) else np.array(x), tree)
+            # updating its tensors in place; a placed leaf gathered whole.
+            host = T.tree_map(_host, tree, is_leaf=is_placed)
             if not self.async_write:
                 save_checkpoint(self.directory, step, host, keep=self.keep)
                 return
@@ -300,10 +333,12 @@ class CheckpointManager:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
-    def restore(self, tree_like: Any, *, step: int | None = None):
+    def restore(self, tree_like: Any, *, step: int | None = None,
+                shardings: Any = None):
         from repro_torch.obs.trace import get_tracer
         with get_tracer().span("ckpt/restore", step=step):
-            return restore_checkpoint(self.directory, tree_like, step=step)
+            return restore_checkpoint(self.directory, tree_like, step=step,
+                                      shardings=shardings)
 
     def latest_step(self) -> int | None:
         return latest_step(self.directory)

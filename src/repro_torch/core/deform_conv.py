@@ -179,11 +179,19 @@ def sample_patches(x: Tensor, offsets: Tensor, cfg: DCLConfig) -> Tensor:
 # Full deformable convolution layer (Eq. 1 + Eq. 2)
 # ---------------------------------------------------------------------------
 
-def dcl_forward(params: dict[str, Tensor], x: Tensor, cfg: DCLConfig):
+def receptive_field_dynamic(kernel_size: int, o_max: Tensor) -> Tensor:
+    """Eq. 4 on a tensor: ``K + 2 ceil(o_max)``."""
+    return kernel_size + 2 * torch.ceil(o_max)
+
+
+def dcl_forward(params: dict[str, Tensor], x: Tensor, cfg: DCLConfig, *,
+                return_stats: bool = True):
     """One DCL: offset conv -> clamp (optional) -> sample -> conv.
 
-    Returns ``(y, stats)``; ``stats['o_max']`` is the Eq. 3 statistic of
-    the unclamped offsets.
+    Returns ``(y, stats)``, or ``y`` alone without ``return_stats``;
+    ``stats['o_max']`` is the Eq. 3 statistic of the unclamped offsets
+    and ``stats['rf_dynamic']`` its receptive field (Eq. 4), both
+    tensors.
     """
     n = x.shape[0]
     k = cfg.kernel_size
@@ -204,4 +212,7 @@ def dcl_forward(params: dict[str, Tensor], x: Tensor, cfg: DCLConfig):
                      w.float()).to(cfg.dtype)
     if "b_deform" in params:
         y = y + params["b_deform"].to(cfg.dtype)
-    return y, {"o_max": o_max}
+    if not return_stats:
+        return y
+    return y, {"o_max": o_max,
+               "rf_dynamic": receptive_field_dynamic(k, o_max)}

@@ -19,6 +19,7 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed.sharding import is_placed
 
 Tensor = torch.Tensor
 
@@ -28,10 +29,12 @@ def init_ef_state(params: Any) -> Any:
                                             device=p.device), params)
 
 
-def _quantize(x: Tensor) -> tuple[Tensor, Tensor]:
-    """absmax / 127 + 1e-12 grid; ``torch.round`` rounds ties to even, as
-    ``jnp.round`` does."""
-    scale = x.abs().max() / 127.0 + 1e-12
+def _quantize(x: Tensor, scale: Tensor | None = None
+              ) -> tuple[Tensor, Tensor]:
+    """absmax / 127 + 1e-12 grid (``scale`` gives another); ``torch.round``
+    rounds ties to even, as ``jnp.round`` does."""
+    if scale is None:
+        scale = x.abs().max() / 127.0 + 1e-12
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -41,7 +44,10 @@ def _dequantize(q: Tensor, scale: Tensor) -> Tensor:
 
 
 def ef_compress_grads(grads: Any, ef_state: Any) -> tuple[Any, Any]:
-    """Returns (compressed-then-decompressed grads, new ef_state)."""
+    """Returns (compressed-then-decompressed grads, new ef_state).  A
+    placed leaf has one scale over all of its blocks (the max of their
+    absmaxes, the same number as the whole leaf's), so its blocks
+    quantize onto JAX's leaf-wide grid."""
 
     def one(g, e):
         g = g.float() + e
@@ -49,7 +55,18 @@ def ef_compress_grads(grads: Any, ef_state: Any) -> tuple[Any, Any]:
         deq = _dequantize(q, scale)
         return deq, g - deq
 
-    both = T.tree_map(one, grads, ef_state)
+    def placed(g, e):
+        xs = {k: b.float() + e.blocks[k] for k, b in g.blocks.items()}
+        home = next(iter(xs.values())).device
+        amax = torch.stack([x.abs().max().to(home)
+                            for x in xs.values()]).max()
+        scale = amax / 127.0 + 1e-12
+        deq = {k: _dequantize(*_quantize(x, scale.to(x.device)))
+               for k, x in xs.items()}
+        return g.rebuild(deq), g.rebuild({k: xs[k] - deq[k] for k in xs})
+
+    both = T.tree_map(lambda g, e: placed(g, e) if is_placed(g)
+                      else one(g, e), grads, ef_state, is_leaf=is_placed)
     return (T.tree_map(lambda t: t[0], both),
             T.tree_map(lambda t: t[1], both))
 

@@ -17,8 +17,17 @@ kernel launch then runs on that one device, the counterpart of XLA's
 forced host device count.  Only an explicit caller builds such a mesh;
 ``launch.mesh.make_host_mesh`` takes the visible devices.
 
-The port has no GSPMD: a layer that no sharded path covers runs whole on
-the mesh's first device, and ``logical_constraint`` is the identity.
+Params are laid out on the mesh by their specs (``place``, the
+counterpart of ``jax.device_put`` with a ``NamedSharding``): a leaf split
+over mesh axes becomes a ``Placed``, one block per distinct mesh index
+along those axes, each on ``mesh.device_at`` of its index and owning its
+storage; an axis the spec does not name holds one copy.  The LM layers
+run per shard of the active mesh (``models.layers``: heads, ``ff`` and
+vocab over 'model', FSDP gathers over 'data'), the batch splits over the
+'batch' axes (``models.transformer``), and ``gather`` brings blocks
+together, differentiably, so gradients flow back to them.  The port has
+no GSPMD, so ``logical_constraint`` stays the identity: what JAX's hints
+ask of XLA, the layers do by hand.
 
 Default mapping (single pod (data=16, model=16); multi-pod adds 'pod'):
 
@@ -31,12 +40,15 @@ Default mapping (single pod (data=16, model=16); multi-pod adds 'pod'):
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch import tree as T
 
 AxisRules = Mapping[str, str | tuple[str, ...] | None]
 
@@ -205,9 +217,70 @@ def logical_spec(shape: Sequence[int], axes: Sequence[str | None],
 
 def logical_constraint(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     """The identity.  JAX's version is a ``with_sharding_constraint`` for
-    GSPMD; the port has no GSPMD, so a tensor stays where it is and only
-    the sharded paths named in the module docstring split work."""
+    GSPMD; the port has no GSPMD, so a tensor stays where it is, and the
+    layers split their work per shard themselves (module docstring)."""
     return x
+
+
+def mesh_axes(logical: str) -> tuple[Mesh | None, tuple[str, ...], int]:
+    """``(mesh, axes, size)``: the active mesh, the axes of size > 1 the
+    active rules map ``logical`` to, and the product of their sizes
+    (``(None, (), 1)`` off-mesh)."""
+    ctx = current_rules()
+    if ctx is None or ctx[1] is None:
+        return None, (), 1
+    rules, mesh = ctx
+    sizes = _mesh_axis_sizes(mesh)
+    axes = tuple(a for a in _entry_axes(rules.get(logical))
+                 if sizes.get(a, 1) > 1)
+    return mesh, axes, math.prod(sizes[a] for a in axes)
+
+
+@contextlib.contextmanager
+def at_coords(coords: Mapping[str, int]):
+    """Run the layers inside as the shard at mesh ``coords`` (a data
+    shard's place on the 'batch' axes): ``shard_device`` adds them."""
+    prev = getattr(_state, "coords", None)
+    _state.coords = dict(coords)
+    try:
+        yield
+    finally:
+        _state.coords = prev
+
+
+def context() -> tuple:
+    """This thread's rules, mesh and shard coordinates, for ``restored``:
+    a checkpointed region recomputes in the backward, which the autograd
+    engine may run on a thread of its own (a CUDA device's), where none
+    of them is set."""
+    return getattr(_state, "ctx", None), getattr(_state, "coords", None)
+
+
+@contextlib.contextmanager
+def restored(ctx: tuple):
+    """Run with the rules, mesh and coordinates ``context()`` took."""
+    prev = context()
+    _state.ctx, _state.coords = ctx
+    try:
+        yield
+    finally:
+        _state.ctx, _state.coords = prev
+
+
+def shard_device(coords: Mapping[str, int] | None = None) -> torch.device:
+    """The device of the shard at ``coords`` within the current data
+    shard (``at_coords``) on the active mesh."""
+    ctx = current_rules()
+    if ctx is None or ctx[1] is None:
+        raise ValueError("no mesh is active (use_rules(mesh=...))")
+    here = getattr(_state, "coords", None) or {}
+    return ctx[1].device_at({**here, **(coords or {})})
+
+
+def shard_coords(axes: Sequence[str], j: int) -> dict[str, int]:
+    """Shard ``j`` of a split over ``axes`` as mesh coordinates."""
+    ctx = current_rules()
+    return _decode(j, axes, _mesh_axis_sizes(ctx[1]))
 
 
 def batch_mesh_axes(*, logical: str = "batch"
@@ -232,3 +305,248 @@ def batch_mesh_axes(*, logical: str = "batch"
     if total <= 1:
         return None
     return mesh, axes, total
+
+
+# ---------------------------------------------------------------------------
+# Placement: a leaf laid out on the mesh by its spec
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _decode(j: int, axes: Sequence[str], sizes: Mapping[str, int]
+            ) -> dict[str, int]:
+    """Block index ``j`` of a dimension split over ``axes`` as mesh
+    coordinates (the first axis major, as a ``PartitionSpec`` entry)."""
+    out = {}
+    for ax in reversed(axes):
+        out[ax] = j % sizes[ax]
+        j //= sizes[ax]
+    return out
+
+
+def _block_grid(shape: Sequence[int], spec: Sequence, mesh: Mesh
+                ) -> tuple[int, ...]:
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {tuple(spec)} does not fit a leaf of shape "
+                         f"{tuple(shape)}")
+    sizes = mesh.shape
+    grid = []
+    for d, ent in zip(shape, spec):
+        axes = _entry_axes(ent)
+        unknown = [a for a in axes if a not in sizes]
+        if unknown:
+            raise ValueError(f"spec {tuple(spec)} names {unknown}, not an "
+                             f"axis of the mesh {mesh.shape}")
+        n = math.prod(sizes[a] for a in axes)
+        if d % n:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                             f"divide over {axes} ({n} blocks)")
+        grid.append(n)
+    return tuple(grid)
+
+
+class Placed(T.Node):
+    """A tensor laid out on ``mesh`` by ``spec``: ``blocks`` maps a block
+    index (one entry a dimension, the block's place along it) to the
+    block, which lies on ``device_of(index)``.  The tree functions walk
+    into it (its leaves are its blocks), so an optimizer's state, a
+    gradient or a copy built with ``tree.tree_map`` is placed the same
+    way; ``gather`` reads it back, differentiably."""
+
+    def __init__(self, blocks: Mapping[tuple[int, ...], torch.Tensor],
+                 shape: Sequence[int], spec: Sequence, mesh: Mesh):
+        self.blocks = dict(blocks)
+        self.shape = torch.Size(shape)
+        self.spec = tuple(spec)
+        self.mesh = mesh
+        self.grid = _block_grid(self.shape, self.spec, mesh)
+
+    # -- the tree protocol ----------------------------------------------
+    def children(self) -> dict:
+        return self.blocks
+
+    def rebuild(self, children: dict) -> "Placed":
+        return Placed(children, self.shape, self.spec, self.mesh)
+
+    # -- layout ---------------------------------------------------------
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(iter(self.blocks.values())).dtype
+
+    def axes(self, dim: int) -> tuple[str, ...]:
+        """The mesh axes dimension ``dim`` is split over."""
+        return _entry_axes(self.spec[dim])
+
+    def coords(self, index: Sequence[int]) -> dict[str, int]:
+        """The mesh coordinates of block ``index``."""
+        out: dict[str, int] = {}
+        for dim, j in enumerate(index):
+            out.update(_decode(j, self.axes(dim), self.mesh.shape))
+        return out
+
+    def device_of(self, index: Sequence[int]) -> torch.device:
+        return self.mesh.device_at(self.coords(index))
+
+    def block_shape(self) -> tuple[int, ...]:
+        return tuple(d // n for d, n in zip(self.shape, self.grid))
+
+    def __getitem__(self, i: int) -> "Placed":
+        """Row ``i`` of an unsplit leading dimension (a period of stacked
+        layers, a codebook), placed the same way along the rest."""
+        if not isinstance(i, int) or self.grid[0] != 1:
+            raise IndexError(f"only an int index of an unsplit leading "
+                             f"dimension, not {i!r} on spec {self.spec}")
+        return Placed({k[1:]: b[i] for k, b in self.blocks.items()},
+                      self.shape[1:], self.spec[1:], self.mesh)
+
+    def __repr__(self) -> str:
+        return (f"Placed(shape={tuple(self.shape)}, spec={self.spec}, "
+                f"blocks={self.grid}, dtype={self.dtype})")
+
+
+def is_placed(x: Any) -> bool:
+    return isinstance(x, Placed)
+
+
+def place(t: torch.Tensor, spec: Sequence, mesh: Mesh
+          ) -> "torch.Tensor | Placed":
+    """``t`` laid out on ``mesh`` by ``spec``: a ``Placed`` of one block
+    per distinct mesh index along the axes the spec names (each a copy
+    with storage of its own, on its device), or, where the spec splits
+    nothing, one copy on the mesh's first device.  Blocks own their
+    storage even on a mesh that repeats a device, where ``.to`` would
+    return the tensor itself: an in-place update of one block never
+    touches another, nor ``t``."""
+    t = t.detach()
+    grid = _block_grid(t.shape, spec, mesh)
+    if all(n == 1 for n in grid):
+        return t.to(mesh.first_device, copy=True)
+    proto = Placed({}, t.shape, spec, mesh)
+    bs = proto.block_shape()
+    blocks = {}
+    for index in np.ndindex(*grid):
+        part = t
+        for dim, j in enumerate(index):
+            part = part.narrow(dim, j * bs[dim], bs[dim])
+        blocks[index] = part.to(proto.device_of(index), copy=True) \
+            .contiguous()
+    return proto.rebuild(blocks)
+
+
+def gather(x, *, at: Mapping[str, int] | None = None,
+           device: str | torch.device | None = None,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The part of ``x`` at mesh coordinates ``at`` (a dimension split
+    over axes that ``at`` names takes the block at those coordinates, one
+    split over other axes is gathered whole) as one tensor on ``device``
+    (default the mesh's first) in ``dtype``.  With ``at`` empty: the
+    whole tensor.  Differentiable: the gradient of the result flows back
+    to the blocks.  A plain tensor is moved and cast."""
+    if not isinstance(x, Placed):
+        return x.to(device=device if device is not None else x.device,
+                    dtype=dtype)
+    at = dict(at or {})
+    device = torch.device(device) if device is not None \
+        else x.mesh.first_device
+    fixed: dict[int, int] = {}
+    sizes = x.mesh.shape
+    for dim in range(x.ndim):
+        axes = [a for a in x.axes(dim) if sizes[a] > 1]
+        named = [a for a in axes if a in at]
+        if named and len(named) != len(axes):
+            raise ValueError(f"dimension {dim} is split over {axes}; "
+                             f"name all of them or none, not {named}")
+        if named:
+            j = 0
+            for a in x.axes(dim):
+                j = j * sizes[a] + (at[a] if sizes[a] > 1 else 0)
+            fixed[dim] = j
+
+    def build(prefix: tuple[int, ...], dim: int) -> torch.Tensor:
+        if dim == x.ndim:
+            return x.blocks[prefix].to(device=device, dtype=dtype)
+        if dim in fixed:
+            return build(prefix + (fixed[dim],), dim + 1)
+        parts = [build(prefix + (j,), dim + 1) for j in range(x.grid[dim])]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    return build((), 0)
+
+
+def place_tree(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """``place`` over a tree and its spec tree (None: an empty subtree)."""
+    return T.tree_map(lambda t, s: place(t, s, mesh), tree, specs)
+
+
+def gather_tree(tree: Any, device: str | torch.device | None = None) -> Any:
+    """Every leaf of ``tree`` whole on ``device`` (default: each plain
+    leaf where it lies, each placed leaf on its mesh's first device)."""
+    return T.tree_map(lambda x: gather(x, device=device), tree,
+                      is_leaf=is_placed)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's layout on a mesh: JAX's ``NamedSharding(mesh, spec)``."""
+    mesh: Mesh
+    spec: tuple
+
+    def place(self, t: torch.Tensor) -> "torch.Tensor | Placed":
+        return place(t, self.spec, self.mesh)
+
+
+def shardings_of(specs: Any, mesh: Mesh) -> Any:
+    """A tree of ``Sharding`` from a tree of specs on ``mesh``."""
+    return T.tree_map(lambda s: Sharding(mesh, tuple(s)), specs,
+                      is_leaf=lambda s: isinstance(s, tuple))
+
+
+def placement_summary(tree: Any, mesh: Mesh | None = None) -> dict:
+    """Where a tree's bytes lie.  ``held``: the bytes each mesh position
+    ({coordinates: bytes}, positions in the mesh's order) stores (a plain
+    leaf lies whole on the first position; a block replicated over an
+    axis its spec does not name is held once, at index 0 of that axis);
+    ``per_device``: the bytes one device holds under GSPMD, where every
+    replicated block lies on each device of its axes (equal to
+    ``launch.dryrun.tree_shard_bytes`` of the same specs, and to the
+    first position's ``held``); ``split``: {path: spec} of the placed
+    leaves; ``whole``: the paths of the plain ones.  ``mesh`` defaults
+    to the placed leaves' (a tree with none is all on one position)."""
+    held: dict[tuple, int] = {}
+    per_device = 0
+    split: dict[str, tuple] = {}
+    whole: list[str] = []
+    for path, x in T.leaves_with_paths(tree, is_leaf=is_placed):
+        name = "/".join(path)
+        if isinstance(x, Placed):
+            mesh = mesh or x.mesh
+            split[name] = x.spec
+            for index, b in x.blocks.items():
+                pos = _position(x.mesh, x.coords(index))
+                held[pos] = held.get(pos, 0) + b.numel() * b.element_size()
+            b = next(iter(x.blocks.values()))
+            per_device += b.numel() * b.element_size()
+        else:
+            whole.append(name)
+            n = x.numel() * x.element_size()
+            held[()] = held.get((), 0) + n
+            per_device += n
+    if mesh is not None and () in held:
+        first = tuple(0 for _ in mesh.axis_names)
+        held[first] = held.get(first, 0) + held.pop(())
+    if mesh is not None:
+        held = {idx: held.get(idx, 0) for idx in np.ndindex(
+            *mesh.devices.shape)}
+    return {"held": held, "per_device": per_device, "split": split,
+            "whole": whole}
+
+
+def _position(mesh: Mesh, coords: Mapping[str, int]) -> tuple[int, ...]:
+    return tuple(coords.get(a, 0) for a in mesh.axis_names)

@@ -24,15 +24,17 @@ and records to ``build/dryrun/<arch>__<shape>__<mesh>.json``:
 * ``bytes_accessed``: the operand and result bytes of every aten op that
   is not a view or an allocation (XLA's pre-fusion ``bytes accessed``),
   plus each DCL call's work bytes;
-* ``collective_bytes``: null, with ``collective_reason``.  The port has
-  no GSPMD: a layer that no sharded path covers runs whole on the mesh's
-  first device (``distributed.sharding``), so an LM cell moves nothing
-  between devices; the detector's DCL calls take their shape-only path
-  on ``meta`` and do not run the batch shard, so the bytes that shard
-  would move are not traced.  No analytic collective model stands in.
+* ``collective_bytes``: null, with ``collective_reason``.  The trace
+  runs on one card's layout, so it sees none of the FSDP gathers,
+  row-parallel partial sums and vocab combines an LM step makes on a
+  mesh (``models.layers``), nor the bytes the DCLs' batch shard moves
+  (on ``meta`` they take their shape-only path).  No analytic collective
+  model stands in.
 
-The trace does not depend on the mesh (every layer runs unsharded on
-``meta``), so a cell is traced once; a mesh's record gives the step's
+The trace is taken once a cell, on one card's layout (its FLOPs are the
+function's, which no layout changes); the arguments' and outputs' bytes
+take each mesh's layout, a decode cell's caches with the KV heads
+``effective_kv_heads`` gives on it.  A mesh's record gives the step's
 totals (``flops``, ``bytes_accessed``) and their even split over its
 devices (``*_per_device``), the layout its specs describe.  The port
 walks every layer in Python, so unlike JAX (whose cost analysis counts a
@@ -326,7 +328,7 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *,
         groups[name] = tree_shard_bytes(tree, spec, mesh)
     rec["argument_bytes_by_group"] = groups
     rec["argument_bytes"] = sum(groups.values())
-    outs = trace["outputs"]
+    outs = steps.output_trees(arch, shape_name, mesh, trace["outputs"])
     o_specs = steps.output_specs(arch, shape_name, mesh, specs, outs)
     rec["output_bytes"] = sum(tree_shard_bytes(o, s, mesh)
                               for o, s in zip(outs, o_specs))
@@ -342,14 +344,13 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *,
     if mesh is None:
         why = "one card: nothing crosses between devices"
     elif trace["dcl_calls"]["forward"]:
-        why = ("the port runs the layers unsharded on the mesh's first "
-               "device (no GSPMD); on meta its DCL calls take the "
-               "shape-only path, without the batch shard, so the bytes "
-               "that shard moves are not traced")
+        why = ("the trace runs on one card's layout; on meta the DCL "
+               "calls take the shape-only path, without the batch shard, "
+               "so the bytes that shard moves are not traced")
     else:
-        why = ("the port runs this cell's layers unsharded on the mesh's "
-               "first device (no GSPMD): it moves no bytes between "
-               "devices")
+        why = ("the trace runs on one card's layout: the FSDP gathers, "
+               "partial sums and vocab combines of a mesh step are not "
+               "counted")
     rec["collective_reason"] = why
     return rec
 

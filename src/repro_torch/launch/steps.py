@@ -39,7 +39,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import resnet_dcn as R
 from repro_torch.models import transformer as TF
 from repro_torch.models.registry import ArchSpec, ShapeSpec
-from repro_torch.optim.optimizers import default_optimizer_for
+from repro_torch.optim.optimizers import (default_optimizer_for,
+                                          opt_state_specs)
 
 Tensor = torch.Tensor
 
@@ -144,22 +145,6 @@ def input_defs(arch: ArchSpec, shape_name: str) -> dict:
     raise ValueError(shape.kind)
 
 
-def _opt_specs(opt_name: str, p_specs):
-    """Optimizer-state specs from the param specs (JAX's
-    ``opt_state_specs``: Adafactor's factored moments drop the last or
-    the second-to-last dimension)."""
-    if opt_name == "sgd":
-        return {"mu": p_specs}
-    if opt_name == "adamw":
-        return {"m": p_specs, "v": p_specs}
-
-    def spec_for(s):
-        if len(s) >= 2:
-            return {"vr": s[:-1], "vc": s[:-2] + s[-1:]}
-        return {"v": s}
-    return {"f": T.tree_map(spec_for, p_specs)}
-
-
 # ---------------------------------------------------------------------------
 # Step functions
 # ---------------------------------------------------------------------------
@@ -232,7 +217,7 @@ def make_train_step(arch: ArchSpec, mesh, *, shape_name: str | None = None,
                                          _step_index(step))
         return params, new_opt, step + 1, loss
 
-    specs = (p_specs, _opt_specs(opt.name, p_specs), (), b_specs)
+    specs = (p_specs, opt_state_specs(opt, p_specs), (), b_specs)
     inputs = (params, opt_state, step0, L.meta_tree(b_defs))
     return train_step, inputs, specs
 
@@ -261,10 +246,14 @@ def make_prefill_step(arch: ArchSpec, shape_name: str, mesh):
 
 
 def make_decode_step(arch: ArchSpec, shape_name: str, mesh):
+    """The decode step; its caches are declared under the serving rules
+    on ``mesh``, so their KV heads are ``effective_kv_heads`` there (KV
+    replicated per query group where the model axis cannot split it), as
+    JAX's ``cache_specs`` are."""
     cfg = arch.config
     p_defs = arch_param_defs(arch)
-    i_defs = input_defs(arch, shape_name)
     with use_rules(rules=_serve_rules(arch), mesh=mesh):
+        i_defs = input_defs(arch, shape_name)
         p_specs = L.spec_tree(p_defs)
         i_specs = L.spec_tree(i_defs)
 
@@ -344,6 +333,22 @@ def output_specs(arch: ArchSpec, shape_name: str, mesh, in_specs: tuple,
                 arch.config, shape.global_batch, shape.seq_len))
         return (rep(outputs[0]), c_specs)
     return tuple(rep(o) for o in outputs)
+
+
+def output_trees(arch: ArchSpec, shape_name: str, mesh,
+                 outputs: tuple) -> tuple:
+    """A step's traced ``outputs`` with their caches in ``mesh``'s layout:
+    a prefill or decode step on a tensor-parallel mesh emits the caches
+    of ``cache_defs`` under the serving rules there (its KV heads
+    ``effective_kv_heads``), which a trace on one card does not show."""
+    kind = arch.shapes[shape_name].kind
+    if kind not in ("prefill", "decode"):
+        return outputs
+    shape = arch.shapes[shape_name]
+    with use_rules(rules=_serve_rules(arch), mesh=mesh):
+        caches = L.meta_tree(TF.cache_defs(arch.config, shape.global_batch,
+                                           shape.seq_len))
+    return (outputs[0], caches)
 
 
 def with_shape(arch: ArchSpec, shape_name: str, shape: ShapeSpec, *,

@@ -27,7 +27,10 @@ An LM arch (``repro_torch.models.registry``) trains the registry's
 reduced config unless ``--full``, on ``lm_batch`` data of ``--seq-len``
 tokens, with the JAX launcher's optimizer (``default_optimizer_for``
 with a warm-up cosine from 3e-3 over 10 steps: AdamW below 90B params)
-and the config's ``remat``.
+and the config's ``remat``.  Its params are laid out on the host mesh by
+their specs (``param_defs`` under the mesh's rules), as JAX's launcher
+does; a host mesh of several devices splits the batch over 'data' and
+gathers the 'embed' blocks (FSDP) where a layer runs.
 """
 from __future__ import annotations
 
@@ -38,7 +41,9 @@ from repro_torch.configs import resnet50_dcn as configs
 from repro_torch.data import (DetectionDataConfig, LMDataConfig,
                               detection_batch, lm_batch)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import use_rules
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import layers as L
 from repro_torch.models import registry as reg
 from repro_torch.models import resnet_dcn as R
 from repro_torch.models import transformer as TF
@@ -155,6 +160,8 @@ def train_lm(cfg: TF.ModelConfig, args, *, params=None) -> Trainer:
     opt = default_optimizer_for(args.arch, cfg.param_count(),
                                 warmup_cosine(3e-3, 10, args.steps))
     mesh = host_mesh(args)
+    with use_rules(mesh=mesh):
+        specs = L.spec_tree(TF.param_defs(cfg))
     trainer = Trainer(
         loss_fn=lambda p, b: TF.loss_fn(p, cfg, b), params=params,
         optimizer=opt, batch_fn=lambda step: lm_batch(data, step),
@@ -163,7 +170,7 @@ def train_lm(cfg: TF.ModelConfig, args, *, params=None) -> Trainer:
                              ckpt_dir=args.ckpt, log_every=args.log_every,
                              microbatches=args.microbatches,
                              grad_compression=args.grad_compression),
-        device=mesh.first_device, mesh=mesh)
+        device=mesh.first_device, mesh=mesh, param_specs=specs)
     if trainer.try_resume():
         print(f"resumed from step {trainer.step}")
     trainer.run()

@@ -9,10 +9,21 @@ Params are nested dicts of tensors, declared once as a ``ParamDef`` tree
 and materialised by ``init_tree`` from an explicit ``torch.Generator``.
 Leaves are drawn in sorted-key order (the order JAX flattens dicts in);
 the numbers differ from ``jax.random``, so parity tests convert JAX
-params with ``repro_torch.convert.params_from_jax`` instead.  The port
-has no GSPMD, so the JAX layers' sharding hints (``logical_constraint``)
-have no counterpart here; the DCL's kernel calls shard over the active
-mesh (``dcl_apply``'s ``shard_batch`` and ``shard_spatial``).
+params with ``repro_torch.convert.params_from_jax`` instead.
+
+Under an active mesh (``distributed.sharding.use_rules(mesh=...)``) the
+LM layers do by hand what the JAX layers' sharding hints ask GSPMD for:
+attention per shard of query heads (``heads_tp_size``; KV heads split
+with them, or replicated per query group where the model axis cannot
+split them, ``effective_kv_heads``; query rows where it cannot split the
+heads either, ``seq_parallel_attention``), the MLP per column block of
+``ff``, the embedding, logits and cross entropy per block of the vocab,
+and ``wo`` and the MLP's down projection row-parallel, their partial
+sums added in shard order.  Each shard reads its block of a placed
+param (``sharding.Placed``) with the blocks of the 'embed' dimension
+gathered onto it (FSDP); a layer with no per-shard path gathers its
+leaves whole.  The DCL's kernel calls shard over the active mesh
+(``dcl_apply``'s ``shard_batch`` and ``shard_spatial``).
 
 Activations keep the JAX layouts: x (B, S, D), heads (B, S, H, Dh), GQA
 queries (B, S, KV, G, Dh).  A JAX einsum with ``preferred_element_type=
@@ -32,7 +43,9 @@ import torch.utils.checkpoint
 
 from repro_torch.core.deform_conv import (DCLConfig, conv2d, dcl_forward,
                                           offset_abs_max)
-from repro_torch.distributed.sharding import logical_spec
+from repro_torch.distributed.sharding import (Placed, gather, logical_spec,
+                                              mesh_axes, shard_coords,
+                                              shard_device)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import deform_conv_fused_ref
 from repro_torch.quant.qat import (fake_quant_dcl_chain_reference,
@@ -143,6 +156,7 @@ def norm_def(d_model: int, kind: str) -> dict[str, ParamDef]:
 
 
 def apply_norm(params: Mapping[str, Tensor], x: Tensor, kind: str) -> Tensor:
+    params = {k: gather(v, device=x.device) for k, v in params.items()}
     if kind == "rms":
         return rms_norm(x, params["scale"])
     return layer_norm(x, params["scale"], params.get("bias"))
@@ -199,11 +213,147 @@ class AttnConfig:
         return self.n_heads // self.kv_heads
 
 
+def heads_tp_size() -> int:
+    """Size of the mesh axes the 'heads' logical axis maps to under the
+    active rules (1 off-mesh), as JAX's."""
+    return mesh_axes("heads")[2]
+
+
 def effective_kv_heads(cfg: AttnConfig) -> int:
-    """KV heads carried through attention and the KV cache.  The JAX
-    package replicates KV per query group when a tensor-parallel mesh axis
-    cannot shard them; one device has no such axis, so: ``kv_heads``."""
+    """KV heads carried through attention and the KV cache, as JAX's:
+    where the tensor-parallel axis cannot split ``kv_heads`` but splits
+    ``n_heads``, KV is replicated per query group (Megatron's fix) and
+    the flat head dimension splits; otherwise ``kv_heads``.  A function of
+    (cfg, active mesh), so the cache layout and every mode agree."""
+    tp = heads_tp_size()
+    if tp > 1 and cfg.kv_heads % tp != 0 and cfg.n_heads % tp == 0:
+        return cfg.n_heads
     return cfg.kv_heads
+
+
+def seq_parallel_attention(cfg: AttnConfig) -> bool:
+    """Neither KV nor query heads split (musicgen's 24 heads on a 16-way
+    axis): each model shard takes a block of query rows instead."""
+    tp = heads_tp_size()
+    return tp > 1 and cfg.n_heads % tp != 0
+
+
+def _w(p, x: Tensor, dtype: torch.dtype | None = None) -> Tensor:
+    """Param ``p`` whole on ``x``'s device in ``dtype`` (default
+    ``x.dtype``): a placed param's blocks gathered (FSDP at rest)."""
+    return gather(p, device=x.device, dtype=dtype or x.dtype)
+
+
+def _part(p, dim: int, lo: int, size: int, device,
+          dtype: torch.dtype | None = None) -> Tensor:
+    """Rows ``[lo, lo + size)`` of ``p`` along ``dim`` on ``device`` in
+    ``dtype``: the block there when ``p`` is placed in blocks of that
+    size along ``dim`` (its other split dimensions gathered, FSDP), else
+    a slice of ``p`` gathered whole."""
+    if isinstance(p, Placed) and p.grid[dim] > 1 \
+            and p.block_shape()[dim] == size and lo % size == 0:
+        index = [0] * p.ndim
+        index[dim] = lo // size
+        at = {a: c for a, c in p.coords(index).items() if a in p.axes(dim)}
+        return gather(p, at=at, device=device, dtype=dtype)
+    w = gather(p, device=device, dtype=dtype)
+    return w if lo == 0 and size == w.shape[dim] else w.narrow(dim, lo, size)
+
+
+def _row_parallel(eq: str, a: Tensor, w: Tensor) -> Tensor:
+    """One shard's partial product of a row-parallel projection, in fp32:
+    the products of the operands (exact in fp32) summed in fp32 and not
+    rounded, so the shards' sum rounds once to the activation dtype, as
+    the unsharded product does."""
+    return torch.einsum(eq, a.float(), w.float())
+
+
+def _sum_partials(parts: Sequence[Tensor], dtype: torch.dtype) -> Tensor:
+    """Row-parallel partial sums added in shard order, in fp32."""
+    if len(parts) == 1:
+        return parts[0]
+    acc = parts[0].float()
+    for t in parts[1:]:
+        acc = acc + t.float()
+    return acc.to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class _HeadShard:
+    """One model shard of attention: query heads ``[q_lo, q_lo + nq)``,
+    the KV heads ``[kv_lo, kv_lo + nkv)`` it projects, and, where KV is
+    replicated per query group, the projected KV head of each of its
+    query heads (``rep``; KV head ``h // group`` of query head ``h``, as
+    ``repeat_interleave``)."""
+    coords: dict
+    q_lo: int
+    nq: int
+    kv_lo: int
+    nkv: int
+    rep: tuple[int, ...] | None
+
+    @property
+    def cache_slice(self) -> slice:
+        """This shard's heads in the ``effective_kv_heads`` layout."""
+        lo = self.kv_lo if self.rep is None else self.q_lo
+        return slice(lo, lo + (self.nkv if self.rep is None else self.nq))
+
+
+def _head_shards(cfg: AttnConfig) -> list[_HeadShard] | None:
+    """The query-head shards under the active mesh, or None (off-mesh,
+    one shard, or sequence-parallel attention)."""
+    _, axes, n = mesh_axes("heads")
+    if n == 1 or cfg.n_heads % n:
+        return None
+    hq, g = cfg.n_heads // n, cfg.group
+    replicate = effective_kv_heads(cfg) != cfg.kv_heads
+    out = []
+    for j in range(n):
+        q_lo = j * hq
+        if replicate:
+            kv_lo = q_lo // g
+            nkv = (q_lo + hq - 1) // g + 1 - kv_lo
+            rep = tuple(h // g - kv_lo for h in range(q_lo, q_lo + hq))
+        else:
+            nkv = cfg.kv_heads // n
+            kv_lo, rep = j * nkv, None
+        out.append(_HeadShard(shard_coords(axes, j), q_lo, hq, kv_lo, nkv,
+                              rep))
+    return out
+
+
+def _shard_attn_params(params, cfg: AttnConfig, sh: _HeadShard, device,
+                       dtype: torch.dtype) -> dict:
+    """A shard's attention params on ``device``: its blocks of the
+    query, KV and output projections (and their biases) in ``dtype``, the
+    q/k norm scales whole; ``bo`` stays out (added once, after the
+    partial sums)."""
+    kv = (sh.kv_lo, sh.nkv)
+    loc = {"wq": _part(params["wq"], 1, sh.q_lo, sh.nq, device, dtype),
+           "wk": _part(params["wk"], 1, *kv, device, dtype),
+           "wv": _part(params["wv"], 1, *kv, device, dtype),
+           "wo": _part(params["wo"], 0, sh.q_lo, sh.nq, device, dtype)}
+    if cfg.qkv_bias:
+        loc["bq"] = _part(params["bq"], 0, sh.q_lo, sh.nq, device, dtype)
+        loc["bk"] = _part(params["bk"], 0, *kv, device, dtype)
+        loc["bv"] = _part(params["bv"], 0, *kv, device, dtype)
+    if cfg.qk_norm:
+        loc["q_norm"] = gather(params["q_norm"], device=device)
+        loc["k_norm"] = gather(params["k_norm"], device=device)
+    return loc
+
+
+def _shard_qkv(params, x: Tensor, cfg: AttnConfig, positions: Tensor,
+               sh: _HeadShard):
+    """(device, its params, q, k, v) of one head shard; k and v carry the
+    shard's heads of the ``effective_kv_heads`` layout."""
+    dev = shard_device(sh.coords)
+    loc = _shard_attn_params(params, cfg, sh, dev, x.dtype)
+    q, k, v = _qkv(loc, x.to(dev), cfg, positions.to(dev))
+    if sh.rep is not None:
+        idx = torch.tensor(sh.rep, device=dev)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return dev, loc, q, k, v
 
 
 def attn_def(cfg: AttnConfig) -> dict[str, ParamDef]:
@@ -227,17 +377,18 @@ def attn_def(cfg: AttnConfig) -> dict[str, ParamDef]:
 
 
 def _qkv(params, x: Tensor, cfg: AttnConfig, positions: Tensor):
-    """(q, k, v) of x: (B, S, H, Dh) and (B, S, KV, Dh)."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    """(q, k, v) of x: (B, S, H, Dh) and (B, S, KV, Dh), the heads those
+    of ``params`` (a shard's, or all)."""
+    q = torch.einsum("bsd,dhk->bshk", x, _w(params["wq"], x))
+    k = torch.einsum("bsd,dhk->bshk", x, _w(params["wk"], x))
+    v = torch.einsum("bsd,dhk->bshk", x, _w(params["wv"], x))
     if cfg.qkv_bias:
-        q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
+        q = q + _w(params["bq"], x)
+        k = k + _w(params["bk"], x)
+        v = v + _w(params["bv"], x)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
+        q = rms_norm(q, gather(params["q_norm"], device=x.device))
+        k = rms_norm(k, gather(params["k_norm"], device=x.device))
     if cfg.use_rope:
         q = apply_rope(q, positions, theta=cfg.rope_theta,
                        fraction=cfg.rope_fraction)
@@ -368,50 +519,105 @@ def attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
 def attn_apply(params, x: Tensor, cfg: AttnConfig, *, positions: Tensor,
                mask: Tensor | None = None) -> Tensor:
     """Full-sequence attention (training / prefill).  x: (B, S, D);
-    positions: (B, S); ``mask`` overrides the causal(+window) mask."""
-    b, s, _ = x.shape
-    q, k, v = _qkv(params, x, cfg, positions)
-    ekv = k.shape[2]
-    q = q.reshape(b, s, ekv, cfg.n_heads // ekv, cfg.head_dim)
+    positions: (B, S); ``mask`` overrides the causal(+window) mask; the
+    scores are dense."""
     if mask is None:
         mask = _scores_mask(positions, positions, cfg.window)
-    out = _sdpa(q, k, v, mask, cfg.softcap)
-    out = out.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
-    if cfg.out_bias:
-        y = y + params["bo"].to(x.dtype)
-    return y
+    return attn_forward(params, x, cfg, positions=positions, mask=mask)[0]
 
 
-def attn_decode(params, x: Tensor, cfg: AttnConfig, *, cache: dict,
-                pos: Tensor) -> tuple[Tensor, dict]:
-    """Single-token decode with a KV cache.
-
-    x: (B, 1, D); cache: {'k','v': (B, S_cache, KV, Dh)}; pos: (B,)
-    absolute positions of the new token.  For windowed attention the cache
-    is a ring buffer of size >= window.  Returns (y, new cache); the cache
-    passed in is not changed.
-    """
-    b = x.shape[0]
-    s_cache = cache["k"].shape[1]
-    q, k, v = _qkv(params, x, cfg, pos[:, None])
+def _attend(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
+            cfg: AttnConfig, mask: Tensor | None) -> Tensor:
+    """q (B, Sq, H, Dh) grouped over k's heads -> (B, Sq, H, Dh): under
+    ``mask`` densely, else through ``attention``'s dispatch."""
+    b, sq, h, dh = q.shape
     ekv = k.shape[2]
-    if cache["k"].shape[2] != ekv:
-        raise ValueError(f"the cache holds {cache['k'].shape[2]} KV heads, "
-                         f"the layer {ekv}")
+    qg = q.reshape(b, sq, ekv, h // ekv, dh)
+    if mask is not None:
+        o = _sdpa(qg, k, v, mask, cfg.softcap)
+    else:
+        o = attention(qg, k, v, q_pos, k_pos, window=cfg.window,
+                      softcap=cfg.softcap)
+    return o.reshape(b, sq, h, dh)
+
+
+def attn_forward(params, x: Tensor, cfg: AttnConfig, *, positions: Tensor,
+                 mask: Tensor | None = None
+                 ) -> tuple[Tensor, Tensor, Tensor]:
+    """Full-sequence attention -> (y, k, v), k and v (B, S, KV, Dh) in the
+    ``effective_kv_heads`` layout (the prefill cache's).  Under the active
+    mesh: per shard of query heads (``wo`` row-parallel), or per block of
+    query rows with all of K/V when the heads do not split."""
+    shards = _head_shards(cfg)
+    if shards is not None:
+        home = x.device
+        parts, ks, vs = [], [], []
+        for sh in shards:
+            dev, loc, q, k, v = _shard_qkv(params, x, cfg, positions, sh)
+            pos = positions.to(dev)
+            o = _attend(q, k, v, pos, pos, cfg,
+                        None if mask is None else mask.to(dev))
+            parts.append(_row_parallel("bshk,hkd->bsd", o, loc["wo"])
+                         .to(home))
+            ks.append(k.to(home))
+            vs.append(v.to(home))
+        y = _sum_partials(parts, x.dtype)
+        k, v = torch.cat(ks, 2), torch.cat(vs, 2)
+    else:
+        q, k, v = _qkv(params, x, cfg, positions)
+        if seq_parallel_attention(cfg):
+            y = _attn_seq_parallel(params, q, k, v, x, cfg, positions, mask)
+        else:
+            o = _attend(q, k, v, positions, positions, cfg, mask)
+            y = torch.einsum("bshk,hkd->bsd", o, _w(params["wo"], x))
+    if cfg.out_bias:
+        y = y + _w(params["bo"], x)
+    return y, k, v
+
+
+def _attn_seq_parallel(params, q: Tensor, k: Tensor, v: Tensor, x: Tensor,
+                       cfg: AttnConfig, positions: Tensor,
+                       mask: Tensor | None) -> Tensor:
+    """Sequence-parallel attention: model shard j takes the j-th block of
+    query rows (their global positions) with all of K/V, and the output
+    projection of its rows; the rows meet in order."""
+    _, axes, n = mesh_axes("heads")
+    home, s = x.device, q.shape[1]
+    rows = []
+    for j in range(n):
+        # torch.tensor_split's blocks: the first s % n one row longer.
+        lo = j * (s // n) + min(j, s % n)
+        hi = lo + s // n + (j < s % n)
+        if hi == lo:
+            continue
+        dev = shard_device(shard_coords(axes, j))
+        o = _attend(q[:, lo:hi].to(dev), k.to(dev), v.to(dev),
+                    positions[:, lo:hi].to(dev), positions.to(dev), cfg,
+                    None if mask is None else mask[:, lo:hi].to(dev))
+        wo = gather(params["wo"], device=dev, dtype=x.dtype)
+        rows.append(torch.einsum("bshk,hkd->bsd", o, wo).to(home))
+    return torch.cat(rows, 1)
+
+
+def _decode_attend(q: Tensor, k: Tensor, v: Tensor, k_cache: Tensor,
+                   v_cache: Tensor, cfg: AttnConfig, pos: Tensor):
+    """One token's attention over its cache: the new K/V written at
+    ``pos``'s slot of copies of the caches.  q (B, 1, H, Dh); k, v
+    (B, 1, KV, Dh); caches (B, S_cache, KV, Dh).  Returns (o (B, 1, H,
+    Dh), new k cache, new v cache)."""
+    b = q.shape[0]
+    s_cache = k_cache.shape[1]
     # A position past a full (non-ring) cache writes the last slot, as
     # JAX's dynamic_update_slice clamps its start.
     slot = pos % s_cache if cfg.window is not None \
         else pos.clamp(max=s_cache - 1)
-    rows = torch.arange(b, device=x.device)
-    k_cache = cache["k"].clone()
-    v_cache = cache["v"].clone()
+    rows = torch.arange(b, device=q.device)
+    k_cache = k_cache.clone()
+    v_cache = v_cache.clone()
     k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
-
-    q = q.reshape(b, 1, ekv, cfg.n_heads // ekv, cfg.head_dim)
     # Absolute position of each cache slot (ring-aware).
-    idx = torch.arange(s_cache, device=x.device)[None, :]
+    idx = torch.arange(s_cache, device=q.device)[None, :]
     if cfg.window is not None:
         wraps = pos[:, None] // s_cache
         k_pos = torch.where(idx <= (pos[:, None] % s_cache),
@@ -426,12 +632,50 @@ def attn_decode(params, x: Tensor, cfg: AttnConfig, *, cache: dict,
     # forward: ROADMAP Queue C.)
     mask = _scores_mask(pos[:, None], k_pos, cfg.window) \
         & (k_pos >= 0)[..., None, :]
-    out = _sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask,
-                cfg.softcap)
-    out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    o = _attend(q, k_cache.to(q.dtype), v_cache.to(q.dtype), None, None,
+                cfg, mask)
+    return o, k_cache, v_cache
+
+
+def attn_decode(params, x: Tensor, cfg: AttnConfig, *, cache: dict,
+                pos: Tensor) -> tuple[Tensor, dict]:
+    """Single-token decode with a KV cache.
+
+    x: (B, 1, D); cache: {'k','v': (B, S_cache, KV, Dh)} in the
+    ``effective_kv_heads`` layout; pos: (B,) absolute positions of the
+    new token.  For windowed attention the cache is a ring buffer of size
+    >= window.  Returns (y, new cache); the cache passed in is not
+    changed.  Under the active mesh each head shard reads and writes its
+    heads of the cache (one query row has no rows to split: a
+    sequence-parallel layer runs whole).
+    """
+    ekv = effective_kv_heads(cfg)
+    if cache["k"].shape[2] != ekv:
+        raise ValueError(f"the cache holds {cache['k'].shape[2]} KV heads, "
+                         f"the layer {ekv}")
+    shards = _head_shards(cfg)
+    if shards is None:
+        q, k, v = _qkv(params, x, cfg, pos[:, None])
+        o, k_cache, v_cache = _decode_attend(q, k, v, cache["k"],
+                                             cache["v"], cfg, pos)
+        y = torch.einsum("bshk,hkd->bsd", o, _w(params["wo"], x))
+    else:
+        home = x.device
+        parts, kcs, vcs = [], [], []
+        for sh in shards:
+            dev, loc, q, k, v = _shard_qkv(params, x, cfg, pos[:, None], sh)
+            cs = sh.cache_slice
+            o, kc, vc = _decode_attend(
+                q, k, v, cache["k"][:, :, cs].to(dev),
+                cache["v"][:, :, cs].to(dev), cfg, pos.to(dev))
+            parts.append(_row_parallel("bshk,hkd->bsd", o, loc["wo"])
+                         .to(home))
+            kcs.append(kc.to(home))
+            vcs.append(vc.to(home))
+        y = _sum_partials(parts, x.dtype)
+        k_cache, v_cache = torch.cat(kcs, 2), torch.cat(vcs, 2)
     if cfg.out_bias:
-        y = y + params["bo"].to(x.dtype)
+        y = y + _w(params["bo"], x)
     return y, {"k": k_cache, "v": v_cache}
 
 
@@ -487,23 +731,52 @@ def mlp_def(cfg: MLPConfig) -> dict[str, ParamDef]:
     return defs
 
 
-def mlp_apply(params, x: Tensor, cfg: MLPConfig) -> Tensor:
+def _mlp_body(params, x: Tensor, cfg: MLPConfig, *,
+              partial: bool = False) -> Tensor:
+    """The MLP without its output bias, on the columns of ``ff`` that
+    ``params`` hold (a shard's, or all); a shard's ``partial`` down
+    projection in fp32 (``_row_parallel``)."""
     if cfg.kind in ("swiglu", "geglu"):
         act = F.silu if cfg.kind == "swiglu" else _gelu
-        g = x @ params["w_gate"].to(x.dtype)
-        u = x @ params["w_up"].to(x.dtype)
+        g = x @ _w(params["w_gate"], x)
+        u = x @ _w(params["w_up"], x)
         if cfg.bias:
-            g = g + params["b_in"].to(x.dtype)
+            g = g + _w(params["b_in"], x)
         h = act(g) * u
     else:
         act = ACTS["gelu" if cfg.kind == "gelu" else "relu2"]
-        h = x @ params["w_in"].to(x.dtype)
+        h = x @ _w(params["w_in"], x)
         if cfg.bias:
-            h = h + params["b_in"].to(x.dtype)
+            h = h + _w(params["b_in"], x)
         h = act(h)
-    y = h @ params["w_out"].to(x.dtype)
+    if partial:
+        return _row_parallel("bsf,fd->bsd", h, _w(params["w_out"], x))
+    return h @ _w(params["w_out"], x)
+
+
+# The dimension of each MLP leaf that 'ff' names.
+_FF_DIM = {"w_gate": 1, "w_up": 1, "w_in": 1, "b_in": 0, "w_out": 0}
+
+
+def mlp_apply(params, x: Tensor, cfg: MLPConfig) -> Tensor:
+    """The MLP; under the active mesh per column block of ``ff`` (gate,
+    up and in weights split by columns, down weights by rows, the partial
+    sums added in shard order)."""
+    _, axes, n = mesh_axes("ff")
+    if n > 1 and cfg.d_ff % n == 0:
+        f, home = cfg.d_ff // n, x.device
+        parts = []
+        for j in range(n):
+            dev = shard_device(shard_coords(axes, j))
+            loc = {k: _part(params[k], dim, j * f, f, dev, x.dtype)
+                   for k, dim in _FF_DIM.items() if k in params}
+            parts.append(_mlp_body(loc, x.to(dev), cfg, partial=True)
+                         .to(home))
+        y = _sum_partials(parts, x.dtype)
+    else:
+        y = _mlp_body(params, x, cfg)
     if cfg.bias:
-        y = y + params["b_out"].to(x.dtype)
+        y = y + _w(params["b_out"], x)
     return y
 
 
@@ -516,22 +789,69 @@ def embed_def(vocab: int, d_model: int) -> dict[str, ParamDef]:
                                   init="embed", scale=0.02)}
 
 
+def _vocab_shards(vocab: int) -> list[tuple[int, int, torch.device]] | None:
+    """``(lo, size, device)`` of each vocab block under the active mesh,
+    or None where the vocab does not split."""
+    _, axes, n = mesh_axes("vocab")
+    if n == 1 or vocab % n:
+        return None
+    vn = vocab // n
+    return [(j * vn, vn, shard_device(shard_coords(axes, j)))
+            for j in range(n)]
+
+
+def embed_rows(emb, ids: Tensor, dtype: torch.dtype) -> Tensor:
+    """Rows ``ids`` of the (V, D) table ``emb``, cast to ``dtype``.  Under
+    the active mesh vocab-parallel: each vocab block looks up the ids in
+    its range (the others masked to zero) and the blocks' rows are summed
+    in order, which is exact (one term is not zero)."""
+    shards = _vocab_shards(emb.shape[0])
+    if shards is None:
+        # Gather, then cast: the rows the JAX package casts before its take.
+        return gather(emb, device=ids.device)[ids].to(dtype)
+    out = None
+    for lo, vn, dev in shards:
+        rel = ids.to(dev) - lo
+        inside = (rel >= 0) & (rel < vn)
+        rows = _part(emb, 0, lo, vn, dev)[rel.clamp(0, vn - 1)].to(dtype)
+        rows = torch.where(inside[..., None], rows,
+                           torch.zeros((), dtype=dtype, device=dev))
+        out = rows.to(ids.device) if out is None \
+            else out + rows.to(ids.device)
+    return out
+
+
 def embed_apply(params, tokens: Tensor,
                 dtype: torch.dtype = torch.bfloat16) -> Tensor:
-    # Gather, then cast: the rows the JAX package casts before its take.
-    return params["embedding"][tokens].to(dtype)
+    return embed_rows(params["embedding"], tokens, dtype)
 
 
 def _softcap(x: Tensor, cap: float | None) -> Tensor:
     return x if cap is None else torch.tanh(x / cap) * cap
 
 
+def vocab_logits(x: Tensor, w, *, tied: bool) -> Tensor:
+    """fp32 ``x @ w`` over the vocab, ``w`` (V, D) if ``tied`` else (D, V)
+    rounded to ``x.dtype`` first; under the active mesh per vocab block,
+    the blocks' logits concatenated in order."""
+    vdim = 0 if tied else 1
+    shards = _vocab_shards(w.shape[vdim])
+    if shards is None:
+        wt = _w(w, x).float()
+        return x.float() @ (wt.T if tied else wt)
+    parts = []
+    for lo, vn, dev in shards:
+        wt = _part(w, vdim, lo, vn, dev, x.dtype).float()
+        parts.append((x.to(dev).float() @ (wt.T if tied else wt))
+                     .to(x.device))
+    return torch.cat(parts, -1)
+
+
 def logits_apply(params, x: Tensor, *, softcap: float | None = None
                  ) -> Tensor:
     """Project to vocab with the (possibly tied) embedding matrix; fp32
     logits."""
-    emb = params["embedding"].to(x.dtype)
-    return _softcap(x.float() @ emb.float().T, softcap)
+    return _softcap(vocab_logits(x, params["embedding"], tied=True), softcap)
 
 
 def unembed_def(vocab: int, d_model: int) -> dict[str, ParamDef]:
@@ -540,11 +860,11 @@ def unembed_def(vocab: int, d_model: int) -> dict[str, ParamDef]:
 
 def unembed_apply(params, x: Tensor, *, softcap: float | None = None
                   ) -> Tensor:
-    w = params["unembedding"].to(x.dtype)
-    return _softcap(x.float() @ w.float(), softcap)
+    return _softcap(vocab_logits(x, params["unembedding"], tied=False),
+                    softcap)
 
 
-def chunked_cross_entropy(x: Tensor, w: Tensor, targets: Tensor,
+def chunked_cross_entropy(x: Tensor, w, targets: Tensor,
                           mask: Tensor | None = None, *, tied: bool,
                           logit_scale: float = 1.0,
                           softcap: float | None = None,
@@ -560,6 +880,21 @@ def chunked_cross_entropy(x: Tensor, w: Tensor, targets: Tensor,
 
     x: (B, S, D) final hidden; w: embedding (V, D) if tied else (D, V).
     """
+    nll, m = ce_sums(x, w, targets, mask, tied=tied,
+                     logit_scale=logit_scale, softcap=softcap, chunk=chunk)
+    return nll / torch.clamp_min(m, 1.0)
+
+
+def ce_sums(x: Tensor, w, targets: Tensor, mask: Tensor | None = None, *,
+            tied: bool, logit_scale: float = 1.0,
+            softcap: float | None = None, chunk: int = 1024
+            ) -> tuple[Tensor, Tensor]:
+    """``chunked_cross_entropy``'s two sums: the masked NLL and the mask
+    (data shards add theirs before the one division).  Under the active
+    mesh vocab-parallel: each vocab block's logits give its max, its sum
+    of exponentials and, where it holds the target, the target's logit;
+    the blocks combine in order into the log-sum-exp (the softcap and
+    logit scale applied per block, before the combine)."""
     b, s, _ = x.shape
     pad = (-s) % chunk
     if mask is None:
@@ -568,21 +903,56 @@ def chunked_cross_entropy(x: Tensor, w: Tensor, targets: Tensor,
         x = F.pad(x, (0, 0, 0, pad))
         targets = F.pad(targets, (0, pad))
         mask = F.pad(mask, (0, pad))
-    wt = w.to(x.dtype).float()
-    wt = wt.T if tied else wt
+    vdim = 0 if tied else 1
+    shards = _vocab_shards(w.shape[vdim])
+    if shards is None:
+        wt = _w(w, x).float()
+        wts, los = [wt.T if tied else wt], [0]
+    else:
+        wts = [_part(w, vdim, lo, vn, dev, x.dtype).float()
+               for lo, vn, dev in shards]
+        wts = [t.T if tied else t for t in wts]
+        los = [lo for lo, _, _ in shards]
 
-    def body(xb: Tensor, wt: Tensor, tb: Tensor, mb: Tensor):
-        logits = _softcap((xb.float() @ wt) * logit_scale, softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, tb[..., None].long())[..., 0]
+    def logits_of(xb: Tensor, wt: Tensor) -> Tensor:
+        return _softcap((xb.to(wt.device).float() @ wt) * logit_scale,
+                        softcap)
+
+    def body(xb: Tensor, tb: Tensor, mb: Tensor, *wts: Tensor):
+        if len(wts) == 1:
+            logits = logits_of(xb, wts[0])
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, tb[..., None].long())[..., 0]
+        else:
+            # The maxima only shift the exponentials: no gradient.
+            ms, ss, golds = [], [], []
+            for lo, wt in zip(los, wts):
+                lg = logits_of(xb, wt)
+                m = lg.amax(-1).detach()
+                ms.append(m.to(xb.device))
+                ss.append(torch.exp(lg - m[..., None]).sum(-1).to(xb.device))
+                rel = tb.to(wt.device).long() - lo
+                inside = (rel >= 0) & (rel < wt.shape[-1])
+                g = lg.gather(-1, rel.clamp(0, wt.shape[-1] - 1)[..., None])
+                golds.append(torch.where(inside, g[..., 0], 0.0)
+                             .to(xb.device))
+            top = ms[0]
+            for m in ms[1:]:
+                top = torch.maximum(top, m)
+            total = ss[0] * torch.exp(ms[0] - top)
+            gold = golds[0]
+            for m, s_, g in zip(ms[1:], ss[1:], golds[1:]):
+                total = total + s_ * torch.exp(m - top)
+                gold = gold + g
+            lse = top + torch.log(total)
         mb = mb.float()
         return torch.sum((lse - gold) * mb), torch.sum(mb)
 
     nll = torch.zeros((), dtype=torch.float32, device=x.device)
     m = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s + pad, chunk):
-        part = (x[:, i:i + chunk], wt, targets[:, i:i + chunk],
-                mask[:, i:i + chunk])
+        part = (x[:, i:i + chunk], targets[:, i:i + chunk],
+                mask[:, i:i + chunk], *wts)
         if torch.is_grad_enabled():
             # The body draws no random numbers, so a dry run on meta
             # keeps no RNG snapshot.
@@ -592,7 +962,7 @@ def chunked_cross_entropy(x: Tensor, w: Tensor, targets: Tensor,
         else:
             n_c, m_c = body(*part)
         nll, m = nll + n_c, m + m_c
-    return nll / torch.clamp_min(m, 1.0)
+    return nll, m
 
 
 def cross_entropy(logits: Tensor, targets: Tensor,

@@ -21,6 +21,19 @@ MoE); ``forward`` sums them.  Attention is the plain PyTorch
 the training objective: the chunked cross entropy of the final hidden
 state (on the text positions after a frontend; the mean over codebooks)
 plus ``moe_aux_coef`` times the summed aux loss.
+
+Under an active mesh (``sharding.use_rules(mesh=...)``) the params may
+be placed by their specs (``param_defs`` under the same rules,
+``sharding.place_tree``): the batch splits over the mesh's 'batch' axes
+(one data shard a block of rows, run at its coordinates), and inside a
+shard the attention, MLP, embedding and vocab layers run per model shard
+(``models.layers``).  The RG-LRU, RWKV-6 and MoE blocks have no
+per-shard path: each gathers its leaves whole where it runs (FSDP at
+rest), and an MoE model runs its batch whole, since its routing and
+capacity span the batch.  ``loss_fn`` adds the shards' NLL sums and
+token counts before its one division, so the loss is the global
+token-weighted mean.  Caches stay whole, in the ``effective_kv_heads``
+layout of ``cache_defs`` under the same rules.
 """
 from __future__ import annotations
 
@@ -29,11 +42,15 @@ import functools
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.utils.checkpoint as ckpt
 
 from repro_torch import tree as T
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (at_coords, batch_mesh_axes,
+                                              context, gather_tree,
+                                              is_placed, restored)
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_def
 from repro_torch.models.rwkv6 import (RWKVConfig, channel_mix_apply,
@@ -299,25 +316,16 @@ def _apply_attn_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
         a, new_cache = L.attn_decode(params["attn"], h, acfg, cache=cache,
                                      pos=positions[:, 0])
     else:
-        b, s, _ = h.shape
-        q, k, v = L._qkv(params["attn"], h, acfg, positions)
-        ekv = k.shape[2]
-        qg = q.reshape(b, s, ekv, acfg.n_heads // ekv, acfg.head_dim)
-        o = L.attention(qg, k, v, positions, positions,
-                        window=acfg.window, softcap=acfg.softcap)
-        o = o.reshape(b, s, acfg.n_heads, acfg.head_dim)
-        a = torch.einsum("bshk,hkd->bsd", o,
-                         params["attn"]["wo"].to(x.dtype))
-        if acfg.out_bias:
-            a = a + params["attn"]["bo"].to(x.dtype)
+        a, k, v = L.attn_forward(params["attn"], h, acfg,
+                                 positions=positions)
         if mode == "prefill":
             new_cache = _attn_prefill_cache(cfg, k, v, cache_len)
     full_cap = mode == "decode"
 
     def ffn(h):
         if cfg.moe:
-            return moe_apply(params["ffn"], h, cfg.moe,
-                             full_capacity=full_cap)
+            return moe_apply(gather_tree(params["ffn"], h.device), h,
+                             cfg.moe, full_capacity=full_cap)
         return L.mlp_apply(params["ffn"], h, cfg.mlp_cfg()), 0.0
     if cfg.parallel_block:
         f, aux = ffn(h)
@@ -334,7 +342,8 @@ def _apply_rwkv_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
     """Train and prefill start from zero state, as JAX's do (its prefill
     reads the cache's ``shift_tm`` and drops it); the caches hold the
     normed inputs of the last token in ``cfg.dtype`` and the fp32 WKV
-    state."""
+    state.  The block's leaves are gathered whole where it runs."""
+    params = gather_tree(params, x.device)
     h = L.apply_norm(params["norm1"], x, cfg.norm)
     if mode == "decode":
         y, (sh_tm, wkv) = time_mix_step(
@@ -360,13 +369,15 @@ def _apply_rwkv_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
 
 def _apply_rglru_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
                        cache, positions: Tensor, cache_len: int | None):
+    """The recurrent block's leaves are gathered whole where it runs; its
+    MLP runs per ``ff`` block under the mesh."""
     h = L.apply_norm(params["norm1"], x, cfg.norm)
+    rec = gather_tree(params["rec"], x.device)
     if mode == "decode":
-        y, state = rglru_block_step(params["rec"], h[:, 0], cfg.rglru,
-                                    state=cache)
+        y, state = rglru_block_step(rec, h[:, 0], cfg.rglru, state=cache)
         x = x + y[:, None]
     else:
-        y, state = rglru_block_apply(params["rec"], h, cfg.rglru)
+        y, state = rglru_block_apply(rec, h, cfg.rglru)
         x = x + y
     h2 = L.apply_norm(params["norm2"], x, cfg.norm)
     x = x + L.mlp_apply(params["ffn"], h2, cfg.mlp_cfg())
@@ -394,7 +405,7 @@ def _embed(params, cfg: ModelConfig, tokens: Tensor,
     frontend (B, P, D)."""
     if cfg.codebooks > 1:
         emb = params["embed"]["embedding"]               # (CB, V, D)
-        x = sum(emb[i][tokens[..., i]].to(cfg.dtype)
+        x = sum(L.embed_rows(emb[i], tokens[..., i], cfg.dtype)
                 for i in range(cfg.codebooks))
     else:
         x = L.embed_apply(params["embed"], tokens, cfg.dtype)
@@ -402,15 +413,20 @@ def _embed(params, cfg: ModelConfig, tokens: Tensor,
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype,
                              device=x.device)
     if frontend is not None:
-        x = torch.cat([frontend.to(cfg.dtype), x], 1)
+        x = torch.cat([frontend.to(x.device, cfg.dtype), x], 1)
     return x
 
 
 def _logits(params, cfg: ModelConfig, x: Tensor) -> Tensor:
     """fp32 logits (B, S, V), or (B, S, CB, V) with codebooks."""
     if cfg.codebooks > 1:
-        w = params["heads"]["unembedding"].to(x.dtype)    # (CB, D, V)
-        logits = torch.einsum("bsd,cdv->bscv", x.float(), w.float())
+        heads = params["heads"]["unembedding"]            # (CB, D, V)
+        if is_placed(heads) or L._vocab_shards(cfg.vocab) is not None:
+            logits = torch.stack([L.vocab_logits(x, heads[i], tied=False)
+                                  for i in range(cfg.codebooks)], 2)
+        else:
+            w = heads.to(x.dtype)
+            logits = torch.einsum("bsd,cdv->bscv", x.float(), w.float())
     elif cfg.tie_embeddings:
         logits = L.logits_apply(params["embed"], x)
     else:
@@ -448,12 +464,99 @@ def _maybe_remat(fn, cfg: ModelConfig):
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
+        # The recomputation runs where the backward does (a CUDA
+        # device's autograd thread): under this forward's rules, mesh
+        # and shard coordinates, so it takes the same per-shard paths.
+        ctx = context()
+
+        def again(*a):
+            with restored(ctx):
+                return fn(*a)
         # No layer draws random numbers, so a dry run on meta keeps no
         # RNG snapshot.
         return ckpt.checkpoint(
-            fn, *args, use_reentrant=False,
+            again, *args, use_reentrant=False,
             preserve_rng_state=args[0].device.type != "meta", **kw)
     return run
+
+
+def shard_plan(cfg: ModelConfig, batch: int | None = None) -> dict:
+    """How each layer of ``cfg`` runs under the active mesh: the data
+    shards (of a batch of ``batch`` rows), attention per head shard or per
+    block of query rows, the MLP per ``ff`` block, the vocab per block,
+    or whole; ``whole`` names the blocks that gather their leaves whole
+    where they run."""
+    acfg = cfg.attn_cfg()
+    shards = None if batch is None else _data_shards(cfg, batch)
+    heads = L._head_shards(acfg)
+    _, _, tp = L.mesh_axes("ff")
+    plan = {"data_shards": 1 if shards is None else len(shards)}
+    kinds = set(cfg.pattern)
+    if "attn" in kinds:
+        if heads is not None:
+            sh = heads[0]
+            kv = sh.cache_slice.stop - sh.cache_slice.start
+            how = "replicated per query group" if sh.rep else "split"
+            plan["attention"] = (f"{len(heads)} head shards of {sh.nq} "
+                                 f"query heads, {kv} KV heads (KV {how})")
+        elif L.seq_parallel_attention(acfg):
+            plan["attention"] = (f"{L.heads_tp_size()} blocks of query "
+                                 f"rows, all of K/V (sequence-parallel)")
+        else:
+            plan["attention"] = "whole"
+    ff_split = cfg.moe is None and tp > 1 and cfg.d_ff % tp == 0
+    plan["mlp"] = f"{tp} ff blocks of {cfg.d_ff // tp}" if ff_split \
+        else "whole"
+    vocab = L._vocab_shards(cfg.vocab)
+    plan["vocab"] = "whole" if vocab is None else \
+        f"{len(vocab)} vocab blocks of {vocab[0][1]}"
+    plan["whole"] = sorted({"moe" if cfg.moe else None,
+                            "rglru" if "rglru" in kinds else None,
+                            "rwkv6" if "rwkv6" in kinds else None} - {None})
+    return plan
+
+
+def _data_shards(cfg: ModelConfig, batch: int
+                 ) -> list[tuple[dict, int, int]] | None:
+    """``(coords, lo, hi)`` of each data shard of a batch of ``batch``
+    rows under the active mesh (rows ``[lo, hi)`` at mesh ``coords``), or
+    None: off-mesh, a 'batch' split of one, a batch that does not divide
+    (it stays whole, as JAX's rules leave it replicated), or an MoE model
+    (its routing and capacity span the batch)."""
+    found = batch_mesh_axes()
+    if found is None or cfg.moe is not None:
+        return None
+    mesh, axes, total = found
+    if batch % total:
+        return None
+    per = batch // total
+    sizes = mesh.shape
+    out = []
+    for i, idx in enumerate(np.ndindex(*(sizes[a] for a in axes))):
+        out.append((dict(zip(axes, idx)), i * per, (i + 1) * per))
+    return out
+
+
+def _rows(t, lo: int, hi: int, device, dim: int = 0):
+    return None if t is None else t.narrow(dim, lo, hi - lo).to(device)
+
+
+def _cache_rows(caches, lo: int, hi: int, device):
+    """Rows ``[lo, hi)`` of a cache tree (``layers`` leaves are led by
+    the period axis)."""
+    if caches is None:
+        return None
+    return {k: T.tree_map(lambda t: _rows(t, lo, hi, device,
+                                          1 if k == "layers" else 0), c)
+            for k, c in caches.items()}
+
+
+def _cat_caches(parts: list, device):
+    if parts[0] is None:
+        return None
+    return {k: T.tree_map(lambda *ts: torch.cat(
+        [t.to(device) for t in ts], 1 if k == "layers" else 0),
+        *(p[k] for p in parts)) for k in parts[0]}
 
 
 def forward(params, cfg: ModelConfig, *, tokens: Tensor,
@@ -466,9 +569,37 @@ def forward(params, cfg: ModelConfig, *, tokens: Tensor,
     load-balancing losses, 0 without MoE.  ``return_hidden`` returns the
     final-normed hidden state and skips the unembedding (the training
     loss takes the chunked CE path instead); prefill slices to the last
-    position before the unembedding, as in JAX."""
+    position before the unembedding, as in JAX.  Under an active mesh
+    each data shard runs at its coordinates and the results meet, in
+    shard order, on the first shard's device."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    kw = dict(mode=mode, cache_len=cache_len, return_hidden=return_hidden)
+    shards = _data_shards(cfg, tokens.shape[0])
+    if shards is None:
+        return _forward_shard(params, cfg, tokens=tokens, frontend=frontend,
+                              caches=caches, positions=positions, **kw)
+    mesh = batch_mesh_axes()[0]
+    outs = []
+    for coords, lo, hi in shards:
+        dev = mesh.device_at(coords)
+        with at_coords(coords):
+            outs.append(_forward_shard(
+                params, cfg, tokens=_rows(tokens, lo, hi, dev),
+                frontend=_rows(frontend, lo, hi, dev),
+                caches=_cache_rows(caches, lo, hi, dev),
+                positions=_rows(positions, lo, hi, dev), **kw))
+    home = mesh.device_at(shards[0][0])
+    y = torch.cat([o[0].to(home) for o in outs], 0)
+    aux = sum(o[2].to(home) for o in outs[1:]) if len(outs) > 1 else 0
+    return y, _cat_caches([o[1] for o in outs], home), outs[0][2] + aux
+
+
+def _forward_shard(params, cfg: ModelConfig, *, tokens: Tensor,
+                   frontend: Tensor | None, mode: str, caches,
+                   positions: Tensor | None, cache_len: int | None,
+                   return_hidden: bool):
+    """``forward`` of one data shard (or of the whole batch)."""
     x = _embed(params, cfg, tokens, frontend)
     b, s, _ = x.shape
     if positions is None:
@@ -501,7 +632,7 @@ def forward(params, cfg: ModelConfig, *, tokens: Tensor,
     period_caches = []
     for i in range(cfg.n_periods):
         def take(t):
-            return T.tree_map(lambda a: a[i], t)
+            return T.tree_map(lambda a: a[i], t, is_leaf=is_placed)
         x, aux, per_new = body(x, aux, take(params["layers"]),
                                None if layer_caches is None
                                else take(layer_caches))
@@ -523,27 +654,57 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
     (B, S), optional frontend (B, P, D).  Returns (loss, {"ce",
     "moe_aux"}): the chunked CE on the text positions (after the
     frontend), the mean over codebooks, plus ``moe_aux_coef`` x aux.  The
-    (B, S, V) logits tensor never exists."""
-    frontend = batch.get("frontend")
-    hidden, _, aux = forward(params, cfg, tokens=batch["tokens"],
-                             frontend=frontend, mode="train",
-                             return_hidden=True)
-    if frontend is not None:
-        hidden = hidden[:, frontend.shape[1]:]
-    targets, mask = batch["targets"], batch.get("mask")
-    kw = dict(logit_scale=cfg.logit_scale, softcap=cfg.logits_softcap)
-    if cfg.codebooks > 1:
-        w = params["heads"]["unembedding"]               # (CB, D, V)
-        ce = sum(L.chunked_cross_entropy(hidden, w[i], targets[..., i], mask,
-                                         tied=False, **kw)
-                 for i in range(cfg.codebooks)) / cfg.codebooks
+    (B, S, V) logits tensor never exists.  Under an active mesh each data
+    shard adds its NLL sum and token count, and the CE is their ratio:
+    the global token-weighted mean, not a mean of the shards' means."""
+    tokens = batch["tokens"]
+    shards = _data_shards(cfg, tokens.shape[0])
+    if shards is None:
+        pieces = [({}, None, tokens.device)]
     else:
-        if cfg.tie_embeddings:
-            w, tied = params["embed"]["embedding"], True
-        else:
-            w, tied = params["unembed"]["unembedding"], False
-        ce = L.chunked_cross_entropy(hidden, w, targets, mask, tied=tied,
-                                     **kw)
+        mesh = batch_mesh_axes()[0]
+        pieces = [(c, (lo, hi), mesh.device_at(c)) for c, lo, hi in shards]
+    home = pieces[0][2]
+    n_ce = cfg.codebooks
+    nll = [None] * n_ce
+    count = None
+    aux = None
+    for coords, rows, dev in pieces:
+        def part(key):
+            t = batch.get(key)
+            return t if rows is None else _rows(t, *rows, dev)
+        with at_coords(coords):
+            frontend = part("frontend")
+            hidden, _, a = _forward_shard(
+                params, cfg, tokens=part("tokens"), frontend=frontend,
+                mode="train", caches=None, positions=None, cache_len=None,
+                return_hidden=True)
+            if frontend is not None:
+                hidden = hidden[:, frontend.shape[1]:]
+            targets, mask = part("targets"), part("mask")
+            kw = dict(logit_scale=cfg.logit_scale,
+                      softcap=cfg.logits_softcap)
+            for i in range(n_ce):
+                if cfg.codebooks > 1:
+                    w = params["heads"]["unembedding"][i]    # (D, V)
+                    ti, tied = targets[..., i], False
+                elif cfg.tie_embeddings:
+                    w, ti, tied = params["embed"]["embedding"], targets, True
+                else:
+                    w, ti, tied = (params["unembed"]["unembedding"],
+                                   targets, False)
+                n_i, m_i = L.ce_sums(hidden, w, ti, mask, tied=tied, **kw)
+                nll[i] = n_i.to(home) if nll[i] is None \
+                    else nll[i] + n_i.to(home)
+                if i == 0:
+                    count = m_i.to(home) if count is None \
+                        else count + m_i.to(home)
+        aux = a if aux is None else aux + a.to(home)
+    denom = torch.clamp_min(count, 1.0)
+    if cfg.codebooks > 1:
+        ce = sum(n / denom for n in nll) / cfg.codebooks
+    else:
+        ce = nll[0] / denom
     return ce + cfg.moe_aux_coef * aux, {"ce": ce, "moe_aux": aux}
 
 

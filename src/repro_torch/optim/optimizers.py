@@ -8,6 +8,13 @@ formulas are the JAX package's, weight decay and epsilon included (not
 writes the new values into ``params`` and ``state`` in place and returns
 the same trees; the caller runs it under ``torch.no_grad()`` and decides
 beforehand whether the step is taken (see ``train.trainer``).
+
+Params placed on a mesh (``distributed.sharding.Placed``) carry state
+placed the same way (``opt_state_specs``): SGD and AdamW update each
+block in place on its device, ``global_norm`` and the clip count each
+distinct block once (a replicated leaf is one block).  Adafactor's
+factored moments and its update-RMS clip reduce over a whole leaf, so it
+refuses a placed leaf (plain leaves, whole on one device, it takes).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed.sharding import is_placed
 
 Tensor = torch.Tensor
 
@@ -29,16 +37,21 @@ class Optimizer:
 
 
 def global_norm(grads) -> Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in T.leaves(grads)))
+    """sqrt of the sum of squares of every leaf, in fp32: every distinct
+    block of a placed leaf once, the sums meeting in leaf order on the
+    first leaf's device."""
+    blocks = T.leaves(grads)
+    dev = blocks[0].device
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())).to(dev)
+                          for g in blocks))
 
 
 def _clipped(grads, max_norm: float | None):
     if max_norm is None:
         return grads
     scale = torch.clamp_max(max_norm / (global_norm(grads) + 1e-9), 1.0)
-    return T.tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
+    return T.tree_map(
+        lambda g: (g.float() * scale.to(g.device)).to(g.dtype), grads)
 
 
 def _zeros_like(p: Tensor, shape=None) -> Tensor:
@@ -115,13 +128,19 @@ def adafactor(lr_fn, *, decay_pow: float = 0.8, eps: float = 1e-30,
               clip_rms: float = 1.0, weight_decay: float = 0.0,
               max_norm: float | None = 1.0) -> Optimizer:
     def state_for(p):
+        if is_placed(p):
+            raise ValueError(
+                f"adafactor reduces its factored moments and its update "
+                f"RMS over a whole leaf, so it takes no placed leaf "
+                f"({p!r}); place the params with specs that split "
+                f"nothing, or train with sgd or adamw")
         if _factored(p.shape):
             return {"vr": _zeros_like(p, p.shape[:-1]),
                     "vc": _zeros_like(p, p.shape[:-2] + (p.shape[-1],))}
         return {"v": _zeros_like(p)}
 
     def init(params):
-        return {"f": T.tree_map(state_for, params)}
+        return {"f": T.tree_map(state_for, params, is_leaf=is_placed)}
 
     def update(grads, state, params, step):
         grads = _clipped(grads, max_norm)
@@ -157,6 +176,25 @@ def adafactor(lr_fn, *, decay_pow: float = 0.8, eps: float = 1e-30,
         return params, state
 
     return Optimizer("adafactor", init, update)
+
+
+def opt_state_specs(opt: Optimizer, params_specs):
+    """Optimizer-state specs from the param specs (JAX's
+    ``opt_state_specs``): SGD's and AdamW's slots are laid out like their
+    params; Adafactor's factored moments drop the last or the
+    second-to-last dimension."""
+    if opt.name == "sgd":
+        return {"mu": params_specs}
+    if opt.name == "adamw":
+        return {"m": params_specs, "v": params_specs}
+
+    def spec_for(s):
+        s = tuple(s)
+        if len(s) >= 2:
+            return {"vr": s[:-1], "vc": s[:-2] + s[-1:]}
+        return {"v": s}
+    return {"f": T.tree_map(spec_for, params_specs,
+                            is_leaf=lambda x: isinstance(x, tuple))}
 
 
 def default_optimizer_for(arch_name: str, param_count: int, lr_fn=None):

@@ -1,20 +1,29 @@
 """Fault-tolerant training loop (counterpart of ``repro.train.trainer``).
 
-* data-parallel on a ``mesh``: each step runs under
-  ``distributed.sharding.use_rules(mesh=...)``, so the DCLs' kernel calls
-  split the batch over the mesh's 'batch' axes (one shard a device,
-  ``kernels.ops.resolve_batch_shard``; a batch that does not divide runs
-  whole, as JAX's rules leave it replicated) or, with a config's
-  ``shard_spatial``, the height over its 'spatial' axis.  The port has no
-  GSPMD: params, optimizer state and every other layer stay whole on the
-  mesh's first device, ``param_specs`` (JAX's logical specs of the params,
-  or None) is checked against the params and kept, not applied;
+* params and optimizer state laid out on a ``mesh`` by their specs:
+  ``param_specs`` (the params' partition specs, ``layers.spec_tree`` of
+  the model's defs under the mesh's rules) places each param
+  (``distributed.sharding.place``: one block per distinct mesh index of
+  the axes its spec names, each owning its storage), and the optimizer's
+  and the error-feedback state follow their params
+  (``optim.opt_state_specs``); the gradients come back to the blocks.
+  Without ``param_specs`` the params stay whole on the mesh's first
+  device (the data-parallel DCN Trainer);
+* each step runs under ``use_rules(mesh=...)``: the batch, whole on the
+  first device, splits over the mesh's 'batch' axes per microbatch
+  (``batch_specs``; a batch that does not divide stays whole, as JAX's
+  rules leave it replicated), the LM's forward one data shard a block of
+  rows (``models.transformer``), the DCLs' kernel calls one shard a
+  device (``kernels.ops.resolve_batch_shard``) or, with a config's
+  ``shard_spatial``, the height over its 'spatial' axis;
 * optional int8 error-feedback gradient compression (``grad_compression=
   "int8_ef"``, ``distributed.compression``), applied after the sentinel
   read the uncompressed gradient norm;
 * gradient accumulation over ``microbatches`` slices of the batch;
-* checkpoint every ``ckpt_every`` steps (async, atomic, keep-k, CRC),
-  resume from the latest complete one (``try_resume``);
+* checkpoint every ``ckpt_every`` steps (async, atomic, keep-k, CRC; the
+  bundle gathered whole, free of any mesh), resume from the latest
+  complete one onto this Trainer's own mesh, whatever mesh wrote it
+  (``try_resume``, JAX's ``_bundle_shardings``: the elastic restore);
 * numerics sentinel: the loss and the gradient norm are checked BEFORE
   the optimizer update, and a non-finite step leaves every state leaf
   (the error-feedback state too) as it was; ``max_skips`` consecutive non-finite steps raise
@@ -51,11 +60,12 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import resolve_device
 from repro_torch.distributed.compression import (ef_compress_grads,
                                                  init_ef_state)
-from repro_torch.distributed.sharding import logical_spec, use_rules
+from repro_torch.distributed.sharding import (logical_spec, place_tree,
+                                              shardings_of, use_rules)
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
-from repro_torch.optim import Optimizer, global_norm
+from repro_torch.optim import Optimizer, global_norm, opt_state_specs
 
 Tensor = torch.Tensor
 
@@ -144,10 +154,12 @@ class Trainer:
         self._preempted = False
         # Wall time of every completed step.
         self.step_seconds: list[float] = []
+        if param_specs is not None:
+            T.tree_map(self._check_spec, params, param_specs)
+            if mesh is not None:
+                params = place_tree(params, param_specs, mesh)
         self.params = T.tree_map(
             lambda p: p.detach().requires_grad_(True), params)
-        if param_specs is not None:
-            T.tree_map(self._check_spec, self.params, param_specs)
         self.param_specs = param_specs
         self.opt_state = optimizer.init(self.params)
         self.ef_state = init_ef_state(self.params) \
@@ -178,10 +190,9 @@ class Trainer:
 
     # -- one step -------------------------------------------------------
     def _grads(self, batch) -> tuple[Tensor, Any]:
-        """Loss (mean over microbatches) and gradients (their mean), under
-        the mesh's rules."""
-        leaves = T.leaves_with_paths(self.params)
-        tensors = [p for _, p in leaves]
+        """Loss (mean over microbatches) and gradients (their mean, laid
+        out as the params are), under the mesh's rules."""
+        tensors = T.leaves(self.params)
         mb = self.cfg.microbatches
         gsum = None
         losses = []
@@ -195,11 +206,11 @@ class Trainer:
             gs = [torch.zeros_like(p) if g is None else g.float()
                   for g, p in zip(gs, tensors)]
             gsum = gs if gsum is None else [a + b for a, b in zip(gsum, gs)]
-            losses.append(loss.detach())
+            losses.append(loss.detach().to(self.device))
         if mb > 1:
             gsum = [g / mb for g in gsum]
-        grads = T.from_paths([(path, g) for (path, _), g
-                              in zip(leaves, gsum)])
+        by_block = {id(p): g for p, g in zip(tensors, gsum)}
+        grads = T.tree_map(lambda p: by_block[id(p)], self.params)
         return torch.stack(losses).mean(), grads
 
     def _device_batch(self, step: int):
@@ -216,10 +227,11 @@ class Trainer:
     def _shard_batch(self, batch):
         """Lay the host batch out for the step: every leaf on the mesh's
         first device (the Trainer's), and ``batch_specs`` records how the
-        mesh's rules split each one's sample axis (per microbatch): the
-        DCLs' sharded kernels take the same split, one block a device of
-        the 'batch' axes; a leaf whose batch does not divide stays whole
-        (``None``)."""
+        mesh's rules split each one's sample axis per microbatch (JAX's
+        ``_shard_batch`` splits axis 1 after the microbatch axis): the
+        LM's data shards and the DCLs' sharded kernels take that split,
+        one block a device of the 'batch' axes; a leaf whose batch does
+        not divide stays whole (``None``)."""
         out = {k: torch.as_tensor(np.asarray(x)).to(self.device)
                for k, x in batch.items()}
         if self.mesh is not None:
@@ -252,18 +264,35 @@ class Trainer:
         return checkpoint_bundle(self.params, self.opt_state, self.step,
                                  self.ef_state)
 
+    def _bundle_shardings(self):
+        """The bundle's layout on this Trainer's mesh (JAX's
+        ``_bundle_shardings``): params by their specs, optimizer state by
+        ``opt_state_specs``, the error-feedback state like the params, the
+        step whole; None without a mesh or specs."""
+        if self.mesh is None or self.param_specs is None:
+            return None
+        specs = {"params": self.param_specs,
+                 "opt": opt_state_specs(self.opt, self.param_specs),
+                 "ef": (self.param_specs if self.ef_state is not None
+                        else None),
+                 "step": ()}
+        return shardings_of(specs, self.mesh)
+
     def save(self):
         with self._tr.span("train/checkpoint", step=self.step):
             self.ckpt.save(self.step, self._bundle())
 
     def try_resume(self) -> bool:
         """Restore the latest complete checkpoint into params and
-        optimizer state (in place).  False when there is none.  A write
-        still in flight is joined first, so the step it saves counts."""
+        optimizer state (in place, block by block), laid out on this
+        Trainer's mesh whatever mesh wrote it.  False when there is none.
+        A write still in flight is joined first, so the step it saves
+        counts."""
         self.ckpt.wait()
         if self.ckpt.latest_step() is None:
             return False
-        restored, _ = self.ckpt.restore(self._bundle())
+        restored, _ = self.ckpt.restore(
+            self._bundle(), shardings=self._bundle_shardings())
         with torch.no_grad():
             T.tree_map(lambda dst, src: dst.copy_(src),
                        {"params": self.params, "opt": self.opt_state,

@@ -105,8 +105,19 @@ def test_dcl_forward_matches(k, s, d, b):
     yt, st = TD.dcl_forward({k_: _t(v) for k_, v in params.items()}, _t(x),
                             TD.DCLConfig(**kw))
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
+    assert st.keys() == sj.keys() == {"o_max", "rf_dynamic"}
     np.testing.assert_allclose(float(st["o_max"]), float(sj["o_max"]),
                                **TOL)
+    assert isinstance(st["rf_dynamic"], torch.Tensor)
+    assert float(st["rf_dynamic"]) == float(sj["rf_dynamic"])
+    y_only = TD.dcl_forward({k_: _t(v) for k_, v in params.items()}, _t(x),
+                            TD.DCLConfig(**kw), return_stats=False)
+    want = JD.dcl_forward({k_: jnp.asarray(v) for k_, v in params.items()},
+                          jnp.asarray(x), JD.DCLConfig(**kw),
+                          return_stats=False)
+    assert isinstance(y_only, torch.Tensor)
+    assert torch.equal(y_only, yt)
+    np.testing.assert_allclose(y_only.numpy(), np.asarray(want), **TOL)
 
 
 def test_receptive_field_and_offset_abs_max():

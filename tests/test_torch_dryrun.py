@@ -126,16 +126,6 @@ def _jax_specs(arch, shape_name: str, mesh):
     return (p, ins["caches"], ins["tokens"], ins["pos"])
 
 
-def _kv_replicated(path, jcfg, mesh) -> bool:
-    """A KV-cache leaf whose heads JAX replicates per query group on a
-    tensor-parallel mesh (``repro.models.layers.effective_kv_heads``);
-    the port has no GSPMD and keeps ``kv_heads``."""
-    if path[-1] not in ("k", "v") or mesh is None:
-        return False
-    tp = dict(zip(mesh.axis_names, mesh.devices.shape)).get("model", 1)
-    return jcfg.kv_heads % tp != 0 and jcfg.n_heads % tp == 0
-
-
 def _rules_of(arch, kind):
     if kind in ("train", "train_det"):
         return steps._merged_rules(arch)
@@ -151,8 +141,8 @@ def test_every_leaf_spec_equals_jax(cell):
     production meshes: (1) equals what JAX's ``logical_spec`` resolves for
     the same leaf (shape, logical axes) under the same rules and axis
     sizes; (2) the spec trees equal those JAX's builders hand to
-    ``jax.jit``, but for the KV caches on a tensor-parallel mesh, where
-    JAX replicates the KV heads and so has another leaf shape."""
+    ``jax.jit``, leaf for leaf, the KV caches included (both replicate
+    KV heads per query group where the model axis cannot split them)."""
     name, shape_name = cell
     arch = reg.get(name)
     kind = arch.shapes[shape_name].kind
@@ -171,7 +161,6 @@ def test_every_leaf_spec_equals_jax(cell):
         _, inputs, specs, _ = steps.make_cell_step(arch, shape_name, mesh)
         want = _tuples(_jax_specs(JReg.get(name), shape_name, standin))
         assert len(specs) == len(want) == len(inputs)
-        replicated = 0
         for got_tree, exp_tree in zip(specs, want):
             if isinstance(got_tree, tuple):
                 assert got_tree == exp_tree
@@ -182,15 +171,10 @@ def test_every_leaf_spec_equals_jax(cell):
             assert [p for p, _ in got_l] == [
                 tuple(k.key for k in p) for p, _ in exp_l]
             for (path, g), (_, e) in zip(got_l, exp_l):
-                if g != e:
-                    assert _kv_replicated(path, JReg.get(name).config,
-                                          standin), (mesh_kind, path, g, e)
-                    replicated += 1
+                assert g == e, (mesh_kind, path, g, e)
         # every spec covers its leaf: the per-device bytes resolve
         for tree, spec in zip(inputs, specs):
             dryrun.tree_shard_bytes(tree, spec, mesh)
-        if replicated:
-            assert kind == "decode"
 
 
 @pytest.mark.parametrize("cell", reg.runnable_cells(),
@@ -326,10 +310,14 @@ def test_full_width_cell_stays_on_meta():
     single = dryrun.run_cell(arch.name, "decode_32k", "single", arch=arch,
                              trace=trace)
     assert single["mesh_shape"] == [16, 16]
-    assert single["argument_bytes_by_group"]["caches"] == caches // 16
+    # KV 4 does not split 16 ways: it is replicated per query group (32
+    # heads, 2 a device), the batch split over 'data'.
+    ekv = cfg.n_heads
+    assert single["argument_bytes_by_group"]["caches"] \
+        == caches // cfg.kv_heads * ekv // 256
     assert single["flops_per_device"] == rec["flops"] / 256
     assert single["collective_bytes"] is None
-    assert "unsharded" in single["collective_reason"]
+    assert "one card's layout" in single["collective_reason"]
 
 
 def test_a_tensor_off_meta_fails_the_dry_run():

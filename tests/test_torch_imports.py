@@ -63,6 +63,21 @@ def test_the_planning_modules_are_among_those_checked():
             "repro_torch.launch.roofline"} <= set(_modules())
 
 
+def test_the_param_sharding_modules_are_among_those_checked():
+    """The modules that lay an LM's params out on the mesh and run its
+    layers per shard take part in both checks: placement, the layers,
+    the model, the optimizers, the compression, the Trainer, the
+    checkpoint, the launchers and the dry run."""
+    assert {"repro_torch.tree", "repro_torch.distributed.sharding",
+            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.optim.optimizers",
+            "repro_torch.distributed.compression",
+            "repro_torch.train.trainer", "repro_torch.checkpoint.checkpoint",
+            "repro_torch.launch.train", "repro_torch.launch.steps",
+            "repro_torch.launch.dryrun",
+            "repro_torch.core.deform_conv"} <= set(_modules())
+
+
 @pytest.mark.parametrize("path", [ROOT / "chip_smoke.py"]
                          + sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
