@@ -6485,6 +6485,433 @@ def sharding_phase(record: dict) -> None:
           f"{P20_SECONDS} s) on {smi() if DEV == 'cuda' else DEV}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the last mesh paths: MoE with a split batch, the recurrent
+# blocks per shard, Adafactor on placed leaves, collective bytes
+# ---------------------------------------------------------------------------
+
+P21_DBRX = ("dbrx-132b", 1, (2, 4))         # arch, layers, (data, model)
+P21_GROK = ("grok-1-314b", 1, (1, 4))
+P21_RG = ("recurrentgemma-9b", 3, (2, 4))   # one period (rglru, rglru, attn)
+P21_RWKV = ("rwkv6-3b", 4, ((1, 8), (1, 16)))
+P21_BATCH = (2, 512)        # batch x tokens of every run
+P21_STEPS = 3               # (a): Adafactor steps
+P21_DECODE = 4              # decode steps after the prefill
+P21_SECONDS = 150           # phase 21's budget (printed, not gated)
+P21_FP64_RATIO = 2.0        # a leaf past P20_GRAD_RTOL from the flat path
+                            # passes if it is at most this x as far from
+                            # the fp64 gradient as the flat fp32 one is
+P21_FP64_BYTES = 40e9       # fp64 params + gradients: compute the fp64
+                            # reference where they fit beside the runs
+
+
+def p21_params(cfg) -> dict:
+    """``card_params`` with every all-zero leaf (norm scales, biases,
+    RWKV-6's token-shift mixes, decay offset, bonus and group-norm scale)
+    drawn at 0.1, as the CPU parity tests perturb theirs.  At zero init
+    RWKV-6's first WKV output is exactly zero and its per-head norm runs
+    at its singular point (eps 1e-6): the flat path's own fp32 gradients
+    then lie far from its fp64 ones, an ill-conditioned function that no
+    summation order can be held to 1e-4 on."""
+    import torch
+
+    from repro_torch.tree import tree_map
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    return tree_map(lambda t: t if bool(t.any()) else 0.1 * torch.randn(
+        t.shape, generator=gen, device=DEV).to(t.dtype), card_params(cfg))
+
+
+def p21_rules(name: str):
+    """The arch's rules: the defaults with its registry overrides."""
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.models import registry as reg
+    over = reg.get(name).rules_overrides
+    return {**DEFAULT_RULES, **over} if over else None
+
+
+def p21_cfg(name: str, layers: int):
+    import torch
+
+    from repro_torch.models import registry as reg
+    return dataclasses.replace(reg.get(name).config, n_layers=layers,
+                               dtype=torch.float32)
+
+
+def p21_place(cfg, params, mesh, rules):
+    from repro_torch.distributed.sharding import place_tree, use_rules
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    with use_rules(rules, mesh=mesh):
+        specs = L.spec_tree(TF.param_defs(cfg))
+    return place_tree(params, specs, mesh)
+
+
+def p21_collectives(rec: dict, label: str, counter, cfg, mesh, rules,
+                    steps: list) -> None:
+    """(d): the bytes the runs moved between mesh positions, counted where
+    they moved (``count_crossings``), equal kind by kind to the dry run's
+    count from the specs (``launch.collectives``) of the same steps:
+    ``steps`` is [(mode, batch, seq, times)]."""
+    from repro_torch.distributed.sharding import CrossingCounter
+    from repro_torch.launch.collectives import lm_collectives
+    want = CrossingCounter()
+    for mode, b, seq, times in steps:
+        want.merge(lm_collectives(cfg, mesh, mode=mode, batch=b, seq=seq,
+                                  rules=rules), times)
+    got, want = counter.summary(), want.summary()
+    ok = got == want
+    kinds = {k: round(v["bytes"] / 1e9, 4) for k, v in got.items()
+             if isinstance(v, dict) and v["count"]}
+    print(f"    (d) crossings counted {got['total_count']} transfers, "
+          f"{got['total_bytes'] / 1e9:.4f} GB by kind {kinds}; the dry "
+          f"run's count {want['total_count']}, "
+          f"{want['total_bytes'] / 1e9:.4f} GB"
+          + (" equal kind by kind" if ok else " FAIL"))
+    rec.setdefault("collectives", {})[label] = dict(counted=got, dryrun=want)
+    if not ok:
+        fail(f"phase 21(d) {label}: counted {got} != dry run {want}")
+
+
+def p21_fp64_grads(cfg, batch) -> dict | None:
+    """{path: the flat path's fp64 gradient, on the host} of the same
+    params and batch, where fp64 params and gradients fit
+    (P21_FP64_BYTES); else None."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.models import transformer as TF
+
+    if cfg.param_count() * 16 > P21_FP64_BYTES:
+        return None
+    c64 = dataclasses.replace(cfg, dtype=torch.float64)
+    params = T.tree_map(lambda t: t.double(), p21_params(cfg))
+    leaves = [t.requires_grad_(True) for t in T.leaves(params)]
+    loss, _ = TF.loss_fn(params, c64, batch)
+    out = {p: g.cpu() for (p, _), g in zip(
+        T.leaves_with_paths(params), torch.autograd.grad(loss, leaves))}
+    del params, leaves, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def p21_loss(rec: dict, cfg, mesh_shape, rules, label: str) -> None:
+    """fp32 loss, MoE aux and every leaf's gradient on placed params
+    against the flat path on the same params (P20's gates), the step's
+    crossings counted.  Where the fp64 gradient fits (``p21_fp64_grads``)
+    a leaf past P20_GRAD_RTOL from the flat one passes if it is at most
+    P21_FP64_RATIO x as far from fp64 as the flat fp32 gradient is: the
+    flat path's own error is then at that level too."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.distributed.sharding import (count_crossings, gather,
+                                                  is_placed, use_rules)
+    from repro_torch.models import transformer as TF
+
+    batch = p20_batch(cfg, P21_BATCH)
+    exact = p21_fp64_grads(cfg, batch)
+    params = p21_params(cfg)
+    leaves = [t.requires_grad_(True) for t in T.leaves(params)]
+    loss, aux = TF.loss_fn(params, cfg, batch)
+    # The flat gradients wait on the host: the card then holds the placed
+    # run beside no second set of gradients.
+    flat_g = dict(zip([p for p, _ in T.leaves_with_paths(params)],
+                      (g.cpu() for g in torch.autograd.grad(loss, leaves))))
+    flat_loss, flat_aux = float(loss.detach()), float(aux["moe_aux"])
+    del loss, leaves, aux
+    mesh = p20_mesh(mesh_shape)
+    placed = p21_place(cfg, params, mesh, rules)
+    del params
+    placed = T.tree_map(lambda t: t.requires_grad_(True), placed)
+    blocks = T.leaves(placed)
+    torch.cuda.reset_peak_memory_stats()
+    with use_rules(rules, mesh=mesh), count_crossings() as counter:
+        plan = TF.shard_plan(cfg, P21_BATCH[0])
+        loss, aux = TF.loss_fn(placed, cfg, batch)
+        gs = torch.autograd.grad(loss, blocks, allow_unused=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    by_id = {id(b): torch.zeros_like(b) if g is None else g
+             for b, g in zip(blocks, gs)}
+    del gs
+    loss, moe_aux = float(loss.detach()), float(aux["moe_aux"])
+    loss_rel = abs(loss - flat_loss) / abs(flat_loss)
+    aux_rel = abs(moe_aux - flat_aux) / max(abs(flat_aux), 1e-30)
+    def rel_of(a, b) -> float:
+        return float((a - b.to(a.dtype)).norm()
+                     / b.norm().clamp_min(1e-30))
+
+    worst, worst_path, past, ratio = 0.0, "", [], 0.0
+    for path, x in T.leaves_with_paths(placed, is_leaf=is_placed):
+        g = T.tree_map(lambda b: by_id[id(b)], x)
+        g = gather(g, device=DEV) if is_placed(g) else g
+        want = flat_g.pop(path).to(DEV)
+        rel = rel_of(g, want)
+        if rel > worst:
+            worst, worst_path = rel, "/".join(path)
+        if rel > P20_GRAD_RTOL:
+            # Past the gate: as far from fp64 as the flat path, or fail.
+            r = float("inf") if exact is None else \
+                rel_of(g.cpu().double(), exact[path]) / max(
+                    rel_of(want.cpu().double(), exact[path]), 1e-30)
+            past.append(("/".join(path), rel, r))
+            ratio = max(ratio, r)
+    ok = loss_rel <= P20_LOSS_RTOL and ratio <= P21_FP64_RATIO \
+        and (flat_aux == 0 or aux_rel <= P20_LOSS_RTOL) and not plan["whole"]
+    print(f"  {label} on {mesh.shape}, batch {P21_BATCH[0]} x "
+          f"{P21_BATCH[1]}, fp32: loss {loss:.6f} vs flat {flat_loss:.6f} "
+          f"(rel {loss_rel:.2e}), moe_aux {moe_aux:.6f} vs {flat_aux:.6f} "
+          f"(rel {aux_rel:.2e}; gates {P20_LOSS_RTOL}); worst leaf gradient "
+          f"{worst:.2e} ({worst_path}; gate {P20_GRAD_RTOL}); peak "
+          f"{peak:.2f} GB" + (" ok" if ok else " FAIL"))
+    for name, rel, r in sorted(past, key=lambda t: -t[2])[:3]:
+        print(f"    {name}: {rel:.2e} from the flat gradient; from the fp64 "
+              f"one {r:.2f}x as far as the flat fp32 gradient (gate "
+              f"{P21_FP64_RATIO}x; {len(past)} leaves past "
+              f"{P20_GRAD_RTOL})")
+    print(f"    per shard: {plan}")
+    rec[label] = dict(mesh=mesh.shape, loss=loss, flat_loss=flat_loss,
+                      loss_rel=loss_rel, moe_aux=moe_aux, flat_aux=flat_aux,
+                      worst_grad=worst, worst_leaf=worst_path, peak_gb=peak,
+                      plan=plan, past_gate=past)
+    if not ok:
+        fail(f"phase 21 {label}: loss {loss_rel}, aux {aux_rel}, gradient "
+             f"{worst}, past the gate {past}, whole {plan['whole']}")
+    del placed, blocks, by_id, flat_g
+    p21_collectives(rec, f"{label} loss", counter, cfg, mesh, rules,
+                    [("train", *P21_BATCH, 1)])
+    torch.cuda.empty_cache()
+
+
+def p21_serve_run(params, cfg, toks, tokens: list) -> list:
+    """(logits, caches) of a prefill and a decode step for each of
+    ``tokens`` (the flat run's choices, so every run decodes alike)."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+
+    b, s = toks.shape
+    pos = torch.full((b,), s, device=DEV)
+    out = [TF.prefill(params, cfg, toks, cache_len=s + P21_DECODE)]
+    for i, nxt in enumerate(tokens):
+        out.append(TF.decode_step(params, cfg, nxt, out[-1][1], pos + i))
+    return out
+
+
+def p21_serve_errs(got: list, want: list) -> dict:
+    """Max error over max|value| of each step's logits and cache leaves."""
+    from repro_torch import tree as T
+
+    def err(a, b):
+        b = b.to(a.device)
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp_min(1e-30))
+    errs = {"logits": 0.0, "caches": 0.0}
+    for (gl, gc), (wl, wc) in zip(got, want):
+        errs["logits"] = max(errs["logits"], err(gl, wl))
+        for (_, g), (_, w) in zip(T.leaves_with_paths(gc),
+                                  T.leaves_with_paths(wc)):
+            errs["caches"] = max(errs["caches"], err(g, w))
+    return errs
+
+
+def p21_serve(rec: dict, cfg, mesh_shape, rules, label: str, *,
+              forward: bool = False) -> None:
+    """A prefill and P21_DECODE decode steps (MoE: drop-free) on placed
+    params against the flat path: every step's logits and every cache
+    leaf within P20_LOGIT_TOL x max; with ``forward`` also the
+    full-sequence logits.  Past the gate, where an fp64 run fits, the
+    mesh's outputs pass at most P21_FP64_RATIO x as far from the fp64
+    run's as the flat fp32 ones.  The crossings are counted."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.distributed.sharding import count_crossings, use_rules
+    from repro_torch.models import transformer as TF
+
+    params = p21_params(cfg)
+    toks = p20_batch(cfg, P21_BATCH)["tokens"]
+    b, s = P21_BATCH
+    mesh = p20_mesh(mesh_shape)
+    with torch.no_grad():
+        flat = p21_serve_run(params, cfg, toks, [])
+        tokens = []
+        pos = torch.full((b,), s, device=DEV)
+        for i in range(P21_DECODE):
+            tokens.append(flat[-1][0].argmax(-1))
+            flat.append(TF.decode_step(params, cfg, tokens[-1], flat[-1][1],
+                                       pos + i))
+        if forward:
+            flat_fwd = TF.forward(params, cfg, tokens=toks)[0]
+        placed = p21_place(cfg, params, mesh, rules)
+        del params
+        steps = [("prefill", b, s, 1), ("decode", b, s, P21_DECODE)]
+        errs = {}
+        with use_rules(rules, mesh=mesh), count_crossings() as counter:
+            if forward:
+                fwd = TF.forward(placed, cfg, tokens=toks)[0]
+                errs["forward logits"] = float(
+                    (fwd - flat_fwd).abs().max() / flat_fwd.abs().max())
+                del fwd, flat_fwd
+                steps.append(("forward", b, s, 1))
+            got = p21_serve_run(placed, cfg, toks, tokens)
+    errs.update(p21_serve_errs(got, flat))
+    del placed
+    past = {k: v for k, v in errs.items() if v > P20_LOGIT_TOL}
+    ratios = {}
+    if past and cfg.param_count() * 8 <= P21_FP64_BYTES:
+        c64 = dataclasses.replace(cfg, dtype=torch.float64)
+        with torch.no_grad():
+            exact = p21_serve_run(T.tree_map(lambda t: t.double(),
+                                             p21_params(cfg)), c64, toks,
+                                  tokens)
+        e_mesh, e_flat = p21_serve_errs(got, exact), \
+            p21_serve_errs(flat, exact)
+        ratios = {k: e_mesh[k] / max(e_flat[k], 1e-30) for k in past
+                  if k in e_mesh}
+        del exact
+    ok = all(ratios.get(k, float("inf")) <= P21_FP64_RATIO for k in past)
+    print(f"  {label} on {mesh.shape}: prefill {b} x {s} + {P21_DECODE} "
+          f"decode steps, max error / max: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (gate {P20_LOGIT_TOL})"
+          + "".join(f"; {k} {r:.2f}x as far from the fp64 run as the flat "
+                    f"fp32 one (gate {P21_FP64_RATIO}x)"
+                    for k, r in ratios.items())
+          + (" ok" if ok else " FAIL"))
+    rec[f"{label} serve"] = dict(errs=errs, fp64_ratios=ratios)
+    if not ok:
+        fail(f"phase 21 {label} serve: {errs}, fp64 ratios {ratios}")
+    del got, flat
+    p21_collectives(rec, f"{label} serve", counter, cfg, mesh, rules, steps)
+    torch.cuda.empty_cache()
+
+
+def p21_adafactor(rec: dict, cfg, name: str, mesh_shape, rules) -> None:
+    """(a): P21_STEPS steps of the Trainer's own step path with the
+    arch's default optimizer (Adafactor from 90B params) on placed params
+    against the flat Trainer: params within max(P20_RTOL, P20_SPREAD x
+    the flat run's own spread at microbatches=2 vs 1)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.distributed.sharding import count_crossings
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as reg
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import constant, default_optimizer_for
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.distributed.sharding import use_rules
+
+    n_full = reg.get(name).config.param_count()
+    data = LMDataConfig(vocab=cfg.vocab, seq_len=P21_BATCH[1],
+                        global_batch=P21_BATCH[0], seed=0)
+    mesh = p20_mesh(mesh_shape)
+
+    def trainer(params, micro=1, on_mesh=False):
+        specs = None
+        if on_mesh:
+            with use_rules(rules, mesh=mesh):
+                specs = L.spec_tree(TF.param_defs(cfg))
+        torch.cuda.reset_peak_memory_stats()
+        return Trainer(
+            loss_fn=lambda p, b: TF.loss_fn(p, cfg, b), params=params,
+            optimizer=default_optimizer_for(name, n_full, constant(1e-3)),
+            batch_fn=lambda s: lm_batch(data, s),
+            config=TrainerConfig(total_steps=P21_STEPS, ckpt_every=100,
+                                 ckpt_dir=str(ROOT / "build" / "smoke_p21"),
+                                 log_every=1, microbatches=micro),
+            device=None if on_mesh else DEV, mesh=mesh if on_mesh else None,
+            param_specs=specs, rules=rules if on_mesh else None)
+
+    flat = {}
+    for micro in (1, 2):
+        tr = trainer(p21_params(cfg), micro)
+        losses, ms = p20_steps(tr, P21_STEPS)
+        flat[micro] = dict(losses=losses, ms=ms, opt=tr.opt.name,
+                           peak=torch.cuda.max_memory_allocated() / 1e9,
+                           params=T.tree_map(lambda t: t.detach().cpu(),
+                                             tr.params))
+        del tr
+        torch.cuda.empty_cache()
+    spread = tree_rel(flat[2]["params"], flat[1]["params"])
+    gate = max(P20_RTOL, P20_SPREAD * spread)
+    tr = trainer(p21_params(cfg), on_mesh=True)     # it places them
+    held = p20_held(tr)
+    with count_crossings() as counter:
+        losses, ms = p20_steps(tr, P21_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = T.tree_map(lambda t: t.detach().cpu(), gathered(tr.params))
+    rel = tree_rel(got, flat[1]["params"])
+    ok = rel <= gate and tr.opt.name == "adafactor"
+    gb = {"x".join(map(str, k)): round(v / 1e9, 3)
+          for k, v in held["held"].items()}
+    s_ms, f_ms = statistics.median(ms[1:]), statistics.median(
+        flat[1]["ms"][1:])
+    print(f"  {tr.opt.name} x {P21_STEPS} steps on {mesh.shape}: losses "
+          f"{[round(v, 5) for v in losses]} (flat "
+          f"{[round(v, 5) for v in flat[1]['losses']]}); params vs flat "
+          f"relative norm {rel:.2e} (gate {gate:.2e}: the flat run's own "
+          f"spread at microbatches=2 vs 1 {spread:.2e})"
+          + (" ok" if ok else " FAIL"))
+    print(f"    held a position (GB, params + Adafactor state): {gb}; "
+          f"{len(held['split'])} leaves split, {len(held['whole'])} whole; "
+          f"peak {peak:.2f} GB (flat {flat[1]['peak']:.2f}); step "
+          f"{s_ms:.1f} ms sharded vs {f_ms:.1f} ms flat (CUDA events, "
+          f"median of steps 2-{P21_STEPS})")
+    rec["adafactor"] = dict(losses=losses, flat_losses=flat[1]["losses"],
+                            rel=rel, spread=spread, gate=gate, held_gb=gb,
+                            peak_gb=peak, flat_peak_gb=flat[1]["peak"],
+                            step_ms=ms, flat_step_ms=flat[1]["ms"])
+    if not ok:
+        fail(f"phase 21(a) adafactor: {rel} > {gate} ({tr.opt.name})")
+    del tr, flat, got
+    p21_collectives(rec, "adafactor steps", counter, cfg, mesh, rules,
+                    [("train", *P21_BATCH, P21_STEPS)])
+    torch.cuda.empty_cache()
+
+
+def mesh_paths_phase(record: dict) -> None:
+    """Phase 21: dbrx-132b expert-parallel with a split batch and
+    Adafactor, grok-1-314b's tensor-parallel experts, recurrentgemma-9b's
+    RG-LRU and rwkv6-3b's RWKV-6 per shard, each held to the flat path,
+    and every run's crossings to the dry run's count."""
+    import torch
+
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    print(f"  meshes repeat {DEV}:0 (one card holds every block); fp32, "
+          f"TF32 off")
+    rec = record["p21"] = {}
+    name, layers, mesh = P21_DBRX
+    cfg, rules = p21_cfg(name, layers), p21_rules(name)
+    print(f"  (a) {name} cut to {layers} layer, experts -> "
+          f"{rules['experts']}, its default optimizer")
+    p21_loss(rec, cfg, mesh, rules, f"{name} ({layers} layer)")
+    p21_serve(rec, cfg, mesh, rules, f"{name} ({layers} layer)")
+    p21_adafactor(rec, cfg, name, mesh, rules)
+    name, layers, mesh = P21_GROK
+    cfg, rules = p21_cfg(name, layers), p21_rules(name)
+    print(f"  (b) {name} cut to {layers} layer, tensor-parallel experts")
+    p21_serve(rec, cfg, mesh, rules, f"{name} ({layers} layer)",
+              forward=True)
+    name, layers, mesh = P21_RG
+    cfg = p21_cfg(name, layers)
+    print(f"  (c) {name} cut to {layers} layers (one period)")
+    p21_loss(rec, cfg, mesh, None, f"{name} ({layers} layers)")
+    p21_serve(rec, cfg, mesh, None, f"{name} ({layers} layers)")
+    name, layers, meshes = P21_RWKV
+    cfg = p21_cfg(name, layers)
+    print(f"      {name} cut to {layers} layers")
+    for mesh in meshes:
+        label = f"{name} ({layers} layers, {mesh[1]}-way)"
+        p21_loss(rec, cfg, mesh, None, label)
+        p21_serve(rec, cfg, mesh, None, label)
+    record["phase21_s"] = time.monotonic() - t0
+    print(f"  phase 21 in {record['phase21_s']:.1f} s (budget "
+          f"{P21_SECONDS} s) on {smi()}")
+
+
 def main() -> int:
     try:
         import torch
@@ -6515,6 +6942,16 @@ def main() -> int:
         # A debugging run of phase 17 alone: no kernels line, no result.
         print("== 17. the remaining LM families (alone)")
         families_phase(record)
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps(record, indent=2))
+        print(f"  details in {OUT.relative_to(ROOT)}; "
+              f"{time.monotonic() - t_start:.0f} s in all")
+        return 0
+    if sys.argv[1:] == ["--only", "21"]:
+        # A debugging run of phase 21 alone (it runs no kernel): no
+        # kernels line, no result.
+        print("== 21. the last mesh paths (alone)")
+        mesh_paths_phase(record)
         OUT.parent.mkdir(parents=True, exist_ok=True)
         OUT.write_text(json.dumps(record, indent=2))
         print(f"  details in {OUT.relative_to(ROOT)}; "
@@ -7036,6 +7473,11 @@ def main() -> int:
     print("== 20. an LM's params on the mesh by their specs: tensor-parallel "
           "heads, ff and vocab, FSDP over embed, elastic restore")
     sharding_phase(record)
+
+    print("== 21. the last mesh paths: expert- and tensor-parallel MoE with "
+          "a split batch, the RG-LRU and RWKV-6 per shard, Adafactor on "
+          "placed leaves, collective bytes")
+    mesh_paths_phase(record)
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

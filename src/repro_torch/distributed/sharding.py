@@ -29,6 +29,16 @@ together, differentiably, so gradients flow back to them.  The port has
 no GSPMD, so ``logical_constraint`` stays the identity: what JAX's hints
 ask of XLA, the layers do by hand.
 
+Where a tensor crosses between mesh positions (``gather``'s blocks, the
+shards' partial sums, the vocab combine, the expert exchange, the DCLs'
+halo rows) it goes through ``move``, and ``count_crossings`` counts the
+bytes by collective kind (JAX's names) and by (source, destination)
+position, in the forward and, for its gradient, in the backward.  A
+position is a mesh index, so a mesh that repeats one device still counts
+what a mesh of distinct devices would move.  ``fetch_crossings`` is the
+count of one param fetch from its spec alone, which the dry run's
+analytic model (``launch.collectives``) adds up.
+
 Default mapping (single pod (data=16, model=16); multi-pod adds 'pod'):
 
     batch   -> ('pod', 'data')     DP across pods and the data axis
@@ -248,6 +258,28 @@ def at_coords(coords: Mapping[str, int]):
         _state.coords = prev
 
 
+@contextlib.contextmanager
+def within(coords: Mapping[str, int]):
+    """Run the code inside at ``coords`` within the current data shard
+    (a model shard's place): ``position`` adds them."""
+    prev = getattr(_state, "coords", None)
+    _state.coords = {**(prev or {}), **coords}
+    try:
+        yield
+    finally:
+        _state.coords = prev
+
+
+def position(coords: Mapping[str, int] | None = None) -> tuple[int, ...]:
+    """The mesh index of the current shard (``at_coords`` / ``within``)
+    with ``coords`` on top; an axis not named takes index 0."""
+    ctx = current_rules()
+    if ctx is None or ctx[1] is None:
+        return ()
+    here = getattr(_state, "coords", None) or {}
+    return _position(ctx[1], {**here, **(coords or {})})
+
+
 def context() -> tuple:
     """This thread's rules, mesh and shard coordinates, for ``restored``:
     a checkpointed region recomputes in the backward, which the autograd
@@ -441,6 +473,156 @@ def place(t: torch.Tensor, spec: Sequence, mesh: Mesh
     return proto.rebuild(blocks)
 
 
+# ---------------------------------------------------------------------------
+# Crossings: the bytes a tensor moves between mesh positions
+# ---------------------------------------------------------------------------
+
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+# The kind a crossing's gradient takes back in the backward.
+_CONJUGATE = {"all-gather": "reduce-scatter",
+              "reduce-scatter": "all-gather", "all-reduce": "all-reduce",
+              "all-to-all": "all-to-all",
+              "collective-permute": "collective-permute"}
+
+
+class CrossingCounter:
+    """Bytes and transfers by collective kind (``summary``: JAX's
+    ``parse_collectives`` keys) and by (kind, source, destination)
+    mesh position (``pairs``)."""
+
+    def __init__(self):
+        self.pairs: dict[tuple, list[int]] = {}
+
+    def add(self, kind: str, src: tuple, dst: tuple, nbytes: int) -> None:
+        if kind not in KINDS:
+            raise ValueError(f"unknown collective kind {kind!r}")
+        c = self.pairs.setdefault((kind, src, dst), [0, 0])
+        c[0] += 1
+        c[1] += int(nbytes)
+
+    def merge(self, other: "CrossingCounter", times: int = 1) -> None:
+        """Add ``times`` copies of ``other``'s crossings."""
+        for key, (n, b) in other.pairs.items():
+            c = self.pairs.setdefault(key, [0, 0])
+            c[0] += n * times
+            c[1] += b * times
+
+    def summary(self) -> dict:
+        out: dict = {k: {"count": 0, "bytes": 0} for k in KINDS}
+        for (kind, _, _), (n, b) in self.pairs.items():
+            out[kind]["count"] += n
+            out[kind]["bytes"] += b
+        out["total_bytes"] = sum(out[k]["bytes"] for k in KINDS)
+        out["total_count"] = sum(out[k]["count"] for k in KINDS)
+        return out
+
+
+# Not thread-local: a CUDA device's autograd engine runs the backward on
+# a thread of its own, and its crossings belong to the same count.
+_counters: list[CrossingCounter] = []
+
+
+@contextlib.contextmanager
+def count_crossings(counter: CrossingCounter | None = None):
+    """Count every ``move`` between distinct mesh positions made inside
+    (and the backward of each, wherever it runs) into ``counter``."""
+    counter = counter or CrossingCounter()
+    _counters.append(counter)
+    try:
+        yield counter
+    finally:
+        _counters.remove(counter)
+
+
+class _Move(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, device, src, dst, kind, back, counter):
+        ctx.src_device, ctx.meta = t.device, (src, dst, back, counter)
+        if kind is not None:
+            counter.add(kind, src, dst, t.numel() * t.element_size())
+        out = t.to(device)
+        # Never the input itself: a fetched block is no param (``gather``
+        # counts a param's own fetches only).
+        return out.detach() if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst, back, counter = ctx.meta
+        for kind, a, b in back:
+            counter.add(kind, a, b, g.numel() * g.element_size())
+        return (g.to(ctx.src_device),) + (None,) * 6
+
+
+def move(t: torch.Tensor, device, src: tuple, dst: tuple,
+         kind: str | None, back=None) -> torch.Tensor:
+    """``t`` (at mesh position ``src``) on ``device`` (position ``dst``),
+    differentiably.  Under ``count_crossings`` the forward counts
+    ``kind`` (None: nothing) and the backward each ``(kind, from, to)``
+    of ``back``, by default ``kind``'s conjugate from ``dst`` back to
+    ``src``, in the bytes of the tensor crossing; nothing between equal
+    positions."""
+    if not _counters:
+        return t.to(device)
+    if back is None:
+        back = () if kind is None else ((_CONJUGATE[kind], dst, src),)
+    back = tuple(b for b in back if b[1] != b[2])
+    if src == dst:
+        kind = None
+    if not (t.requires_grad and torch.is_grad_enabled()):
+        back = ()
+    return _Move.apply(t, device, src, dst, kind, back, _counters[-1])
+
+
+def fetch_crossings(spec: Sequence, mesh: Mesh, index: Sequence[int],
+                    dst: tuple) -> tuple[tuple | None, tuple]:
+    """How block ``index`` of a leaf placed by ``spec`` reaches position
+    ``dst``: ``(forward, backward)``, where forward is ``(kind, from,
+    to)`` or None and backward a tuple of them.  The block is read from
+    the copy nearest ``dst`` (``dst``'s index on the axes the spec does
+    not name, as GSPMD holds a copy there): a copy elsewhere along the
+    split axes is an all-gather, its gradient a reduce-scatter back.  The
+    port holds one copy, at index 0 of the axes the spec does not name,
+    so a gradient taken elsewhere along them is then summed into it: an
+    all-reduce (a data shard's gradient sum)."""
+    sizes = mesh.shape
+    named: set[str] = set()
+    held: dict[str, int] = {}
+    for dim, j in enumerate(index):
+        axes = _entry_axes(spec[dim])
+        named.update(axes)
+        held.update(_decode(j, axes, sizes))
+    names = mesh.axis_names
+    near = tuple(held[a] if a in named else dst[k]
+                 for k, a in enumerate(names))
+    home = tuple(held.get(a, 0) for a in names)
+    fwd = None if near == dst else ("all-gather", near, dst)
+    back = (() if fwd is None else (("reduce-scatter", dst, near),)) + (
+        () if near == home else (("all-reduce", near, home),))
+    return fwd, back
+
+
+def _fetch(t: torch.Tensor, device, spec, mesh: Mesh, index,
+           dtype) -> torch.Tensor:
+    """Block ``index`` of a leaf (``t``, held as ``spec`` says) on
+    ``device`` at the current position, in ``dtype``."""
+    t = t.to(dtype=dtype)
+    if not _counters or current_rules() is None \
+            or current_rules()[1] is not mesh:
+        return t.to(device)
+    fwd, back = fetch_crossings(spec, mesh, index, position())
+    if fwd is None:
+        return move(t, device, (), (), None, back)
+    return move(t, device, fwd[1], fwd[2], fwd[0], back)
+
+
+def _is_param(x: torch.Tensor) -> bool:
+    """A leaf of autograd that takes a gradient, or a view of one (a
+    period's slice of a stacked leaf)."""
+    return x.requires_grad and (x.is_leaf or (
+        x._base is not None and x._base.is_leaf))
+
+
 def gather(x, *, at: Mapping[str, int] | None = None,
            device: str | torch.device | None = None,
            dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -451,6 +633,14 @@ def gather(x, *, at: Mapping[str, int] | None = None,
     whole tensor.  Differentiable: the gradient of the result flows back
     to the blocks.  A plain tensor is moved and cast."""
     if not isinstance(x, Placed):
+        if _counters and _is_param(x):
+            # A param the specs split nothing of: whole at the first
+            # position, a copy with every shard as under GSPMD.
+            ctx = current_rules()
+            if ctx is not None and ctx[1] is not None:
+                spec = (None,) * x.ndim
+                return _fetch(x, device if device is not None else x.device,
+                              spec, ctx[1], (0,) * x.ndim, dtype)
         return x.to(device=device if device is not None else x.device,
                     dtype=dtype)
     at = dict(at or {})
@@ -472,7 +662,8 @@ def gather(x, *, at: Mapping[str, int] | None = None,
 
     def build(prefix: tuple[int, ...], dim: int) -> torch.Tensor:
         if dim == x.ndim:
-            return x.blocks[prefix].to(device=device, dtype=dtype)
+            return _fetch(x.blocks[prefix], device, x.spec, x.mesh, prefix,
+                          dtype)
         if dim in fixed:
             return build(prefix + (fixed[dim],), dim + 1)
         parts = [build(prefix + (j,), dim + 1) for j in range(x.grid[dim])]

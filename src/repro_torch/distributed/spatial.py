@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
@@ -55,7 +56,7 @@ from repro_torch.kernels.deform_conv_bwd import deform_conv_bwd_zerocopy
 from repro_torch.kernels.deform_conv_fused import deform_conv_fused_zerocopy
 from repro_torch.kernels.deform_conv_q import deform_conv_fused_zerocopy_q
 
-from .sharding import Mesh, current_rules
+from .sharding import Mesh, _position, current_rules, move
 
 Tensor = torch.Tensor
 
@@ -140,6 +141,16 @@ class SpatialSpec:
         return [flat[i:i + self.shards]
                 for i in range(0, len(flat), self.shards)]
 
+    def positions(self) -> list[list[tuple[int, ...]]]:
+        """``[batch block][height shard]`` -> mesh index (what
+        ``sharding.count_crossings`` keys a crossing by)."""
+        axes = (*self.batch_axes, self.axis)
+        sizes = [self.mesh.shape[a] for a in axes]
+        flat = [_position(self.mesh, dict(zip(axes, idx)))
+                for idx in np.ndindex(*sizes)]
+        return [flat[i:i + self.shards]
+                for i in range(0, len(flat), self.shards)]
+
 
 def resolve_spatial_shard(h: int, *, shard_spatial: bool | None = None,
                           stride: int = 1, kernel_size: int = 3,
@@ -177,18 +188,26 @@ def resolve_spatial_shard(h: int, *, shard_spatial: bool | None = None,
 # Shard bodies
 # ---------------------------------------------------------------------------
 
-def exchange_halo(blocks: list[Tensor], *, halo: int) -> list[Tensor]:
+def exchange_halo(blocks: list[Tensor], *, halo: int,
+                  positions: list[tuple]) -> list[Tensor]:
     """The up/down exchange: each shard's block (``blocks[i]`` on its
-    device) between ``halo`` edge rows of both neighbours, moved to it;
-    the edge shards get zero rows, the global zero padding."""
+    device, at mesh index ``positions[i]``) between ``halo`` edge rows of
+    both neighbours, moved to it (a collective-permute); the edge shards
+    get zero rows, the global zero padding."""
+    pos = positions
     out = []
     for i, x in enumerate(blocks):
         zeros = x.new_zeros((x.shape[0], halo, *x.shape[2:]))
-        top = blocks[i - 1][:, -halo:].to(x.device) if i > 0 else zeros
-        bot = blocks[i + 1][:, :halo].to(x.device) \
-            if i + 1 < len(blocks) else zeros
+        top = _permute(blocks[i - 1][:, -halo:], x.device, pos[i - 1],
+                       pos[i]) if i > 0 else zeros
+        bot = _permute(blocks[i + 1][:, :halo], x.device, pos[i + 1],
+                       pos[i]) if i + 1 < len(blocks) else zeros
         out.append(torch.cat([top, x, bot], 1))
     return out
+
+
+def _permute(t: Tensor, device, src: tuple, dst: tuple) -> Tensor:
+    return move(t, device, src, dst, "collective-permute")
 
 
 def _shard_slab(x_ext: Tensor, *, kernel_size: int, stride: int,
@@ -250,8 +269,11 @@ def _run_shards(sspec: SpatialSpec, x: Tensor, offsets: Tensor, halo: int,
     xs = _blocks(x, devs, x.shape[1] // sspec.shards)
     os_ = _blocks(offsets, devs, offsets.shape[1] // sspec.shards)
     return _gather([[body(xb, ob, ext) for xb, ob, ext in
-                     zip(xrow, orow, exchange_halo(xrow, halo=halo))]
-                    for xrow, orow in zip(xs, os_)], x.device)
+                     zip(xrow, orow, exchange_halo(xrow, halo=halo,
+                                                   positions=prow))]
+                    for xrow, orow, prow in zip(xs, os_,
+                                                sspec.positions())],
+                   x.device)
 
 
 def _spatial_forward(spec: _plan.DCSpec, sspec: SpatialSpec, x: Tensor,
@@ -295,10 +317,11 @@ def _spatial_backward(spec: _plan.DCSpec, sspec: SpatialSpec, x: Tensor,
     os_ = _blocks(offsets, devs, ho // sspec.shards)
     gs = _blocks(gy, devs, ho // sspec.shards)
     dxs, doffs, dw = [], [], None
-    for xrow, orow, grow in zip(xs, os_, gs):
+    for xrow, orow, grow, prow in zip(xs, os_, gs, sspec.positions()):
         dxe, drow = [], []
         for xb, ob, gb, ext in zip(xrow, orow, grow,
-                                   exchange_halo(xrow, halo=halo)):
+                                   exchange_halo(xrow, halo=halo,
+                                                 positions=prow)):
             th, tw, tc, _ = _plan.spec_tiles(spec, xb, ob, w,
                                              dtype="fp32_bwd")
             slab = _shard_slab(ext, tile_h=th, tile_w=tw, ho=ob.shape[1],
@@ -315,11 +338,16 @@ def _spatial_backward(spec: _plan.DCSpec, sspec: SpatialSpec, x: Tensor,
         dx_row = []
         for i, d in enumerate(dxe):
             dx = d[:, p0:p0 + h_loc].clone()
+            # Each halo's gradient rows go back to the shard they came
+            # from: the exchange's collective-permute, reversed.
             if i + 1 < len(dxe) and p0 > 0:
-                dx[:, h_loc - p0:] += dxe[i + 1][:, :p0].to(dx.device)
+                dx[:, h_loc - p0:] += _permute(dxe[i + 1][:, :p0],
+                                               dx.device, prow[i + 1],
+                                               prow[i])
             if i > 0:
-                dx[:, :p0 + 1] += dxe[i - 1][
-                    :, p0 + h_loc:p0 + h_loc + p0 + 1].to(dx.device)
+                dx[:, :p0 + 1] += _permute(
+                    dxe[i - 1][:, p0 + h_loc:p0 + h_loc + p0 + 1],
+                    dx.device, prow[i - 1], prow[i])
             dx_row.append(dx)
         dxs.append(dx_row)
         doffs.append(drow)

@@ -67,6 +67,7 @@ import contextlib
 import dataclasses
 import logging
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -74,7 +75,7 @@ from repro_torch.core.deform_conv import DCLConfig, sample_patches
 from repro_torch.core.tiling import out_hw
 from repro_torch.device import check_on, resolve_device
 from repro_torch.distributed import spatial as _spatial
-from repro_torch.distributed.sharding import Mesh, batch_mesh_axes
+from repro_torch.distributed.sharding import Mesh, batch_mesh_axes, move
 from repro_torch.kernels import plan as _plan
 from repro_torch.kernels.deform_sample import (deform_sample_banded,
                                                deform_sample_zerocopy)
@@ -250,6 +251,13 @@ class ShardSpec:
         """One device per batch block, the first axis major."""
         return self.mesh.shard_devices(self.axes)
 
+    def positions(self) -> list[tuple[int, ...]]:
+        """The mesh index of each batch block (``devices``' order)."""
+        sizes = [self.mesh.shape[a] for a in self.axes]
+        return [tuple(dict(zip(self.axes, idx)).get(a, 0)
+                      for a in self.mesh.axis_names)
+                for idx in np.ndindex(*sizes)]
+
 
 def resolve_batch_shard(n: int, *,
                         shard_batch: bool | None = None) -> ShardSpec | None:
@@ -299,15 +307,18 @@ class BatchShardedDeformConv(torch.autograd.Function):
     def backward(ctx, gy):
         x, offsets, w = ctx.saved_tensors
         devs = ctx.shard.devices()
+        pos = ctx.shard.positions()
         dxs, doffs, dw = [], [], None
-        for d, xb, ob, gb in zip(devs, x.chunk(len(devs)),
-                                 offsets.chunk(len(devs)),
-                                 gy.chunk(len(devs))):
+        for d, at, xb, ob, gb in zip(devs, pos, x.chunk(len(devs)),
+                                     offsets.chunk(len(devs)),
+                                     gy.chunk(len(devs))):
             dx, doff, dwp = _plan.bounded_backward(
                 ctx.spec, xb.to(d), ob.to(d), w.to(d), gb.to(d).contiguous())
             dxs.append(dx.to(x.device))
             doffs.append(doff.to(offsets.device))
-            dwp = dwp.to(w.device)
+            # The replicated weights' gradient summed over the batch
+            # shards: an all-reduce (``sharding.count_crossings``).
+            dwp = move(dwp, w.device, at, pos[0], "all-reduce")
             dw = dwp if dw is None else dw + dwp
         need = ctx.needs_input_grad
         return (None, None, torch.cat(dxs, 0) if need[2] else None,

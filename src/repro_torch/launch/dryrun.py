@@ -24,12 +24,17 @@ and records to ``build/dryrun/<arch>__<shape>__<mesh>.json``:
 * ``bytes_accessed``: the operand and result bytes of every aten op that
   is not a view or an allocation (XLA's pre-fusion ``bytes accessed``),
   plus each DCL call's work bytes;
-* ``collective_bytes``: null, with ``collective_reason``.  The trace
-  runs on one card's layout, so it sees none of the FSDP gathers,
-  row-parallel partial sums and vocab combines an LM step makes on a
-  mesh (``models.layers``), nor the bytes the DCLs' batch shard moves
-  (on ``meta`` they take their shape-only path).  No analytic collective
-  model stands in.
+* ``collectives`` (JAX's ``parse_collectives`` keys: ``{count, bytes}``
+  per kind, ``total_bytes``, ``total_count``) and ``collective_bytes``
+  (``total_bytes`` over the mesh's devices), counted from the specs and
+  shapes (``launch.collectives``): an LM step's FSDP gathers (again in a
+  rematerialised backward) and their gradients' reduce-scatters and
+  all-reduces, the row-parallel partial sums, the vocab combine and
+  MoE's expert exchange, as ``sharding.count_crossings`` counts the same
+  step run on a mesh.  A detector cell counts only its bounded DCLs'
+  d_weights sums over the batch shards, not the activations its DCL
+  calls scatter and gather, and says so in ``collective_reason``; one
+  card moves nothing.
 
 The trace is taken once a cell, on one card's layout (its FLOPs are the
 function's, which no layout changes); the arguments' and outputs' bytes
@@ -49,6 +54,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import pathlib
@@ -65,9 +71,10 @@ from repro_torch import tree as T
 from repro_torch.core import h100
 from repro_torch.core.tiling import BANDED_TILE_H
 from repro_torch.kernels import ops
-from repro_torch.launch import steps
+from repro_torch.launch import collectives, steps
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import registry as reg
+from repro_torch.models.resnet_dcn import ResNetDCNConfig
 
 RESULTS_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "dryrun"
@@ -340,19 +347,44 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *,
         rec[k] = trace[k]
     rec["flops_per_device"] = trace["flops"] / chips
     rec["bytes_accessed_per_device"] = trace["bytes_accessed"] / chips
-    rec["collective_bytes"] = None
     if mesh is None:
-        why = "one card: nothing crosses between devices"
-    elif trace["dcl_calls"]["forward"]:
-        why = ("the trace runs on one card's layout; on meta the DCL "
-               "calls take the shape-only path, without the batch shard, "
-               "so the bytes that shard moves are not traced")
-    else:
-        why = ("the trace runs on one card's layout: the FSDP gathers, "
-               "partial sums and vocab combines of a mesh step are not "
-               "counted")
-    rec["collective_reason"] = why
+        rec["collective_bytes"] = None
+        rec["collective_reason"] = "one card: nothing crosses between " \
+            "devices"
+        return rec
+    rec["collectives"] = cell_collectives(arch, shape_name, mesh)
+    rec["collective_bytes"] = rec["collectives"]["total_bytes"] / chips
+    if isinstance(arch.config, ResNetDCNConfig):
+        rec["collective_reason"] = (
+            "partial: only the bounded DCLs' d_weights sums over the batch "
+            "shards (training) are counted; the activations, offsets and "
+            "weights each DCL call sends to the batch shards and the "
+            "outputs it gathers back are not (the port runs the other "
+            "layers whole on the first device, GSPMD keeps them on their "
+            "shards); the cell shards no height, so no halo crosses")
     return rec
+
+
+def cell_collectives(arch, shape_name: str, mesh) -> dict:
+    """The crossings of one cell's step on ``mesh`` (``launch.
+    collectives``) as JAX's ``parse_collectives`` keys; a detector's
+    count is partial (``run_cell``'s ``collective_reason``)."""
+    shape = arch.shapes[shape_name]
+    if isinstance(arch.config, ResNetDCNConfig):
+        kcfg = dataclasses.replace(
+            arch.config, use_kernel=arch.config.offset_bound is not None)
+        return collectives.dcn_collectives(
+            kcfg, mesh, batch=shape.global_batch,
+            train=shape.kind == "train_det").summary()
+    cfg = arch.config
+    train = shape.kind == "train"
+    rules = steps._merged_rules(arch) if train else steps._serve_rules(arch)
+    return collectives.lm_collectives(
+        cfg, mesh, mode=shape.kind, batch=shape.global_batch,
+        seq=shape.seq_len, rules=rules,
+        micro=steps.microbatches(arch) if train else 1,
+        frontend=256 if cfg.frontend_embeds and shape.kind != "decode"
+        else 0).summary()
 
 
 def save(rec: dict, results_dir: pathlib.Path | None = None

@@ -41,7 +41,7 @@ from repro_torch.configs import resnet50_dcn as configs
 from repro_torch.data import (DetectionDataConfig, LMDataConfig,
                               detection_batch, lm_batch)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import use_rules
+from repro_torch.distributed.sharding import DEFAULT_RULES, use_rules
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import registry as reg
@@ -160,7 +160,9 @@ def train_lm(cfg: TF.ModelConfig, args, *, params=None) -> Trainer:
     opt = default_optimizer_for(args.arch, cfg.param_count(),
                                 warmup_cosine(3e-3, 10, args.steps))
     mesh = host_mesh(args)
-    with use_rules(mesh=mesh):
+    overrides = reg.get(args.arch).rules_overrides
+    rules = {**DEFAULT_RULES, **overrides} if overrides else None
+    with use_rules(rules, mesh=mesh):
         specs = L.spec_tree(TF.param_defs(cfg))
     trainer = Trainer(
         loss_fn=lambda p, b: TF.loss_fn(p, cfg, b), params=params,
@@ -170,7 +172,8 @@ def train_lm(cfg: TF.ModelConfig, args, *, params=None) -> Trainer:
                              ckpt_dir=args.ckpt, log_every=args.log_every,
                              microbatches=args.microbatches,
                              grad_compression=args.grad_compression),
-        device=mesh.first_device, mesh=mesh, param_specs=specs)
+        device=mesh.first_device, mesh=mesh, param_specs=specs,
+        rules=rules)
     if trainer.try_resume():
         print(f"resumed from step {trainer.step}")
     trainer.run()

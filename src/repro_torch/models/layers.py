@@ -19,10 +19,13 @@ split them, ``effective_kv_heads``; query rows where it cannot split the
 heads either, ``seq_parallel_attention``), the MLP per column block of
 ``ff``, the embedding, logits and cross entropy per block of the vocab,
 and ``wo`` and the MLP's down projection row-parallel, their partial
-sums added in shard order.  Each shard reads its block of a placed
-param (``sharding.Placed``) with the blocks of the 'embed' dimension
-gathered onto it (FSDP); a layer with no per-shard path gathers its
-leaves whole.  The DCL's kernel calls shard over the active mesh
+sums added in shard order.  Each shard runs ``within`` its mesh
+coordinates and reads its block of a placed param (``sharding.Placed``)
+with the blocks of the 'embed' dimension gathered onto it (FSDP); a
+layer with no per-shard path gathers its leaves whole.  What a shard
+sends to the data shard's first position goes through ``sharding.move``
+(``_sum_partials``: an all-reduce; pieces put side by side: an
+all-gather), so ``count_crossings`` sees it.  The DCL's kernel calls shard over the active mesh
 (``dcl_apply``'s ``shard_batch`` and ``shard_spatial``).
 
 Activations keep the JAX layouts: x (B, S, D), heads (B, S, H, Dh), GQA
@@ -44,8 +47,9 @@ import torch.utils.checkpoint
 from repro_torch.core.deform_conv import (DCLConfig, conv2d, dcl_forward,
                                           offset_abs_max)
 from repro_torch.distributed.sharding import (Placed, gather, logical_spec,
-                                              mesh_axes, shard_coords,
-                                              shard_device)
+                                              mesh_axes, move, position,
+                                              shard_coords, shard_device,
+                                              within)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import deform_conv_fused_ref
 from repro_torch.quant.qat import (fake_quant_dcl_chain_reference,
@@ -268,12 +272,23 @@ def _row_parallel(eq: str, a: Tensor, w: Tensor) -> Tensor:
     return torch.einsum(eq, a.float(), w.float())
 
 
-def _sum_partials(parts: Sequence[Tensor], dtype: torch.dtype) -> Tensor:
-    """Row-parallel partial sums added in shard order, in fp32."""
-    if len(parts) == 1:
-        return parts[0]
-    acc = parts[0].float()
-    for t in parts[1:]:
+def _to_here(t: Tensor, coords: Mapping[str, int], device,
+             kind: str) -> Tensor:
+    """A shard's tensor (the shard at ``coords``) moved to the current
+    position on ``device``: a ``kind`` crossing (``sharding.move``)."""
+    return move(t, device, position(coords), position(), kind)
+
+
+def _sum_partials(parts: Sequence[tuple[Mapping[str, int], Tensor]],
+                  dtype: torch.dtype, device) -> Tensor:
+    """Row-parallel partial sums, ``(coords, partial)`` of each shard,
+    moved to the current position on ``device`` (an all-reduce) and
+    added in shard order, in fp32."""
+    moved = [_to_here(t, c, device, "all-reduce") for c, t in parts]
+    if len(moved) == 1:
+        return moved[0]
+    acc = moved[0].float()
+    for t in moved[1:]:
         acc = acc + t.float()
     return acc.to(dtype)
 
@@ -553,15 +568,17 @@ def attn_forward(params, x: Tensor, cfg: AttnConfig, *, positions: Tensor,
         home = x.device
         parts, ks, vs = [], [], []
         for sh in shards:
-            dev, loc, q, k, v = _shard_qkv(params, x, cfg, positions, sh)
-            pos = positions.to(dev)
-            o = _attend(q, k, v, pos, pos, cfg,
-                        None if mask is None else mask.to(dev))
-            parts.append(_row_parallel("bshk,hkd->bsd", o, loc["wo"])
-                         .to(home))
+            with within(sh.coords):
+                dev, loc, q, k, v = _shard_qkv(params, x, cfg, positions, sh)
+                pos = positions.to(dev)
+                o = _attend(q, k, v, pos, pos, cfg,
+                            None if mask is None else mask.to(dev))
+                parts.append((sh.coords, _row_parallel(
+                    "bshk,hkd->bsd", o, loc["wo"])))
+            # The cache's K/V heads stay with their shard under GSPMD.
             ks.append(k.to(home))
             vs.append(v.to(home))
-        y = _sum_partials(parts, x.dtype)
+        y = _sum_partials(parts, x.dtype, home)
         k, v = torch.cat(ks, 2), torch.cat(vs, 2)
     else:
         q, k, v = _qkv(params, x, cfg, positions)
@@ -590,12 +607,15 @@ def _attn_seq_parallel(params, q: Tensor, k: Tensor, v: Tensor, x: Tensor,
         hi = lo + s // n + (j < s % n)
         if hi == lo:
             continue
-        dev = shard_device(shard_coords(axes, j))
-        o = _attend(q[:, lo:hi].to(dev), k.to(dev), v.to(dev),
-                    positions[:, lo:hi].to(dev), positions.to(dev), cfg,
-                    None if mask is None else mask[:, lo:hi].to(dev))
-        wo = gather(params["wo"], device=dev, dtype=x.dtype)
-        rows.append(torch.einsum("bshk,hkd->bsd", o, wo).to(home))
+        coords = shard_coords(axes, j)
+        with within(coords):
+            dev = shard_device()
+            o = _attend(q[:, lo:hi].to(dev), k.to(dev), v.to(dev),
+                        positions[:, lo:hi].to(dev), positions.to(dev), cfg,
+                        None if mask is None else mask[:, lo:hi].to(dev))
+            wo = gather(params["wo"], device=dev, dtype=x.dtype)
+            row = torch.einsum("bshk,hkd->bsd", o, wo)
+        rows.append(_to_here(row, coords, home, "all-gather"))
     return torch.cat(rows, 1)
 
 
@@ -663,16 +683,18 @@ def attn_decode(params, x: Tensor, cfg: AttnConfig, *, cache: dict,
         home = x.device
         parts, kcs, vcs = [], [], []
         for sh in shards:
-            dev, loc, q, k, v = _shard_qkv(params, x, cfg, pos[:, None], sh)
-            cs = sh.cache_slice
-            o, kc, vc = _decode_attend(
-                q, k, v, cache["k"][:, :, cs].to(dev),
-                cache["v"][:, :, cs].to(dev), cfg, pos.to(dev))
-            parts.append(_row_parallel("bshk,hkd->bsd", o, loc["wo"])
-                         .to(home))
+            with within(sh.coords):
+                dev, loc, q, k, v = _shard_qkv(params, x, cfg, pos[:, None],
+                                               sh)
+                cs = sh.cache_slice
+                o, kc, vc = _decode_attend(
+                    q, k, v, cache["k"][:, :, cs].to(dev),
+                    cache["v"][:, :, cs].to(dev), cfg, pos.to(dev))
+                parts.append((sh.coords, _row_parallel(
+                    "bshk,hkd->bsd", o, loc["wo"])))
             kcs.append(kc.to(home))
             vcs.append(vc.to(home))
-        y = _sum_partials(parts, x.dtype)
+        y = _sum_partials(parts, x.dtype, home)
         k_cache, v_cache = torch.cat(kcs, 2), torch.cat(vcs, 2)
     if cfg.out_bias:
         y = y + _w(params["bo"], x)
@@ -767,12 +789,14 @@ def mlp_apply(params, x: Tensor, cfg: MLPConfig) -> Tensor:
         f, home = cfg.d_ff // n, x.device
         parts = []
         for j in range(n):
-            dev = shard_device(shard_coords(axes, j))
-            loc = {k: _part(params[k], dim, j * f, f, dev, x.dtype)
-                   for k, dim in _FF_DIM.items() if k in params}
-            parts.append(_mlp_body(loc, x.to(dev), cfg, partial=True)
-                         .to(home))
-        y = _sum_partials(parts, x.dtype)
+            coords = shard_coords(axes, j)
+            with within(coords):
+                dev = shard_device()
+                loc = {k: _part(params[k], dim, j * f, f, dev, x.dtype)
+                       for k, dim in _FF_DIM.items() if k in params}
+                parts.append((coords, _mlp_body(loc, x.to(dev), cfg,
+                                                partial=True)))
+        y = _sum_partials(parts, x.dtype, home)
     else:
         y = _mlp_body(params, x, cfg)
     if cfg.bias:
@@ -789,15 +813,14 @@ def embed_def(vocab: int, d_model: int) -> dict[str, ParamDef]:
                                   init="embed", scale=0.02)}
 
 
-def _vocab_shards(vocab: int) -> list[tuple[int, int, torch.device]] | None:
-    """``(lo, size, device)`` of each vocab block under the active mesh,
+def _vocab_shards(vocab: int) -> list[tuple[int, int, dict]] | None:
+    """``(lo, size, coords)`` of each vocab block under the active mesh,
     or None where the vocab does not split."""
     _, axes, n = mesh_axes("vocab")
     if n == 1 or vocab % n:
         return None
     vn = vocab // n
-    return [(j * vn, vn, shard_device(shard_coords(axes, j)))
-            for j in range(n)]
+    return [(j * vn, vn, shard_coords(axes, j)) for j in range(n)]
 
 
 def embed_rows(emb, ids: Tensor, dtype: torch.dtype) -> Tensor:
@@ -810,14 +833,17 @@ def embed_rows(emb, ids: Tensor, dtype: torch.dtype) -> Tensor:
         # Gather, then cast: the rows the JAX package casts before its take.
         return gather(emb, device=ids.device)[ids].to(dtype)
     out = None
-    for lo, vn, dev in shards:
-        rel = ids.to(dev) - lo
-        inside = (rel >= 0) & (rel < vn)
-        rows = _part(emb, 0, lo, vn, dev)[rel.clamp(0, vn - 1)].to(dtype)
-        rows = torch.where(inside[..., None], rows,
-                           torch.zeros((), dtype=dtype, device=dev))
-        out = rows.to(ids.device) if out is None \
-            else out + rows.to(ids.device)
+    for lo, vn, coords in shards:
+        with within(coords):
+            dev = shard_device()
+            rel = ids.to(dev) - lo
+            inside = (rel >= 0) & (rel < vn)
+            rows = _part(emb, 0, lo, vn, dev)[rel.clamp(0, vn - 1)] \
+                .to(dtype)
+            rows = torch.where(inside[..., None], rows,
+                               torch.zeros((), dtype=dtype, device=dev))
+        rows = _to_here(rows, coords, ids.device, "all-reduce")
+        out = rows if out is None else out + rows
     return out
 
 
@@ -840,10 +866,12 @@ def vocab_logits(x: Tensor, w, *, tied: bool) -> Tensor:
         wt = _w(w, x).float()
         return x.float() @ (wt.T if tied else wt)
     parts = []
-    for lo, vn, dev in shards:
-        wt = _part(w, vdim, lo, vn, dev, x.dtype).float()
-        parts.append((x.to(dev).float() @ (wt.T if tied else wt))
-                     .to(x.device))
+    for lo, vn, coords in shards:
+        with within(coords):
+            dev = shard_device()
+            wt = _part(w, vdim, lo, vn, dev, x.dtype).float()
+            part = x.to(dev).float() @ (wt.T if tied else wt)
+        parts.append(_to_here(part, coords, x.device, "all-gather"))
     return torch.cat(parts, -1)
 
 
@@ -909,10 +937,14 @@ def ce_sums(x: Tensor, w, targets: Tensor, mask: Tensor | None = None, *,
         wt = _w(w, x).float()
         wts, los = [wt.T if tied else wt], [0]
     else:
-        wts = [_part(w, vdim, lo, vn, dev, x.dtype).float()
-               for lo, vn, dev in shards]
-        wts = [t.T if tied else t for t in wts]
+        wts = []
+        for lo, vn, coords in shards:
+            with within(coords):
+                wt = _part(w, vdim, lo, vn, shard_device(), x.dtype).float()
+            wts.append(wt.T if tied else wt)
         los = [lo for lo, _, _ in shards]
+        here = [position(c) for _, _, c in shards]
+        home = position()
 
     def logits_of(xb: Tensor, wt: Tensor) -> Tensor:
         return _softcap((xb.to(wt.device).float() @ wt) * logit_scale,
@@ -926,16 +958,19 @@ def ce_sums(x: Tensor, w, targets: Tensor, mask: Tensor | None = None, *,
         else:
             # The maxima only shift the exponentials: no gradient.
             ms, ss, golds = [], [], []
-            for lo, wt in zip(los, wts):
+
+            def back(t, at):
+                # A vocab block's statistic to the combine: an all-reduce.
+                return move(t, xb.device, at, home, "all-reduce")
+            for lo, wt, at in zip(los, wts, here):
                 lg = logits_of(xb, wt)
                 m = lg.amax(-1).detach()
-                ms.append(m.to(xb.device))
-                ss.append(torch.exp(lg - m[..., None]).sum(-1).to(xb.device))
+                ms.append(back(m, at))
+                ss.append(back(torch.exp(lg - m[..., None]).sum(-1), at))
                 rel = tb.to(wt.device).long() - lo
                 inside = (rel >= 0) & (rel < wt.shape[-1])
                 g = lg.gather(-1, rel.clamp(0, wt.shape[-1] - 1)[..., None])
-                golds.append(torch.where(inside, g[..., 0], 0.0)
-                             .to(xb.device))
+                golds.append(back(torch.where(inside, g[..., 0], 0.0), at))
             top = ms[0]
             for m in ms[1:]:
                 top = torch.maximum(top, m)
@@ -956,8 +991,10 @@ def ce_sums(x: Tensor, w, targets: Tensor, mask: Tensor | None = None, *,
         if torch.is_grad_enabled():
             # The body draws no random numbers, so a dry run on meta
             # keeps no RNG snapshot.
+            # No early stop: the recomputation runs the whole body, so
+            # the vocab combine crosses again (``count_crossings``).
             n_c, m_c = torch.utils.checkpoint.checkpoint(
-                body, *part, use_reentrant=False,
+                body, *part, use_reentrant=False, early_stop=False,
                 preserve_rng_state=x.device.type != "meta")
         else:
             n_c, m_c = body(*part)

@@ -13,6 +13,20 @@ key-value sum ``kv_end``.  The state crosses the chunks in a Python loop
 (64 steps a layer at S = 2048, one fused multiply-add each) where JAX
 runs ``lax.scan``; each chunk's contribution from the carried state is
 then one batched product.  The scan and its state are fp32.
+
+Under an active mesh the blocks run per model shard, as JAX's hints ask
+(the flat channel dimension split as 'heads', the channel mix's as
+'ff'): the r, k, v and g projections take column blocks of the channels,
+and where the 'heads' axes split whole heads each shard runs the WKV and
+the per-head norm on its heads and ``w_o`` is row-parallel.  Where a
+block of channels ends inside a head (rwkv6-3b's 40 heads on a 16-way
+axis: 2.5 heads a shard) the shards' r, k, v and g blocks meet, the WKV
+runs whole, and the gated output splits again for ``w_o``.  The decay's
+low-rank product runs whole (``decay_A`` is FSDP over 'embed' only,
+``decay_B`` replicated).  The channel mix runs per ``ff`` block
+(``w_k`` by columns, ``w_v`` row-parallel); ``w_r`` is whole.  Row-
+parallel partials are fp32, summed once (``layers._sum_partials``).  The
+WKV state stays whole; each head shard reads and writes its heads.
 """
 from __future__ import annotations
 
@@ -21,7 +35,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamDef, rms_norm
+from repro_torch.distributed.sharding import (gather, gather_tree,
+                                              mesh_axes, shard_coords,
+                                              shard_device, within)
+from repro_torch.models.layers import (ParamDef, _part, _row_parallel,
+                                       _sum_partials, _to_here, rms_norm)
 
 Tensor = torch.Tensor
 
@@ -171,49 +189,164 @@ def _mix_out(params, o: Tensor, g: Tensor, x: Tensor, cfg: RWKVConfig):
     return (o * g).reshape(x.shape) @ params["w_o"].to(x.dtype)
 
 
+def head_split(cfg: RWKVConfig) -> tuple[tuple[str, ...], int, bool] | None:
+    """``(axes, n, whole_heads)`` of the channel blocks of time mixing
+    under the active mesh, or None (off-mesh, one block, or D does not
+    divide)."""
+    _, axes, n = mesh_axes("heads")
+    if n == 1 or cfg.d_model % n:
+        return None
+    return axes, n, cfg.n_heads % n == 0
+
+
+def ff_split(cfg: RWKVConfig) -> tuple[tuple[str, ...], int] | None:
+    """``(axes, n)`` of the channel mix's ``ff`` blocks, or None."""
+    _, axes, n = mesh_axes("ff")
+    return (axes, n) if n > 1 and cfg.d_ff % n == 0 else None
+
+
+def _time_mix(params, x: Tensor, xp: Tensor, cfg: RWKVConfig, wkv,
+              state: Tensor | None):
+    """Time mixing of x (B, T, D) with token-shifted ``xp``; ``wkv(r, k,
+    v, lw, u, state)`` on (B, T, H', Dh) returns (out fp32, new state).
+    Returns (y, new WKV state)."""
+    b, t, d = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    split = head_split(cfg)
+    if split is None:
+        p = gather_tree(params, x.device)
+        r, k, v, g, lw = _projections(p, x, xp, (b, t, h, dh))
+        o, S = wkv(r, k, v, lw, p["bonus_u"].reshape(h, dh), state)
+        return _mix_out(p, o, g, x, cfg), S
+    axes, n, whole_heads = split
+    home, dt, w = x.device, x.dtype, d // n
+    small = {k: gather(params[k], device=home)
+             for k in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "decay_w0",
+                       "decay_A", "decay_B")}
+    xr, xk, xv, xw, xg = (_lerp(x, xp, small[f"mu_{c}"]) for c in "rkvwg")
+    lw = _log_decay(small, xw)                                # (B, T, D)
+    shards = [(shard_coords(axes, j), j * w) for j in range(n)]
+    blocks, states = [], []
+    for coords, lo in shards:
+        with within(coords):
+            dev = shard_device()
+            r, k, v, g = (
+                a.to(dev) @ _part(params[name], 1, lo, w, dev, dt)
+                for a, name in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v"),
+                                (xg, "w_g")))
+            g = F.silu(g)
+            if whole_heads:
+                hn, h0 = w // dh, lo // dh
+                r, k, v, g = (a.reshape(b, t, hn, dh) for a in (r, k, v, g))
+                u = _part(params["bonus_u"], 0, lo, w, dev).reshape(hn, dh)
+                o, S = wkv(r, k, v, lw[..., lo:lo + w].to(dev).reshape(
+                    b, t, hn, dh), u, None if state is None
+                    else state[:, h0:h0 + hn].to(dev))
+                ln = _part(params["ln_x"], 0, lo, w, dev).reshape(hn, dh)
+                og = (rms_norm(o.to(dt), ln) * g).reshape(b, t, w)
+                blocks.append(_row_parallel(
+                    "btc,cd->btd", og,
+                    _part(params["w_o"], 0, lo, w, dev, dt)))
+        if whole_heads:
+            states.append(S.to(home))
+        else:
+            blocks.append(tuple(_to_here(a, coords, home, "all-gather")
+                                for a in (r, k, v, g)))
+    if whole_heads:
+        return (_sum_partials(list(zip((c for c, _ in shards), blocks)), dt,
+                              home), torch.cat(states, 1))
+    # The heads meet: the WKV and the norm whole, w_o per block again.
+    r, k, v, g = (torch.cat(parts, -1).reshape(b, t, h, dh)
+                  for parts in zip(*blocks))
+    u = gather(params["bonus_u"], device=home).reshape(h, dh)
+    o, S = wkv(r, k, v, lw.reshape(b, t, h, dh), u, state)
+    ln = gather(params["ln_x"], device=home).reshape(h, dh)
+    og = (rms_norm(o.to(dt), ln) * g).reshape(b, t, d)
+    parts = []
+    for coords, lo in shards:
+        with within(coords):
+            dev = shard_device()
+            parts.append((coords, _row_parallel(
+                "btc,cd->btd", og[..., lo:lo + w].to(dev),
+                _part(params["w_o"], 0, lo, w, dev, dt))))
+    return _sum_partials(parts, dt, home), S
+
+
+def _chunked_wkv(s: int, chunk: int):
+    """``_time_mix``'s WKV of a full sequence of ``s`` tokens: padded to
+    a multiple of ``chunk`` with k = v = 0 and lw = 0 (decay 1), so the
+    final state is the unpadded one."""
+    def run(r, k, v, lw, u, state):
+        pad = (-s) % chunk
+        if pad:
+            r, k, v, lw = (F.pad(a, (0, 0, 0, 0, 0, pad))
+                           for a in (r, k, v, lw))
+        o, S = wkv_chunked(r, k, v, lw, u, state=state, chunk=chunk)
+        return o[:, :s], S
+    return run
+
+
+def _step_wkv(r, k, v, lw, u, state):
+    """``_time_mix``'s WKV of one token (T = 1)."""
+    o, S = wkv_step(r[:, 0], k[:, 0], v[:, 0], lw[:, 0], u, state.float())
+    return o[:, None], S
+
+
 def time_mix_apply(params, x: Tensor, cfg: RWKVConfig, *,
                    shift_state: Tensor | None = None,
                    wkv_state: Tensor | None = None, chunk: int = CHUNK):
     """x: (B, S, D).  Returns (y, (new_shift_state, new_wkv_state)).  A
     sequence that is not a multiple of ``chunk`` is padded with k = v = 0
     and lw = 0 (decay 1), so the final state is the unpadded one."""
-    b, s, _ = x.shape
-    shape = (b, s, cfg.n_heads, cfg.head_dim)
-    r, k, v, g, lw = _projections(params, x, _token_shift(x, shift_state),
-                                  shape)
-    pad = (-s) % chunk
-    if pad:
-        r, k, v, lw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, lw))
-    u = params["bonus_u"].reshape(cfg.n_heads, cfg.head_dim)
-    o, S = wkv_chunked(r, k, v, lw, u, state=wkv_state, chunk=chunk)
-    return _mix_out(params, o[:, :s], g, x, cfg), (x[:, -1], S)
+    y, S = _time_mix(params, x, _token_shift(x, shift_state), cfg,
+                     _chunked_wkv(x.shape[1], chunk), wkv_state)
+    return y, (x[:, -1], S)
 
 
 def time_mix_step(params, x: Tensor, cfg: RWKVConfig, *,
                   shift_state: Tensor, wkv_state: Tensor):
     """Decode: x (B, D) one token.  Returns (y, (shift, wkv))."""
-    shape = (x.shape[0], cfg.n_heads, cfg.head_dim)
-    r, k, v, g, lw = _projections(params, x, shift_state.to(x.dtype), shape)
-    u = params["bonus_u"].reshape(cfg.n_heads, cfg.head_dim)
-    o, S = wkv_step(r, k, v, lw, u, wkv_state.float())
-    return _mix_out(params, o, g, x, cfg), (x, S)
+    y, S = _time_mix(params, x[:, None], shift_state.to(x.dtype)[:, None],
+                     cfg, _step_wkv, wkv_state)
+    return y[:, 0], (x, S)
 
 
-def _channel_mix(params, x: Tensor, xp: Tensor) -> Tensor:
-    xk = _lerp(x, xp, params["mu_k"])
-    xr = _lerp(x, xp, params["mu_r"])
-    kv = F.relu(xk @ params["w_k"].to(x.dtype)).square() \
-        @ params["w_v"].to(x.dtype)
-    return torch.sigmoid(xr @ params["w_r"].to(x.dtype)) * kv
+def _channel_mix(params, x: Tensor, xp: Tensor, cfg: RWKVConfig) -> Tensor:
+    split = ff_split(cfg)
+    if split is None:
+        p = gather_tree(params, x.device)
+        xk = _lerp(x, xp, p["mu_k"])
+        xr = _lerp(x, xp, p["mu_r"])
+        kv = F.relu(xk @ p["w_k"].to(x.dtype)).square() \
+            @ p["w_v"].to(x.dtype)
+        return torch.sigmoid(xr @ p["w_r"].to(x.dtype)) * kv
+    axes, n = split
+    home, dt, f = x.device, x.dtype, cfg.d_ff // n
+    xk = _lerp(x, xp, gather(params["mu_k"], device=home))
+    xr = _lerp(x, xp, gather(params["mu_r"], device=home))
+    parts = []
+    for j in range(n):
+        coords = shard_coords(axes, j)
+        with within(coords):
+            dev = shard_device()
+            hk = F.relu(xk.to(dev) @ _part(params["w_k"], 1, j * f, f, dev,
+                                           dt)).square()
+            parts.append((coords, _row_parallel(
+                "...f,fd->...d", hk, _part(params["w_v"], 0, j * f, f, dev,
+                                         dt))))
+    kv = _sum_partials(parts, dt, home)
+    return torch.sigmoid(xr @ gather(params["w_r"], device=home,
+                                     dtype=dt)) * kv
 
 
 def channel_mix_apply(params, x: Tensor, cfg: RWKVConfig, *,
                       shift_state: Tensor | None = None):
     """x: (B, S, D).  Returns (y, new_shift_state)."""
-    return _channel_mix(params, x, _token_shift(x, shift_state)), x[:, -1]
+    return _channel_mix(params, x, _token_shift(x, shift_state), cfg), \
+        x[:, -1]
 
 
 def channel_mix_step(params, x: Tensor, cfg: RWKVConfig, *,
                      shift_state: Tensor):
     """Decode: x (B, D).  Returns (y, new_shift_state)."""
-    return _channel_mix(params, x, shift_state.to(x.dtype)), x
+    return _channel_mix(params, x, shift_state.to(x.dtype), cfg), x

@@ -49,17 +49,17 @@ import torch.utils.checkpoint as ckpt
 from repro_torch import tree as T
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (at_coords, batch_mesh_axes,
-                                              context, gather_tree,
-                                              is_placed, restored)
+                                              context, is_placed, restored)
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoEConfig, moe_apply, moe_def
+from repro_torch.models.moe import (MoEConfig, aux_from_stats, expert_split,
+                                    moe_apply, moe_def)
 from repro_torch.models.rwkv6 import (RWKVConfig, channel_mix_apply,
                                       channel_mix_def, channel_mix_step,
-                                      time_mix_apply, time_mix_def,
-                                      time_mix_step)
+                                      ff_split, head_split, time_mix_apply,
+                                      time_mix_def, time_mix_step)
 from repro_torch.models.rglru import (CONV_WIDTH, RGLRUConfig,
                                       rglru_block_apply, rglru_block_def,
-                                      rglru_block_step)
+                                      rglru_block_step, rnn_split)
 
 Tensor = torch.Tensor
 
@@ -324,9 +324,9 @@ def _apply_attn_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
 
     def ffn(h):
         if cfg.moe:
-            return moe_apply(gather_tree(params["ffn"], h.device), h,
-                             cfg.moe, full_capacity=full_cap)
-        return L.mlp_apply(params["ffn"], h, cfg.mlp_cfg()), 0.0
+            return moe_apply(params["ffn"], h, cfg.moe,
+                             full_capacity=full_cap, stats=True)
+        return L.mlp_apply(params["ffn"], h, cfg.mlp_cfg()), None
     if cfg.parallel_block:
         f, aux = ffn(h)
         x = x + a + f
@@ -342,8 +342,8 @@ def _apply_rwkv_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
     """Train and prefill start from zero state, as JAX's do (its prefill
     reads the cache's ``shift_tm`` and drops it); the caches hold the
     normed inputs of the last token in ``cfg.dtype`` and the fp32 WKV
-    state.  The block's leaves are gathered whole where it runs."""
-    params = gather_tree(params, x.device)
+    state.  Under the mesh the block runs per head shard (or its heads
+    met) and ``ff`` block (``rwkv6``)."""
     h = L.apply_norm(params["norm1"], x, cfg.norm)
     if mode == "decode":
         y, (sh_tm, wkv) = time_mix_step(
@@ -364,15 +364,15 @@ def _apply_rwkv_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
     if mode in ("decode", "prefill"):
         new_cache = {"shift_tm": sh_tm.to(cfg.dtype), "wkv": wkv,
                      "shift_cm": sh_cm.to(cfg.dtype)}
-    return x, new_cache, 0.0
+    return x, new_cache, None
 
 
 def _apply_rglru_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
                        cache, positions: Tensor, cache_len: int | None):
-    """The recurrent block's leaves are gathered whole where it runs; its
-    MLP runs per ``ff`` block under the mesh."""
+    """The recurrent block runs per ``rnn`` block and its MLP per ``ff``
+    block under the mesh (``rglru``)."""
     h = L.apply_norm(params["norm1"], x, cfg.norm)
-    rec = gather_tree(params["rec"], x.device)
+    rec = params["rec"]
     if mode == "decode":
         y, state = rglru_block_step(rec, h[:, 0], cfg.rglru, state=cache)
         x = x + y[:, None]
@@ -384,7 +384,7 @@ def _apply_rglru_layer(params, x: Tensor, cfg: ModelConfig, *, mode: str,
     new_cache = None
     if mode in ("decode", "prefill"):
         new_cache = {"h": state["h"], "conv": state["conv"].to(cfg.dtype)}
-    return x, new_cache, 0.0
+    return x, new_cache, None
 
 
 _LAYER_APPLY = {
@@ -425,7 +425,7 @@ def _logits(params, cfg: ModelConfig, x: Tensor) -> Tensor:
             logits = torch.stack([L.vocab_logits(x, heads[i], tied=False)
                                   for i in range(cfg.codebooks)], 2)
         else:
-            w = heads.to(x.dtype)
+            w = L._w(heads, x)
             logits = torch.einsum("bsd,cdv->bscv", x.float(), w.float())
     elif cfg.tie_embeddings:
         logits = L.logits_apply(params["embed"], x)
@@ -473,9 +473,11 @@ def _maybe_remat(fn, cfg: ModelConfig):
             with restored(ctx):
                 return fn(*a)
         # No layer draws random numbers, so a dry run on meta keeps no
-        # RNG snapshot.
+        # RNG snapshot.  No early stop: the recomputation runs the whole
+        # period, so each of its crossings happens again, as JAX's
+        # rematerialised gathers do.
         return ckpt.checkpoint(
-            again, *args, use_reentrant=False,
+            again, *args, use_reentrant=False, early_stop=False,
             preserve_rng_state=args[0].device.type != "meta", **kw)
     return run
 
@@ -483,9 +485,11 @@ def _maybe_remat(fn, cfg: ModelConfig):
 def shard_plan(cfg: ModelConfig, batch: int | None = None) -> dict:
     """How each layer of ``cfg`` runs under the active mesh: the data
     shards (of a batch of ``batch`` rows), attention per head shard or per
-    block of query rows, the MLP per ``ff`` block, the vocab per block,
-    or whole; ``whole`` names the blocks that gather their leaves whole
-    where they run."""
+    block of query rows, the MLP per ``ff`` block, the MoE per expert
+    shard or per ``ff`` block, the RG-LRU per ``rnn`` block, RWKV-6 per
+    head shard (or its heads met) and ``ff`` block, the vocab per block,
+    or whole; ``whole`` names the MoE, RG-LRU and RWKV-6 blocks that
+    gather their leaves whole where they run."""
     acfg = cfg.attn_cfg()
     shards = None if batch is None else _data_shards(cfg, batch)
     heads = L._head_shards(acfg)
@@ -504,27 +508,60 @@ def shard_plan(cfg: ModelConfig, batch: int | None = None) -> dict:
                                  f"rows, all of K/V (sequence-parallel)")
         else:
             plan["attention"] = "whole"
-    ff_split = cfg.moe is None and tp > 1 and cfg.d_ff % tp == 0
-    plan["mlp"] = f"{tp} ff blocks of {cfg.d_ff // tp}" if ff_split \
-        else "whole"
+    if cfg.moe is not None:
+        how, _, n = expert_split(cfg.moe)
+        e, f = cfg.moe.num_experts, cfg.moe.d_ff
+        plan["moe"] = {"experts": f"{n} expert shards of {e // n} experts",
+                       "ff": f"{n} ff blocks of {f // n} a expert",
+                       "whole": "whole"}[how]
+    elif "attn" in kinds or "rglru" in kinds:
+        ff_split = tp > 1 and cfg.d_ff % tp == 0
+        plan["mlp"] = f"{tp} ff blocks of {cfg.d_ff // tp}" if ff_split \
+            else "whole"
+    if "rglru" in kinds:
+        plan["rglru"] = _rglru_plan(cfg.rglru)
+    if "rwkv6" in kinds:
+        plan["rwkv6"] = _rwkv_plan(cfg.rwkv)
     vocab = L._vocab_shards(cfg.vocab)
     plan["vocab"] = "whole" if vocab is None else \
         f"{len(vocab)} vocab blocks of {vocab[0][1]}"
-    plan["whole"] = sorted({"moe" if cfg.moe else None,
-                            "rglru" if "rglru" in kinds else None,
-                            "rwkv6" if "rwkv6" in kinds else None} - {None})
+    plan["whole"] = sorted(k for k in ("moe", "rglru", "rwkv6")
+                           if plan.get(k) == "whole")
     return plan
+
+
+def _rglru_plan(cfg: RGLRUConfig) -> str:
+    split = rnn_split(cfg)
+    return "whole" if split is None else \
+        f"{split[1]} rnn blocks of {cfg.d_rnn // split[1]}"
+
+
+def _rwkv_plan(cfg: RWKVConfig) -> str:
+    heads, ff = head_split(cfg), ff_split(cfg)
+    if heads is None and ff is None:
+        return "whole"
+    if heads is None:
+        tm = "time mix whole"
+    else:
+        axes, n, whole_heads = heads
+        tm = (f"{n} head shards of {cfg.n_heads // n} heads" if whole_heads
+              else f"{n} channel blocks of {cfg.d_model // n}, the heads "
+                   f"met for the WKV")
+    cm = "channel mix whole" if ff is None else \
+        f"{ff[1]} ff blocks of {cfg.d_ff // ff[1]}"
+    return f"{tm}; {cm}"
 
 
 def _data_shards(cfg: ModelConfig, batch: int
                  ) -> list[tuple[dict, int, int]] | None:
     """``(coords, lo, hi)`` of each data shard of a batch of ``batch``
     rows under the active mesh (rows ``[lo, hi)`` at mesh ``coords``), or
-    None: off-mesh, a 'batch' split of one, a batch that does not divide
-    (it stays whole, as JAX's rules leave it replicated), or an MoE model
-    (its routing and capacity span the batch)."""
+    None: off-mesh, a 'batch' split of one, or a batch that does not
+    divide (it stays whole, as JAX's rules leave it replicated).  An MoE
+    model's batch splits too: its capacity is per row, and its aux loss
+    is combined from the shards' sums (``moe.moe_stats``)."""
     found = batch_mesh_axes()
-    if found is None or cfg.moe is not None:
+    if found is None:
         return None
     mesh, axes, total = found
     if batch % total:
@@ -577,8 +614,10 @@ def forward(params, cfg: ModelConfig, *, tokens: Tensor,
     kw = dict(mode=mode, cache_len=cache_len, return_hidden=return_hidden)
     shards = _data_shards(cfg, tokens.shape[0])
     if shards is None:
-        return _forward_shard(params, cfg, tokens=tokens, frontend=frontend,
-                              caches=caches, positions=positions, **kw)
+        y, c, stats = _forward_shard(params, cfg, tokens=tokens,
+                                     frontend=frontend, caches=caches,
+                                     positions=positions, **kw)
+        return y, c, _aux(cfg, [stats], y.device)
     mesh = batch_mesh_axes()[0]
     outs = []
     for coords, lo, hi in shards:
@@ -591,41 +630,57 @@ def forward(params, cfg: ModelConfig, *, tokens: Tensor,
                 positions=_rows(positions, lo, hi, dev), **kw))
     home = mesh.device_at(shards[0][0])
     y = torch.cat([o[0].to(home) for o in outs], 0)
-    aux = sum(o[2].to(home) for o in outs[1:]) if len(outs) > 1 else 0
-    return y, _cat_caches([o[1] for o in outs], home), outs[0][2] + aux
+    return (y, _cat_caches([o[1] for o in outs], home),
+            _aux(cfg, [o[2] for o in outs], home))
+
+
+def _aux(cfg: ModelConfig, stats: list, device) -> Tensor:
+    """The summed MoE aux loss (fp32) of the data shards' ``moe_stats``
+    (each (MoE layers, 2E + 1), or None without MoE): the shards' sums
+    meet on ``device``, then each layer's product is taken once."""
+    if stats[0] is None:
+        return torch.zeros((), device=device)
+    total = stats[0].to(device)
+    for t in stats[1:]:
+        total = total + t.to(device)
+    return aux_from_stats(total, cfg.moe.num_experts, cfg.moe.top_k).sum()
 
 
 def _forward_shard(params, cfg: ModelConfig, *, tokens: Tensor,
                    frontend: Tensor | None, mode: str, caches,
                    positions: Tensor | None, cache_len: int | None,
                    return_hidden: bool):
-    """``forward`` of one data shard (or of the whole batch)."""
+    """``forward`` of one data shard (or of the whole batch), its aux
+    output the MoE layers' ``moe_stats`` stacked in layer order (None
+    without MoE)."""
     x = _embed(params, cfg, tokens, frontend)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     kw = dict(mode=mode, positions=positions, cache_len=cache_len)
-    aux = torch.zeros((), device=x.device)
+    stats: list[Tensor] = []
     new_caches: dict[str, Any] = {}
     for i, kind in enumerate(cfg.prefix):
         c = caches.get(f"prefix{i}") if caches else None
         x, nc, a = _LAYER_APPLY[kind](params[f"prefix{i}"], x, cfg, cache=c,
                                       **kw)
-        aux = aux + a
+        if a is not None:
+            stats.append(a)
         if nc is not None:
             new_caches[f"prefix{i}"] = nc
 
-    def period(x, aux, per_params, per_caches):
-        per_new = {}
+    def period(x, per_params, per_caches):
+        per_new, per_stats = {}, []
         for j, kind in enumerate(cfg.pattern):
             name = f"m{j}"
             c = per_caches[name] if per_caches is not None else None
             x, nc, a = _LAYER_APPLY[kind](per_params[name], x, cfg, cache=c,
                                           **kw)
-            aux = aux + a
+            if a is not None:
+                per_stats.append(a)
             if nc is not None:
                 per_new[name] = nc
-        return x, aux, per_new
+        return x, per_stats, per_new
 
     body = _maybe_remat(period, cfg)
     layer_caches = caches["layers"] if caches else None
@@ -633,14 +688,16 @@ def _forward_shard(params, cfg: ModelConfig, *, tokens: Tensor,
     for i in range(cfg.n_periods):
         def take(t):
             return T.tree_map(lambda a: a[i], t, is_leaf=is_placed)
-        x, aux, per_new = body(x, aux, take(params["layers"]),
-                               None if layer_caches is None
-                               else take(layer_caches))
+        x, per_stats, per_new = body(x, take(params["layers"]),
+                                     None if layer_caches is None
+                                     else take(layer_caches))
+        stats += per_stats
         if per_new:
             period_caches.append(per_new)
     if period_caches:
         new_caches["layers"] = T.tree_map(lambda *xs: torch.stack(xs),
                                           *period_caches)
+    aux = torch.stack(stats) if stats else None
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, (new_caches or None), aux
@@ -656,7 +713,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
     frontend), the mean over codebooks, plus ``moe_aux_coef`` x aux.  The
     (B, S, V) logits tensor never exists.  Under an active mesh each data
     shard adds its NLL sum and token count, and the CE is their ratio:
-    the global token-weighted mean, not a mean of the shards' means."""
+    the global token-weighted mean, not a mean of the shards' means; the
+    MoE aux loss likewise comes from the shards' summed ``moe_stats``."""
     tokens = batch["tokens"]
     shards = _data_shards(cfg, tokens.shape[0])
     if shards is None:
@@ -668,7 +726,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
     n_ce = cfg.codebooks
     nll = [None] * n_ce
     count = None
-    aux = None
+    stats = []
     for coords, rows, dev in pieces:
         def part(key):
             t = batch.get(key)
@@ -699,7 +757,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
                 if i == 0:
                     count = m_i.to(home) if count is None \
                         else count + m_i.to(home)
-        aux = a if aux is None else aux + a.to(home)
+        stats.append(a)
+    aux = _aux(cfg, stats, home)
     denom = torch.clamp_min(count, 1.0)
     if cfg.codebooks > 1:
         ce = sum(n / denom for n in nll) / cfg.codebooks

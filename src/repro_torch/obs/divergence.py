@@ -249,7 +249,7 @@ class DispatchRecorder:
                  tracker: DivergenceTracker | None = None,
                  next_hook=None, clock=time.monotonic, block: bool = False):
         self.registry = registry if registry is not None \
-            else _metrics.MetricsRegistry()
+            else _metrics.get_registry()
         self._tracer = tracer
         self.tracker = tracker
         self.next_hook = next_hook

@@ -8,17 +8,23 @@ decade from 10 us to ~2 min), and ``quantile()`` interpolates inside
 the bucket the requested rank falls in — p50/p99 at bucket resolution
 with O(buckets) memory per label set.
 
-Exports: :meth:`MetricsRegistry.snapshot` (plain-JSON dict) and
-:func:`dump_telemetry` (the JSON sink).
+Exports: :meth:`MetricsRegistry.snapshot` (plain-JSON dict),
+:meth:`MetricsRegistry.prometheus_text` (text exposition: cumulative
+``_bucket{le=...}`` samples plus ``_sum``/``_count``, which
+:func:`parse_prometheus_text` reads back) and :func:`dump_telemetry`
+(the JSON sink).  ``get_registry`` is the process-wide registry, a fresh
+one until ``set_registry`` / ``registry_scope`` replace it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
 
 __all__ = ["DEFAULT_LATENCY_BUCKETS", "Counter", "Gauge", "Histogram",
-           "MetricsRegistry", "dump_telemetry"]
+           "MetricsRegistry", "dump_telemetry", "get_registry",
+           "parse_prometheus_text", "registry_scope", "set_registry"]
 
 # ~10 buckets per decade, 10 us .. ~126 s; dispatch latencies and
 # request latencies both live comfortably inside this range.
@@ -69,6 +75,10 @@ class Gauge(_Metric):
     def set(self, value: float, **labels) -> None:
         self._values[_label_key(labels)] = value
 
+    def inc(self, amount: float = 1, **labels) -> None:
+        key = _label_key(labels)
+        self._values[key] = self._values.get(key, 0) + amount
+
     def value(self, **labels) -> float:
         return self._values.get(_label_key(labels), 0)
 
@@ -104,6 +114,21 @@ class Histogram(_Metric):
             self._sums[key] = 0.0
         counts[self._bucket_index(value)] += 1
         self._sums[key] += value
+
+    def count(self, **labels) -> int:
+        return sum(self._counts.get(_label_key(labels), ()))
+
+    def sum(self, **labels) -> float:
+        return self._sums.get(_label_key(labels), 0.0)
+
+    def bucket_width(self, value: float) -> float:
+        """Width of the bucket ``value`` falls in: the resolution bound
+        of :meth:`quantile` near that value."""
+        i = self._bucket_index(value)
+        if i >= len(self.bounds):
+            return float("inf")
+        lo = self.bounds[i - 1] if i > 0 else 0.0
+        return self.bounds[i] - lo
 
     def quantile(self, q: float, **labels) -> float:
         """q-th quantile by linear interpolation inside the covering
@@ -172,6 +197,9 @@ class MetricsRegistry:
                   ) -> Histogram:
         return self._get(Histogram, name, help, buckets=buckets)
 
+    def metrics(self):
+        return self._metrics.values()
+
     # -- export --------------------------------------------------------
     def snapshot(self) -> dict:
         """Plain-JSON dict of every metric."""
@@ -190,6 +218,74 @@ class MetricsRegistry:
                                for k, v in sorted(m.items())]}
         return out
 
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition (histograms as cumulative
+        ``_bucket{le=...}`` + ``_sum`` + ``_count``)."""
+        def fmt_labels(pairs) -> str:
+            if not pairs:
+                return ""
+            body = ",".join(f'{k}="{v}"' for k, v in pairs)
+            return "{" + body + "}"
+
+        def fmt_num(v: float) -> str:
+            if isinstance(v, float) and v == int(v) and abs(v) < 1e15:
+                return str(int(v))
+            return repr(v)
+
+        lines: list[str] = []
+        for name in sorted(self._metrics):
+            m = self._metrics[name]
+            if m.help:
+                lines.append(f"# HELP {name} {m.help}")
+            lines.append(f"# TYPE {name} {m.kind}")
+            if isinstance(m, Histogram):
+                for key in sorted(m._counts):
+                    counts = m._counts[key]
+                    cum = 0
+                    for bound, cnt in zip(m.bounds, counts):
+                        cum += cnt
+                        lines.append(
+                            f"{name}_bucket"
+                            f"{fmt_labels(key + (('le', repr(bound)),))}"
+                            f" {cum}")
+                    total = cum + counts[-1]
+                    lines.append(
+                        f"{name}_bucket"
+                        f"{fmt_labels(key + (('le', '+Inf'),))} {total}")
+                    lines.append(f"{name}_sum{fmt_labels(key)} "
+                                 f"{repr(m._sums[key])}")
+                    lines.append(f"{name}_count{fmt_labels(key)} {total}")
+            else:
+                for key, v in sorted(m.items()):
+                    lines.append(f"{name}{fmt_labels(key)} {fmt_num(v)}")
+        return "\n".join(lines) + "\n"
+
+
+def parse_prometheus_text(text: str) -> dict:
+    """Parse the exposition back into ``{(name, label_key): value}`` —
+    the test-side half of the round-trip.  Only the subset
+    :meth:`MetricsRegistry.prometheus_text` emits is supported."""
+    out: dict = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        sample, value = line.rsplit(" ", 1)
+        labels: tuple = ()
+        if "{" in sample:
+            name, rest = sample.split("{", 1)
+            body = rest.rstrip("}")
+            if body:
+                pairs = []
+                for part in body.split(","):
+                    k, v = part.split("=", 1)
+                    pairs.append((k, v.strip('"')))
+                labels = tuple(sorted(pairs))
+        else:
+            name = sample
+        out[(name, labels)] = float(value)
+    return out
 
 def _json_default(o):
     """Coerce the numpy scalars/arrays telemetry records accumulate."""
@@ -216,3 +312,30 @@ def dump_telemetry(path, record: dict, extra: dict | None = None, *,
     p = pathlib.Path(path)
     p.write_text(json.dumps(rec, indent=2, default=_json_default))
     return p
+
+
+# ---------------------------------------------------------------------------
+# The process-wide default registry.  Subsystems that need isolation (two
+# serving engines in one process, each Trainer) construct their own.
+# ---------------------------------------------------------------------------
+
+_registry = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return _registry
+
+
+def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
+    global _registry
+    prev, _registry = _registry, registry
+    return prev
+
+
+@contextlib.contextmanager
+def registry_scope(registry: MetricsRegistry):
+    prev = set_registry(registry)
+    try:
+        yield registry
+    finally:
+        set_registry(prev)

@@ -6,6 +6,9 @@ via an explicit stack (the enclosing open span becomes the parent).  The
 clock is injectable, so tests drive spans on a fake clock.  Disabled
 tracers are zero-cost: ``span()`` returns one shared no-op singleton.
 The process-global default tracer is disabled; ``tracer_scope`` opts in.
+Exports: JSONL (one record a span or event) and Chrome trace-event JSON
+(``ph: "X"`` spans, ``ph: "i"`` instants, timestamps in microseconds,
+loadable in Perfetto).
 """
 from __future__ import annotations
 
@@ -134,6 +137,11 @@ class Tracer:
             "parent_id": self._stack[-1].span_id if self._stack else None,
             "attrs": attrs})
 
+    def clear(self) -> None:
+        self.spans.clear()
+        self.events.clear()
+        self._stack.clear()
+
     # -- export --------------------------------------------------------
     def records(self) -> list[dict]:
         """All finished spans + events as plain dicts."""
@@ -145,6 +153,29 @@ class Tracer:
         p = pathlib.Path(path)
         p.write_text("".join(json.dumps(r, default=str) + "\n"
                              for r in self.records()))
+        return p
+
+    def to_chrome(self) -> dict:
+        """Chrome trace-event JSON (Perfetto-loadable): ``ph: "X"``
+        complete events for spans, ``ph: "i"`` instants for events,
+        timestamps/durations in microseconds."""
+        out = []
+        for s in self.spans:
+            out.append({"name": s.name, "ph": "X", "pid": 0, "tid": 0,
+                        "ts": (s.t0 or 0.0) * 1e6,
+                        "dur": max(s.duration, 0.0) * 1e6,
+                        "args": {str(k): str(v)
+                                 for k, v in s.attrs.items()}})
+        for e in self.events:
+            out.append({"name": e["name"], "ph": "i", "s": "t",
+                        "pid": 0, "tid": 0, "ts": e["ts"] * 1e6,
+                        "args": {str(k): str(v)
+                                 for k, v in e["attrs"].items()}})
+        return {"traceEvents": out, "displayTimeUnit": "ms"}
+
+    def export_chrome(self, path) -> pathlib.Path:
+        p = pathlib.Path(path)
+        p.write_text(json.dumps(self.to_chrome()))
         return p
 
 

@@ -174,6 +174,10 @@ class AdmissionQueue:
         self.queue = keep
         return expired
 
+    def head_bucket(self) -> int | None:
+        """Bucket of the oldest queued request (the next step's batch)."""
+        return self.queue[0].bucket if self.queue else None
+
     def pick_bucket(self, *, slots: int, now: float,
                     batch_window: float = 0.0) -> int | None:
         """Deadline-aware bucket pick: the bucket whose most

@@ -9,7 +9,8 @@
   (``optim.opt_state_specs``); the gradients come back to the blocks.
   Without ``param_specs`` the params stay whole on the mesh's first
   device (the data-parallel DCN Trainer);
-* each step runs under ``use_rules(mesh=...)``: the batch, whole on the
+* each step runs under ``use_rules(rules, mesh)`` (``rules``: those the
+  specs were made under, default the defaults): the batch, whole on the
   first device, splits over the mesh's 'batch' axes per microbatch
   (``batch_specs``; a batch that does not divide stays whole, as JAX's
   rules leave it replicated), the LM's forward one data shard a block of
@@ -112,7 +113,7 @@ class Trainer:
                  registry: MetricsRegistry | None = None,
                  tracer: Tracer | None = None,
                  device: str | torch.device | None = None,
-                 mesh=None, param_specs: Any = None):
+                 mesh=None, param_specs: Any = None, rules=None):
         if config.grad_compression not in GRAD_COMPRESSIONS:
             raise ValueError(
                 f"unknown grad_compression {config.grad_compression!r}; "
@@ -121,6 +122,7 @@ class Trainer:
             raise ValueError(f"microbatches={config.microbatches} must be "
                              f">= 1")
         self.cfg = config
+        self.rules = rules
         self.device = resolve_device(device) if mesh is None or device \
             is not None else mesh.first_device
         if mesh is not None and mesh.first_device != self.device:
@@ -200,15 +202,22 @@ class Trainer:
             part = batch if mb == 1 else T.tree_map(
                 lambda x: x.reshape(mb, x.shape[0] // mb,
                                     *x.shape[1:])[i], batch)
-            with use_rules(mesh=self.mesh):
+            with use_rules(self.rules, mesh=self.mesh):
                 loss, _ = self.loss_fn(self.params, part)
                 gs = torch.autograd.grad(loss, tensors, allow_unused=True)
-            gs = [torch.zeros_like(p) if g is None else g.float()
+            gs = [torch.zeros_like(p, dtype=torch.float32) if g is None
+                  else g.float()
                   for g, p in zip(gs, tensors)]
-            gsum = gs if gsum is None else [a + b for a, b in zip(gsum, gs)]
+            if gsum is None:
+                gsum = gs
+            else:       # in place: one sum of the gradients held, not two
+                for a, b in zip(gsum, gs):
+                    a.add_(b)
+            del gs
             losses.append(loss.detach().to(self.device))
         if mb > 1:
-            gsum = [g / mb for g in gsum]
+            for g in gsum:
+                g.div_(mb)
         by_block = {id(p): g for p, g in zip(tensors, gsum)}
         grads = T.tree_map(lambda p: by_block[id(p)], self.params)
         return torch.stack(losses).mean(), grads

@@ -316,8 +316,17 @@ def test_full_width_cell_stays_on_meta():
     assert single["argument_bytes_by_group"]["caches"] \
         == caches // cfg.kv_heads * ekv // 256
     assert single["flops_per_device"] == rec["flops"] / 256
-    assert single["collective_bytes"] is None
-    assert "one card's layout" in single["collective_reason"]
+    # The mesh's crossings are counted from the specs (launch.collectives):
+    # every kind of JAX's parse_collectives, none left out.
+    coll = single["collectives"]
+    assert set(coll) == {"all-reduce", "all-gather", "reduce-scatter",
+                         "all-to-all", "collective-permute", "total_bytes",
+                         "total_count"}
+    assert coll["total_bytes"] > 0 and coll["all-reduce"]["count"] > 0
+    assert single["collective_bytes"] == coll["total_bytes"] / 256
+    assert "collective_reason" not in single
+    assert rec["collective_bytes"] is None and "one card" in \
+        rec["collective_reason"]
 
 
 def test_a_tensor_off_meta_fails_the_dry_run():

@@ -93,6 +93,37 @@ def test_no_source_imports_jax_or_the_reference_package(path):
         assert not any(_forbidden(n) for n in names), (path, names)
 
 
+def test_the_last_mesh_paths_are_among_those_checked():
+    """The modules of the MoE, RG-LRU and RWKV-6 mesh paths, Adafactor on
+    placed leaves, the collective count and the metrics and trace exports
+    take part in both checks, and each new name is there."""
+    assert {"repro_torch.models.moe", "repro_torch.models.rglru",
+            "repro_torch.models.rwkv6", "repro_torch.optim.optimizers",
+            "repro_torch.launch.collectives", "repro_torch.obs.metrics",
+            "repro_torch.obs.trace", "repro_torch.serve.admission",
+            "repro_torch.distributed.spatial"} <= set(_modules())
+    from repro_torch import obs, optim
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import collectives
+    from repro_torch.models import moe, rglru, rwkv6
+    from repro_torch.serve.admission import AdmissionQueue
+    for mod, names in (
+            (obs, ("get_registry", "set_registry", "registry_scope",
+                   "parse_prometheus_text")),
+            (obs.MetricsRegistry, ("metrics", "prometheus_text")),
+            (obs.Histogram, ("count", "sum", "bucket_width")),
+            (obs.Gauge, ("inc",)),
+            (obs.Tracer, ("clear", "to_chrome", "export_chrome")),
+            (optim, ("chain_clip",)), (AdmissionQueue, ("head_bucket",)),
+            (sharding, ("count_crossings", "move", "fetch_crossings",
+                        "within", "position")),
+            (collectives, ("lm_collectives", "spatial_collectives")),
+            (moe, ("moe_stats", "aux_from_stats", "expert_split")),
+            (rglru, ("rnn_split",)), (rwkv6, ("head_split", "ff_split"))):
+        for name in names:
+            assert hasattr(mod, name), (mod, name)
+
+
 def test_library_is_named_by_its_source_and_built_outside_git():
     import hashlib
     from repro_torch.kernels import _build

@@ -1,8 +1,11 @@
 """Port parity: the LM's params laid out on the device mesh by their specs
 (``distributed.sharding.place``), the tensor-parallel layer paths
-(heads, ``ff`` and vocab over 'model', FSDP over 'embed'), the optimizer
-and error-feedback state placed like their params, and the Trainer on a
-mesh, against the flat port and the JAX package.
+(heads, ``ff`` and vocab over 'model', FSDP over 'embed'; MoE per expert
+shard or ``ff`` block with a split batch, the RG-LRU per ``rnn`` block,
+RWKV-6 per head shard or with its heads met), the optimizer and
+error-feedback state placed like their params (Adafactor's factored
+moments reduced across blocks), and the Trainer on a mesh, against the
+flat port and the JAX package.
 
 Every mesh repeats the CPU (``Mesh`` of one device, in-process), the
 single-controller stand-in of a multi-device mesh.  GSPMD does not change
@@ -73,7 +76,16 @@ CONFIGS = {
     "musicgen_6heads": lambda: _shaped("musicgen-medium", n_heads=6,
                                        kv_heads=6, head_dim=8, d_model=48),
     "command_r_tied": lambda: _shaped("command-r-35b"),
+    # MoE (4 experts, top 2): dbrx's experts -> model (expert-parallel),
+    # grok's tensor-parallel experts (GeGLU); the RG-LRU hybrid (d_rnn
+    # 64); RWKV-6 (4 heads of 16).
+    "dbrx_ep": lambda: _shaped("dbrx-132b"),
+    "grok_tp": lambda: _shaped("grok-1-314b"),
+    "recurrentgemma": lambda: _shaped("recurrentgemma-9b"),
+    "rwkv6": lambda: _shaped("rwkv6-3b"),
 }
+# Rules a config is placed and run under (the registry's overrides).
+RULES = {"dbrx_ep": {**TS.DEFAULT_RULES, "experts": "model"}}
 
 
 def _perturbed(tree, seed):
@@ -97,8 +109,8 @@ def _params(jcfg, seed=0):
         params_from_jax(tree, device="cpu")
 
 
-def _specs(tcfg, mesh):
-    with TS.use_rules(mesh=mesh):
+def _specs(tcfg, mesh, rules=None):
+    with TS.use_rules(rules, mesh=mesh):
         return TL.spec_tree(TT.param_defs(tcfg))
 
 
@@ -250,17 +262,32 @@ def test_tp_rules_equal_jax(name, tp):
 
 LOSS_CASES = [("tinyllama", (2, 2)), ("tinyllama", (1, 4)),
               ("glm4_kv2", (2, 4)), ("deepseek", (2, 4)),
-              ("musicgen_6heads", (1, 4)), ("command_r_tied", (1, 4))]
+              ("musicgen_6heads", (1, 4)), ("command_r_tied", (1, 4)),
+              ("dbrx_ep", (2, 2)), ("grok_tp", (2, 2)),
+              ("recurrentgemma", (1, 4)), ("rwkv6", (1, 2)),
+              ("rwkv6", (1, 8))]
+
+# How each case's MoE, RG-LRU and RWKV-6 blocks run (``shard_plan``).
+PLANS = {("dbrx_ep", (2, 2)): {"moe": "2 expert shards of 2 experts",
+                               "data_shards": 2},
+         ("grok_tp", (2, 2)): {"moe": "2 ff blocks of 64 a expert",
+                               "data_shards": 2},
+         ("recurrentgemma", (1, 4)): {"rglru": "4 rnn blocks of 16"},
+         ("rwkv6", (1, 2)): {"rwkv6": "2 head shards of 2 heads; 2 ff "
+                                      "blocks of 64"},
+         ("rwkv6", (1, 8)): {"rwkv6": "8 channel blocks of 8, the heads "
+                                      "met for the WKV; 8 ff blocks of 16"}}
 
 
 @pytest.mark.parametrize("name,shape", LOSS_CASES,
                          ids=[f"{n}-{s[0]}x{s[1]}" for n, s in LOSS_CASES])
 def test_loss_and_gradient_on_a_mesh_equal_jax(name, shape):
-    """Placed params on a mesh: the forward logits, ``loss_fn`` and its
-    gradient (gathered) against JAX's single-device
+    """Placed params on a mesh: the forward logits, ``loss_fn`` (its CE
+    and MoE aux) and its gradient (gathered) against JAX's single-device
     ``jax.value_and_grad`` (loss 1e-5, each leaf 1e-4), and the layers
     ran per shard: the heads, ``ff`` or vocab split where they divide,
-    query rows where the heads do not."""
+    query rows where the heads do not, the MoE, RG-LRU and RWKV-6 blocks
+    as ``PLANS`` says (none of them whole)."""
     jcfg, tcfg = CONFIGS[name]()
     jp, tp = _params(jcfg, seed=1)
     batch = _batch(tcfg, 4, 19, seed=4)
@@ -269,17 +296,24 @@ def test_loss_and_gradient_on_a_mesh_equal_jax(name, shape):
         lambda p: JT.loss_fn(p, jcfg, jb), has_aux=True)(jp)
     jlogits = JT.forward(jp, jcfg, tokens=jb["tokens"])[0]
     mesh = _mesh(shape)
-    placed = TS.place_tree(tp, _specs(tcfg, mesh), mesh)
+    rules = RULES.get(name)
+    placed = TS.place_tree(tp, _specs(tcfg, mesh, rules), mesh)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    with TS.use_rules(mesh=mesh):
+    with TS.use_rules(rules, mesh=mesh):
         (tloss, taux), tg = _placed_grads(
             placed, lambda p: TT.loss_fn(p, tcfg, tb))
         tlogits = TT.forward(placed, tcfg, tokens=tb["tokens"])[0]
         seq_par = TL.seq_parallel_attention(tcfg.attn_cfg())
+        plan = TT.shard_plan(tcfg, 4)
     assert seq_par == (tcfg.n_heads % shape[1] != 0)
+    assert plan["whole"] == []
+    for key, want in PLANS.get((name, shape), {}).items():
+        assert plan[key] == want, key
     assert abs(float(tloss) - float(jloss)) <= 1e-5 * float(jloss)
     assert abs(float(taux["ce"]) - float(jaux["ce"])) <= 1e-5 * float(
         jaux["ce"])
+    assert abs(float(taux["moe_aux"]) - float(jaux["moe_aux"])) \
+        <= 1e-5 * abs(float(jaux["moe_aux"]))
     assert _rel(tlogits.detach(), jlogits) <= 1e-5
     jleaves = jax.tree_util.tree_leaves_with_path(jg)
     tleaves = T.leaves(TS.gather_tree(tg))
@@ -384,14 +418,120 @@ def test_global_norm_counts_a_replicated_leaf_once():
     assert torch.allclose(TOPT.global_norm(clipped), 0.5 * flat, rtol=1e-5)
 
 
-def test_adafactor_refuses_a_placed_leaf():
-    mesh = _mesh((1, 2))
-    p = {"w": TS.place(torch.ones(4, 6), (None, "model"), mesh)}
-    opt = TOPT.adafactor(TOPT.constant(1e-3))
-    with pytest.raises(ValueError, match="whole leaf"):
-        opt.init(p)
-    # A leaf the spec does not split is a plain tensor, and is taken.
-    opt.init({"w": TS.place(torch.ones(4, 6), (None, None), mesh)})
+@pytest.mark.parametrize("name", ["dbrx_ep", "grok_tp"])
+def test_moe_aux_is_combined_from_the_shards_sums(name):
+    """On (data=2, model=2) the batch splits and each data shard routes
+    its rows: the aux loss taken once from the shards' summed
+    ``moe_stats`` meets JAX's single-device aux (1e-5), while adding the
+    shards' own aux losses, the old rule, misses it."""
+    jcfg, tcfg = CONFIGS[name]()
+    jp, tp = _params(jcfg, seed=2)
+    toks = _batch(tcfg, 4, 19, seed=6)["tokens"]
+    jaux = float(JT.forward(jp, jcfg, tokens=jnp.asarray(toks))[2])
+    mesh = _mesh((2, 2))
+    rules = RULES.get(name)
+    placed = TS.place_tree(tp, _specs(tcfg, mesh, rules), mesh)
+    tt = torch.from_numpy(toks)
+    with torch.no_grad():
+        with TS.use_rules(rules, mesh=mesh):
+            assert len(TT._data_shards(tcfg, 4)) == 2
+            got = float(TT.forward(placed, tcfg, tokens=tt)[2])
+        added = sum(float(TT.forward(tp, tcfg, tokens=tt[lo:lo + 2])[2])
+                    for lo in (0, 2))
+    assert abs(got - jaux) <= 1e-5 * jaux
+    assert abs(added - jaux) > 1e-2 * jaux
+
+
+# Leaves of (2, 2)-mesh specs that split each axis of a factored leaf,
+# both, a leading one (3-D), and a vector (unfactored).
+ADAFACTOR_LEAVES = {"cols": ((6, 8), (None, "model")),
+                    "rows": ((6, 8), ("data", None)),
+                    "both": ((6, 8), ("data", "model")),
+                    "lead": ((4, 6, 8), ("model", None, "data")),
+                    "vector": ((8,), ("model",))}
+
+
+@pytest.mark.parametrize("case", sorted(ADAFACTOR_LEAVES))
+def test_adafactor_on_placed_leaves_equals_flat_and_jax(case):
+    """3 Adafactor steps on a leaf placed on (2, 2) with the state placed
+    by ``opt_state_specs``: the blocks' statistics meet as the whole
+    leaf's, so the params equal flat Adafactor's (1e-6) and JAX's
+    ``adafactor`` (1e-5), clip and weight decay included."""
+    shape, spec = ADAFACTOR_LEAVES[case]
+    rng = np.random.RandomState(3)
+    w0 = rng.randn(*shape).astype(np.float32)
+    grads = [rng.randn(*shape).astype(np.float32) * (i + 1)
+             for i in range(3)]
+    mesh = _mesh((2, 2))
+    kw = dict(weight_decay=0.01, max_norm=None)
+
+    def port(placed):
+        opt = TOPT.adafactor(TOPT.constant(1e-2), **kw)
+        w = torch.from_numpy(w0.copy())
+        p = {"w": TS.place(w, spec, mesh) if placed else w}
+        state = opt.init(p)
+        if placed:
+            assert TS.is_placed(p["w"])
+            want = TOPT.opt_state_specs(opt, {"w": spec})["f"]["w"]
+            for k, leaf in state["f"]["w"].items():
+                assert (leaf.spec if TS.is_placed(leaf) else None) in (
+                    want[k], None)
+        for i, g in enumerate(grads):
+            gt = torch.from_numpy(g)
+            with torch.no_grad():
+                opt.update({"w": TS.place(gt, spec, mesh) if placed
+                            else gt}, state, p, i)
+        return TS.gather(p["w"]).numpy()
+
+    jopt = JOPT.adafactor(JOPT.constant(1e-2), **kw)
+    jw = {"w": jnp.asarray(w0)}
+    jstate = jopt.init(jw)
+    for i, g in enumerate(grads):
+        jw, jstate = jopt.update({"w": jnp.asarray(g)}, jstate, jw,
+                                 jnp.asarray(i))
+    got, flat = port(True), port(False)
+    assert _rel(got, flat) <= 1e-6
+    assert _rel(got, jw["w"]) <= 1e-5
+
+
+def test_default_optimizer_trains_dbrx_on_a_mesh(tmp_path):
+    """``default_optimizer_for('dbrx-132b')`` is Adafactor (132B
+    params); the reduced dbrx, placed on (data=2, model=2) under its
+    ``experts -> model`` rules, trains 2 steps with it through the
+    Trainer equal to the flat Trainer (1e-5)."""
+    _, tcfg = CONFIGS["dbrx_ep"]()
+    n = TReg.get("dbrx-132b").config.param_count()
+    assert TOPT.default_optimizer_for("dbrx-132b", n).name == "adafactor"
+    params = TT.init_params(tcfg, seed=7, device="cpu")
+    data = dict(vocab=tcfg.vocab, seq_len=12, global_batch=4, seed=1)
+    mesh = _mesh((2, 2))
+    rules = RULES["dbrx_ep"]
+
+    def run(where, on_mesh):
+        return Trainer(
+            loss_fn=lambda p, b: TT.loss_fn(p, tcfg, b),
+            params=T.tree_map(torch.clone, params),
+            optimizer=TOPT.default_optimizer_for("dbrx-132b", n,
+                                                 TOPT.constant(1e-2)),
+            batch_fn=lambda s: lm_batch(LMDataConfig(**data), s),
+            config=TrainerConfig(total_steps=2, ckpt_every=100,
+                                 ckpt_dir=str(tmp_path / where),
+                                 log_every=1),
+            device="cpu" if not on_mesh else None,
+            mesh=mesh if on_mesh else None,
+            param_specs=_specs(tcfg, mesh, rules) if on_mesh else None,
+            rules=rules if on_mesh else None)
+    mt, flat = run("mesh", True), run("flat", False)
+    w = mt.params["layers"]["m0"]["ffn"]["w_up"]
+    assert TS.is_placed(w) and w.spec == (None, "model", "data", None)
+    assert TS.is_placed(mt.opt_state["f"]["layers"]["m0"]["ffn"]["w_up"]
+                        ["vr"])
+    mt.run()
+    flat.run()
+    np.testing.assert_allclose(
+        [h["loss"] for h in mt.history if "loss" in h],
+        [h["loss"] for h in flat.history if "loss" in h], rtol=1e-5)
+    assert _rel(_flat_np(mt.params), _flat_np(flat.params)) <= 1e-5
 
 
 def test_opt_state_specs_equal_jax():
