@@ -323,14 +323,25 @@ Phases, each of which exits non-zero on failure:
    next layer's activation grid turns such a flip into a whole step);
    each bucket's forward timed beside the flat one.  (c) 2 Trainer steps of full-width
    resnet50_dcn_bounded at batch 8 x 512 on a (data=2) mesh without and
-   with ``int8_ef`` and with ``shard_spatial`` on a (model=2) mesh:
-   losses finite, 24 launches of 1a and of 2 a run's step; params within
+   with ``int8_ef``, on a (data=4) mesh (every layer on its data shard,
+   ``models.resnet_dcn``) and with ``shard_spatial`` on a (model=2) mesh:
+   losses finite, 12 launches of 1a and of 2 a shard a step (each data
+   or height shard launches each once a DCL: 24 on 2 shards, 48 on 4);
+   params within
    a relative norm of the flat Trainer's of twice the flat run's own
    spread under another summation order (the banded dataflow), and
    never held below 1e-4 (one bit of the step-0 gradient moves the
    random full-width model's later gradients by ~4e-3, phase 8), the
    int8_ef run against the flat int8_ef run (the compression's own move
-   of the run is printed beside it).  cuDNN is deterministic.  (d)
+   of the run is printed beside it); each data run's counted crossings
+   (``sharding.count_crossings``) equal to ``launch.collectives.
+   dcn_collectives`` kind by kind (every param's fp32 gradient from each
+   data shard but the first: an all-reduce), and the bytes autograd
+   saves for one step's backward by mesh position
+   (``sharding.saved_bytes``, the params not counted) at most 1/n of the
+   flat step's plus 5% at each position (the mesh repeats ``cuda:0``, so
+   the card's peak memory cannot show the split).  cuDNN is
+   deterministic.  (d)
    command-r-35b at its widths cut to 4 of 40 layers (4.92B params drawn
    on the card from a seeded CUDA generator): ``serve_lm`` with its
    defaults, phase 13's prompts and gates through the engine (bf16 cap
@@ -340,7 +351,8 @@ Phases, each of which exits non-zero on failure:
    ``transformer.forward`` in fp32, and the bubble fraction.  (e) the
    reduced command-r-35b (forward, pipelined) and the reduced DCL mesh
    paths (a spatial forward at 128 on 2 shards, 2 data-parallel Trainer
-   steps on 2 shards) card vs CPU within 1e-4.  The main path's launches
+   steps on 2 data shards, each DCL call on one shard's rows) card vs CPU
+   within 1e-4.  The main path's launches
    of 1a, 1c and 2 are counted from 0 over (b) and (c); the kernels line
    gives each row its ``mesh_launches``.  ``--only 18`` runs phases 1, 2
    and 18 alone and prints no result.  Phases 16-18 draw their LM params
@@ -5510,15 +5522,49 @@ def param_diff(a, b) -> tuple[float, float]:
     return num / den, tree_rel(a, b)
 
 
+def saved_by_position(cfg, base, mesh) -> dict:
+    """The bytes autograd saves for the backward of one training step's
+    forward (step 0's batch), by mesh position (``sharding.saved_bytes``;
+    the params, which each shard's fetch aliases, count nowhere)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.data import DetectionDataConfig, detection_batch
+    from repro_torch.distributed.sharding import saved_bytes, use_rules
+    from repro_torch.models import resnet_dcn as R
+    from repro_torch.tree import leaves, tree_map
+
+    data = DetectionDataConfig(img_size=cfg.img_size,
+                               global_batch=TRAIN_BATCH,
+                               num_classes=cfg.num_classes, seed=0)
+    batch = {k: torch.as_tensor(v).to(DEV)
+             for k, v in detection_batch(data, 0).items()}
+    params = tree_map(lambda t: t.detach().requires_grad_(True), base)
+    rules = use_rules(mesh=mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    with rules, saved_bytes(leaves(params)) as held:
+        loss, _ = R.train_loss(params, cfg, batch, lam=0.005, device=DEV)
+    del loss
+    return held
+
+
 def mesh_training(record: dict, base, flat: dict) -> None:
-    """Phase 18(c): the Trainer on a (data=2) mesh with and without
-    int8_ef, and with ``shard_spatial`` on a (model=2) mesh, each against
-    the flat Trainer of the same compression (``flat``)."""
+    """Phase 18(c): the Trainer on (data=2) meshes with and without
+    int8_ef, on a (data=4) mesh, and with ``shard_spatial`` on a (model=2)
+    mesh, each against the flat Trainer of the same compression
+    (``flat``); each data run's crossings against ``dcn_collectives``
+    and its positions' saved-activation bytes against the flat step's."""
+    from repro_torch.distributed.sharding import (CrossingCounter,
+                                                  count_crossings)
+    from repro_torch.launch.collectives import dcn_collectives
+
     cfg = mesh_dcl_config()
     rec = record["mesh_train"] = {}
     runs = [("data2", repeated_mesh((2, 1), ("data", "model")), None, cfg),
             ("data2_int8_ef", repeated_mesh((2, 1), ("data", "model")),
              "int8_ef", cfg),
+            ("data4", repeated_mesh((4, 1), ("data", "model")), None, cfg),
             ("model2_spatial", repeated_mesh((1, 2), ("data", "model")),
              None, dataclasses.replace(cfg, shard_spatial=True))]
     ef_move = param_diff(flat["int8_ef"].params, flat[None].params)[1]
@@ -5526,13 +5572,19 @@ def mesh_training(record: dict, base, flat: dict) -> None:
     print(f"  the flat Trainer's own spread: banded vs zero-copy dataflow "
           f"(another summation order) relative norm {spread:.2e}; int8_ef vs "
           f"none {ef_move:.2e}")
+    flat_saved = saved_by_position(cfg, base, None)[()]
+    print(f"  the flat step saves {flat_saved / 1e9:.3f} GB for its "
+          f"backward (params not counted)")
+    rec["flat_saved_bytes"] = flat_saved
     for tag, mesh, compression, c in runs:
         before = read_counts()
-        tr = mesh_trainer(c, base, mesh=mesh, compression=compression,
-                          tag=tag)
+        with count_crossings() as counter:
+            tr = mesh_trainer(c, base, mesh=mesh, compression=compression,
+                              tag=tag)
         launched = {k: v - before[k] for k, v in read_counts().items()}
         mx, rel = param_diff(tr.params, flat[compression].params)
-        want = launch_want(n_dcl(cfg) * 2 * MESH_TRAIN_STEPS)
+        # Each shard (data or height) launches 1a and 2 once a DCL.
+        want = launch_want(n_dcl(cfg) * mesh.size * MESH_TRAIN_STEPS)
         losses = [round(h["loss"], 6) for h in tr.history if "loss" in h]
         flat_losses = [round(h["loss"], 6) for h in flat[compression].history
                        if "loss" in h]
@@ -5548,10 +5600,50 @@ def mesh_training(record: dict, base, flat: dict) -> None:
         if not ok or launched["deform_conv_fused"] != want \
                 or launched["deform_conv_bwd"] != want:
             fail(f"phase 18(c) {tag}: {mx}, {rel}, {launched}")
+        got = counter.summary()
         rec[tag] = dict(mesh=mesh.shape, compression=compression,
                         losses=losses, max_rel=mx, rel=rel,
-                        launches=launched["deform_conv_fused"])
+                        launches=launched["deform_conv_fused"],
+                        crossings=got)
+        n = mesh.shape["data"]
+        if n == 1:
+            print(f"    crossings ({MESH_TRAIN_STEPS} steps): "
+                  f"{crossing_line(got)}")
+            continue
+        step = dcn_collectives(c, mesh, batch=TRAIN_BATCH, train=True)
+        expect = CrossingCounter()
+        expect.merge(step, MESH_TRAIN_STEPS)
+        expect = expect.summary()
+        ok = got == expect
+        print(f"    crossings ({MESH_TRAIN_STEPS} steps): "
+              f"{crossing_line(got)}; dcn_collectives "
+              f"{crossing_line(expect)} (a step: "
+              f"{crossing_line(step.summary())})"
+              + (" equal" if ok else " FAIL"))
+        if not ok:
+            fail(f"phase 18(c) {tag}: crossings {got} != {expect}")
+        held = saved_by_position(c, base, mesh)
+        cap = 1.05 * flat_saved / n
+        worst = max(held.values())
+        ok = len(held) == n and worst <= cap
+        print(f"    saved for the backward by position: "
+              + ", ".join(f"{pos} {b / 1e9:.3f} GB"
+                          for pos, b in sorted(held.items()))
+              + f"; at most 1/{n} of the flat step + 5% = {cap / 1e9:.3f} "
+              f"GB (largest {worst / flat_saved:.4f} of the flat step)"
+              + (" ok" if ok else " FAIL"))
+        if not ok:
+            fail(f"phase 18(c) {tag}: saved bytes {held} over {cap}")
+        rec[tag]["saved_bytes"] = {str(k): v for k, v in held.items()}
     rec.update(int8_ef_move=ef_move, banded_spread=spread)
+
+
+def crossing_line(summary: dict) -> str:
+    """The kinds a crossing summary moved: transfers and MB."""
+    kinds = [f"{k} {v['count']} x, {v['bytes'] / 1e6:.2f} MB"
+             for k, v in summary.items()
+             if isinstance(v, dict) and v["count"]]
+    return "; ".join(kinds) or "none"
 
 
 def command_r_phase(record: dict) -> None:
@@ -5626,6 +5718,7 @@ def mesh_card_vs_cpu(record: dict) -> None:
     import torch
 
     from repro_torch.distributed.sharding import Mesh, use_rules
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import reduced_config
     from repro_torch.models import pipelined as PL
     from repro_torch.models import registry as reg
@@ -5666,19 +5759,31 @@ def mesh_card_vs_cpu(record: dict) -> None:
                     device=where)[0]["cls"].cpu()
     spatial = rel_max(ys[DEV], ys["cpu"])
     small = dataclasses.replace(dcl, img_size=64)
-    hist = {}
+    hist, seen = {}, {}
     for where, mesh in (("cpu", Mesh([["cpu"]] * 2, ("data", "model"))),
                         (DEV, repeated_mesh((2, 1), ("data", "model")))):
-        tr = mesh_trainer(small, tree_map(lambda t: t.to(where), base),
-                          mesh=mesh, tag=f"reduced_{where}", device=where)
+        seen[where] = []
+        with ops.dispatch_hook_scope(lambda ctx: seen[where].append(
+                (ctx["shape"][0], ctx["shards"]))):
+            tr = mesh_trainer(small, tree_map(lambda t: t.to(where), base),
+                              mesh=mesh, tag=f"reduced_{where}",
+                              device=where)
         hist[where] = [h["loss"] for h in tr.history if "loss" in h]
     train = max(abs(a - b) / abs(b) for a, b in zip(hist[DEV], hist["cpu"]))
+    # Every layer per data shard: each DCL call takes one shard's rows.
+    per_shard = [(TRAIN_BATCH // 2, (1, 1, 2))] \
+        * (n_dcl(small) * 2 * MESH_TRAIN_STEPS)
+    if seen[DEV] != per_shard or seen["cpu"] != per_shard:
+        fail(f"phase 18(e): the data-parallel DCL dispatches {seen} are "
+             f"not one a data shard of {TRAIN_BATCH // 2} rows")
     out.update(lm_forward=lm[0], lm_pipelined=lm[1], dcl_spatial=spatial,
                dcl_train=train, losses=hist)
     print(f"  reduced {CR_ARCH} fp32, {DEV} vs CPU: forward {lm[0]:.2e}, "
           f"pipelined (2 stages) {lm[1]:.2e}; reduced DCL config: spatial "
           f"forward at 128 on 2 shards (cls) {spatial:.2e}, 2 data-parallel "
-          f"Trainer steps on 2 shards at 64 {[round(v, 6) for v in hist[DEV]]}"
+          f"Trainer steps on 2 data shards at 64 (every layer per shard, "
+          f"{len(seen[DEV])} DCL calls of {TRAIN_BATCH // 2} rows) "
+          f"{[round(v, 6) for v in hist[DEV]]}"
           f" vs {[round(v, 6) for v in hist['cpu']]} ({train:.2e}); gate "
           f"{MESH_CARD_CPU_RTOL}")
     if max(lm + [spatial, train]) > MESH_CARD_CPU_RTOL:

@@ -24,7 +24,9 @@ along those axes, each on ``mesh.device_at`` of its index and owning its
 storage; an axis the spec does not name holds one copy.  The LM layers
 run per shard of the active mesh (``models.layers``: heads, ``ff`` and
 vocab over 'model', FSDP gathers over 'data'), the batch splits over the
-'batch' axes (``models.transformer``), and ``gather`` brings blocks
+'batch' axes (``data_shards``, one shard run under ``at_coords``: the LM
+of ``models.transformer`` and every layer of ``models.resnet_dcn``'s
+detector), and ``gather`` brings blocks
 together, differentiably, so gradients flow back to them.  The port has
 no GSPMD, so ``logical_constraint`` stays the identity: what JAX's hints
 ask of XLA, the layers do by hand.
@@ -37,7 +39,8 @@ position, in the forward and, for its gradient, in the backward.  A
 position is a mesh index, so a mesh that repeats one device still counts
 what a mesh of distinct devices would move.  ``fetch_crossings`` is the
 count of one param fetch from its spec alone, which the dry run's
-analytic model (``launch.collectives``) adds up.
+analytic model (``launch.collectives``) adds up.  ``saved_bytes`` keys
+what autograd saves for the backward by position the same way.
 
 Default mapping (single pod (data=16, model=16); multi-pod adds 'pod'):
 
@@ -339,6 +342,36 @@ def batch_mesh_axes(*, logical: str = "batch"
     return mesh, axes, total
 
 
+def data_shards(batch: int) -> list[tuple[dict, int, int]] | None:
+    """``(coords, lo, hi)`` of each data shard of a batch of ``batch``
+    rows under the active mesh (rows ``[lo, hi)`` at mesh ``coords``, the
+    first 'batch' axis major), or None: off-mesh, a 'batch' split of one,
+    or a batch that does not divide (it stays whole, as JAX's rules leave
+    it replicated).  The models run each shard under ``at_coords``."""
+    found = batch_mesh_axes()
+    if found is None:
+        return None
+    mesh, axes, total = found
+    if batch % total:
+        return None
+    per = batch // total
+    sizes = mesh.shape
+    return [(dict(zip(axes, idx)), i * per, (i + 1) * per)
+            for i, idx in enumerate(np.ndindex(*(sizes[a] for a in axes)))]
+
+
+def data_shard() -> dict[str, int] | None:
+    """The coordinates on the 'batch' axes of the data shard the code
+    runs in (a model's ``at_coords``), or None outside one: there the
+    batch is the shard's rows, which no call inside splits again."""
+    here = getattr(_state, "coords", None)
+    found = batch_mesh_axes() if here else None
+    if found is None:
+        return None
+    at = {a: here[a] for a in found[1] if a in here}
+    return at or None
+
+
 # ---------------------------------------------------------------------------
 # Placement: a leaf laid out on the mesh by its spec
 # ---------------------------------------------------------------------------
@@ -533,6 +566,34 @@ def count_crossings(counter: CrossingCounter | None = None):
         yield counter
     finally:
         _counters.remove(counter)
+
+
+@contextlib.contextmanager
+def saved_bytes(exclude: Sequence[torch.Tensor] = ()):
+    """The bytes autograd saves for the backward inside, by the mesh
+    position current when each tensor is saved (``position()``: a data
+    shard's, the first outside one, ``()`` off-mesh), into the dict
+    yielded.  On a mesh that repeats a device, this shows what each
+    device of a real mesh would hold where its peak memory cannot.  A
+    tensor saved twice counts once; one in the storage of a tensor of
+    ``exclude`` (the params, which a shard's fetch only aliases) counts
+    nowhere."""
+    held: dict[tuple, int] = {}
+    seen: set = set()
+    skip = {t.untyped_storage().data_ptr() for t in exclude}
+
+    def pack(t: torch.Tensor) -> torch.Tensor:
+        key = (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+        if key not in seen and t.untyped_storage().data_ptr() not in skip:
+            seen.add(key)
+            pos = position()
+            held[pos] = held.get(pos, 0) + t.numel() * t.element_size()
+        # Detached: a saved output kept with its grad_fn would close a
+        # cycle through the node that saves it, which no collector frees.
+        return t.detach()
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        yield held
 
 
 class _Move(torch.autograd.Function):

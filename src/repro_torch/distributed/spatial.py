@@ -56,7 +56,7 @@ from repro_torch.kernels.deform_conv_bwd import deform_conv_bwd_zerocopy
 from repro_torch.kernels.deform_conv_fused import deform_conv_fused_zerocopy
 from repro_torch.kernels.deform_conv_q import deform_conv_fused_zerocopy_q
 
-from .sharding import Mesh, _position, current_rules, move
+from .sharding import Mesh, _position, current_rules, data_shard, move
 
 Tensor = torch.Tensor
 
@@ -125,11 +125,14 @@ class SpatialSpec:
 
     ``batch_axes`` composes batch data-parallelism into the same call (a
     data x model mesh): dim 0 is split over them, dim 1 (height) over
-    ``axis``."""
+    ``axis``.  ``at``: the coordinates of the data shard the call runs in
+    (``sharding.data_shard``; its rows are the call's batch), which every
+    height shard's device and position take."""
     mesh: Mesh
     axis: str
     shards: int
     batch_axes: tuple[str, ...] = ()
+    at: tuple[tuple[str, int], ...] = ()
 
     @property
     def psum_axes(self) -> tuple[str, ...]:
@@ -137,7 +140,11 @@ class SpatialSpec:
 
     def devices(self) -> list[list[torch.device]]:
         """``[batch block][height shard]`` -> device."""
-        flat = self.mesh.shard_devices((*self.batch_axes, self.axis))
+        axes = (*self.batch_axes, self.axis)
+        sizes = [self.mesh.shape[a] for a in axes]
+        flat = [self.mesh.device_at({**dict(self.at),
+                                     **dict(zip(axes, idx))})
+                for idx in np.ndindex(*sizes)]
         return [flat[i:i + self.shards]
                 for i in range(0, len(flat), self.shards)]
 
@@ -146,7 +153,8 @@ class SpatialSpec:
         ``sharding.count_crossings`` keys a crossing by)."""
         axes = (*self.batch_axes, self.axis)
         sizes = [self.mesh.shape[a] for a in axes]
-        flat = [_position(self.mesh, dict(zip(axes, idx)))
+        flat = [_position(self.mesh, {**dict(self.at),
+                                      **dict(zip(axes, idx))})
                 for idx in np.ndindex(*sizes)]
         return [flat[i:i + self.shards]
                 for i in range(0, len(flat), self.shards)]
@@ -171,17 +179,19 @@ def resolve_spatial_shard(h: int, *, shard_spatial: bool | None = None,
             "mesh=...) whose rules map 'spatial' to a mesh axis "
             "(DEFAULT_RULES maps it to 'model')")
     mesh, axis, size = got
-    if axis in batch_axes:
+    at = data_shard() or {}
+    if axis in batch_axes or axis in at:
         raise ValueError(
             f"the 'spatial' mesh axis {axis!r} is already used by the "
-            f"batch shard {batch_axes} — a mesh axis may carry one logical "
-            f"axis per call; use a 2-D mesh (e.g. ('data', 'model')) so "
-            f"batch and height shard different axes")
+            f"batch shard {tuple(batch_axes) or tuple(at)} — a mesh axis "
+            f"may carry one logical axis per call; use a 2-D mesh (e.g. "
+            f"('data', 'model')) so batch and height shard different axes")
     halo = halo_rows(kernel_size=kernel_size, dilation=dilation,
                      offset_bound=offset_bound)
     check_height_split(h, shards=size, stride=stride, min_rows=halo)
     return SpatialSpec(mesh=mesh, axis=axis, shards=size,
-                       batch_axes=tuple(batch_axes))
+                       batch_axes=tuple(batch_axes),
+                       at=tuple(sorted(at.items())))
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,19 @@ bounded call shards: ``shard_batch`` splits the batch over the mesh's
 d_weights over the shards), ``shard_spatial=True`` splits the height over
 the 'spatial' axis with the bounded halo exchange
 (``distributed.spatial``).  Each shard runs the kernels of the unsharded
-call on its block, on its device.
+call on its block, on its device.  A call made inside a model's data
+shard (``sharding.data_shard``: ``models.resnet_dcn`` runs every layer of
+a data-parallel detector per shard, as JAX's GSPMD does) is given the
+shard's rows and splits them no further: its batch shard is off
+(``shard_batch=True`` is met by the model's split and does not raise),
+and a height split runs at the data shard's coordinates.
+
+The dispatch context's ``shape`` is the call's own input; its ``shards``
+entry is ``(batch blocks, height shards)`` of the call's own split, and a
+call inside a data shard appends a third entry, the number of data
+shards the model split the batch into: ``(1, 1, 2)`` is one DCL call of
+the rows of one of 2 data shards, ``(2, 1)`` a call that split a whole
+batch into 2 blocks itself.
 
 ``dispatch_hook_scope`` installs a callable that sees a context dict
 before each bounded dispatch of either op; raising from it aborts the
@@ -75,7 +87,8 @@ from repro_torch.core.deform_conv import DCLConfig, sample_patches
 from repro_torch.core.tiling import out_hw
 from repro_torch.device import check_on, resolve_device
 from repro_torch.distributed import spatial as _spatial
-from repro_torch.distributed.sharding import Mesh, batch_mesh_axes, move
+from repro_torch.distributed.sharding import (Mesh, batch_mesh_axes,
+                                              data_shard, move)
 from repro_torch.kernels import plan as _plan
 from repro_torch.kernels.deform_sample import (deform_sample_banded,
                                                deform_sample_zerocopy)
@@ -268,8 +281,13 @@ def resolve_batch_shard(n: int, *,
       > 1) divide ``n``; otherwise run unsharded;
     * ``True``: require it — no active mesh or a non-dividing batch
       raises a ``ValueError`` naming the sizes;
-    * ``False``: never shard."""
-    got = batch_mesh_axes() if shard_batch is not False else None
+    * ``False``: never shard.
+
+    Inside a data shard (``sharding.data_shard``) it is None whatever
+    ``shard_batch`` says: the call's batch is already the shard's rows."""
+    if shard_batch is False or data_shard() is not None:
+        return None
+    got = batch_mesh_axes()
     if got is None:
         if shard_batch:
             raise ValueError(
@@ -447,9 +465,10 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
                 f"shard_spatial=True supports only the zero-copy dataflow "
                 f"(got {dataflow!r}); the banded path materialises "
                 f"full-width bands and has no per-shard slab to run on")
+    inner = data_shard() is not None
     if offset_bound is not None and precision == "fp32":
         shard = resolve_batch_shard(n, shard_batch=shard_batch)
-    elif shard_batch:
+    elif shard_batch and not inner:
         raise ValueError(
             "shard_batch=True requires the bounded fp32 kernel path "
             "(offset_bound set, precision='fp32'); the unbounded gather "
@@ -478,6 +497,8 @@ def deform_conv(x: Tensor, offsets: Tensor, w: Tensor, *,
         shards = (len(spatial.devices()), spatial.shards)
     else:
         shards = (1 if shard is None else len(shard.devices()), 1)
+    if inner:
+        shards += (batch_mesh_axes()[2],)
     context = {"op": "deform_conv", "precision": precision,
                "dataflow": dataflow, "shape": tuple(x.shape), "m": m,
                "offset_bound": offset_bound, "kernel_size": kernel_size,

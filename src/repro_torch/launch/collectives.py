@@ -1,5 +1,6 @@
-"""The bytes an LM step moves between mesh positions, counted from its
-specs and shapes alone (the dry run's ``collectives``).
+"""The bytes a step moves between mesh positions, counted from its specs
+and shapes alone (the dry run's ``collectives``): an LM's
+(``lm_collectives``, below) and a detector's (``dcn_collectives``).
 
 The port runs a mesh in one process (``distributed.sharding``): each data
 shard runs at its first position, its model shards ``within`` theirs, and
@@ -41,9 +42,10 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.distributed.sharding import (CrossingCounter, Mesh,
-                                              _block_grid, at_coords,
-                                              batch_mesh_axes,
+                                              _block_grid, _position,
+                                              at_coords, data_shards,
                                               fetch_crossings,
                                               mesh_axes, position,
                                               shard_coords, use_rules,
@@ -402,7 +404,7 @@ def lm_collectives(cfg: TT.ModelConfig, mesh: Mesh, *, mode: str,
         walk = _Walk(mesh, counter, grad=grad,
                      act=torch.empty((), dtype=cfg.dtype).element_size())
         rows = batch // micro
-        shards = TT._data_shards(cfg, rows) or [({}, 0, rows)]
+        shards = data_shards(rows) or [({}, 0, rows)]
         s = 1 if decode else seq + frontend
         one = walk.c = CrossingCounter()        # one microbatch
         for coords, lo, hi in shards:
@@ -485,26 +487,41 @@ def spatial_collectives(*, batch_blocks: int, block_rows: int, shards: int,
 
 def dcn_collectives(cfg, mesh: Mesh, *, batch: int, train: bool
                     ) -> CrossingCounter:
-    """A detector step's crossings that the port counts: in training, each
-    bounded DCL's d_weights summed from the batch shards (``ops``'
-    ``BatchShardedDeformConv``; fp32 (K*K, C, M)), an all-reduce.  The
-    activations, offsets and weights each DCL call sends to the batch
-    shards and the outputs it gathers back are left out: the port runs
-    the other layers whole on the first device, where GSPMD keeps the
-    activations on their shards."""
-    from repro_torch.kernels.ops import ShardSpec
+    """A detector step's crossings.  Under a mesh whose 'batch' axes
+    divide the batch, every data shard runs the whole network
+    (``models.resnet_dcn``) on a copy of every param (GSPMD replicates
+    them; the port fetches each from the one it holds at the first
+    position, ``sharding.gather``), so a training step sends every leaf's
+    gradient, in the leaf's dtype (fp32), from each data shard's position
+    but the first back to it: an all-reduce.  Inference moves no param.
+    The shards' rows, outputs and loss sums (a few scalars a shard) move
+    with ``.to`` and are counted nowhere: under GSPMD the batch already
+    lies on its shards.  A QAT config, trained on absmax scales, keeps
+    the batch whole and splits only its bounded DCLs' kernel calls: each
+    DCL's d_weights (fp32 (K*K, C, M)) summed from the batch shards
+    (``ops``' ``BatchShardedDeformConv``).  The registry's cells shard no
+    height, so no halo crosses (``spatial_collectives``)."""
+    from repro_torch.models import resnet_dcn as R
     from repro_torch.serve.dcl_engine import bucket_layer_dims
     counter = CrossingCounter()
     with use_rules(mesh=mesh):
-        found = batch_mesh_axes()
-    if not train or cfg.offset_bound is None or not cfg.use_kernel \
-            or cfg.shard_batch is False or found is None \
-            or batch % found[2]:
+        shards = data_shards(batch)
+        if not train or cfg.shard_batch is False or shards is None:
+            return counter
+        whole = R._data_shards(cfg, batch) is None
+    pos = [_position(mesh, coords) for coords, _, _ in shards]
+    if whole:
+        if cfg.offset_bound is None or not cfg.use_kernel:
+            return counter
+        for dims in bucket_layer_dims(cfg, cfg.img_size).values():
+            for at in pos[1:]:
+                # 3 x 3 taps (``dcl_apply``'s kernel size)
+                counter.add("all-reduce", at, pos[0],
+                            9 * dims["c"] * dims["m"] * FP32)
         return counter
-    pos = ShardSpec(mesh=mesh, axes=found[1]).positions()
-    for dims in bucket_layer_dims(cfg, cfg.img_size).values():
-        for at in pos[1:]:
-            # 3 x 3 taps (``dcl_apply``'s kernel size)
-            counter.add("all-reduce", at, pos[0],
-                        9 * dims["c"] * dims["m"] * FP32)
+    leaves = T.leaves(R.model_def(cfg))
+    for at in pos[1:]:
+        for d in leaves:
+            counter.add("all-reduce", at, pos[0], math.prod(d.shape)
+                        * torch.empty((), dtype=d.dtype).element_size())
     return counter

@@ -30,10 +30,9 @@ and records to ``build/dryrun/<arch>__<shape>__<mesh>.json``:
   shapes (``launch.collectives``): an LM step's FSDP gathers (again in a
   rematerialised backward) and their gradients' reduce-scatters and
   all-reduces, the row-parallel partial sums, the vocab combine and
-  MoE's expert exchange, as ``sharding.count_crossings`` counts the same
-  step run on a mesh.  A detector cell counts only its bounded DCLs'
-  d_weights sums over the batch shards, not the activations its DCL
-  calls scatter and gather, and says so in ``collective_reason``; one
+  MoE's expert exchange, and a detector's every-param gradient sum over
+  its data shards (every layer runs per shard), as
+  ``sharding.count_crossings`` counts the same step run on a mesh; one
   card moves nothing.
 
 The trace is taken once a cell, on one card's layout (its FLOPs are the
@@ -354,21 +353,12 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *,
         return rec
     rec["collectives"] = cell_collectives(arch, shape_name, mesh)
     rec["collective_bytes"] = rec["collectives"]["total_bytes"] / chips
-    if isinstance(arch.config, ResNetDCNConfig):
-        rec["collective_reason"] = (
-            "partial: only the bounded DCLs' d_weights sums over the batch "
-            "shards (training) are counted; the activations, offsets and "
-            "weights each DCL call sends to the batch shards and the "
-            "outputs it gathers back are not (the port runs the other "
-            "layers whole on the first device, GSPMD keeps them on their "
-            "shards); the cell shards no height, so no halo crosses")
     return rec
 
 
 def cell_collectives(arch, shape_name: str, mesh) -> dict:
     """The crossings of one cell's step on ``mesh`` (``launch.
-    collectives``) as JAX's ``parse_collectives`` keys; a detector's
-    count is partial (``run_cell``'s ``collective_reason``)."""
+    collectives``) as JAX's ``parse_collectives`` keys."""
     shape = arch.shapes[shape_name]
     if isinstance(arch.config, ResNetDCNConfig):
         kcfg = dataclasses.replace(

@@ -11,9 +11,9 @@ with the peaks as arguments, by default the H100's from ``core.h100``:
 989 TFLOP/s dense bf16, 3.35 TB/s HBM and NVLink 4's 450 GB/s in one
 direction.  A mesh record's collective bytes are ``launch.collectives``'
 count of what its step moves between mesh positions, over the mesh's
-devices (``collective_traced``; a detector's count leaves its DCLs'
-batch shard out, as its ``collective_reason`` says); one card's record
-has none and takes a zero collective term.
+devices (``collective_traced``; a detector's is every param's gradient
+sum over its data shards); one card's record has none and takes a zero
+collective term.
 MODEL_FLOPS is JAX's, term for term: 6*N(active)*tokens (train),
 2*N*tokens (prefill), 2*N*batch (decode), and for the detectors the
 dense-equivalent 2 (6 to train) * params * (H/32 * W/32) * batch; the

@@ -26,7 +26,8 @@ layer with no per-shard path gathers its leaves whole.  What a shard
 sends to the data shard's first position goes through ``sharding.move``
 (``_sum_partials``: an all-reduce; pieces put side by side: an
 all-gather), so ``count_crossings`` sees it.  The DCL's kernel calls shard over the active mesh
-(``dcl_apply``'s ``shard_batch`` and ``shard_spatial``).
+(``dcl_apply``'s ``shard_batch`` and ``shard_spatial``); inside a model's
+data shard the batch is the shard's rows and is split no further.
 
 Activations keep the JAX layouts: x (B, S, D), heads (B, S, H, Dh), GQA
 queries (B, S, KV, G, Dh).  A JAX einsum with ``preferred_element_type=
@@ -46,10 +47,10 @@ import torch.utils.checkpoint
 
 from repro_torch.core.deform_conv import (DCLConfig, conv2d, dcl_forward,
                                           offset_abs_max)
-from repro_torch.distributed.sharding import (Placed, gather, logical_spec,
-                                              mesh_axes, move, position,
-                                              shard_coords, shard_device,
-                                              within)
+from repro_torch.distributed.sharding import (Placed, data_shard, gather,
+                                              logical_spec, mesh_axes, move,
+                                              position, shard_coords,
+                                              shard_device, within)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import deform_conv_fused_ref
 from repro_torch.quant.qat import (fake_quant_dcl_chain_reference,
@@ -1070,7 +1071,10 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
 
     ``shard_batch`` and ``shard_spatial`` pass to ``ops.deform_conv`` on
     the kernel paths (the batch and height shards over the active mesh);
-    the chained datapath and the plain paths refuse them.
+    the chained datapath and the plain paths refuse them.  Inside a data
+    shard (``sharding.data_shard``, a detector run per shard) the call's
+    batch is the shard's rows: the model's split meets ``shard_batch``,
+    which then splits nothing and refuses nothing.
     """
     if quant not in QUANT_MODES:
         raise ValueError(f"unknown quant mode {quant!r}; expected one of "
@@ -1081,7 +1085,7 @@ def dcl_apply(params: Mapping[str, Tensor], x, *,
                 f"quant='int8_chain' supports only the zero-copy "
                 f"dataflow (got {dataflow!r}); the fused offset stage "
                 f"and int8 emission are band-pipeline plans")
-        if shard_batch:
+        if shard_batch and data_shard() is None:
             raise ValueError(
                 "shard_batch=True is not supported by the chained int8 "
                 "inference datapath (it has no batch shard, like the int8 "

@@ -10,23 +10,44 @@ path (``dcl_forward``, or the fake-quant references under ``quant``) is
 the parity reference.  ``quant`` picks the DCL datapath: ``"none"``
 (fp32), ``"qat"`` (fake-quant training over the fp32 kernels), ``"int8"``
 or ``"int8_chain"``, whose DCL output is emitted int8 and dequantized by
-the block before its GroupNorm.  ``shard_batch`` and ``shard_spatial``
-shard every DCL's kernel call over the active mesh (``kernels.ops``);
-the other layers run whole on the input's device, the mesh's first.
-``forward(tap=)`` is the calibration
+the block before its GroupNorm.  ``forward(tap=)`` is the calibration
 hook; ``detection_loss`` and ``train_loss`` are the training objective
 (Eq. 5 over a dense detection loss).
+
+Data parallelism (JAX's GSPMD propagation of a batch laid out on the
+mesh's 'batch' axes, with every param replicated).  Under an active mesh
+whose 'batch' axes divide the batch (``sharding.data_shards``), every
+layer runs per data shard: each shard takes its rows to its device and
+runs the whole network there under ``sharding.at_coords``, its params
+fetched through ``sharding.gather`` (a copy of the one the port holds at
+the first position, whose gradient comes back to it as an all-reduce,
+which ``sharding.count_crossings`` counts).  The results meet in shard
+order on the first shard's device.  ``train_loss`` is the global loss,
+built there from the shards' sums, and each DCL's ``o_max`` is the max
+of the shards' maxima.  ``shard_batch`` governs the split (None = auto,
+True = require, False = never).  A forward with a ``tap`` and a DCL that
+quantizes on absmax scales (``quant`` "qat" or "int8" without a scale
+table: a max over the whole batch) keep the batch whole, as off a mesh;
+their DCL kernel calls then split the batch themselves
+(``kernels.ops.resolve_batch_shard``).  ``shard_spatial`` splits every
+DCL call's height over the mesh's 'spatial' axis, inside a data shard at
+its coordinates.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree as T
 from repro_torch.core.deform_conv import conv2d
 from repro_torch.device import check_on, resolve_device
+from repro_torch.distributed.sharding import (at_coords, batch_mesh_axes,
+                                              data_shards, gather, is_placed)
+from repro_torch.kernels.ops import resolve_batch_shard
 from repro_torch.models.layers import ParamDef, dcl_apply, dcl_def, init_tree
 from repro_torch.quant.qtypes import QTensor
 
@@ -170,17 +191,79 @@ def _apply_block(params, x: Tensor, cfg: ResNetDCNConfig, *, stride: int,
     return F.relu(x + h), o_max
 
 
+def _data_shards(cfg: ResNetDCNConfig, n: int, *, tap=None,
+                 quant_scales=None) -> list[tuple[dict, int, int]] | None:
+    """``(coords, lo, hi)`` of the data shards a batch of ``n`` rows runs
+    in (``sharding.data_shards``), or None: the batch runs whole.  A
+    ``tap`` and absmax scales keep it whole (module docstring);
+    ``shard_batch=True`` with no split raises, naming the sizes."""
+    absmax = cfg.quant in ("qat", "int8") and not quant_scales
+    if cfg.shard_batch is False or tap is not None or absmax:
+        return None
+    shards = data_shards(n)
+    if shards is None and cfg.shard_batch:
+        resolve_batch_shard(n, shard_batch=True)
+    return shards
+
+
+def _pieces(shards, batch: dict) -> list[tuple[Any, dict]]:
+    """``(scope, rows)`` of each data shard: ``at_coords`` of its place
+    and each leaf's rows on its device; one unscoped piece for a whole
+    batch."""
+    if shards is None:
+        return [(contextlib.nullcontext(), batch)]
+    mesh = batch_mesh_axes()[0]
+    return [(at_coords(coords), {k: v[lo:hi].to(mesh.device_at(coords))
+                                 for k, v in batch.items()})
+            for coords, lo, hi in shards]
+
+
+def _max_of(o_maxes: list[dict], home) -> dict[str, Tensor]:
+    """Each DCL's ``o_max`` (Eq. 3, a max over the batch): the max of the
+    shards' maxima, on ``home``."""
+    if len(o_maxes) == 1:
+        return o_maxes[0]
+    return {k: torch.stack([o[k].to(home) for o in o_maxes]).amax()
+            for k in o_maxes[0]}
+
+
 def forward(params, cfg: ResNetDCNConfig, images: Tensor, *, tap=None,
             quant_scales=None, device: str | torch.device | None = None):
     """images: (N, H, W, 3) on ``device`` -> (outputs, o_max per DCL).
 
     ``tap(name, x)`` sees every DCL block's input and, as
-    ``"<name>/out"``, its output (the calibration hook).
-    ``quant_scales`` is a calibration scale table ``{block_name: {...}}``
-    for the int8 datapaths; None means absmax scales (``int8`` only).
+    ``"<name>/out"``, its output (the calibration hook; the batch stays
+    whole, so it sees the whole batch's activations, as JAX's eager tap
+    does).  ``quant_scales`` is a calibration scale table
+    ``{block_name: {...}}`` for the int8 datapaths; None means absmax
+    scales (``int8`` only).  Under a data mesh each data shard runs the
+    network on its rows (module docstring) and the outputs meet, in
+    shard order, on the first shard's device.
     """
     dev = resolve_device(device)
     check_on(dev, images=images)
+    shards = _data_shards(cfg, images.shape[0], tap=tap,
+                          quant_scales=quant_scales)
+    outs = []
+    for scope, rows in _pieces(shards, {"images": images}):
+        x = rows["images"]
+        with scope:
+            outs.append(_forward_shard(params, cfg, x, tap=tap,
+                                       quant_scales=quant_scales,
+                                       device=dev))
+    if len(outs) == 1:
+        return outs[0]
+    home = outs[0][0]["cls"].device
+    return ({k: torch.cat([o[0][k].to(home) for o in outs], 0)
+             for k in outs[0][0]}, _max_of([o[1] for o in outs], home))
+
+
+def _forward_shard(params, cfg: ResNetDCNConfig, images: Tensor, *, tap,
+                   quant_scales, device):
+    """``forward`` of one data shard (or of the whole batch) on
+    ``images``' device, every param fetched there (``sharding.gather``)."""
+    params = T.tree_map(lambda p: gather(p, device=images.device), params,
+                        is_leaf=is_placed)
     x = images.to(cfg.dtype)
     x = conv2d(x, params["stem"]["conv"].to(x.dtype), stride=2, padding=3)
     x = F.relu(group_norm(x, params["stem"]["gn"]))
@@ -195,7 +278,7 @@ def forward(params, cfg: ResNetDCNConfig, images: Tensor, *, tap=None,
             name = f"s{s}b{b}"
             scales = quant_scales.get(name) if quant_scales else None
             x, o_max = _apply_block(params[name], x, cfg, stride=stride,
-                                    is_dcn=cfg.is_dcn(bi), device=dev,
+                                    is_dcn=cfg.is_dcn(bi), device=device,
                                     name=name, tap=tap,
                                     quant_scales=scales)
             if o_max is not None:
@@ -209,6 +292,34 @@ def forward(params, cfg: ResNetDCNConfig, images: Tensor, *, tap=None,
     return {"cls": cls, "box": box, "features": x}, o_maxes
 
 
+def _loss_sums(outputs: dict, targets: dict) -> dict:
+    """One shard's terms of ``detection_loss`` as sums: the objectness
+    BCE over its cells and the cell count, the positive cells, the class
+    CE and the box L1 over them."""
+    cls_logits = outputs["cls"].float()
+    box_pred = outputs["box"].float()
+    obj_logit = cls_logits[..., 0]
+    cls_logit = cls_logits[..., 1:]
+    obj = targets["obj"].float()
+    bce = (obj_logit.clamp_min(0) - obj_logit * obj
+           + torch.log1p(torch.exp(-obj_logit.abs()))).sum()
+    logp = F.log_softmax(cls_logit, dim=-1)
+    gold = torch.gather(logp, -1, targets["cls"].long()[..., None])[..., 0]
+    l1 = ((box_pred - targets["box"].float()).abs() * obj[..., None]).sum()
+    return {"bce": bce, "cells": obj_logit.numel(), "pos": obj.sum(),
+            "ce": -(gold * obj).sum(), "l1": l1}
+
+
+def _loss_from_sums(sums: dict) -> tuple[Tensor, dict]:
+    """``detection_loss`` from the batch's sums: the BCE mean over every
+    cell, the CE and L1 over every positive cell (at least one)."""
+    bce = sums["bce"] / sums["cells"]
+    n_pos = torch.clamp_min(sums["pos"], 1.0)
+    ce = sums["ce"] / n_pos
+    l1 = sums["l1"] / n_pos
+    return bce + ce + 0.5 * l1, {"bce": bce, "ce": ce, "l1": l1}
+
+
 def detection_loss(outputs: dict, targets: dict) -> tuple[Tensor, dict]:
     """Dense single-scale detection loss.
 
@@ -216,23 +327,7 @@ def detection_loss(outputs: dict, targets: dict) -> tuple[Tensor, dict]:
     (N, Hc, Wc, 4).  Sigmoid BCE on objectness, cross-entropy on the class
     of positive cells, L1 on their boxes: ``bce + ce + 0.5 * l1``.
     """
-    cls_logits = outputs["cls"].float()
-    box_pred = outputs["box"].float()
-    obj_logit = cls_logits[..., 0]
-    cls_logit = cls_logits[..., 1:]
-    obj = targets["obj"].float()
-
-    bce = torch.mean(obj_logit.clamp_min(0) - obj_logit * obj
-                     + torch.log1p(torch.exp(-obj_logit.abs())))
-    pos = obj
-    n_pos = torch.clamp_min(pos.sum(), 1.0)
-    logp = F.log_softmax(cls_logit, dim=-1)
-    gold = torch.gather(logp, -1, targets["cls"].long()[..., None])[..., 0]
-    ce = -(gold * pos).sum() / n_pos
-    l1 = ((box_pred - targets["box"].float()).abs()
-          * pos[..., None]).sum() / n_pos
-    loss = bce + ce + 0.5 * l1
-    return loss, {"bce": bce, "ce": ce, "l1": l1}
+    return _loss_from_sums(_loss_sums(outputs, targets))
 
 
 def train_loss(params, cfg: ResNetDCNConfig, batch: dict, *,
@@ -241,11 +336,31 @@ def train_loss(params, cfg: ResNetDCNConfig, batch: dict, *,
     """The paper's objective: Eq. 5 over the detection loss.  With
     ``cfg.quant="qat"`` it is the quantization-aware objective.  ``batch``
     holds tensors on ``device``: images (N, H, W, 3) and the targets of
-    ``detection_loss``.  Returns ``(loss, metrics)``."""
+    ``detection_loss``.  Returns ``(loss, metrics)``, all global values:
+    under a data mesh each shard adds its ``detection_loss`` sums, which
+    meet on the first shard's device before the one division (never a
+    mean of the shards' losses), and Eq. 5 takes each DCL's ``o_max`` as
+    the max of the shards' maxima."""
     from repro_torch.core.rf_regularizer import regularized_loss
-    outputs, o_maxes = forward(params, cfg, batch["images"],
-                               quant_scales=quant_scales, device=device)
-    task, metrics = detection_loss(outputs, batch)
+    dev = resolve_device(device)
+    check_on(dev, images=batch["images"])
+    shards = _data_shards(cfg, batch["images"].shape[0],
+                          quant_scales=quant_scales)
+    sums, maxima = None, []
+    for scope, rows in _pieces(shards, batch):
+        x = rows["images"]
+        with scope:
+            outputs, o_maxes = _forward_shard(params, cfg, x, tap=None,
+                                              quant_scales=quant_scales,
+                                              device=dev)
+            part = _loss_sums(outputs, rows)
+        maxima.append(o_maxes)
+        # The shards' sums meet on the first shard's device.
+        sums = part if sums is None else {
+            k: v + (part[k].to(v.device) if isinstance(v, Tensor)
+                    else part[k]) for k, v in sums.items()}
+    task, metrics = _loss_from_sums(sums)
+    o_maxes = _max_of(maxima, task.device)
     if lam > 0.0 and o_maxes:
         loss = regularized_loss(task, list(o_maxes.values()), lam,
                                 smoothness=smoothness)

@@ -42,14 +42,14 @@ import functools
 import math
 from typing import Any
 
-import numpy as np
 import torch
 import torch.utils.checkpoint as ckpt
 
 from repro_torch import tree as T
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (at_coords, batch_mesh_axes,
-                                              context, is_placed, restored)
+                                              context, data_shards,
+                                              is_placed, restored)
 from repro_torch.models import layers as L
 from repro_torch.models.moe import (MoEConfig, aux_from_stats, expert_split,
                                     moe_apply, moe_def)
@@ -491,7 +491,7 @@ def shard_plan(cfg: ModelConfig, batch: int | None = None) -> dict:
     or whole; ``whole`` names the MoE, RG-LRU and RWKV-6 blocks that
     gather their leaves whole where they run."""
     acfg = cfg.attn_cfg()
-    shards = None if batch is None else _data_shards(cfg, batch)
+    shards = None if batch is None else data_shards(batch)
     heads = L._head_shards(acfg)
     _, _, tp = L.mesh_axes("ff")
     plan = {"data_shards": 1 if shards is None else len(shards)}
@@ -552,28 +552,6 @@ def _rwkv_plan(cfg: RWKVConfig) -> str:
     return f"{tm}; {cm}"
 
 
-def _data_shards(cfg: ModelConfig, batch: int
-                 ) -> list[tuple[dict, int, int]] | None:
-    """``(coords, lo, hi)`` of each data shard of a batch of ``batch``
-    rows under the active mesh (rows ``[lo, hi)`` at mesh ``coords``), or
-    None: off-mesh, a 'batch' split of one, or a batch that does not
-    divide (it stays whole, as JAX's rules leave it replicated).  An MoE
-    model's batch splits too: its capacity is per row, and its aux loss
-    is combined from the shards' sums (``moe.moe_stats``)."""
-    found = batch_mesh_axes()
-    if found is None:
-        return None
-    mesh, axes, total = found
-    if batch % total:
-        return None
-    per = batch // total
-    sizes = mesh.shape
-    out = []
-    for i, idx in enumerate(np.ndindex(*(sizes[a] for a in axes))):
-        out.append((dict(zip(axes, idx)), i * per, (i + 1) * per))
-    return out
-
-
 def _rows(t, lo: int, hi: int, device, dim: int = 0):
     return None if t is None else t.narrow(dim, lo, hi - lo).to(device)
 
@@ -607,12 +585,14 @@ def forward(params, cfg: ModelConfig, *, tokens: Tensor,
     final-normed hidden state and skips the unembedding (the training
     loss takes the chunked CE path instead); prefill slices to the last
     position before the unembedding, as in JAX.  Under an active mesh
-    each data shard runs at its coordinates and the results meet, in
-    shard order, on the first shard's device."""
+    each data shard (``sharding.data_shards``) runs at its coordinates and
+    the results meet, in shard order, on the first shard's device.  An
+    MoE model's batch splits too: its capacity is per row, and its aux
+    loss is combined from the shards' sums (``moe.moe_stats``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     kw = dict(mode=mode, cache_len=cache_len, return_hidden=return_hidden)
-    shards = _data_shards(cfg, tokens.shape[0])
+    shards = data_shards(tokens.shape[0])
     if shards is None:
         y, c, stats = _forward_shard(params, cfg, tokens=tokens,
                                      frontend=frontend, caches=caches,
@@ -716,7 +696,7 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
     the global token-weighted mean, not a mean of the shards' means; the
     MoE aux loss likewise comes from the shards' summed ``moe_stats``."""
     tokens = batch["tokens"]
-    shards = _data_shards(cfg, tokens.shape[0])
+    shards = data_shards(tokens.shape[0])
     if shards is None:
         pieces = [({}, None, tokens.device)]
     else:

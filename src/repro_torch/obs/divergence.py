@@ -52,12 +52,16 @@ class DispatchKey:
     stride: int
     dtype: str              # element type of the band: fp32 | bf16 | int8
     quant: str              # none | int8 | int8_chain
-    shards: tuple = (1, 1)  # (batch blocks, height shards) of a mesh call
+    # (batch blocks, height shards) of a mesh call, and inside a model's
+    # data shard the number of data shards (``ops``' dispatch context)
+    shards: tuple = (1, 1)
 
     def label(self) -> str:
         n, h, w, c = self.shape
-        split = "" if self.shards == (1, 1) else \
+        split = "" if self.shards[:2] == (1, 1) else \
             f"@{self.shards[0]}x{self.shards[1]}shard"
+        if len(self.shards) > 2:
+            split += f"/data{self.shards[2]}"
         return (f"{self.op}[{n}x{h}x{w}x{c}->{self.m} s{self.stride}]"
                 f"/{self.dtype}/{self.quant}{split}")
 
@@ -96,7 +100,7 @@ def price_dispatch(context: dict) -> dict | None:
         # A mesh call runs every shard's kernels at its block's shape (on
         # a mesh that repeats a device, all of them on that device), so it
         # is priced as the sum of the shards' work.
-        nb, ns = key.shards
+        nb, ns = key.shards[:2]
         n, h, w, c = key.shape
         n, h = n // nb, h // ns
         geom = dict(kernel_size=context.get("kernel_size", 3),

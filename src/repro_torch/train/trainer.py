@@ -13,10 +13,13 @@
   specs were made under, default the defaults): the batch, whole on the
   first device, splits over the mesh's 'batch' axes per microbatch
   (``batch_specs``; a batch that does not divide stays whole, as JAX's
-  rules leave it replicated), the LM's forward one data shard a block of
-  rows (``models.transformer``), the DCLs' kernel calls one shard a
-  device (``kernels.ops.resolve_batch_shard``) or, with a config's
-  ``shard_spatial``, the height over its 'spatial' axis;
+  rules leave it replicated), and the model runs one data shard a block
+  of each microbatch's rows (``sharding.data_shards``): the LM's layers
+  (``models.transformer``) and every layer of the detector
+  (``models.resnet_dcn``, whose DCL calls inside a shard split its rows
+  no further, or, with a config's ``shard_spatial``, split the height
+  over the 'spatial' axis at the shard's coordinates); each data shard's
+  gradient comes back to the one copy of a param the Trainer holds;
 * optional int8 error-feedback gradient compression (``grad_compression=
   "int8_ef"``, ``distributed.compression``), applied after the sentinel
   read the uncompressed gradient norm;
@@ -238,9 +241,9 @@ class Trainer:
         first device (the Trainer's), and ``batch_specs`` records how the
         mesh's rules split each one's sample axis per microbatch (JAX's
         ``_shard_batch`` splits axis 1 after the microbatch axis): the
-        LM's data shards and the DCLs' sharded kernels take that split,
-        one block a device of the 'batch' axes; a leaf whose batch does
-        not divide stays whole (``None``)."""
+        models' data shards take that split of each microbatch, one block
+        a device of the 'batch' axes; a leaf whose batch does not divide
+        stays whole (``None``)."""
         out = {k: torch.as_tensor(np.asarray(x)).to(self.device)
                for k, x in batch.items()}
         if self.mesh is not None:

@@ -176,16 +176,18 @@ def test_halo_exchange_is_counted_as_collective_permute(shards, backward):
     assert want["collective-permute"]["count"] > 0
 
 
-@pytest.mark.parametrize("shards", [2, 4])
-def test_detector_step_counts_its_dcls_d_weights_sums(shards):
-    """A bounded detector's training step on a data mesh: each DCL's
-    d_weights comes back from every batch shard but the first (an
-    all-reduce), as ``dcn_collectives`` counts; inference moves none."""
+@pytest.mark.parametrize("bound,shards", [(2.0, 2), (2.0, 4), (None, 2)])
+def test_detector_step_counts_every_params_gradient_sum(bound, shards):
+    """A detector's training step on a data mesh (the bounded detector and
+    the unbounded one): every layer runs per data shard, so every param's
+    gradient comes back from every data shard but the first (an
+    all-reduce of the leaf), as ``dcn_collectives`` counts; inference
+    moves none."""
     from repro_torch.data import DetectionDataConfig, detection_batch
     from repro_torch.models import resnet_dcn as R
     cfg = R.ResNetDCNConfig(
         stage_sizes=(1, 1, 1, 1), widths=(16, 32, 64, 128), stem_width=8,
-        num_dcn=2, num_classes=4, img_size=32, offset_bound=2.0,
+        num_dcn=2, num_classes=4, img_size=32, offset_bound=bound,
         use_kernel=True)
     params = T.tree_map(lambda t: t.requires_grad_(True),
                         R.init_params(cfg, seed=0, device="cpu"))
@@ -198,6 +200,38 @@ def test_detector_step_counts_its_dcls_d_weights_sums(shards):
         torch.autograd.grad(loss, T.leaves(params), allow_unused=True)
     want = C.dcn_collectives(cfg, mesh, batch=4, train=True).summary()
     assert counter.summary() == want
-    assert want["all-reduce"]["count"] == 2 * (shards - 1)
+    leaves = T.leaves(params)
+    assert want["all-reduce"]["count"] == len(leaves) * (shards - 1)
+    assert want["all-reduce"]["bytes"] == (shards - 1) * sum(
+        t.numel() * 4 for t in leaves)
+    assert want["total_count"] == want["all-reduce"]["count"]
     assert C.dcn_collectives(cfg, mesh, batch=4, train=False) \
         .summary()["total_count"] == 0
+
+
+def test_qat_detector_keeps_the_batch_whole_and_counts_its_dcls_sums():
+    """QAT on absmax scales (a max over the whole batch) keeps the batch
+    whole on a data mesh: only the DCL kernel calls split it, and each
+    DCL's d_weights comes back from the second batch shard, as
+    ``dcn_collectives`` counts."""
+    from repro_torch.data import DetectionDataConfig, detection_batch
+    from repro_torch.models import resnet_dcn as R
+    cfg = R.ResNetDCNConfig(
+        stage_sizes=(1, 1, 1, 1), widths=(16, 32, 64, 128), stem_width=8,
+        num_dcn=2, num_classes=4, img_size=32, offset_bound=2.0,
+        use_kernel=True, quant="qat")
+    params = T.tree_map(lambda t: t.requires_grad_(True),
+                        R.init_params(cfg, seed=0, device="cpu"))
+    batch = {k: torch.as_tensor(np.asarray(v)) for k, v in detection_batch(
+        DetectionDataConfig(img_size=32, global_batch=4, num_classes=4,
+                            seed=3), 0).items()}
+    mesh = _mesh((2,), ("data",))
+    seen = []
+    with TS.use_rules(mesh=mesh), TS.count_crossings() as counter, \
+            ops.dispatch_hook_scope(lambda ctx: seen.append(ctx["shards"])):
+        loss, _ = R.train_loss(params, cfg, batch, lam=0.1, device="cpu")
+        torch.autograd.grad(loss, T.leaves(params), allow_unused=True)
+    assert seen == [(2, 1)] * 2
+    want = C.dcn_collectives(cfg, mesh, batch=4, train=True).summary()
+    assert counter.summary() == want
+    assert want["all-reduce"]["count"] == want["total_count"] == 2

@@ -329,6 +329,38 @@ def test_full_width_cell_stays_on_meta():
         rec["collective_reason"]
 
 
+@pytest.mark.parametrize("name", ["resnet50_dcn_bounded", "resnet50_dcn"])
+@pytest.mark.parametrize("kind", ["train_det", "infer_det"])
+def test_detector_mesh_record_counts_every_params_gradient(name, kind):
+    """A detector's record on the (data=16, model=16) mesh: every layer
+    runs per data shard, so its count is whole (no "partial" reason) and
+    equals ``dcn_collectives``: in training each leaf's fp32 gradient
+    from 15 data shards to the first, in inference nothing."""
+    import math
+
+    from repro_torch import tree as RT
+    from repro_torch.launch import collectives
+    from repro_torch.models import resnet_dcn
+    arch = _reduced_cell(name, ShapeSpec(kind, 0, 32))
+    trace = dryrun.trace_cell(arch, "t")
+    rec = dryrun.run_cell(arch.name, "t", "single", arch=arch, trace=trace)
+    assert "collective_reason" not in rec
+    kcfg = dataclasses.replace(arch.config,
+                               use_kernel=arch.config.offset_bound is not None)
+    want = collectives.dcn_collectives(
+        kcfg, dryrun.meta_mesh("single"), batch=32,
+        train=kind == "train_det").summary()
+    assert rec["collectives"] == want
+    assert rec["collective_bytes"] == want["total_bytes"] / 256
+    defs = RT.leaves(resnet_dcn.model_def(arch.config))
+    if kind == "train_det":
+        assert want["all-reduce"]["count"] == 15 * len(defs)
+        assert want["total_bytes"] == want["all-reduce"]["bytes"] == 15 * 4 \
+            * sum(math.prod(d.shape) for d in defs)
+    else:
+        assert want["total_count"] == 0
+
+
 def test_a_tensor_off_meta_fails_the_dry_run():
     with pytest.raises(RuntimeError, match="made a tensor on cpu"):
         with dryrun.StepCounter(meta_only=True):

@@ -8,9 +8,11 @@ functions read only ``mesh.axis_names`` and ``mesh.devices.shape``, so
 they take the port's ``Mesh`` itself.  Inputs come from numpy with a
 seed.  Tolerances: rules and specs entry for entry; batch-sharded outputs
 ``torch.equal`` at pinned tiles, gradients 1e-5 relative (d_weights sums
-its shards in another order); the data-parallel Trainer 1e-5 relative to
-the port's single-device Trainer after 3 steps, and both within 2e-4 of
-JAX's single-device Trainer (see that test for the reading).
+its shards in another order); the data-parallel Trainer (every layer
+per data shard) 1e-5 relative to the port's single-device Trainer after
+3 steps, both run where a CPU row rounds alike at any batch
+(``_cpu_rows``), and both within 2e-4 of JAX's single-device Trainer
+(see that test for the reading).
 """
 import threading
 
@@ -37,6 +39,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import resnet_dcn as TRN
 from repro_torch.train import Trainer, TrainerConfig
+
+from _cpu_rows import rows_round_alike
 
 torch.set_num_threads(2)
 
@@ -286,10 +290,12 @@ def test_data_parallel_trainer_matches_jax(tmp_path, jax_run, shards):
     mesh = make_host_mesh(["cpu"] * shards)
     tt = _torch_trainer(tmp_path, mesh)
     seen = []
-    with ops.dispatch_hook_scope(lambda ctx: seen.append(ctx["shards"])):
+    with ops.dispatch_hook_scope(lambda ctx: seen.append(ctx["shards"])), \
+            rows_round_alike():
         tt.run()
-    # Both DCLs of each of the 3 steps ran on `shards` batch shards.
-    assert seen == [(shards, 1)] * 6
+    # Every layer runs per data shard: both DCLs of each of the 3 steps
+    # ran once in each of the `shards` data shards, on its rows alone.
+    assert seen == [(1, 1, shards)] * (6 * shards)
     assert tt.batch_specs["images"] == ("data", None, None, None)
     jl = [h["loss"] for h in jax_run.history if "loss" in h]
     tl = [h["loss"] for h in tt.history if "loss" in h]
@@ -299,9 +305,10 @@ def test_data_parallel_trainer_matches_jax(tmp_path, jax_run, shards):
     jp = _flat(jax.tree_util.tree_map(np.asarray, jax_run.params))
     tp = _flat(T.tree_map(lambda t: t.detach().numpy(), tt.params))
     flat = _torch_trainer(tmp_path / "flat", None)
-    flat.run()
+    with rows_round_alike():
+        flat.run()
     fp = _flat(T.tree_map(lambda t: t.detach().numpy(), flat.params))
-    # The shards change only the order d_weights is summed in.
+    # The shards change only the order the gradients are summed in.
     assert _rel(tp, fp) <= 1e-5
     # At batch 4 the port's single-device Trainer itself lies 1.04e-4
     # (params) and 1.48e-3 (the update) from JAX's: the kernel path's

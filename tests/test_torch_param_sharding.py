@@ -434,7 +434,7 @@ def test_moe_aux_is_combined_from_the_shards_sums(name):
     tt = torch.from_numpy(toks)
     with torch.no_grad():
         with TS.use_rules(rules, mesh=mesh):
-            assert len(TT._data_shards(tcfg, 4)) == 2
+            assert len(TS.data_shards(4)) == 2
             got = float(TT.forward(placed, tcfg, tokens=tt)[2])
         added = sum(float(TT.forward(tp, tcfg, tokens=tt[lo:lo + 2])[2])
                     for lo in (0, 2))
