@@ -405,6 +405,23 @@ Phases, each of which exits non-zero on failure:
    gated: AdamW's eps turns summation noise into whole steps at this
    width).  The phase runs no kernel.  ``--only 20`` runs phases 1 and 20 alone and prints
    no result.
+22. the design-space layer (``core.tiling``'s Sec. 3.2 algebra, the Eq. 6
+   inverse and the traffic model of the kernels at their tiles).  (a) At
+   the five DCL shapes of the 512 bucket, batch 4, each main-path
+   instance (fp32 1a, banded 4, int8 1c, int8_chain 1d, kernel 2, fp32
+   1b) at the chooser's tiles: the modeled traffic beside the
+   ``core.h100`` bound's bytes (gate: traffic >= bound bytes), the
+   kernel's time (CUDA events, best of 5 back to back) and traffic /
+   time.  (b) Every ``neighbor_kernel_tiles`` candidate of fp32 1a at
+   32² x 256 (then of 1a, kernel 2 and 1c at all five shapes): the
+   Spearman rank correlation of traffic and time, and each one's pick
+   (no gate).  (c) On 16² x 512, for fp32, int8,
+   int8_chain and fp32_bwd, the largest B the chooser takes (B*): a call
+   at B* launches its kernel and meets its plain version within the
+   datapath's phase tolerance; B* + 1 raises the chooser's ValueError
+   through the entry point and launches nothing; beside
+   ``max_offset_bound_fitting`` at the paper's tiles.  ``--only 22``
+   runs phases 1, 2 and 22 alone and prints no result.
 
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
 run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
@@ -7017,6 +7034,378 @@ def mesh_paths_phase(record: dict) -> None:
           f"{P21_SECONDS} s) on {smi()}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the design-space layer (Sec. 3.2 on the H100, the Eq. 6
+# inverse, the traffic model of the kernels at their tiles)
+# ---------------------------------------------------------------------------
+
+# The five DCL shapes of the 512 bucket: (h, c, stride); C = M.
+P22_SHAPES = [(64, 128, 1), (64, 256, 2), (32, 256, 1), (32, 512, 2),
+              (16, 512, 1)]
+# Each main-path instance: (label, chooser datapath, counter name).
+P22_PATHS = [("1a", "fp32", "deform_conv_fused"),
+             ("4", "banded", "deform_conv_banded"),
+             ("1c", "int8", "deform_conv_fused_q"),
+             ("1d", "int8_chain", "deform_conv_chain"),
+             ("2", "fp32_bwd", "deform_conv_bwd"),
+             ("1b", "sample", "deform_sample_zerocopy")]
+P22_RANK_SHAPE = (32, 256, 1)         # a c4 layer
+P22_EDGE_SHAPE = (16, 512, 1)         # the c5 layer of (c)
+P22_SECONDS = 40                      # phase 22's budget (printed)
+
+
+def p22_best_ms(fn, reps: int = 5) -> float:
+    """Best of ``reps`` calls back to back (CUDA events around each), after
+    one untimed call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return min(s.elapsed_time(e) for s, e in events)
+
+
+def p22_call(path: str, n: int, h: int, c: int, s: int, b: float, gen,
+             tiles=None) -> dict:
+    """One kernel call of a main-path instance at one DCL shape (C = M)
+    and bound ``b``: its wrapper and plain version on the same CUDA
+    inputs (``run``, ``plain``), its tiles (the chooser's unless given;
+    spatial tiles clamped as the dispatch path clamps them), its
+    ``core.tiling`` traffic and ``core.h100`` work, and the bytes of
+    ``pad_and_band``'s gather that the banded call's traffic holds."""
+    import functools
+
+    import torch
+
+    from repro_torch.core import tiling as T
+    from repro_torch.kernels import deform_conv_bwd as D
+    from repro_torch.kernels import deform_conv_fused as F
+    from repro_torch.kernels import deform_conv_q as Q
+    from repro_torch.kernels import deform_sample as S
+    from repro_torch.kernels import plan
+    from repro_torch.quant.qtypes import compute_scale, quantize_values
+
+    dtype = dict((p, d) for p, d, _ in P22_PATHS)[path]
+    k2, m = K * K, c
+    ho, wo = T.out_hw(h, h, kernel_size=K, stride=s, dilation=1)
+    geom = dict(kernel_size=K, stride=s, dilation=1, offset_bound=b)
+    if tiles is None:
+        tiles = plan.resolve_tiles(n, h, h, c, m, dtype=dtype,
+                                   tile_h=8 if path in ("4", "1b") else None,
+                                   **geom)
+    th, tw, tc, tm = tiles
+    th, tw = (th if path == "4" else min(th, ho)), min(tw, wo)
+    x = torch.randn(n, h, h, c, device="cuda", generator=gen)
+    off = (2 * torch.rand(n, ho, wo, 2 * k2, device="cuda", generator=gen)
+           - 1) * (b + 0.5)
+    w = torch.randn(k2, c, m, device="cuda", generator=gen) / (k2 * c) ** 0.5
+    shape = T.LayerShape(h=h, w=h, c_in=c, c_out=m, stride=s,
+                         offset_bound=b)
+    kt = T.KernelTiles(th, tw, tc, tm)
+    kw = dict(tile_h=th, tile_w=tw, tile_c=tc, **geom)
+    g = dict(kernel_size=K, stride=s, dilation=1)
+    gather = 0
+    if path in ("1a", "2", "1b"):
+        xp = plan.pad_zerocopy(x, tile_h=th, tile_w=tw, ho=ho, wo=wo,
+                               **geom)
+    if path == "1a":
+        args = (xp, off, plan.tile_weights(w, tc))
+        fn, plainf = F.deform_conv_fused_zerocopy, \
+            F.deform_conv_fused_zerocopy_plain
+        kw["tile_m"] = tm
+        traffic = T.dcl_total_hbm_bytes(shape, kt, batch=n)
+        work = h100.forward_work(n, h, h, c, m, **g)
+    elif path == "4":
+        spec = plan.DCSpec(K, s, 1, b, th, dataflow="banded")
+        bands, offb = plan.banded_inputs(spec, x, off, th)
+        args = (bands, offb, plan.tile_weights(w, tc))
+        fn, plainf = F.deform_conv_fused_banded, \
+            F.deform_conv_fused_banded_plain
+        kw["tile_m"] = tm
+        gather = 2 * bands.numel() * bands.element_size()
+        traffic = T.dcl_total_hbm_bytes(shape, kt, batch=n,
+                                        dataflow="materialized_band")
+        work = h100.banded_work(n, h, h, c, m, offset_bound=b, tile_h=th,
+                                **g)
+    elif path == "2":
+        gy = torch.randn(n, ho, wo, m, device="cuda", generator=gen)
+        args = (xp, off, gy, plan.tile_weights(w, tc))
+        fn, plainf = D.deform_conv_bwd_zerocopy, \
+            D.deform_conv_bwd_zerocopy_plain
+        traffic = T.dcl_backward_hbm_bytes(shape, kt, batch=n)
+        work = h100.backward_work(n, h, h, c, m, **g)
+    elif path == "1b":
+        args = (xp, off)
+        fn, plainf = S.deform_sample_zerocopy, S.deform_sample_zerocopy_plain
+        traffic = T.dcl_sample_hbm_bytes(shape, kt, batch=n)
+        work = h100.sample_work(n, h, h, c, **g)
+    else:
+        sx, sw = compute_scale(x), compute_scale(w, axis=-1)
+        xq, wq = quantize_values(x, sx), quantize_values(w, sw)
+        xp = plan.pad_zerocopy(xq, tile_h=th, tile_w=tw, ho=ho, wo=wo,
+                               **geom)
+        kw["tile_m"] = tm
+        if path == "1c":
+            args = (xp, off, plan.tile_weights(wq, tc),
+                    (sx * sw).reshape(m).contiguous())
+            fn, plainf = Q.deform_conv_fused_zerocopy_q, \
+                Q.deform_conv_fused_zerocopy_q_plain
+            traffic = T.dcl_total_hbm_bytes(shape, kt, batch=n,
+                                            bytes_per_elem=1)
+            work = h100.int8_work(n, h, h, c, m, **g)
+        else:
+            woff = torch.randn(k2, c, 2 * k2, device="cuda", generator=gen)
+            woq = quantize_values(woff, compute_scale(woff, axis=-1))
+            # Offsets spread to about the bound once dequantized; an
+            # emission of std ~40 on the int8 grid.
+            acc_std = (k2 * c) ** 0.5 * xq.float().std() * woq.float().std()
+            off_scale = torch.full((2 * k2,), b / acc_std.item(),
+                                   device="cuda")
+            off_bias = torch.randn(2 * k2, device="cuda", generator=gen)
+            y_std = (k2 * c) ** 0.5 * xq.float().std() * wq.float().std()
+            out_scale = torch.full((m,), 40.0 / y_std.item(), device="cuda")
+            out_bias = torch.randn(m, device="cuda", generator=gen)
+            args = (xp, plan.tile_weights(wq, c), plan.tile_weights(woq, c),
+                    off_scale, off_bias, out_scale, out_bias)
+            fn, plainf = Q.deform_conv_fused_zerocopy_chain, \
+                Q.deform_conv_fused_zerocopy_chain_plain
+            kw.update(emit="int8", ho=ho, wo=wo)
+            traffic = T.dcl_total_hbm_bytes(shape, kt, batch=n,
+                                            bytes_per_elem=1,
+                                            fused_offsets=True)
+            work = h100.int8_work(n, h, h, c, m, chain=True, emit="int8",
+                                  **g)
+    return dict(run=functools.partial(fn, *args, **kw),
+                plain=functools.partial(plainf, *args, **kw),
+                tiles=[th, tw, tc, tm], traffic=traffic, work=work,
+                gather=gather, inputs=(x, off, w))
+
+
+def p22_traffic(record: dict, gen) -> None:
+    """(a) Each main-path instance at the five shapes: the chooser's tiles,
+    the traffic beside the bound's bytes (gate: traffic >= them), the
+    kernel's time and traffic / time."""
+    rows = []
+    for h, c, s in P22_SHAPES:
+        for path, _, _ in P22_PATHS:
+            call = p22_call(path, BATCH, h, c, s, B, gen)
+            ms = p22_best_ms(call["run"])
+            # Kernel 4's own bytes: the traffic less pad_and_band's gather,
+            # which runs before it (not timed here).
+            kernel_bytes = call["traffic"] - call["gather"]
+            floor = call["work"]["bytes"]
+            row = dict(path=path, h=h, c=c, stride=s, tiles=call["tiles"],
+                       traffic=call["traffic"], kernel_bytes=kernel_bytes,
+                       bound_bytes=floor, ms=ms,
+                       gbps=kernel_bytes / ms / 1e6,
+                       bound_ms=call["work"]["bound_s"] * 1e3)
+            rows.append(row)
+            print(f"  (a) {path:<3} {h}x{h}x{c}->{c} s{s} tiles "
+                  f"{call['tiles']} traffic {call['traffic'] / 1e6:.3f} MB"
+                  f"{'' if not call['gather'] else f' (kernel {kernel_bytes / 1e6:.3f})'}"
+                  f" bound {floor / 1e6:.3f} MB ({call['traffic'] / floor:.1f}x)"
+                  f" time {ms:.4f} ms, {row['gbps']:.1f} GB/s "
+                  f"(bound {row['bound_ms']:.4f} ms)")
+            if kernel_bytes < floor:
+                fail(f"phase 22(a) {path} {h}x{c}: traffic {kernel_bytes} "
+                     f"< the bound's {floor} bytes")
+            del call
+    record["phase22_traffic"] = rows
+
+
+def p22_spearman(a: list, b: list) -> float:
+    """Spearman's rank correlation (average ranks for ties)."""
+    def ranks(v):
+        order = sorted(range(len(v)), key=lambda i: v[i])
+        r = [0.0] * len(v)
+        i = 0
+        while i < len(v):
+            j = i
+            while j + 1 < len(v) and v[order[j + 1]] == v[order[i]]:
+                j += 1
+            for k in range(i, j + 1):
+                r[order[k]] = (i + j) / 2
+            i = j + 1
+        return r
+    ra, rb = ranks(a), ranks(b)
+    ma, mb = statistics.fmean(ra), statistics.fmean(rb)
+    cov = sum((x - ma) * (y - mb) for x, y in zip(ra, rb))
+    var = (sum((x - ma) ** 2 for x in ra)
+           * sum((y - mb) ** 2 for y in rb)) ** 0.5
+    return cov / var if var else float("nan")
+
+
+def p22_rank_one(path: str, h: int, c: int, s: int, gen) -> dict:
+    """Every neighbour candidate of one instance at one shape, timed: the
+    Spearman rank correlation of traffic and time, and each one's pick."""
+    from repro_torch.core import tiling as T
+    dtype = dict((p, d) for p, d, _ in P22_PATHS)[path]
+    geom = dict(kernel_size=K, stride=s, offset_bound=B, dtype=dtype)
+    seed = T.choose_kernel_tiles(BATCH, h, h, c, c, **geom)
+    pts = []
+    for kt in T.neighbor_kernel_tiles(BATCH, h, h, c, c, seed, **geom):
+        call = p22_call(path, BATCH, h, c, s, B, gen,
+                        tiles=(kt.tile_h, kt.tile_w, kt.tile_c, kt.tile_m))
+        pts.append(dict(tiles=call["tiles"], traffic=call["traffic"],
+                        ms=p22_best_ms(call["run"])))
+    return dict(path=path, h=h, c=c, stride=s, points=pts,
+                spearman=p22_spearman([p["traffic"] for p in pts],
+                                      [p["ms"] for p in pts]))
+
+
+def p22_rank(record: dict, gen) -> None:
+    """(b) Does the traffic model rank the tiles as the card times them?
+    fp32 1a at one c4 shape, then 1a, kernel 2 and 1c (whose neighbours
+    keep the spatial tiles) at all five shapes."""
+    def pick(pts, key):
+        p = min(pts, key=lambda q: q[key])
+        return f"{p['tiles']} ({p['traffic'] / 1e6:.3f} MB, {p['ms']:.4f} ms)"
+    rows = []
+    for path, shapes in (("1a", [P22_RANK_SHAPE] + [
+            sh for sh in P22_SHAPES if sh != P22_RANK_SHAPE]),
+            ("2", P22_SHAPES), ("1c", P22_SHAPES)):
+        for h, c, s in shapes:
+            r = p22_rank_one(path, h, c, s, gen)
+            pts = r["points"]
+            print(f"  (b) {path:<3} {h}x{h}x{c}->{c} s{s}: {len(pts)} "
+                  f"candidates, Spearman rho(traffic, time) = "
+                  f"{r['spearman']:.3f}; least traffic "
+                  f"{pick(pts, 'traffic')}, fastest {pick(pts, 'ms')}, "
+                  f"chooser {pts[0]['tiles']} ({pts[0]['ms']:.4f} ms)")
+            rows.append(r)
+    record["phase22_rank"] = rows
+
+
+def p22_bstar(dtype: str, n: int, h: int, c: int, s: int) -> int:
+    """The largest integer B the chooser takes for ``dtype`` at one shape
+    (it takes 2; doubling, then bisection)."""
+    from repro_torch.core.tiling import choose_kernel_tiles
+
+    def fits(b: int) -> bool:
+        try:
+            choose_kernel_tiles(n, h, h, c, c, kernel_size=K, stride=s,
+                                offset_bound=float(b), dtype=dtype)
+            return True
+        except ValueError:
+            return False
+    lo, hi = 2, 4
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+        if hi > 4096:
+            fail(f"phase 22(c) {dtype}: the chooser takes B = {lo}")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def p22_refused(path: str, n: int, h: int, c: int, s: int, b: float,
+                gen) -> str:
+    """The entry point at bound ``b`` (past B*): the chooser's ValueError,
+    which is returned; fails if the call returns."""
+    import torch
+
+    from repro_torch.kernels import ops
+    x = torch.randn(n, h, h, c, device="cuda", generator=gen)
+    ho = (h - 1) // s + 1
+    off = torch.zeros(n, ho, ho, 2 * K * K, device="cuda")
+    w = torch.randn(K * K, c, c, device="cuda", generator=gen) * 0.01
+    kw = dict(kernel_size=K, stride=s, offset_bound=b, device="cuda")
+    try:
+        if path == "1d":
+            ops.deform_conv_chain(x, w, torch.randn(K * K, c, 2 * K * K,
+                                                    device="cuda") * 0.01,
+                                  torch.zeros(2 * K * K, device="cuda"),
+                                  x_scale=0.05, emit="fp32", **kw)
+        elif path == "2":
+            x.requires_grad_(True)
+            y = ops.deform_conv(x, off, w, **kw)
+            torch.autograd.grad(y.sum(), x)
+        else:
+            ops.deform_conv(x, off, w, precision="int8" if path == "1c"
+                            else "fp32", **kw)
+    except ValueError as e:
+        return str(e)
+    fail(f"phase 22(c) {path}: the entry point took B = {b}, past B*")
+
+
+def p22_boundary(record: dict, gen) -> None:
+    """(c) The Eq. 5 <-> on-chip boundary on the c5 layer: B* launches and
+    holds to its plain version; B* + 1 is refused before any launch."""
+    import torch
+
+    from repro_torch.core.tiling import (PAPER_TILES, SMEM_PER_BLOCK,
+                                         max_offset_bound_fitting)
+    h, c, s = P22_EDGE_SHAPE
+    fns = counted()
+    paper = max_offset_bound_fitting(K, s, PAPER_TILES.t_w, PAPER_TILES.t_n,
+                                     SMEM_PER_BLOCK)
+    rows = []
+    for path, dtype, counter in P22_PATHS:
+        if path not in ("1a", "1c", "1d", "2"):
+            continue
+        bstar = p22_bstar(dtype, BATCH, h, c, s)
+        call = p22_call(path, BATCH, h, c, s, float(bstar), gen)
+        before = fns[counter].launches
+        got = call["run"]()
+        torch.cuda.synchronize()
+        launched = fns[counter].launches - before
+        want = call["plain"]()
+        if path in ("1c", "1d"):
+            ok, err = torch.equal(got, want), \
+                (got.float() - want.float()).abs().max().item()
+            gate = "torch.equal"
+        else:
+            got, want = (got, want) if path == "2" else ((got,), (want,))
+            tol = BWD_RTOL if path == "2" else KERNEL_RTOL
+            errs = [((a - r).abs().max() / r.abs().max()).item()
+                    for a, r in zip(got, want)]
+            err, ok, gate = max(errs), max(errs) <= tol, f"<= {tol}"
+        del got, want, call
+        before = dict(read_counts())
+        msg = p22_refused(path, BATCH, h, c, s, float(bstar + 1), gen)
+        moved = read_counts()[counter] - before[counter]
+        refused = "too large" in msg and moved == 0
+        rows.append(dict(path=path, dtype=dtype, bstar=bstar,
+                         launched=launched, err=err, ok=ok,
+                         refused=refused, paper_bound=paper))
+        print(f"  (c) {path:<3} {dtype:<10} {h}x{h}x{c}: B* = {bstar} "
+              f"(RF {K + 2 * bstar}); at B* {launched} launch, error "
+              f"{err:.2e} ({gate}) {'ok' if ok else 'FAIL'}; at B* + 1 "
+              f"refused, {moved} launches: {msg[:60]}...; paper tiles "
+              f"(T_W {PAPER_TILES.t_w}, T_N {PAPER_TILES.t_n}, bf16) "
+              f"B = {paper:.0f}")
+        if launched != 1 or not ok or not refused:
+            fail(f"phase 22(c) {path}: B* = {bstar}, launches {launched}, "
+                 f"error {err} ({gate}), B* + 1 refused: {refused} "
+                 f"({moved} launches)")
+    record["phase22_boundary"] = rows
+
+
+def design_space_phase(record: dict) -> None:
+    """Phase 22: (a) traffic against time, (b) whether the model ranks the
+    tiles, (c) the Eq. 5 <-> on-chip boundary."""
+    import torch
+
+    from repro_torch.tune.cache import tile_cache_scope
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    print(f"  {smi()}")
+    with tile_cache_scope(None):        # the chooser's tiles, not a cache's
+        p22_traffic(record, gen)
+        p22_rank(record, gen)
+        p22_boundary(record, gen)
+    torch.cuda.empty_cache()
+    record["phase22_s"] = time.monotonic() - t0
+    print(f"  phase 22 in {record['phase22_s']:.1f} s (budget "
+          f"{P22_SECONDS} s, printed)")
+
+
 def main() -> int:
     try:
         import torch
@@ -7094,6 +7483,17 @@ def main() -> int:
         start_dryrun(DRYRUN_JOBS_ALONE)
         planning_phase(record, perturb_offsets(
             R.init_params(CONFIG_BOUNDED, seed=0, device="cuda"), 1))
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps(record, indent=2))
+        print(f"  details in {OUT.relative_to(ROOT)}; "
+              f"{time.monotonic() - t_start:.0f} s in all")
+        return 0
+
+    if sys.argv[1:] == ["--only", "22"]:
+        # A debugging run of phase 22 alone (after the build): no kernels
+        # line, no result.
+        print("== 22. the design-space layer (alone)")
+        design_space_phase(record)
         OUT.parent.mkdir(parents=True, exist_ok=True)
         OUT.write_text(json.dumps(record, indent=2))
         print(f"  details in {OUT.relative_to(ROOT)}; "
@@ -7583,6 +7983,11 @@ def main() -> int:
           "a split batch, the RG-LRU and RWKV-6 per shard, Adafactor on "
           "placed leaves, collective bytes")
     mesh_paths_phase(record)
+
+    print("== 22. the design-space layer: traffic of the kernels at their "
+          "tiles against time, the model's rank of the tiles, the Eq. 5 "
+          "bound at the shared-memory limit")
+    design_space_phase(record)
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

@@ -51,6 +51,7 @@ class DCLConfig:
     stride: int = 1
     dilation: int = 1
     offset_bound: float | None = None
+    use_bias: bool = True
     dtype: torch.dtype = torch.float32
 
     @property
@@ -65,6 +66,28 @@ class DCLConfig:
         if self.offset_bound is None:
             return None
         return receptive_field(self.kernel_size, self.offset_bound)
+
+
+def init_dcl_params(cfg: DCLConfig, *, seed: int = 0,
+                    device: str | torch.device | None = None
+                    ) -> dict[str, Tensor]:
+    """Seeded DCL params on ``device`` (default ``cuda``), as JAX's
+    ``init_dcl_params`` (``repro/core/deform_conv.py:95``) makes them: a
+    zero offset conv (the layer starts as a plain convolution), He-init
+    deform weights, and with ``use_bias`` zero biases.  The JAX function
+    takes a PRNG key; this one a seed."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    k, c, m = cfg.kernel_size, cfg.in_channels, cfg.out_channels
+    gen = torch.Generator().manual_seed(seed)
+    w_deform = torch.randn(k, k, c, m, generator=gen) \
+        * math.sqrt(2.0 / (k * k * c))
+    params = {"w_offset": torch.zeros(k, k, c, 2 * k * k),
+              "w_deform": w_deform}
+    if cfg.use_bias:
+        params["b_offset"] = torch.zeros(2 * k * k)
+        params["b_deform"] = torch.zeros(m)
+    return {name: t.to(dev) for name, t in params.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -192,6 +192,20 @@ def int8_work(n: int, h: int, w: int, c: int, m: int, *, kernel_size: int,
     return int8_floors(ops, nbytes, samples)
 
 
+def sample_work(n: int, h: int, w: int, c: int, *, kernel_size: int,
+                stride: int, dilation: int, itemsize: int = 4,
+                offset_itemsize: int | None = None) -> dict:
+    """Kernels 1b and 3 (sampling, no contraction): x and the offsets
+    read, the (N, Ho, Wo, K*K, C) patches written; ``SAMPLE_OPS`` fp32
+    operations a sample on the CUDA cores."""
+    ho, wo = out_hw(h, w, kernel_size=kernel_size, stride=stride,
+                    dilation=dilation)
+    k2, p = kernel_size * kernel_size, n * ho * wo
+    nbytes = itemsize * (n * h * w * c + p * k2 * c) \
+        + (offset_itemsize or itemsize) * p * 2 * k2
+    return rate_work(nbytes, SAMPLE_OPS * p * k2 * c, PEAK_FP32_FLOPS)
+
+
 def training_work(n: int, h: int, w: int, c: int, m: int, **kw) -> dict:
     """One training call of the bounded DCL: kernel 1a, then kernel 2 after
     it (their bounds add)."""

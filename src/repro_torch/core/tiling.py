@@ -17,7 +17,14 @@ The paper's own buffer algebra (Eqs. 4, 6 and 7: ``receptive_field``,
 ``input_buffer_size``, ``output_buffer_size``, ``weight_buffer_size``,
 with ``LayerShape``, ``TileConfig`` and the paper's ``PAPER_TILES``) is
 the JAX package's, unchanged: it describes the paper's FPGA design and
-is what ``core.perf_model`` reads.
+is what ``core.perf_model`` reads.  So are its Sec. 3.2 roofline terms
+(``tile_flops``, ``tile_hbm_bytes``, ``two_stage_extra_bytes``,
+``TileConfig.onchip_bytes``) and the Eq. 6 inverse
+(``max_offset_bound_fitting``), here at one block's shared memory; the
+design-space search (``tile_candidates``, ``evaluate_tile``,
+``choose_tiles``) runs them at the H100's peaks on a candidate ladder of
+this card's.  ``dcl_*_hbm_bytes`` count the bytes the port's kernels
+load and store at given tiles (the last section).
 """
 from __future__ import annotations
 
@@ -142,8 +149,60 @@ class TileConfig:
     t_n: int   # input-channel tile
     t_m: int   # output-channel tile
 
+    def onchip_bytes(self, rf: int, stride: int, kernel_size: int,
+                     *, bytes_per_elem: int = 4) -> int:
+        """On-chip working set of the tile (JAX's ``TileConfig.vmem_bytes``,
+        ``repro/core/tiling.py:98``): the Eq. 6 band of ``t_h`` rows, the
+        Eq. 7 output buffer, the weight tile and an fp32 accumulator."""
+        band_h = rf + stride * (self.t_h - 1)              # Eq. 6 row extent
+        inp = band_h * (stride * self.t_w + rf - stride) * self.t_n \
+            * bytes_per_elem
+        out = output_buffer_size(self.t_w * self.t_h, self.t_n, kernel_size,
+                                 bytes_per_elem=bytes_per_elem)
+        wgt = weight_buffer_size(kernel_size, self.t_n, self.t_m,
+                                 bytes_per_elem=bytes_per_elem)
+        acc = self.t_h * self.t_w * self.t_m * 4           # fp32 accumulator
+        return inp + out + wgt + acc
+
 
 PAPER_TILES = TileConfig(t_h=1, t_w=8, t_n=512, t_m=64)
+
+# Element widths of the datapaths the budgets below take by name.
+DTYPE_BYTES = {"int8": 1, "bf16": 2, "fp32": 4}
+
+
+def dtype_bytes(dtype) -> int:
+    """Bytes an element of a datapath takes (JAX's ``dtype_bytes``,
+    ``repro/core/tiling.py:50``): a name of ``DTYPE_BYTES``, a
+    ``torch.dtype`` or anything ``numpy.dtype`` reads."""
+    if dtype is None:
+        raise ValueError("dtype is None; pass 'int8' | 'bf16' | 'fp32'")
+    if isinstance(dtype, str) and dtype in DTYPE_BYTES:
+        return DTYPE_BYTES[dtype]
+    if isinstance(getattr(dtype, "itemsize", None), int):   # torch.dtype
+        return dtype.itemsize
+    import numpy as np
+    return int(np.dtype(dtype).itemsize)
+
+
+def max_offset_bound_fitting(kernel_size: int, stride: int, t_w: int,
+                             t_n: int, smem_budget: int = SMEM_PER_BLOCK,
+                             *, bytes_per_elem: int = 2) -> float:
+    """Eq. 6 inverted (JAX's ``max_offset_bound_fitting``,
+    ``repro/core/tiling.py:845``): the largest integer offset bound B whose
+    input tile (RF = K + 2B rows) still fits ``smem_budget`` bytes, by
+    default one thread block's shared memory on the H100.  This couples
+    the Eq. 5 bound a model trains with to the chip: 4 at the paper's
+    tiles (T_W 8, T_N 512) in bf16, 11 at T_N 128."""
+    b = 0
+    while True:
+        rf = receptive_field(kernel_size, b + 1)
+        if input_buffer_size(rf, stride, t_w, t_n,
+                             bytes_per_elem=bytes_per_elem) > smem_budget:
+            return float(b)
+        b += 1
+        if b > 4096:
+            return float(b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +219,137 @@ class LayerShape:
     @property
     def rf(self) -> int:
         return receptive_field(self.kernel_size, self.offset_bound)
+
+
+# ---------------------------------------------------------------------------
+# The paper's Sec. 3.2 design-space exploration at the H100's constants
+# ---------------------------------------------------------------------------
+
+def _ladder(top: int) -> list[int]:
+    """Channel tiles of the Sec. 3.2 search: 8, 16, 32, ... up to ``top``,
+    and ``top`` itself rounded down to a multiple of 8 (at least 8)."""
+    out, v = [], 8
+    while v < top:
+        out.append(v)
+        v *= 2
+    return sorted({*out, max(8, top // 8 * 8)})
+
+
+def tile_candidates(shape: LayerShape):
+    """The Sec. 3.2 search space on this card (JAX's ``tile_candidates``,
+    ``repro/core/tiling.py:138``, re-derived): ``t_h * t_w`` up to the
+    fused kernels' ``PIX_LANES[-1]`` pixels a block (powers of two), and
+    ``t_n``, ``t_m`` multiples of 8, the k and n of the tf32 ``mma.sync``
+    fragment, doubling from 8 up to the layer's C and M (``_ladder``)."""
+    pows = [1 << i for i in range(PIX_LANES[-1].bit_length())]
+    for t_h in pows:
+        for t_w in pows:
+            if t_h * t_w > PIX_LANES[-1]:
+                continue
+            for t_n in _ladder(shape.c_in):
+                for t_m in _ladder(shape.c_out):
+                    yield TileConfig(t_h, t_w, t_n, t_m)
+
+
+def tile_flops(shape: LayerShape, t: TileConfig) -> int:
+    """Twice the MACs of one tile's dynamic convolution plus its bilinear
+    stage (4 corners, a product and a sum each) — JAX's ``tile_flops``
+    (``repro/core/tiling.py:151``)."""
+    k2 = shape.kernel_size ** 2
+    conv = 2 * t.t_h * t.t_w * t.t_m * k2 * t.t_n
+    bilinear = t.t_h * t.t_w * k2 * t.t_n * 8
+    return conv + bilinear
+
+
+def tile_hbm_bytes(shape: LayerShape, t: TileConfig,
+                   *, bytes_per_elem: int = 2) -> int:
+    """Device-memory bytes of one tile of the fused dataflow: its input band
+    (with the halo), its weight tile and its output tile; the patches stay
+    on chip (JAX's ``tile_hbm_bytes``, ``repro/core/tiling.py:159``)."""
+    rf, s = shape.rf, shape.stride
+    band_h = rf + s * (t.t_h - 1)
+    inp = band_h * (s * t.t_w + rf - s) * t.t_n * bytes_per_elem
+    wgt = shape.kernel_size ** 2 * t.t_n * t.t_m * bytes_per_elem
+    out = t.t_h * t.t_w * t.t_m * bytes_per_elem
+    return inp + wgt + out
+
+
+def two_stage_extra_bytes(shape: LayerShape, t: TileConfig,
+                          *, bytes_per_elem: int = 2) -> int:
+    """The patches the paper's two-stage dataflow writes and reads back
+    (JAX's ``two_stage_extra_bytes``, ``repro/core/tiling.py:175``)."""
+    k2 = shape.kernel_size ** 2
+    return 2 * t.t_h * t.t_w * k2 * t.t_n * bytes_per_elem
+
+
+@dataclasses.dataclass(frozen=True)
+class TileChoice:
+    """One evaluated point of the search (JAX's ``TileChoice``,
+    ``repro/core/tiling.py:183``; ``onchip_bytes`` is its ``vmem_bytes``)."""
+    tile: TileConfig
+    ctc: float                 # compute-to-communication ratio (flop/byte)
+    attainable_flops: float    # min(peak, ctc * device-memory rate)
+    onchip_bytes: int
+
+    @property
+    def fits(self) -> bool:
+        return self.onchip_bytes <= SMEM_PER_BLOCK
+
+
+def evaluate_tile(shape: LayerShape, t: TileConfig, *, fused: bool = True,
+                  smem_budget: int = SMEM_PER_BLOCK) -> TileChoice:
+    """The roofline of one tile (JAX's ``evaluate_tile``,
+    ``repro/core/tiling.py:194``) at the H100's bf16 peak and memory rate
+    (``core.h100``): ``attainable = min(PEAK_BF16_FLOPS, ctc *
+    PEAK_HBM_BYTES_PER_S)``, ``fused=False`` adding the two-stage
+    dataflow's patch round trip to the bytes; the working set at bf16.
+    ``smem_budget`` is taken for JAX's signature (the caller filters)."""
+    from repro_torch.core.h100 import PEAK_BF16_FLOPS, PEAK_HBM_BYTES_PER_S
+    del smem_budget
+    flops = tile_flops(shape, t)
+    traffic = tile_hbm_bytes(shape, t)
+    if not fused:
+        traffic += two_stage_extra_bytes(shape, t)
+    ctc = flops / max(traffic, 1)
+    return TileChoice(tile=t, ctc=ctc,
+                      attainable_flops=min(PEAK_BF16_FLOPS,
+                                           ctc * PEAK_HBM_BYTES_PER_S),
+                      onchip_bytes=t.onchip_bytes(shape.rf, shape.stride,
+                                                  shape.kernel_size,
+                                                  bytes_per_elem=2))
+
+
+def choose_tiles(shape: LayerShape, *, fused: bool = True,
+                 smem_budget: int = SMEM_PER_BLOCK) -> TileChoice:
+    """The paper's Sec. 3.2 methodology on the H100 (JAX's
+    ``choose_tiles``, ``repro/core/tiling.py:208``): among the candidates
+    whose working set fits ``smem_budget`` (one block's shared memory),
+    the one of highest attainable performance, then highest CTC.
+
+    On the five DCL shapes of ``resnet50_dcn_bounded`` at the 512 bucket
+    (B = 2, RF 7; 64² x 128, 64² x 256 stride 2, 32² x 256, 32² x 512
+    stride 2, 16² x 512) it picks T_H x T_W = 8 x 8, T_N = 32, T_M = 128
+    on every one: CTC 47.4 flop/B at stride 1 and 41.1 at stride 2,
+    attainable 158.8 and 137.8 TFLOP/s, working sets of 192,768 and
+    208,448 bytes (the two-stage dataflow: CTC 27.6-32.0).  The card's
+    ridge is 989e12 / 3.35e12 = 295 flop/B, so every such layer sits far
+    below it: the budget forbids the wide channel tiles that would
+    amortise a 64-pixel tile's halo and weights (the paper's own point,
+    T_N 512, needs 839,680-889,856 bytes at CTC 6.8-7.3)."""
+    best: TileChoice | None = None
+    for t in tile_candidates(shape):
+        c = evaluate_tile(shape, t, fused=fused, smem_budget=smem_budget)
+        if c.onchip_bytes > smem_budget:
+            continue
+        if best is None or (c.attainable_flops, c.ctc) > \
+                (best.attainable_flops, best.ctc):
+            best = c
+    if best is None:
+        raise ValueError(
+            f"no tile configuration fits the shared-memory budget "
+            f"{smem_budget} for {shape}; receptive field {shape.rf} too "
+            f"large — train with a larger lambda")
+    return best
 
 
 def pix_lanes(tile_h: int, tile_w: int) -> int:
@@ -816,3 +1006,379 @@ def neighbor_kernel_tiles(n: int, h: int, w: int, c: int, m: int,
                     if kt not in out and tiles_fit(th, tw, tc, tm, **geom):
                         out.append(kt)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Device-memory traffic of the port's DCL kernels at their tiles
+# ---------------------------------------------------------------------------
+#
+# The counterparts of JAX's ``dcl_*_hbm_bytes`` (``repro/core/tiling.py``
+# :249-618, its TPU traffic model).  Each counts the global-memory bytes
+# that one call's launches load and store, as the CUDA code performs them,
+# walking the grid its wrapper builds: per block the offsets it reads,
+# per C chunk the band chunk and weight chunk it stages, its outputs (or
+# its C group's fp32/int32 partials), and the reductions that add them.
+# Loads of a block's halo and weight chunk that its neighbours load too
+# are counted each time: on the H100 most of them hit the 50 MB L2, so
+# these bytes sit between ``core.h100``'s floor (each input read once,
+# each output written once; always at most this count) and the card's
+# real HBM traffic.  The zero-padding of x (``plan.pad_zerocopy``, one
+# ``F.pad`` in either dataflow) is not counted.
+
+@dataclasses.dataclass(frozen=True)
+class _Grid:
+    """The grid of one call as its wrapper builds it: the image count, the
+    output rows and columns the kernel computes, the tiles (spatial tiles
+    clamped as the dispatch path clamps them), the Eq. 6 band, and the
+    source plane's width and total rows (``x_pad``; a band's for the
+    banded dataflow)."""
+    n: int
+    ho: int
+    wo: int
+    th: int
+    tw: int
+    tc: int
+    tm: int
+    band_h: int
+    band_w: int
+    src_w: int
+    src_rows: int          # rows of all source planes of one image
+    stride: int
+
+    @property
+    def h_tiles(self) -> int:
+        return -(-self.ho // self.th)
+
+    @property
+    def w_tiles(self) -> int:
+        return -(-self.wo // self.tw)
+
+    @property
+    def tiles(self) -> int:
+        return self.n * self.h_tiles * self.w_tiles
+
+    @property
+    def pixels(self) -> int:
+        return self.n * self.ho * self.wo
+
+    @property
+    def cols(self) -> int:
+        """Band columns inside the source plane, over the column tiles
+        (the kernels read no column past it)."""
+        return sum(max(0, min(self.band_w,
+                              self.src_w - wt * self.tw * self.stride))
+                   for wt in range(self.w_tiles))
+
+
+def _grid(shape: LayerShape, kt: KernelTiles, *, batch: int, dilation: int,
+          banded: bool = False) -> _Grid:
+    """``_Grid`` of one zero-copy call (``plan.pad_zerocopy``'s plane) or
+    one banded call (``plan.pad_and_band``'s bands of ``tile_h`` rows; the
+    offsets padded to whole row tiles)."""
+    k, s = shape.kernel_size, shape.stride
+    geom = dict(kernel_size=k, stride=s, dilation=dilation,
+                offset_bound=shape.offset_bound)
+    ho, wo = out_hw(shape.h, shape.w, kernel_size=k, stride=s,
+                    dilation=dilation)
+    p0 = dilation * (k // 2) + int(math.ceil(float(shape.offset_bound)))
+    tw = min(kt.tile_w, wo)
+    if banded:
+        th = kt.tile_h
+        nt = -(-ho // th)
+        band_h = band_extent(th, **geom)
+        return _Grid(batch, nt * th, wo, th, tw, kt.tile_c, kt.tile_m,
+                     band_h, band_extent(tw, **geom), shape.w + 2 * p0 + 1,
+                     nt * band_h, s)
+    th = min(kt.tile_h, ho)
+    band_h, band_w = band_extent(th, **geom), band_extent(tw, **geom)
+    # plan.pad_zerocopy: p0 on the top/left, to the last band on the
+    # bottom/right.
+    rows = p0 + shape.h + max(0, (-(-ho // th) - 1) * th * s + band_h
+                              - p0 - shape.h)
+    cols = p0 + shape.w + max(0, (-(-wo // tw) - 1) * tw * s + band_w
+                              - p0 - shape.w)
+    return _Grid(batch, ho, wo, th, tw, kt.tile_c, kt.tile_m, band_h,
+                 band_w, cols, rows, s)
+
+
+def _band_reads(g: _Grid, c: int, e: int, m_tiles: int) -> int:
+    """The band chunks a kernel stages: one Eq. 6 window of its source per
+    (tile, M tile, C chunk)."""
+    return g.n * g.h_tiles * m_tiles * g.cols * g.band_h * c * e
+
+
+def _band_gather_bytes(g: _Grid, c: int, e: int) -> int:
+    """``plan.pad_and_band``'s gather: the band rows it reads from the
+    padded plane and the bands it writes."""
+    return 2 * g.n * g.src_rows * g.src_w * c * e
+
+
+def _fwd_bytes(g: _Grid, c: int, m: int, k2: int, e: int, oe: int) -> int:
+    """Kernels 1a and 4 (``dcf_kernel``, ``dcf_reduce_kernel``) at element
+    size ``e`` and offsets of ``oe``: grid (tiles x M tiles x C groups,
+    ``fwd_c_groups``)."""
+    m_tiles = -(-m // g.tm)
+    groups = fwd_c_groups(g.n, g.ho, g.wo, c, m, tile_h=g.th, tile_w=g.tw,
+                          tile_c=g.tc, tile_m=g.tm)
+    band = _band_reads(g, c, e, m_tiles)
+    wgt = g.tiles * k2 * c * m * e
+    offs = g.pixels * 2 * k2 * oe * m_tiles * groups
+    if groups == 1:
+        return band + wgt + offs + g.pixels * m * e
+    # Each group's fp32 partial, then the reduction reads them all.
+    return band + wgt + offs + g.pixels * m * (4 * groups + 4 * groups + e)
+
+
+def _q_bytes(g: _Grid, c: int, m: int, k2: int, *, chain: bool,
+             out_b: int) -> int:
+    """Kernels 1c and 1d (``deform_conv_q.cu``): the weights made
+    chunk-major (``dqt_kernel``), the chain's offset conv (``dco_kernel``,
+    its C groups ``q_off_groups``, summed by atomics into zeroed int32
+    sums), the main body (grid as 1a's, C groups at ``Q_GROUP_LEAST``;
+    fp32 offsets, or the int32 sums with their scale and bias, per tap and
+    pixel) and its epilogue (scale, and the chain's bias, per output) or
+    the reduction of its int32 partials."""
+    m_tiles = -(-m // g.tm)
+    groups = fwd_c_groups(g.n, g.ho, g.wo, c, m, tile_h=g.th, tile_w=g.tw,
+                          tile_c=g.tc, tile_m=g.tm, least=Q_GROUP_LEAST)
+    n_off = 2 * k2
+    total = 2 * k2 * c * (m + (n_off if chain else 0))          # dqt
+    if chain:
+        og = q_off_groups(g.n, g.ho, g.wo, c, tile_h=g.th, tile_w=g.tw,
+                          tile_c=g.tc)
+        total += _band_reads(g, c, 1, 1) + g.tiles * n_off * k2 * c
+        total += g.pixels * n_off * 4 * (1 if og == 1 else 1 + 2 * og)
+    total += _band_reads(g, c, 1, m_tiles) + g.tiles * k2 * c * m
+    total += g.pixels * k2 * (24 if chain else 8) * m_tiles * groups
+    epi = 8 if chain else 4
+    if groups == 1:
+        return total + g.pixels * m * (epi + out_b)
+    return total + g.pixels * m * (4 * groups + 4 * groups + epi + out_b)
+
+
+def _bwd_bytes(g: _Grid, c: int, m: int, k: int, e: int, oe: int) -> int:
+    """Kernel 2 (``deform_conv_bwd.cu``): the zeroed fp32 d_input, the
+    d_input / d_offsets kernel (grid tiles x ``bwd_c_groups``; per chunk
+    the band, W and g, and one fp32 atomic a band position and channel —
+    counted at the most, every position; group 0 writes the corner
+    geometry), the d_offsets reduction of the C groups' partials, the
+    d_weights kernel (C chunks x ``BWD_DW_ROWS`` row blocks x
+    ``BWD_DW_COLS`` channel blocks x ``bwd_dw_splits``; per tile the band,
+    g, and the geometry) and its reduction, and bf16's rounding of d_input
+    from its fp32 workspace."""
+    k2, pix = k * k, pix_lanes(g.th, g.tw)
+    groups = bwd_c_groups(g.n, g.ho, g.wo, c, tile_h=g.th, tile_w=g.tw,
+                          tile_c=g.tc)
+    chunks, row_blocks, col_blocks = bwd_dw_grid(c, m, kernel_size=k,
+                                                 tile_c=g.tc)
+    splits = bwd_dw_splits(g.n, g.ho, g.wo, c, m, kernel_size=k,
+                           tile_h=g.th, tile_w=g.tw, tile_c=g.tc)
+    npos = g.band_h * g.band_w
+    dx_count = g.n * g.src_rows * g.src_w * c
+    total = 4 * dx_count                                        # memset
+    # d_input / d_offsets.
+    total += g.pixels * 2 * k2 * oe * groups
+    total += g.tiles * 3 * k2 * pix * 4
+    total += g.tiles * (k2 * c * m + npos * c) * e + g.pixels * m * e * \
+        (c // g.tc) + g.tiles * npos * c * 8
+    if groups == 1:
+        total += g.pixels * 2 * k2 * 2 * oe
+    else:
+        total += g.pixels * 2 * k2 * (4 * groups + 4 * groups + 2 * oe)
+    # d_weights.
+    kk = k2 * g.tc
+    rstep = 4 if g.tc % 4 == 0 else 1
+    live = sum(-(-min(BWD_DW_ROWS, kk - r0) // rstep)
+               for r0 in range(0, kk, BWD_DW_ROWS))
+    g_cols = sum(min(BWD_DW_COLS, m - m0) for m0 in range(0, m, BWD_DW_COLS))
+    total += chunks * row_blocks * col_blocks * g.tiles * npos * g.tc * e
+    total += chunks * row_blocks * g.pixels * g_cols * e
+    total += chunks * col_blocks * live * (g.tiles * pix * 4 + g.pixels * 8)
+    total += splits * k2 * c * m * 4
+    if splits > 1:
+        total += k2 * c * m * (4 * splits + 4)
+    if e == 2:
+        total += dx_count * (4 + 2)
+    return total
+
+
+def _sample_bytes(g: _Grid, c: int, k2: int, e: int, oe: int) -> int:
+    """Kernels 1b and 3 (``ds_kernel``): grid tiles x ``sample_c_groups``;
+    per block the offsets, per chunk the band chunk's columns inside the
+    source plane, and the patches written."""
+    groups = sample_c_groups(g.n, g.ho, g.wo, c, tile_h=g.th, tile_w=g.tw,
+                             tile_c=g.tc)
+    return (g.pixels * 2 * k2 * oe * groups
+            + g.n * g.h_tiles * g.cols * g.band_h * c * e
+            + g.pixels * k2 * c * e)
+
+
+def _check_dataflow(dataflow: str) -> bool:
+    """True for the banded (``"materialized_band"``) dataflow."""
+    if dataflow not in ("zero_copy", "materialized_band"):
+        raise ValueError(f"unknown dataflow {dataflow!r}")
+    return dataflow == "materialized_band"
+
+
+def dcl_dataflow_hbm_bytes(shape: LayerShape, t, *,
+                           dataflow: str = "zero_copy", batch: int = 1,
+                           dilation: int = 1,
+                           bytes_per_elem: int = 4) -> int:
+    """The input dataflow's bytes of one DCL call (JAX's
+    ``dcl_dataflow_hbm_bytes``, ``repro/core/tiling.py:249``).
+
+    ``"zero_copy"``: the band chunks kernel 1a (or, at 1 byte an element,
+    1c) stages, one Eq. 6 window of ``x_pad`` per (tile, M tile, C
+    chunk).  ``"materialized_band"``: ``plan.pad_and_band``'s gather (the
+    rows it reads, the overlapping bands it writes) and kernel 4's reads
+    of those bands, one window of a band per (band tile, column tile, M
+    tile, C chunk)."""
+    banded = _check_dataflow(dataflow)
+    g = _grid(shape, t, batch=batch, dilation=dilation, banded=banded)
+    e, c = bytes_per_elem, shape.c_in
+    return _band_reads(g, c, e, -(-shape.c_out // g.tm)) \
+        + (_band_gather_bytes(g, c, e) if banded else 0)
+
+
+def dcl_total_hbm_bytes(shape: LayerShape, t, *,
+                        dataflow: str = "zero_copy", batch: int = 1,
+                        dilation: int = 1, bytes_per_elem: int = 4,
+                        offset_bytes_per_elem: int | None = None,
+                        out_bytes_per_elem: int | None = None,
+                        fused_offsets: bool = False) -> int:
+    """Every byte one DCL forward call's launches move (JAX's
+    ``dcl_total_hbm_bytes``, ``repro/core/tiling.py:293``).
+
+    ``bytes_per_elem`` 4 or 2: kernel 1a (``"zero_copy"``) or
+    ``pad_and_band`` and kernel 4 (``"materialized_band"``) in fp32 or
+    bf16, offsets of ``offset_bytes_per_elem`` (default the same), the
+    output in the input's dtype.  ``bytes_per_elem`` 1: the int8 kernels
+    (zero-copy only): 1c (fp32 offsets, fp32 output) or, with
+    ``fused_offsets``, 1d, whose offsets come from its own offset conv and
+    whose output is int8 (``out_bytes_per_elem`` 1, the default) or fp32
+    (4, a chain's tail)."""
+    banded = _check_dataflow(dataflow)
+    k2, c, m = shape.kernel_size ** 2, shape.c_in, shape.c_out
+    g = _grid(shape, t, batch=batch, dilation=dilation, banded=banded)
+    if bytes_per_elem == 1:
+        if banded:
+            raise ValueError("the int8 kernels read the zero-copy plane only")
+        return _q_bytes(g, c, m, k2, chain=fused_offsets,
+                        out_b=(out_bytes_per_elem or 1) if fused_offsets
+                        else 4)
+    if fused_offsets:
+        raise ValueError("only the int8 chain (bytes_per_elem=1) fuses the "
+                         "offset conv")
+    return _fwd_bytes(g, c, m, k2, bytes_per_elem,
+                      offset_bytes_per_elem or bytes_per_elem) \
+        + (_band_gather_bytes(g, c, bytes_per_elem) if banded else 0)
+
+
+def dcl_chain_hbm_bytes(shape: LayerShape, t, *, layers: int = 2,
+                        batch: int = 1, dilation: int = 1,
+                        chained: bool = True) -> int:
+    """The kernels' bytes of ``layers`` int8 DCLs back to back (JAX's
+    ``dcl_chain_hbm_bytes``, ``repro/core/tiling.py:338``; C_in must equal
+    C_out).  ``chained``: kernel 1d a layer, emitting int8 into the next
+    layer and fp32 at the tail.  ``chained=False``: kernel 1c a layer (fp32
+    offsets in, fp32 out).  The quantize passes and the per-layer path's
+    offset conv run as PyTorch operations outside these kernels and are
+    not counted."""
+    if shape.c_in != shape.c_out:
+        raise ValueError(
+            f"chained layers hand the tensor over verbatim, so C_in "
+            f"must equal C_out (got {shape.c_in} != {shape.c_out})")
+    kw = dict(batch=batch, dilation=dilation, bytes_per_elem=1)
+    if not chained:
+        return layers * dcl_total_hbm_bytes(shape, t, **kw)
+    return (layers - 1) * dcl_total_hbm_bytes(shape, t, fused_offsets=True,
+                                              **kw) \
+        + dcl_total_hbm_bytes(shape, t, fused_offsets=True,
+                              out_bytes_per_elem=4, **kw)
+
+
+def spatial_halo_bytes(shape: LayerShape, *, shards: int,
+                       dilation: int = 1, bytes_per_elem: int = 4) -> int:
+    """Bytes a device receives in one height-sharded DCL's halo exchange
+    (JAX's ``spatial_halo_bytes``, ``repro/core/tiling.py:436``):
+    ``2 * halo_rows * W * C`` (``distributed.spatial.exchange_halo``; an
+    edge shard's missing halo is zeros made in place), 0 at one shard."""
+    if shards < 1:
+        raise ValueError(f"shards={shards} must be >= 1")
+    if shards == 1:
+        return 0
+    halo = spatial_halo_rows(kernel_size=shape.kernel_size,
+                             dilation=dilation,
+                             offset_bound=shape.offset_bound)
+    return 2 * halo * shape.w * shape.c_in * bytes_per_elem
+
+
+def dcl_spatial_hbm_bytes(shape: LayerShape, t, *, shards: int,
+                          dataflow: str = "zero_copy", batch: int = 1,
+                          dilation: int = 1, bytes_per_elem: int = 4) -> int:
+    """One device's bytes of a height-sharded DCL call (JAX's
+    ``dcl_spatial_hbm_bytes``, ``repro/core/tiling.py:452``): its shard's
+    call (``H / shards`` rows through ``dcl_total_hbm_bytes``) and the halo
+    rows it receives (``spatial_halo_bytes``).  ``shape`` is the whole
+    layer; ``H % (stride * shards)`` must be 0."""
+    if shards < 1:
+        raise ValueError(f"shards={shards} must be >= 1")
+    if shape.h % (shape.stride * shards) != 0:
+        raise ValueError(
+            f"shards={shards} does not evenly divide H={shape.h} at "
+            f"stride={shape.stride}; a height shard needs equal row blocks "
+            f"(H % (stride*shards) == 0)")
+    local = dataclasses.replace(shape, h=shape.h // shards)
+    return (dcl_total_hbm_bytes(local, t, dataflow=dataflow, batch=batch,
+                                dilation=dilation,
+                                bytes_per_elem=bytes_per_elem)
+            + spatial_halo_bytes(shape, shards=shards, dilation=dilation,
+                                 bytes_per_elem=bytes_per_elem))
+
+
+def dcl_backward_hbm_bytes(shape: LayerShape, t, *,
+                           dataflow: str = "zero_copy", batch: int = 1,
+                           dilation: int = 1, bytes_per_elem: int = 4,
+                           offset_bytes_per_elem: int | None = None) -> int:
+    """Every byte kernel 2's launches move in one DCL backward call (JAX's
+    ``dcl_backward_hbm_bytes``, ``repro/core/tiling.py:477``, without its
+    ``cores``), fp32 or bf16 (``bytes_per_elem``).  Both dataflows run the
+    zero-copy backward (``plan.bounded_backward``), so ``dataflow`` only
+    checks its name.  d_input's atomics are counted as a read and a write
+    of every band position and channel a chunk; a position no corner
+    reaches adds nothing, so that term is the most the data can ask."""
+    _check_dataflow(dataflow)
+    g = _grid(shape, t, batch=batch, dilation=dilation)
+    return _bwd_bytes(g, shape.c_in, shape.c_out, shape.kernel_size,
+                      bytes_per_elem,
+                      offset_bytes_per_elem or bytes_per_elem)
+
+
+def dcl_train_hbm_bytes(shape: LayerShape, t, *,
+                        dataflow: str = "zero_copy", batch: int = 1,
+                        dilation: int = 1, bytes_per_elem: int = 4,
+                        bwd_tiles=None) -> int:
+    """One training call's bytes: the forward (``dcl_total_hbm_bytes`` at
+    ``t``) and kernel 2 at ``bwd_tiles`` (default ``t``; the port resolves
+    the backward's own tiles, ``"fp32_bwd"``) — JAX's
+    ``dcl_train_hbm_bytes`` (``repro/core/tiling.py:602``)."""
+    kw = dict(dataflow=dataflow, batch=batch, dilation=dilation,
+              bytes_per_elem=bytes_per_elem)
+    return (dcl_total_hbm_bytes(shape, t, **kw)
+            + dcl_backward_hbm_bytes(shape, t if bwd_tiles is None
+                                     else bwd_tiles, **kw))
+
+
+def dcl_sample_hbm_bytes(shape: LayerShape, t, *,
+                         dataflow: str = "zero_copy", batch: int = 1,
+                         dilation: int = 1, bytes_per_elem: int = 4,
+                         offset_bytes_per_elem: int | None = None) -> int:
+    """Every byte one sampling call moves: kernel 1b (``"zero_copy"``) or
+    ``pad_and_band`` and kernel 3 (``"materialized_band"``); ``t``'s
+    ``tile_m`` is unused.  The JAX package has no such model."""
+    banded = _check_dataflow(dataflow)
+    g = _grid(shape, t, batch=batch, dilation=dilation, banded=banded)
+    e = bytes_per_elem
+    return _sample_bytes(g, shape.c_in, shape.kernel_size ** 2, e,
+                         offset_bytes_per_elem or e) \
+        + (_band_gather_bytes(g, shape.c_in, e) if banded else 0)

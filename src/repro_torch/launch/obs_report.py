@@ -12,8 +12,10 @@
   gauges and the histograms' p50/p99 per label set;
 * ``--divergence``: a ``DivergenceTracker.report``, bare or under
   ``"divergence"`` of a telemetry file: per dispatch key its count,
-  best time and clock, modeled bytes, the H100 bound and the share of it
-  reached (in place of the TPU traffic model's implied bandwidth), what
+  best time and clock, modeled bytes (each input once), the bytes its
+  launches move at its tiles (``traffic_MB``), the H100 bound and the
+  share of it reached (in place of the TPU traffic model's implied
+  bandwidth), what
   each clock measures (``device``: the CUDA stream's time between the
   dispatch's events, host enqueue gaps included), then any named ratio
   pairs.
@@ -128,19 +130,22 @@ _CLOCKS = {
 
 
 def summarize_divergence(report: dict) -> list[str]:
-    """Per dispatch key: count, best ms (and its clock), modeled MB, the
-    H100 bound and the share of it reached; then the ratio pairs."""
+    """Per dispatch key: count, best ms (and its clock), the bound's MB
+    (each input read once), the MB its launches move at its tiles
+    (``traffic_MB``), the H100 bound and the share of it reached; then the
+    ratio pairs."""
     rows: list[str] = []
     disp = report.get("dispatches", [])
     if disp:
         rows.append(f"{'dispatch key':<52}{'n':>5}{'best_ms':>10}"
-                    f"{'clock':>8}{'modeled_MB':>12}{'bound_ms':>10}"
-                    f"{'share':>8}  bound by")
+                    f"{'clock':>8}{'modeled_MB':>12}{'traffic_MB':>12}"
+                    f"{'bound_ms':>10}{'share':>8}  bound by")
         for d in disp:
             rows.append(
                 f"{d['key']:<52}{d['n']:>5}{d['best_s'] * 1e3:>10.4f}"
                 f"{d.get('clock', '-'):>8}"
                 f"{_num(d.get('modeled_bytes'), 1e-6):>12.3f}"
+                f"{_num(d.get('traffic_bytes'), 1e-6):>12.3f}"
                 f"{_num(d.get('bound_s'), 1e3):>10.4f}"
                 f"{_num(d.get('share')):>8.1%}  "
                 f"{d.get('bound_by') or '-'}")

@@ -5,9 +5,13 @@
   context: its tiles (as the dispatcher resolves them, counting no
   resolution), the bytes and operations of the kernel it runs and the
   least time the card could take for them (``core.h100``, the bounds of
-  ``PERF.md`` section 6) — not JAX's TPU traffic model.
+  ``PERF.md`` section 6), and the bytes its launches load and store at
+  those tiles (``core.tiling``'s traffic model, which counts what
+  neighbouring blocks re-read: JAX's ``modeled_dispatch_bytes`` at the
+  resolved tiles).
 * ``DivergenceTracker`` aggregates measured seconds per
-  ``DispatchKey``; each report row carries ``share = bound_s / best_s``,
+  ``DispatchKey``; each report row carries ``traffic_bytes`` beside the
+  bound's ``modeled_bytes`` and ``share = bound_s / best_s``,
   the share of the bound the best dispatch reached (at most 1 on the
   card: no dispatch beats it), and the named ratio pairs of
   ``record_pair``.
@@ -85,11 +89,13 @@ def key_from_context(context: dict) -> DispatchKey | None:
 
 
 def price_dispatch(context: dict) -> dict | None:
-    """``{"tiles", "bytes", "ops", "bound_s", "bound_by"}`` of the dispatch
-    an ``ops`` hook context describes (``context["objective"] ==
-    "training"``: its forward and backward kernels, 1a then 2).  None
-    when the context cannot be priced: observability never raises into
-    the dispatch path."""
+    """``{"tiles", "bytes", "ops", "bound_s", "bound_by",
+    "traffic_bytes"}`` of the dispatch an ``ops`` hook context describes
+    (``context["objective"] == "training"``: its forward and backward
+    kernels, 1a then 2): the bound's work, and the bytes its launches
+    load and store at its tiles (``_traffic_bytes``; at least the work's
+    ``bytes``).  None when the context cannot be priced: observability
+    never raises into the dispatch path."""
     try:
         import torch
 
@@ -140,12 +146,55 @@ def price_dispatch(context: dict) -> dict | None:
                 work = h100.training_work(n, h, w, c, key.m, **geom, **sizes)
             else:
                 work = h100.forward_work(n, h, w, c, key.m, **geom, **sizes)
+        traffic = _traffic_bytes(context, key, datapath, tiles,
+                                 n=n, h=h, w=w, c=c, training=training)
         if nb * ns > 1:
             work = h100.total([(work, nb * ns)])
-        return dict(work, tiles=list(tiles))
+        return dict(work, tiles=list(tiles), traffic_bytes=traffic)
     except Exception:  # noqa: BLE001 — a pricing failure is not a fault
         _log.debug("cannot price dispatch %r", context, exc_info=True)
         return None
+
+
+def _traffic_bytes(context: dict, key: DispatchKey, datapath: str,
+                   tiles, *, n: int, h: int, w: int, c: int,
+                   training: bool) -> int:
+    """The bytes the dispatch's kernel launches load and store at its
+    tiles (``core.tiling``'s traffic model): every shard's call, and on a
+    height split each shard's received halo rows."""
+    from repro_torch.core import tiling as T
+    nb, ns = key.shards[:2]
+    geom = dict(kernel_size=context.get("kernel_size", 3), stride=key.stride,
+                offset_bound=context["offset_bound"])
+    shape = T.LayerShape(h=h, w=w, c_in=c, c_out=key.m, **geom)
+    kt = T.KernelTiles(*tiles)
+    itemsize = 1 if key.quant != "none" else context.get("itemsize", 4)
+    kw = dict(batch=n, dilation=context.get("dilation", 1),
+              bytes_per_elem=itemsize)
+    if key.quant == "int8_chain":
+        one = T.dcl_total_hbm_bytes(
+            shape, kt, fused_offsets=True,
+            out_bytes_per_elem=1 if context.get("emit") == "int8" else 4,
+            **kw)
+    elif training:
+        # The forward runs at its own tiles, the backward at ``tiles``.
+        from repro_torch.kernels.plan import resolve_tiles_and_source
+        fwd, _ = resolve_tiles_and_source(
+            n, h, w, c, key.m, dilation=kw["dilation"], dtype="fp32",
+            itemsize=itemsize, device=context.get("device", "cpu"),
+            count=False, **geom)
+        one = T.dcl_train_hbm_bytes(shape, T.KernelTiles(*fwd),
+                                    bwd_tiles=kt, **kw)
+    else:
+        one = T.dcl_total_hbm_bytes(
+            shape, kt, offset_bytes_per_elem=None if key.quant != "none"
+            else context.get("offset_itemsize"),
+            dataflow="materialized_band" if datapath == "banded"
+            else "zero_copy", **kw)
+    halo = T.spatial_halo_bytes(
+        dataclasses.replace(shape, h=h * ns), shards=ns,
+        dilation=kw["dilation"], bytes_per_elem=itemsize)
+    return nb * ns * (one + halo)
 
 
 def modeled_dispatch_bytes(context: dict) -> int | None:
@@ -228,6 +277,7 @@ class DivergenceTracker:
                 "quant": key.quant, "n": a["n"],
                 "clock": a["clock"], "tiles": price.get("tiles"),
                 "modeled_bytes": nbytes, "modeled_ops": price.get("ops"),
+                "traffic_bytes": price.get("traffic_bytes"),
                 "bound_s": bound, "bound_by": price.get("bound_by"),
                 "best_s": best, "mean_s": a["sum_s"] / a["n"],
                 "share": bound / best if bound and best > 0 else None,

@@ -58,16 +58,35 @@ def measure_best_of(fn, args, *, context: dict, reps: int = 3) -> float:
     return min(r["best_s"] for r in tracker.report()["dispatches"])
 
 
-def _cap_candidates(cands: list, max_candidates: int | None) -> list:
-    """The seed and an even-stride sample of the rest, ordered by pixels a
-    block, then tile_c, then tile_m."""
+def _traffic_key(shape, kt, *, batch: int, dilation: int, objective: str,
+                 dtype: str | None, fwd_tiles=None) -> int:
+    """The bytes one candidate's launches move (``core.tiling``'s traffic
+    model; JAX's ``_traffic_key``): ``"training"`` the forward at
+    ``fwd_tiles`` and kernel 2 at the candidate, else the forward datapath
+    the tuner times (1a; 1c; 1d emitting fp32)."""
+    from repro_torch.core.tiling import (dcl_total_hbm_bytes,
+                                         dcl_train_hbm_bytes)
+    kw = dict(batch=batch, dilation=dilation)
+    if objective == "training":
+        return dcl_train_hbm_bytes(shape, fwd_tiles, bwd_tiles=kt, **kw)
+    if dtype in ("int8", "int8_chain"):
+        return dcl_total_hbm_bytes(shape, kt, bytes_per_elem=1,
+                                   fused_offsets=dtype == "int8_chain",
+                                   out_bytes_per_elem=4, **kw)
+    return dcl_total_hbm_bytes(shape, kt, **kw)
+
+
+def _cap_candidates(cands: list, max_candidates: int | None,
+                    traffic) -> list:
+    """The seed and an even-stride sample of the rest ordered by
+    ``traffic`` (a candidate's modeled bytes; JAX's ``_cap_candidates``):
+    the sample spans the model's range, and measurement decides."""
     if max_candidates is None or len(cands) <= max_candidates:
         return cands
     k = max(0, int(max_candidates) - 1)
     if k == 0:
         return cands[:1]
-    rest = sorted(cands[1:], key=lambda t: (t.tile_h * t.tile_w, t.tile_c,
-                                            t.tile_m, t.tile_h))
+    rest = sorted(cands[1:], key=traffic)
     idxs = sorted({round(i * (len(rest) - 1) / max(k - 1, 1))
                    for i in range(k)})
     return [cands[0]] + [rest[i] for i in idxs]
@@ -82,7 +101,7 @@ def _tune_single(*, h: int, w: int, c: int, m: int, batch: int = 1,
                  device: str | torch.device | None = None) -> dict:
     """Tune one (shape, objective, datapath): the body of
     ``tune_deform_conv``."""
-    from repro_torch.core.tiling import (choose_kernel_tiles,
+    from repro_torch.core.tiling import (LayerShape, choose_kernel_tiles,
                                          neighbor_kernel_tiles, out_hw)
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
@@ -145,9 +164,16 @@ def _tune_single(*, h: int, w: int, c: int, m: int, batch: int = 1,
                     **geom)
 
     seed = choose_kernel_tiles(batch, h, w, c, m, dtype=chooser, **geom)
+    shape = LayerShape(h=h, w=w, c_in=c, c_out=m, kernel_size=kernel_size,
+                       stride=stride, offset_bound=offset_bound)
+    fwd = choose_kernel_tiles(batch, h, w, c, m, dtype="fp32", **geom) \
+        if objective == "training" else None
     cands = _cap_candidates(
         neighbor_kernel_tiles(batch, h, w, c, m, seed, dtype=chooser,
-                              **geom), max_candidates)
+                              **geom), max_candidates,
+        lambda kt: _traffic_key(shape, kt, batch=batch, dilation=dilation,
+                                objective=objective, dtype=dtype,
+                                fwd_tiles=fwd))
     best, analytic_us, measured, failed = None, None, 0, []
     with tile_cache_scope(None):        # the baseline stays analytic
         for kt in cands:

@@ -221,3 +221,34 @@ def test_smem_bytes_formula():
     with pytest.raises(ValueError):
         TT.pix_lanes(9, 8)
     assert math.ceil(2.0) == TB.BandSpec(3, 1, 1, 2.0, 8, 8).halo
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_init_dcl_params_and_use_bias_match_jax(use_bias):
+    """The port's ``init_dcl_params`` (a seed where JAX takes a key) makes
+    JAX's params: the same names and shapes, zero offset conv and biases
+    (none without ``use_bias``), He-init deform weights; and the same
+    params, an offset conv added, give the same layer in both packages."""
+    import jax
+    kw = dict(in_channels=16, out_channels=24, kernel_size=3,
+              offset_bound=2.0, use_bias=use_bias)
+    jp = JD.init_dcl_params(jax.random.PRNGKey(0), JD.DCLConfig(**kw))
+    tp = TD.init_dcl_params(TD.DCLConfig(**kw), seed=0, device="cpu")
+    assert sorted(tp) == sorted(jp)
+    for name, v in jp.items():
+        assert tuple(tp[name].shape) == v.shape
+        assert tp[name].dtype == torch.float32
+        assert name == "w_deform" or not tp[name].any()
+    want = math.sqrt(2.0 / (9 * 16))
+    for w in (np.asarray(jp["w_deform"]), tp["w_deform"].numpy()):
+        assert abs(w.std() / want - 1) < 0.1
+    rng = np.random.RandomState(0)
+    tp["w_offset"] = torch.from_numpy(
+        rng.randn(3, 3, 16, 18).astype(np.float32) * 0.1)
+    x = rng.randn(2, 9, 9, 16).astype(np.float32)
+    y_j = JD.dcl_forward({k: jnp.asarray(v.numpy()) for k, v in tp.items()},
+                         jnp.asarray(x), JD.DCLConfig(**kw),
+                         return_stats=False)
+    y_t = TD.dcl_forward(tp, torch.from_numpy(x), TD.DCLConfig(**kw),
+                         return_stats=False)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL)
