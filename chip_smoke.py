@@ -246,14 +246,17 @@ Phases, each of which exits non-zero on failure:
    compute, remat "full", AdamW) through ``launch.train.train_lm`` at
    batch 8 x 2048: 6 steps, every loss finite, none skipped, step 0
    within 5% of ln(32000) and equal (1e-5) to the chunked CE of the same
-   batch; 4 steps and a new run resumed to 6 from the step-4 checkpoint,
-   its params within 1e-5 (relative norm) of the uninterrupted run's
-   (not bit for bit: the embedding's backward scatter-adds); on step 0's
+   batch; the resume check cut to its first 2 layers (0.219B params, a
+   2.6 GB checkpoint instead of 13.2): 6 uninterrupted steps, then 4 and
+   a new run resumed to 6 from the step-4 checkpoint, its params within
+   1e-5 (relative norm) of the uninterrupted run's (not bit for bit: the
+   embedding's backward scatter-adds); on step 0's
    batch and params the chunked CE within 1e-5 of the dense CE of the
    full logits, the bf16 loss within 1e-2 of an fp32-compute loss, and
    the gradients of one sequence under remat "full" and "dots" within
-   1e-6 of "none"'s; the step's forward, backward and AdamW time (CUDA
-   events), tokens/s, idle share (``torch.profiler``) and peak memory;
+   1e-6 of "none"'s; the full-depth step's forward, backward and AdamW
+   time (CUDA events), tokens/s, idle share (``torch.profiler``) and
+   peak memory;
    then the reduced config in fp32 for 5 steps on the card and on the
    CPU, loss histories within 1e-4.  (b) full-width, full-depth
    recurrentgemma-9b (9.396B fp32 params from seed 0, bf16 compute):
@@ -263,10 +266,10 @@ Phases, each of which exits non-zero on failure:
    cache 2048 = the window) under phase 13's gates with the bf16 cap at
    1.5 x max(the predicted 4e-2, 4e-2); 2 prompts x 16 tokens in fp32
    equal to naive greedy decoding; prefill and decode times, idle share,
-   peak memory.  (c) recurrentgemma at full width and 5 layers (the
-   prefix and one period, 2.175B params cut from (b)'s; all 38 layers
-   need 150 GB of fp32 params, gradients and AdamW state) through
-   ``train_lm`` for 4 steps at batch 4 x 2048: losses finite, none
+   peak memory.  (c) recurrentgemma at full width and 3 layers (one
+   period, cut from (b)'s params; all 38 layers need 150 GB of fp32
+   params, gradients and AdamW state) through ``train_lm`` for 4 steps
+   at batch 4 x 2048 (a checkpoint at the end): losses finite, none
    skipped; step time and peak memory.
 17. the remaining LM families, every count set to 0 first (no TPU
    kernel lies on these paths either): (a) full-width, full-depth
@@ -280,9 +283,9 @@ Phases, each of which exits non-zero on failure:
    from fp32, the fp32 engine's logits within 1e-3 of a teacher-forced
    fp32 forward and its tokens the argmax at clear margins; 2 x 16
    tokens in fp32 equal to naive greedy decoding; prefill and decode
-   times, idle share; its first 16 layers (1.705B params; all 32 fit
-   at 70.6 GB, but their checkpoint would take ~80 s more) through
-   ``train_lm`` for 6 steps at batch 4 x 2048, remat "full": losses
+   times, idle share; its first 4 layers (all 32 fit at 70.6 GB, but
+   their 37 GB checkpoint takes ~80 s) through ``train_lm`` for 6 steps
+   at batch 4 x 2048, remat "full": losses
    finite, none skipped, step 0 within 5% of ln(V) + 1/2; step time, one
    step profiled, peak memory.
    (b) dbrx-132b at its widths cut to 2 layers (7.751B params): the
@@ -294,8 +297,10 @@ Phases, each of which exits non-zero on failure:
    above 0, bf16 within 1e-2 of fp32 compute. (c) full musicgen-medium:
    fp32 prefill + 8 ``decode_step`` calls with (2, 4) tokens within
    1e-5 of the teacher-forced forward; ``serve_lm`` refuses it with the
-   JAX launcher's message; step-0 checks as (a) of phase 16; 6 steps of
-   ``train_lm`` at batch 8 x 2048. (d) pixtral-12b at its widths cut to
+   JAX launcher's message; step-0 checks as (a) of phase 16; its first
+   6 layers 6 steps of ``train_lm`` at batch 8 x 2048, step 0 equal
+   (1e-5) to the chunked CE of the same cut params (all 48 layers write a
+   16.6 GB checkpoint). (d) pixtral-12b at its widths cut to
    4 layers: a forward with a (2, 256, 5120) frontend, ``loss_fn`` on
    the text positions equal to the chunked CE of the hidden state after
    the frontend, prefill with the frontend + 4 decode steps within 1e-5
@@ -365,7 +370,16 @@ Phases, each of which exits non-zero on failure:
    registry's skipped cells none; one line a cell: params, argument GB
    a device on each mesh, peak live GB on one card, whether that fits
    80 GB, the roofline's dominant term and time (``launch.roofline`` at
-   the H100's peaks).  (b) the shapes this script runs on the card —
+   the H100's peaks).  Then one rule experiment through the CLI,
+   started beside the dry run: tinyllama-1.1b train_4k on 16x16 with
+   ``--set-rule embed=None --tag no_fsdp``; its record must hold
+   ``rule_overrides == {"embed": None}``, argument bytes a device equal
+   to ``tree_shard_bytes`` of the cell's inputs under those rules and
+   above the untagged record's (the params no longer FSDP-sharded over
+   ``data``), and collective bytes equal to ``launch.collectives.
+   lm_collectives`` under those rules over the mesh's devices; a second
+   run with ``--skip-existing`` must skip it.  (b) the shapes this script
+   runs on the card —
    resnet50_dcn_bounded's fp32 served forward at buckets 256 and 512
    (batch 4) and phase 8's training step (batch 8 x 512), tinyllama-1.1b's
    training step (8 x 2048) and a decode step (batch 4, cache 2048) —
@@ -374,14 +388,21 @@ Phases, each of which exits non-zero on failure:
    the card): the argument bytes must equal the real tensors' summed
    ``nbytes`` and the FLOPs those ``FlopCounterMode`` counts over the
    real step (DCL calls priced by ``core.h100``'s works in both); the dry
-   run's peak live bytes are printed beside the step's own
-   ``torch.cuda.max_memory_allocated()`` and the roofline time beside
-   the step's time between CUDA events, with their ratios.  The DCN
+   run's peak live bytes (an op's own temporaries counted,
+   ``dryrun.op_temp_bytes``) over the step's own
+   ``torch.cuda.max_memory_allocated()`` must lie within 0.95-1.05, and
+   the roofline time is printed beside the step's time between CUDA
+   events, with its ratio; before them each op ``op_temp_bytes`` prices
+   runs on the card at each layout it tells apart (softmax backward with
+   grad and output contiguous or permuted, fp32 and bf16; logsumexp),
+   the allocator's peak inside the call beyond its output equal to the
+   term.  The DCN
    steps run kernels 1a and 2; their launches are counted from 0 over
    (b) and must not be 0.  ``--only 19`` runs phases 1, 2 and 19 alone
    (the dry run in the foreground) and prints no result.
 20. an LM's params laid out on the mesh by their specs, every mesh
-   repeating the card.  (a) full-width tinyllama-1.1b (bf16 compute) on
+   repeating the card.  (a) full-width tinyllama-1.1b cut to 6 of its
+   22 layers (bf16 compute) on
    (data=2, model=4): 3 AdamW steps of the Trainer's own step path at
    batch 2 x 2048, plain, with int8_ef and with microbatches=2, each held
    against the flat Trainer of the same setting by relative norm at most
@@ -449,7 +470,11 @@ times are phase 14's per case summed over the run's launches, and they add
 
 TF32 is off for every fp32 matmul and convolution.  Without a GPU, or
 without the rest of the repository beside it, the script prints no result
-and exits 2.  Details go to ``chiprun_out/chip_smoke.json``.
+and exits 2.  Details go to ``chiprun_out/chip_smoke.json``.  The whole
+script has 1200 s; it aims at 900 (``SCRIPT_SECONDS``, printed), so the
+training runs that write checkpoints of 13-37 GB at full depth are cut
+in depth (phases 16(a)'s resume check, 16(c), 17(a), 17(c), 20(a)), each
+at full width.
 """
 from __future__ import annotations
 
@@ -458,6 +483,7 @@ import dataclasses
 import json
 import math
 import os
+import shlex
 import signal
 import statistics
 import subprocess
@@ -513,6 +539,7 @@ BWD_STEP_MS_BEFORE = 36.876
 BWD_STEP_MS_HALF = 18.4
 BATCH = 4
 BUCKETS = "256,512"
+SCRIPT_SECONDS = 900        # the whole script's budget (printed, not gated)
 K, B = 3, 2.0
 
 
@@ -3863,6 +3890,8 @@ def operations_phase(record: dict, trained, per_step: dict,
 
 LM_TRAIN = ["--global-batch", "8", "--seq-len", "2048"]  # TinyLlama's context
 LM_TRAIN_STEPS, LM_RESUME_AT = 6, 4
+LM_RESUME_LAYERS = 2        # of 22: the resume check's depth (its three
+                            # checkpoints 2.6 GB each, not 13.2)
 LM_LOSS0_RTOL = 0.05        # step-0 loss vs ln(vocab): random logits
 LM_RESUME_RTOL = 1e-5       # resumed params vs the uninterrupted run
 LM_CE_RTOL = 1e-5           # chunked CE vs dense CE of the full logits
@@ -3876,8 +3905,22 @@ RG_BF16_MAX = 1.5 * max(RG_BF16_PREDICTED, LM_BF16_MAX)
 RG_GREEDY_PROMPTS, RG_GREEDY_NEW = 2, 16
 RG_SCAN_TOKENS = 256
 RG_SCAN_RTOL = 1e-5         # rg_lru_scan vs repeated rg_lru_step
-RG_TRAIN_LAYERS, RG_TRAIN_STEPS = 5, 4
+RG_TRAIN_LAYERS, RG_TRAIN_STEPS = 3, 4   # one period: all 38 need 150 GB
 RG_TRAIN = ["--global-batch", "4", "--seq-len", "2048"]
+
+
+def cut_depth(params, cfg):
+    """The first ``cfg.n_layers`` layers of ``params`` (an LM's params of
+    the same family at a greater depth): the prefix layers and stacked
+    periods ``cfg`` has, copied, and every other leaf shared."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.tree import tree_map
+
+    keep = {k: v for k, v in params.items()
+            if k in TF.model_def(cfg) and k != "period"}
+    keep["layers"] = tree_map(lambda t: t[:cfg.n_periods].clone(),
+                              params["layers"])
+    return keep
 
 
 def tree_rel(a, b) -> float:
@@ -4024,7 +4067,8 @@ def lm_training(record: dict) -> None:
     if max(remat_rel.values()) > LM_REMAT_RTOL:
         fail(f"remat modes change the gradients: {remat_rel}")
 
-    # 6 steps uninterrupted; then 4, and a new run resumed to 6.
+    # 6 steps uninterrupted at full depth; then the resume check at
+    # LM_RESUME_LAYERS: 6 uninterrupted, and 4 and a new run resumed to 6.
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     full = launch.train_lm(cfg, args, params=clone(p0))
@@ -4045,37 +4089,46 @@ def lm_training(record: dict) -> None:
     if abs(losses[0] - chunked) > LM_CE_RTOL * chunked:
         fail(f"the Trainer's step-0 loss {losses[0]} is not the chunked CE "
              f"{chunked} of the same batch")
-    want, full_opt = full.params, full.opt_state
+    moved = tree_rel(full.params, p0)
     shutil.rmtree(root / "full", ignore_errors=True)
+    cut_cfg = dataclasses.replace(cfg, n_layers=LM_RESUME_LAYERS)
+    p_cut = cut_depth(p0, cut_cfg)
     t0 = time.monotonic()
-    launch.train_lm(cfg, train_lm_args(LM_ARCH, LM_RESUME_AT, root / "resumed",
-                                       "--full", *LM_TRAIN),
-                    params=clone(p0))
+    straight = launch.train_lm(
+        cut_cfg, train_lm_args(LM_ARCH, LM_TRAIN_STEPS, root / "straight",
+                               "--full", *LM_TRAIN), params=clone(p_cut))
+    s_losses = [h["loss"] for h in straight.history if "loss" in h]
+    launch.train_lm(cut_cfg, train_lm_args(LM_ARCH, LM_RESUME_AT,
+                                           root / "resumed", "--full",
+                                           *LM_TRAIN),
+                    params=clone(p_cut))
     resumed = launch.train_lm(
-        cfg, train_lm_args(LM_ARCH, LM_TRAIN_STEPS, root / "resumed",
-                           "--full", *LM_TRAIN),
-        params=tree_map(torch.zeros_like, p0))
+        cut_cfg, train_lm_args(LM_ARCH, LM_TRAIN_STEPS, root / "resumed",
+                               "--full", *LM_TRAIN),
+        params=tree_map(torch.zeros_like, p_cut))
     rec["resume_wall_s"] = time.monotonic() - t0
-    resume_rel = tree_rel(resumed.params, want)
-    opt_rel = tree_rel(resumed.opt_state, full_opt)
-    moved = tree_rel(want, p0)
+    resume_rel = tree_rel(resumed.params, straight.params)
+    opt_rel = tree_rel(resumed.opt_state, straight.opt_state)
     r_losses = [h["loss"] for h in resumed.history if "loss" in h]
-    print(f"  resumed at step {LM_RESUME_AT}: losses "
-          f"{[round(v, 5) for v in r_losses]} (uninterrupted "
-          f"{[round(v, 5) for v in losses[LM_RESUME_AT:]]}); params vs the "
-          f"uninterrupted run {resume_rel:.2e} (gate {LM_RESUME_RTOL}), AdamW "
-          f"state {opt_rel:.2e}; the {LM_TRAIN_STEPS} steps moved the params "
-          f"{moved:.2e}; 4 + 2 steps with their checkpoints in "
-          f"{rec['resume_wall_s']:.1f} s")
+    print(f"  resume check at {LM_RESUME_LAYERS} layers "
+          f"({cut_cfg.param_count() / 1e9:.3f}B params): resumed at step "
+          f"{LM_RESUME_AT}, losses {[round(v, 5) for v in r_losses]} "
+          f"(uninterrupted {[round(v, 5) for v in s_losses[LM_RESUME_AT:]]}"
+          f"); params vs the uninterrupted run {resume_rel:.2e} (gate "
+          f"{LM_RESUME_RTOL}), AdamW state {opt_rel:.2e}; the full-depth "
+          f"{LM_TRAIN_STEPS} steps moved the params {moved:.2e}; 6, then 4 + "
+          f"2 steps with their checkpoints in {rec['resume_wall_s']:.1f} s")
     if resume_rel > LM_RESUME_RTOL or len(r_losses) != 2:
         fail(f"resumed LM run is {resume_rel} from the uninterrupted run")
-    del want, full, full_opt
+    del straight, resumed, p_cut
+    shutil.rmtree(root / "straight", ignore_errors=True)
+    shutil.rmtree(root / "resumed", ignore_errors=True)
 
-    # Where a step's time goes (the resumed trainer steps on).
-    step_batch = resumed._device_batch(0)
-    split = step_split(resumed, step_batch)
+    # Where a step's time goes (the full-depth trainer steps on).
+    step_batch = full._device_batch(0)
+    split = step_split(full, step_batch)
     wall, busy, n_launch, top = busy_share(
-        lambda: resumed._one_step(step_batch))
+        lambda: full._one_step(step_batch))
     top = [(k[:60], round(ms, 3)) for k, ms in top[:6]]
     tokens = args.global_batch * args.seq_len
     print(f"  step {split['step_ms']:.1f} ms (CUDA events): forward "
@@ -4085,7 +4138,9 @@ def lm_training(record: dict) -> None:
           f"torch.profiler {wall:.1f} ms wall, {busy:.1f} ms device busy, "
           f"idle {1 - busy / wall:.1%}, {n_launch} kernel launches; top "
           f"{top[:5]}")
-    rec.update(losses=losses, resumed_losses=r_losses, host_step_ms=host_ms,
+    rec.update(losses=losses, resume_layers=LM_RESUME_LAYERS,
+               resumed_losses=r_losses, straight_losses=s_losses,
+               host_step_ms=host_ms,
                loss0=losses[0], loss0_vs_ln_vocab=loss0_rel,
                chunked_ce=chunked, dense_ce=dense, ce_rel=ce_rel,
                loss_fp32=loss32, bf16_loss_rel=bf16_rel, remat_rel=remat_rel,
@@ -4094,7 +4149,7 @@ def lm_training(record: dict) -> None:
                device_idle=1 - busy / wall, launches_a_step=n_launch,
                device_top=top,
                tokens_per_s=tokens / split["step_ms"] * 1e3, **split)
-    del resumed, p0, batch, one, step_batch
+    del full, p0, batch, one, step_batch
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -4293,9 +4348,9 @@ def rg_serving(record: dict):
 
 
 def rg_training(record: dict, held: dict) -> None:
-    """Phase 16(c): recurrentgemma at full width and 5 layers (the
-    prefix and one period, cut from (b)'s params, which ``held`` gives up
-    so that they are freed) through ``train_lm``."""
+    """Phase 16(c): recurrentgemma at full width and ``RG_TRAIN_LAYERS``
+    layers (one period, cut from (b)'s params, which ``held`` gives up so
+    that they are freed) through ``train_lm``."""
     import shutil
 
     import numpy as np
@@ -4308,10 +4363,8 @@ def rg_training(record: dict, held: dict) -> None:
     cfg = dataclasses.replace(reg.get(RG_ARCH).config,
                               n_layers=RG_TRAIN_LAYERS)
     params = held.pop("params")
-    keep = {k: v for k, v in params.items() if k != "layers"}
-    keep["layers"] = tree_map(lambda t: t[:cfg.n_periods], params["layers"])
-    cut = tree_map(lambda t: t.detach().clone(), keep)
-    del keep, params
+    cut = tree_map(lambda t: t.detach().clone(), cut_depth(params, cfg))
+    del params
     torch.cuda.empty_cache()
     root = ROOT / "build" / "smoke_rg"
     shutil.rmtree(root, ignore_errors=True)
@@ -4361,7 +4414,8 @@ def lm_train_phase(record: dict) -> None:
     lm_training(record)
     print("  (b) recurrentgemma-9b served at full width and depth")
     held = {"params": rg_serving(record)}
-    print("  (c) recurrentgemma at full width, 5 layers, trained")
+    print(f"  (c) recurrentgemma at full width, {RG_TRAIN_LAYERS} layers, "
+          f"trained")
     rg_training(record, held)
     counts = read_counts()
     if any(counts.values()):
@@ -4385,8 +4439,9 @@ RW_WKV_TOKENS = 256
 RW_WKV_RTOL = 5e-4          # chunked vs step: JAX's own bound
 RW_GREEDY_PROMPTS, RW_GREEDY_NEW = 2, 16
 RW_TRAIN_STEPS = 6
-RW_TRAIN_LAYERS = 16        # of 32: all 32 fit (70.6 GB at batch 4), but
-                            # their 37 GB checkpoint takes ~80 s (PERF.md §4)
+RW_TRAIN_LAYERS = 4         # of 32: all 32 fit (70.6 GB at batch 4), but
+                            # their 37 GB checkpoint takes ~80 s, 16 layers'
+                            # 20.5 GB ~40 s (PERF.md §4)
 RW_TRAIN_BATCH, RW_SEQ = 4, 2048
 MOE_ARCH = "dbrx-132b"
 MOE_LAYERS = 2              # 7.75B params; all 40 need 528 GB in fp32
@@ -4398,6 +4453,8 @@ MOE_LOSS_BF16_RTOL = 1e-2   # bf16- vs fp32-compute loss, one layer
 MG_ARCH = "musicgen-medium"
 MG_TRAIN = ["--global-batch", "8", "--seq-len", "2048"]
 MG_TRAIN_STEPS = 6
+MG_TRAIN_LAYERS = 6         # of 48, trained (served and checked at all 48):
+                            # all 48 write a 16.6 GB checkpoint (~34 s)
 MG_PROMPT, MG_DECODE_STEPS = 256, 8
 PX_ARCH = "pixtral-12b"
 PX_LAYERS = 4               # 2.43B params; all 40 need 49 GB of fp32 params
@@ -4796,11 +4853,7 @@ def rwkv_phase(record: dict) -> None:
 
     # Training: the first RW_TRAIN_LAYERS layers of the served params.
     tcfg = dataclasses.replace(cfg, n_layers=RW_TRAIN_LAYERS)
-    keep = {key: val for key, val in params.items() if key != "layers"}
-    keep["layers"] = tree_map(lambda t: t[:RW_TRAIN_LAYERS].clone(),
-                              params["layers"])
-    del params
-    params = keep
+    params = cut_depth(params, tcfg)
     root = ROOT / "build" / "smoke_rwkv"
     shutil.rmtree(root, ignore_errors=True)
     batch = RW_TRAIN_BATCH
@@ -4943,7 +4996,7 @@ def moe_phase(record: dict) -> None:
 def codebook_phase(record: dict) -> None:
     """Phase 17(c): full musicgen-medium: decode with (B, CB) tokens
     against the teacher-forced forward, the launcher's refusal, step-0
-    checks, 6 training steps."""
+    checks; its first ``MG_TRAIN_LAYERS`` layers 6 training steps."""
     import shutil
 
     import numpy as np
@@ -5032,10 +5085,21 @@ def codebook_phase(record: dict) -> None:
     if ce_rel > LM_CE_RTOL or bf16_rel > LM_BF16_LOSS_RTOL:
         fail(f"{MG_ARCH} step 0: chunked {chunked}, dense {dense}, fp32 "
              f"{loss32}")
+    # Training at MG_TRAIN_LAYERS: its step 0 against the chunked CE of
+    # the same cut params.
+    tcfg = dataclasses.replace(cfg, n_layers=MG_TRAIN_LAYERS)
+    params = cut_depth(params, tcfg)
+    with torch.no_grad():
+        hidden = TF.forward(params, tcfg, tokens=batch["tokens"],
+                            return_hidden=True)[0]
+        t_chunked = (sum(L.chunked_cross_entropy(
+            hidden, w[i], batch["targets"][..., i], tied=False)
+            for i in range(cb)) / cb).item()
+        del hidden
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    tr = launch.train_lm(cfg, args, params=params)
+    tr = launch.train_lm(tcfg, args, params=params)
     wall = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [hh["loss"] for hh in tr.history if "loss" in hh]
@@ -5043,8 +5107,10 @@ def codebook_phase(record: dict) -> None:
     step_ms = statistics.median(host_ms[1:])
     tokens = args.global_batch * args.seq_len
     loss0_rel = abs(losses[0] - want) / want
-    print(f"  {MG_TRAIN_STEPS} steps at batch {args.global_batch} x "
-          f"{args.seq_len} x {cb} codebooks in {wall:.1f} s; losses "
+    print(f"  {MG_TRAIN_LAYERS} layers ({tcfg.param_count() / 1e9:.3f}B "
+          f"params) {MG_TRAIN_STEPS} steps at batch {args.global_batch} x "
+          f"{args.seq_len} x {cb} codebooks in {wall:.1f} s (a checkpoint "
+          f"at the end); losses "
           f"{[round(v, 5) for v in losses]} (step 0 {loss0_rel:.2%} from "
           f"the prediction); host-clock steps "
           f"{[round(t, 1) for t in host_ms]} ms (median after the first "
@@ -5052,10 +5118,11 @@ def codebook_phase(record: dict) -> None:
           f"telemetry {tr.telemetry}; peak memory {peak:.2f} GB")
     if len(losses) != MG_TRAIN_STEPS or not np.isfinite(losses).all() \
             or tr.telemetry["skipped"] or loss0_rel > LM_LOSS0_RTOL \
-            or abs(losses[0] - chunked) > LM_CE_RTOL * chunked:
+            or abs(losses[0] - t_chunked) > LM_CE_RTOL * t_chunked:
         fail(f"{MG_ARCH} training: losses {losses}, telemetry "
-             f"{tr.telemetry}, step 0 vs chunked CE {chunked}")
+             f"{tr.telemetry}, step 0 vs chunked CE {t_chunked}")
     rec.update(chunked_ce=chunked, dense_ce=dense, ce_rel=ce_rel,
+               train_layers=MG_TRAIN_LAYERS, train_chunked_ce=t_chunked,
                loss_fp32=loss32, bf16_loss_rel=bf16_rel,
                loss0_predicted=want, losses=losses, host_step_ms=host_ms,
                step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
@@ -5209,7 +5276,7 @@ MESH_SPREAD = 2.0           # params vs the flat Trainer (relative norm):
                             # another summation order (the banded dataflow),
                             # and never held below RESUME_RTOL
 MESH_TRAIN_STEPS = 2
-MESH_SECONDS = 90           # phase 18's budget (printed, not gated)
+MESH_SECONDS = 60           # phase 18's budget (printed, not gated)
 CR_ARCH = "command-r-35b"
 CR_LAYERS = 4               # 4.92B params (19.7 GB fp32); all 40: 121 GB
 CR_BF16_PREDICTED = 1e-2    # bf16 vs fp32 logits at 4 layers (PERF.md §6)
@@ -5896,7 +5963,13 @@ DRYRUN_DIR = ROOT / "build" / "dryrun"
 DRYRUN_JOBS = 2             # background workers while phases 3-18 run
 DRYRUN_JOBS_ALONE = 6       # ``--only 19``: nothing else runs
 DRYRUN_WAIT_S = 900
-PLAN_SECONDS = 60           # phase 19's budget (printed, not gated)
+PLAN_SECONDS = 40           # phase 19's budget (printed, not gated)
+PEAK_BAND = (0.95, 1.05)    # (b): dry-run peak over the allocator's
+RULE = ("tinyllama-1.1b", "train_4k", "single", {"embed": None}, "no_fsdp")
+RULE_DIR = DRYRUN_DIR / "rules"
+RULE_CMD = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            RULE[0], "--shape", RULE[1], "--mesh", RULE[2], "--set-rule",
+            "embed=None", "--tag", RULE[4]]
 _dryrun: dict = {}
 
 
@@ -5919,16 +5992,23 @@ def start_dryrun(jobs: int) -> None:
          "--mesh", "all", "--jobs", str(jobs), "--dir", str(DRYRUN_DIR)],
         cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
         preexec_fn=detach)
+    # the rule experiment, then the same command with --skip-existing
+    once = shlex.join(RULE_CMD + ["--dir", str(RULE_DIR)])
+    _dryrun["rules"] = subprocess.Popen(
+        ["/bin/sh", "-c", f"{once} && {once} --skip-existing"], cwd=ROOT,
+        env=env, stdout=open(DRYRUN_DIR.parent / "dryrun_rules.log", "w"),
+        stderr=subprocess.STDOUT, preexec_fn=detach)
     _dryrun["t0"] = time.time()
     _dryrun["jobs"] = jobs
     atexit.register(stop_dryrun)
 
 
 def stop_dryrun() -> None:
-    proc = _dryrun.get("proc")
-    if proc is not None and proc.poll() is None:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
+    for key in ("proc", "rules"):
+        proc = _dryrun.get(key)
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
 
 
 def dryrun_cells(record: dict) -> None:
@@ -5988,14 +6068,82 @@ def dryrun_cells(record: dict) -> None:
               f"{'yes' if card['fits_card'] else 'no'} | {card['dominant']} | "
               f"{card['roofline_ms']:.3f}")
         out += [rows[(a, s, m)] for m in dryrun.MESHES]
+    rule_experiment(record)
     dest = ROOT / "chiprun_out" / "dryrun"
     dest.mkdir(parents=True, exist_ok=True)
-    for p in DRYRUN_DIR.glob("*.json"):
+    for p in [*DRYRUN_DIR.glob("*.json"), *RULE_DIR.glob("*.json")]:
         (dest / p.name).write_text(p.read_text())
     (dest / "roofline.json").write_text(json.dumps(out, indent=1))
     (dest / "roofline.md").write_text(roofline.markdown_table(out) + "\n")
     record["dryrun"] = {"cells": len(cells), "wall_s": wall,
                         "waited_s": waited, "trace_cpu_s": trace_s}
+
+
+def rule_experiment(record: dict) -> None:
+    """Phase 19(a)'s rule experiment: its record against the rules' own
+    shard bytes and crossings and the untagged record; the CLI's second
+    run, with ``--skip-existing``, must have skipped it."""
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.launch import collectives, dryrun, steps
+    from repro_torch.models import registry as reg
+
+    arch_name, shape, mesh_kind, override, tag = RULE
+    proc = _dryrun["rules"]
+    try:
+        rc = proc.wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        stop_dryrun()
+        fail("the rule experiment did not end")
+    log = (DRYRUN_DIR.parent / "dryrun_rules.log").read_text()
+    if rc != 0:
+        print(log[-2000:])
+        fail(f"the rule experiment exited {rc}")
+    path = dryrun.record_path(arch_name, shape, mesh_kind, tag, RULE_DIR)
+    rec = json.loads(path.read_text())
+    base = json.loads(dryrun.record_path(arch_name, shape, mesh_kind,
+                                         results_dir=DRYRUN_DIR).read_text())
+    rules = {**DEFAULT_RULES, **override}
+    arch = reg.get(arch_name)
+    mesh = dryrun.meta_mesh(mesh_kind)
+    _, inputs, specs, _ = steps.make_cell_step(arch, shape, mesh, rules=rules)
+    want_args = sum(dryrun.tree_shard_bytes(t, sp, mesh)
+                    for t, sp in zip(inputs, specs))
+    spec = arch.shapes[shape]
+    chips = math.prod(mesh.devices.shape)
+    want_coll = collectives.lm_collectives(
+        arch.config, mesh, mode="train", batch=spec.global_batch,
+        seq=spec.seq_len, rules=rules,
+        micro=steps.microbatches(arch)).summary()["total_bytes"] / chips
+    print(f"  rule experiment {path.name}: rule_overrides "
+          f"{rec.get('rule_overrides')}; args {rec['argument_bytes']} B a "
+          f"device (the rules' shards {want_args}; untagged "
+          f"{base['argument_bytes']}); collective bytes "
+          f"{rec['collective_bytes']:.6e} a device (lm_collectives "
+          f"{want_coll:.6e}; untagged {base['collective_bytes']:.6e})")
+    if rec.get("rule_overrides") != override or "error" in rec:
+        fail(f"the rule experiment's record: {rec.get('rule_overrides')} "
+             f"{rec.get('error')}")
+    if rec["argument_bytes"] != want_args \
+            or rec["argument_bytes"] <= base["argument_bytes"]:
+        fail(f"rule experiment: args {rec['argument_bytes']}, want "
+             f"{want_args} and above {base['argument_bytes']}")
+    if rec["collective_bytes"] != want_coll:
+        fail(f"rule experiment: collective bytes {rec['collective_bytes']}"
+             f", lm_collectives {want_coll}")
+    skipped = f"[skip] {arch_name} {shape}@{tag} {mesh_kind}"
+    written = log.count(f"-> {path.name}")
+    print(f"  again with --skip-existing: {skipped!r} "
+          f"{'printed' if skipped in log else 'missing'}; the record "
+          f"written {written} time(s) in the two runs")
+    if skipped not in log or written != 1:
+        print(log[-2000:])
+        fail("--skip-existing did not skip the tagged record")
+    record["rule_experiment"] = dict(
+        record=path.name, rule_overrides=rec["rule_overrides"],
+        argument_bytes=rec["argument_bytes"],
+        untagged_argument_bytes=base["argument_bytes"],
+        collective_bytes=rec["collective_bytes"],
+        untagged_collective_bytes=base["collective_bytes"])
 
 
 def plan_cases(params) -> list[dict]:
@@ -6078,6 +6226,7 @@ def plan_case(case: dict) -> dict:
     res = dict(label=case["label"], argument_bytes=nbytes,
                flops=rec["flops"], dcl_calls=rec["dcl_calls"],
                dry_peak_bytes=rec["peak_live_bytes"], card_peak_bytes=peak,
+               peak_op_temp_bytes=rec["peak_op_temp_bytes"],
                peak_ratio=rec["peak_live_bytes"] / peak,
                counted_peak_bytes=counted,
                counted_run_peak_bytes=counted_alloc, step_ms=ms,
@@ -6088,18 +6237,75 @@ def plan_case(case: dict) -> dict:
                / h100.PEAK_BF16_FLOPS / (ms / 1e3), dtype=rec["dtype"])
     print(f"  {case['label']}: args {nbytes} B (= dry run), FLOPs "
           f"{rec['flops']:.6e} (= dry run; DCL calls {rec['dcl_calls']}); "
-          f"peak dry {rec['peak_live_bytes'] / 1e9:.3f} GB vs card "
-          f"{peak / 1e9:.3f} GB (ratio {res['peak_ratio']:.3f}; the "
-          f"counter over the card's tensors {counted / 1e9:.3f} GB, the "
-          f"allocator in that run {counted_alloc / 1e9:.3f} GB); roofline "
+          f"peak dry {rec['peak_live_bytes'] / 1e9:.3f} GB (ops' own "
+          f"temporaries {rec['peak_op_temp_bytes'] / 1e9:.3f} of it) vs "
+          f"card {peak / 1e9:.3f} GB (ratio {res['peak_ratio']:.3f}, band "
+          f"{PEAK_BAND}; the counter over the card's tensors "
+          f"{counted / 1e9:.3f} GB, the allocator in that run "
+          f"{counted_alloc / 1e9:.3f} GB); roofline "
           f"{roof['roofline_ms']:.3f} ms ({roof['dominant']}) vs "
           f"{ms:.3f} ms between CUDA events (roofline fraction "
           f"{res['roofline_fraction_measured']:.4f}; MODEL_FLOPS at the "
           f"bf16 peak {res['model_share_measured']:.4f} of it; "
           f"{rec['dtype']})")
+    if not PEAK_BAND[0] <= res["peak_ratio"] <= PEAK_BAND[1]:
+        fail(f"{case['label']}: the dry run's peak is "
+             f"{res['peak_ratio']:.4f} of the card's, outside {PEAK_BAND}")
     del real, params
     torch.cuda.empty_cache()
     return res
+
+
+def op_temp_check(record: dict) -> None:
+    """Phase 19(b): every op ``dryrun.op_temp_bytes`` prices, on the card
+    at each operand layout the term tells apart: the allocator's peak
+    inside the call beyond the memory before it and the output's bytes
+    must equal the term."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    aten = torch.ops.aten
+    shape, flat, swap = (8, 4, 8, 512, 512), (0, 1, 2, 3, 4), (0, 1, 3, 2, 4)
+
+    def laid(order, dtype):
+        base = torch.randn([shape[i] for i in order], device=DEV)
+        return base.to(dtype).permute([order.index(i) for i in range(5)])
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for g_order, o_order in ((flat, flat), (swap, flat), (flat, swap),
+                                 (swap, swap)):
+            cases.append((
+                f"_softmax_backward_data {str(dtype)[6:]} grad "
+                f"{'permuted' if g_order == swap else 'contiguous'}, output "
+                f"{'permuted' if o_order == swap else 'contiguous'}",
+                aten._softmax_backward_data.default,
+                lambda g=g_order, o=o_order, d=dtype:
+                (laid(g, d), laid(o, d), -1, d)))
+        cases.append((f"logsumexp {str(dtype)[6:]} (8, 1024, 32000)",
+                      aten.logsumexp.default,
+                      lambda d=dtype: (torch.randn(8, 1024, 32000,
+                                                   device=DEV).to(d), [-1])))
+    rows = []
+    for label, func, make in cases:
+        args = make()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = func(*args)
+        torch.cuda.synchronize()
+        made = torch.cuda.max_memory_allocated() - before \
+            - out.untyped_storage().nbytes()
+        want = dryrun.op_temp_bytes(func, args, [out])
+        rows.append(dict(op=label, card_bytes=made, counted_bytes=want))
+        print(f"  (b) {label}: temporaries on the card {made} B, counted "
+              f"{want} B")
+        if made != want:
+            fail(f"{label}: the card's allocator made {made} B of "
+                 f"temporaries, op_temp_bytes counts {want}")
+        del args, out
+    torch.cuda.empty_cache()
+    record["op_temps"] = rows
 
 
 def planning_phase(record: dict, params) -> dict[str, int]:
@@ -6109,6 +6315,7 @@ def planning_phase(record: dict, params) -> dict[str, int]:
     print("  (a) every cell on the meta device")
     dryrun_cells(record)
     print(f"  (b) dry run vs the same step on the card ({smi()})")
+    op_temp_check(record)
     reset_counts()
     record["plan_shapes"] = [plan_case(c) for c in plan_cases(params)]
     counts = read_counts()
@@ -6129,7 +6336,8 @@ def planning_phase(record: dict, params) -> dict[str, int]:
 P20_ARCH = "tinyllama-1.1b"
 P20_MESH = (2, 4)           # (a): (data, model)
 P20_BATCH = (2, 2048)       # (a): batch x tokens
-P20_LAYERS = None           # (a): depth (None: all 22); cut first if late
+P20_LAYERS = 6              # (a): depth of 22 (None: all), cut to keep the
+                            # script within its time
 P20_STEPS = 3
 P20_SPREAD = 2.0            # (a): params vs the flat Trainer (relative norm)
                             # at most this x the flat run's own spread under
@@ -6149,7 +6357,7 @@ P20_ELASTIC = ((2, 2), (4, 2), 4, 2)   # first mesh, second, steps, more
 P20_ELASTIC_BATCH = (4, 512)
 P20_ELASTIC_TOL = dict(rtol=5e-4, atol=5e-5)  # JAX's elastic oracle
 P20_ELASTIC_LR = 0.1        # (c): SGD, momentum 0.9
-P20_SECONDS = 150           # phase 20's budget (printed, not gated)
+P20_SECONDS = 90            # phase 20's budget (printed, not gated)
 
 
 def p20_mesh(shape):
@@ -7051,7 +7259,7 @@ P22_PATHS = [("1a", "fp32", "deform_conv_fused"),
              ("1b", "sample", "deform_sample_zerocopy")]
 P22_RANK_SHAPE = (32, 256, 1)         # a c4 layer
 P22_EDGE_SHAPE = (16, 512, 1)         # the c5 layer of (c)
-P22_SECONDS = 40                      # phase 22's budget (printed)
+P22_SECONDS = 10                      # phase 22's budget (printed)
 
 
 def p22_best_ms(fn, reps: int = 5) -> float:
@@ -7994,7 +8202,8 @@ def main() -> int:
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(record, indent=2))
     print(f"  details in {OUT.relative_to(ROOT)}; "
-          f"{record['seconds']:.0f} s in all")
+          f"{record['seconds']:.0f} s in all (budget {SCRIPT_SECONDS} s, "
+          f"printed; the limit is 1200)")
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,10 @@ and records to ``build/dryrun/<arch>__<shape>__<mesh>.json``:
 * ``peak_live_bytes``: the step's peak on one card — the arguments plus
   the most bytes of new storage alive at once (``LiveBytes``, a
   ``TorchDispatchMode`` that adds each new storage's bytes and subtracts
-  them when the storage is freed);
+  them when the storage is freed), an op's own temporaries included:
+  what its CUDA implementation allocates inside the call, where no
+  dispatch mode sees it (``op_temp_bytes``; ``peak_op_temp_bytes`` is
+  their share of the peak);
 * ``flops``: ``torch.utils.flop_counter.FlopCounterMode`` over the step,
   plus each bounded DCL call priced by ``core.h100``'s works (the
   kernels are not aten ops): the forward's operations, and the
@@ -131,12 +134,38 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def op_temp_bytes(func, args, outs) -> int:
+    """Bytes of the temporaries that ``func``'s CUDA implementation
+    allocates inside the call, alive together at its peak, from its
+    operands' shapes, dtypes and strides (read off the H100's allocator,
+    torch 2.11); 0 for an op that makes none.  A dispatch mode sees only
+    the op's outputs, on every device, so ``LiveBytes`` adds these.
+
+    * ``_softmax_backward_data(grad, output, ..)``: ``grad * output`` at
+      grad's size, and a contiguous copy of each of grad and output that
+      is not contiguous (an einsum's backward hands attention's softmax a
+      permuted grad: two scores-sized blocks in all);
+    * ``logsumexp(x, dims)``: ``x - max`` at x's size, beside the max."""
+    name = func.overloadpacket.__name__
+    if name == "_softmax_backward_data":
+        grad, out = args[0], args[1]
+        return _nbytes(grad) * (1 + (not grad.is_contiguous())
+                                + (not out.is_contiguous()))
+    if name == "logsumexp":
+        x = args[0]
+        return (x.numel() + outs[0].numel()) * x.element_size()
+    return 0
+
+
 class LiveBytes(TorchDispatchMode):
     """Operand and result bytes of every aten op (``bytes_accessed``) and
-    the bytes of new storage alive at once (``live``, ``peak``); the
-    storages of ``known`` tensors (the step's arguments, which in-place
-    updates write) are not new.  With ``meta_only`` it raises on any
-    tensor an op makes off ``meta``."""
+    the bytes of new storage alive at once (``live``, ``peak``), with
+    each op's own temporaries (``op_temp_bytes``) counted while it runs
+    (``peak_temp``: theirs at the peak; ``temps``: the most an op of
+    each name made); the storages of ``known``
+    tensors (the step's arguments, which in-place updates write) are not
+    new.  With ``meta_only`` it raises on any tensor an op makes off
+    ``meta``."""
 
     def __init__(self, meta_only: bool = False, known=()):
         super().__init__()
@@ -144,6 +173,8 @@ class LiveBytes(TorchDispatchMode):
         self.bytes_accessed = 0
         self.live = 0
         self.peak = 0
+        self.peak_temp = 0
+        self.temps: dict[str, int] = {}
         self.ops = 0
         self._sizes: dict[int, int] = {
             t.untyped_storage()._cdata: 0 for t in tree_leaves(known)
@@ -179,8 +210,12 @@ class LiveBytes(TorchDispatchMode):
                 continue
             self._sizes[key] = st.nbytes()
             self.live += st.nbytes()
-            self.peak = max(self.peak, self.live)
             weakref.finalize(st, self._free, key)
+        temp = op_temp_bytes(func, args, outs)
+        if temp:
+            self.temps[name] = max(self.temps.get(name, 0), temp)
+        if self.live + temp > self.peak:
+            self.peak, self.peak_temp = self.live + temp, temp
         return out
 
 
@@ -249,6 +284,16 @@ class StepCounter:
         return self._live.peak
 
     @property
+    def peak_temp_bytes(self) -> int:
+        """Of ``peak_new_bytes``, an op's own temporaries."""
+        return self._live.peak_temp
+
+    @property
+    def op_temps(self) -> dict[str, int]:
+        """The most bytes of its own temporaries an op of each name made."""
+        return dict(self._live.temps)
+
+    @property
     def aten_ops(self) -> int:
         return self._live.ops
 
@@ -292,24 +337,29 @@ _GROUPS = {"train": ("params", "opt_state", "step", "batch"),
 
 def trace_cell(arch, shape_name: str) -> dict:
     """Run one cell's step on ``meta`` once: its FLOPs, bytes accessed,
-    peak new bytes, DCL calls, output bytes on one card and the seconds
-    it took."""
+    peak new bytes (an op's own temporaries among them), DCL calls,
+    output bytes on one card and the seconds it took."""
     step, inputs, _, _ = steps.make_cell_step(arch, shape_name, None)
     t0 = time.monotonic()
     with StepCounter(meta_only=True, known=inputs) as sc:
         out = step(*inputs)
     return {"flops": sc.flops, "bytes_accessed": sc.bytes_accessed,
-            "peak_new_bytes": sc.peak_new_bytes, "dcl_calls": dict(sc.dcl),
+            "peak_new_bytes": sc.peak_new_bytes,
+            "peak_temp_bytes": sc.peak_temp_bytes, "dcl_calls": dict(sc.dcl),
             "dcl_flops": sc.dcl_flops, "dcl_bytes": sc.dcl_bytes,
             "aten_ops": sc.aten_ops,
             "trace_s": round(time.monotonic() - t0, 2), "outputs": out}
 
 
 def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *,
-             arch=None, trace: dict | None = None) -> dict:
+             arch=None, trace: dict | None = None,
+             rules: dict | None = None) -> dict:
     """The record of one (arch, shape, mesh) cell; ``trace`` reuses a
-    ``trace_cell`` of the same cell (the trace does not depend on the
-    mesh)."""
+    ``trace_cell`` of the same cell (the trace depends on neither the
+    mesh nor the rules).  ``rules`` (a rule experiment, JAX's
+    ``--set-rule``) replace the arch's own for a training cell's specs
+    and crossings; prefill and decode keep the serving rules and
+    inference the defaults, as JAX's step builders do."""
     arch = arch or reg.get(arch_name)
     mesh = meta_mesh(mesh_kind)
     shape_spec = [1] if mesh is None else list(mesh.devices.shape)
@@ -318,13 +368,14 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *,
                  "mesh_shape": shape_spec,
                  "axes": [] if mesh is None else list(mesh.axis_names),
                  "dtype": str(arch.config.dtype).removeprefix("torch.")}
-    rules = steps._merged_rules(arch)
+    rules = steps._merged_rules(arch, rules)
     if rules is not None:
         from repro_torch.distributed.sharding import DEFAULT_RULES
         rec["rule_overrides"] = {k: v for k, v in rules.items()
                                  if DEFAULT_RULES.get(k) != v}
     kind = arch.shapes[shape_name].kind
-    _, inputs, specs, n_params = steps.make_cell_step(arch, shape_name, mesh)
+    _, inputs, specs, n_params = steps.make_cell_step(arch, shape_name, mesh,
+                                                      rules=rules)
     rec["params"] = n_params
     rec["micro"] = steps.microbatches(arch) if kind.startswith("train") \
         else 1
@@ -341,6 +392,7 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *,
     if mesh_kind == "card":
         rec["peak_live_bytes"] = rec["argument_bytes"] \
             + trace["peak_new_bytes"]
+        rec["peak_op_temp_bytes"] = trace["peak_temp_bytes"]
     for k in ("flops", "bytes_accessed", "dcl_calls", "dcl_flops",
               "dcl_bytes", "aten_ops", "trace_s"):
         rec[k] = trace[k]
@@ -351,14 +403,16 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str, *,
         rec["collective_reason"] = "one card: nothing crosses between " \
             "devices"
         return rec
-    rec["collectives"] = cell_collectives(arch, shape_name, mesh)
+    rec["collectives"] = cell_collectives(arch, shape_name, mesh,
+                                          rules=rules)
     rec["collective_bytes"] = rec["collectives"]["total_bytes"] / chips
     return rec
 
 
-def cell_collectives(arch, shape_name: str, mesh) -> dict:
+def cell_collectives(arch, shape_name: str, mesh, rules=None) -> dict:
     """The crossings of one cell's step on ``mesh`` (``launch.
-    collectives``) as JAX's ``parse_collectives`` keys."""
+    collectives``) as JAX's ``parse_collectives`` keys; ``rules`` as
+    ``run_cell``'s (a training cell's only)."""
     shape = arch.shapes[shape_name]
     if isinstance(arch.config, ResNetDCNConfig):
         kcfg = dataclasses.replace(
@@ -368,7 +422,8 @@ def cell_collectives(arch, shape_name: str, mesh) -> dict:
             train=shape.kind == "train_det").summary()
     cfg = arch.config
     train = shape.kind == "train"
-    rules = steps._merged_rules(arch) if train else steps._serve_rules(arch)
+    rules = steps._merged_rules(arch, rules) if train \
+        else steps._serve_rules(arch)
     return collectives.lm_collectives(
         cfg, mesh, mode=shape.kind, batch=shape.global_batch,
         seq=shape.seq_len, rules=rules,
@@ -377,61 +432,88 @@ def cell_collectives(arch, shape_name: str, mesh) -> dict:
         else 0).summary()
 
 
+def record_path(arch_name: str, shape_name: str, mesh_kind: str,
+                tag: str = "", results_dir=None) -> pathlib.Path:
+    """Where a cell's record is written: ``<arch>__<shape>[@tag]__<mesh>
+    .json`` (a tagged rule experiment beside the untagged record)."""
+    shape = f"{shape_name}@{tag}" if tag else shape_name
+    return pathlib.Path(results_dir or RESULTS_DIR) \
+        / f"{arch_name}__{shape}__{mesh_kind}.json"
+
+
 def save(rec: dict, results_dir: pathlib.Path | None = None
          ) -> pathlib.Path:
-    d = pathlib.Path(results_dir or RESULTS_DIR)
-    d.mkdir(parents=True, exist_ok=True)
-    p = d / f"{rec['arch']}__{rec['shape']}__{rec['mesh']}.json"
+    p = record_path(rec["arch"], rec["shape"], rec["mesh"],
+                    results_dir=results_dir)
+    p.parent.mkdir(parents=True, exist_ok=True)
     p.write_text(json.dumps(rec, indent=1))
     return p
 
 
-def run_cells(cells, meshes, *, results_dir=None, log=print) -> list:
-    """Dry-run ``cells`` on ``meshes``, tracing each cell once; writes a
-    record per (cell, mesh) (with ``error`` and its traceback on
-    failure).  Returns the failures as (tag, message)."""
+def run_cells(cells, meshes, *, results_dir=None, rules=None, tag="",
+              skip_existing=False, log=print) -> list:
+    """Dry-run ``cells`` on ``meshes`` under ``rules`` (``run_cell``'s),
+    tracing each cell once; writes a record per (cell, mesh), its shape
+    ``<shape>@<tag>`` under a ``tag`` (with ``error`` and its traceback
+    on failure).  ``skip_existing`` skips a (cell, mesh) whose record,
+    at the name it would write, exists without an error.  Returns the
+    failures as (tag, message)."""
     failures = []
+    shape_of = (lambda s: f"{s}@{tag}") if tag else (lambda s: s)
     for arch_name, shape_name in cells:
+        todo = []
+        for mesh_kind in meshes:
+            p = record_path(arch_name, shape_name, mesh_kind, tag,
+                            results_dir)
+            if skip_existing and p.exists() \
+                    and "error" not in json.loads(p.read_text()):
+                log(f"[skip] {arch_name} {shape_of(shape_name)} "
+                    f"{mesh_kind}")
+            else:
+                todo.append(mesh_kind)
+        if not todo:
+            continue
         try:
             arch = reg.get(arch_name)
             trace = trace_cell(arch, shape_name)
         except Exception as e:  # noqa: BLE001 — recorded, counted
             trace, err = None, (e, traceback.format_exc())
-        for mesh_kind in meshes:
-            tag = f"{arch_name} x {shape_name} x {mesh_kind}"
+        for mesh_kind in todo:
+            name = f"{arch_name} x {shape_of(shape_name)} x {mesh_kind}"
             try:
                 if trace is None:
                     raise err[0]
                 rec = run_cell(arch_name, shape_name, mesh_kind, arch=arch,
-                               trace=trace)
+                               trace=trace, rules=rules)
+                rec["shape"] = shape_of(shape_name)
                 p = save(rec, results_dir)
-                log(f"  OK {tag}: args "
+                log(f"  OK {name}: args "
                     f"{rec['argument_bytes'] / 1e9:.3f} GB/device, flops "
                     f"{rec['flops']:.4e}, trace {rec['trace_s']} s "
                     f"-> {p.name}")
             except Exception as e:  # noqa: BLE001
                 tb = err[1] if trace is None else traceback.format_exc()
-                failures.append((tag, str(e)))
-                save({"arch": arch_name, "shape": shape_name,
+                failures.append((name, str(e)))
+                save({"arch": arch_name, "shape": shape_of(shape_name),
                       "mesh": mesh_kind, "error": str(e), "traceback": tb},
                      results_dir)
-                log(f"  FAIL {tag}: {e}")
+                log(f"  FAIL {name}: {e}")
     return failures
 
 
-def _one_cell(cell, meshes, results_dir) -> tuple[list, list]:
+def _one_cell(cell, meshes, kw) -> tuple[list, list]:
     """A worker of ``run_cells_parallel``: (failures, log lines)."""
     lines: list[str] = []
-    return run_cells([cell], meshes, results_dir=results_dir,
-                     log=lines.append), lines
+    return run_cells([cell], meshes, log=lines.append, **kw), lines
 
 
-def run_cells_parallel(cells, meshes, *, jobs: int, results_dir=None,
-                       log=print) -> list:
-    """``run_cells`` over ``jobs`` worker processes (each imports torch
+def run_cells_parallel(cells, meshes, *, jobs: int, log=print, **kw
+                       ) -> list:
+    """``run_cells`` (``kw``: its ``results_dir``, ``rules``, ``tag``,
+    ``skip_existing``) over ``jobs`` worker processes (each imports torch
     once), the training cells first since they take longest."""
     if jobs <= 1:
-        return run_cells(cells, meshes, results_dir=results_dir, log=log)
+        return run_cells(cells, meshes, log=log, **kw)
     import concurrent.futures
     import multiprocessing
     order = sorted(cells, key=lambda c: not reg.get(c[0]).shapes[c[1]]
@@ -439,14 +521,26 @@ def run_cells_parallel(cells, meshes, *, jobs: int, results_dir=None,
     failures = []
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(jobs, mp_context=ctx) as ex:
-        futs = [ex.submit(_one_cell, c, list(meshes), results_dir)
-                for c in order]
+        futs = [ex.submit(_one_cell, c, list(meshes), kw) for c in order]
         for f in futs:
             fails, lines = f.result()
             failures += fails
             for line in lines:
                 log(line)
     return failures
+
+
+def parse_rules(pairs) -> dict | None:
+    """``--set-rule k=v`` pairs over ``DEFAULT_RULES`` (``none``/``None``
+    maps an axis to no mesh axis); None without any."""
+    if not pairs:
+        return None
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    rules = dict(DEFAULT_RULES)
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        rules[k] = None if v in ("none", "None") else v
+    return rules
 
 
 def main(argv=None) -> None:
@@ -460,6 +554,14 @@ def main(argv=None) -> None:
                     help=f"results directory (default {RESULTS_DIR})")
     ap.add_argument("--jobs", type=int, default=1,
                     help="worker processes (each traces whole cells)")
+    ap.add_argument("--skip-existing", action="store_true",
+                    help="skip a cell whose record (at the name it would "
+                    "write, tag included) exists without an error")
+    ap.add_argument("--set-rule", action="append", default=[],
+                    help="override a logical->mesh rule, e.g. "
+                    "experts=model (repeatable; none: no mesh axis)")
+    ap.add_argument("--tag", default="",
+                    help="suffix of the records' shape (rule experiments)")
     args = ap.parse_args(argv)
     meshes = list(MESHES) if args.mesh == "all" else [args.mesh]
     if args.all:
@@ -468,14 +570,16 @@ def main(argv=None) -> None:
         cells = [(args.arch, args.shape)]
     else:
         ap.error("give --arch and --shape, or --all")
-    failures = run_cells_parallel(cells, meshes, jobs=args.jobs,
-                                  results_dir=args.dir)
+    failures = run_cells_parallel(
+        cells, meshes, jobs=args.jobs, results_dir=args.dir,
+        rules=parse_rules(args.set_rule), tag=args.tag,
+        skip_existing=args.skip_existing)
     print(f"\n{len(cells) * len(meshes) - len(failures)} ok, "
           f"{len(failures)} failed, {len(reg.skipped_cells())} recorded "
           f"skips (long_500k on full-attention archs)")
     if failures:
-        for tag, err in failures:
-            print(f"  FAIL {tag}: {err.splitlines()[0] if err else ''}")
+        for name, err in failures:
+            print(f"  FAIL {name}: {err.splitlines()[0] if err else ''}")
         raise SystemExit(1)
 
 

@@ -82,7 +82,9 @@ def analyze_cell(rec: dict, *, peak_flops: float = h100.PEAK_BF16_FLOPS,
     terms = {"compute": compute_s, "memory": memory_s,
              "collective": collective_s}
     dominant = max(terms, key=lambda k: terms[k])
-    model_flops = _model_flops_per_device(arch, rec["shape"], chips)
+    # a rule experiment's record names its shape ``<shape>@<tag>``
+    model_flops = _model_flops_per_device(
+        arch, rec["shape"].split("@")[0], chips)
     step_s = max(terms.values())
     peak = rec.get("peak_live_bytes")
     return {
