@@ -208,7 +208,8 @@ Phases, each of which exits non-zero on failure:
    ``launch.serve --ckpt`` on ``fp32_kernel`` and ``int8_chain`` (buckets
    256/512, batch 4, 8 requests, all ``ok``), ``cls``/``box``
    ``torch.equal`` to the same engine fed the trained params in memory;
-   (b) each run's divergence report: one row per DCL shape, 12
+   (b) each run's divergence report (the checkpoint served under an
+   enabled tracer, which times the dispatches): one row per DCL shape, 12
    dispatches a step, every dispatch timed on the device and none above
    1.05 of its H100 bound (``core.h100``); ``launch.obs_report`` renders
    the telemetry; each bucket's forward with the recorder on (CUDA
@@ -3423,7 +3424,8 @@ def serve_checkpoint(record: dict, trained, n_shapes: int,
     from repro_torch.launch import serve as launch
     from repro_torch.models import resnet_dcn as R
     from repro_torch.obs import (DispatchRecorder, DivergenceTracker,
-                                 MetricsRegistry, dump_telemetry)
+                                 MetricsRegistry, Tracer, dump_telemetry,
+                                 tracer_scope)
 
     ckpt = ROOT / "build" / "smoke_train" / "full"
     out: dict = {}
@@ -3432,8 +3434,9 @@ def serve_checkpoint(record: dict, trained, n_shapes: int,
             ["--arch", CONFIG_BOUNDED.name, "--buckets", BUCKETS,
              "--requests", "8", "--slots", str(BATCH), "--device", "cuda",
              "--seed", "0", "--quant", rung, "--ckpt", str(ckpt)])
-        engine, _, seconds = launch.serve_detection(
-            launch.detection_config(args), args)
+        with tracer_scope(Tracer()):     # the divergence rows of (b)
+            engine, _, seconds = launch.serve_detection(
+                launch.detection_config(args), args)
         print(launch.report(engine, seconds))
         mem, _, _ = launch.serve_detection(
             CONFIG_BOUNDED, serve_args(CONFIG_BOUNDED, rung), params=trained,

@@ -5,8 +5,10 @@
         [--trace trace.jsonl] [--metrics TEL.json] [--divergence TEL.json]
 
 * ``--trace``: a ``Tracer.export_jsonl`` dump — top span names by total
-  time (count, total, mean, max) and the instant events' counts (fault
-  firings among them);
+  time (count, total, self time, mean, max; JAX's table with the self
+  column added) and the instant events' counts (fault firings among
+  them).  A span's self time is its duration less the part its child
+  spans cover;
 * ``--metrics``: a ``MetricsRegistry.snapshot``, bare or under
   ``"metrics"`` of a telemetry file (the serving engine's): counters,
   gauges and the histograms' p50/p99 per label set;
@@ -61,24 +63,50 @@ def load_divergence(path) -> dict:
                      f"document with a 'divergence' key")
 
 
+def _children_cover(records: list[dict]) -> dict:
+    """{span_id: seconds of the span that its child spans cover}, each
+    child clipped to its parent and overlaps counted once."""
+    kids: dict = {}
+    for r in records:
+        if r.get("parent_id") is not None and r.get("t1") is not None:
+            kids.setdefault(r["parent_id"], []).append((r["t0"], r["t1"]))
+    out = {}
+    for r in records:
+        if r["span_id"] not in kids:
+            continue
+        covered, end = 0.0, r["t0"]
+        for a, b in sorted(kids[r["span_id"]]):
+            a, b = max(a, end), min(b, r["t1"])
+            if b > a:
+                covered, end = covered + b - a, b
+        out[r["span_id"]] = covered
+    return out
+
+
 def summarize_trace(records: list[dict], *, top: int = 10) -> list[str]:
-    """Top span names by total duration, then the event counts."""
+    """Top span names by total duration (with their self time), then the
+    event counts."""
+    finished = [r for r in records
+                if r.get("type") == "span" and r.get("dur_s") is not None]
+    cover = _children_cover(finished)
     spans: dict[str, dict] = {}
     events: dict[str, int] = {}
+    for r in finished:
+        s = spans.setdefault(r["name"], {"n": 0, "total": 0.0, "self": 0.0,
+                                         "max": 0.0})
+        s["n"] += 1
+        s["total"] += r["dur_s"]
+        s["self"] += r["dur_s"] - cover.get(r["span_id"], 0.0)
+        s["max"] = max(s["max"], r["dur_s"])
     for r in records:
-        if r.get("type") == "span" and r.get("dur_s") is not None:
-            s = spans.setdefault(r["name"],
-                                 {"n": 0, "total": 0.0, "max": 0.0})
-            s["n"] += 1
-            s["total"] += r["dur_s"]
-            s["max"] = max(s["max"], r["dur_s"])
-        elif r.get("type") == "event":
+        if r.get("type") == "event":
             events[r["name"]] = events.get(r["name"], 0) + 1
-    rows = [f"{'span':<28}{'n':>6}{'total_s':>10}{'mean_ms':>10}"
-            f"{'max_ms':>10}"]
+    rows = [f"{'span':<28}{'n':>6}{'total_s':>10}{'self_s':>10}"
+            f"{'mean_ms':>10}{'max_ms':>10}"]
     for name, s in sorted(spans.items(),
                           key=lambda kv: -kv[1]["total"])[:top]:
         rows.append(f"{name:<28}{s['n']:>6}{s['total']:>10.3f}"
+                    f"{s['self']:>10.3f}"
                     f"{s['total'] / s['n'] * 1e3:>10.2f}"
                     f"{s['max'] * 1e3:>10.2f}")
     if events:

@@ -34,6 +34,7 @@ device defaults to ``cuda``; with no GPU the launcher raises unless
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -49,6 +50,7 @@ from repro_torch.launch.train import reduced_config, train_optimizer
 from repro_torch.models import registry as reg
 from repro_torch.models import resnet_dcn as R
 from repro_torch.models import transformer as TF
+from repro_torch.obs.trace import Tracer, tracer_scope
 from repro_torch.quant.calibrate import calibrate_resnet_dcn
 from repro_torch.serve import (LADDER, DCLServeConfig, DCLServingEngine,
                                Request, ServeConfig, ServingEngine)
@@ -246,7 +248,11 @@ def main(argv=None) -> None:
         engine, steps, seconds = serve_lm(cfg, args)
         print(report_lm(engine, steps, seconds))
         return
-    engine, _, seconds = serve_detection(detection_config(args), args)
+    # The telemetry's divergence rows are timed only under an enabled
+    # tracer.
+    with (tracer_scope(Tracer()) if args.telemetry
+          else contextlib.nullcontext()):
+        engine, _, seconds = serve_detection(detection_config(args), args)
     print(report(engine, seconds))
     if args.telemetry:
         from repro_torch.obs.metrics import dump_telemetry

@@ -1,11 +1,22 @@
-"""Hierarchical span tracer (a copy of what the serving engine uses of
-``repro.obs.trace``; the port imports nothing of the JAX package).
+"""Hierarchical span tracer (what the serving engine uses of
+``repro.obs.trace``, with profiler ranges added; the port imports
+nothing of the JAX package).
 
 A :class:`Tracer` hands out :class:`Span` context managers; spans nest
 via an explicit stack (the enclosing open span becomes the parent).  The
 clock is injectable, so tests drive spans on a fake clock.  Disabled
-tracers are zero-cost: ``span()`` returns one shared no-op singleton.
+tracers record nothing: outside a profiler ``span()`` returns one shared
+no-op singleton.
 The process-global default tracer is disabled; ``tracer_scope`` opts in.
+
+While a ``torch.profiler`` records, every span also opens a
+``record_function`` range of its name, so the span lies on the profiler's
+clock beside the device's kernels (a ``user_annotation`` of the host
+timeline).  A disabled tracer then hands out a span that enters and
+exits the range alone and records nothing; outside a profiler it still
+hands out ``NOOP_SPAN``, at the cost of one check that no profiler is on
+(~0.1 us on a CPU core, where entering a range costs ~15 us whether a
+profiler records or not).
 Exports: JSONL (one record a span or event) and Chrome trace-event JSON
 (``ph: "X"`` spans, ``ph: "i"`` instants, timestamps in microseconds,
 loadable in Perfetto).
@@ -18,6 +29,9 @@ import json
 import pathlib
 import time
 
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
 __all__ = ["NOOP_SPAN", "Span", "Tracer", "get_tracer", "set_tracer",
            "tracer_scope"]
 
@@ -28,7 +42,7 @@ class Span:
     """
 
     __slots__ = ("_tracer", "name", "span_id", "parent_id", "t0", "t1",
-                 "attrs")
+                 "attrs", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -38,11 +52,13 @@ class Span:
         self.parent_id: int | None = None
         self.t0: float | None = None
         self.t1: float | None = None
+        self._range = None
 
     def start(self) -> "Span":
         tr = self._tracer
         self.parent_id = tr._stack[-1].span_id if tr._stack else None
         tr._stack.append(self)
+        self._range = _open_range(self.name)
         self.t0 = tr.clock()
         return self
 
@@ -51,6 +67,8 @@ class Span:
             return                       # never started / already ended
         tr = self._tracer
         self.t1 = tr.clock()
+        _close_range(self._range)
+        self._range = None
         if tr._stack and tr._stack[-1] is self:
             tr._stack.pop()
         elif self in tr._stack:          # out-of-order end: drop anyway
@@ -108,6 +126,52 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+def _open_range(name: str):
+    """A profiler range of ``name``, entered, while a profiler records;
+    else None."""
+    if not _profiler_enabled():
+        return None
+    rf = record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def _close_range(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
+
+
+class _RangeSpan:
+    """A disabled tracer's span while a profiler records: the range of
+    its name and nothing in the tracer."""
+
+    __slots__ = ("name", "_range")
+    duration = float("nan")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def start(self) -> "_RangeSpan":
+        if self._range is None:
+            self._range = _open_range(self.name)
+        return self
+
+    def end(self) -> None:
+        _close_range(self._range)
+        self._range = None
+
+    def set_attr(self, **attrs) -> "_RangeSpan":
+        return self
+
+    def __enter__(self) -> "_RangeSpan":
+        return self.start()
+
+    def __exit__(self, *exc) -> bool:
+        self.end()
+        return False
+
+
 class Tracer:
     """See module docstring.  ``spans`` holds finished spans in end
     order; ``events`` holds instant events in emission order."""
@@ -123,9 +187,11 @@ class Tracer:
     # -- recording -----------------------------------------------------
     def span(self, name: str, **attrs):
         """A new child span of the innermost open span (entered lazily:
-        the parent is resolved at ``start()``/``__enter__`` time)."""
+        the parent is resolved at ``start()``/``__enter__`` time).  A
+        disabled tracer's is ``NOOP_SPAN``, or the profiler's range alone
+        while a profiler records (module docstring)."""
         if not self.enabled:
-            return NOOP_SPAN
+            return _RangeSpan(name) if _profiler_enabled() else NOOP_SPAN
         return Span(self, name, attrs)
 
     def event(self, name: str, **attrs) -> None:

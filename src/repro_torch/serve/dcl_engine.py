@@ -37,11 +37,21 @@ Robustness, as in the JAX engine:
   ``degraded`` flag are recorded per request.  Kernel failures raise out
   of ``ops`` (there is no silent fallback below the engine).
 
-Every forward runs under an ``obs.DispatchRecorder`` chained to the
-dispatch hook already installed (a chaos hook fires first): each DCL
-dispatch is timed against its H100 bound in ``divergence`` (on CUDA the
-stream's time between two events, host enqueue gaps included, read after
-the step's own copy of its outputs to the host).
+Spans (``obs.trace``; on the profiler's clock while one records):
+``serve/step`` (with its requests' ``uids`` when the tracer is enabled,
+the ids of their ``serve/admit`` and ``serve/retire`` events) holds
+``serve/batch`` (``batch_array``: the batch built on the host and
+copied to the device), ``serve/forward`` (the forward's launches),
+``serve/readback`` (the copies of ``cls`` and ``box`` to the host, the
+step's synchronisation) and ``serve/retire``.
+
+While the engine's tracer is enabled, every forward runs under an
+``obs.DispatchRecorder`` chained to the dispatch hook already installed
+(a chaos hook fires first): each DCL dispatch is timed against its H100
+bound in ``divergence`` (on CUDA the stream's time between two events,
+host enqueue gaps included, read after the step's own copy of its
+outputs to the host).  Otherwise the forward runs under the installed
+hook alone and ``divergence`` stays empty.
 ``telemetry()`` carries that report, ``plan_cache``
 (``plan.tile_cache_info``) and ``plan_sources`` (each layer's
 ``"tuned"`` or ``"analytic"`` tiles, per bucket).
@@ -396,8 +406,10 @@ class DCLServingEngine:
             self._g_queue.set(len(self.queue))
             return len(self.completed) - before
         batch = self.queue.take(bucket, self.scfg.slots)
-        with self._tr.span("serve/step", step=self.steps, bucket=bucket,
-                           size=len(batch)):
+        tr = self._tr
+        uids = {"uids": [r.uid for r in batch]} if tr.enabled else {}
+        with tr.span("serve/step", step=self.steps, bucket=bucket,
+                     size=len(batch), **uids):
             now = self.clock()
             for r in batch:
                 self._h_queue_wait.observe(now - r.submitted_at,
@@ -422,32 +434,40 @@ class DCLServingEngine:
 
     def _forward(self, rung: str, x: torch.Tensor, bucket: int | None = None
                  ) -> tuple[np.ndarray, np.ndarray]:
-        """One batch on ``rung``, every DCL dispatch recorded; returns
-        ``cls`` and ``box`` on the host.  A spatial bucket's kernel rungs
-        run height-sharded under its mesh."""
+        """One batch on ``rung``, every DCL dispatch recorded while the
+        tracer is enabled; returns ``cls`` and ``box`` on the host.  A
+        spatial bucket's kernel rungs run height-sharded under its
+        mesh."""
         scales = self._scales if rung in INT8_RUNGS else None
         cfg = self._cfgs[rung]
         mesh = self._spatial_meshes.get(bucket)
         spatial = mesh is not None and rung in ("int8", "fp32_kernel")
         if spatial:
             cfg = dataclasses.replace(cfg, shard_spatial=True)
+        tr = self._tr
         rec = DispatchRecorder(registry=self.metrics, tracer=self._tracer,
                                tracker=self.divergence,
                                next_hook=ops.get_dispatch_hook(),
-                               clock=self.clock)
+                               clock=self.clock) if tr.enabled else None
         try:
-            with torch.no_grad(), ops.dispatch_hook_scope(rec), \
+            with torch.no_grad(), \
+                    (ops.dispatch_hook_scope(rec) if rec is not None
+                     else contextlib.nullcontext()), \
                     (use_rules(mesh=mesh) if spatial
-                     else contextlib.nullcontext()):
+                     else contextlib.nullcontext()), \
+                    tr.span("serve/forward", step=self.steps, bucket=bucket):
                 out, _ = R.forward(self.params, cfg, x,
                                    quant_scales=scales, device=self.device)
             # The copies to the host are the step's synchronisation.
-            return out["cls"].cpu().numpy(), out["box"].cpu().numpy()
+            with tr.span("serve/readback", step=self.steps, bucket=bucket):
+                return out["cls"].cpu().numpy(), out["box"].cpu().numpy()
         finally:
-            rec.flush()
+            if rec is not None:
+                rec.flush()
 
     def _run_batch(self, bucket: int, reqs: list[DetRequest]) -> None:
-        x = self.batch_array(bucket, reqs)
+        with self._tr.span("serve/batch", step=self.steps, bucket=bucket):
+            x = self.batch_array(bucket, reqs)
         rungs = self.rungs_for(bucket)
         rung_idx = 0
         attempt = 0
@@ -481,17 +501,18 @@ class DCLServingEngine:
                 for r in reqs:
                     self._retire(r, "failed", f"{type(e).__name__}: {e}")
                 return
-        now = self.clock()
-        for i, r in enumerate(reqs):
-            r.ladder = rungs[rung_idx]
-            self._c_ladder.inc(rung=r.ladder)
-            if r.deadline is not None and now > r.deadline:
-                self._retire(r, "deadline_exceeded",
-                             f"completed {now - r.deadline:.3f}s past "
-                             f"deadline (result dropped)")
-                continue
-            r.result = {"cls": cls[i], "box": box[i]}
-            self._retire(r, "ok")
+        with self._tr.span("serve/retire", step=self.steps, bucket=bucket):
+            now = self.clock()
+            for i, r in enumerate(reqs):
+                r.ladder = rungs[rung_idx]
+                self._c_ladder.inc(rung=r.ladder)
+                if r.deadline is not None and now > r.deadline:
+                    self._retire(r, "deadline_exceeded",
+                                 f"completed {now - r.deadline:.3f}s past "
+                                 f"deadline (result dropped)")
+                    continue
+                r.result = {"cls": cls[i], "box": box[i]}
+                self._retire(r, "ok")
 
     def run_until_drained(self, max_steps: int = 10_000
                           ) -> list[DetRequest]:

@@ -44,9 +44,15 @@ same kernels as the failed one.
 
 ``fault_hook(step)`` may raise before a step; ``batch_hook(step, batch)``
 may transform the host batch.  Health telemetry (``skipped``,
-``recovered``, ``retries``, ``preempted``) lives in a metrics registry;
-spans ``train/step``, ``train/data``, ``train/compute`` and
-``train/checkpoint`` go to the tracer.
+``recovered``, ``retries``, ``preempted``) lives in a metrics registry.
+Spans go to the tracer (``obs.trace``; on the profiler's clock while
+one records): ``train/step`` holds ``train/data``, a ``train/sync`` (the
+batch on the device) and ``train/compute``, which holds per microbatch
+``train/forward`` (``loss_fn``) and ``train/backward`` (the gradients
+and their sum), then ``train/sentinel`` (the gradient norm and the wait
+for its verdict), ``train/optimizer`` (the error-feedback compression
+and the update) and ``train/sync`` (the step's end on the device);
+``train/checkpoint`` is each save.
 """
 from __future__ import annotations
 
@@ -199,6 +205,7 @@ class Trainer:
         out as the params are), under the mesh's rules."""
         tensors = T.leaves(self.params)
         mb = self.cfg.microbatches
+        tr = self._tr
         gsum = None
         losses = []
         for i in range(mb):
@@ -206,21 +213,25 @@ class Trainer:
                 lambda x: x.reshape(mb, x.shape[0] // mb,
                                     *x.shape[1:])[i], batch)
             with use_rules(self.rules, mesh=self.mesh):
-                loss, _ = self.loss_fn(self.params, part)
-                gs = torch.autograd.grad(loss, tensors, allow_unused=True)
-            gs = [torch.zeros_like(p, dtype=torch.float32) if g is None
-                  else g.float()
-                  for g, p in zip(gs, tensors)]
-            if gsum is None:
-                gsum = gs
-            else:       # in place: one sum of the gradients held, not two
-                for a, b in zip(gsum, gs):
-                    a.add_(b)
-            del gs
+                with tr.span("train/forward", step=self.step):
+                    loss, _ = self.loss_fn(self.params, part)
+                with tr.span("train/backward", step=self.step):
+                    gs = torch.autograd.grad(loss, tensors,
+                                             allow_unused=True)
+                    gs = [torch.zeros_like(p, dtype=torch.float32)
+                          if g is None else g.float()
+                          for g, p in zip(gs, tensors)]
+                    if gsum is None:
+                        gsum = gs
+                    else:   # in place: one sum of the gradients, not two
+                        for a, b in zip(gsum, gs):
+                            a.add_(b)
+                    del gs
             losses.append(loss.detach().to(self.device))
         if mb > 1:
-            for g in gsum:
-                g.div_(mb)
+            with tr.span("train/backward", step=self.step):
+                for g in gsum:
+                    g.div_(mb)
         by_block = {id(p): g for p, g in zip(tensors, gsum)}
         grads = T.tree_map(lambda p: by_block[id(p)], self.params)
         return torch.stack(losses).mean(), grads
@@ -256,19 +267,22 @@ class Trainer:
         return out
 
     def _one_step(self, batch) -> tuple[float, float, bool]:
+        tr = self._tr
         loss, grads = self._grads(batch)
-        grad_norm = global_norm(grads)
-        finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        with tr.span("train/sentinel", step=self.step):
+            grad_norm = global_norm(grads)
+            finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
         if finite:
             # The sentinel decided first, on the uncompressed norm: a
             # non-finite step touches no state leaf, the error-feedback
             # state included.
-            if self.ef_state is not None:
-                grads, self.ef_state = ef_compress_grads(grads,
-                                                         self.ef_state)
-            with torch.no_grad():
-                self.opt.update(grads, self.opt_state, self.params,
-                                self.step)
+            with tr.span("train/optimizer", step=self.step):
+                if self.ef_state is not None:
+                    grads, self.ef_state = ef_compress_grads(grads,
+                                                             self.ef_state)
+                with torch.no_grad():
+                    self.opt.update(grads, self.opt_state, self.params,
+                                    self.step)
         return float(loss), float(grad_norm), finite
 
     # -- checkpoint bundle ----------------------------------------------
@@ -348,8 +362,9 @@ class Trainer:
         return self.history
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self._tr.span("train/sync", step=self.step):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def run(self) -> list[dict]:
         cfg = self.cfg

@@ -326,7 +326,8 @@ def served():
     rng = np.random.RandomState(0)
     for _ in range(3):
         eng.submit(rng.randn(32, 32, 3).astype(np.float32))
-    eng.run_until_drained()
+    with tracer_scope(Tracer()):        # dispatches are timed when tracing
+        eng.run_until_drained()
     return eng
 
 
@@ -355,7 +356,8 @@ def test_engine_fake_clock_gives_no_share():
                                           quant="fp32_kernel"),
                            device="cpu", clock=FakeClock())
     eng.submit(np.zeros((32, 32, 3), np.float32))
-    eng.run_until_drained()
+    with tracer_scope(Tracer()):
+        eng.run_until_drained()
     rows = eng.telemetry()["divergence"]["dispatches"]
     assert rows and all(r["best_s"] == 0 and r["share"] is None
                         for r in rows)
@@ -374,14 +376,48 @@ def _trace(tmp_path):
     return tr, tr.export_jsonl(tmp_path / "trace.jsonl")
 
 
+def _without_self(rows: list[str]) -> list[str]:
+    """The summary's rows with the span table's ``self_s`` column (the
+    port's addition, 10 characters after ``total_s``) taken out."""
+    n = rows.index("") if "" in rows else len(rows)
+    return [r[:44] + r[54:] for r in rows[:n]] + rows[n:]
+
+
 def test_trace_export_and_summary_match_jax(tmp_path):
     tr, path = _trace(tmp_path)
     recs = obs_report.load_trace(path)
     assert {r["type"] for r in recs} == {"span", "event"}
     rows = obs_report.summarize_trace(recs)
-    assert rows == jreport.summarize_trace(recs)
+    assert rows[0].split()[2:4] == ["total_s", "self_s"]
+    assert _without_self(rows) == jreport.summarize_trace(recs)
     assert any("serve/step" in r and "2" in r for r in rows)
     assert any("fault/slow_step" in r for r in rows)
+
+
+def test_trace_summary_gives_self_time(tmp_path):
+    """Self time: a span's duration less what its children cover, each
+    child clipped to its parent and overlaps counted once."""
+    def span(sid, name, t0, t1, parent=None):
+        return {"type": "span", "name": name, "span_id": sid,
+                "parent_id": parent, "t0": t0, "t1": t1, "dur_s": t1 - t0,
+                "attrs": {}}
+    recs = [span(2, "serve/batch", 0.1, 0.3, 1),
+            span(3, "serve/forward", 0.2, 0.6, 1),   # overlaps batch
+            span(4, "kernel/dispatch", 0.25, 0.35, 3),
+            span(1, "serve/step", 0.0, 1.0),
+            span(6, "serve/batch", 1.1, 1.2, 5),
+            span(5, "serve/step", 1.0, 1.5),
+            {"type": "event", "name": "serve/admit", "ts": 0.0,
+             "parent_id": None, "attrs": {"uid": 0}}]
+    path = tmp_path / "made.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    rows = obs_report.summarize_trace(obs_report.load_trace(path))
+    table = {r.split()[0]: r.split()[1:] for r in rows[1:] if r}
+    # serve/step: 1.5 s, children cover 0.5 + 0.1; forward 0.4 less 0.1.
+    assert table["serve/step"][:3] == ["2", "1.500", "0.900"]
+    assert table["serve/forward"][:3] == ["1", "0.400", "0.300"]
+    assert table["serve/batch"][:3] == ["2", "0.300", "0.300"]
+    assert table["kernel/dispatch"][:3] == ["1", "0.100", "0.100"]
 
 
 def test_metrics_summary_matches_jax(tmp_path):

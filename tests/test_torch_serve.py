@@ -449,8 +449,12 @@ def test_tracer_records_steps_and_request_events(model):
     recs = tr.records()
     steps = [r for r in recs if r["name"] == "serve/step"]
     assert len(steps) == 1 and steps[0]["attrs"]["bucket"] == BUCKET
-    retire = [r for r in recs if r["name"] == "serve/retire"]
+    spans = {r["span_id"]: r for r in recs if r["type"] == "span"}
+    retire = [r for r in recs
+              if r["type"] == "event" and r["name"] == "serve/retire"]
     assert retire[0]["attrs"]["outcome"] == "ok"
-    assert retire[0]["parent_id"] == steps[0]["span_id"]
+    assert spans[retire[0]["parent_id"]]["name"] == "serve/retire"
+    assert spans[retire[0]["parent_id"]]["parent_id"] == \
+        steps[0]["span_id"]
     hist = eng.telemetry()["metrics"]["histograms"]["serve_latency_seconds"]
     assert hist["values"][0]["count"] == 1

@@ -32,6 +32,7 @@ from repro_torch.distributed.sharding import Mesh, use_rules
 from repro_torch.kernels import ops, plan
 from repro_torch.models import layers as TL
 from repro_torch.models import resnet_dcn as R
+from repro_torch.obs import Tracer, tracer_scope
 from repro_torch.obs.divergence import key_from_context, price_dispatch
 from repro_torch.quant.calibrate import calibrate_resnet_dcn
 from repro_torch.serve import DCLServeConfig, DCLServingEngine
@@ -336,7 +337,8 @@ def test_engine_spatial_bucket_matches_the_flat_engine(shallow, quant):
     flat, fr = _serve(shallow, "int8" if quant == "int8_chain" else quant,
                       ())
     seen = []
-    with ops.dispatch_hook_scope(lambda ctx: seen.append(ctx["shards"])):
+    with ops.dispatch_hook_scope(lambda ctx: seen.append(ctx["shards"])), \
+            tracer_scope(Tracer()):     # dispatches are timed when tracing
         eng, sr = _serve(shallow, quant, ((32, 2),))
     assert seen == [(1, 2)] * 4                     # 2 steps x 2 DCLs
     rung = "fp32_kernel" if quant == "fp32_kernel" else "int8"

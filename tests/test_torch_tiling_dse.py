@@ -539,6 +539,7 @@ def test_engine_divergence_rows_and_report_carry_traffic():
     from repro_torch.launch import obs_report
     from repro_torch.models import registry
     from repro_torch.models import resnet_dcn as R
+    from repro_torch.obs import Tracer, tracer_scope
     from repro_torch.serve import DCLServeConfig, DCLServingEngine
     cfg = registry.reduced_config(CONFIG_BOUNDED)
     eng = DCLServingEngine(R.init_params(cfg, seed=0, device="cpu"), cfg,
@@ -548,7 +549,8 @@ def test_engine_divergence_rows_and_report_carry_traffic():
     rng = np.random.RandomState(0)
     for _ in range(2):
         eng.submit(rng.randn(64, 64, 3).astype(np.float32))
-    eng.run_until_drained()
+    with tracer_scope(Tracer()):        # dispatches are timed when tracing
+        eng.run_until_drained()
     report = eng.telemetry()["divergence"]
     rows = report["dispatches"]
     assert len(rows) == 2
