@@ -40,8 +40,9 @@ Robustness, as in the JAX engine:
 Spans (``obs.trace``; on the profiler's clock while one records):
 ``serve/step`` (with its requests' ``uids`` when the tracer is enabled,
 the ids of their ``serve/admit`` and ``serve/retire`` events) holds
-``serve/batch`` (``batch_array``: the batch built on the host and
-copied to the device), ``serve/forward`` (the forward's launches),
+``serve/batch`` (``batch_array``: the batch staged row by row in the
+bucket's pinned buffer and its copies enqueued), ``serve/forward`` (the
+forward's launches),
 ``serve/readback`` (the copies of ``cls`` and ``box`` to the host, the
 step's synchronisation) and ``serve/retire``.
 
@@ -54,7 +55,11 @@ outputs to the host).  Otherwise the forward runs under the installed
 hook alone and ``divergence`` stays empty.
 ``telemetry()`` carries that report, ``plan_cache``
 (``plan.tile_cache_info``) and ``plan_sources`` (each layer's
-``"tuned"`` or ``"analytic"`` tiles, per bucket).
+``"tuned"`` or ``"analytic"`` tiles, per bucket).  The engine's metrics
+(``metrics``) count requests, retries, degraded batches, rungs and steps,
+and ``serve_staged_batches_total`` the batches staged through a pinned
+buffer (``path="pinned"``, on CUDA) or built in a host tensor
+(``path="host"``), per bucket.
 """
 from __future__ import annotations
 
@@ -165,6 +170,25 @@ def bucket_layer_dims(cfg: R.ResNetDCNConfig, res: int) -> dict[str, dict]:
     return dims
 
 
+@dataclasses.dataclass
+class _Staging:
+    """A bucket's reused input buffers: ``host`` (pinned on CUDA), and on
+    CUDA the device input ``dev`` and the event ``copied`` recorded after
+    the last row's copy."""
+    host: torch.Tensor
+    dev: torch.Tensor | None = None
+    copied: torch.cuda.Event | None = None
+
+    @classmethod
+    def make(cls, shape: tuple[int, ...], device: torch.device) -> "_Staging":
+        if device.type != "cuda":
+            return cls(torch.empty(shape, dtype=torch.float32,
+                                   device=device))
+        return cls(torch.empty(shape, dtype=torch.float32, pin_memory=True),
+                   torch.empty(shape, dtype=torch.float32, device=device),
+                   torch.cuda.Event())
+
+
 class DCLServingEngine:
     """See module docstring.  ``clock``/``sleep`` are injectable for
     deterministic deadline and backoff tests; ``step_hook(step, ctx)`` and
@@ -208,6 +232,9 @@ class DCLServingEngine:
             "serve_ladder_total", "requests served per datapath rung")
         self._c_steps = m.counter("serve_steps_total",
                                   "engine serving steps per bucket")
+        self._c_staged = m.counter(
+            "serve_staged_batches_total",
+            "batches staged per path (pinned, host) and bucket")
         self._g_queue = m.gauge(
             "serve_queue_depth", "queued requests after the last step")
         self._h_queue_wait = m.histogram(
@@ -304,6 +331,7 @@ class DCLServingEngine:
         self.completed: list[DetRequest] = []
         self.steps = 0
         self._uid = itertools.count()
+        self._staging: dict[int, _Staging] = {}
 
     def rungs_for(self, bucket: int) -> tuple[str, ...]:
         """The ladder of ``bucket``: a spatial bucket whose entry rung is
@@ -425,12 +453,46 @@ class DCLServingEngine:
 
     def batch_array(self, bucket: int, reqs: list[DetRequest]) -> torch.Tensor:
         """The step's input: ``slots`` rows, requests zero-padded into
-        the bucket, unused rows zero."""
-        images = np.zeros((self.scfg.slots, bucket, bucket, 3), np.float32)
+        the bucket, unused rows zero.
+
+        The bucket's buffers are made on its first step and reused on
+        every later one, so the tensor returned holds this batch until
+        the next call for the same bucket.  On CUDA each request is
+        written into its row of a pinned host buffer and that row's copy
+        to the device is enqueued at once on the current stream, the
+        stream the forward runs on; only what the step does not write is
+        zeroed (a smaller image's margin, the unused rows on the
+        device).  On the CPU the host buffer is the input."""
+        st = self._staging.get(bucket)
+        if st is None:
+            st = self._staging[bucket] = _Staging.make(
+                (self.scfg.slots, bucket, bucket, 3), self.device)
+        host, dev = st.host, st.dev
+        if st.copied is not None:
+            # A forward that raised before its readback may leave the
+            # last batch's copies out of ``host`` in flight.
+            st.copied.synchronize()
+        # numpy writes the rows on this thread alone (and converts as
+        # ``np.asarray(image, float32)`` does); torch's ``copy_`` spreads
+        # over the intra-op thread pool, whose stalls lengthened the
+        # serving tail on an H100.
+        rows = host.numpy()
         for i, r in enumerate(reqs):
-            arr = np.asarray(r.image, np.float32)
-            images[i, :arr.shape[0], :arr.shape[1], :] = arr
-        return torch.from_numpy(images).to(self.device)
+            arr = np.asarray(r.image)
+            h, w = arr.shape[:2]
+            if h < bucket or w < bucket:
+                rows[i, h:] = 0
+                rows[i, :h, w:] = 0
+            rows[i, :h, :w] = arr
+            if dev is not None:
+                dev[i].copy_(host[i], non_blocking=True)
+        out = host if dev is None else dev
+        out[len(reqs):].zero_()
+        if st.copied is not None:
+            st.copied.record(torch.cuda.current_stream(dev.device))
+        self._c_staged.inc(path="host" if dev is None else "pinned",
+                           bucket=str(bucket))
+        return out
 
     def _forward(self, rung: str, x: torch.Tensor, bucket: int | None = None
                  ) -> tuple[np.ndarray, np.ndarray]:

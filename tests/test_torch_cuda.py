@@ -541,6 +541,61 @@ def test_int8_chain_engine_step_runs_the_chain_kernel_only(cuda):
     assert [fn.launches for fn in counted] == [0, 0, 12]
 
 
+def test_engine_stages_batches_through_a_pinned_buffer(cuda):
+    """The engine stages every batch in the bucket's pinned buffer: its
+    steps on the int8 chain serve exactly what a fresh pageable batch of
+    the same requests gives, and a step whose forward raised before its
+    readback leaves the next step's batch whole."""
+    from repro_torch.quant.calibrate import calibrate_resnet_dcn
+    from repro_torch.serve import DCLServeConfig, DCLServingEngine
+    cfg = R.ResNetDCNConfig(stage_sizes=(1, 1, 1, 1),
+                            widths=(16, 32, 64, 128), stem_width=8,
+                            num_dcn=2, num_classes=4, img_size=32,
+                            offset_bound=2.0, use_kernel=True)
+    params = R.init_params(cfg, seed=0, device=cuda)
+    images = np.random.RandomState(3).randn(7, 32, 32, 3) \
+        .astype(np.float32)
+    table = calibrate_resnet_dcn(params, cfg, [images[:2]], device=cuda)
+    eng = DCLServingEngine(params, cfg,
+                           DCLServeConfig(buckets=(32,), slots=2,
+                                          max_retries=0),
+                           scale_table=table, device=cuda)
+    assert eng.rungs == ("int8_chain",)
+
+    def serve(batch):
+        reqs = [eng.submit(im) for im in batch]
+        eng.step()
+        return reqs
+
+    def check(reqs, batch):
+        fresh = np.zeros((2, 32, 32, 3), np.float32)
+        fresh[:len(batch)] = batch
+        with torch.no_grad():
+            want, _ = R.forward(params, eng._cfgs["int8_chain"],
+                                torch.from_numpy(fresh).to(cuda),
+                                quant_scales=eng._scales, device=cuda)
+        for i, r in enumerate(reqs):
+            assert r.outcome == "ok" and r.ladder == "int8_chain"
+            for key in ("cls", "box"):
+                assert torch.equal(torch.from_numpy(r.result[key]),
+                                   want[key][i].cpu())
+
+    check(serve(images[0:2]), images[0:2])
+    check(serve(images[2:3]), images[2:3])
+    staging = eng._staging[32]
+    assert staging.host.is_pinned() and staging.dev.is_cuda
+
+    def always(ctx):
+        raise RuntimeError("kernel launch failed")
+    with ops.dispatch_hook_scope(always):
+        failed = serve(images[3:5])
+    assert [r.outcome for r in failed] == ["failed", "failed"]
+    check(serve(images[5:7]), images[5:7])
+    staged = eng.metrics.counter("serve_staged_batches_total")
+    assert staged.value(path="pinned", bucket="32") == eng.steps == 4
+    assert staged.value(path="host", bucket="32") == 0
+
+
 def test_trainer_retry_replays_on_the_kernels(cuda, tmp_path):
     """A step that raises is replayed from the checkpoint through the same
     kernels: every computed step launches both DCL kernels twice."""

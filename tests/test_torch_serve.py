@@ -151,6 +151,71 @@ def test_matches_jax_engine_outcomes_and_results(model):
                     <= 1e-4 * np.abs(ref).max()
 
 
+# -- the batch build -----------------------------------------------------------
+
+def _fresh_batch(images, slots=2, side=BUCKET):
+    """The batch as a fresh zero-filled array with each image copied in."""
+    batch = np.zeros((slots, side, side, 3), np.float32)
+    for i, im in enumerate(images):
+        arr = np.asarray(im, np.float32)
+        batch[i, :arr.shape[0], :arr.shape[1], :] = arr
+    return batch
+
+
+def _typed(seed, dtype, side=BUCKET):
+    rng = np.random.RandomState(seed)
+    if dtype == "uint8":
+        return rng.randint(0, 256, (side, side, 3)).astype(np.uint8)
+    return rng.randn(side, side, 3).astype(dtype)
+
+
+# Steps of one engine, each a list of images: every dtype the old build
+# converted, an image torch cannot view (negative strides), a full step
+# then a partial one, a full-bucket image then a smaller one in its row.
+BUILDS = {
+    "float32": [[_typed(1, "float32"), _typed(2, "float32")]],
+    "float64": [[_typed(3, "float64"), _typed(4, "float64")]],
+    "uint8": [[_typed(5, "uint8"), _typed(6, "uint8")]],
+    "flipped": [[_typed(7, "float32")[::-1, ::-1]]],
+    "full_then_partial": [[_img(8), _img(9)], [_img(10)]],
+    "full_then_smaller": [[_img(11), _img(12)], [_img(13)[:24, :28]],
+                          [_img(14)[:20, :32], _img(15)[:32, :17]]],
+}
+
+
+@pytest.mark.parametrize("case", sorted(BUILDS))
+def test_batch_build_equals_a_fresh_zero_padded_batch(model, case):
+    """Each step's input equals, bit for bit, a fresh ``np.zeros`` batch
+    with the requests copied in, across reuse of the bucket's buffer:
+    no row or margin of an earlier step leaks into a later one; every
+    step counts one ``host`` batch."""
+    eng = _engine(model, strict_buckets=False)
+    seen = []
+    forward = eng._forward
+
+    def recording(rung, x, bucket=None):
+        seen.append(x.clone())
+        return forward(rung, x, bucket)
+    eng._forward = recording
+    for images in BUILDS[case]:
+        reqs = [eng.submit(im) for im in images]
+        eng.step()
+        assert all(r.outcome == "ok" for r in reqs)
+    assert len(seen) == eng.steps == len(BUILDS[case])
+    for x, images in zip(seen, BUILDS[case]):
+        assert x.dtype == torch.float32 and x.device.type == "cpu"
+        want = _fresh_batch(images)
+        assert np.array_equal(x.numpy().view(np.uint32),
+                              want.view(np.uint32))
+    staged = eng.metrics.counter("serve_staged_batches_total")
+    assert staged.value(path="host", bucket=str(BUCKET)) == eng.steps
+    assert staged.value(path="pinned", bucket=str(BUCKET)) == 0
+    counters = eng.telemetry()["metrics"]["counters"]
+    assert counters["serve_staged_batches_total"]["values"] == [
+        {"labels": {"bucket": str(BUCKET), "path": "host"},
+         "value": eng.steps}]
+
+
 # -- buckets, slots, admission -------------------------------------------------
 
 def test_unbucketable_request_is_typed_not_raised(model):
