@@ -22,7 +22,6 @@ import time
 T0 = time.monotonic()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 
@@ -77,7 +76,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    driver = importlib.import_module(cfg["driver"])
+    driver = pb_spec.driver(cfg)
     if args.fault == "half_batch":
         plant_half_batch()
     print(json.dumps({"card": torch.cuda.get_device_name(0),

@@ -503,3 +503,41 @@ def _reference_train(cfg, params0, batches, *, tf32: bool) -> dict:
     p0 = dict(pb_data.tree_leaves(params0))
     return {"losses": losses, "g": _leaf_norms(g),
             "d": _leaf_norms({p: p_end[p] - p0[p] for p in p0})}
+
+
+# -- the CPU tests' cut ---------------------------------------------------------
+
+# Limits of the reduced configurations on the CPU: the plain versions
+# agree with the reference to ~1e-5 on the forward and the first
+# gradient; a random reduced model's third step moves by a few % where
+# an Eq. 5 maximum or a tap's floor changes, so the training limits
+# here are loose and the faults the CPU tests plant read 1 or more.
+# At this size one int8 rounding that flips where the CPU sums in another
+# order moves the outputs by ~1% (int4 reads 0.77), so the int8 limit
+# is wider than the fp32 one.
+CPU_LIMITS = {"serve_out_gap": 1e-3, "train_loss_gap": 0.05,
+              "train_grad_gap": 1e-3, "train_step_gap": 0.3}
+CPU_INT8_GAP = 0.05
+
+
+def cpu_config(cfg: dict) -> dict:
+    """The configuration cut for the CPU tests (``pb_spec``'s driver
+    contract): one block a stage, narrow widths, 64^2 images, and the
+    CPU's limits."""
+    limits = dict(CPU_LIMITS)
+    if cfg["serve_rung"] == "int8_chain":
+        limits["serve_out_gap"] = CPU_INT8_GAP
+    return dict(cfg, stage_sizes=[1, 1, 1, 1], widths=[32, 64, 128, 256],
+                stem_width=16, num_dcn=2, num_classes=8, img_size=64,
+                limits=limits)
+
+
+def cpu_traffic(traffic: dict) -> dict:
+    """The traffic shrunk for the CPU tests: two rows a step, a pool of
+    four images and three compared, or a batch of two."""
+    if traffic["kind"] == "train":
+        return dict(traffic, batch=2)
+    t = dict(traffic, slots=2, pool=4, sample=3)
+    if t["kind"] == "serve_open":
+        return dict(t, rate_per_s=6)
+    return dict(t, depth=2)

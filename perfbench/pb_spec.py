@@ -7,9 +7,26 @@ the ``file`` of its entry in ``configs``, and a traffic mix, which is
 ``perfbench/metrics/<stem>.py``: the suffix names the cells a quantity
 is split over, and one reader serves them all.  Each reader defines
 ``read(run) -> float | None``.
+
+A configuration names its driver module (``"driver"``, found on the
+import path beside this file), which runs the configuration's cells and
+defines:
+
+* ``run(cfg, traffic, *, seed, seconds, trace, device, t0,
+  control=False) -> Outcome``: one run of a cell (``pb_dcn`` documents
+  the ``Outcome`` and the ``Run`` its readers read);
+* ``cpu_config(cfg) -> cfg``: the configuration cut for the CPU tests,
+  with its limits there;
+* ``cpu_traffic(traffic) -> traffic``: the traffic shrunk for those
+  tests.
+
+So a configuration of another architecture joins the benchmark with new
+files only: its driver, its plain reference, its configuration file and
+any readers of its own.
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import pathlib
@@ -84,6 +101,11 @@ def config(doc: dict, name: str, root: pathlib.Path = ROOT) -> dict:
             with open(root / c["file"]) as f:
                 return json.load(f)
     raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+
+
+def driver(cfg: dict):
+    """The driver module a configuration names (module docstring)."""
+    return importlib.import_module(cfg["driver"])
 
 
 def traffic(name: str, root: pathlib.Path = ROOT) -> dict:

@@ -27,7 +27,6 @@ import time
 T0 = time.monotonic()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -111,7 +110,7 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    driver = importlib.import_module(cfg["driver"])
+    driver = pb_spec.driver(cfg)
     bad = pb_guard.forbidden_modules(sys.modules)
     if bad:
         print(f"forbidden modules loaded at set-up: {bad}", file=sys.stderr)

@@ -18,7 +18,6 @@ for p in (str(HERE), str(HERE.parent / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-import pb_dcn  # noqa: E402
 import pb_spec  # noqa: E402
 
 DOC = pb_spec.load_benchmark()
@@ -29,10 +28,10 @@ def _run(cell: str, seed: int, control: bool):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     w = pb_spec.workload(DOC, cell)
-    return pb_dcn.run(pb_spec.config(DOC, w["config"]),
-                      pb_spec.traffic(w["traffic"]), seed=seed, seconds=2.0,
-                      trace=False, device="cuda", t0=time.monotonic(),
-                      control=control)
+    cfg = pb_spec.config(DOC, w["config"])
+    return pb_spec.driver(cfg).run(
+        cfg, pb_spec.traffic(w["traffic"]), seed=seed, seconds=2.0,
+        trace=False, device="cuda", t0=time.monotonic(), control=control)
 
 
 @pytest.mark.cuda

@@ -5,6 +5,8 @@ units of ``BENCHMARK.json``, the import check, the readers and the
 trace reduction.  The reference is held against the program at that
 size too."""
 import dataclasses
+import inspect
+import json
 import math
 import os
 import pathlib
@@ -32,46 +34,42 @@ import run as runner  # noqa: E402
 
 DOC = pb_spec.load_benchmark()
 SEED = 2**31 + 11
-# Limits of the reduced configurations on the CPU: the plain versions
-# agree with the reference to ~1e-5 on the forward and the first
-# gradient; a random reduced model's third step moves by a few % where
-# an Eq. 5 maximum or a tap's floor changes, so the training limits
-# here are loose and the faults below read 1 or more.
-# At this size one int8 rounding that flips where the CPU sums in another
-# order moves the outputs by ~1% (int4 reads 0.77), so the int8 limit
-# is wider than the fp32 one.
-CPU_LIMITS = {"serve_out_gap": 1e-3, "train_loss_gap": 0.05,
-              "train_grad_gap": 1e-3, "train_step_gap": 0.3}
-CPU_INT8_GAP = 0.05
 
 
-def reduced(name: str) -> dict:
-    cfg = pb_spec.config(DOC, name)
-    limits = dict(CPU_LIMITS)
-    if cfg["serve_rung"] == "int8_chain":
-        limits["serve_out_gap"] = CPU_INT8_GAP
-    cfg.update(stage_sizes=[1, 1, 1, 1], widths=[32, 64, 128, 256],
-               stem_width=16, num_dcn=2, num_classes=8, img_size=64,
-               limits=limits)
-    return cfg
+def reduced(name: str, doc: dict = DOC, root=pb_spec.ROOT) -> dict:
+    """Configuration ``name`` cut for the CPU by the driver it names."""
+    cfg = pb_spec.config(doc, name, root)
+    return pb_spec.driver(cfg).cpu_config(cfg)
 
 
-def tiny(traffic: str) -> dict:
-    t = pb_spec.traffic(traffic)
-    if t["kind"] == "train":
-        return dict(t, batch=2)
-    t = dict(t, slots=2, pool=4, sample=3)
-    if t["kind"] == "serve_open":
-        return dict(t, rate_per_s=6)
-    return dict(t, depth=2)
+def tiny(cell: str, doc: dict = DOC, root=pb_spec.ROOT) -> dict:
+    """The cell's traffic shrunk for the CPU by its configuration's
+    driver."""
+    w = pb_spec.workload(doc, cell)
+    cfg = pb_spec.config(doc, w["config"], root)
+    return pb_spec.driver(cfg).cpu_traffic(
+        pb_spec.traffic(w["traffic"], root))
 
 
-def run_cell(cell: str, **kw):
-    w = pb_spec.workload(DOC, cell)
+def run_cell(cell: str, *, doc: dict = DOC, root=pb_spec.ROOT,
+             trace: bool = False, **kw):
+    """One run of a cell on the CPU, through the driver its configuration
+    names, at that driver's cut."""
+    w = pb_spec.workload(doc, cell)
+    driver = pb_spec.driver(pb_spec.config(doc, w["config"], root))
     torch.set_num_threads(2)
-    return pb_dcn.run(reduced(w["config"]), tiny(w["traffic"]), seed=SEED,
-                      seconds=0.6, trace=False, device="cpu",
+    return driver.run(reduced(w["config"], doc, root), tiny(cell, doc, root),
+                      seed=SEED, seconds=0.6, trace=trace, device="cpu",
                       t0=time.monotonic(), **kw)
+
+
+def assert_sound(out, cell: str, doc: dict = DOC) -> None:
+    """A correct run that reports every end-to-end metric of its cell."""
+    assert out.correct, out.checks
+    assert out.attempted > 0 and out.failed == 0
+    names = {m["name"] for m in pb_spec.metrics_of(doc, "end_to_end", cell)}
+    assert names <= set(out.values)
+    assert all(v > 0 and math.isfinite(v) for v in out.values.values())
 
 
 CELLS = [w["name"] for w in DOC["workloads"]]
@@ -79,12 +77,82 @@ CELLS = [w["name"] for w in DOC["workloads"]]
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_runs_and_is_correct_on_cpu(cell):
-    out = run_cell(cell)
-    assert out.correct, out.checks
-    assert out.attempted > 0 and out.failed == 0
-    names = {m["name"] for m in pb_spec.metrics_of(DOC, "end_to_end", cell)}
-    assert names <= set(out.values)
-    assert all(v > 0 and math.isfinite(v) for v in out.values.values())
+    assert_sound(run_cell(cell), cell)
+
+
+STUB_DRIVER = '''"""The driver of a made-up architecture: it records what the
+harness hands it."""
+import types
+
+calls = []
+
+
+def cpu_config(cfg):
+    calls.append("cpu_config")
+    return dict(cfg, width=cfg["width"] // 8)
+
+
+def cpu_traffic(traffic):
+    calls.append("cpu_traffic")
+    return dict(traffic, batch=1)
+
+
+def run(cfg, traffic, *, seed, seconds, trace, device, t0, control=False):
+    calls.append(("run", cfg["width"], traffic["batch"], device, control))
+    return types.SimpleNamespace(
+        correct=True, attempted=3, failed=0, checks={"gap": (0.0, 1.0)},
+        values={"widgets_per_s": 5.0, "setup_s": 1.0}, notes={})
+'''
+
+
+def test_a_configuration_runs_through_the_driver_it_names(tmp_path,
+                                                           monkeypatch):
+    """A configuration that names another driver module joins with new
+    files only, and the harness's cell path runs it by that module, at
+    that module's CPU cut, without importing ``pb_dcn``."""
+    for d in ("perfbench/configs", "perfbench/traffic", "drivers"):
+        (tmp_path / d).mkdir(parents=True)
+    (tmp_path / "drivers" / "pb_stub_arch.py").write_text(STUB_DRIVER)
+    (tmp_path / "perfbench/configs/stub-arch.json").write_text(json.dumps(
+        {"driver": "pb_stub_arch", "width": 256}))
+    (tmp_path / "perfbench/traffic/stub-mix.json").write_text(json.dumps(
+        {"kind": "stub", "batch": 8}))
+    metric = {"unit": "widgets/s", "better": "higher", "bound": 0.05,
+              "source": "host_clock"}
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(dict(
+        DOC,
+        configs=[{"name": "stub-arch", "source": "https://example.org/stub",
+                  "file": "perfbench/configs/stub-arch.json", "reduced": [],
+                  "why": "a made-up architecture"}],
+        workloads=[{"name": "stub-cell", "config": "stub-arch",
+                    "traffic": "stub-mix", "chips": 1, "why": "a stub"}],
+        end_to_end=[dict(metric, name="widgets_per_s"),
+                    dict(metric, name="setup_s", unit="s",
+                         better="lower")])))
+    monkeypatch.syspath_prepend(str(tmp_path / "drivers"))
+    monkeypatch.setitem(sys.modules, "pb_dcn", None)    # an import fails
+    monkeypatch.setitem(sys.modules, "pb_stub_arch", None)
+    del sys.modules["pb_stub_arch"]          # removed again at teardown
+    doc = pb_spec.load_benchmark(root=tmp_path)
+    assert pb_spec.problems(doc) == []
+    out = run_cell("stub-cell", doc=doc, root=tmp_path)
+    stub = sys.modules["pb_stub_arch"]
+    assert stub.calls == ["cpu_config", "cpu_traffic",
+                          ("run", 32, 1, "cpu", False)]
+    assert_sound(out, "stub-cell", doc)
+    line = runner.assemble(doc, pb_spec.workload(doc, "stub-cell"), out,
+                           trace=False, device={})
+    assert set(line["metrics"]) == {"widgets_per_s", "setup_s"}
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in DOC["configs"]])
+def test_every_driver_keeps_the_contract(name):
+    driver = pb_spec.driver(pb_spec.config(DOC, name))
+    for fn in ("run", "cpu_config", "cpu_traffic"):
+        assert callable(getattr(driver, fn, None)), fn
+    params = inspect.signature(driver.run).parameters
+    assert {"seed", "seconds", "trace", "device", "t0", "control"} <= set(
+        params)
 
 
 @pytest.mark.parametrize("cell", ["det512-int8-batch", "det512-int8-open"])
@@ -141,7 +209,9 @@ def test_result_line():
                      trace={"window_s": 2.0, "busy_s": 1.5, "dcl_s": 0.1,
                             "dcl_launches": 24,
                             "device_ops": [["k", 1.0]],
-                            "idle_gaps": [["bench/step", 0.5]]})
+                            "idle_gaps": [["bench/step", 0.1],
+                                          ["serve/batch", 0.3],
+                                          ["serve/forward", 0.1]]})
     out = pb_dcn.Outcome(values={"images_per_s": 32.0, "setup_s": 20.0},
                          run=run, checks={"out_gap": (1e-4, 1e-2)},
                          attempted=64, failed=0, memory_peak_bytes=1)
@@ -160,6 +230,10 @@ def test_result_line():
     for m in traced["metrics"].values():
         if m["unit"] == "%":
             assert 0 < m["value"] <= 100
+    got = {k: m["value"] for k, m in traced["metrics"].items()}
+    assert got["device_idle.batch"] == pytest.approx(25.0)
+    assert got["build_idle.batch"] == pytest.approx(15.0)
+    assert got["launch_idle.batch"] == pytest.approx(5.0)
 
 
 def test_benchmark_names_and_units():
@@ -198,7 +272,11 @@ def test_import_guard_whole_names():
 
 
 def test_harness_and_program_load_nothing_forbidden():
-    code = ("import sys; import pb_dcn, pb_ref_dcn, pb_spec, pb_trace, run; "
+    drivers = sorted({pb_spec.config(DOC, c["name"])["driver"]
+                      for c in DOC["configs"]})
+    refs = sorted(p.stem for p in HERE.glob("pb_ref_*.py"))
+    code = ("import sys; import pb_spec, pb_trace, run; "
+            f"import {', '.join(drivers + refs)}; "
             "import repro_torch.serve, repro_torch.train, "
             "repro_torch.launch.train, repro_torch.quant.calibrate; "
             "import pb_guard; print(pb_guard.forbidden_modules(sys.modules))")
@@ -211,7 +289,9 @@ def test_harness_and_program_load_nothing_forbidden():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for name in ("pb_ref_dcn.py", "pb_data.py", "pb_yard.py"):
+    refs = sorted(p.name for p in HERE.glob("pb_ref_*.py"))
+    assert "pb_ref_dcn.py" in refs
+    for name in refs + ["pb_data.py", "pb_yard.py"]:
         text = (HERE / name).read_text()
         assert "import repro" not in text and "from repro" not in text
 
@@ -245,7 +325,7 @@ def test_reference_matches_the_programs_plain_path(quant):
         scales = ref.calibrate(params, cfg, imgs[:2])
         cls, box, _ = ref.forward(params, cfg, imgs, dcl="int",
                                   scales=scales)
-    limit = 1e-4 if quant == "none" else CPU_INT8_GAP
+    limit = 1e-4 if quant == "none" else pb_dcn.CPU_INT8_GAP
     assert pb_dcn._rel(out["cls"], cls) < limit
     assert pb_dcn._rel(out["box"], box) < limit
 

@@ -4,10 +4,8 @@ made-up traces, and of a reduced traced run whose idle gaps carry the
 serving engine's labels."""
 import pathlib
 import sys
-import time
 
 import pytest
-import torch
 
 HERE = pathlib.Path(__file__).resolve().parent
 for p in (str(HERE), str(HERE.parent / "src")):
@@ -71,11 +69,7 @@ def test_traced_cpu_run_labels_idle_by_the_engines_spans(monkeypatch):
     """The CPU has no device kernels, so the CPU's operators stand in
     for them: the gaps between them are the idle the labels split."""
     monkeypatch.setattr(pb_trace, "DEVICE_CATS", ("cpu_op",))
-    w = pb_spec.workload(H.DOC, "det512-int8-batch")
-    torch.set_num_threads(2)
-    out = pb_dcn.run(H.reduced(w["config"]), H.tiny(w["traffic"]),
-                     seed=H.SEED, seconds=0.6, trace=True, device="cpu",
-                     t0=time.monotonic())
+    out = H.run_cell("det512-int8-batch", trace=True)
     assert out.correct
     labels = {name for name, _ in out.run.trace["idle_gaps"]}
     # The readers' labels hold the step's long gaps.  A gap is labelled
