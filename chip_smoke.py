@@ -444,13 +444,30 @@ Phases, each of which exits non-zero on failure:
    through the entry point and launches nothing; beside
    ``max_offset_bound_fitting`` at the paper's tiles.  ``--only 22``
    runs phases 1, 2 and 22 alone and prints no result.
+23. the DCNv3 kernel (``dv3_kernel``, ``ops.dcnv3``) and
+   internimage_b_bounded.  (a) At each stage's served shape (batch 32;
+   128² x 112 in 7 groups, 64² x 224 in 14, 32² x 448 in 28, 16² x 896 in
+   56) and a ragged one (13 x 21 x 112, 7 groups), offsets of std 1.5 px
+   (~18% past ±B): the kernel against ``dcnv3_plain`` on the same card
+   tensors within ``1e-5 * max|plain|``, two calls ``torch.equal``, the
+   ``core.h100.dcnv3_work`` bytes equal to the call's tensors; kernel and
+   plain times (CUDA events) beside the bound.  (b) The launcher's
+   engine (``--arch internimage_b_bounded``, bucket 512, 32 slots, 32
+   requests, its default rung) on full-width seeded params with the
+   offset and mask projections perturbed: every request ``ok`` on
+   ``fp32_kernel``, ``dcnv3.launches`` counted from 0 over the served run
+   equal to 33 (one a DCNv3 layer), no other kernel of the port, ``cls``
+   and ``box`` within ``1e-3 * max|ref|`` of the plain path on the card.
+   ``--only 23`` runs phases 1, 2 and 23 alone; its kernels line holds
+   the dcnv3 row only, and it prints no result.
 
 The kernels line gives ``ms``, ``plain_ms`` and ``bound_ms`` per main-path
 run: each shape's phase-3 (phase-5, phase-7, phase-9) time times the
 launches of that shape in the run of phase 4 (of the kernel's rung in
 phase 6, of phase 8's 6 training steps, of phase 10 for kernel 4, of
 phase 9's entry-point run for 1b, 3 and 5, of phase 12's run for 6),
-summed.  Every bound, of a row and of each case, comes from
+summed; the dcnv3 row's are phase 23's per shape times its 33 launches
+in phase 23's served run.  Every bound, of a row and of each case, comes from
 ``core.h100`` (the module that prices the engine's dispatches): each
 call's work, summed over the run's launches and bounded as one; kernel
 4's counts the materialised bands, checked against each call's
@@ -7617,6 +7634,229 @@ def design_space_phase(record: dict) -> None:
           f"{P22_SECONDS} s, printed)")
 
 
+# Phase 23: the DCNv3 kernel at the batch det512-iimgb-fp32-batch serves,
+# with offsets of which ~18% pass ±B.
+DV3_BATCH = 32
+DV3_OFFSET_STD = 1.5
+DV3_RAGGED = dict(label="ragged 13x21x112 g7", n=3, h=13, w=21, c=112,
+                  groups=7)
+
+
+def dcnv3_case(case: dict, gen) -> dict:
+    """The ``dv3_`` kernel through ``ops.dcnv3`` against its plain version
+    on the same card tensors at one shape; the record."""
+    import torch
+
+    from repro_torch.kernels import dcnv3 as D
+    from repro_torch.kernels import ops
+    n, h, w, c, g = (case[k] for k in ("n", "h", "w", "c", "groups"))
+    k2 = K * K
+    v = torch.randn(n, h, w, c, device="cuda", generator=gen)
+    off = torch.randn(n, h, w, g * k2 * 2, device="cuda",
+                      generator=gen) * DV3_OFFSET_STD
+    logits = torch.randn(n, h, w, g * k2, device="cuda", generator=gen)
+    geom = dict(groups=g, kernel_size=K, offset_bound=B)
+    y = ops.dcnv3(v, off, logits, device="cuda", **geom)
+    y2 = ops.dcnv3(v, off, logits, device="cuda", **geom)
+    ref = D.dcnv3_plain(v, off, logits, **geom)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    repeatable = torch.equal(y, y2)
+    ok = (bool(torch.isfinite(y).all()) and err <= KERNEL_RTOL * scale
+          and repeatable)
+    work = h100.dcnv3_work(n, h, w, c, g)
+    same_bytes(work, (v, off, logits, y), f"dcnv3 {case['label']}")
+    ms = time_ms(lambda: D.dcnv3(v, off, logits, **geom), reps=5, iters=20)
+    plain_ms = time_ms(lambda: D.dcnv3_plain(v, off, logits, **geom),
+                       reps=3, iters=1)
+    past = (off.abs() > B).float().mean().item()
+    rec = dict(label=case["label"], n=n, h=h, w=w, c=c, groups=g,
+               tiles=list(D.tiles(h, w, g)), past_bound=past,
+               max_abs_err=err, max_abs_plain=scale, repeatable=repeatable,
+               ms=ms, plain_ms=plain_ms, per_forward=case.get("per_forward"),
+               **bound_fields(work))
+    print(f"  {case['label']:<24} n={n} tiles {rec['tiles']} err={err:.3e} "
+          f"(max|plain|={scale:.3f}) kernel={ms:.4f} ms plain="
+          f"{plain_ms:.3f} ms bound={rec['bound_ms']:.4f} ms "
+          f"({rec['bound_ms'] / ms:.1%}, {rec['bound_by']}) offsets past "
+          f"±B {past:.1%}; two calls torch.equal: {repeatable} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"dcnv3 {case['label']}: max|kernel - plain| = {err} (limit "
+             f"{KERNEL_RTOL} * {scale}), repeatable {repeatable}")
+    del v, off, logits, y, y2, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def perturb_dcnv3(params, seed: int):
+    """Seeded offset and mask projections for every DCNv3 layer (the
+    published init zeroes them, so taps would sit on the grid with equal
+    weights), the offsets a few pixels and a share past ±B."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    for layer in params.values():
+        if "dcn" not in layer:
+            continue
+        for proj, std_px in (("offset", DV3_OFFSET_STD), ("mask", 1.0)):
+            p = layer["dcn"][proj]
+            # GELU(LN(.)) feeds the projections at an rms of about 0.65.
+            std = std_px / (0.65 * p["w"].shape[0] ** 0.5)
+            p["w"] = (torch.randn(p["w"].shape, generator=gen)
+                      * std).to(p["w"].device)
+            p["b"] = (torch.randn(p["b"].shape, generator=gen)
+                      * 0.5).to(p["b"].device)
+    return params
+
+
+def dcnv3_serve(record: dict) -> dict:
+    """Phase 23(b): internimage_b_bounded served by the launcher's engine
+    at 512², one step of ``DV3_BATCH``; returns the record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.internimage import CONFIG_BOUNDED as IIMG
+    from repro_torch.kernels import dcnv3 as D
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import internimage as I
+
+    args = launch.build_parser().parse_args(
+        ["--arch", IIMG.name, "--buckets", "512", "--requests",
+         str(DV3_BATCH), "--slots", str(DV3_BATCH), "--device", "cuda",
+         "--seed", "0"])
+    params = perturb_dcnv3(I.init_params(IIMG, seed=0, device="cuda"), 2)
+    launch.serve_detection(IIMG, args, params=params)        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    D.dcnv3.launches = 0
+    engine, _, seconds = launch.serve_detection(IIMG, args, params=params)
+    launches = D.dcnv3.launches
+    others = {k: n for k, n in read_counts().items() if n}
+    print(launch.report(engine, seconds))
+    reqs = engine.completed
+    n_layers = sum(IIMG.depths)
+    bad = [(r.uid, r.outcome, r.ladder, r.degraded, r.error) for r in reqs
+           if r.outcome != "ok" or r.ladder != "fp32_kernel" or r.degraded]
+    if engine.scfg.quant != "fp32_kernel" or len(reqs) != DV3_BATCH or bad:
+        fail(f"phase 23(b): entry rung {engine.scfg.quant}, "
+             f"{len(reqs)} requests, not ok on fp32_kernel: {bad}")
+    if launches != n_layers * engine.steps or engine.steps != 1 or others:
+        fail(f"phase 23(b): dcnv3 launched {launches} times in "
+             f"{engine.steps} steps (want {n_layers} a step), other "
+             f"kernels {others}")
+    print(f"  dcnv3 launches in the served run: {launches} = {n_layers} x "
+          f"{engine.steps} step; no other kernel of the port")
+
+    # The plain path on the card, same batch; the share of offsets past
+    # ±B from the kernel path's calls (not counted).
+    cfg = dataclasses.replace(IIMG, use_kernel=True)
+    ref_cfg = dataclasses.replace(IIMG, use_kernel=False)
+    x = engine.batch_array(512, reqs)
+    past = []
+    real = ops.dcnv3
+
+    def recording(v, offsets, mask_logits, **kw):
+        past.append((offsets.abs() > B).float().mean().item())
+        return real(v, offsets, mask_logits, **kw)
+
+    with torch.no_grad():
+        ref, _ = I.forward(params, ref_cfg, x, device="cuda")
+        ops.dcnv3 = recording
+        try:
+            I.forward(params, cfg, x, device="cuda")
+        finally:
+            ops.dcnv3 = real
+    worst = 0.0
+    for key in ("cls", "box"):
+        want = ref[key].cpu().numpy()
+        got = np.stack([r.result[key] for r in reqs])
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        worst = max(worst, err / scale)
+        print(f"  {key}: max|kernel path - plain path| = {err:.3e} "
+              f"(max|ref|={scale:.3f}, rel {err / scale:.2e})")
+        if not np.isfinite(got).all() or err > SERVE_RTOL * scale:
+            fail(f"phase 23(b) {key} off the plain path: {err} > "
+                 f"{SERVE_RTOL} * {scale}")
+    share = statistics.mean(past)
+    if share <= 0.0:
+        fail("phase 23(b): no offset passed ±B: the run tests no clamp")
+    with torch.no_grad():
+        fwd = {name: time_ms(lambda c=c: I.forward(params, c, x,
+                                                   device="cuda"),
+                             reps=reps, iters=1)
+               for name, c, reps in (("kernel_path", cfg, 3),
+                                     ("plain_path", ref_cfg, 2))}
+    print(f"  offsets past ±B {share:.1%}; a forward of {DV3_BATCH}: kernel "
+          f"path {fwd['kernel_path']:.2f} ms, plain path "
+          f"{fwd['plain_path']:.2f} ms (CUDA events); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    rec = dict(requests=len(reqs), steps=engine.steps, launches=launches,
+               seconds=seconds, worst_rel_err=worst, past_bound=share,
+               forward_ms=fwd)
+    del params, engine, x, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dcnv3_phase(record: dict) -> dict:
+    """Phase 23: (a) the ``dv3_`` kernel against its plain version at each
+    InternImage-B stage's served shape and a ragged one, (b) the engine's
+    served run; returns the kernels line's row."""
+    import torch
+
+    from repro_torch.configs.internimage import CONFIG_BOUNDED as IIMG
+    from repro_torch.serve import bucket_layer_dims
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    per_forward: dict[tuple, int] = {}
+    for d in bucket_layer_dims(IIMG, 512).values():
+        key = (d["h"], d["w"], d["c"], d["groups"])
+        per_forward[key] = per_forward.get(key, 0) + 1
+    cases = [dict(label=f"{h}x{w}x{c} g{g}", n=DV3_BATCH, h=h, w=w, c=c,
+                  groups=g, per_forward=cnt)
+             for (h, w, c, g), cnt in per_forward.items()] + [DV3_RAGGED]
+    recs = [dcnv3_case(c, gen) for c in cases]
+    served = dcnv3_serve(record)
+    main_path = [r for r in recs if r["per_forward"]]
+    steps = served["steps"]
+    launches = sum(r["per_forward"] for r in main_path) * steps
+    if launches != served["launches"]:
+        fail(f"phase 23: the shapes count {launches} launches, the served "
+             f"run made {served['launches']}")
+    work = h100.total((r["work"], r["per_forward"] * steps)
+                      for r in main_path)
+    row = {
+        "name": "dcnv3",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dcnv3.cu",
+        "replaces": None,
+        "launches": served["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in recs),
+        "ms": sum(r["ms"] * r["per_forward"] * steps for r in main_path),
+        "plain_ms": sum(r["plain_ms"] * r["per_forward"] * steps
+                        for r in main_path),
+        "bound_ms": work["bound_s"] * 1e3,
+        "bound_by": work["bound_by"],
+        "bound_note": "bytes: v, offsets, mask logits and y once at 3.35 "
+                      "TB/s; the fp32 operations on the CUDA cores",
+        "library_ms": None,
+    }
+    for r in recs:
+        r.pop("work")
+    record["dcnv3_shapes"] = recs
+    record["dcnv3_serve"] = served
+    record["phase23_s"] = time.monotonic() - t0
+    print(f"  dcnv3 per served run (a forward of {DV3_BATCH}): "
+          f"{row['launches']} launches, kernel {row['ms']:.3f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.1%}); phase "
+          f"23 in {record['phase23_s']:.1f} s")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -7709,6 +7949,20 @@ def main() -> int:
         OUT.write_text(json.dumps(record, indent=2))
         print(f"  details in {OUT.relative_to(ROOT)}; "
               f"{time.monotonic() - t_start:.0f} s in all")
+        return 0
+
+    if sys.argv[1:] == ["--only", "23"]:
+        # A run of phase 23 alone (after the build): its kernels line
+        # holds the dcnv3 row only; no result.
+        print("== 23. the DCNv3 kernel and InternImage-B served (alone)")
+        row = dcnv3_phase(record)
+        record["kernels"] = [row]
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.write_text(json.dumps(record, indent=2))
+        print(f"  details in {OUT.relative_to(ROOT)}; "
+              f"{time.monotonic() - t_start:.0f} s in all")
+        print(card)
+        print(json.dumps({"kernels": [row]}))
         return 0
 
     if sys.argv[1:] == ["--only", "18"]:
@@ -8199,6 +8453,10 @@ def main() -> int:
           "tiles against time, the model's rank of the tiles, the Eq. 5 "
           "bound at the shared-memory limit")
     design_space_phase(record)
+
+    print("== 23. the DCNv3 kernel (dv3) vs plain at InternImage-B's served "
+          "shapes; internimage_b_bounded served")
+    kernels["kernels"].append(dcnv3_phase(record))
 
     record["kernels"] = kernels["kernels"]
     record["seconds"] = time.monotonic() - t_start

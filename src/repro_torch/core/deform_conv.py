@@ -103,8 +103,12 @@ def _same_pads(n: int, k: int, stride: int, dilation: int) -> tuple[int, int]:
 
 
 def conv2d(x: Tensor, w: Tensor, *, stride: int = 1, dilation: int = 1,
-           padding: str | int = "SAME") -> Tensor:
+           padding: str | int = "SAME", groups: int = 1) -> Tensor:
     """``lax.conv_general_dilated`` with NHWC/HWIO/NHWC numbers.
+
+    ``groups`` splits the channels as ``F.conv2d`` does: w is (KH, KW,
+    C // groups, M), so ``groups=C`` with w (KH, KW, 1, C) is a
+    depthwise convolution.
 
     ``padding="SAME"`` follows XLA, which pads (0, 1) for a 3x3 stride-2
     conv on an even extent, where ``F.conv2d(padding=1)`` pads (1, 1).
@@ -115,17 +119,17 @@ def conv2d(x: Tensor, w: Tensor, *, stride: int = 1, dilation: int = 1,
     wn = w.permute(3, 2, 0, 1)
     if isinstance(padding, int):
         y = F.conv2d(xn, wn, stride=stride, padding=padding,
-                     dilation=dilation)
+                     dilation=dilation, groups=groups)
     elif padding == "SAME":
         kh, kw = w.shape[0], w.shape[1]
         ph = _same_pads(x.shape[1], kh, stride, dilation)
         pw = _same_pads(x.shape[2], kw, stride, dilation)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             y = F.conv2d(xn, wn, stride=stride, padding=(ph[0], pw[0]),
-                         dilation=dilation)
+                         dilation=dilation, groups=groups)
         else:
             y = F.conv2d(F.pad(xn, (pw[0], pw[1], ph[0], ph[1])), wn,
-                         stride=stride, dilation=dilation)
+                         stride=stride, dilation=dilation, groups=groups)
     else:
         raise ValueError(f"unsupported padding {padding!r}; expected an "
                          f"int or 'SAME'")

@@ -21,7 +21,8 @@ that may run them — with its ``kind`` and its bound (``bound``):
   operations a sample);
 * ``"rate"`` — one time for all its operations (``op_s``): the bf16
   instances of 1a and 4 (bf16 products), of 2 (dP one bf16 pass, dw two
-  tf32 passes), and any kernel priced at one peak (``rate_work``).
+  tf32 passes), the DCNv3 core (``dcnv3_work``: fp32 on the CUDA cores)
+  and any kernel priced at one peak (``rate_work``).
 
 Every bound is the larger of the operations' time and the bytes' time.
 ``total`` sums the works of many calls (a shape's times its launches)
@@ -50,6 +51,10 @@ NVLINK_BYTES_PER_S = 450e9
 # products, 3 sums, no FMA), at one a lane a clock on the CUDA cores.
 SAMPLE_OPS = 7
 CUDA_CORE_LANE_OPS = 132 * 128 * 1.98e9
+
+# The DCNv3 core's fp32 operations a (channel, tap): the bilinear sample
+# (``SAMPLE_OPS``), its softmax weight's product and the sum over taps.
+DCNV3_OPS = SAMPLE_OPS + 2
 
 # The quantities ``total`` adds; the rest of a work is derived.
 ADDITIVE = ("bytes", "ops", "samples", "fp32_s", "tf32x3_s", "int8_s",
@@ -215,3 +220,15 @@ def training_work(n: int, h: int, w: int, c: int, m: int, **kw) -> dict:
                 ops=fwd["ops"] + bwd["ops"],
                 bound_s=fwd["bound_s"] + bwd["bound_s"],
                 bound_by=bwd["bound_by"])
+
+
+def dcnv3_work(n: int, h: int, w: int, c: int, groups: int,
+               kernel_size: int = 3) -> dict:
+    """The DCNv3 core (``ops.dcnv3``, stride 1): the input v (N, H, W, C),
+    the offsets (2 K*K a group and pixel) and the mask logits (K*K a group
+    and pixel) read once, y (N, H, W, C) written once, all fp32;
+    ``DCNV3_OPS`` fp32 operations a channel and tap on the CUDA cores
+    (the softmax and the tap geometry, once a group, are left out)."""
+    k2, p = kernel_size * kernel_size, n * h * w
+    nbytes = 4 * (2 * p * c + p * groups * 3 * k2)
+    return rate_work(nbytes, DCNV3_OPS * p * c * k2, PEAK_FP32_FLOPS)

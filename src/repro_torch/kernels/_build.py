@@ -44,6 +44,11 @@ SIGNATURES = {
         "ds_smem_bytes": (ctypes.c_longlong, [_I] * 8),
         "ds_error_string": (ctypes.c_char_p, [_I]),
     },
+    "dcnv3": {
+        "dv3_plan": (_I, [_P]),
+        "dv3_launch": (_I, [_P] * 5 + [_I, _P]),
+        "dv3_error_string": (ctypes.c_char_p, [_I]),
+    },
     "flash_attention": {
         "fa_forward": (_I, [_P] * 5 + [_I] * 8
                        + [ctypes.c_float, _I, _P]),

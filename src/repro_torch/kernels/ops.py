@@ -16,7 +16,10 @@
   offsets;
 * ``deform_conv_chain``: one chained int8 layer, offset conv fused into
   the kernel, int8 or fp32 emission (``plan.chain_forward``);
-* ``matmul``: the tiled fp32-accumulating product (kernel 5).
+* ``matmul``: the tiled fp32-accumulating product (kernel 5);
+* ``dcnv3``: the DCNv3 core of InternImage with bounded offsets
+  (``kernels.dcnv3``: the ``dv3_`` kernel on CUDA, its plain version on
+  the CPU), inference only.
 
 The device of the call is explicit (``device=None`` means ``cuda``) and
 the tensors must lie on it; the tensors' device then picks the kernel
@@ -30,8 +33,8 @@ is ``plan.bounded_forward`` and its backward the fused backward kernel
 rounded once to its input's dtype), on both devices and for both
 dataflows, as in JAX: the gradient is a property of the function, not of
 the dataflow.
-The int8 and chain paths are inference only: on CUDA an input that needs
-a gradient raises there (quantized models train with ``quant="qat"``).
+The int8, chain and DCNv3 paths are inference only: on CUDA an input that
+needs a gradient raises there (quantized models train with ``quant="qat"``).
 
 On a device mesh (``distributed.sharding.use_rules(mesh=...)``) the
 bounded call shards: ``shard_batch`` splits the batch over the mesh's
@@ -89,6 +92,7 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.distributed import spatial as _spatial
 from repro_torch.distributed.sharding import (Mesh, batch_mesh_axes,
                                               data_shard, move)
+from repro_torch.kernels import dcnv3 as _dcnv3
 from repro_torch.kernels import plan as _plan
 from repro_torch.kernels.deform_sample import (deform_sample_banded,
                                                deform_sample_zerocopy)
@@ -209,13 +213,15 @@ def check_channel_tiles(c: int, m: int, tile_c: int | None,
             f"(or tile_m=None for the chooser)")
 
 
-def _refuse_grad(dev: torch.device, op: str, *tensors: Tensor) -> None:
+def _refuse_grad(dev: torch.device, op: str, *tensors: Tensor,
+                 why: str | None = None) -> None:
     if dev.type == "cuda" and torch.is_grad_enabled() and any(
             t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{op} is the int8 inference datapath and has no gradient: "
-            f"quantized models train with quant='qat' (fake-quant over the "
-            f"fp32 kernels); run it under torch.no_grad()")
+            f"{op} " + (why or "is the int8 inference datapath and has no "
+                        "gradient: quantized models train with quant='qat' "
+                        "(fake-quant over the fp32 kernels)")
+            + "; run it under torch.no_grad()")
 
 
 class BoundedDeformConv(torch.autograd.Function):
@@ -601,3 +607,28 @@ def deform_conv_chain(x: Tensor, w: Tensor, w_offset: Tensor, b_offset,
             x_scale=x_scale, w_scale=w_scale,
             w_offset_scale=w_offset_scale, y_scale=y_scale, tile_h=tile_h,
             tile_w=tile_w, tile_c=tile_c, tile_m=tile_m, emit=emit)))
+
+
+def dcnv3(v: Tensor, offsets: Tensor, mask_logits: Tensor, *, groups: int,
+          kernel_size: int = 3, offset_bound: float,
+          device: str | torch.device | None = None) -> Tensor:
+    """The DCNv3 core with offsets clamped to ±``offset_bound``
+    (``kernels.dcnv3``): v (N, H, W, C) in ``groups`` groups, offsets (N,
+    H, W, groups*K*K*2) with (dx, dy) a tap, the taps x outer and y inner,
+    mask logits (N, H, W, groups*K*K) whose softmax over each group's K*K
+    taps weights its samples; stride 1, zero outside the image.  Returns
+    y (N, H, W, C).  A dispatch like the DCL ops' (context ``op``
+    "dcnv3", priced by ``core.h100.dcnv3_work``); no gradient on CUDA."""
+    dev = resolve_device(device)
+    check_on(dev, v=v, offsets=offsets, mask_logits=mask_logits)
+    _dcnv3.check_shapes(v, offsets, mask_logits, groups=groups,
+                        kernel_size=kernel_size)
+    _refuse_grad(dev, "dcnv3", v, offsets, mask_logits,
+                 why="has no backward kernel (inference only)")
+    context = {"op": "dcnv3", "shape": tuple(v.shape), "m": v.shape[-1],
+               "groups": groups, "offset_bound": offset_bound,
+               "kernel_size": kernel_size, "stride": 1, "dilation": 1,
+               "device": dev.type, "itemsize": v.element_size()}
+    return _priced(context, lambda: _dispatch(context, lambda: _dcnv3.dcnv3(
+        v, offsets, mask_logits, groups=groups, kernel_size=kernel_size,
+        offset_bound=offset_bound)))

@@ -16,15 +16,19 @@ detection archs run the shape-bucketed engine:
         [--slots 4] [--quant int8_chain] [--deadline 30] [--device cuda] \
         [--ckpt DIR] [--reduced] [--telemetry OUT.json]
 
+and so does InternImage-B with bounded DCNv3 offsets
+(``--arch internimage_b_bounded``), whose entry rung is ``fp32_kernel``:
+it has no int8 datapath, so ``--quant`` defaults to the arch's top rung
+(``int8_chain`` for the DCL archs) and the int8 rungs are refused there.
+
 Params are random, from ``--seed``, unless ``--ckpt DIR`` restores them
 from the newest complete checkpoint there: a params-only checkpoint (the
 JAX launcher's layout) or the bundle a Trainer saves
 (``repro_torch.launch.train``: params, optimizer state, the
 error-feedback state of ``--grad-compression int8_ef`` if any, step), of
-which the params are served.  ``--reduced`` serves the reduced config of the
-family (``launch.train.reduced_config`` for the DCL archs, what
-``launch.train`` trains without ``--full``; the registry's for the
-LMs).  A checkpoint that does not fit the chosen config raises the
+which the params are served.  ``--reduced`` serves the registry's
+reduced config of the family (for the DCL archs what ``launch.train``
+trains without ``--full``).  A checkpoint that does not fit the chosen config raises the
 checkpoint's own error.  The int8 rungs (``int8_chain``, the default,
 and ``int8``) are calibrated first, as the JAX launcher does: two seeded
 images per bucket through the fp32 model give the scale table.  The
@@ -44,9 +48,8 @@ import torch
 from repro_torch import tree as T
 from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.checkpoint.checkpoint import stored_structure
-from repro_torch.configs import resnet50_dcn as configs
 from repro_torch.distributed.compression import init_ef_state
-from repro_torch.launch.train import reduced_config, train_optimizer
+from repro_torch.launch.train import train_optimizer
 from repro_torch.models import registry as reg
 from repro_torch.models import resnet_dcn as R
 from repro_torch.models import transformer as TF
@@ -54,21 +57,23 @@ from repro_torch.obs.trace import Tracer, tracer_scope
 from repro_torch.quant.calibrate import calibrate_resnet_dcn
 from repro_torch.serve import (LADDER, DCLServeConfig, DCLServingEngine,
                                Request, ServeConfig, ServingEngine)
-from repro_torch.serve.dcl_engine import INT8_RUNGS
+from repro_torch.serve.dcl_engine import INT8_RUNGS, model_family
 from repro_torch.train.trainer import checkpoint_bundle
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
-                    choices=sorted(configs.ARCHS) + reg.names())
+                    choices=reg.det_names() + reg.names())
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--buckets", default="256,512",
                     help="comma-separated square shape buckets")
-    ap.add_argument("--quant", default="int8_chain", choices=LADDER)
+    ap.add_argument("--quant", default=None, choices=LADDER,
+                    help="entry rung (default: int8_chain, fp32_kernel "
+                         "for InternImage)")
     ap.add_argument("--deadline", type=float, default=None,
                     help="per-request deadline in seconds")
     ap.add_argument("--queue-capacity", type=int, default=64)
@@ -120,14 +125,19 @@ def load_params(init, args):
     return params
 
 
-def detection_config(args) -> R.ResNetDCNConfig:
-    """The DCL config ``args`` serves: the arch's, or its reduced config
-    under ``--reduced``."""
-    cfg = configs.get(args.arch)
-    return reduced_config(cfg) if args.reduced else cfg
+def detection_config(args):
+    """The detection config ``args`` serves: the arch's, or its reduced
+    config under ``--reduced``."""
+    cfg = reg.get(args.arch).config
+    return reg.reduced_config(cfg) if args.reduced else cfg
 
 
-def _served_cfg(cfg: R.ResNetDCNConfig) -> R.ResNetDCNConfig:
+def entry_rung(cfg, args) -> str:
+    """``--quant``, or the top rung of the config's family."""
+    return args.quant or model_family(cfg).RUNGS[0]
+
+
+def _served_cfg(cfg):
     if cfg.offset_bound is None:
         cfg = dataclasses.replace(cfg, offset_bound=2.0)
     return dataclasses.replace(cfg, use_kernel=True)
@@ -147,8 +157,7 @@ def calibrate(cfg: R.ResNetDCNConfig, params, args) -> dict:
         device=args.device)
 
 
-def serve_detection(cfg: R.ResNetDCNConfig, args, *, params=None,
-                    scale_table=None):
+def serve_detection(cfg, args, *, params=None, scale_table=None):
     """Build the engine, submit ``args.requests`` seeded images spread
     over the buckets, drain it.  Returns ``(engine, images, seconds)``;
     ``params``, when given, replaces the seeded init and ``--ckpt``
@@ -156,14 +165,17 @@ def serve_detection(cfg: R.ResNetDCNConfig, args, *, params=None,
     unless ``scale_table`` is given."""
     cfg = _served_cfg(cfg)
     buckets = _buckets(args)
+    quant = entry_rung(cfg, args)
     if params is None:
-        params = load_params(lambda: R.init_params(
+        params = load_params(lambda: model_family(cfg).init_params(
             cfg, seed=args.seed, device=args.device), args)
-    if scale_table is None and args.quant in INT8_RUNGS:
+    # A family without the rung is refused by the engine, uncalibrated.
+    if scale_table is None and quant in INT8_RUNGS \
+            and quant in model_family(cfg).RUNGS:
         scale_table = calibrate(cfg, params, args)
     engine = DCLServingEngine(
         params, cfg,
-        DCLServeConfig(buckets=buckets, slots=args.slots, quant=args.quant,
+        DCLServeConfig(buckets=buckets, slots=args.slots, quant=quant,
                        queue_capacity=args.queue_capacity,
                        shed_policy=args.shed_policy,
                        default_deadline=args.deadline),
@@ -242,7 +254,7 @@ def report_lm(engine: ServingEngine, steps: int, seconds: float) -> str:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.arch not in configs.ARCHS:
+    if args.arch not in reg.det_names():
         arch = reg.get(args.arch)
         cfg = reg.reduced_config(arch) if args.reduced else arch.config
         engine, steps, seconds = serve_lm(cfg, args)

@@ -1,13 +1,17 @@
 """Architecture registry: ``--arch <id>`` -> config and shape set
 (counterpart of ``repro.models.registry``): the LMs (dense, MoE, RWKV-6,
-the RG-LRU hybrid, multi-codebook audio and the VLM backbone) and the
-paper's two ResNet-50-DCN detectors.
+the RG-LRU hybrid, multi-codebook audio and the VLM backbone), the
+paper's two ResNet-50-DCN detectors and InternImage-B with bounded
+DCNv3 offsets.
 
 Each LM config module registers an ``ArchSpec`` with its published
-configuration; ``names()`` lists them.  The DCL detection configs are in
-``repro_torch.configs.resnet50_dcn`` (``det_names()``), which also holds
-their ``ArchSpec`` s; ``get`` finds either kind.  ``runnable_cells`` and
-``skipped_cells`` walk both, as the JAX registry's do.
+configuration; ``names()`` lists them.  The detection configs are in
+``repro_torch.configs.resnet50_dcn`` and ``repro_torch.configs.internimage``
+(``det_names()``), which also hold their ``ArchSpec`` s; ``get`` finds
+either kind.  ``runnable_cells`` and ``skipped_cells`` walk the LMs and
+the ResNet-DCN detectors, as the JAX registry's do: the dry run
+(``launch.steps``) builds no InternImage step, and the JAX package has
+no InternImage.
 """
 from __future__ import annotations
 
@@ -74,8 +78,8 @@ def _ensure_loaded() -> None:
 
 
 def _det_specs() -> dict[str, ArchSpec]:
-    from repro_torch.configs import resnet50_dcn
-    return resnet50_dcn.SPECS
+    from repro_torch.configs import internimage, resnet50_dcn
+    return {**resnet50_dcn.SPECS, **internimage.SPECS}
 
 
 def get(name: str) -> ArchSpec:
@@ -88,7 +92,8 @@ def get(name: str) -> ArchSpec:
     raise KeyError(
         f"arch {name!r} is not in the port's registry, which has "
         f"{sorted(_REGISTRY)}; the DCL configs are "
-        f"{sorted(_det_specs())} (repro_torch.configs.resnet50_dcn)")
+        f"{sorted(_det_specs())} (repro_torch.configs.resnet50_dcn, "
+        f"repro_torch.configs.internimage)")
 
 
 def names() -> list[str]:
@@ -98,8 +103,16 @@ def names() -> list[str]:
 
 
 def det_names() -> list[str]:
-    """The DCL detection archs."""
+    """The detection archs: the DCL detectors and InternImage."""
     return sorted(_det_specs())
+
+
+def _dryrun_names() -> list[str]:
+    """The archs of the dry run's cells: the LMs and the ResNet-DCN
+    detectors (module docstring)."""
+    from repro_torch.models.resnet_dcn import ResNetDCNConfig
+    return sorted(names() + [n for n in det_names()
+                             if isinstance(get(n).config, ResNetDCNConfig)])
 
 
 LONG_CONTEXT_SKIP = ("full-attention arch: 0.5M-token dense KV/attn per "
@@ -109,7 +122,7 @@ LONG_CONTEXT_SKIP = ("full-attention arch: 0.5M-token dense KV/attn per "
 def runnable_cells() -> list[tuple[str, str]]:
     """All (arch, shape) dry-run cells, honouring the long-context skip."""
     return [(name, shape_name)
-            for name in sorted(names() + det_names())
+            for name in _dryrun_names()
             for shape_name in get(name).shapes
             if shape_name != "long_500k" or get(name).long_context_ok]
 
@@ -117,7 +130,7 @@ def runnable_cells() -> list[tuple[str, str]]:
 def skipped_cells() -> list[tuple[str, str, str]]:
     """(arch, shape, reason) of each cell ``runnable_cells`` leaves out."""
     return [(name, shape_name, LONG_CONTEXT_SKIP)
-            for name in sorted(names() + det_names())
+            for name in _dryrun_names()
             for shape_name in get(name).shapes
             if shape_name == "long_500k" and not get(name).long_context_ok]
 
@@ -126,9 +139,16 @@ def reduced_config(arch: ArchSpec | ModelConfig):
     """Small same-family config for CPU tests: the same mixer pattern, GQA
     ratio, rotary fraction, biases and MoE routing at tiny widths, in
     fp32 (as the JAX package's); a detector keeps its DCL bound at four
-    one-block stages.  Takes an ``ArchSpec`` or its config."""
+    one-block stages, InternImage its offset bound and 16 channels a
+    DCNv3 group at width 32 and depths 1/1/2/1.  Takes an ``ArchSpec`` or
+    its config."""
+    from repro_torch.models.internimage import InternImageConfig
     from repro_torch.models.resnet_dcn import ResNetDCNConfig
     cfg = arch.config if isinstance(arch, ArchSpec) else arch
+    if isinstance(cfg, InternImageConfig):
+        return dataclasses.replace(
+            cfg, channels=32, depths=(1, 1, 2, 1), groups=(2, 4, 8, 16),
+            num_classes=8, img_size=64)
     if isinstance(cfg, ResNetDCNConfig):
         return dataclasses.replace(
             cfg, stage_sizes=(1, 1, 1, 1), widths=(32, 64, 128, 256),

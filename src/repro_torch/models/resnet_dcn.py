@@ -3,9 +3,11 @@ detection head (counterpart of ``repro.models.resnet_dcn``).
 
 The last ``num_dcn`` 3x3 convolutions of the bottlenecks are DCLs (12 by
 default: c3's last 3, all 6 of c4, all 3 of c5); norms are GroupNorm(32);
-layout NHWC.  ``use_kernel=True`` routes every DCL through the fused
-kernels (the fp32 forward and backward kernels when training; the forward
-over ``dataflow``, ``"zero_copy"`` or the legacy ``"banded"``); the plain
+layout NHWC; the dense head (``head_def``, ``dense_head``) is shared
+with ``models.internimage``.  ``use_kernel=True`` routes every DCL
+through the fused kernels (the fp32 forward and backward kernels when
+training; the forward over ``dataflow``, ``"zero_copy"`` or the legacy
+``"banded"``); the plain
 path (``dcl_forward``, or the fake-quant references under ``quant``) is
 the parity reference.  ``quant`` picks the DCL datapath: ``"none"``
 (fp32), ``"qat"`` (fake-quant training over the fp32 kernels), ``"int8"``
@@ -47,6 +49,7 @@ from repro_torch.core.deform_conv import conv2d
 from repro_torch.device import check_on, resolve_device
 from repro_torch.distributed.sharding import (at_coords, batch_mesh_axes,
                                               data_shards, gather, is_placed)
+from repro_torch.kernels import deform_conv_fused, deform_conv_q, plan
 from repro_torch.kernels.ops import resolve_batch_shard
 from repro_torch.models.layers import ParamDef, dcl_apply, dcl_def, init_tree
 from repro_torch.quant.qtypes import QTensor
@@ -54,6 +57,7 @@ from repro_torch.quant.qtypes import QTensor
 Tensor = torch.Tensor
 
 GN_GROUPS = 32
+HEAD_WIDTH = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,13 +145,90 @@ def model_def(cfg: ResNetDCNConfig) -> dict:
                                            downsample=(b == 0))
             cin = width
             bi += 1
-    c = cfg.widths[-1]
-    defs["head"] = {
-        "conv": _conv_def(3, 3, c, 256), "gn": _gn_def(256),
-        "cls": _conv_def(1, 1, 256, cfg.num_classes + 1),   # +1 objectness
-        "box": _conv_def(1, 1, 256, 4),
-    }
+    defs["head"] = head_def(cfg.widths[-1], cfg.num_classes)
     return defs
+
+
+def head_def(cin: int, num_classes: int) -> dict:
+    """The dense single-scale detection head on ``cin`` channels (both
+    detector families serve it): conv 3x3 -> ``HEAD_WIDTH``, GroupNorm,
+    ReLU, then 1x1 convs to ``num_classes + 1`` logits (the first is
+    objectness) and 4 box values."""
+    return {
+        "conv": _conv_def(3, 3, cin, HEAD_WIDTH), "gn": _gn_def(HEAD_WIDTH),
+        "cls": _conv_def(1, 1, HEAD_WIDTH, num_classes + 1),
+        "box": _conv_def(1, 1, HEAD_WIDTH, 4),
+    }
+
+
+def dense_head(params, x: Tensor) -> tuple[Tensor, Tensor]:
+    """``(cls, box)`` of the head of ``head_def`` on features x (NHWC)."""
+    h = conv2d(x, params["conv"].to(x.dtype))
+    h = F.relu(group_norm(h, params["gn"]))
+    cls = conv2d(h, params["cls"].to(x.dtype))
+    box = conv2d(h, params["box"].to(x.dtype))
+    return cls, box
+
+
+def bucket_layer_dims(cfg: ResNetDCNConfig, res: int) -> dict[str, dict]:
+    """Dims of every DCL invocation at input resolution ``res``."""
+    dims: dict[str, dict] = {}
+    e = res // 4                       # stride-2 stem + stride-2 maxpool
+    bi = 0
+    for s, (n_blocks, width) in enumerate(zip(cfg.stage_sizes, cfg.widths)):
+        for b in range(n_blocks):
+            stride = 2 if (b == 0 and s > 0) else 1
+            if cfg.is_dcn(bi):
+                mid = width // 4
+                dims[f"s{s}b{b}"] = dict(h=e, w=e, c=mid, m=mid,
+                                         stride=stride)
+            e //= stride
+            bi += 1
+    return dims
+
+
+# The serving rungs of this family, top first (``serve.dcl_engine``'s
+# ladder), and the tile chooser's datapath of each that runs a kernel.
+RUNGS = ("int8_chain", "int8", "fp32_kernel", "fp32_ref")
+RUNG_DTYPE = {"int8_chain": "int8_chain", "int8": "int8",
+              "fp32_kernel": "fp32"}
+
+
+def rung_configs(cfg: ResNetDCNConfig) -> dict[str, ResNetDCNConfig]:
+    """The config each of ``RUNGS`` serves."""
+    return {
+        "int8_chain": dataclasses.replace(cfg, quant="int8_chain",
+                                          use_kernel=True),
+        "int8": dataclasses.replace(cfg, quant="int8", use_kernel=True),
+        "fp32_kernel": dataclasses.replace(cfg, quant="none",
+                                           use_kernel=True),
+        "fp32_ref": dataclasses.replace(cfg, quant="none",
+                                        use_kernel=False),
+    }
+
+
+def warm_plans(cfg: ResNetDCNConfig, bucket: int, *, rung: str, slots: int,
+               device, spatial_shards: int = 1):
+    """The tile plans of ``rung``'s kernel for every DCL at ``bucket`` and
+    batch ``slots``, its library built on CUDA: ``(tiles, sources)`` of
+    ``plan.warm_tile_cache``, a spatial bucket's at the shard-local height
+    (sources ``"...@Nshard"``); ``None`` for a rung without a kernel or an
+    unbounded config.  The fp32 rung of a banded config plans for the
+    banded forward (kernel 4, in the library of kernel 1a)."""
+    dtype = RUNG_DTYPE.get(rung)
+    if cfg.offset_bound is None or dtype is None:
+        return None
+    if dtype == "fp32" and cfg.dataflow == "banded":
+        dtype = "banded"
+    if torch.device(device).type == "cuda":
+        (deform_conv_fused if dtype in ("fp32", "banded")
+         else deform_conv_q).load_kernel()
+    tiles, sources = plan.warm_tile_cache(
+        bucket_layer_dims(cfg, bucket), batch=slots,
+        offset_bound=cfg.offset_bound, dtype=dtype, device=device,
+        spatial_shards=spatial_shards)
+    suffix = f"@{spatial_shards}shard" if spatial_shards > 1 else ""
+    return tiles, {k: v + suffix for k, v in sources.items()}
 
 
 def init_params(cfg: ResNetDCNConfig, *, seed: int = 0,
@@ -285,10 +366,7 @@ def _forward_shard(params, cfg: ResNetDCNConfig, images: Tensor, *, tap,
                 o_maxes[name] = o_max
             bi += 1
 
-    h = conv2d(x, params["head"]["conv"].to(x.dtype))
-    h = F.relu(group_norm(h, params["head"]["gn"]))
-    cls = conv2d(h, params["head"]["cls"].to(x.dtype))
-    box = conv2d(h, params["head"]["box"].to(x.dtype))
+    cls, box = dense_head(params["head"], x)
     return {"cls": cls, "box": box, "features": x}, o_maxes
 
 

@@ -103,6 +103,8 @@ def price_dispatch(context: dict) -> dict | None:
         from repro_torch.kernels.plan import resolve_tiles_and_source
 
         key = key_from_context(context)
+        if key.op == "dcnv3":
+            return _price_dcnv3(context, key)
         # A mesh call runs every shard's kernels at its block's shape (on
         # a mesh that repeats a device, all of them on that device), so it
         # is priced as the sum of the shards' work.
@@ -154,6 +156,21 @@ def price_dispatch(context: dict) -> dict | None:
     except Exception:  # noqa: BLE001 — a pricing failure is not a fault
         _log.debug("cannot price dispatch %r", context, exc_info=True)
         return None
+
+
+def _price_dcnv3(context: dict, key: DispatchKey) -> dict:
+    """``price_dispatch`` of an ``ops.dcnv3`` call: ``core.h100``'s
+    ``dcnv3_work``, the kernel's tiles and its blocks' bytes
+    (``kernels.dcnv3.traffic_bytes``)."""
+    from repro_torch.core import h100
+    from repro_torch.kernels import dcnv3
+    n, h, w, c = key.shape
+    g, k = context["groups"], context.get("kernel_size", 3)
+    work = h100.dcnv3_work(n, h, w, c, g, k)
+    return dict(work, tiles=list(dcnv3.tiles(h, w, g)),
+                traffic_bytes=dcnv3.traffic_bytes(
+                    n, h, w, c, g, kernel_size=k,
+                    offset_bound=context["offset_bound"]))
 
 
 def _traffic_bytes(context: dict, key: DispatchKey, datapath: str,

@@ -1,5 +1,5 @@
-"""Slot-based detection serving engine for the bounded DCL models
-(counterpart of ``repro.serve.dcl_engine``).
+"""Slot-based detection serving engine for the bounded DCL models and
+InternImage (counterpart of ``repro.serve.dcl_engine``).
 
 Detection requests are single-shot: admit -> one batched forward ->
 retire.  A small fixed set of square shape buckets keeps the shapes
@@ -13,7 +13,13 @@ emitted int8), ``int8`` (every DCL through the int8 dequant kernel),
 ``fp32_kernel`` (the fused fp32 kernel, over the model config's
 dataflow) and ``fp32_ref`` (the plain reference).  The int8 rungs need a
 calibration scale table at engine start (``scale_table``: a dict or a
-JSON path, see ``quant.calibrate``).  ``spatial_shards`` runs the listed
+JSON path, see ``quant.calibrate``).  The model config's type names its
+family (``model_family``: ``models.resnet_dcn`` or
+``models.internimage``), which says what the engine serves: its
+``RUNGS`` (an entry rung outside them raises at construction: InternImage
+has no int8 rung), each rung's config (``rung_configs``), the kernel
+plans warmed per bucket (``warm_plans``) and the ``forward`` the rungs
+run.  ``spatial_shards`` runs the listed
 buckets' kernel rungs height-sharded over that many of the engine's
 devices, one halo exchange a DCL (``distributed.spatial``); such a bucket
 enters the ladder at ``int8`` where the entry rung is ``int8_chain``,
@@ -74,7 +80,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import Mesh, use_rules
-from repro_torch.kernels import deform_conv_fused, deform_conv_q, ops, plan
+from repro_torch.kernels import ops, plan
+from repro_torch.models import internimage as I
 from repro_torch.models import resnet_dcn as R
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.divergence import DispatchRecorder, DivergenceTracker
@@ -86,15 +93,12 @@ from .admission import (AdmissionConfig, AdmissionQueue, DetRequest,
                         MalformedRequest, resolve_bucket)
 
 __all__ = ["LADDER", "DCLServeConfig", "DCLServingEngine",
-           "bucket_layer_dims", "ladder"]
+           "bucket_layer_dims", "ladder", "model_family"]
 
 # Degradation ladder, top rung first.  The bottom rung never touches the
 # kernel path.
 LADDER = ("int8_chain", "int8", "fp32_kernel", "fp32_ref")
 INT8_RUNGS = ("int8_chain", "int8")
-# The tile chooser's datapath of each rung that runs a kernel.
-RUNG_DTYPE = {"int8_chain": "int8_chain", "int8": "int8",
-              "fp32_kernel": "fp32"}
 
 
 def ladder(entry: str, device: torch.device) -> tuple[str, ...]:
@@ -153,21 +157,22 @@ class DCLServeConfig:
         return 1
 
 
-def bucket_layer_dims(cfg: R.ResNetDCNConfig, res: int) -> dict[str, dict]:
-    """Dims of every DCL invocation at input resolution ``res``."""
-    dims: dict[str, dict] = {}
-    e = res // 4                       # stride-2 stem + stride-2 maxpool
-    bi = 0
-    for s, (n_blocks, width) in enumerate(zip(cfg.stage_sizes, cfg.widths)):
-        for b in range(n_blocks):
-            stride = 2 if (b == 0 and s > 0) else 1
-            if cfg.is_dcn(bi):
-                mid = width // 4
-                dims[f"s{s}b{b}"] = dict(h=e, w=e, c=mid, m=mid,
-                                         stride=stride)
-            e //= stride
-            bi += 1
-    return dims
+def model_family(cfg):
+    """The module of a model config's family, by the config's type: its
+    ``RUNGS``, ``rung_configs``, ``warm_plans``, ``forward`` and
+    ``bucket_layer_dims``."""
+    for kind, family in ((R.ResNetDCNConfig, R),
+                         (I.InternImageConfig, I)):
+        if isinstance(cfg, kind):
+            return family
+    raise TypeError(f"the detection engine serves ResNet-DCN and "
+                    f"InternImage configs (got {type(cfg).__name__})")
+
+
+def bucket_layer_dims(cfg, res: int) -> dict[str, dict]:
+    """Dims of every DCL (ResNet-DCN) or DCNv3 layer (InternImage)
+    invocation at input resolution ``res``."""
+    return model_family(cfg).bucket_layer_dims(cfg, res)
 
 
 @dataclasses.dataclass
@@ -198,7 +203,8 @@ class DCLServingEngine:
     ``launch.mesh.make_host_mesh``'s, or ``device`` alone on the CPU); a
     caller may repeat one to run every shard on it."""
 
-    def __init__(self, params, model_cfg: R.ResNetDCNConfig,
+    def __init__(self, params,
+                 model_cfg: R.ResNetDCNConfig | I.InternImageConfig,
                  serve_cfg: DCLServeConfig, *,
                  scale_table: Mapping[str, Any] | str | None = None,
                  device: str | torch.device | None = None,
@@ -244,6 +250,12 @@ class DCLServingEngine:
             "serve_latency_seconds",
             "submit-to-retire latency per bucket and outcome")
 
+        self.family = model_family(model_cfg)
+        if serve_cfg.quant not in self.family.RUNGS:
+            raise ValueError(
+                f"serve datapath {serve_cfg.quant!r} has no path for "
+                f"{model_cfg.name}, which serves {self.family.RUNGS}")
+
         if isinstance(scale_table, str):
             scale_table = load_scale_table(scale_table)
         self.scale_table = scale_table
@@ -264,17 +276,7 @@ class DCLServingEngine:
                     f"save_scale_table); chained layers exchange int8 on "
                     f"pinned activation grids")
 
-        # One model config per rung.
-        self._cfgs = {
-            "int8_chain": dataclasses.replace(
-                model_cfg, quant="int8_chain", use_kernel=True),
-            "int8": dataclasses.replace(model_cfg, quant="int8",
-                                        use_kernel=True),
-            "fp32_kernel": dataclasses.replace(model_cfg, quant="none",
-                                               use_kernel=True),
-            "fp32_ref": dataclasses.replace(model_cfg, quant="none",
-                                            use_kernel=False),
-        }
+        self._cfgs = self.family.rung_configs(model_cfg)
 
         # Per-bucket meshes of the spatial buckets, checked now: a shard
         # count the devices or a layer's height cannot take fails at
@@ -299,31 +301,20 @@ class DCLServingEngine:
                         f"halo exchange is derived from it")
                 self._spatial_meshes[b] = Mesh(self.devices[:n], ("model",))
 
-        # Per-bucket tile plans of each bucket's entry rung and its kernel
-        # build, done now rather than on the first request; a spatial
-        # bucket's at the shard-local height ("analytic@2shard"), which
-        # raises here for a layer its shards cannot split.  The fp32 rung
-        # of a banded config plans for the banded forward (kernel 4, in
-        # the same library as kernel 1a).
+        # Per-bucket kernel plans of each bucket's entry rung and its kernel
+        # build, done now rather than on the first request
+        # (``family.warm_plans``); a spatial bucket's at the shard-local
+        # height ("analytic@2shard"), which raises here for a layer its
+        # shards cannot split.
         self.plans: dict[int, dict[str, tuple]] = {}
         self.plan_sources: dict[int, dict[str, str]] = {}
         for b in serve_cfg.buckets:
-            dtype = RUNG_DTYPE.get(self.rungs_for(b)[0])
-            if dtype == "fp32" and model_cfg.dataflow == "banded":
-                dtype = "banded"
-            if model_cfg.offset_bound is None or dtype is None:
-                continue
-            if self.device.type == "cuda":
-                (deform_conv_fused if dtype in ("fp32", "banded")
-                 else deform_conv_q).load_kernel()
-            shards = serve_cfg.spatial_shards_for(b)
-            tiles, sources = plan.warm_tile_cache(
-                bucket_layer_dims(model_cfg, b), batch=serve_cfg.slots,
-                offset_bound=model_cfg.offset_bound, dtype=dtype,
-                device=self.device, spatial_shards=shards)
-            suffix = f"@{shards}shard" if shards > 1 else ""
-            self.plans[b] = tiles
-            self.plan_sources[b] = {k: v + suffix for k, v in sources.items()}
+            warmed = self.family.warm_plans(
+                model_cfg, b, rung=self.rungs_for(b)[0],
+                slots=serve_cfg.slots, device=self.device,
+                spatial_shards=serve_cfg.spatial_shards_for(b))
+            if warmed is not None:
+                self.plans[b], self.plan_sources[b] = warmed
 
         self.queue = AdmissionQueue(AdmissionConfig(
             capacity=serve_cfg.queue_capacity,
@@ -518,8 +509,9 @@ class DCLServingEngine:
                     (use_rules(mesh=mesh) if spatial
                      else contextlib.nullcontext()), \
                     tr.span("serve/forward", step=self.steps, bucket=bucket):
-                out, _ = R.forward(self.params, cfg, x,
-                                   quant_scales=scales, device=self.device)
+                kw = {} if scales is None else {"quant_scales": scales}
+                out, _ = self.family.forward(self.params, cfg, x,
+                                             device=self.device, **kw)
             # The copies to the host are the step's synchronisation.
             with tr.span("serve/readback", step=self.steps, bucket=bucket):
                 return out["cls"].cpu().numpy(), out["box"].cpu().numpy()

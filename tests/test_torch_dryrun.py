@@ -84,7 +84,9 @@ def test_cells_equal_jax():
     assert reg.runnable_cells() == JReg.runnable_cells()
     assert reg.skipped_cells() == JReg.skipped_cells()
     assert len(reg.runnable_cells()) == 36
-    assert reg.det_names() == ["resnet50_dcn", "resnet50_dcn_bounded"]
+    # InternImage has no JAX counterpart and no dry-run cells.
+    assert reg.det_names() == ["internimage_b_bounded", "resnet50_dcn",
+                               "resnet50_dcn_bounded"]
     assert reg.get("resnet50_dcn_bounded").config.offset_bound == 2.0
     assert reg.get("dbrx-132b").rules_overrides \
         == JReg.get("dbrx-132b").rules_overrides
@@ -92,7 +94,8 @@ def test_cells_equal_jax():
     assert "resnet50_dcn" not in reg.names()
 
 
-@pytest.mark.parametrize("name", sorted(reg.names() + reg.det_names()))
+@pytest.mark.parametrize("name", sorted(
+    n for n in reg.names() + reg.det_names() if n != "internimage_b_bounded"))
 def test_arch_param_count_equals_jax(name):
     assert steps.arch_param_count(reg.get(name)) \
         == JSteps.arch_param_count(JReg.get(name))

@@ -128,7 +128,8 @@ def test_library_is_named_by_its_source_and_built_outside_git():
     import hashlib
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == sorted(_build.SIGNATURES) == ["deform_conv_bwd",
+    assert names == sorted(_build.SIGNATURES) == ["dcnv3",
+                                                  "deform_conv_bwd",
                                                   "deform_conv_fused",
                                                   "deform_conv_q",
                                                   "deform_sample",
